@@ -1,0 +1,46 @@
+"""Config registry: ``get_config("<arch-id>")`` / ``--arch <id>``.
+
+The port carries the configs of the architectures it can run. The JAX
+package knows more; asking for one of those raises ``NotImplementedError``
+naming the ROADMAP item that ports what it needs.
+"""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.configs.base import (AttnConfig, LoRAConfig, ModelConfig,
+                                      QuantConfig, reduce_config)
+
+_ARCH_MODULES = {
+    "llama3.2-1b": "llama3_2_1b",
+}
+
+# architectures of the JAX package that wait for a later slice of the port
+_WAITING = {
+    "mixtral-8x22b": "ROADMAP Queue 1 items 11-12 (sliding window, MoE)",
+    "llama4-scout-17b-a16e": "ROADMAP Queue 1 item 12 (MoE)",
+    "internlm2-20b": "ROADMAP Queue 1 item 19 (config copy, head_dim 128)",
+    "gemma2-9b": "ROADMAP Queue 1 item 11 (sliding window and softcap)",
+    "mistral-nemo-12b": "ROADMAP Queue 1 item 19 (config copy, head_dim 128)",
+    "musicgen-medium": "ROADMAP Queue 1 item 19 (embeddings frontend, LayerNorm, GELU)",
+    "chameleon-34b": "ROADMAP Queue 1 item 19 (qk-norm, embeddings frontend)",
+    "jamba-1.5-large-398b": "ROADMAP Queue 1 items 12-13 (MoE, Mamba)",
+    "rwkv6-7b": "ROADMAP Queue 1 item 14 and Queue 2 item 3 (RWKV, rwkv6_wkv)",
+}
+
+ARCH_IDS = tuple(_ARCH_MODULES)
+
+
+def get_config(name: str) -> ModelConfig:
+    if name in _ARCH_MODULES:
+        mod = importlib.import_module(
+            f"repro_torch.configs.{_ARCH_MODULES[name]}")
+        return mod.CONFIG
+    if name in _WAITING:
+        raise NotImplementedError(
+            f"arch {name!r} is not ported yet: {_WAITING[name]}")
+    raise KeyError(f"unknown arch {name!r}; known: {sorted(ARCH_IDS)}")
+
+
+__all__ = ["ModelConfig", "AttnConfig", "LoRAConfig", "QuantConfig",
+           "reduce_config", "get_config", "ARCH_IDS"]

@@ -1,0 +1,108 @@
+"""Heterogeneous compute mapping (Atleus SS IV.A, Eqs. 2-3, 5), PyTorch port
+of ``repro.core.hetero``.
+
+Every matrix multiplication is classified by operand staticness:
+
+  STATIC   — activation x *frozen* weight (MHA-1/MHA-4/FF-1/FF-2). A
+             crossbar-quantized weight goes to the hand-written CUDA
+             ``crossbar_matmul`` kernel (its plain version on the CPU); a
+             plain weight goes to ``torch.matmul``, as the JAX package
+             leaves it to XLA.
+  DYNAMIC  — activation x activation (QK^T, PV) or activation x
+             *trainable* weight (LoRA A/B).
+
+A tally (``tally()``) accumulates per-class FLOPs while a function runs, so
+the Eq. 5 ratio (>90% of MM on the static engine) can be read off the model
+as built. PyTorch runs eagerly, so the counts accumulate per call.
+"""
+from __future__ import annotations
+
+import contextlib
+import threading
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch.core import quant
+from repro_torch.kernels.crossbar_matmul import ops as cb_ops
+
+STATIC = "static"     # -> ReRAM / crossbar path
+DYNAMIC = "dynamic"   # -> systolic path
+
+
+class _Tally(threading.local):
+    def __init__(self):
+        self.active: Optional[Dict[str, float]] = None
+
+
+_TALLY = _Tally()
+
+
+@contextlib.contextmanager
+def tally():
+    """Collect per-engine-class FLOPs of the calls made inside the block."""
+    prev = _TALLY.active
+    _TALLY.active = {STATIC: 0.0, DYNAMIC: 0.0, "nonlinear": 0.0}
+    try:
+        yield _TALLY.active
+    finally:
+        _TALLY.active = prev
+
+
+def _record(cls: str, flops: float) -> None:
+    if _TALLY.active is not None:
+        _TALLY.active[cls] += float(flops)
+
+
+def record_nonlinear(elements: int) -> None:
+    """Softmax / layernorm / activation element counts (MHA-3, L-1, L-2)."""
+    _record("nonlinear", float(elements))
+
+
+def _matmul_flops(x_shape, w_shape) -> float:
+    # batched x (..., m, k) @ w (..., k, n): 2*m*k*n * prod(batch)
+    k, n = w_shape[-2], w_shape[-1]
+    m = 1
+    for d in x_shape[:-1]:
+        m *= d
+    return 2.0 * m * k * n
+
+
+def static_matmul(x: torch.Tensor, w) -> torch.Tensor:
+    """Activation x frozen-weight matmul — the ReRAM/crossbar path.
+
+    ``w`` is a 2-D tensor or a 2-D ``QuantizedTensor`` (one layer's slice).
+    The training-only weight-noise branch of the JAX function waits for the
+    noise slice (ROADMAP Queue 1 item 18)."""
+    _record(STATIC, _matmul_flops(x.shape, w.shape))
+    if quant.is_quantized(w):
+        return cb_ops.crossbar_matmul(x, w)
+    return torch.matmul(x, w.to(x.dtype))
+
+
+def dynamic_matmul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Dynamic-operand matmul ``x (..., m, k) @ y (..., k, n)``."""
+    k = x.shape[-1]
+    m = x.numel() // k
+    n = y.shape[-1]
+    _record(DYNAMIC, 2.0 * m * k * n)
+    return torch.matmul(x, y)
+
+
+def dynamic_einsum(spec: str, *operands) -> torch.Tensor:
+    """einsum on the DYNAMIC engine, with flop accounting."""
+    _record(DYNAMIC, _einsum_flops(spec, operands))
+    return torch.einsum(spec, *operands)
+
+
+def _einsum_flops(spec: str, operands) -> float:
+    inputs, _out = spec.replace(" ", "").split("->")
+    terms = inputs.split(",")
+    dim_size: Dict[str, int] = {}
+    for term, op in zip(terms, operands):
+        for ch, s in zip(term, op.shape):
+            dim_size[ch] = s
+    total = 1
+    for s in dim_size.values():
+        total *= s
+    return 2.0 * total

@@ -1,0 +1,19 @@
+"""Hand-written CUDA kernels of the port, one package per TPU kernel.
+
+Each ``ops`` module holds the kernel's wrapper and its plain PyTorch
+version. The wrapper runs the plain version only for CPU tensors; for a
+CUDA tensor it launches the kernel or raises. ``LAUNCHES`` counts kernel
+launches per kernel (the wrapper adds one where it launches, and nowhere
+else), so a run can show that its path went through the kernels.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+LAUNCHES: Dict[str, int] = {"crossbar_matmul": 0, "flash_attention": 0,
+                            "paged_flash_attention": 0}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0

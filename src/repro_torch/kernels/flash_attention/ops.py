@@ -1,0 +1,216 @@
+"""Flash attention: the CUDA kernels' wrappers and their plain versions
+(port of ``repro.kernels.flash_attention``).
+
+``flash_attention`` takes the JAX package's public layout: q (B, T, Hq, D),
+k/v (B, S, Hkv, D), explicit positions q_pos (B, T) / kv_pos (B, S) where
+``kv_pos == -1`` marks an invalid key. ``paged_flash_attention`` computes
+the same function with K/V read from one layer's page pool
+(P, Hkv, page, D) through a block table. Both give 0 for a row that sees
+no key, as the Pallas kernel does (``ref_attention`` gives the mean of V
+there instead). On CUDA tensors the wrappers launch
+``csrc/flash_attention.cu``; on CPU tensors they run the plain versions.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch import kernels
+from repro_torch.kernels import build
+
+NEG_INF = -1e30
+HEAD_DIMS = (8, 16, 32, 64)   # head dims the kernel is instantiated for
+_LIB = None
+
+
+def visible_mask(q_pos: torch.Tensor, kv_pos: torch.Tensor,
+                 window: Optional[int]) -> torch.Tensor:
+    """(B, T, S) bool: 0 <= kv_pos <= q_pos (and q_pos - kv_pos < window)."""
+    m = kv_pos[:, None, :] <= q_pos[:, :, None]
+    m &= kv_pos[:, None, :] >= 0
+    if window is not None:
+        m &= (q_pos[:, :, None] - kv_pos[:, None, :]) < window
+    return m
+
+
+def flash_attention_plain(q, k, v, q_pos, kv_pos, *, window=None,
+                          softcap=None) -> torch.Tensor:
+    """Materialized f32 softmax attention; rows with no visible key -> 0."""
+    B, T, Hq, D = q.shape
+    Hkv = k.shape[2]
+    G = Hq // Hkv
+    qg = q.to(torch.float32).reshape(B, T, Hkv, G, D) * (D ** -0.5)
+    s = torch.einsum("bthgd,bshd->bhgts", qg, k.to(torch.float32))
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    mask = visible_mask(q_pos, kv_pos, window)[:, None, None]  # (B,1,1,T,S)
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True)) * mask
+    l = p.sum(dim=-1).clamp_min(1e-30)                        # (B,Hkv,G,T)
+    o = torch.einsum("bhgts,bshd->bthgd", p, v.to(torch.float32))
+    o = o / l.permute(0, 3, 1, 2)[..., None]
+    return o.reshape(B, T, Hq, D).to(q.dtype)
+
+
+def gather_pages(pool: torch.Tensor, block_table: torch.Tensor) -> torch.Tensor:
+    """Materialize one layer's pool (P, Hkv, page, D) through a block table
+    (B, nb) as contiguous K or V (B, nb * page, Hkv, D); -1 entries read
+    page 0 (masked by ``paged_kv_pos``)."""
+    B, nb = block_table.shape
+    _, Hkv, page, D = pool.shape
+    g = pool[block_table.clamp_min(0).long()]        # (B, nb, Hkv, page, D)
+    return g.permute(0, 1, 3, 2, 4).reshape(B, nb * page, Hkv, D)
+
+
+def paged_kv_pos(block_table, lens, chunk_lens, page_size) -> torch.Tensor:
+    """(B, nb * page) key positions: the global position where the key is
+    mapped and below ``lens + chunk_lens``, else -1 (invisible)."""
+    B, nb = block_table.shape
+    gpos = torch.arange(nb * page_size, device=block_table.device)
+    visible = torch.repeat_interleave(block_table >= 0, page_size, dim=1)
+    end = (lens + chunk_lens)[:, None]
+    ok = visible & (gpos[None, :] < end)
+    return torch.where(ok, gpos[None, :], torch.full_like(gpos[None, :], -1))
+
+
+def paged_flash_attention_plain(q, kp, vp, positions, block_table, lens,
+                                chunk_lens, *, page_size, window=None,
+                                softcap=None) -> torch.Tensor:
+    kg = gather_pages(kp, block_table)
+    vg = gather_pages(vp, block_table)
+    kv_pos = paged_kv_pos(block_table, lens, chunk_lens, page_size)
+    return flash_attention_plain(q, kg, vg, positions, kv_pos, window=window,
+                                 softcap=softcap)
+
+
+# ---------------------------------------------------------------------------
+# CUDA wrappers
+# ---------------------------------------------------------------------------
+
+
+def _lib():
+    global _LIB
+    if _LIB is None:
+        lib = build.load("flash_attention")
+        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.flash_attention.argtypes = [vp] * 6 + [ci] * 7 + [cf, vp]
+        lib.flash_attention.restype = ci
+        lib.paged_flash_attention.argtypes = [vp] * 8 + [ci] * 8 + [cf, vp]
+        lib.paged_flash_attention.restype = ci
+        _LIB = lib
+    return _LIB
+
+
+def _need(t: torch.Tensor, name: str, dtype, device, ndim: int) -> None:
+    if t.device != device:
+        raise ValueError(f"{name} on {t.device}, q on {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if t.ndim != ndim:
+        raise ValueError(f"{name} must be {ndim}-D, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"flash attention needs a contiguous {name}")
+
+
+def _flags(window, softcap):
+    if window is not None and window <= 0:
+        raise ValueError(f"window must be positive, got {window}")
+    if softcap is not None and softcap <= 0:
+        raise ValueError(f"softcap must be positive, got {softcap}")
+    return (0 if window is None else int(window),
+            0.0 if softcap is None else float(softcap))
+
+
+def _check_heads(q, Hkv):
+    B, T, Hq, D = q.shape
+    if D not in HEAD_DIMS:
+        raise ValueError(f"flash attention kernel takes head_dim in "
+                         f"{HEAD_DIMS}, got {D}")
+    if Hq % Hkv:
+        raise ValueError(f"{Hq} query heads over {Hkv} kv heads")
+
+
+def flash_attention(q, k, v, q_pos, kv_pos, *, window=None,
+                    softcap=None) -> torch.Tensor:
+    """q (B, T, Hq, D); k/v (B, S, Hkv, D); q_pos (B, T); kv_pos (B, S)."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, q_pos, kv_pos, window=window,
+                                     softcap=softcap)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: no kernel for {q.device}")
+    B, T, Hq, D = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    _need(q, "q", torch.float32, q.device, 4)
+    for name, t in (("k", k), ("v", v)):
+        _need(t, name, torch.float32, q.device, 4)
+        if tuple(t.shape) != (B, S, Hkv, D):
+            raise ValueError(f"{name} {tuple(t.shape)} != {(B, S, Hkv, D)}")
+    _need(q_pos, "q_pos", torch.int32, q.device, 2)
+    _need(kv_pos, "kv_pos", torch.int32, q.device, 2)
+    if tuple(q_pos.shape) != (B, T) or tuple(kv_pos.shape) != (B, S):
+        raise ValueError("positions must be (B, T) and (B, S)")
+    _check_heads(q, Hkv)
+    w, c = _flags(window, softcap)
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(q.device):
+        rc = _lib().flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
+            kv_pos.data_ptr(), out.data_ptr(), B, T, Hq, S, Hkv, D, w, c,
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention launch failed: CUDA error {rc}")
+    kernels.LAUNCHES["flash_attention"] += 1
+    return out
+
+
+def paged_flash_attention(q, kp, vp, positions, block_table, lens,
+                          chunk_lens, *, page_size, window=None,
+                          softcap=None) -> torch.Tensor:
+    """q (B, T, Hq, D) attends to one layer's pool kp/vp (P, Hkv, page, D)
+    through ``block_table`` (B, nb); key s of row b is visible iff its
+    block-table entry is >= 0, s < lens[b] + chunk_lens[b] and
+    s <= positions[b, t]."""
+    if q.device.type == "cpu":
+        return paged_flash_attention_plain(
+            q, kp, vp, positions, block_table, lens, chunk_lens,
+            page_size=page_size, window=window, softcap=softcap)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_flash_attention: no kernel for {q.device}")
+    B, T, Hq, D = q.shape
+    _, Hkv, page, _ = kp.shape
+    nb = block_table.shape[1]
+    _need(q, "q", torch.float32, q.device, 4)
+    for name, t in (("kp", kp), ("vp", vp)):
+        _need(t, name, torch.float32, q.device, 4)
+        if tuple(t.shape) != tuple(kp.shape) or t.shape[3] != D:
+            raise ValueError(f"{name} {tuple(t.shape)} does not match q")
+    if page != page_size:
+        raise ValueError(f"pool page {page} != page_size {page_size}")
+    _need(positions, "positions", torch.int32, q.device, 2)
+    _need(block_table, "block_table", torch.int32, q.device, 2)
+    _need(lens, "lens", torch.int32, q.device, 1)
+    _need(chunk_lens, "chunk_lens", torch.int32, q.device, 1)
+    if (tuple(positions.shape) != (B, T) or block_table.shape[0] != B
+            or lens.shape[0] != B or chunk_lens.shape[0] != B or nb == 0):
+        raise ValueError("positions (B, T), block_table (B, nb>0), lens (B,) "
+                         "and chunk_lens (B,) must match q")
+    _check_heads(q, Hkv)
+    w, c = _flags(window, softcap)
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(q.device):
+        rc = _lib().paged_flash_attention(
+            q.data_ptr(), kp.data_ptr(), vp.data_ptr(), positions.data_ptr(),
+            block_table.data_ptr(), lens.data_ptr(), chunk_lens.data_ptr(),
+            out.data_ptr(), B, T, Hq, Hkv, D, nb, page, w, c,
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"paged_flash_attention launch failed: CUDA error {rc}")
+    kernels.LAUNCHES["paged_flash_attention"] += 1
+    return out

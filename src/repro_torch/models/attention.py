@@ -1,0 +1,250 @@
+"""Attention: the DYNAMIC-engine computation (Atleus MHA-2/MHA-3), PyTorch
+port of the full-attention part of ``repro.models.attention``.
+
+Two implementations of the fused score + softmax + V step:
+
+  * ``ref``  — ``ref_attention``: materialized scores, the JAX package's
+               oracle (a row that sees no key gives the mean of V).
+  * ``auto`` — the flash wrappers of ``repro_torch.kernels.flash_attention``:
+               the hand-written CUDA kernel on CUDA tensors, its plain
+               version on CPU tensors (a row that sees no key gives 0).
+
+Paged decode scatters the chunk's K/V into the layer's page pool in place
+(the JAX package returns a new pool and relies on buffer donation) and
+attends through the block table: ``auto`` reads the pool directly in the
+paged kernel, ``ref`` materializes the gather as the JAX package does.
+
+The sliding-window ring branch, ``banded_attention`` and
+``blocked_attention`` wait for ROADMAP Queue 1 item 11.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import hetero
+from repro_torch.core.lora import lora_delta, lora_scale
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.models import layers
+
+NEG_INF = -1e30
+POOL_LEAVES = ("kp", "vp")
+
+_SLIDING = "sliding-window attention is not ported yet (ROADMAP Queue 1 item 11)"
+
+
+def _softcap(scores: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
+    if cap is None:
+        return scores
+    hetero.record_nonlinear(scores.numel())
+    return cap * torch.tanh(scores / cap)
+
+
+def ref_attention(q, k, v, q_pos, kv_pos, *, window: Optional[int] = None,
+                  softcap: Optional[float] = None) -> torch.Tensor:
+    """q (B,T,Hq,D); k/v (B,S,Hkv,D) -> (B,T,Hq,D). f32 softmax."""
+    B, T, Hq, D = q.shape
+    Hkv = k.shape[2]
+    G = Hq // Hkv
+    qg = q.reshape(B, T, Hkv, G, D) * (D ** -0.5)
+    s = hetero.dynamic_einsum("bthgd,bshd->bhgts", qg, k)
+    s = _softcap(s.to(torch.float32), softcap)
+    m = fa_ops.visible_mask(q_pos, kv_pos, window)[:, None, None, :, :]
+    s = torch.where(m, s, torch.full_like(s, NEG_INF))
+    hetero.record_nonlinear(s.numel())
+    p = torch.softmax(s, dim=-1)
+    o = hetero.dynamic_einsum("bhgts,bshd->bthgd", p.to(v.dtype), v)
+    return o.reshape(B, T, Hq, D)
+
+
+def attend(q, k, v, q_pos, kv_pos, *, kind: str, window: Optional[int],
+           softcap: Optional[float], impl: str) -> torch.Tensor:
+    if kind != "full":
+        raise NotImplementedError(_SLIDING)
+    if impl == "ref":
+        return ref_attention(q, k, v, q_pos, kv_pos, softcap=softcap)
+    if impl != "auto":
+        raise ValueError(f"attn impl {impl!r} (expected 'auto' or 'ref')")
+    _record_attention(q, k.shape[1], softcap)
+    i32 = torch.int32
+    return fa_ops.flash_attention(q.contiguous(), k.contiguous(),
+                                  v.contiguous(), q_pos.to(i32).contiguous(),
+                                  kv_pos.to(i32).contiguous(), softcap=softcap)
+
+
+def _record_attention(q, S: int, softcap) -> None:
+    """The fused kernels' share of the FLOP tally: QK^T and PV."""
+    B, T, Hq, D = q.shape
+    hetero._record(hetero.DYNAMIC, 4.0 * B * T * Hq * S * D)
+    hetero.record_nonlinear(B * T * Hq * S * (2 if softcap else 1))
+
+
+# ---------------------------------------------------------------------------
+# Paged decode: scatter the chunk into pool pages, attend through the block
+# table. Padded tail tokens of a ragged chunk and positions whose page is
+# unmapped are filtered out before the scatter (``index_put_`` has no
+# mode="drop"), so they can never corrupt a page. Prefix-shared pages need
+# no handling: a page mapped by several tables is read by each, visibility
+# (`gpos < lens + clens`) masks resident tokens beyond a sharer's length,
+# and writes never target a co-held page (the scheduler forks it first).
+# ---------------------------------------------------------------------------
+
+
+def paged_pool_update(pool: torch.Tensor, new: torch.Tensor,
+                      rows: torch.Tensor, page_ids: torch.Tensor,
+                      within: torch.Tensor) -> None:
+    """In place: pool (P, Hkv, page, D)[page_ids[i], :, within[i]] =
+    new (B*T, Hkv, D)[rows[i]] for the selected (valid) rows."""
+    pool[page_ids, :, within, :] = new[rows].to(pool.dtype)
+
+
+def paged_attend(cfg: ModelConfig, q, k, v, positions, pool: Dict, paged, *,
+                 kind, softcap, impl):
+    """Chunked-prefill / decode attention against one layer's page pool
+    ``{"kp", "vp"}`` (each (P, Hkv, page, D), updated in place).
+    ``paged``: block_table (B, nb), lens (B,), chunk_lens (B,), page_size."""
+    if kind != "full" or "kp" not in pool:
+        raise NotImplementedError(_SLIDING)
+    B, T = q.shape[0], q.shape[1]
+    lens, clens = paged["lens"], paged["chunk_lens"]
+    page = paged["page_size"]
+    bt = paged["block_table"]                                # (B, nb)
+    nb = bt.shape[1]
+    t_idx = torch.arange(T, device=q.device)
+    valid = t_idx[None, :] < clens[:, None]                  # (B, T)
+    col = torch.div(positions, page, rounding_mode="floor")
+    colc = col.clamp(0, nb - 1).long()
+    pid = torch.gather(bt, 1, colc)                          # (B, T)
+    ok = valid & (col < nb) & (pid >= 0)
+    rows = ok.reshape(-1).nonzero().squeeze(1)               # host sync
+    pid_r = pid.reshape(-1)[rows].long()
+    within_r = (positions % page).reshape(-1)[rows].long()
+    for name, new in (("kp", k), ("vp", v)):
+        paged_pool_update(pool[name], new.reshape(B * T, *new.shape[2:]),
+                          rows, pid_r, within_r)
+    if impl == "ref":
+        kg = fa_ops.gather_pages(pool["kp"], bt).to(q.dtype)
+        vg = fa_ops.gather_pages(pool["vp"], bt).to(q.dtype)
+        kv_pos = fa_ops.paged_kv_pos(bt, lens, clens, page)
+        return ref_attention(q, kg, vg, positions, kv_pos, softcap=softcap)
+    if impl != "auto":
+        raise ValueError(f"attn impl {impl!r} (expected 'auto' or 'ref')")
+    _record_attention(q, nb * page, softcap)
+    i32 = torch.int32
+    return fa_ops.paged_flash_attention(
+        q.contiguous(), pool["kp"], pool["vp"],
+        positions.to(i32).contiguous(), bt.to(i32).contiguous(),
+        lens.to(i32).contiguous(), clens.to(i32).contiguous(),
+        page_size=page, softcap=softcap)
+
+
+# ---------------------------------------------------------------------------
+# Attention block (projections + cache plumbing)
+# ---------------------------------------------------------------------------
+
+
+def init_attn(cfg: ModelConfig, generator: torch.Generator, *, device, dtype,
+              lead=()) -> Dict[str, torch.Tensor]:
+    if cfg.attn.qk_norm:
+        raise NotImplementedError("qk-norm is not ported yet (ROADMAP "
+                                  "Queue 1 item 19)")
+    d = cfg.d_model
+    kw = dict(device=device, dtype=dtype)
+    return {
+        "wq": layers.dense_init(generator, (*lead, d, cfg.q_dim), **kw),
+        "wk": layers.dense_init(generator, (*lead, d, cfg.kv_dim), **kw),
+        "wv": layers.dense_init(generator, (*lead, d, cfg.kv_dim), **kw),
+        "wo": layers.dense_init(generator, (*lead, cfg.q_dim, d),
+                                fan_in=cfg.q_dim, **kw),
+    }
+
+
+def apply_attention_block(
+    cfg: ModelConfig, p: Dict, x: torch.Tensor, positions: torch.Tensor, *,
+    kind: str, mode: str = "prefill", cache: Optional[Dict] = None,
+    prefill_cache_len: Optional[int] = None, lora: Optional[Dict] = None,
+    adapter_idx: Optional[torch.Tensor] = None, impl: str = "auto",
+    paged: Optional[Dict] = None, chunk_lens: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """MHA-1..MHA-4 for one layer. Returns (out, new_cache).
+
+    mode: "prefill" (self-attend + emit a cache of ``prefill_cache_len``),
+    "decode" (append to a dense cache {"k", "v" (B, Hkv, S, D), "len" (B,)}
+    in place and attend over it). ``paged`` switches decode to the page
+    pool ``{"kp", "vp"}`` of this layer (see ``paged_attend``).
+    ``chunk_lens`` (B,) makes PREFILL ragged: row b holds chunk_lens[b]
+    real tokens followed by padding that is invisible as keys."""
+    if kind != "full":
+        raise NotImplementedError(_SLIDING)
+    if mode not in ("prefill", "decode"):
+        raise NotImplementedError(f"mode {mode!r} is not ported yet (ROADMAP "
+                                  "Queue 1 item 15)")
+    B, T, _ = x.shape
+    scale = lora_scale(cfg)
+
+    def proj(name):
+        y = hetero.static_matmul(x, p[name])
+        if lora is not None and name in lora:
+            y = y + lora_delta(x, lora[name], scale, adapter_idx)
+        return y
+
+    q = proj("wq").reshape(B, T, cfg.n_heads, cfg.hd)
+    k = proj("wk").reshape(B, T, cfg.n_kv_heads, cfg.hd)
+    v = proj("wv").reshape(B, T, cfg.n_kv_heads, cfg.hd)
+
+    sin, cos = layers.rope_sincos(positions, cfg.hd, cfg.attn.rope_theta)
+    q = layers.apply_rope(q, sin, cos)
+    k = layers.apply_rope(k, sin, cos)
+    softcap = cfg.attn.logit_softcap
+
+    new_cache = None
+    if mode == "decode" and paged is not None:
+        out = paged_attend(cfg, q, k, v, positions, cache, paged, kind=kind,
+                           softcap=softcap, impl=impl)
+        new_cache = cache
+    elif mode == "decode":
+        if cache is None:
+            raise ValueError("decode without a cache")
+        cur = cache["len"]
+        kc, vc = cache["k"], cache["v"]                      # (B, Hkv, S, D)
+        S_cache = kc.shape[2]
+        rows = torch.arange(B, device=x.device)[:, None]
+        slots = cur.long()[:, None] + torch.arange(T, device=x.device)[None]
+        if int(slots.max()) >= S_cache:
+            raise ValueError(f"dense cache of {S_cache} positions is full")
+        # in place: kc[b, :, cur[b] + t] = k[b, t]
+        kc[rows, :, slots] = k.to(kc.dtype)
+        vc[rows, :, slots] = v.to(vc.dtype)
+        i = torch.arange(S_cache, device=x.device)
+        kv_pos = torch.where(i[None, :] < (cur[:, None] + T), i[None, :],
+                             torch.full_like(i[None, :], -1))
+        new_cache = {"k": kc, "v": vc, "len": cur + T}
+        out = attend(q, kc.transpose(1, 2).to(q.dtype),
+                     vc.transpose(1, 2).to(q.dtype), positions, kv_pos,
+                     kind=kind, window=None, softcap=softcap, impl=impl)
+    else:
+        kv_pos = positions
+        if chunk_lens is not None:
+            t_idx = torch.arange(T, device=x.device)[None, :]
+            kv_pos = torch.where(t_idx < chunk_lens[:, None], kv_pos,
+                                 torch.full_like(kv_pos, -1))
+        out = attend(q, k, v, positions, kv_pos, kind=kind, window=None,
+                     softcap=softcap, impl=impl)
+        S_cache = prefill_cache_len if prefill_cache_len is not None else T
+        pad = S_cache - T
+        k_t = k.transpose(1, 2)                              # (B, Hkv, T, D)
+        v_t = v.transpose(1, 2)
+        kc = torch.nn.functional.pad(k_t, (0, 0, 0, pad))
+        vc = torch.nn.functional.pad(v_t, (0, 0, 0, pad))
+        lens_out = (torch.full((B,), T, dtype=torch.int32, device=x.device)
+                    if chunk_lens is None else chunk_lens.to(torch.int32))
+        new_cache = {"k": kc.to(q.dtype).contiguous(),
+                     "v": vc.to(q.dtype).contiguous(), "len": lens_out}
+
+    out = out.reshape(B, T, cfg.q_dim)
+    y = hetero.static_matmul(out, p["wo"])
+    if lora is not None and "wo" in lora:
+        y = y + lora_delta(out, lora["wo"], scale, adapter_idx)
+    return y, new_cache

@@ -1,0 +1,192 @@
+"""Config-driven decoder: embeds -> loop over period-blocks -> norm -> head
+(PyTorch port of ``repro.models.transformer`` for dense full-attention
+models).
+
+The JAX package scans over stacked scan periods with ``lax.scan``; the port
+runs the same layout as a Python loop, slicing one period's weights, LoRA
+leaves and cache views out of the stacked tensors. MoE, Mamba and RWKV
+blocks wait for ROADMAP Queue 1 items 12-14.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch import DeviceLike, resolve_device
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.lora import layer_slice, scan_period
+from repro_torch.models import attention, layers
+from repro_torch.models.kvcache import cache_len
+
+
+@dataclass(frozen=True)
+class ExecConfig:
+    """Runtime execution knobs (orthogonal to the model config).
+
+    ``attn_impl``: "auto" — the flash kernels (CUDA) or their plain
+    versions (CPU); "ref" — ``ref_attention`` over materialized scores."""
+
+    attn_impl: str = "auto"
+    act_dtype: Any = torch.float32
+
+
+def _check_supported(cfg: ModelConfig) -> None:
+    for pos in range(scan_period(cfg)):
+        if cfg.block_kind(pos) != "attn":
+            raise NotImplementedError(
+                f"{cfg.block_kind(pos)!r} blocks are not ported yet (ROADMAP "
+                "Queue 1 items 13-14)")
+        if cfg.is_moe_layer(pos):
+            raise NotImplementedError("MoE layers are not ported yet "
+                                      "(ROADMAP Queue 1 item 12)")
+    if cfg.frontend != "tokens":
+        raise NotImplementedError("embedding frontends are not ported yet "
+                                  "(ROADMAP Queue 1 item 19)")
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator, *,
+                device: DeviceLike = None, dtype=torch.float32) -> Dict:
+    """Random weights in the JAX package's layout, drawn from ``generator``
+    (which must live on ``device``). Layer leaves are stacked
+    (n_scan_periods, ...). The two frameworks' generators differ, so parity
+    tests carry the JAX weights across with ``repro_torch.bridge``."""
+    _check_supported(cfg)
+    device = resolve_device(device)
+    p = scan_period(cfg)
+    n_sp = cfg.n_layers // p
+    kw = dict(device=device, dtype=dtype)
+    layer_trees = []
+    for _pos in range(p):
+        layer_trees.append({
+            "norm": layers.init_norm(cfg, lead=(n_sp,), **kw),
+            "norm2": layers.init_norm(cfg, lead=(n_sp,), **kw),
+            "attn": attention.init_attn(cfg, generator, lead=(n_sp,), **kw),
+            "ff": layers.init_mlp(cfg, generator, lead=(n_sp,), **kw),
+        })
+    return {
+        "embed": layers.init_embed(cfg, generator, **kw),
+        "final_norm": layers.init_norm(cfg, **kw),
+        "layers": tuple(layer_trees),
+    }
+
+
+# ---------------------------------------------------------------------------
+# forward
+# ---------------------------------------------------------------------------
+
+
+def _apply_position(cfg: ModelConfig, ec: ExecConfig, pos: int,
+                    x: torch.Tensor, pparams, plora, pcache, positions, mode,
+                    prefill_cache_len, adapter_idx, paged, chunk_lens):
+    h = layers.apply_norm(cfg, pparams["norm"], x)
+    delta, newc = attention.apply_attention_block(
+        cfg, pparams["attn"], h, positions, kind=cfg.attn_kind(pos),
+        mode="prefill" if mode == "train" else mode, cache=pcache,
+        prefill_cache_len=prefill_cache_len, lora=plora,
+        adapter_idx=adapter_idx, impl=ec.attn_impl, paged=paged,
+        chunk_lens=chunk_lens if mode == "prefill" else None)
+    x = x + delta
+    h2 = layers.apply_norm(cfg, pparams["norm2"], x)
+    x = x + layers.apply_mlp(cfg, pparams["ff"], h2)
+    return x, (None if mode == "train" else newc)
+
+
+def forward(cfg: ModelConfig, params: Dict, inputs: Dict[str, torch.Tensor],
+            *, lora: Optional[Dict] = None, cache: Optional[Dict] = None,
+            positions: Optional[torch.Tensor] = None, mode: str = "train",
+            prefill_cache_len: Optional[int] = None,
+            exec_cfg: ExecConfig = ExecConfig(),
+            adapter_idx: Optional[torch.Tensor] = None,
+            paged: Optional[Dict] = None,
+            chunk_lens: Optional[torch.Tensor] = None,
+            last_idx: Optional[torch.Tensor] = None,
+            ) -> Tuple[torch.Tensor, Optional[Dict], Dict]:
+    """Returns (logits (B,T,V), new_cache, aux).
+
+    inputs: {"tokens": (B,T) int}. positions: (B,T) global token positions
+    (default: arange, or the dense cache's length in decode). mode:
+    "train" (no cache), "prefill" (emit a dense cache of
+    ``prefill_cache_len``), "decode" (append to ``cache`` in place; with
+    ``paged`` the cache is the page pool, see
+    ``attention.apply_attention_block``). ``last_idx`` (B,) keeps one row
+    per sequence before the final norm and the unembed, so logits are
+    (B,1,V): a serving step samples only that row. ``aux`` is empty: it
+    carries MoE statistics in the JAX package, and MoE is not ported yet."""
+    _check_supported(cfg)
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"unknown mode {mode!r}")
+    ec = exec_cfg
+    P = scan_period(cfg)
+    n_sp = cfg.n_layers // P
+
+    x = layers.embed_tokens(cfg, params["embed"], inputs["tokens"],
+                            ec.act_dtype)
+    B, T = x.shape[0], x.shape[1]
+    dev = x.device
+    if positions is None:
+        ar = torch.arange(T, device=dev, dtype=torch.int32)[None]
+        cur = cache_len(cache) if (mode == "decode" and cache is not None
+                                   and paged is None) else None
+        positions = (cur[:, None] + ar if cur is not None
+                     else ar.expand(B, T))
+
+    new_layers = [[] for _ in range(P)]
+    for sp in range(n_sp):
+        for pos in range(P):
+            pparams = layer_slice(params["layers"][pos], sp)
+            plora = (layer_slice(lora["layers"][pos], sp)
+                     if lora is not None else None)
+            pcache = (layer_slice(cache["layers"][pos], sp)
+                      if cache is not None and mode == "decode" else None)
+            x, newc = _apply_position(cfg, ec, pos, x, pparams, plora, pcache,
+                                      positions, mode, prefill_cache_len,
+                                      adapter_idx, paged, chunk_lens)
+            new_layers[pos].append(newc)
+
+    if last_idx is not None:
+        x = x[torch.arange(B, device=dev), last_idx][:, None]
+    x = layers.apply_norm(cfg, params["final_norm"], x)
+    logits = layers.unembed(cfg, params["embed"], x)
+
+    new_cache = None
+    if mode == "decode" and paged is not None:
+        new_cache = cache                   # pool updated in place
+    elif mode == "decode":
+        # k/v were written in place into the caller's stacked tensors
+        new_cache = {"layers": tuple(
+            {"k": old["k"], "v": old["v"],
+             "len": torch.stack([c["len"] for c in per_sp])}
+            for old, per_sp in zip(cache["layers"], new_layers))}
+    elif mode == "prefill":
+        new_cache = {"layers": tuple(
+            {name: torch.stack([c[name] for c in per_sp])
+             for name in per_sp[0]} for per_sp in new_layers)}
+    return logits, new_cache, {}
+
+
+# ---------------------------------------------------------------------------
+# loss
+# ---------------------------------------------------------------------------
+
+
+def lm_loss(cfg: ModelConfig, logits: torch.Tensor, labels: torch.Tensor,
+            mask: Optional[torch.Tensor] = None):
+    """Token-mean cross entropy. Returns (loss, {"nll_sum", "tokens"})."""
+    lf = logits.to(torch.float32)
+    m = lf.amax(dim=-1, keepdim=True).detach()
+    lse = torch.log(torch.sum(torch.exp(lf - m), dim=-1)) + m[..., 0]
+    ll = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+    nll = lse - ll
+    if mask is None:
+        mask = torch.ones_like(labels, dtype=torch.float32)
+    mask = mask.to(torch.float32)
+    tot = torch.clamp(mask.sum(), min=1.0)
+    loss = torch.sum(nll * mask) / tot
+    return loss, {"nll_sum": torch.sum(nll * mask), "tokens": tot}

@@ -1,0 +1,396 @@
+"""Paged serving engine: continuous batching + multi-adapter LoRA decode
+(PyTorch port of ``repro.serve.engine.PagedServeEngine``).
+
+The paper's inference story (SS V.G): the frozen base lives on the device
+(crossbar-quantized); switching tasks means swapping only LoRA adapters.
+Here that becomes multi-tenant serving: adapters are stacked along axis 1
+and every request carries an adapter id; one mixed step serves a batch of
+prefill chunks and decode rows of different tasks.
+
+Full-attention KV lives in a shared page pool addressed by per-request
+block tables; prefill runs in chunks padded to a small set of bucket
+widths; prefill chunks and decode rows run through ONE mixed step per tick.
+Admission and eviction are decided by page occupancy
+(``serve.scheduler``); the pool is updated in place (the JAX package
+donates it to its jitted step). A radix prefix index (``serve.prefix``)
+maps new requests onto already-resident pages; shared pages are forked
+copy-on-write before their first divergent write.
+
+The step runs eagerly, in place of ``jax.jit``; capturing one CUDA graph
+per (chunk, table) bucket is a later PR. Speculative decoding, tensor
+parallelism and prefix-cache persistence raise ``NotImplementedError``
+(ROADMAP Queue 1 items 8, 10 and 16).
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence, Set, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch import DeviceLike, resolve_device
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import lora as lora_lib
+from repro_torch.core.lora import scan_period
+from repro_torch.models import kvcache, transformer as tfm
+from repro_torch.models.kvcache import PagedLayout
+from repro_torch.models.transformer import ExecConfig
+from repro_torch.serve.api import (Completion, CompileStats, EngineStats,
+                                   PrefixCacheStats, Request, SchedulerStats,
+                                   completion_of)
+from repro_torch.serve.prefix import PrefixIndex
+from repro_torch.serve.sampling import sample_tokens
+from repro_torch.serve.scheduler import PageScheduler, bucketize, power_buckets
+
+
+def _validate_request(req: Request, max_len: int) -> None:
+    if len(req.prompt) == 0:
+        raise ValueError(f"request uid={req.uid}: empty prompt")
+    if len(req.prompt) + 1 > max_len:
+        raise ValueError(f"request uid={req.uid}: prompt of "
+                         f"{len(req.prompt)} tokens exceeds "
+                         f"max_len={max_len}")
+
+
+def _stream(req: Request) -> np.ndarray:
+    """Tokens that belong in the cache: the prompt plus every generated
+    token except the newest (which is the next decode input)."""
+    if len(req.generated) <= 1:
+        return np.asarray(req.prompt, np.int32)
+    return np.concatenate([np.asarray(req.prompt, np.int32),
+                           np.asarray(req.generated[:-1], np.int32)])
+
+
+def _stream_len(req: Request) -> int:
+    return len(req.prompt) + max(0, len(req.generated) - 1)
+
+
+class PagedServeEngine:
+    """Continuous batching over a paged, prefix-shared KV arena with
+    chunked prefill.
+
+    Every tick runs ONE mixed step over all ``max_slots`` rows: rows
+    mid-prompt consume a chunk of up to ``prefill_chunk`` tokens, decoding
+    rows consume their last sampled token, idle rows are masked out via
+    ``chunk_lens == 0``. With ``record_logits=True`` the engine keeps, per
+    request uid, the logits row each generated token was sampled from
+    (``sampled_logits``), so a caller can hold them against a reference."""
+
+    def __init__(self, cfg: ModelConfig, params, adapters: Sequence = (), *,
+                 device: DeviceLike = None, max_slots: int = 16,
+                 max_len: int = 512, page_size: int = 16,
+                 num_pages: Optional[int] = None, prefill_chunk: int = 32,
+                 enable_prefix_cache: bool = True, spec=None, parallel=None,
+                 prefix_cache_path: Optional[str] = None,
+                 moe_dispatch: str = "dropless",
+                 exec_cfg: ExecConfig = ExecConfig(), seed: int = 0,
+                 record_logits: bool = False):
+        if spec is not None:
+            raise NotImplementedError("speculative decoding is not ported "
+                                      "yet (ROADMAP Queue 1 item 10)")
+        if parallel is not None and getattr(parallel, "tp", 1) > 1:
+            raise NotImplementedError("tensor-parallel serving is not ported "
+                                      "yet (ROADMAP Queue 1 item 16)")
+        if prefix_cache_path is not None:
+            raise NotImplementedError("prefix-cache persistence is not "
+                                      "ported yet (ROADMAP Queue 1 item 8)")
+        if moe_dispatch != "dropless":
+            raise NotImplementedError("MoE dispatch modes are not ported yet "
+                                      "(ROADMAP Queue 1 item 12)")
+        self.device = resolve_device(device)
+        table = params["embed"]["table"]
+        if table.device != self.device:
+            raise ValueError(f"params on {table.device}, engine on "
+                             f"{self.device}")
+        self.cfg, self.params, self.ec = cfg, params, exec_cfg
+        self.max_len = max_len
+        self.prefill_chunk = prefill_chunk
+        if num_pages is None:
+            # default: half of a dense max_slots x max_len arena
+            num_pages = max(max_slots * (-(-max_len // page_size)) // 2,
+                            -(-max_len // page_size) + 1)
+        self.layout = PagedLayout(page_size=page_size, num_pages=num_pages,
+                                  max_slots=max_slots)
+        self.adapters = (lora_lib.stack_adapters(list(adapters))
+                         if adapters else None)
+        self.cache = kvcache.init_paged_cache(cfg, self.layout, max_len,
+                                              device=self.device)
+        self.sched = PageScheduler(self.layout, max_len)
+        full_attn_only = all(
+            cfg.block_kind(pos) == "attn" and cfg.attn_kind(pos) == "full"
+            for pos in range(scan_period(cfg)))
+        self.prefix: Optional[PrefixIndex] = (
+            PrefixIndex(self.sched.alloc, page_size)
+            if enable_prefix_cache and full_attn_only else None)
+        if self.prefix is not None:
+            self.sched.reclaim = self.prefix.evict
+        self.queue: List[Request] = []
+        self.finished: Dict[int, Request] = {}
+        self._gen = torch.Generator(device=self.device)
+        self._gen.manual_seed(seed)
+        self.chunk_buckets = power_buckets(prefill_chunk)
+        self.block_buckets = power_buckets(self.sched.max_blocks)
+        self._signatures: Set[Tuple[int, int]] = set()
+        self._tick = 0
+        self.decode_tokens = 0
+        self.prefill_tokens = 0
+        self.prefix_hit_tokens = 0
+        self.prefix_hits = 0
+        self.record_logits = record_logits
+        self.sampled_logits: Dict[int, List[torch.Tensor]] = {}
+
+    # ------------------------------------------------------------------
+    def _step_fn(self, tokens, lens, clens, block_table, adapter_idx, temps):
+        C = tokens.shape[1]
+        positions = lens[:, None] + torch.arange(
+            C, dtype=torch.int32, device=self.device)[None, :]
+        paged = {"block_table": block_table, "lens": lens,
+                 "chunk_lens": clens, "page_size": self.layout.page_size}
+        last = torch.clamp(clens.long() - 1, 0, C - 1)
+        logits, _, _ = tfm.forward(
+            self.cfg, self.params, {"tokens": tokens}, lora=self.adapters,
+            cache=self.cache, positions=positions, mode="decode",
+            exec_cfg=self.ec, adapter_idx=adapter_idx, paged=paged,
+            chunk_lens=clens, last_idx=last)
+        lg = logits[:, 0]                                         # (B, V)
+        return sample_tokens(lg, temps, self._gen), lg
+
+    # ------------------------------------------------------------------
+    def submit(self, req: Request) -> None:
+        _validate_request(req, self.max_len)
+        if (self.layout.blocks_for(len(req.prompt) + 1)
+                > self.layout.num_pages):
+            raise ValueError(
+                f"request uid={req.uid}: prompt of {len(req.prompt)} tokens "
+                f"needs more pages than the pool holds "
+                f"({self.layout.num_pages} pages of {self.layout.page_size})")
+        self.queue.append(req)
+
+    def _pending_donor(self, req: Request, matched: int) -> bool:
+        """True when an active slot still mid-prefill shares more full
+        pages of this prompt than the index resolves yet — admitting now
+        would duplicate prefill the donor is about to register."""
+        P = self.layout.page_size
+        sched = self.sched
+        for i in sched.active():
+            st = sched.slots[i]
+            if st.req.adapter_id != req.adapter_id:
+                continue
+            if int(sched.lens[i]) >= _stream_len(st.req):
+                continue                      # donor already decoding
+            common = 0
+            for a, b in zip(req.prompt, st.req.prompt):
+                if int(a) != int(b):
+                    break
+                common += 1
+            if (common // P) * P > matched:
+                return True
+        return False
+
+    def _admit(self) -> None:
+        while self.queue:
+            req = self.queue[0]
+            shared = None
+            if self.prefix is not None:
+                stream = _stream(req)
+                # always leave >= 1 token to prefill: the last stream
+                # token's logits seed the next sample
+                matched, spages = self.prefix.lookup(
+                    req.adapter_id, stream[:_stream_len(req) - 1])
+                if matched:
+                    shared = (matched, spages)
+                if self._pending_donor(req, matched):
+                    break
+            slot = self.sched.admit(req, _stream_len(req), self._tick,
+                                    shared=shared)
+            if slot is None:
+                if not self.sched.active():
+                    raise RuntimeError(
+                        f"request uid={req.uid} needs more pages than the "
+                        f"pool holds ({self.layout.num_pages} pages of "
+                        f"{self.layout.page_size})")
+                break
+            self.queue.pop(0)
+            if shared:
+                self.prefix_hit_tokens += shared[0]
+                self.prefix_hits += 1
+
+    def _run_forks(self) -> None:
+        """Execute queued copy-on-write page copies on the device before
+        the mixed step writes into the forked pages."""
+        forks = [(s, d) for _, s, d in self.sched.take_forks()]
+        if not forks:
+            return
+        src = torch.as_tensor([f[0] for f in forks], device=self.device)
+        dst = torch.as_tensor([f[1] for f in forks], device=self.device)
+        kvcache.fork_pages(self.cache, src, dst)
+
+    def _register_progress(self, slot: int) -> None:
+        """Index every COMPLETED full prompt page of a mid-prefill slot so
+        same-prefix requests admitted next tick share them immediately."""
+        st = self.sched.slots[slot]
+        req = st.req
+        n_done = min(int(self.sched.lens[slot]), len(req.prompt)) \
+            // self.layout.page_size
+        if n_done:
+            self.prefix.register(req.adapter_id,
+                                 req.prompt[:n_done * self.layout.page_size],
+                                 st.pages[:n_done], self._tick)
+
+    def _emit(self, req: Request, tok: int, lg_row: torch.Tensor) -> None:
+        req.generated.append(tok)
+        if self.record_logits:
+            self.sampled_logits.setdefault(req.uid, []).append(lg_row.clone())
+
+    def step(self) -> None:
+        """One tick: admit, resolve CoW forks, build a mixed ragged chunk,
+        run the step, advance lengths, sample/retire."""
+        self._tick += 1
+        self._admit()
+        sched = self.sched
+        active = sched.active()
+        if not active:
+            return
+        B = self.layout.max_slots
+
+        # ---- per-slot chunk widths
+        want = np.zeros(B, np.int32)
+        phase: Dict[int, str] = {}
+        for i in active:
+            st = sched.slots[i]
+            remaining = _stream_len(st.req) - int(sched.lens[i])
+            if remaining > 0:
+                want[i] = min(remaining, self.prefill_chunk)
+                phase[i] = "prefill"
+            else:
+                want[i] = 1
+                phase[i] = "decode"
+
+        # ---- page capacity (oldest slots are protected; pool pressure
+        # reclaims prefix-cache pages first, then preempts the youngest,
+        # which requeues for recompute). ensure() also forks any shared
+        # page inside this tick's write range (copy-on-write).
+        protected: List[int] = []
+        for i in sorted(active, key=lambda j: sched.slots[j].admitted_tick):
+            if sched.slots[i] is None:      # preempted as someone's victim
+                continue
+            sched.ensure(i, int(sched.lens[i]) + int(want[i]),
+                         protect=protected + [i])
+            if sched.slots[i] is not None:
+                protected.append(i)
+        for req in reversed(sched.drain_evicted()):
+            if (self.layout.blocks_for(_stream_len(req) + 1)
+                    > self.layout.num_pages):
+                # the stream has outgrown the entire pool — retire at
+                # capacity, mirroring a dense engine's max_len cut-off
+                req.done = True
+                req.finish_reason = "capacity"
+                self.finished[req.uid] = req
+            else:
+                self.queue.insert(0, req)
+        active = sched.active()
+        if not active:
+            return
+        self._run_forks()
+
+        # ---- assemble the mixed batch
+        C = bucketize(int(max(want[i] for i in active)), self.chunk_buckets)
+        tokens = np.zeros((B, C), np.int32)
+        clens = np.zeros(B, np.int32)
+        for i in active:
+            st = sched.slots[i]
+            if phase[i] == "prefill":
+                stream = _stream(st.req)
+                L = int(sched.lens[i])
+                chunk = stream[L:L + int(want[i])]
+                tokens[i, :len(chunk)] = chunk
+                clens[i] = len(chunk)
+            else:
+                tokens[i, 0] = st.req.generated[-1]
+                clens[i] = 1
+        nb = bucketize(sched.blocks_in_use(active, clens), self.block_buckets)
+        bt = np.ascontiguousarray(sched.tables[:, :nb])
+        temps = np.asarray([(sched.slots[i].req.temperature
+                             if sched.slots[i] else 0.0) for i in range(B)],
+                           np.float32)
+        dev = self.device
+        adapter_idx = (torch.as_tensor(
+            [(sched.slots[i].req.adapter_id if sched.slots[i] else 0)
+             for i in range(B)], dtype=torch.long, device=dev)
+            if self.adapters is not None else None)
+        self._signatures.add((C, nb))
+        toks, lg = self._step_fn(
+            torch.as_tensor(tokens, device=dev),
+            torch.as_tensor(sched.lens.copy(), device=dev),
+            torch.as_tensor(clens, device=dev),
+            torch.as_tensor(bt, device=dev), adapter_idx,
+            torch.as_tensor(temps, device=dev))
+        toks_np = toks.cpu().numpy()
+
+        # ---- advance + sample + retire
+        for i in active:
+            st = sched.slots[i]
+            req = st.req
+            sched.lens[i] += int(clens[i])
+            if phase[i] == "decode":
+                self.decode_tokens += 1
+                self._emit(req, int(toks_np[i]), lg[i])
+            else:
+                self.prefill_tokens += int(clens[i])
+                if self.prefix is not None:
+                    self._register_progress(i)
+                if sched.lens[i] < _stream_len(req):
+                    continue                    # mid-prompt
+                if not req.generated:           # fresh prefill done
+                    self._emit(req, int(toks_np[i]), lg[i])
+                # else: resumed prefill done — next tick decodes generated[-1]
+            tok = req.generated[-1]
+            hit_eos = req.eos_id is not None and tok == req.eos_id
+            # the length cut-off only applies after a decode write
+            len_cap = (phase[i] == "decode"
+                       and int(sched.lens[i]) >= self.max_len - 1)
+            if len(req.generated) >= req.max_new_tokens or hit_eos or len_cap:
+                req.done = True
+                req.finish_reason = "eos" if hit_eos else "length"
+                self.finished[req.uid] = req
+                if (self.prefix is not None
+                        and len(req.prompt) % self.layout.page_size):
+                    # donate the partial prompt-tail page to the index —
+                    # future sharers fork it copy-on-write at divergence
+                    self.prefix.register_tail(
+                        req.adapter_id, req.prompt,
+                        st.pages[len(req.prompt) // self.layout.page_size],
+                        self._tick)
+                sched.release(i)
+
+    def run_until_done(self, max_ticks: int = 100_000) -> Dict[int, Request]:
+        for _ in range(max_ticks):
+            if not self.queue and not self.sched.active():
+                break
+            self.step()
+        return self.finished
+
+    def drain(self, max_ticks: int = 100_000) -> Dict[int, Completion]:
+        self.run_until_done(max_ticks)
+        return {uid: completion_of(r) for uid, r in self.finished.items()}
+
+    def release_prefix_cache(self) -> int:
+        """Drop every prefix-index page ref. Returns pages freed."""
+        return self.prefix.clear() if self.prefix is not None else 0
+
+    def stats(self) -> EngineStats:
+        occ = self.sched.occupancy()
+        return EngineStats(
+            engine="paged",
+            ticks=self._tick,
+            decode_tokens=self.decode_tokens,
+            prefill_tokens=self.prefill_tokens,
+            compile=CompileStats(
+                step_signatures=tuple(sorted(self._signatures)),
+                compiled_steps=len(self._signatures)),
+            scheduler=SchedulerStats(**occ),
+            prefix_cache=PrefixCacheStats(
+                enabled=self.prefix is not None,
+                hit_tokens=self.prefix_hit_tokens,
+                hits=self.prefix_hits,
+                **(self.prefix.stats() if self.prefix is not None else {})))
