@@ -14,25 +14,32 @@ Imports nothing of JAX or of the JAX package. Phases, each printing JSON:
                (``library_ms``, never used by the port), and the bound:
                the larger of bytes moved / 3.35 TB/s and flops / 67 TFLOP/s
                (f32 outside the tensor cores; H100 SXM data sheet).
-  4. serve   — full-width llama3.2-1b (random weights from a seed) on an
-               M8F8 crossbar base with two rank-32 adapters, served by the
-               port's paged engine: 8 greedy requests (prompts 64-512
-               tokens, two sharing a 256-token prefix), 32 new tokens each.
-               Then two requests are teacher-forced through ``forward``
-               with the kernels and, as the reference, with the plain
-               versions (dequantized weights, ``ref_attention``); the
+  4. serve   — for each model the port serves, full width and full depth
+               (random weights from a seed), on an M8F8 crossbar base with
+               two rank-32 adapters, served by the port's paged engine: 8
+               greedy requests (prompts 64-512 tokens, two sharing a
+               256-token prefix), 32 new tokens each. Then two requests
+               are teacher-forced through ``forward`` with the kernels
+               and, as the reference, with the plain versions (dequantized
+               weights, ``ref_attention``, the plain wkv recurrence); the
                engine's sampled logits and the kernel forward's logits
                must agree with the reference. Each path has its own
                launch counts: the counters are zeroed just before the
                engine serves and read just after, then zeroed just before
-               the kernel forwards and read just after. The engine must
-               have launched the crossbar and paged kernels, the forwards
-               the crossbar and contiguous flash kernels.
-     profile — a second wave on the same engine; once every slot decodes,
-               a window of ticks runs untraced (host wall), then the next
-               window under torch.profiler with CUDA activity only: device
-               busy share (device time over wall, both of that window) and
-               time by kernel.
+               the kernel forwards and read just after; each kernel of the
+               path must show exactly its launches per tick (engine) or
+               per forward. Models, in order:
+                 llama3.2-1b — crossbar + paged flash (engine), crossbar +
+                               contiguous flash (forward); the prefix
+                               cache serves the shared prefix;
+                 rwkv6-7b    — crossbar + wkv (engine and forward); the
+                               prefix cache is off (recurrent state).
+               The llama engine and weights are freed before rwkv6-7b.
+     profile — after each serve, a second wave on the same engine; once
+               every slot decodes, a window of ticks runs untraced (host
+               wall), then the next window under torch.profiler with CUDA
+               activity only: device busy share (device time over wall,
+               both of that window) and time by kernel.
   5. summary — one ``{"kernels": [...]}`` line, the nvidia-smi line, and
                last ``{"ok": true, "device": {...}}``.
 
@@ -40,6 +47,8 @@ Any failed phase raises (exit code 1) and the last line is never printed.
 """
 from __future__ import annotations
 
+import dataclasses
+import gc
 import json
 import statistics
 import subprocess
@@ -55,7 +64,22 @@ F32_FLOPS_PER_S = 67e12        # H100 SXM f32 outside the tensor cores
 
 CB_TOL = 1e-4                  # relative to max|y|: f32 sums, other order
 FA_TOL = 2e-5                  # f32 softmax attention, other order
-LOGIT_TOL = 1e-3               # 16 f32 layers summed in other orders
+WKV_TOL = 1e-5                 # the f32 recurrence, each step's sums in
+                               # another order (as for the Pallas kernel)
+# engine and kernel forward vs the plain forward. llama3.2-1b: absolute,
+# on logits of magnitude ~5 (16 f32 layers summed in other orders).
+# rwkv6-7b: relative to the largest plain logit. Its 32 random-init layers
+# amplify the ~1e-6 relative differences of f32 kernels that sum in
+# another order, most at the first tokens of a sequence (there the wkv
+# state holds one token, and each head's group-normed output is a scalar
+# r.(u*k) times v, whose sign flips where that scalar is near 0), and more
+# with every layer. At the positions checked (the last prompt token, the
+# generated ones) that came to ~1e-2 of the largest logit on one NVIDIA
+# H100 80GB HBM3 at 700 W (0.036 at max |logit| 4.49); the serve phase's
+# logit_error_by_depth shows the growth by depth and along the prompt. A
+# fault (a wrong decay, state carried wrongly) moves logits by their size.
+LOGIT_TOL = 1e-3
+RWKV_LOGIT_TOL_REL = 2e-2
 
 
 def emit(obj) -> None:
@@ -87,6 +111,25 @@ def timed(fn, reps: int, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, reps: int = 10) -> float:
+    """Device milliseconds of the kernels that one ``fn()`` launches, from
+    a torch.profiler trace of ``reps`` calls (CUDA activity only). Unlike
+    ``timed``, this leaves out the host's time to issue the call, which
+    dominates a small kernel's wall time on the stream."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA)
+    return us / 1e3 / reps
+
+
 def bound_ms(nbytes: float, flops: float) -> float:
     return 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S)
 
@@ -96,12 +139,17 @@ def bound_ms(nbytes: float, flops: float) -> float:
 # ---------------------------------------------------------------------------
 
 
-def crossbar_cases(dev, g):
+# (K, N) of each model's crossbar-quantized layer matrices
+LLAMA_KN = ((2048, 2048), (2048, 512), (2048, 8192), (8192, 2048))
+RWKV_KN = ((4096, 4096), (4096, 14336), (14336, 4096))
+
+
+def crossbar_cases(dev, g, model, shapes, bits_list):
     from repro_torch.core import quant
     from repro_torch.kernels.crossbar_matmul import ops as cb_ops
 
-    for bits in (8, 4):
-        for K, N in ((2048, 2048), (2048, 512), (2048, 8192), (8192, 2048)):
+    for bits in bits_list:
+        for K, N in shapes:
             w = torch.randn(K, N, generator=g, device=dev) * (K ** -0.5)
             qt = quant.quantize(w, bits)
             w_deq = quant.dequantize(qt)
@@ -115,10 +163,12 @@ def crossbar_cases(dev, g):
                 nbytes = (x.numel() * 4 + qt.codes.numel()
                           + qt.scales.numel() * 4 + M * N * 4)
                 yield {
-                    "name": "crossbar_matmul", "bits": bits,
+                    "name": "crossbar_matmul", "model": model, "bits": bits,
                     "shape": {"M": M, "K": K, "N": N},
                     "max_abs_err": err, "tol": tol,
                     "ms": timed(lambda: cb_ops.crossbar_matmul(x, qt), 20),
+                    "device_ms": device_ms(
+                        lambda: cb_ops.crossbar_matmul(x, qt)),
                     "plain_ms": timed(
                         lambda: cb_ops.crossbar_matmul_plain(x, qt), 5),
                     "library_ms": timed(lambda: torch.matmul(x, w_deq), 20),
@@ -176,6 +226,8 @@ def flash_cases(dev, g):
             "max_abs_err": float((o - o_plain).abs().max()), "tol": FA_TOL,
             "ms": timed(lambda: fa_ops.flash_attention(q, k, v, qpos, kpos),
                         20),
+            "device_ms": device_ms(
+                lambda: fa_ops.flash_attention(q, k, v, qpos, kpos)),
             "plain_ms": timed(
                 lambda: fa_ops.flash_attention_plain(q, k, v, qpos, kpos), 5),
             "library_ms": timed(_sdpa_yardstick(q, k, v, mask), 20),
@@ -231,6 +283,8 @@ def paged_case(dev, g):
         "max_abs_err": err, "tol": FA_TOL,
         "ms": timed(lambda: fa_ops.paged_flash_attention(
             *args, page_size=page), 20),
+        "device_ms": device_ms(lambda: fa_ops.paged_flash_attention(
+            *args, page_size=page)),
         "plain_ms": timed(lambda: fa_ops.paged_flash_attention_plain(
             *args, page_size=page), 5),
         "library_ms": timed(_sdpa_yardstick(q, kg, vg, mask), 20),
@@ -240,11 +294,61 @@ def paged_case(dev, g):
     }
 
 
+def wkv_cases(dev, g):
+    """The wkv recurrence at rwkv6-7b's shapes (H = 64 heads of N = 64, 8
+    slots): a decode tick, a prefill chunk of 128, and a ragged chunk as
+    the engine builds it (rows of various lengths, one idle), masked as the
+    model masks it (k = 0, w = 1 past each row's length)."""
+    from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
+
+    B, H, N = 8, 64, 64
+    for label, T, clens in (("decode", 1, None), ("prefill", 128, None),
+                            ("ragged", 128, (128, 100, 64, 1, 0, 128, 37, 5))):
+        r, k, v = (torch.randn(B, T, H, N, generator=g, device=dev)
+                   for _ in range(3))
+        # decays as the model makes them: exp(-exp(x)), x in [-6, -1]
+        w = torch.exp(-torch.exp(-6.0 + 5.0 * torch.rand(
+            B, T, H, N, generator=g, device=dev)))
+        u = 0.5 * torch.ones(H, N, device=dev)
+        s0 = torch.randn(B, H, N, N, generator=g, device=dev)
+        if clens is not None:
+            valid = (torch.arange(T, device=dev)[None] < torch.tensor(
+                clens, device=dev)[:, None])[..., None, None]
+            k = torch.where(valid, k, 0.0)
+            w = torch.where(valid, w, 1.0)
+        args = (r, k, v, w, u, s0)
+        y, s = wkv_ops.rwkv6_wkv(*args)
+        y_plain, s_plain = wkv_ops.rwkv6_wkv_plain(*args)
+        torch.cuda.synchronize()
+        err = max(float((y - y_plain).abs().max()),
+                  float((s - s_plain).abs().max()))
+        # the plain version's own scale: 1e-5 relative and absolute
+        tol = WKV_TOL * (1.0 + max(float(y_plain.abs().max()),
+                                   float(s_plain.abs().max())))
+        nbytes = 5.0 * B * T * H * N * 4 + 2.0 * B * H * N * N * 4
+        flops = 4.0 * B * T * H * N * N
+        yield {
+            "name": "rwkv6_wkv", "model": "rwkv6-7b", "case": label,
+            "shape": {"B": B, "T": T, "H": H, "N": N,
+                      **({"chunk_lens": list(clens)} if clens else {})},
+            "max_abs_err": err, "tol": tol,
+            "ms": timed(lambda: wkv_ops.rwkv6_wkv(*args), 20),
+            "device_ms": device_ms(lambda: wkv_ops.rwkv6_wkv(*args)),
+            "plain_ms": timed(lambda: wkv_ops.rwkv6_wkv_plain(*args), 5),
+            "library_ms": None,
+            "library": "none: no single PyTorch call computes this recurrence",
+            "bound_ms": bound_ms(nbytes, flops),
+            "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
+                         > flops / F32_FLOPS_PER_S else "operations"),
+        }
+
+
 def kernel_phase(dev):
     g = torch.Generator(device=dev).manual_seed(0)
     cases = []
-    for gen in (crossbar_cases(dev, g), flash_cases(dev, g),
-                paged_case(dev, g)):
+    for gen in (crossbar_cases(dev, g, "llama3.2-1b", LLAMA_KN, (8, 4)),
+                crossbar_cases(dev, g, "rwkv6-7b", RWKV_KN, (8,)),
+                flash_cases(dev, g), paged_case(dev, g), wkv_cases(dev, g)):
         for case in gen:
             case["ok"] = case["max_abs_err"] <= case["tol"]
             emit({"phase": "kernel", **case})
@@ -257,8 +361,31 @@ def kernel_phase(dev):
 
 
 # ---------------------------------------------------------------------------
-# phase 4: serve full-width llama3.2-1b through the port's paged engine
+# phase 4: serve each model at full width through the port's paged engine
 # ---------------------------------------------------------------------------
+
+# kernel -> launches per engine tick / per forward, for each model's path:
+# seven crossbar matrices per layer (llama wq/wk/wv/wo/w1/w3/w2; rwkv
+# r/k/v/g/o/ck/cv), one attention or wkv recurrence per layer
+def path_launches(cfg):
+    L = cfg.n_layers
+    if cfg.block_pattern == ("rwkv",):
+        return ({"crossbar_matmul": 7 * L, "rwkv6_wkv": L},
+                {"crossbar_matmul": 7 * L, "rwkv6_wkv": L})
+    return ({"crossbar_matmul": 7 * L, "paged_flash_attention": L},
+            {"crossbar_matmul": 7 * L, "flash_attention": L})
+
+
+def quantized_matrices(tree) -> int:
+    """Layer matrices on the crossbar path (leaves are stacked per layer)."""
+    from repro_torch.core import quant
+    if quant.is_quantized(tree):
+        return tree.codes.shape[0]
+    if isinstance(tree, dict):
+        return sum(quantized_matrices(v) for v in tree.values())
+    if isinstance(tree, (tuple, list)):
+        return sum(quantized_matrices(v) for v in tree)
+    return 0
 
 
 def teacher_forced(cfg, params, adapters, prompt, generated, adapter_id,
@@ -285,6 +412,30 @@ def teacher_forced(cfg, params, adapters, prompt, generated, adapter_id,
     return torch.stack(rows)
 
 
+def error_by_depth(cfg, params, plain_params, adapters, req, ref_ec, dev):
+    """Kernel vs plain logits of one whole-prompt forward through the first
+    L = 1, 2, 4, ... layers only: how the difference grows with depth, and
+    where along the prompt it sits (its largest value, the position of
+    that, the median over positions and the last position)."""
+    from repro_torch.core import lora as lora_lib
+    from repro_torch.models import transformer as tfm
+
+    kw = dict(lora=lora_lib.stack_adapters(adapters),
+              adapter_idx=torch.tensor([req.adapter_id], device=dev))
+    toks = {"tokens": torch.as_tensor(np.asarray(req.prompt), device=dev)[None]}
+    out, L = {}, 1
+    while L <= cfg.n_layers:
+        cut = dataclasses.replace(cfg, n_layers=L)
+        lk = tfm.forward(cut, params, toks, **kw)[0]
+        lp = tfm.forward(cut, plain_params, toks, exec_cfg=ref_ec, **kw)[0]
+        err = (lk - lp)[0].abs().amax(dim=-1)              # per position
+        out[L] = {"max_abs": float(err.max()), "at": int(err.argmax()),
+                  "median": float(err.median()), "last": float(err[-1]),
+                  "max_abs_logit": float(lp.abs().max())}
+        L *= 2
+    return out
+
+
 def serve_phase(dev, cfg, *, n_requests=8, max_new=32, prompt_range=(64, 512),
                 shared_prefix=256, max_len=1024, max_slots=8, page_size=16,
                 prefill_chunk=128, seed=0):
@@ -296,10 +447,12 @@ def serve_phase(dev, cfg, *, n_requests=8, max_new=32, prompt_range=(64, 512),
     from repro_torch.serve.api import Request, make_engine
 
     g = torch.Generator(device=dev).manual_seed(seed)
+    torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     base = tfm.init_params(cfg, g, device=dev)
     params = quant.quantize_params(base, QuantConfig(mha_bits=8, ff_bits=8))
     del base
+    gc.collect()
     adapters = []
     for _ in range(2):
         ad = lora_lib.init_lora_params(cfg, g, device=dev)
@@ -309,10 +462,8 @@ def serve_phase(dev, cfg, *, n_requests=8, max_new=32, prompt_range=(64, 512),
         adapters.append(ad)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
-    # layer matrices on the crossbar path (leaves are stacked per layer)
-    n_quant = sum(w.codes.shape[0] for entry in params["layers"]
-                  for blk in ("attn", "ff") for w in entry[blk].values()
-                  if quant.is_quantized(w))
+    n_quant = quantized_matrices(params["layers"])
+    resident_gb = torch.cuda.memory_allocated(dev) / 1e9
 
     rng = np.random.default_rng(seed)
     prefix = rng.integers(0, cfg.vocab_size, shared_prefix).astype(np.int32)
@@ -347,7 +498,7 @@ def serve_phase(dev, cfg, *, n_requests=8, max_new=32, prompt_range=(64, 512),
     serve_s = time.perf_counter() - t_serve
     done = eng.finished
     serve_launches = dict(kernels.LAUNCHES)
-    # the kernel path of forward (contiguous flash over a dense cache)
+    # the kernel path of forward (over a dense cache)
     checked = [1, 0]                     # a prefix sharer and another
     kernels.reset_launches()
     kernel_logits = {
@@ -356,6 +507,7 @@ def serve_phase(dev, cfg, *, n_requests=8, max_new=32, prompt_range=(64, 512),
                             tfm.ExecConfig(), dev) for uid in checked}
     torch.cuda.synchronize()
     forward_launches = dict(kernels.LAUNCHES)
+    n_forwards = sum(len(done[uid].generated) for uid in checked)
 
     if sorted(done) != list(range(n_requests)):
         raise AssertionError(f"unfinished requests: {sorted(done)}")
@@ -363,17 +515,26 @@ def serve_phase(dev, cfg, *, n_requests=8, max_new=32, prompt_range=(64, 512),
              if len(r.generated) != max_new}
     if short:
         raise AssertionError(f"requests stopped early: {short}")
-    if serve_launches["crossbar_matmul"] == 0 or \
-            serve_launches["paged_flash_attention"] == 0:
-        raise AssertionError(f"the engine bypassed a kernel: {serve_launches}")
-    if forward_launches["crossbar_matmul"] == 0 or \
-            forward_launches["flash_attention"] == 0:
-        raise AssertionError(f"the forward bypassed a kernel: "
-                             f"{forward_launches}")
+    per_tick, per_forward = path_launches(cfg)
+    for path, got, want in (
+            ("engine", serve_launches,
+             {k: n * len(tick_s) for k, n in per_tick.items()}),
+            ("forward", forward_launches,
+             {k: n * n_forwards for k, n in per_forward.items()})):
+        # every kernel of the path, exactly as often as the path runs it;
+        # no other kernel
+        if {k: n for k, n in got.items() if n} != want:
+            raise AssertionError(f"the {path} launched {got}, expected "
+                                 f"{want}")
+    st = eng.stats()
+    full_attn = cfg.block_pattern == ("attn",)
+    if st.prefix_cache.enabled != full_attn:
+        raise AssertionError(f"prefix cache enabled={st.prefix_cache.enabled}"
+                             f" on {cfg.name}")
 
     # reference: the same forward with the plain versions
     plain_params = quant.dequantize_params(params)
-    ref_ec = tfm.ExecConfig(attn_impl="ref")
+    ref_ec = tfm.ExecConfig(attn_impl="ref", rwkv_impl="ref")
     checks = {}
     for uid in checked:
         r = done[uid]
@@ -395,8 +556,14 @@ def serve_phase(dev, cfg, *, n_requests=8, max_new=32, prompt_range=(64, 512),
         }
     worst = max(max(c["engine_vs_plain"], c["kernel_forward_vs_plain"])
                 for c in checks.values())
+    tol = (RWKV_LOGIT_TOL_REL * max(c["max_abs_logit"]
+                                    for c in checks.values())
+           if cfg.block_pattern == ("rwkv",) else LOGIT_TOL)
+    by_depth = error_by_depth(cfg, params, plain_params, adapters,
+                              done[checked[1]], ref_ec, dev)
+    del plain_params
+    gc.collect()
 
-    st = eng.stats()
     pf_s = sum(s for s, k in zip(tick_s, tick_kind) if k == "prefill")
     dc_s = sum(s for s, k in zip(tick_s, tick_kind) if k == "decode")
     dc_tokens = sum(n for n, k in zip(tick_decoded, tick_kind)
@@ -422,18 +589,21 @@ def serve_phase(dev, cfg, *, n_requests=8, max_new=32, prompt_range=(64, 512),
         "prefill_tok_s": st.prefill_tokens / max(pf_s, 1e-9),
         "decode_tok_s": dc_tokens / max(dc_s, 1e-9),
         "tok_s": (st.prefill_tokens + st.decode_tokens) / serve_s,
+        "prefix_cache_enabled": st.prefix_cache.enabled,
         "prefix_hit_tokens": st.prefix_cache.hit_tokens,
         "cow_forks": st.scheduler.cow_forks,
         "preemptions": st.scheduler.preemptions,
         "serve_launches": serve_launches,
-        "forward_launches": forward_launches,
-        "logit_checks": checks, "logit_tol": LOGIT_TOL,
+        "forward_launches": forward_launches, "forwards": n_forwards,
+        "logit_checks": checks, "logit_tol": tol,
+        "logit_error_by_depth": by_depth,
+        "resident_weights_gb": resident_gb,
         "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
     }
     emit(result)
-    if worst > LOGIT_TOL:
+    if worst > tol:
         raise AssertionError(f"teacher-forced logits differ by {worst} > "
-                             f"{LOGIT_TOL}: {checks}")
+                             f"{tol}: {checks}")
     return result, eng
 
 
@@ -485,6 +655,10 @@ def profile_phase(eng, cfg, dev, *, n_requests=8, prompt_len=256,
                                 + e.time_range.elapsed_us())
     device_ms = sum(by_name.values()) / 1e3
     top = sorted(by_name.items(), key=lambda kv: kv[1], reverse=True)[:10]
+    # the port's own kernels (csrc/*.cu), whatever their share of the tick
+    own = {k: us / 1e3 / window for k, us in by_name.items()
+           if any(f"(anonymous namespace)::{n}<" in k
+                  for n in ("crossbar_kernel", "flash_kernel", "wkv_kernel"))}
     emit({"phase": "profile", "ticks": window, "slots": n_requests,
           "untraced_wall_ms_per_tick": untraced_ms / window,
           "traced_wall_ms_per_tick": wall_ms / window,
@@ -492,7 +666,8 @@ def profile_phase(eng, cfg, dev, *, n_requests=8, prompt_len=256,
           "device_busy_share": device_ms / wall_ms if kern else None,
           "launches_per_tick": {k: v / window for k, v in counts.items()},
           "top_device_ms_per_tick": {k: us / 1e3 / window
-                                     for k, us in top}})
+                                     for k, us in top},
+          "port_kernels_device_ms_per_tick": own})
     eng.drain()
 
 
@@ -524,42 +699,55 @@ def main() -> int:
                     for ln in log.splitlines() if "registers" in ln]})
 
     cases = kernel_phase(dev)
-    cfg = get_config("llama3.2-1b")
-    serve, eng = serve_phase(dev, cfg)
-    profile_phase(eng, cfg, dev)
+    serves = {}
+    for arch in ("llama3.2-1b", "rwkv6-7b"):
+        cfg = get_config(arch)
+        serves[arch], eng = serve_phase(dev, cfg)
+        profile_phase(eng, cfg, dev)
+        del eng                          # free the model before the next
+        gc.collect()
+        torch.cuda.empty_cache()
 
-    summary = []
-    rep = {"crossbar_matmul": {"bits": 8, "shape": {"M": 8, "K": 2048,
-                                                     "N": 8192}},
-           "flash_attention": {"case": "prefill"},
-           "paged_flash_attention": {"case": "mixed"}}
-    # each kernel's launches come from the path it serves: the engine for
-    # crossbar and paged flash, the dense-cache forward for contiguous flash
-    paths = {"crossbar_matmul": "serve_launches",
-             "flash_attention": "forward_launches",
-             "paged_flash_attention": "serve_launches"}
+    # each kernel: its case at a main-path shape, and its launches from the
+    # path it serves (the engine, or the dense-cache forward for contiguous
+    # flash), with every path's count beside it
+    rep = {"crossbar_matmul": ("llama3.2-1b", "serve_launches",
+                               {"bits": 8, "model": "llama3.2-1b",
+                                "shape": {"M": 8, "K": 2048, "N": 8192}}),
+           "flash_attention": ("llama3.2-1b", "forward_launches",
+                               {"case": "prefill"}),
+           "paged_flash_attention": ("llama3.2-1b", "serve_launches",
+                                     {"case": "mixed"}),
+           "rwkv6_wkv": ("rwkv6-7b", "serve_launches", {"case": "decode"})}
     sources = {"crossbar_matmul": "src/repro_torch/csrc/crossbar_matmul.cu",
                "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
                "paged_flash_attention":
-                   "src/repro_torch/csrc/flash_attention.cu"}
+                   "src/repro_torch/csrc/flash_attention.cu",
+               "rwkv6_wkv": "src/repro_torch/csrc/rwkv6_wkv.cu"}
     replaces = {
         "crossbar_matmul": "src/repro/kernels/crossbar_matmul/kernel.py:102",
         "flash_attention": "src/repro/kernels/flash_attention/kernel.py:81",
         "paged_flash_attention":
-            "src/repro/kernels/flash_attention/kernel.py:81"}
-    for name, sel in rep.items():
+            "src/repro/kernels/flash_attention/kernel.py:81",
+        "rwkv6_wkv": "src/repro/kernels/rwkv6_wkv/kernel.py:59"}
+    summary = []
+    for name, (arch, path, sel) in rep.items():
         c = next(c for c in cases if c["name"] == name
                  and all(c.get(k) == v for k, v in sel.items()))
         summary.append({
             "name": name, "route": "cuda", "source": sources[name],
             "replaces": replaces[name],
-            "launches": serve[paths[name]][name],
-            "path": paths[name].split("_")[0],
-            "launches_by_path": {"serve": serve["serve_launches"][name],
-                                 "forward": serve["forward_launches"][name]},
+            "launches": serves[arch][path][name],
+            "path": f"{arch} {path.split('_')[0]}",
+            "launches_by_path": {f"{a} {p.split('_')[0]}": r[p][name]
+                                 for a, r in serves.items()
+                                 for p in ("serve_launches",
+                                           "forward_launches")},
             "max_abs_err": c["max_abs_err"], "ms": c["ms"],
+            "device_ms": c["device_ms"],
             "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
             "bound_by": c["bound_by"], "library_ms": c["library_ms"],
+            **({"library": c["library"]} if "library" in c else {}),
             "at": c["shape"]})
     emit({"kernels": summary})
     print(smi, flush=True)

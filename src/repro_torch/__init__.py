@@ -18,7 +18,8 @@ DeviceLike = Union[str, torch.device, None]
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
-    """``None`` -> the current CUDA device (raises without one)."""
+    """``None`` or ``"cuda"`` -> the current CUDA device (raises without
+    one)."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -28,6 +29,10 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {dev} requested but CUDA is unavailable")
+    if dev.type == "cuda" and dev.index is None:
+        # "cuda" means the current card, so that it compares equal to the
+        # device of the tensors made on it
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 

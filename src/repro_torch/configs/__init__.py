@@ -13,6 +13,7 @@ from repro_torch.configs.base import (AttnConfig, LoRAConfig, ModelConfig,
 
 _ARCH_MODULES = {
     "llama3.2-1b": "llama3_2_1b",
+    "rwkv6-7b": "rwkv6_7b",
 }
 
 # architectures of the JAX package that wait for a later slice of the port
@@ -22,10 +23,9 @@ _WAITING = {
     "internlm2-20b": "ROADMAP Queue 1 item 19 (config copy, head_dim 128)",
     "gemma2-9b": "ROADMAP Queue 1 item 11 (sliding window and softcap)",
     "mistral-nemo-12b": "ROADMAP Queue 1 item 19 (config copy, head_dim 128)",
-    "musicgen-medium": "ROADMAP Queue 1 item 19 (embeddings frontend, LayerNorm, GELU)",
+    "musicgen-medium": "ROADMAP Queue 1 item 19 (embeddings frontend, GELU)",
     "chameleon-34b": "ROADMAP Queue 1 item 19 (qk-norm, embeddings frontend)",
     "jamba-1.5-large-398b": "ROADMAP Queue 1 items 12-13 (MoE, Mamba)",
-    "rwkv6-7b": "ROADMAP Queue 1 item 14 and Queue 2 item 3 (RWKV, rwkv6_wkv)",
 }
 
 ARCH_IDS = tuple(_ARCH_MODULES)

@@ -16,11 +16,15 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import hetero
 
-# target name -> path inside the per-position param tree (attention only in
-# this slice of the port)
+# target name -> path inside the per-position param tree, per block kind.
+# rwkv has no attention; the paper's W_Q/W_V targets translate to the
+# receptance/value time-mix projections. Mamba waits for ROADMAP Queue 1
+# item 13.
 TARGET_PATHS = {
     "attn": {"wq": ("attn", "wq"), "wk": ("attn", "wk"),
              "wv": ("attn", "wv"), "wo": ("attn", "wo")},
+    "rwkv": {"wq": ("time_mix", "r_proj"), "wk": ("time_mix", "k_proj"),
+             "wv": ("time_mix", "v_proj"), "wo": ("time_mix", "o_proj")},
 }
 
 
@@ -28,13 +32,15 @@ def _targets_for(cfg: ModelConfig, kind: str) -> Dict[str, Tuple[str, ...]]:
     if kind not in TARGET_PATHS:
         raise NotImplementedError(
             f"LoRA on {kind!r} blocks is not ported yet (ROADMAP Queue 1 "
-            "items 13-14)")
+            "item 13)")
     paths = TARGET_PATHS[kind]
     return {t: paths[t] for t in cfg.lora.targets if t in paths}
 
 
-def _weight_shape(cfg: ModelConfig, target: str) -> Tuple[int, int]:
+def _weight_shape(cfg: ModelConfig, kind: str, target: str) -> Tuple[int, int]:
     d = cfg.d_model
+    if kind == "rwkv":
+        return (d, d)
     return {"wq": (d, cfg.q_dim), "wk": (d, cfg.kv_dim),
             "wv": (d, cfg.kv_dim), "wo": (cfg.q_dim, d)}[target]
 
@@ -63,8 +69,9 @@ def init_lora_params(cfg: ModelConfig, generator: torch.Generator, *,
     layers = []
     for pos in range(p):
         entry = {}
-        for t in _targets_for(cfg, cfg.block_kind(pos)):
-            din, dout = _weight_shape(cfg, t)
+        kind = cfg.block_kind(pos)
+        for t in _targets_for(cfg, kind):
+            din, dout = _weight_shape(cfg, kind, t)
             a = torch.randn((n_sp, din, r), generator=generator,
                             device=device, dtype=torch.float32)
             entry[t] = {"a": (0.02 * a).to(dtype),

@@ -5,8 +5,12 @@ inference through the paged engine, on the CUDA card by default.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
       --requests 8 --adapters 2 --max-new 16 --max-len 1024
 
+  # full-width, full-depth rwkv6-7b (wkv state per slot, no prefix cache)
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \\
+      --requests 8 --max-batch 8 --max-len 1024 --prefill-chunk 128
+
   # smoke size on the CPU (the kernels' plain versions)
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \\
       --smoke --device cpu
 
 The flags are the JAX launcher's (``repro.launch.serve``) for the paged

@@ -1,32 +1,64 @@
-"""Decode-time state: dense KV caches and the paged KV pool (PyTorch port of
-the full-attention part of ``repro.models.kvcache``).
+"""Decode-time state: dense KV caches, the paged KV pool and per-slot RWKV
+state (PyTorch port of ``repro.models.kvcache`` for full attention and
+RWKV).
 
 Cache layout mirrors the parameter scan layout: ``cache["layers"]`` is a
 tuple (one entry per scan-period position) of dicts whose leaves are
 stacked over scan periods. Dense KV is (n_sp, B, H_kv, S, D); the paged
-pool is (n_sp, pages, H_kv, page, D). The port updates both in place
-(the JAX package returns new arrays and donates the old buffers).
+pool is (n_sp, pages, H_kv, page, D); RWKV keeps per-row token-shift
+buffers (n_sp, B, d) and the wkv state (n_sp, B, H, N, N) f32. The port
+updates all of them in place (the JAX package returns new arrays and
+donates the old buffers).
 
-``SlotStateArena`` (per-slot ring / recurrent state) waits for ROADMAP
-Queue 1 items 11-14: it is a no-op on full-attention models.
+Sliding-window rings and Mamba state wait for ROADMAP Queue 1 items 11
+and 13.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.lora import scan_period
+from repro_torch.models import rwkv
+from repro_torch.models.attention import POOL_LEAVES
 
-_NOT_FULL = ("only full-attention layers are ported (ROADMAP Queue 1 items "
-             "11-14 port sliding, Mamba and RWKV state)")
+
+def _check_ported(cfg: ModelConfig, pos: int) -> None:
+    kind = cfg.block_kind(pos)
+    if kind == "rwkv" or (kind == "attn" and cfg.attn_kind(pos) == "full"):
+        return
+    raise NotImplementedError(
+        "sliding-window and Mamba state are not ported yet (ROADMAP Queue 1 "
+        "items 11 and 13)")
 
 
-def _check_full_attention(cfg: ModelConfig, pos: int) -> None:
-    if cfg.block_kind(pos) != "attn" or cfg.attn_kind(pos) != "full":
-        raise NotImplementedError(_NOT_FULL)
+def position_cache_spec(cfg: ModelConfig, pos: int, batch: int, max_len: int,
+                        kv_dtype=torch.float32):
+    """{leaf: (shape, dtype)} for one scan position's cache (no stacking)."""
+    _check_ported(cfg, pos)
+    if cfg.block_kind(pos) == "rwkv":
+        rc = cfg.rwkv
+        H = cfg.d_model // rc.head_dim
+        return {
+            "shift_t": ((batch, cfg.d_model), kv_dtype),
+            "shift_c": ((batch, cfg.d_model), kv_dtype),
+            "wkv": ((batch, H, rc.head_dim, rc.head_dim), torch.float32),
+        }
+    return {
+        "k": ((batch, cfg.n_kv_heads, max_len, cfg.hd), kv_dtype),
+        "v": ((batch, cfg.n_kv_heads, max_len, cfg.hd), kv_dtype),
+        "len": ((batch,), torch.int32),
+    }
+
+
+def zeros_from_spec(spec, lead, device):
+    """Zero tensors for a {leaf: (shape, dtype)} spec, stacked along
+    ``lead``."""
+    return {name: torch.zeros((*lead, *shape), device=device, dtype=dt)
+            for name, (shape, dt) in spec.items()}
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device,
@@ -34,16 +66,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device,
     """Zero-initialized dense cache tree for decode (len == 0)."""
     p = scan_period(cfg)
     n_sp = cfg.n_layers // p
-    layers = []
-    for pos in range(p):
-        _check_full_attention(cfg, pos)
-        shape = (n_sp, batch, cfg.n_kv_heads, max_len, cfg.hd)
-        layers.append({
-            "k": torch.zeros(shape, device=device, dtype=kv_dtype),
-            "v": torch.zeros(shape, device=device, dtype=kv_dtype),
-            "len": torch.zeros((n_sp, batch), device=device,
-                               dtype=torch.int32)})
-    return {"layers": tuple(layers)}
+    return {"layers": tuple(
+        zeros_from_spec(position_cache_spec(cfg, pos, batch, max_len,
+                                            kv_dtype), (n_sp,), device)
+        for pos in range(p))}
 
 
 # ---------------------------------------------------------------------------
@@ -67,28 +93,73 @@ class PagedLayout:
         return -(-n_tokens // self.page_size)
 
 
+def position_paged_spec(cfg: ModelConfig, pos: int, layout: PagedLayout,
+                        max_len: int, kv_dtype=torch.float32):
+    """{leaf: (shape, dtype)} for one scan position under the paged layout:
+    full attention reads the shared page pool, recurrent state keeps the
+    dense per-slot layout at batch = max_slots."""
+    if cfg.block_kind(pos) == "attn":
+        _check_ported(cfg, pos)
+        shape = (layout.num_pages, cfg.n_kv_heads, layout.page_size, cfg.hd)
+        return {"kp": (shape, kv_dtype), "vp": (shape, kv_dtype)}
+    return position_cache_spec(cfg, pos, layout.max_slots, max_len, kv_dtype)
+
+
 def init_paged_cache(cfg: ModelConfig, layout: PagedLayout, max_len: int, *,
                      device, kv_dtype=torch.float32):
     """Zero-initialized paged cache tree (leaves stacked over scan periods)."""
     p = scan_period(cfg)
     n_sp = cfg.n_layers // p
-    layers = []
-    for pos in range(p):
-        _check_full_attention(cfg, pos)
-        shape = (n_sp, layout.num_pages, cfg.n_kv_heads, layout.page_size,
-                 cfg.hd)
-        layers.append({
-            "kp": torch.zeros(shape, device=device, dtype=kv_dtype),
-            "vp": torch.zeros(shape, device=device, dtype=kv_dtype)})
-    return {"layers": tuple(layers)}
+    return {"layers": tuple(
+        zeros_from_spec(position_paged_spec(cfg, pos, layout, max_len,
+                                            kv_dtype), (n_sp,), device)
+        for pos in range(p))}
 
 
 def reset_slots(cache, slots: Sequence[int]):
-    """Zero the per-slot rows for reused slots. Page-pool leaves need no
-    reset (a recycled page is only readable below the owning request's
-    length, and every position below it is rewritten before it becomes
-    visible), and full-attention models keep no other per-slot state."""
+    """Zero the per-slot rows (recurrent state) of reused slots, in place.
+    Page-pool leaves need no reset: a recycled page is only readable below
+    the owning request's length, and every position below it is rewritten
+    before it becomes visible."""
+    if not slots:
+        return cache
+    for entry in cache["layers"]:
+        for name, leaf in entry.items():
+            if name not in POOL_LEAVES:
+                leaf[:, list(slots)] = 0
     return cache
+
+
+class SlotStateArena:
+    """Reset of the per-slot decode state of recycled slots.
+
+    Under the paged layout full-attention KV is pool-addressed; everything
+    else is per slot: here the RWKV token-shift and wkv state
+    (``rwkv.SLOT_STATE_LEAVES``), cumulative over the whole stream. A slot
+    that a new (or preempted and readmitted) request takes must start from
+    zero state, so the engine resets it at admission. ``tracked`` is False
+    for full-attention-only models, and ``reset`` is then a no-op. The
+    JAX package's ``snapshot``/``restore`` serve speculative decoding and
+    wait for it (ROADMAP Queue 1 item 10)."""
+
+    def __init__(self, cfg: ModelConfig):
+        per_pos: List[Tuple[str, ...]] = []
+        for pos in range(scan_period(cfg)):
+            _check_ported(cfg, pos)
+            per_pos.append(tuple(rwkv.SLOT_STATE_LEAVES)
+                           if cfg.block_kind(pos) == "rwkv" else ())
+        self.leaves: Tuple[Tuple[str, ...], ...] = tuple(per_pos)
+        self.tracked: bool = any(self.leaves)
+
+    def reset(self, cache, slots: Sequence[int]):
+        """Zero the tracked rows of ``slots`` in every layer, in place."""
+        if not (self.tracked and slots):
+            return cache
+        idx = list(slots)
+        for entry, names in zip(cache["layers"], self.leaves):
+            for n in names:
+                entry[n][:, idx] = 0
+        return cache
 
 
 class PageAllocator:
@@ -163,7 +234,7 @@ def fork_pages(cache, src: torch.Tensor, dst: torch.Tensor):
     before any write, so a page may be a source and another pair's
     destination within one call."""
     for entry in cache["layers"]:
-        for name in ("kp", "vp"):
+        for name in POOL_LEAVES:
             if name in entry:
                 leaf = entry[name]
                 leaf[:, dst] = leaf[:, src]

@@ -1,5 +1,5 @@
-"""Shared model layers: norms, RoPE, MLPs, embeddings (PyTorch port of
-``repro.models.layers``).
+"""Shared model layers: norms (RMSNorm, LayerNorm), RoPE, MLPs, embeddings
+(PyTorch port of ``repro.models.layers``).
 
 All frozen-weight matmuls route through ``hetero.static_matmul`` (the
 crossbar path). Weights take the JAX package's layout: a linear map is
@@ -31,11 +31,11 @@ def dense_init(generator: torch.Generator, shape, *, device, dtype,
 
 
 def init_norm(cfg: ModelConfig, *, device, dtype, lead=()) -> Dict[str, torch.Tensor]:
-    if cfg.norm != "rmsnorm":
-        raise NotImplementedError("layernorm is not ported yet (ROADMAP "
-                                  "Queue 1 item 19)")
-    return {"scale": torch.ones((*lead, cfg.d_model), device=device,
-                                dtype=dtype)}
+    shape = (*lead, cfg.d_model)
+    p = {"scale": torch.ones(shape, device=device, dtype=dtype)}
+    if cfg.norm == "layernorm":
+        p["bias"] = torch.zeros(shape, device=device, dtype=dtype)
+    return p
 
 
 # ---------------------------------------------------------------------------
@@ -51,11 +51,21 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     return out.to(x.dtype)
 
 
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+    hetero.record_nonlinear(x.numel())
+    out = ((xf - mu) * torch.rsqrt(var + eps) * scale.to(torch.float32)
+           + bias.to(torch.float32))
+    return out.to(x.dtype)
+
+
 def apply_norm(cfg: ModelConfig, p: Dict[str, torch.Tensor],
                x: torch.Tensor) -> torch.Tensor:
-    if cfg.norm != "rmsnorm":
-        raise NotImplementedError("layernorm is not ported yet (ROADMAP "
-                                  "Queue 1 item 3)")
+    if cfg.norm == "layernorm":
+        return layer_norm(x, p["scale"], p["bias"], cfg.norm_eps)
     return rms_norm(x, p["scale"], cfg.norm_eps)
 
 

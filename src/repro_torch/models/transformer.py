@@ -1,11 +1,11 @@
 """Config-driven decoder: embeds -> loop over period-blocks -> norm -> head
-(PyTorch port of ``repro.models.transformer`` for dense full-attention
+(PyTorch port of ``repro.models.transformer`` for full-attention and RWKV
 models).
 
 The JAX package scans over stacked scan periods with ``lax.scan``; the port
 runs the same layout as a Python loop, slicing one period's weights, LoRA
-leaves and cache views out of the stacked tensors. MoE, Mamba and RWKV
-blocks wait for ROADMAP Queue 1 items 12-14.
+leaves and cache views out of the stacked tensors. MoE and Mamba blocks
+wait for ROADMAP Queue 1 items 12-13.
 """
 from __future__ import annotations
 
@@ -17,8 +17,9 @@ import torch
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.lora import layer_slice, scan_period
-from repro_torch.models import attention, layers
-from repro_torch.models.kvcache import cache_len
+from repro_torch.models import attention, layers, rwkv
+from repro_torch.models.kvcache import (cache_len, position_cache_spec,
+                                        zeros_from_spec)
 
 
 @dataclass(frozen=True)
@@ -26,18 +27,21 @@ class ExecConfig:
     """Runtime execution knobs (orthogonal to the model config).
 
     ``attn_impl``: "auto" — the flash kernels (CUDA) or their plain
-    versions (CPU); "ref" — ``ref_attention`` over materialized scores."""
+    versions (CPU); "ref" — ``ref_attention`` over materialized scores.
+    ``rwkv_impl``: "auto" — the wkv kernel (CUDA) or its plain version
+    (CPU); "ref" — the plain recurrence anywhere."""
 
     attn_impl: str = "auto"
     act_dtype: Any = torch.float32
+    rwkv_impl: str = "auto"
 
 
 def _check_supported(cfg: ModelConfig) -> None:
     for pos in range(scan_period(cfg)):
-        if cfg.block_kind(pos) != "attn":
+        if cfg.block_kind(pos) not in ("attn", "rwkv"):
             raise NotImplementedError(
                 f"{cfg.block_kind(pos)!r} blocks are not ported yet (ROADMAP "
-                "Queue 1 items 13-14)")
+                "Queue 1 item 13)")
         if cfg.is_moe_layer(pos):
             raise NotImplementedError("MoE layers are not ported yet "
                                       "(ROADMAP Queue 1 item 12)")
@@ -63,7 +67,11 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *,
     n_sp = cfg.n_layers // p
     kw = dict(device=device, dtype=dtype)
     layer_trees = []
-    for _pos in range(p):
+    for pos in range(p):
+        if cfg.block_kind(pos) == "rwkv":
+            layer_trees.append(rwkv.init_rwkv(cfg, generator, lead=(n_sp,),
+                                              **kw))
+            continue
         layer_trees.append({
             "norm": layers.init_norm(cfg, lead=(n_sp,), **kw),
             "norm2": layers.init_norm(cfg, lead=(n_sp,), **kw),
@@ -85,6 +93,11 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *,
 def _apply_position(cfg: ModelConfig, ec: ExecConfig, pos: int,
                     x: torch.Tensor, pparams, plora, pcache, positions, mode,
                     prefill_cache_len, adapter_idx, paged, chunk_lens):
+    if cfg.block_kind(pos) == "rwkv":
+        x, newc = rwkv.apply_rwkv_block(
+            cfg, pparams, x, cache=pcache, lora=plora,
+            adapter_idx=adapter_idx, impl=ec.rwkv_impl, chunk_lens=chunk_lens)
+        return x, (None if mode == "train" else newc)
     h = layers.apply_norm(cfg, pparams["norm"], x)
     delta, newc = attention.apply_attention_block(
         cfg, pparams["attn"], h, positions, kind=cfg.attn_kind(pos),
@@ -113,9 +126,11 @@ def forward(cfg: ModelConfig, params: Dict, inputs: Dict[str, torch.Tensor],
     inputs: {"tokens": (B,T) int}. positions: (B,T) global token positions
     (default: arange, or the dense cache's length in decode). mode:
     "train" (no cache), "prefill" (emit a dense cache of
-    ``prefill_cache_len``), "decode" (append to ``cache`` in place; with
-    ``paged`` the cache is the page pool, see
-    ``attention.apply_attention_block``). ``last_idx`` (B,) keeps one row
+    ``prefill_cache_len``; RWKV state starts from zero), "decode" (update
+    ``cache`` in place and return it: K/V are appended, lengths advance and
+    RWKV state is overwritten; with ``paged`` the attention cache is the
+    page pool, see ``attention.apply_attention_block``, and RWKV state is
+    per slot row). ``last_idx`` (B,) keeps one row
     per sequence before the final norm and the unembed, so logits are
     (B,1,V): a serving step samples only that row. ``aux`` is empty: it
     carries MoE statistics in the JAX package, and MoE is not ported yet."""
@@ -143,8 +158,13 @@ def forward(cfg: ModelConfig, params: Dict, inputs: Dict[str, torch.Tensor],
             pparams = layer_slice(params["layers"][pos], sp)
             plora = (layer_slice(lora["layers"][pos], sp)
                      if lora is not None else None)
-            pcache = (layer_slice(cache["layers"][pos], sp)
-                      if cache is not None and mode == "decode" else None)
+            pcache = None
+            if mode == "decode" and cache is not None:
+                pcache = layer_slice(cache["layers"][pos], sp)
+            elif mode == "prefill" and cfg.block_kind(pos) != "attn":
+                # recurrent state must come out of prefill: start at zero
+                pcache = zeros_from_spec(
+                    position_cache_spec(cfg, pos, B, 1, ec.act_dtype), (), dev)
             x, newc = _apply_position(cfg, ec, pos, x, pparams, plora, pcache,
                                       positions, mode, prefill_cache_len,
                                       adapter_idx, paged, chunk_lens)
@@ -156,14 +176,17 @@ def forward(cfg: ModelConfig, params: Dict, inputs: Dict[str, torch.Tensor],
     logits = layers.unembed(cfg, params["embed"], x)
 
     new_cache = None
-    if mode == "decode" and paged is not None:
-        new_cache = cache                   # pool updated in place
-    elif mode == "decode":
-        # k/v were written in place into the caller's stacked tensors
-        new_cache = {"layers": tuple(
-            {"k": old["k"], "v": old["v"],
-             "len": torch.stack([c["len"] for c in per_sp])}
-            for old, per_sp in zip(cache["layers"], new_layers))}
+    if mode == "decode":
+        # K/V (dense or pool) were written in place into the caller's
+        # stacked tensors and come back as views of them; every other leaf
+        # (lengths, RWKV state) is a new tensor, copied into its layer here
+        for entry, per_sp in zip(cache["layers"], new_layers):
+            for sp, newc in enumerate(per_sp):
+                for name, leaf in newc.items():
+                    dst = entry[name][sp]
+                    if leaf.data_ptr() != dst.data_ptr():
+                        dst.copy_(leaf)
+        new_cache = cache
     elif mode == "prefill":
         new_cache = {"layers": tuple(
             {name: torch.stack([c[name] for c in per_sp])

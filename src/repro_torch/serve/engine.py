@@ -8,13 +8,18 @@ and every request carries an adapter id; one mixed step serves a batch of
 prefill chunks and decode rows of different tasks.
 
 Full-attention KV lives in a shared page pool addressed by per-request
-block tables; prefill runs in chunks padded to a small set of bucket
-widths; prefill chunks and decode rows run through ONE mixed step per tick.
-Admission and eviction are decided by page occupancy
-(``serve.scheduler``); the pool is updated in place (the JAX package
-donates it to its jitted step). A radix prefix index (``serve.prefix``)
-maps new requests onto already-resident pages; shared pages are forked
-copy-on-write before their first divergent write.
+block tables; RWKV state lives in per-slot rows. Prefill runs in chunks
+padded to a small set of bucket widths; prefill chunks and decode rows run
+through ONE mixed step per tick. Admission and eviction are decided by
+page occupancy (``serve.scheduler``). ``forward`` updates the pool and the
+per-slot state in place, so they carry across ticks in ``self.cache`` (the
+JAX package donates them to its jitted step and takes the new ones back).
+A slot is zeroed through ``SlotStateArena.reset`` whenever a request is
+admitted to it. A radix prefix index (``serve.prefix``) maps new requests
+onto already-resident pages; shared pages are forked copy-on-write before
+their first divergent write. It serves full-attention models only: RWKV
+state is relative to the whole stream and cannot be grafted across
+requests.
 
 The step runs eagerly, in place of ``jax.jit``; capturing one CUDA graph
 per (chunk, table) bucket is a later PR. Speculative decoding, tensor
@@ -115,6 +120,7 @@ class PagedServeEngine:
                          if adapters else None)
         self.cache = kvcache.init_paged_cache(cfg, self.layout, max_len,
                                               device=self.device)
+        self.arena = kvcache.SlotStateArena(cfg)
         self.sched = PageScheduler(self.layout, max_len)
         full_attn_only = all(
             cfg.block_kind(pos) == "attn" and cfg.attn_kind(pos) == "full"
@@ -147,6 +153,7 @@ class PagedServeEngine:
         paged = {"block_table": block_table, "lens": lens,
                  "chunk_lens": clens, "page_size": self.layout.page_size}
         last = torch.clamp(clens.long() - 1, 0, C - 1)
+        # the pool and the per-slot state of self.cache are updated in place
         logits, _, _ = tfm.forward(
             self.cfg, self.params, {"tokens": tokens}, lora=self.adapters,
             cache=self.cache, positions=positions, mode="decode",
@@ -188,6 +195,7 @@ class PagedServeEngine:
         return False
 
     def _admit(self) -> None:
+        fresh = []
         while self.queue:
             req = self.queue[0]
             shared = None
@@ -211,9 +219,13 @@ class PagedServeEngine:
                         f"{self.layout.page_size})")
                 break
             self.queue.pop(0)
+            fresh.append(slot)
             if shared:
                 self.prefix_hit_tokens += shared[0]
                 self.prefix_hits += 1
+        # a recycled slot carries the last request's recurrent state: zero
+        # it so nothing leaks into the fresh (or readmitted) request
+        self.arena.reset(self.cache, fresh)
 
     def _run_forks(self) -> None:
         """Execute queued copy-on-write page copies on the device before

@@ -9,15 +9,23 @@ that has only PyTorch:
 Tolerances: crossbar 1e-4 relative (max-scaled absolute), as for the
 Pallas kernel — the plain version dequantizes before one product, the
 kernel scales each 128-deep f32 partial sum; flash 2e-5, f32 softmax
-attention summed in another order.
+attention summed in another order; wkv 1e-5 (rtol and atol), as for the
+Pallas kernel: the same f32 recurrence, each step's sums in another order.
 """
+import numpy as np
 import pytest
 import torch
 
 from repro_torch import kernels
+from repro_torch.configs import get_config, reduce_config
+from repro_torch.configs.base import QuantConfig
+from repro_torch.core import lora as lora_lib
 from repro_torch.core import quant
 from repro_torch.kernels.crossbar_matmul import ops as cb_ops
 from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
+from repro_torch.models import transformer as tfm
+from repro_torch.serve.api import Request, make_engine
 
 torch.set_num_threads(2)
 torch.backends.cuda.matmul.allow_tf32 = False   # f32 reference products
@@ -110,3 +118,120 @@ def test_paged_kernel_matches_plain(seed):
     o_plain = fa_ops.paged_flash_attention_plain(q, kp, vp, pos, bt, lens,
                                                  clens, page_size=page)
     torch.testing.assert_close(o, o_plain, rtol=2e-5, atol=2e-5)
+
+
+# (B, T, H, N, chunk_lens): decode, a prefill chunk, ragged rows with an
+# empty one, and the other instantiated head dims
+WKV_CASES = [(8, 1, 64, 64, None), (2, 128, 8, 64, None),
+             (4, 40, 4, 64, (40, 17, 0, 1)), (2, 70, 4, 16, None),
+             (1, 33, 3, 8, (20,)), (2, 5, 2, 32, None)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,T,H,N,clens", WKV_CASES)
+def test_wkv_kernel_matches_plain(B, T, H, N, clens):
+    dev = _cuda_or_skip()
+    g = torch.Generator(device=dev).manual_seed(B * T + H * N)
+    r, k, v = (torch.randn(B, T, H, N, generator=g, device=dev)
+               for _ in range(3))
+    w = torch.sigmoid(torch.randn(B, T, H, N, generator=g, device=dev)) \
+        * 0.5 + 0.45
+    u = torch.randn(H, N, generator=g, device=dev) * 0.3
+    s0 = torch.randn(B, H, N, N, generator=g, device=dev) * 0.1
+    if clens is not None:           # masked as the model masks ragged rows
+        valid = (torch.arange(T, device=dev)[None] < torch.tensor(
+            clens, device=dev)[:, None])[..., None, None]
+        k = torch.where(valid, k, 0.0)
+        w = torch.where(valid, w, 1.0)
+    before = kernels.LAUNCHES["rwkv6_wkv"]
+    y, s = wkv_ops.rwkv6_wkv(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["rwkv6_wkv"] == before + 1
+    y_plain, s_plain = wkv_ops.rwkv6_wkv_plain(r, k, v, w, u, s0)
+    torch.testing.assert_close(y, y_plain, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(s, s_plain, rtol=1e-5, atol=1e-5)
+    if clens is not None and 0 in clens:
+        i = clens.index(0)
+        assert torch.equal(s[i], s0[i])     # an empty chunk keeps its state
+
+
+@pytest.mark.gpu
+def test_wkv_kernel_reads_strided_inputs_and_refuses_others():
+    """r/k/v/w as views of one (B, T, 4, H, N) tensor: no copies."""
+    dev = _cuda_or_skip()
+    B, T, H, N = 2, 9, 4, 32
+    g = torch.Generator(device=dev).manual_seed(3)
+    rkvw = torch.randn(B, T, 4, H, N, generator=g, device=dev) * 0.5
+    rkvw[:, :, 3] = torch.sigmoid(rkvw[:, :, 3])
+    r, k, v, w = rkvw.unbind(dim=2)
+    assert not r.is_contiguous()
+    u = torch.randn(H, N, generator=g, device=dev)
+    s0 = torch.randn(B, H, N, N, generator=g, device=dev)
+    y, s = wkv_ops.rwkv6_wkv(r, k, v, w, u, s0)
+    y_plain, s_plain = wkv_ops.rwkv6_wkv_plain(r, k, v, w, u, s0)
+    torch.testing.assert_close(y, y_plain, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(s, s_plain, rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError, match="head_dim"):
+        wkv_ops.rwkv6_wkv(*(torch.zeros(1, 2, 1, 24, device=dev),) * 4,
+                          torch.zeros(1, 24, device=dev),
+                          torch.zeros(1, 1, 24, 24, device=dev))
+    with pytest.raises(TypeError):
+        wkv_ops.rwkv6_wkv(r.double(), k.double(), v.double(), w.double(),
+                          u, s0)
+
+
+@pytest.mark.gpu
+def test_smoke_rwkv_engine_launches_the_kernels_and_matches_the_cpu():
+    """Smoke-size rwkv6-7b (M8F8, two adapters) served on the card launches
+    the wkv kernel once per layer per tick and the crossbar kernel seven
+    times per layer per tick, and samples the same greedy tokens as the
+    same engine on the CPU (the plain versions) on the same weights."""
+    dev = _cuda_or_skip()
+    cfg = reduce_config(get_config("rwkv6-7b"))
+    g = torch.Generator().manual_seed(0)
+    params = quant.quantize_params(tfm.init_params(cfg, g, device="cpu"),
+                                   QuantConfig(8, 8), min_size=1)
+    ads = []
+    for _ in range(2):
+        ad = lora_lib.init_lora_params(cfg, g, device="cpu")
+        for entry in ad["layers"]:
+            for ab in entry.values():
+                ab["b"].normal_(0.0, 0.02, generator=g)
+        ads.append(ad)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (5, 19, 11)]
+
+    def to(tree, device):
+        if isinstance(tree, dict):
+            return {k: to(v, device) for k, v in tree.items()}
+        if isinstance(tree, (tuple, list)):
+            return type(tree)(to(v, device) for v in tree)
+        if quant.is_quantized(tree):
+            return quant.QuantizedTensor(tree.codes.to(device),
+                                         tree.scales.to(device), tree.bits,
+                                         tree.block, tree.orig_shape)
+        return tree.to(device)
+
+    runs = {}
+    for device in ("cpu", dev):
+        eng = make_engine(cfg, to(params, device), [to(a, device) for a in ads],
+                          device=device, max_slots=2, max_len=32,
+                          page_size=8, prefill_chunk=8, record_logits=True)
+        for i, p in enumerate(prompts):
+            eng.submit(Request(uid=i, prompt=p, max_new_tokens=4,
+                               adapter_id=i % 2))
+        kernels.reset_launches()
+        done = eng.drain()
+        torch.cuda.synchronize()
+        runs[str(device)] = (done, dict(kernels.LAUNCHES),
+                             eng.stats().ticks, eng)
+    (cpu_done, cpu_l, _, cpu_eng), (done, launches, ticks, eng) = runs.values()
+    assert all(n == 0 for n in cpu_l.values())
+    assert launches["rwkv6_wkv"] == cfg.n_layers * ticks
+    assert launches["crossbar_matmul"] == 7 * cfg.n_layers * ticks
+    for uid in cpu_done:
+        assert done[uid].tokens == cpu_done[uid].tokens
+        torch.testing.assert_close(
+            torch.stack(eng.sampled_logits[uid]).cpu(),
+            torch.stack(cpu_eng.sampled_logits[uid]), rtol=1e-4, atol=1e-4)

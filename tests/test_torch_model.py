@@ -203,7 +203,7 @@ def test_config_copy_matches_jax_field_for_field(setup):
 
 def test_unported_architectures_raise_not_implemented():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("rwkv6-7b")
+        get_config("jamba-1.5-large-398b")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_config("gemma2-9b")
     with pytest.raises(KeyError):
