@@ -14,6 +14,14 @@ Imports nothing of JAX or of the JAX package. Phases, each printing JSON:
                (``library_ms``, never used by the port), and the bound:
                the larger of bytes moved / 3.35 TB/s and flops / 67 TFLOP/s
                (f32 outside the tensor cores; H100 SXM data sheet).
+               Crossbar cases also give the bound of their own
+               arithmetic (``bound_pieces_ms``: three bf16 products on
+               the tensor cores, 989 TFLOP/s), the kernel's device time from
+               a profiler trace (``device_ms``: cold, over copies of the
+               weight that exceed the L2, for M <= 128; warm beside it),
+               the yardstick's device time (``library_device_ms``), the
+               host's time to issue one call, and both crossbar kernels
+               forced at M = 8 .. 1024 on one shape (the crossover).
   4. serve   — for each model the port serves, full width and full depth
                (random weights from a seed), on an M8F8 crossbar base with
                two rank-32 adapters, served by the port's paged engine: 8
@@ -61,6 +69,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, data sheet
 F32_FLOPS_PER_S = 67e12        # H100 SXM f32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12      # H100 SXM bf16 tensor cores, dense
 
 CB_TOL = 1e-4                  # relative to max|y|: f32 sums, other order
 FA_TOL = 2e-5                  # f32 softmax attention, other order
@@ -116,18 +125,26 @@ def device_ms(fn, reps: int = 10) -> float:
     a torch.profiler trace of ``reps`` calls (CUDA activity only). Unlike
     ``timed``, this leaves out the host's time to issue the call, which
     dominates a small kernel's wall time on the stream."""
+    return device_ms_by_name([fn] * reps, None)
+
+
+def device_ms_by_name(fns, names) -> float:
+    """Mean device milliseconds per call of ``fns`` (each called once, in
+    order, under torch.profiler with CUDA activity only), counting only
+    the kernels whose name holds one of ``names`` (all kernels if None)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    fns[0]()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
+        for fn in fns:
             fn()
         torch.cuda.synchronize()
     us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA)
-    return us / 1e3 / reps
+             if e.device_type == DeviceType.CUDA
+             and (names is None or any(n in e.name for n in names)))
+    return us / 1e3 / len(fns)
 
 
 def bound_ms(nbytes: float, flops: float) -> float:
@@ -142,41 +159,109 @@ def bound_ms(nbytes: float, flops: float) -> float:
 # (K, N) of each model's crossbar-quantized layer matrices
 LLAMA_KN = ((2048, 2048), (2048, 512), (2048, 8192), (8192, 2048))
 RWKV_KN = ((4096, 4096), (4096, 14336), (14336, 4096))
+# the crossbar kernels' own names in a profiler trace
+CB_KERNELS = ("crossbar_decode_kernel<", "crossbar_prefill_kernel<")
+L2_BYTES = 50e6                # H100 SXM L2; cold timings rotate past it
+COLD_BYTES = 100e6             # codes touched between two uses of a weight
+DECODE_M = 128                 # cases up to this M are also timed cold
 
 
-def crossbar_cases(dev, g, model, shapes, bits_list):
+def cold_copies(qt):
+    """Distinct copies of ``qt`` with at least COLD_BYTES of codes, so that
+    each call in a rotation finds its weight outside the L2, as every
+    layer's weight is in the engine."""
     from repro_torch.core import quant
+    n = max(2, int(np.ceil(COLD_BYTES / qt.codes.numel())))
+    return [qt] + [quant.QuantizedTensor(qt.codes.clone(), qt.scales.clone(),
+                                         qt.bits, qt.block, qt.orig_shape)
+                   for _ in range(n - 1)]
+
+
+def host_us(fn, reps: int = 200) -> float:
+    """Host microseconds to issue one ``fn()`` (no synchronisation inside
+    the loop; the device keeps up with these small kernels)."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    dt = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return 1e6 * dt / reps
+
+
+def crossbar_case(dev, g, model, bits, K, N, M, qt, w_deq, kernel="auto"):
     from repro_torch.kernels.crossbar_matmul import ops as cb_ops
+
+    x = torch.randn(M, K, generator=g, device=dev)
+    y = cb_ops.crossbar_matmul(x, qt, kernel=kernel)
+    y_plain = cb_ops.crossbar_matmul_plain(x, qt)
+    torch.cuda.synchronize()
+    err = float((y - y_plain).abs().max())
+    tol = CB_TOL * float(y_plain.abs().max())
+    nbytes = (x.numel() * 4 + qt.codes.numel() + qt.scales.numel() * 4
+              + M * N * 4)
+    call = lambda: cb_ops.crossbar_matmul(x, qt, kernel=kernel)  # noqa: E731
+    case = {
+        "name": "crossbar_matmul", "model": model, "bits": bits,
+        "kernel": kernel, "shape": {"M": M, "K": K, "N": N},
+        "max_abs_err": err, "tol": tol,
+        "ms": timed(call, 20),
+        "device_ms_warm": device_ms_by_name([call] * 10, CB_KERNELS),
+        "host_us": host_us(call),
+        "plain_ms": timed(lambda: cb_ops.crossbar_matmul_plain(x, qt), 5),
+        "library_ms": timed(lambda: torch.matmul(x, w_deq), 20),
+        "library_device_ms": device_ms(lambda: torch.matmul(x, w_deq)),
+        "bound_ms": bound_ms(nbytes, 2.0 * M * K * N),
+        # the same bound for the kernels' own arithmetic: three bf16
+        # pieces of x, each against the codes on the tensor cores
+        "bound_pieces_ms": 1e3 * max(nbytes / HBM_BYTES_PER_S,
+                                     3 * 2.0 * M * K * N / BF16_FLOPS_PER_S),
+        "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
+                     > 2.0 * M * K * N / F32_FLOPS_PER_S else "operations"),
+    }
+    if M <= DECODE_M:
+        # each call on another copy of the weight: codes come from HBM
+        copies = cold_copies(qt)
+        case["cold_copies"] = len(copies)
+        case["device_ms"] = device_ms_by_name(
+            [lambda q=q: cb_ops.crossbar_matmul(x, q, kernel=kernel)
+             for q in copies * max(1, 20 // len(copies))], CB_KERNELS)
+        del copies
+    else:
+        case["device_ms"] = case["device_ms_warm"]
+    return case
+
+
+def crossbar_cases(dev, g, model, shapes, bits_list, extra_kn=None):
+    """Each shape at M = 8 and 1024; int8 ``extra_kn`` also at M = 32 and
+    128, between decode and prefill."""
+    from repro_torch.core import quant
 
     for bits in bits_list:
         for K, N in shapes:
             w = torch.randn(K, N, generator=g, device=dev) * (K ** -0.5)
             qt = quant.quantize(w, bits)
             w_deq = quant.dequantize(qt)
-            for M in (8, 1024):
-                x = torch.randn(M, K, generator=g, device=dev)
-                y = cb_ops.crossbar_matmul(x, qt)
-                y_plain = cb_ops.crossbar_matmul_plain(x, qt)
-                torch.cuda.synchronize()
-                err = float((y - y_plain).abs().max())
-                tol = CB_TOL * float(y_plain.abs().max())
-                nbytes = (x.numel() * 4 + qt.codes.numel()
-                          + qt.scales.numel() * 4 + M * N * 4)
-                yield {
-                    "name": "crossbar_matmul", "model": model, "bits": bits,
-                    "shape": {"M": M, "K": K, "N": N},
-                    "max_abs_err": err, "tol": tol,
-                    "ms": timed(lambda: cb_ops.crossbar_matmul(x, qt), 20),
-                    "device_ms": device_ms(
-                        lambda: cb_ops.crossbar_matmul(x, qt)),
-                    "plain_ms": timed(
-                        lambda: cb_ops.crossbar_matmul_plain(x, qt), 5),
-                    "library_ms": timed(lambda: torch.matmul(x, w_deq), 20),
-                    "bound_ms": bound_ms(nbytes, 2.0 * M * K * N),
-                    "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
-                                 > 2.0 * M * K * N / F32_FLOPS_PER_S
-                                 else "operations"),
-                }
+            ms = ((8, 32, 128, 1024) if bits == 8 and (K, N) == extra_kn
+                  else (8, 1024))
+            for M in ms:
+                yield crossbar_case(dev, g, model, bits, K, N, M, qt, w_deq)
+
+
+def crossover_cases(dev, g, K=4096, N=4096,
+                    ms=(8, 16, 32, 64, 128, 256, 1024)):
+    """Both crossbar kernels forced at each M on one rwkv6-7b shape: where
+    the split-K decode kernel stops beating the wgmma prefill kernel."""
+    from repro_torch.core import quant
+
+    w = torch.randn(K, N, generator=g, device=dev) * (K ** -0.5)
+    qt = quant.quantize(w, 8)
+    w_deq = quant.dequantize(qt)
+    for M in ms:
+        for kernel in ("decode", "prefill"):
+            yield crossbar_case(dev, g, "crossover", 8, K, N, M, qt, w_deq,
+                                kernel)
 
 
 def _sdpa_yardstick(q, k, v, mask):
@@ -346,8 +431,11 @@ def wkv_cases(dev, g):
 def kernel_phase(dev):
     g = torch.Generator(device=dev).manual_seed(0)
     cases = []
-    for gen in (crossbar_cases(dev, g, "llama3.2-1b", LLAMA_KN, (8, 4)),
-                crossbar_cases(dev, g, "rwkv6-7b", RWKV_KN, (8,)),
+    for gen in (crossbar_cases(dev, g, "llama3.2-1b", LLAMA_KN, (8, 4),
+                               extra_kn=(8192, 2048)),
+                crossbar_cases(dev, g, "rwkv6-7b", RWKV_KN, (8,),
+                               extra_kn=(14336, 4096)),
+                crossover_cases(dev, g),
                 flash_cases(dev, g), paged_case(dev, g), wkv_cases(dev, g)):
         for case in gen:
             case["ok"] = case["max_abs_err"] <= case["tol"]
@@ -657,8 +745,10 @@ def profile_phase(eng, cfg, dev, *, n_requests=8, prompt_len=256,
     top = sorted(by_name.items(), key=lambda kv: kv[1], reverse=True)[:10]
     # the port's own kernels (csrc/*.cu), whatever their share of the tick
     own = {k: us / 1e3 / window for k, us in by_name.items()
-           if any(f"(anonymous namespace)::{n}<" in k
-                  for n in ("crossbar_kernel", "flash_kernel", "wkv_kernel"))}
+           if any(f"(anonymous namespace)::{n}" in k
+                  for n in CB_KERNELS + ("flash_kernel<", "wkv_kernel<"))}
+    crossbar_ms = sum(v for k, v in own.items()
+                      if any(n in k for n in CB_KERNELS))
     emit({"phase": "profile", "ticks": window, "slots": n_requests,
           "untraced_wall_ms_per_tick": untraced_ms / window,
           "traced_wall_ms_per_tick": wall_ms / window,
@@ -667,7 +757,10 @@ def profile_phase(eng, cfg, dev, *, n_requests=8, prompt_len=256,
           "launches_per_tick": {k: v / window for k, v in counts.items()},
           "top_device_ms_per_tick": {k: us / 1e3 / window
                                      for k, us in top},
-          "port_kernels_device_ms_per_tick": own})
+          "port_kernels_device_ms_per_tick": own,
+          "crossbar_device_ms_per_tick": crossbar_ms,
+          "crossbar_share_of_device": (crossbar_ms * window / device_ms
+                                       if kern else None)})
     eng.drain()
 
 
@@ -747,7 +840,8 @@ def main() -> int:
             "device_ms": c["device_ms"],
             "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
             "bound_by": c["bound_by"], "library_ms": c["library_ms"],
-            **({"library": c["library"]} if "library" in c else {}),
+            **{k: c[k] for k in ("library", "library_device_ms")
+               if k in c},
             "at": c["shape"]})
     emit({"kernels": summary})
     print(smi, flush=True)

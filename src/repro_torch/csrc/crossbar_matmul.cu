@@ -1,187 +1,858 @@
 // Crossbar-wise quantized matmul with post-accumulation dequantization
-// (Atleus SS IV.D, Fig. 5) for Hopper (sm_90a), plain f32 SIMT.
+// (Atleus SS IV.D, Fig. 5) for Hopper (sm_90a), on the tensor cores.
 //
 // Replaces: the Pallas TPU kernel `crossbar_matmul` in
 //   src/repro/kernels/crossbar_matmul/kernel.py (bodies _kernel_int8 and
-//   _kernel_int4), i.e. out = x @ dequant(codes, scales) where each 128-deep
-//   K tile's f32 partial sum is multiplied by that crossbar's one scale and
-//   then added to the running sum.
+//   _kernel_int4), i.e. out = x (M,K) f32 @ dequant(codes, scales) (K,N)
+//   where each 128-deep K tile's f32 partial sum is multiplied by that
+//   128x128 crossbar's one scale and then added to the running sum.
 //
-// What bounds it on H100: at decode M is only max_slots (8), so the work is
-//   2*M*K*N flops against K*N code bytes -- about 16 flops per byte, far
-//   below the ~20 flops/byte where f32 SIMT (67 TFLOP/s over 3.35 TB/s)
-//   stops being memory bound: the kernel is bound by reading the codes
-//   (16.8 MB for w1/w3 at K=2048, N=8192: ~5 us). At chunked prefill
-//   (M = slots x chunk = 1024) it is bound by f32 arithmetic.
+// Two kernels; the entry point picks one (picks_decode) by how many bytes
+// of codes the decode kernel would read: one pass over the codes per 8
+// rows of x, against the prefill kernel's larger fixed cost. On the H100
+// the two cross near 96 MiB (chip_smoke.py's crossover cases): decode for
+// M <= 48 at 16.8 MB of codes, M <= 8 at 58.7 MB, M <= 768 at 1 MB.
 //
-// What this simple design does about it: one block per (M tile, 128-wide
-//   N tile), as the TPU grid's (i, j) axes; a loop over the 128-deep K tiles
-//   takes the place of the TPU's sequential K grid axis. The codes stay one
-//   (int8) or half a (int4) byte per weight in device memory and are decoded
-//   in shared memory, so device traffic is the quantized footprint. The M
-//   tile is 8 rows when M is small (decode: no wasted rows, one pass over
-//   the codes per M tile) and 64 rows otherwise (prefill: each staged code
-//   is reused by 64 rows). Ragged M and K beyond the original K are masked
-//   in the kernel instead of padding copies; the output is written only up
-//   to the original N. Not yet: tensor cores (wgmma on int8->bf16 codes),
-//   TMA, multi-stage pipelining -- later PRs.
+// decode (always for M <= 8: the engine's decode tick has M = 8 slots)
+//   Bound by reading the K*N code bytes once (16.8 MB at (8192, 2048):
+//   5 us at 3.35 TB/s). Design:
+//   - Split K across blocks (two for each SM, up to one K tile a warp)
+//     and across the 4 warps of a block; each warp owns whole 128-deep K
+//     tiles of one 128-wide N tile. Its loads go through a ring of k16
+//     steps in shared memory (cp.async, 16 bytes a thread), so bytes in
+//     flight cost no registers (124 a thread: 4 blocks fit on an SM).
+//     On the H100, 2 stages timed faster than 4, two blocks per SM faster
+//     than four on the deepest shapes, and half-tile work units slower.
+//   - The product runs on the tensor cores with mma.sync m16n8k16 (bf16,
+//     f32 accumulate), operands swapped for the skinny shape:
+//     y^T = c^T x^T. The codes' N fills the 16 rows, the 8 decode rows of
+//     x are the instruction's n = 8. Why mma.sync and not f32 FMAs: at
+//     M = 8, 2*8*K*N FMAs at 67 TFLOP/s already take 80% of the byte
+//     bound at (14336, 4096), before any code is converted; one mma covers
+//     256 codes. Why not wgmma: its 64-row A tile would be 7/8 padding.
+//     The k order inside one k16 step is free (it is summed over) as long
+//     as A and B agree; it is chosen so that one thread's 16-byte load of
+//     one code row, for 4 rows, is exactly its A fragments for 8 mmas, and
+//     its B fragment is 4 consecutive floats of one x row (one float4).
+//   - Codes become bf16 four at a time without cvt: a byte-permute puts
+//     each biased byte into the mantissa of 2^23, one f32 subtract leaves
+//     the exact integer, and a second byte-permute packs the upper halves
+//     of two such floats (exact: |c| <= 128 has <= 8 significant bits).
+//   - Each K tile's partial is kept apart and added as part * scale after
+//     the tile (never folded into x). Partial tiles are summed in a fixed
+//     order: first over the warps of a block (shared memory), then over
+//     the blocks of an N tile, by the block that finishes last (a ticket
+//     in a caller-owned workspace elects it; it reads the other partials
+//     from the workspace in rank order). One launch, no atomics on the
+//     output: two calls give identical bits. Not a thread-block cluster
+//     reducing through distributed shared memory: on the H100 the same
+//     grid timed slower launched as clusters, before any reduction.
+//   - M > 8 runs ceil(M / 8) row groups, each a pass over the codes (the
+//     blocks of one N tile are adjacent in the grid, so later passes find
+//     the codes in L2).
+//
+// prefill (engine chunks M = 8 x C, whole prompts M = T)
+//   Bound by arithmetic. Design: 64 x 256 output tiles, two warpgroups of
+//   one 128-wide crossbar column each, wgmma m64n128k16 (bf16, f32
+//   accumulate) with both operands in shared memory (K-major, 128-byte
+//   swizzle), a K loop of 64-deep stages, double-buffered: while the
+//   tensor cores run stage c, the threads convert stage c + 1 from
+//   registers into the other buffer and load stage c + 2 from device
+//   memory into registers. Two stages make one crossbar tile: the partial
+//   fragment starts fresh (scale-d = 0) at each tile and is added as
+//   part * scale after it. When the output tiles leave SMs idle (small N,
+//   or M of a few hundred), K is split across blocks as well and summed
+//   in rank order as in the decode kernel.
+//   - The weight operand is exact: int8 (|c| <= 127) and int4 (-8..7)
+//     codes are exact in bf16.
+//   - x is f32 and the port holds the kernel to 1e-4 * max|y| in f32, so
+//     x is carried as bf16 pieces: p0 = bf16(x), p1 = bf16(x - p0),
+//     p2 = bf16(x - p0 - p1), each subtraction exact. Each piece x code
+//     product is exact in f32; one wgmma per piece against the same code
+//     descriptor. bf16 x alone leaves up to 2^-8 |x| and breaks 1e-4; two
+//     pieces leave 2^-16 |x| (~1.5e-5 |x|), within 1e-4
+//     (tests/test_torch_crossbar_split.py shows all three), but on the
+//     card they moved both served models' logits measurably further from
+//     the plain forward than the f32 kernel had (PERF.md), so x takes
+//     three pieces (24 bits: the whole f32 significand, up to one
+//     rounding of the last piece). Not TF32: at 495 TFLOP/s it is half
+//     the bf16 rate, and with a 10-bit mantissa x would still need pieces.
+//   Decode uses the same split.
+//
+// Both kernels take int8 (Kp, Np) codes or packed int4 uint8 (Kp/2, Np)
+// codes (row 2i = low nibble, 2i + 1 = high nibble), mask ragged M and K
+// (x beyond M or K reads as 0) and write only up to the original N.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kBN = 128;        // output columns per block: one crossbar
-constexpr int kCrossbar = 128;  // K tile == quantization block
-constexpr int kSubK = 32;       // K rows staged in shared memory at a time
-constexpr int kThreads = 256;   // 8 row groups x 32 column lanes
+constexpr int kCrossbar = 128;   // K tile == N tile == quantization block
+constexpr size_t kDecodeMaxBytes = size_t(96) << 20;   // see picks_decode
 
-// Sign-extend one 4-bit two's-complement nibble.
-__device__ __forceinline__ float nibble(uint32_t v) {
-  int n = static_cast<int>(v & 0xFu);
-  return static_cast<float>(n > 7 ? n - 16 : n);
+// ---------------------------------------------------------------------------
+// shared pieces: code conversion and the split of x
+// ---------------------------------------------------------------------------
+
+// Biased code byte `sel & 3` of `word` (u = c + BIAS, 0 <= u < 256) as the
+// exact f32 integer c: 2^23 + u by byte-permute, minus 2^23 + BIAS.
+template <int BIAS>
+__device__ __forceinline__ float code_f32(uint32_t word, uint32_t sel) {
+  return __uint_as_float(__byte_perm(word, 0x4B000000u, sel)) -
+         (8388608.f + BIAS);
 }
 
-__device__ __forceinline__ float byte_s8(uint32_t word, int e) {
-  return static_cast<float>(static_cast<int8_t>((word >> (8 * e)) & 0xFFu));
+// Two exact small integers in f32 -> bf16x2 (`lo` in the low half): the
+// upper 16 bits of each, which hold them exactly.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
 }
 
-// x (M, K) f32 row-major; codes int8 (Kp, Np) for BITS == 8, uint8
-// (Kp / 2, Np) packed along K for BITS == 4 (row 2i = low nibble, row
-// 2i + 1 = high nibble); scales f32 (Kp / 128, Np / 128); out (M, N).
-template <int BM, int BITS>
-__global__ void __launch_bounds__(kThreads)
-crossbar_kernel(const float* __restrict__ x, const uint8_t* __restrict__ codes,
-                const float* __restrict__ scales, float* __restrict__ out,
-                int M, int K, int N, int Kp, int Np) {
-  constexpr int TM = BM / 8;      // rows per thread
-  constexpr int TN = kBN / 32;    // columns per thread, strided by 32
-  __shared__ float xs[BM][kSubK];
-  __shared__ __align__(16) float ws[kSubK][kBN];
+__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
 
-  const int tid = threadIdx.x;
-  const int tx = tid & 31;        // column lane
-  const int ty = tid >> 5;        // row group
-  const int nt = blockIdx.x;
-  const int n0 = nt * kBN;
-  const int m0 = blockIdx.y * BM;
-  const int n_nt = Np / kBN;
-  const int n_kt = Kp / kCrossbar;
+constexpr int kPieces = 3;   // bf16 pieces that carry f32 x
 
-  float acc[TM][TN];
+// (a, b) -> kPieces bf16x2 words p[0] + p[1] + p[2] = (a, b): each piece
+// is the bf16 rounding of what the pieces before it left (every
+// subtraction is exact in f32).
+__device__ __forceinline__ void split_x(float a, float b,
+                                        uint32_t (&p)[kPieces]) {
 #pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+  for (int i = 0; i < kPieces; ++i) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+    const float2 hf = __bfloat1622float2(h);
+    p[i] = bf16x2_bits(h);
+    a -= hf.x;
+    b -= hf.y;
+  }
+}
 
-  for (int kt = 0; kt < n_kt; ++kt) {
-    float part[TM][TN];
+// Four code rows of one thread (rows k..k+3 of a step, 16 columns each as
+// four words), biased so that every byte holds u = c + BIAS.
+// int8: one 16-byte load per row, u = c ^ 0x80. int4: one 16-byte load per
+// packed row, whose low nibbles are row 2p and high nibbles row 2p + 1;
+// u = nibble ^ 8, moved into its own byte.
+template <int BITS>
+__device__ __forceinline__ void bias_rows(const uint4 (&raw)[BITS == 8 ? 4 : 2],
+                                          uint32_t (&rw)[4][4]) {
 #pragma unroll
-    for (int i = 0; i < TM; ++i)
+  for (int p = 0; p < (BITS == 8 ? 4 : 2); ++p) {
+    const uint32_t w[4] = {raw[p].x, raw[p].y, raw[p].z, raw[p].w};
 #pragma unroll
-      for (int j = 0; j < TN; ++j) part[i][j] = 0.f;
-
-    for (int ks = 0; ks < kCrossbar; ks += kSubK) {
-      const int k0 = kt * kCrossbar + ks;
-      __syncthreads();  // the previous sub-tile is no longer read
-      // activations: BM x kSubK, masked on ragged M and K >= orig K
-      for (int i = tid; i < BM * kSubK; i += kThreads) {
-        const int r = i / kSubK, c = i % kSubK;
-        const int gm = m0 + r, gk = k0 + c;
-        xs[r][c] = (gm < M && gk < K) ? x[static_cast<size_t>(gm) * K + gk]
-                                      : 0.f;
-      }
-      if (BITS == 8) {
-        // kSubK x 128 int8 codes = 1024 words of 4 bytes, 4 per thread;
-        // a warp reads one 128-byte row of codes
-        for (int w = tid; w < kSubK * kBN / 4; w += kThreads) {
-          const int r = w / (kBN / 4), cw = w % (kBN / 4);
-          const uint32_t word = *reinterpret_cast<const uint32_t*>(
-              codes + static_cast<size_t>(k0 + r) * Np + n0 + 4 * cw);
-          *reinterpret_cast<float4*>(&ws[r][4 * cw]) = make_float4(
-              byte_s8(word, 0), byte_s8(word, 1), byte_s8(word, 2),
-              byte_s8(word, 3));
-        }
+    for (int q = 0; q < 4; ++q) {
+      if constexpr (BITS == 8) {
+        rw[p][q] = w[q] ^ 0x80808080u;
       } else {
-        // kSubK / 2 packed rows x 128 bytes = 512 words, 2 per thread
-        for (int w = tid; w < (kSubK / 2) * kBN / 4; w += kThreads) {
-          const int pr = w / (kBN / 4), cw = w % (kBN / 4);
-          const uint32_t word = *reinterpret_cast<const uint32_t*>(
-              codes + static_cast<size_t>(k0 / 2 + pr) * Np + n0 + 4 * cw);
-          *reinterpret_cast<float4*>(&ws[2 * pr][4 * cw]) = make_float4(
-              nibble(word), nibble(word >> 8), nibble(word >> 16),
-              nibble(word >> 24));
-          *reinterpret_cast<float4*>(&ws[2 * pr + 1][4 * cw]) = make_float4(
-              nibble(word >> 4), nibble(word >> 12), nibble(word >> 20),
-              nibble(word >> 28));
-        }
+        const uint32_t v = w[q] ^ 0x88888888u;
+        rw[2 * p][q] = v & 0x0F0F0F0Fu;
+        rw[2 * p + 1][q] = (v >> 4) & 0x0F0F0F0Fu;
       }
-      __syncthreads();
-#pragma unroll 8
-      for (int kk = 0; kk < kSubK; ++kk) {
-        float w[TN];
-#pragma unroll
-        for (int j = 0; j < TN; ++j) w[j] = ws[kk][tx + 32 * j];
-#pragma unroll
-        for (int i = 0; i < TM; ++i) {
-          const float a = xs[ty * TM + i][kk];
-#pragma unroll
-          for (int j = 0; j < TN; ++j) part[i][j] = fmaf(a, w[j], part[i][j]);
-        }
-      }
-    }
-    // post-MVM dequantization: one scale per 128x128 crossbar
-    const float s = scales[kt * n_nt + nt];
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) acc[i][j] += part[i][j] * s;
-  }
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int gm = m0 + ty * TM + i;
-    if (gm >= M) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int gn = n0 + tx + 32 * j;
-      if (gn < N) out[static_cast<size_t>(gm) * N + gn] = acc[i][j];
     }
   }
 }
 
-template <int BM>
-void launch(const float* x, const uint8_t* codes, const float* scales,
-            float* out, int M, int K, int N, int Kp, int Np, int bits,
-            cudaStream_t stream) {
-  dim3 grid(Np / kBN, (M + BM - 1) / BM);
-  if (bits == 8)
-    crossbar_kernel<BM, 8><<<grid, kThreads, 0, stream>>>(
-        x, codes, scales, out, M, K, N, Kp, Np);
-  else
-    crossbar_kernel<BM, 4><<<grid, kThreads, 0, stream>>>(
-        x, codes, scales, out, M, K, N, Kp, Np);
+template <int BITS>
+__device__ __forceinline__ float code_at(const uint32_t (&rw)[4][4], int row,
+                                         int col) {
+  return code_f32<BITS == 8 ? 128 : 8>(rw[row][col >> 2], 0x7650u + (col & 3));
+}
+
+// ---------------------------------------------------------------------------
+// decode: split-K, cp.async ring, mma.sync with swapped operands
+// ---------------------------------------------------------------------------
+
+constexpr int kDecWarps = 4;
+constexpr int kDecSteps = kCrossbar / 16;  // k16 steps per crossbar tile
+constexpr int kDecStages = 2;              // steps in flight per warp
+constexpr int kDecSlot = 16 * 128 + 32 * 16;  // one step: code rows + x
+constexpr int kDecSmem = kDecWarps * kDecStages * kDecSlot;   // 20 KB
+static_assert(kDecSmem >= kDecWarps * 8 * (128 + 4) * 4,
+              "the ring doubles as the reduction buffer");
+constexpr int kDecBlocksPerSm = 2;         // of the 4 that fit (registers)
+constexpr int kMaxSplit = 32;              // K splits per N tile, at most
+constexpr int kPartial = 8 * kCrossbar;    // one block's partial tile
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// cp.async of `bytes` (<= size) from global, zero-filling the rest
+__device__ __forceinline__ void cp_async16(uint32_t saddr, const void* g,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(saddr),
+               "l"(g), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(uint32_t saddr, const void* g,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(saddr),
+               "l"(g), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// A ticket of a split-K sum: the returned count tells a block whether it is
+// the last of its tile. acq_rel at gpu scope: after a __syncthreads, it
+// publishes the block's partial stores (release) and, for the last block,
+// makes every other block's visible to the loads after the next
+// __syncthreads (acquire).
+__device__ __forceinline__ int draw_ticket(int* ticket) {
+  int old;
+  asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], 1;\n"
+               : "=r"(old)
+               : "l"(ticket)
+               : "memory");
+  return old;
+}
+
+__device__ __forceinline__ uint4 lds128(uint32_t saddr) {
+  uint4 v;
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(saddr)
+               : "memory");
+  return v;
+}
+
+// Grid (S, ceil(M / 8), Np / 128), kDecWarps warps a block.
+// Lane (g, t) = (lane / 4, lane % 4). In k16 step s of K tile kt it uses
+// code rows k = kt*128 + 16 s + 4 t + i (i < 4), columns n0 + 16 g .. +15,
+// and x row m0 + g at those 4 k. The mma's k index 2t + e stands for row
+// 4t + e and 2t + 8 + e for row 4t + 2 + e; mma j (< 8) has rows g -> column
+// n0 + 16 g + 2 j and g + 8 -> n0 + 16 g + 2 j + 1. So output (m, n) of
+// fragment value d[j][v] is m = m0 + 2 t + (v & 1), n = n0 + 16 g + 2 j +
+// (v >> 1). Each thread copies (cp.async) exactly the bytes it reads back,
+// so the ring needs no barrier: a step's group is waited on by its thread.
+template <int BITS>
+__global__ void __launch_bounds__(kDecWarps * 32, 4)
+crossbar_decode_kernel(const float* __restrict__ x,
+                       const uint8_t* __restrict__ codes,
+                       const float* __restrict__ scales,
+                       float* __restrict__ out, float* __restrict__ partials,
+                       int* __restrict__ tickets, int M, int K, int N, int Kp,
+                       int Np, int x_vec) {
+  constexpr int kLoads = BITS == 8 ? 4 : 2;   // 16-byte code rows per step
+  __shared__ bool last;
+  extern __shared__ __align__(16) uint8_t dsmem[];
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int S = gridDim.x, rank = blockIdx.x;
+  const int m0 = blockIdx.y * 8;
+  const int nt = blockIdx.z, n0 = nt * kCrossbar;
+  const int n_nt = Np / kCrossbar, n_kt = Kp / kCrossbar;
+  const int stride = S * kDecWarps;           // K tiles between a warp's own
+  const int first = rank * kDecWarps + warp;  // this warp's first K tile
+  const int n_tiles = first < n_kt ? (n_kt - first + stride - 1) / stride : 0;
+  const int n_steps = n_tiles * kDecSteps;
+  const int xm = m0 + g;
+  const float* xrow = x + static_cast<size_t>(xm < M ? xm : 0) * K;
+  const uint8_t* ccol = codes + n0 + 16 * g;
+  const uint32_t ring = static_cast<uint32_t>(__cvta_generic_to_shared(dsmem)) +
+                        warp * kDecStages * kDecSlot;
+
+  // first k of this thread's 4 in step `s` of its own sequence
+  auto k_of = [&](int s) {
+    return (first + (s / kDecSteps) * stride) * kCrossbar +
+           (s % kDecSteps) * 16 + 4 * t;
+  };
+  // smem row of this thread's code chunk i within a slot (global row order)
+  auto srow = [&](int i) { return BITS == 8 ? 4 * t + i : 2 * t + i; };
+  auto issue = [&](int s) {
+    const uint32_t slot = ring + (s % kDecStages) * kDecSlot;
+    const int k = k_of(s);
+#pragma unroll
+    for (int i = 0; i < kLoads; ++i) {
+      const int row = BITS == 8 ? k + i : k / 2 + i;
+      cp_async16(slot + srow(i) * 128 + 16 * g,
+                 ccol + static_cast<size_t>(row) * Np, 16);
+    }
+    const uint32_t xs = slot + 16 * 128 + 16 * lane;
+    if (x_vec) {
+      const bool live = xm < M && k < K;   // K % 4 == 0: all 4 or none
+      cp_async16(xs, live ? xrow + k : x, live ? 16 : 0);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool live = xm < M && k + e < K;
+        cp_async4(xs + 4 * e, live ? xrow + k + e : x, live ? 4 : 0);
+      }
+    }
+  };
+
+  float acc[8][4], part[8][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int v = 0; v < 4; ++v) acc[j][v] = part[j][v] = 0.f;
+
+#pragma unroll
+  for (int d = 0; d < kDecStages; ++d) {
+    if (d < n_steps) issue(d);
+    cp_async_commit();   // one group per step, empty ones too
+  }
+  float scale = 0.f;
+  for (int s = 0; s < n_steps; ++s) {
+    cp_async_wait<kDecStages - 1>();          // step s has landed
+    const uint32_t slot = ring + (s % kDecStages) * kDecSlot;
+    uint4 raw[kLoads];
+#pragma unroll
+    for (int i = 0; i < kLoads; ++i)
+      raw[i] = lds128(slot + srow(i) * 128 + 16 * g);
+    const uint4 xw = lds128(slot + 16 * 128 + 16 * lane);
+    if (s % kDecSteps == 0)
+      scale = __ldg(scales + (first + (s / kDecSteps) * stride) * n_nt + nt);
+    uint32_t rw[4][4];
+    bias_rows<BITS>(raw, rw);
+    uint32_t b0[kPieces], b1[kPieces];   // B fragment of each piece of x
+    split_x(__uint_as_float(xw.x), __uint_as_float(xw.y), b0);
+    split_x(__uint_as_float(xw.z), __uint_as_float(xw.w), b1);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int c0 = 2 * j, c1 = 2 * j + 1;
+      const uint32_t a[4] = {
+          pack_bf16(code_at<BITS>(rw, 0, c0), code_at<BITS>(rw, 1, c0)),
+          pack_bf16(code_at<BITS>(rw, 0, c1), code_at<BITS>(rw, 1, c1)),
+          pack_bf16(code_at<BITS>(rw, 2, c0), code_at<BITS>(rw, 3, c0)),
+          pack_bf16(code_at<BITS>(rw, 2, c1), code_at<BITS>(rw, 3, c1))};
+#pragma unroll
+      for (int i = 0; i < kPieces; ++i) mma_bf16(part[j], a, b0[i], b1[i]);
+    }
+    if (s % kDecSteps == kDecSteps - 1) {   // post-MVM dequantization
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int v = 0; v < 4; ++v) {
+          acc[j][v] = fmaf(part[j][v], scale, acc[j][v]);
+          part[j][v] = 0.f;
+        }
+    }
+    // refill this slot, now that its bytes are in registers and used
+    if (s + kDecStages < n_steps) issue(s + kDecStages);
+    cp_async_commit();
+  }
+  cp_async_wait<0>();
+  __syncthreads();   // the ring becomes the reduction buffer
+
+  // fixed-order reduction: the warps of this block, then the S blocks of
+  // this N tile. Each block stores its partial tile; a ticket elects the
+  // block that finishes last, which sums the S tiles in rank order (the
+  // ticket only picks who sums, never the order) and rearms the ticket.
+  // Rows of the shared tiles are padded to kRedRow floats, which spreads
+  // the fragment stores over the banks.
+  constexpr int kRedRow = kCrossbar + 4;
+  constexpr int kQuads = kPartial / 4 / (kDecWarps * 32);   // float4s a thread
+  float* red = reinterpret_cast<float*>(dsmem);   // [kDecWarps][8][kRedRow]
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)   // v = e and e + 2: columns n, n + 1
+      *reinterpret_cast<float2*>(
+          red + (warp * 8 + 2 * t + e) * kRedRow + 16 * g + 2 * j) =
+          make_float2(acc[j][e], acc[j][e + 2]);
+  __syncthreads();
+  const int tile = blockIdx.y * n_nt + nt;          // (row group, N tile)
+  float4 sum[kQuads];
+#pragma unroll
+  for (int i = 0; i < kQuads; ++i) {
+    const int f = threadIdx.x + i * kDecWarps * 32;   // float4 of the tile
+    const int r = f / (kCrossbar / 4), c = 4 * (f % (kCrossbar / 4));
+    sum[i] = *reinterpret_cast<const float4*>(red + r * kRedRow + c);
+#pragma unroll
+    for (int w = 1; w < kDecWarps; ++w) {
+      const float4 v =
+          *reinterpret_cast<const float4*>(red + (w * 8 + r) * kRedRow + c);
+      sum[i].x += v.x;
+      sum[i].y += v.y;
+      sum[i].z += v.z;
+      sum[i].w += v.w;
+    }
+  }
+  auto write_out = [&]() {
+#pragma unroll
+    for (int i = 0; i < kQuads; ++i) {
+      const int f = threadIdx.x + i * kDecWarps * 32;
+      const int m = m0 + f / (kCrossbar / 4);
+      const int n = n0 + 4 * (f % (kCrossbar / 4));
+      const float v[4] = {sum[i].x, sum[i].y, sum[i].z, sum[i].w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (m < M && n + e < N) out[static_cast<size_t>(m) * N + n + e] = v[e];
+    }
+  };
+  if (S == 1) {
+    write_out();
+    return;
+  }
+  float4* tiles4 = reinterpret_cast<float4*>(partials) +
+                   static_cast<size_t>(tile) * S * (kPartial / 4);
+#pragma unroll
+  for (int i = 0; i < kQuads; ++i)
+    tiles4[rank * (kPartial / 4) + threadIdx.x + i * kDecWarps * 32] = sum[i];
+  __syncthreads();
+  if (threadIdx.x == 0) last = draw_ticket(tickets + tile) == S - 1;
+  __syncthreads();
+  if (!last) return;
+  // sum the S partials in rank order, a batch of ranks' loads in flight at
+  // a time, from L2 (__ldcg: this SM's L1 is not coherent with them)
+  constexpr int kBatch = 8;
+#pragma unroll
+  for (int i = 0; i < kQuads; ++i) sum[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int q0 = 0; q0 < S; q0 += kBatch) {
+    float4 v[kBatch][kQuads];
+#pragma unroll
+    for (int q = 0; q < kBatch; ++q)
+#pragma unroll
+      for (int i = 0; i < kQuads; ++i)
+        v[q][i] = q0 + q < S ? __ldcg(tiles4 + (q0 + q) * (kPartial / 4) +
+                                      threadIdx.x + i * kDecWarps * 32)
+                             : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int q = 0; q < kBatch; ++q)
+#pragma unroll
+      for (int i = 0; i < kQuads; ++i) {
+        sum[i].x += v[q][i].x;
+        sum[i].y += v[q][i].y;
+        sum[i].z += v[q][i].z;
+        sum[i].w += v[q][i].w;
+      }
+  }
+  write_out();
+  if (threadIdx.x == 0) tickets[tile] = 0;   // ready for the next call
+}
+
+// SMs of the card (of the first device asked: one card model)
+int sm_count() {
+  static int sms = 0;
+  int dev = 0;
+  if (sms == 0 && (cudaGetDevice(&dev) != cudaSuccess ||
+                   cudaDeviceGetAttribute(
+                       &sms, cudaDevAttrMultiProcessorCount, dev) !=
+                       cudaSuccess))
+    sms = 132;
+  return sms;
+}
+
+// K splits of the decode kernel: kDecBlocksPerSm blocks for each SM, but no
+// more than give each warp one K tile.
+int decode_splits(int M, int Kp, int Np) {
+  const int tiles = ((M + 7) / 8) * (Np / kCrossbar);
+  int S = sm_count() * kDecBlocksPerSm / tiles;
+  const int most = (Kp / kCrossbar + kDecWarps - 1) / kDecWarps;
+  S = S > most ? most : S;
+  S = S > kMaxSplit ? kMaxSplit : S;
+  return S < 1 ? 1 : S;
+}
+
+// (row group, N tile) pairs of the decode kernel: one ticket each
+int decode_tiles(int M, int Np) { return ((M + 7) / 8) * (Np / kCrossbar); }
+
+// f32 partial tiles of the decode kernel: S for each (row group, N tile),
+// none when K is not split
+size_t decode_partials(int M, int Kp, int Np) {
+  const int S = decode_splits(M, Kp, Np);
+  return S == 1 ? 0
+                : static_cast<size_t>(decode_tiles(M, Np)) * S * kPartial;
+}
+
+template <int BITS>
+cudaError_t launch_decode(const float* x, const uint8_t* codes,
+                          const float* scales, float* out, float* partials,
+                          int* tickets, int M, int K, int N, int Kp, int Np,
+                          int x_vec, cudaStream_t stream) {
+  const dim3 grid(decode_splits(M, Kp, Np), (M + 7) / 8, Np / kCrossbar);
+  crossbar_decode_kernel<BITS><<<grid, kDecWarps * 32, kDecSmem, stream>>>(
+      x, codes, scales, out, partials, tickets, M, K, N, Kp, Np, x_vec);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// prefill: wgmma on bf16 codes and bf16 pieces of x
+// ---------------------------------------------------------------------------
+
+constexpr int kPfBM = 64;                 // rows of x per block
+constexpr int kPfBN = 2 * kCrossbar;      // columns per block (2 warpgroups)
+constexpr int kPfBK = 64;                 // K per stage: one 128-byte row
+constexpr int kPfThreads = 256;
+constexpr int kAPiece = kPfBM * kPfBK * 2;            // 8 KB per x piece
+constexpr int kBTile = kPfBN * kPfBK * 2;             // 32 KB of codes
+constexpr int kStage = kPieces * kAPiece + kBTile;    // 56 KB
+constexpr int kPfSmem = 2 * kStage + 1024;            // + 1024-byte alignment
+
+// Byte offset of (row, byte) in a K-major tile of 128-byte rows with the
+// 128-byte swizzle: the 16-byte chunk index is XORed with row % 8 (the
+// layout wgmma reads with layout type 1; tiles start 1024-aligned).
+__device__ __forceinline__ uint32_t swz(int row, int byte) {
+  return row * 128 + ((((byte >> 4) ^ row) & 7) << 4) + (byte & 15);
+}
+
+// wgmma shared-memory descriptor: K-major, 128-byte swizzle, 8-row groups
+// 1024 bytes apart.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t saddr) {
+  return static_cast<uint64_t>((saddr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) |
+         (static_cast<uint64_t>(1) << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// generic-proxy stores to shared memory -> visible to wgmma (async proxy)
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void keep(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (64 x 128 f32 fragment) = [d +] A (64 x 16) B (16 x 128)
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
+                                                 uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+      "%57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// Grid (ceil(Np / 256), ceil(M / 64)), 256 threads = 2 warpgroups; warpgroup
+// w computes rows m0..m0+63, columns n0 + 128 w .. +127 (one crossbar).
+// Each stage, every thread loads and converts: codes rows 4 kg .. 4 kg + 3
+// (kg = lane % 16) of columns 16 ng .. +15 (ng = 2 warp + lane / 16),
+// written transposed (K-major) as 8-byte runs of 4 k; x row tid / 4, 16 k
+// from 16 (tid % 4), written as 16-byte runs of each piece.
+template <int BITS>
+__global__ void __launch_bounds__(kPfThreads, 1)
+crossbar_prefill_kernel(const float* __restrict__ x,
+                        const uint8_t* __restrict__ codes,
+                        const float* __restrict__ scales,
+                        float* __restrict__ out, float* __restrict__ partials,
+                        int* __restrict__ tickets, int M, int K, int N, int Kp,
+                        int Np, int x_vec, int per) {
+  constexpr int kLoads = BITS == 8 ? 4 : 2;
+  __shared__ bool last;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const uint32_t sbase =
+      static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wg = tid >> 7;
+  const int n0 = blockIdx.x * kPfBN, m0 = blockIdx.y * kPfBM;
+  const int n_nt = Np / kCrossbar, n_kt = Kp / kCrossbar;
+  // this split's crossbar tiles, as 64-deep stages (two per tile)
+  const int S = gridDim.z, rank = blockIdx.z;
+  const int c0 = 2 * rank * per;
+  const int c1 = 2 * (n_kt < (rank + 1) * per ? n_kt : (rank + 1) * per);
+  const int nt = n0 / kCrossbar + wg;      // this warpgroup's crossbar column
+  const bool wg_live = nt < n_nt;
+
+  const int kg = lane & 15, ng = 2 * warp + (lane >> 4);
+  const bool c_live = n0 + 16 * ng < Np;
+  const uint8_t* ccol = codes + n0 + 16 * ng;
+  const int xr = tid >> 2, xk = 16 * (tid & 3);
+  const bool x_live = m0 + xr < M;
+  const float* xrow = x + static_cast<size_t>(x_live ? m0 + xr : 0) * K;
+
+  uint4 craw[kLoads];
+  float xraw[16];
+  auto load = [&](int c) {
+    const int k = c * kPfBK + 4 * kg;
+#pragma unroll
+    for (int i = 0; i < kLoads; ++i) {
+      const int row = BITS == 8 ? k + i : k / 2 + i;
+      craw[i] = c_live ? __ldg(reinterpret_cast<const uint4*>(
+                             ccol + static_cast<size_t>(row) * Np))
+                       : make_uint4(0u, 0u, 0u, 0u);
+    }
+    const int kx = c * kPfBK + xk;
+    if (x_live && x_vec && kx + 15 < K) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float4 v = __ldg(reinterpret_cast<const float4*>(xrow + kx) + q);
+        xraw[4 * q] = v.x;
+        xraw[4 * q + 1] = v.y;
+        xraw[4 * q + 2] = v.z;
+        xraw[4 * q + 3] = v.w;
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < 16; ++e)
+        xraw[e] = x_live && kx + e < K ? __ldg(xrow + kx + e) : 0.f;
+    }
+  };
+  auto store = [&](int st) {
+    uint8_t* a0 = smem + st * kStage;   // piece i at a0 + i * kAPiece
+    uint8_t* b = a0 + kPieces * kAPiece;
+    uint32_t rw[4][4];
+    bias_rows<BITS>(craw, rw);
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const uint2 v = make_uint2(
+          pack_bf16(code_at<BITS>(rw, 0, j), code_at<BITS>(rw, 1, j)),
+          pack_bf16(code_at<BITS>(rw, 2, j), code_at<BITS>(rw, 3, j)));
+      *reinterpret_cast<uint2*>(b + swz(16 * ng + j, 8 * kg)) = v;
+    }
+    uint32_t pc[8][kPieces];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) split_x(xraw[2 * e], xraw[2 * e + 1], pc[e]);
+#pragma unroll
+    for (int i = 0; i < kPieces; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<uint4*>(a0 + i * kAPiece +
+                                  swz(xr, 2 * xk + 16 * h)) =
+            make_uint4(pc[4 * h][i], pc[4 * h + 1][i], pc[4 * h + 2][i],
+                       pc[4 * h + 3][i]);
+  };
+
+  float acc[64], part[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = part[i] = 0.f;
+
+  load(c0);
+  store(0);
+  if (c0 + 1 < c1) load(c0 + 1);
+  fence_async_smem();
+  __syncthreads();
+  for (int c = c0; c < c1; ++c) {   // c0 is even: buffer c & 1 == tile half
+    const uint32_t s_a = sbase + (c & 1) * kStage;   // x pieces, then codes
+    const uint32_t s_b = s_a + kPieces * kAPiece + wg * (kCrossbar * 128);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < kPfBK / 16; ++ks) {
+      const uint64_t db = smem_desc(s_b + 32 * ks);
+#pragma unroll
+      for (int i = 0; i < kPieces; ++i)   // a crossbar tile starts afresh
+        wgmma_m64n128k16(part, smem_desc(s_a + i * kAPiece + 32 * ks), db,
+                         (c & 1) | (ks > 0) | (i > 0));
+    }
+    wgmma_commit();
+    const float scale =
+        (c & 1) && wg_live ? __ldg(scales + (c >> 1) * n_nt + nt) : 0.f;
+    if (c + 1 < c1) store((c + 1) & 1);  // its buffer was read at c - 1
+    if (c + 2 < c1) load(c + 2);
+    wgmma_wait_all();
+    keep(part);
+    if (c & 1) {                                // post-MVM dequantization
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[i] = fmaf(part[i], scale, acc[i]);
+    }
+    fence_async_smem();
+    __syncthreads();
+  }
+
+  // K split: each block stores its fragments; the block that draws the
+  // last ticket sums all S in rank order (as in the decode kernel)
+  if (S > 1) {
+    const int tile = blockIdx.y * gridDim.x + blockIdx.x;
+    float4* frags = reinterpret_cast<float4*>(partials) +
+                    static_cast<size_t>(tile) * S * kPfThreads * 16;
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+      frags[(rank * kPfThreads + tid) * 16 + i] = make_float4(
+          acc[4 * i], acc[4 * i + 1], acc[4 * i + 2], acc[4 * i + 3]);
+    __syncthreads();
+    if (tid == 0) last = draw_ticket(tickets + tile) == S - 1;
+    __syncthreads();
+    if (!last) return;
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    for (int q = 0; q < S; ++q) {
+      float4 v[16];
+#pragma unroll
+      for (int i = 0; i < 16; ++i)   // L2 (__ldcg: L1 is not coherent)
+        v[i] = __ldcg(frags + (q * kPfThreads + tid) * 16 + i);
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        acc[4 * i] += v[i].x;
+        acc[4 * i + 1] += v[i].y;
+        acc[4 * i + 2] += v[i].z;
+        acc[4 * i + 3] += v[i].w;
+      }
+    }
+    if (tid == 0) tickets[tile] = 0;   // ready for the next call
+  }
+
+  if (!wg_live) return;
+  const int w4 = warp & 3, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const int n = nt * kCrossbar + 8 * i + 2 * t;
+#pragma unroll
+    for (int v = 0; v < 4; ++v) {
+      const int m = m0 + 16 * w4 + g + 8 * (v >> 1), nn = n + (v & 1);
+      if (m < M && nn < N) out[static_cast<size_t>(m) * N + nn] = acc[4 * i + v];
+    }
+  }
+}
+
+// (M tile, N tile) pairs of the prefill kernel: one ticket each
+int prefill_tiles(int M, int Np) {
+  return ((Np + kPfBN - 1) / kPfBN) * ((M + kPfBM - 1) / kPfBM);
+}
+
+// Crossbar tiles per K split of the prefill kernel: split K only when the
+// output tiles alone leave SMs idle (one block fits on an SM).
+int prefill_per(int M, int Kp, int Np) {
+  const int n_kt = Kp / kCrossbar;
+  int S = sm_count() / prefill_tiles(M, Np);
+  S = S < 1 ? 1 : (S > n_kt ? n_kt : S);
+  return (n_kt + S - 1) / S;
+}
+
+int prefill_splits(int M, int Kp, int Np) {
+  const int per = prefill_per(M, Kp, Np);
+  return (Kp / kCrossbar + per - 1) / per;
+}
+
+// f32 fragments of the prefill kernel: S per (M tile, N tile), none when K
+// is not split
+size_t prefill_partials(int M, int Kp, int Np) {
+  const int S = prefill_splits(M, Kp, Np);
+  return S == 1 ? 0
+                : static_cast<size_t>(prefill_tiles(M, Np)) * S * kPfThreads *
+                      64;
+}
+
+template <int BITS>
+cudaError_t launch_prefill(const float* x, const uint8_t* codes,
+                           const float* scales, float* out, float* partials,
+                           int* tickets, int M, int K, int N, int Kp, int Np,
+                           int x_vec, cudaStream_t stream) {
+  static bool configured = false;  // one attribute call per instantiation
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        crossbar_prefill_kernel<BITS>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kPfSmem);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  const dim3 grid((Np + kPfBN - 1) / kPfBN, (M + kPfBM - 1) / kPfBM,
+                  prefill_splits(M, Kp, Np));
+  crossbar_prefill_kernel<BITS><<<grid, kPfThreads, kPfSmem, stream>>>(
+      x, codes, scales, out, partials, tickets, M, K, N, Kp, Np, x_vec,
+      prefill_per(M, Kp, Np));
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for
-// arguments the kernel does not take). Allocates nothing, does not
+namespace {
+
+// decode while its passes over the codes (one per 8 rows) read at most
+// kDecodeMaxBytes, and always for one pass
+bool picks_decode(int M, int Kp, int Np, int bits, int kernel) {
+  const size_t passes = static_cast<size_t>((M + 7) / 8);
+  const size_t code_bytes = static_cast<size_t>(Kp) * Np * bits / 8;
+  return kernel == 1 ||
+         (kernel == 0 && (passes == 1 || passes * code_bytes <= kDecodeMaxBytes));
+}
+
+}  // namespace
+
+// Workspace that crossbar_matmul needs for these arguments: returns the
+// f32 partials it needs and sets *tickets to the int tickets it needs
+// (both 0 when K is not split). The caller allocates both and zeroes
+// the tickets once: every call leaves them at 0, so the same workspace
+// serves every later call on the same stream.
+extern "C" size_t crossbar_matmul_workspace(int M, int Kp, int Np, int bits,
+                                            int kernel,
+                                            int* tickets) {
+  *tickets = 0;
+  if (M <= 0 || Kp < kCrossbar || Np < kCrossbar) return 0;
+  const bool decode = picks_decode(M, Kp, Np, bits, kernel);
+  const size_t partials = decode ? decode_partials(M, Kp, Np)
+                                 : prefill_partials(M, Kp, Np);
+  if (partials > 0)
+    *tickets = decode ? decode_tiles(M, Np) : prefill_tiles(M, Np);
+  return partials;
+}
+
+// kernel: 0 picks by picks_decode, 1 forces decode,
+// 2 forces prefill (for measuring the crossover). Returns
+// cudaGetLastError() after the launch (cudaErrorInvalidValue for arguments
+// the kernels do not take, or a workspace smaller than
+// crossbar_matmul_workspace asks for). Allocates nothing, does not
 // synchronise; runs on `stream`.
 extern "C" int crossbar_matmul(const void* x, const void* codes,
-                               const void* scales, void* out, int M, int K,
-                               int N, int Kp, int Np, int bits, void* stream) {
+                               const void* scales, void* out, void* partials,
+                               size_t n_partials, void* tickets, int n_tickets,
+                               int M, int K, int N, int Kp, int Np, int bits,
+                               int kernel, void* stream) {
   if ((bits != 8 && bits != 4) || M <= 0 || K <= 0 || N <= 0 ||
-      Kp % kCrossbar != 0 || Np % kBN != 0 || K > Kp || N > Np ||
-      (M + 7) / 8 > 65535)
+      Kp % kCrossbar != 0 || Np % kCrossbar != 0 || K > Kp || N > Np ||
+      (M + kPfBM - 1) / kPfBM > 65535 || Np / kCrossbar > 65535 ||
+      kernel < 0 || kernel > 2 ||
+      reinterpret_cast<uintptr_t>(codes) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool decode = picks_decode(M, Kp, Np, bits, kernel);
+  const size_t need = decode ? decode_partials(M, Kp, Np)
+                             : prefill_partials(M, Kp, Np);
+  const int need_tickets =
+      need == 0 ? 0 : (decode ? decode_tiles(M, Np) : prefill_tiles(M, Np));
+  if ((decode && (M + 7) / 8 > 65535) || n_partials < need ||
+      n_tickets < need_tickets)
     return static_cast<int>(cudaErrorInvalidValue);
   const float* xf = static_cast<const float*>(x);
   const uint8_t* c = static_cast<const uint8_t*>(codes);
   const float* sc = static_cast<const float*>(scales);
   float* o = static_cast<float*>(out);
+  float* pa = static_cast<float*>(partials);
+  int* ti = static_cast<int*>(tickets);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (M <= 32)
-    launch<8>(xf, c, sc, o, M, K, N, Kp, Np, bits, st);
+  const int x_vec = reinterpret_cast<uintptr_t>(x) % 16 == 0 && K % 4 == 0;
+  cudaError_t err;
+  if (decode)
+    err = bits == 8 ? launch_decode<8>(xf, c, sc, o, pa, ti, M, K, N, Kp, Np,
+                                       x_vec, st)
+                    : launch_decode<4>(xf, c, sc, o, pa, ti, M, K, N, Kp, Np,
+                                       x_vec, st);
   else
-    launch<64>(xf, c, sc, o, M, K, N, Kp, Np, bits, st);
+    err = bits == 8
+              ? launch_prefill<8>(xf, c, sc, o, pa, ti, M, K, N, Kp, Np, x_vec,
+                                  st)
+              : launch_prefill<4>(xf, c, sc, o, pa, ti, M, K, N, Kp, Np, x_vec,
+                                  st);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -3,13 +3,16 @@ version (port of ``repro.kernels.crossbar_matmul``).
 
 ``crossbar_matmul(x, qt)`` computes ``x (..., K) @ dequant(qt) (K, N)``.
 On a CUDA tensor it launches ``csrc/crossbar_matmul.cu`` (int8 or int4
-codes, scale applied per 128-deep K tile after accumulation); on a CPU
+codes, scale applied per 128-deep K tile after accumulation): a split-K
+tensor-core kernel for decode-sized M, a wgmma kernel above that; on a CPU
 tensor it runs ``crossbar_matmul_plain``. Ragged M, K and N are masked in
-the kernel, so the wrapper makes no padded copies.
+the kernel, so the wrapper makes no padded copies. A weight's checks run
+once per weight (``_weight_kp``), x's on every call.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Dict, Tuple
 
 import torch
 
@@ -33,10 +36,45 @@ def _lib():
     if _LIB is None:
         lib = build.load("crossbar_matmul")
         lib.crossbar_matmul.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 5 + [ctypes.c_size_t, ctypes.c_void_p]
+            + [ctypes.c_int] * 8 + [ctypes.c_void_p])
         lib.crossbar_matmul.restype = ctypes.c_int
+        lib.crossbar_matmul_workspace.argtypes = (
+            [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)])
+        lib.crossbar_matmul_workspace.restype = ctypes.c_size_t
         _LIB = lib
     return _LIB
+
+
+# (M, Kp, Np, bits, kernel) -> (f32 partials, int tickets) the call needs
+_NEEDS: Dict[tuple, Tuple[int, int]] = {}
+# (device, stream) -> (partials, tickets): the split-K workspace of both
+# kernels, grown on demand. Calls on one stream run in order, so they
+# share it; the tickets are zeroed here once and every call leaves them 0.
+_WORKSPACE: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _workspace(M: int, kp: int, np_: int, bits: int, kernel: int, dev: int,
+               stream: int) -> Tuple[int, int, int, int]:
+    key = (M, kp, np_, bits, kernel)
+    need = _NEEDS.get(key)
+    if need is None:
+        tickets = ctypes.c_int(0)
+        partials = _lib().crossbar_matmul_workspace(M, kp, np_, bits, kernel,
+                                                    ctypes.byref(tickets))
+        need = _NEEDS[key] = (partials, tickets.value)
+    if need == (0, 0):
+        return 0, 0, 0, 0
+    ws = _WORKSPACE.get((dev, stream))
+    if ws is None or ws[0].numel() < need[0] or ws[1].numel() < need[1]:
+        have = ws or (torch.empty(0), torch.empty(0))
+        device = torch.device("cuda", dev)
+        ws = _WORKSPACE[(dev, stream)] = (
+            torch.empty(max(need[0], have[0].numel()), dtype=torch.float32,
+                        device=device),
+            torch.zeros(max(need[1], have[1].numel()), dtype=torch.int32,
+                        device=device))
+    return ws[0].data_ptr(), ws[0].numel(), ws[1].data_ptr(), ws[1].numel()
 
 
 def _check_shapes(x: torch.Tensor, qt: QuantizedTensor) -> None:
@@ -49,23 +87,29 @@ def _check_shapes(x: torch.Tensor, qt: QuantizedTensor) -> None:
         raise ValueError(f"x (..., {x.shape[-1]}) @ weight ({K}, {N})")
 
 
-def _check(x: torch.Tensor, qt: QuantizedTensor) -> None:
+def _check_x(x: torch.Tensor) -> None:
+    if x.dtype != torch.float32:
+        raise TypeError(f"crossbar_matmul kernel takes f32 activations, got "
+                        f"{x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError("crossbar_matmul needs a contiguous x")
+
+
+def _check_weight(qt: QuantizedTensor, device: torch.device) -> int:
+    """Everything the kernel needs of the weight; returns the padded K."""
     if qt.block != CROSSBAR:
         raise ValueError(f"crossbar_matmul needs {CROSSBAR}x{CROSSBAR} "
                          f"blocks, got {qt.block}")
     K, N = qt.orig_shape
-    if x.dtype != torch.float32:
-        raise TypeError(f"crossbar_matmul kernel takes f32 activations, got "
-                        f"{x.dtype}")
     want = torch.int8 if qt.bits == 8 else torch.uint8
     if qt.bits not in (8, 4) or qt.codes.dtype != want:
         raise TypeError(f"{qt.bits}-bit codes must be {want}, got "
                         f"{qt.codes.dtype}")
     if qt.scales.dtype != torch.float32:
         raise TypeError(f"scales must be f32, got {qt.scales.dtype}")
-    for name, t in (("x", x), ("codes", qt.codes), ("scales", qt.scales)):
-        if t.device != x.device:
-            raise ValueError(f"{name} on {t.device}, x on {x.device}")
+    for name, t in (("codes", qt.codes), ("scales", qt.scales)):
+        if t.device != device:
+            raise ValueError(f"{name} on {t.device}, x on {device}")
         if not t.is_contiguous():
             raise ValueError(f"crossbar_matmul needs a contiguous {name}")
     kp = qt.codes.shape[0] * (2 if qt.bits == 4 else 1)
@@ -74,31 +118,68 @@ def _check(x: torch.Tensor, qt: QuantizedTensor) -> None:
             or tuple(qt.scales.shape) != (kp // CROSSBAR, np_ // CROSSBAR)):
         raise ValueError(f"codes {tuple(qt.codes.shape)} / scales "
                          f"{tuple(qt.scales.shape)} do not tile {K}x{N}")
-    if qt.codes.data_ptr() % 4:
-        raise ValueError("codes must be 4-byte aligned")
+    if qt.codes.data_ptr() % 16:
+        raise ValueError("codes must be 16-byte aligned")
+    return kp
 
 
-def crossbar_matmul(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
-    """x (..., K) @ qt (K, N) -> (..., N)."""
+# Weights already checked, by everything the checks read: the codes' and
+# scales' addresses, shapes, strides, dtypes and device, the bit width,
+# block and original shape. A key that matches gives the same verdict, so
+# the cache cannot go stale; it is cleared when it grows large.
+_CHECKED: Dict[tuple, int] = {}
+
+
+def _weight_kp(qt: QuantizedTensor, device: torch.device) -> int:
+    c, s = qt.codes, qt.scales
+    key = (c.data_ptr(), c.shape, c.stride(), c.dtype, c.device,
+           s.data_ptr(), s.shape, s.stride(), s.dtype, s.device,
+           qt.bits, qt.block, qt.orig_shape, device)
+    kp = _CHECKED.get(key)
+    if kp is None:
+        kp = _check_weight(qt, device)
+        if len(_CHECKED) >= 4096:
+            _CHECKED.clear()
+        _CHECKED[key] = kp
+    return kp
+
+
+KERNELS = {"auto": 0, "decode": 1, "prefill": 2}
+
+
+def crossbar_matmul(x: torch.Tensor, qt: QuantizedTensor, *,
+                    kernel: str = "auto") -> torch.Tensor:
+    """x (..., K) @ qt (K, N) -> (..., N).
+
+    ``kernel`` picks the CUDA kernel: ``"auto"`` lets the library choose
+    (the split-K decode kernel while its passes over the codes, one per 8
+    rows, stay small; the wgmma prefill kernel otherwise); ``"decode"`` or
+    ``"prefill"`` force one, to measure the crossover."""
     _check_shapes(x, qt)
     if x.device.type == "cpu" and qt.device.type == "cpu":
         return crossbar_matmul_plain(x, qt)
     if x.device.type != "cuda":
         raise ValueError(f"crossbar_matmul: x on {x.device}, weight on "
                          f"{qt.device}")
-    _check(x, qt)
+    _check_x(x)
+    kp = _weight_kp(qt, x.device)
     K, N = qt.orig_shape
     lead = x.shape[:-1]
     M = x.numel() // K
     out = torch.empty((*lead, N), device=x.device, dtype=torch.float32)
     if M == 0:
         return out
-    kp = qt.codes.shape[0] * (2 if qt.bits == 4 else 1)
-    with torch.cuda.device(x.device):
-        rc = _lib().crossbar_matmul(
-            x.data_ptr(), qt.codes.data_ptr(), qt.scales.data_ptr(),
-            out.data_ptr(), M, K, N, kp, qt.codes.shape[1], qt.bits,
-            torch.cuda.current_stream().cuda_stream)
+    np_, kind = qt.codes.shape[1], KERNELS[kernel]
+    dev = x.device.index
+    stream = torch._C._cuda_getCurrentRawStream(dev)
+    ws = _workspace(M, kp, np_, qt.bits, kind, dev, stream)
+    args = (x.data_ptr(), qt.codes.data_ptr(), qt.scales.data_ptr(),
+            out.data_ptr(), *ws, M, K, N, kp, np_, qt.bits, kind, stream)
+    if dev == torch.cuda.current_device():
+        rc = _lib().crossbar_matmul(*args)
+    else:
+        with torch.cuda.device(dev):
+            rc = _lib().crossbar_matmul(*args)
     if rc != 0:
         raise RuntimeError(f"crossbar_matmul launch failed: CUDA error {rc} "
                            f"(M={M}, K={K}, N={N}, bits={qt.bits})")

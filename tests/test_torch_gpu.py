@@ -8,7 +8,8 @@ that has only PyTorch:
 
 Tolerances: crossbar 1e-4 relative (max-scaled absolute), as for the
 Pallas kernel — the plain version dequantizes before one product, the
-kernel scales each 128-deep f32 partial sum; flash 2e-5, f32 softmax
+kernel scales each 128-deep f32 partial sum and carries x as two bf16
+pieces (|x - hi - lo| <= 2^-16 |x|); flash 2e-5, f32 softmax
 attention summed in another order; wkv 1e-5 (rtol and atol), as for the
 Pallas kernel: the same f32 recurrence, each step's sums in another order.
 """
@@ -31,7 +32,12 @@ torch.set_num_threads(2)
 torch.backends.cuda.matmul.allow_tf32 = False   # f32 reference products
 
 CB_SHAPES = [(32, 128, 128), (64, 256, 384), (100, 300, 130), (8, 520, 250),
-             (1024, 2048, 512), (8, 8192, 2048)]
+             (1024, 2048, 512), (8, 8192, 2048),
+             # decode rows around the crossover at a main-path K
+             (1, 4096, 512), (16, 4096, 512), (33, 4096, 512),
+             (128, 4096, 512),
+             # rwkv6-7b's deepest decode shape and widest prefill shape
+             (8, 14336, 4096), (1024, 4096, 14336)]
 FA_SWEEP = [(2, 64, 64, 4, 2, 16), (1, 32, 96, 4, 4, 8), (2, 64, 64, 8, 2, 32),
             (1, 1, 64, 4, 2, 16), (1, 48, 48, 6, 3, 64)]
 FA_FLAGS = [(None, None), (16, None), (None, 20.0)]
@@ -60,6 +66,59 @@ def test_crossbar_kernel_matches_plain(bits, mkn):
     yr = cb_ops.crossbar_matmul_plain(x, qt)
     torch.testing.assert_close(y, yr, rtol=1e-4,
                                atol=1e-4 * float(yr.abs().max()))
+
+
+def _crossbar_inputs(dev, M, K, N, bits, seed, spread=False):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    w = torch.randn(K, N, generator=g, device=dev) * K ** -0.5
+    x = torch.randn(M, K, generator=g, device=dev)
+    if spread:              # rows over six decades, as outlier activations
+        x *= 10.0 ** (6 * torch.rand(M, 1, generator=g, device=dev) - 3)
+    return x, quant.quantize(w, bits)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["decode", "prefill"])
+@pytest.mark.parametrize("mkn", [(8, 4096, 512), (100, 300, 130),
+                                 (128, 2048, 384)])
+def test_crossbar_both_kernels_match_plain_at_any_m(kernel, mkn):
+    """Either kernel forced at any M (the crossover is a speed choice)."""
+    dev = _cuda_or_skip()
+    for bits in (8, 4):
+        x, qt = _crossbar_inputs(dev, *mkn, bits, sum(mkn) + bits)
+        y = cb_ops.crossbar_matmul(x, qt, kernel=kernel)
+        torch.cuda.synchronize()
+        yr = cb_ops.crossbar_matmul_plain(x, qt)
+        torch.testing.assert_close(y, yr, rtol=1e-4,
+                                   atol=1e-4 * float(yr.abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mkn", [(8, 14336, 4096), (8, 8192, 2048),
+                                 (1024, 4096, 4096), (1024, 2048, 512)])
+def test_crossbar_kernel_is_deterministic(mkn):
+    """The split-K reductions (decode; prefill on a narrow N) sum in a
+    fixed order: two calls on the same inputs give the same bits."""
+    dev = _cuda_or_skip()
+    x, qt = _crossbar_inputs(dev, *mkn, 8, 11)
+    y1 = cb_ops.crossbar_matmul(x, qt)
+    y2 = cb_ops.crossbar_matmul(x, qt)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("mkn", [(8, 14336, 512), (1024, 4096, 512)])
+def test_crossbar_kernel_wide_range_x(bits, mkn):
+    """Activation rows spread over six decades stay within 1e-4 * max|y|:
+    the two bf16 pieces of x keep its f32 accuracy."""
+    dev = _cuda_or_skip()
+    x, qt = _crossbar_inputs(dev, *mkn, bits, 5 + bits, spread=True)
+    y = cb_ops.crossbar_matmul(x, qt)
+    torch.cuda.synchronize()
+    yr = cb_ops.crossbar_matmul_plain(x, qt)
+    assert float((y - yr).abs().max()) <= 1e-4 * float(yr.abs().max())
 
 
 @pytest.mark.gpu
