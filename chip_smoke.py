@@ -14,14 +14,18 @@ Imports nothing of JAX or of the JAX package. Phases, each printing JSON:
                (``library_ms``, never used by the port), and the bound:
                the larger of bytes moved / 3.35 TB/s and flops / 67 TFLOP/s
                (f32 outside the tensor cores; H100 SXM data sheet).
-               Crossbar cases also give the bound of their own
+               Crossbar and flash cases also give the bound of their own
                arithmetic (``bound_pieces_ms``: three bf16 products on
-               the tensor cores, 989 TFLOP/s), the kernel's device time from
-               a profiler trace (``device_ms``: cold, over copies of the
-               weight that exceed the L2, for M <= 128; warm beside it),
-               the yardstick's device time (``library_device_ms``), the
-               host's time to issue one call, and both crossbar kernels
-               forced at M = 8 .. 1024 on one shape (the crossover).
+               the tensor cores at 989 TFLOP/s for crossbar, three TF32
+               products at 495 TFLOP/s for flash), the kernel's device
+               time from a profiler trace (``device_ms``; crossbar: cold,
+               over copies of the weight that exceed the L2, for M <= 128,
+               warm beside it), the yardstick's device time
+               (``library_device_ms``; for flash with the SDPA kernels that
+               ran), the host's time to issue one call, and both crossbar
+               kernels forced at M = 8 .. 1024 on one shape (the
+               crossover). Flash: contiguous prefill and decode; paged
+               mixed (chunked prefill) and decode (a pure decode tick).
   4. serve   — for each model the port serves, full width and full depth
                (random weights from a seed), on an M8F8 crossbar base with
                two rank-32 adapters, served by the port's paged engine: 8
@@ -47,7 +51,8 @@ Imports nothing of JAX or of the JAX package. Phases, each printing JSON:
                every slot decodes, a window of ticks runs untraced (host
                wall), then the next window under torch.profiler with CUDA
                activity only: device busy share (device time over wall,
-               both of that window) and time by kernel.
+               both of that window), time by kernel, and the crossbar's
+               and flash's shares of the device time.
   5. summary — one ``{"kernels": [...]}`` line, the nvidia-smi line, and
                last ``{"ok": true, "device": {...}}``.
 
@@ -70,6 +75,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, data sheet
 F32_FLOPS_PER_S = 67e12        # H100 SXM f32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12      # H100 SXM bf16 tensor cores, dense
+TF32_FLOPS_PER_S = 495e12      # H100 SXM tf32 tensor cores, dense
 
 CB_TOL = 1e-4                  # relative to max|y|: f32 sums, other order
 FA_TOL = 2e-5                  # f32 softmax attention, other order
@@ -132,6 +138,11 @@ def device_ms_by_name(fns, names) -> float:
     """Mean device milliseconds per call of ``fns`` (each called once, in
     order, under torch.profiler with CUDA activity only), counting only
     the kernels whose name holds one of ``names`` (all kernels if None)."""
+    return sum(device_ms_per_kernel(fns, names).values())
+
+
+def device_ms_per_kernel(fns, names=None) -> dict:
+    """As ``device_ms_by_name``, by kernel name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -141,10 +152,12 @@ def device_ms_by_name(fns, names) -> float:
         for fn in fns:
             fn()
         torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA
-             and (names is None or any(n in e.name for n in names)))
-    return us / 1e3 / len(fns)
+    out = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and (
+                names is None or any(n in e.name for n in names)):
+            out[e.name] = out.get(e.name, 0.0) + e.time_range.elapsed_us()
+    return {k: us / 1e3 / len(fns) for k, us in out.items()}
 
 
 def bound_ms(nbytes: float, flops: float) -> float:
@@ -161,6 +174,9 @@ LLAMA_KN = ((2048, 2048), (2048, 512), (2048, 8192), (8192, 2048))
 RWKV_KN = ((4096, 4096), (4096, 14336), (14336, 4096))
 # the crossbar kernels' own names in a profiler trace
 CB_KERNELS = ("crossbar_decode_kernel<", "crossbar_prefill_kernel<")
+# the flash kernels' (both entry points): flash_kernel<D, false> runs row
+# tiles (prefill, chunks), flash_kernel<D, true> the warp split (decode)
+FA_KERNELS = ("flash_kernel<",)
 L2_BYTES = 50e6                # H100 SXM L2; cold timings rotate past it
 COLD_BYTES = 100e6             # codes touched between two uses of a weight
 DECODE_M = 128                 # cases up to this M are also timed cold
@@ -286,6 +302,29 @@ def _attn_cost(q, mask, kv_bytes):
     return nbytes, 4.0 * D * pairs
 
 
+def _flash_times(call, plain, sdpa, nbytes, flops):
+    """Times and bounds of one flash case: the kernel (events, and its own
+    device time by profiler), the host's time to issue it, the plain
+    version, SDPA (events, and its device time with the kernels that ran:
+    f32 with a mask picks SDPA's backend), the f32 bound and the bound of
+    the kernels' own arithmetic (three TF32 products, 495 TFLOP/s)."""
+    sdpa_kernels = device_ms_per_kernel([sdpa] * 10)
+    return {
+        "ms": timed(call, 20),
+        "device_ms": device_ms_by_name([call] * 10, FA_KERNELS),
+        "host_us": host_us(call),
+        "plain_ms": timed(plain, 5),
+        "library_ms": timed(sdpa, 20),
+        "library_device_ms": sum(sdpa_kernels.values()),
+        "library_kernels": sorted(k[:100] for k in sdpa_kernels),
+        "bound_ms": bound_ms(nbytes, flops),
+        "bound_pieces_ms": 1e3 * max(nbytes / HBM_BYTES_PER_S,
+                                     3 * flops / TF32_FLOPS_PER_S),
+        "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
+                     > flops / F32_FLOPS_PER_S else "operations"),
+    }
+
+
 def flash_cases(dev, g):
     from repro_torch.kernels.flash_attention import ops as fa_ops
 
@@ -309,33 +348,19 @@ def flash_cases(dev, g):
             "name": "flash_attention", "case": label,
             "shape": {"B": B, "T": T, "S": S, "Hq": Hq, "Hkv": Hkv, "D": D},
             "max_abs_err": float((o - o_plain).abs().max()), "tol": FA_TOL,
-            "ms": timed(lambda: fa_ops.flash_attention(q, k, v, qpos, kpos),
-                        20),
-            "device_ms": device_ms(
-                lambda: fa_ops.flash_attention(q, k, v, qpos, kpos)),
-            "plain_ms": timed(
-                lambda: fa_ops.flash_attention_plain(q, k, v, qpos, kpos), 5),
-            "library_ms": timed(_sdpa_yardstick(q, k, v, mask), 20),
-            "bound_ms": bound_ms(nbytes, flops),
-            "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
-                         > flops / F32_FLOPS_PER_S else "operations"),
+            **_flash_times(
+                lambda: fa_ops.flash_attention(q, k, v, qpos, kpos),
+                lambda: fa_ops.flash_attention_plain(q, k, v, qpos, kpos),
+                _sdpa_yardstick(q, k, v, mask), nbytes, flops),
         }
 
 
-def paged_case(dev, g):
-    """A ragged mixed batch as the engine builds it: 8 slots, chunk bucket
-    128, pages of 16 — five prefill rows at various depths, two decode
-    rows, one idle slot."""
+def _paged_case(dev, g, label, lens, clens, C, nb, P):
     from repro_torch.kernels.flash_attention import ops as fa_ops
 
-    Hq, Hkv, D, page, P = 32, 8, 64, 16, 512
-    lens = torch.tensor([0, 128, 256, 384, 40, 700, 1000, 0],
-                        dtype=torch.int32, device=dev)
-    clens = torch.tensor([128, 128, 128, 100, 128, 1, 1, 0],
-                         dtype=torch.int32, device=dev)
-    B, C = 8, 128
+    Hq, Hkv, D, page = 32, 8, 64, 16
+    B = lens.shape[0]
     need = (lens + clens + page - 1) // page
-    nb = int(need.max())
     perm = torch.randperm(P, generator=g, device=dev)
     bt = torch.full((B, nb), -1, dtype=torch.int32, device=dev)
     used = 0
@@ -361,22 +386,35 @@ def paged_case(dev, g):
                                float((kv_pos >= 0).sum()) * Hkv * D * 4 * 2)
     kg = fa_ops.gather_pages(kp, bt)
     vg = fa_ops.gather_pages(vp, bt)
-    yield {
-        "name": "paged_flash_attention", "case": "mixed",
+    return {
+        "name": "paged_flash_attention", "case": label,
         "shape": {"B": B, "T": C, "nb": nb, "page": page, "Hq": Hq,
-                  "Hkv": Hkv, "D": D},
+                  "Hkv": Hkv, "D": D,
+                  "contexts": (lens + clens).tolist()},
         "max_abs_err": err, "tol": FA_TOL,
-        "ms": timed(lambda: fa_ops.paged_flash_attention(
-            *args, page_size=page), 20),
-        "device_ms": device_ms(lambda: fa_ops.paged_flash_attention(
-            *args, page_size=page)),
-        "plain_ms": timed(lambda: fa_ops.paged_flash_attention_plain(
-            *args, page_size=page), 5),
-        "library_ms": timed(_sdpa_yardstick(q, kg, vg, mask), 20),
-        "bound_ms": bound_ms(nbytes, flops),
-        "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
-                     > flops / F32_FLOPS_PER_S else "operations"),
+        **_flash_times(
+            lambda: fa_ops.paged_flash_attention(*args, page_size=page),
+            lambda: fa_ops.paged_flash_attention_plain(*args,
+                                                       page_size=page),
+            _sdpa_yardstick(q, kg, vg, mask), nbytes, flops),
     }
+
+
+def paged_cases(dev, g):
+    """Two batches as the engine builds them, pages of 16. mixed: 8 slots,
+    chunk bucket 128 -- five prefill rows at various depths, two decode
+    rows, one idle slot. decode: a pure decode tick of the serve phase's
+    shape -- 8 slots, one row each, contexts 64-544 (prompts of 64-512
+    plus up to 32 generated tokens), block tables 64 wide (max_len 1024)."""
+    i32 = dict(dtype=torch.int32, device=dev)
+    yield _paged_case(
+        dev, g, "mixed", torch.tensor([0, 128, 256, 384, 40, 700, 1000, 0],
+                                      **i32),
+        torch.tensor([128, 128, 128, 100, 128, 1, 1, 0], **i32), C=128,
+        nb=63, P=512)
+    lens = torch.linspace(63, 543, 8, device=dev).round().to(torch.int32)
+    yield _paged_case(dev, g, "decode", lens, torch.ones(8, **i32), C=1,
+                      nb=64, P=512)
 
 
 def wkv_cases(dev, g):
@@ -436,7 +474,7 @@ def kernel_phase(dev):
                 crossbar_cases(dev, g, "rwkv6-7b", RWKV_KN, (8,),
                                extra_kn=(14336, 4096)),
                 crossover_cases(dev, g),
-                flash_cases(dev, g), paged_case(dev, g), wkv_cases(dev, g)):
+                flash_cases(dev, g), paged_cases(dev, g), wkv_cases(dev, g)):
         for case in gen:
             case["ok"] = case["max_abs_err"] <= case["tol"]
             emit({"phase": "kernel", **case})
@@ -746,9 +784,11 @@ def profile_phase(eng, cfg, dev, *, n_requests=8, prompt_len=256,
     # the port's own kernels (csrc/*.cu), whatever their share of the tick
     own = {k: us / 1e3 / window for k, us in by_name.items()
            if any(f"(anonymous namespace)::{n}" in k
-                  for n in CB_KERNELS + ("flash_kernel<", "wkv_kernel<"))}
+                  for n in CB_KERNELS + FA_KERNELS + ("wkv_kernel<",))}
     crossbar_ms = sum(v for k, v in own.items()
                       if any(n in k for n in CB_KERNELS))
+    flash_ms = sum(v for k, v in own.items()
+                   if any(n in k for n in FA_KERNELS))
     emit({"phase": "profile", "ticks": window, "slots": n_requests,
           "untraced_wall_ms_per_tick": untraced_ms / window,
           "traced_wall_ms_per_tick": wall_ms / window,
@@ -760,7 +800,10 @@ def profile_phase(eng, cfg, dev, *, n_requests=8, prompt_len=256,
           "port_kernels_device_ms_per_tick": own,
           "crossbar_device_ms_per_tick": crossbar_ms,
           "crossbar_share_of_device": (crossbar_ms * window / device_ms
-                                       if kern else None)})
+                                       if kern else None),
+          "flash_device_ms_per_tick": flash_ms,
+          "flash_share_of_device": (flash_ms * window / device_ms
+                                    if kern else None)})
     eng.drain()
 
 
@@ -840,9 +883,17 @@ def main() -> int:
             "device_ms": c["device_ms"],
             "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
             "bound_by": c["bound_by"], "library_ms": c["library_ms"],
-            **{k: c[k] for k in ("library", "library_device_ms")
-               if k in c},
+            **{k: c[k] for k in ("library", "library_device_ms",
+                                 "library_kernels", "bound_pieces_ms",
+                                 "host_us") if k in c},
             "at": c["shape"]})
+        if "flash" in name:          # every case of the kernel beside it
+            summary[-1]["cases"] = [
+                {k: o[k] for k in ("case", "max_abs_err", "ms", "device_ms",
+                                   "host_us", "plain_ms", "library_ms",
+                                   "library_device_ms", "bound_ms",
+                                   "bound_pieces_ms", "bound_by")}
+                for o in cases if o["name"] == name]
     emit({"kernels": summary})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -8,12 +8,15 @@ the same function with K/V read from one layer's page pool
 (P, Hkv, page, D) through a block table. Both give 0 for a row that sees
 no key, as the Pallas kernel does (``ref_attention`` gives the mean of V
 there instead). On CUDA tensors the wrappers launch
-``csrc/flash_attention.cu``; on CPU tensors they run the plain versions.
+``csrc/flash_attention.cu`` (tensor cores in 3xTF32, one block per kv
+head's GQA group and row tile, causal tiles skipped, short query tiles
+split over the context through a per-stream workspace); on CPU tensors
+they run the plain versions.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -94,13 +97,57 @@ def _lib():
     global _LIB
     if _LIB is None:
         lib = build.load("flash_attention")
-        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.flash_attention.argtypes = [vp] * 6 + [ci] * 7 + [cf, vp]
+        vp, ci, cf, cs = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                          ctypes.c_size_t)
+        lib.flash_attention_workspace.argtypes = [ci] * 6 + [
+            ctypes.POINTER(cs)]
+        lib.flash_attention_workspace.restype = cs
+        ws = [vp, cs, vp, cs]           # partials, their count, tickets, ...
+        lib.flash_attention.argtypes = [vp] * 6 + ws + [ci] * 7 + [cf, vp]
         lib.flash_attention.restype = ci
-        lib.paged_flash_attention.argtypes = [vp] * 8 + [ci] * 8 + [cf, vp]
+        lib.paged_flash_attention.argtypes = ([vp] * 8 + ws + [ci] * 8
+                                              + [cf, vp])
         lib.paged_flash_attention.restype = ci
         _LIB = lib
     return _LIB
+
+
+# (B, T, Hq, Hkv, S, D) -> (f32 partials, int tickets) the call needs
+_NEEDS: Dict[tuple, Tuple[int, int]] = {}
+# (device, stream) -> (partials, tickets): the split-KV workspace of both
+# entry points, grown on demand. Calls on one stream run in order, so they
+# share it; the tickets are zeroed here once and every call leaves them 0.
+_WORKSPACE: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _workspace(shape: tuple, dev: int, stream: int) -> Tuple[int, int,
+                                                              int, int]:
+    need = _NEEDS.get(shape)
+    if need is None:
+        tickets = ctypes.c_size_t(0)
+        partials = _lib().flash_attention_workspace(*shape,
+                                                    ctypes.byref(tickets))
+        need = _NEEDS[shape] = (partials, tickets.value)
+    if need == (0, 0):
+        return 0, 0, 0, 0
+    ws = _WORKSPACE.get((dev, stream))
+    if ws is None or ws[0].numel() < need[0] or ws[1].numel() < need[1]:
+        have = ws or (torch.empty(0), torch.empty(0))
+        device = torch.device("cuda", dev)
+        ws = _WORKSPACE[(dev, stream)] = (
+            torch.empty(max(need[0], have[0].numel()), dtype=torch.float32,
+                        device=device),
+            torch.zeros(max(need[1], have[1].numel()), dtype=torch.int32,
+                        device=device))
+    return ws[0].data_ptr(), ws[0].numel(), ws[1].data_ptr(), ws[1].numel()
+
+
+def _call(fn, dev: int, *args) -> int:
+    """Run a launch with ``dev`` current (entered only when it is not)."""
+    if dev == torch.cuda.current_device():
+        return fn(*args)
+    with torch.cuda.device(dev):
+        return fn(*args)
 
 
 def _need(t: torch.Tensor, name: str, dtype, device, ndim: int) -> None:
@@ -112,6 +159,8 @@ def _need(t: torch.Tensor, name: str, dtype, device, ndim: int) -> None:
         raise ValueError(f"{name} must be {ndim}-D, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"flash attention needs a contiguous {name}")
+    if t.data_ptr() % 16:
+        raise ValueError(f"flash attention needs a 16-byte aligned {name}")
 
 
 def _flags(window, softcap):
@@ -156,11 +205,12 @@ def flash_attention(q, k, v, q_pos, kv_pos, *, window=None,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    with torch.cuda.device(q.device):
-        rc = _lib().flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
-            kv_pos.data_ptr(), out.data_ptr(), B, T, Hq, S, Hkv, D, w, c,
-            torch.cuda.current_stream().cuda_stream)
+    dev = q.device.index
+    stream = torch._C._cuda_getCurrentRawStream(dev)
+    ws = _workspace((B, T, Hq, Hkv, S, D), dev, stream)
+    rc = _call(_lib().flash_attention, dev, q.data_ptr(), k.data_ptr(),
+               v.data_ptr(), q_pos.data_ptr(), kv_pos.data_ptr(),
+               out.data_ptr(), *ws, B, T, Hq, S, Hkv, D, w, c, stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {rc}")
     kernels.LAUNCHES["flash_attention"] += 1
@@ -203,12 +253,13 @@ def paged_flash_attention(q, kp, vp, positions, block_table, lens,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    with torch.cuda.device(q.device):
-        rc = _lib().paged_flash_attention(
-            q.data_ptr(), kp.data_ptr(), vp.data_ptr(), positions.data_ptr(),
-            block_table.data_ptr(), lens.data_ptr(), chunk_lens.data_ptr(),
-            out.data_ptr(), B, T, Hq, Hkv, D, nb, page, w, c,
-            torch.cuda.current_stream().cuda_stream)
+    dev = q.device.index
+    stream = torch._C._cuda_getCurrentRawStream(dev)
+    ws = _workspace((B, T, Hq, Hkv, nb * page, D), dev, stream)
+    rc = _call(_lib().paged_flash_attention, dev, q.data_ptr(),
+               kp.data_ptr(), vp.data_ptr(), positions.data_ptr(),
+               block_table.data_ptr(), lens.data_ptr(), chunk_lens.data_ptr(),
+               out.data_ptr(), *ws, B, T, Hq, Hkv, D, nb, page, w, c, stream)
     if rc != 0:
         raise RuntimeError(
             f"paged_flash_attention launch failed: CUDA error {rc}")

@@ -10,7 +10,7 @@ Tolerances: crossbar 1e-4 relative (max-scaled absolute), as for the
 Pallas kernel — the plain version dequantizes before one product, the
 kernel scales each 128-deep f32 partial sum and carries x as two bf16
 pieces (|x - hi - lo| <= 2^-16 |x|); flash 2e-5, f32 softmax
-attention summed in another order; wkv 1e-5 (rtol and atol), as for the
+attention summed in another order (the kernel's products in 3xTF32); wkv 1e-5 (rtol and atol), as for the
 Pallas kernel: the same f32 recurrence, each step's sums in another order.
 """
 import numpy as np
@@ -39,7 +39,11 @@ CB_SHAPES = [(32, 128, 128), (64, 256, 384), (100, 300, 130), (8, 520, 250),
              # rwkv6-7b's deepest decode shape and widest prefill shape
              (8, 14336, 4096), (1024, 4096, 14336)]
 FA_SWEEP = [(2, 64, 64, 4, 2, 16), (1, 32, 96, 4, 4, 8), (2, 64, 64, 8, 2, 32),
-            (1, 1, 64, 4, 2, 16), (1, 48, 48, 6, 3, 64)]
+            (1, 1, 64, 4, 2, 16), (1, 48, 48, 6, 3, 64),
+            # several row and key tiles with ragged edges, G = 4 and 8
+            (2, 300, 300, 8, 2, 64), (1, 300, 300, 8, 1, 64),
+            # decode rows split over the context (split-KV)
+            (8, 1, 1000, 32, 8, 64)]
 FA_FLAGS = [(None, None), (16, None), (None, 20.0)]
 
 
@@ -177,6 +181,99 @@ def test_paged_kernel_matches_plain(seed):
     o_plain = fa_ops.paged_flash_attention_plain(q, kp, vp, pos, bt, lens,
                                                  clens, page_size=page)
     torch.testing.assert_close(o, o_plain, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window,softcap", FA_FLAGS)
+def test_flash_kernel_reads_positions_not_order(window, softcap):
+    """kv_pos a permutation with -1 holes and q_pos out of order: tile
+    skipping must decide from the positions loaded, not from key order."""
+    dev = _cuda_or_skip()
+    B, T, S, Hq, Hkv, D = 2, 70, 260, 8, 2, 64
+    g = torch.Generator(device=dev).manual_seed(5)
+    q = torch.randn(B, T, Hq, D, generator=g, device=dev)
+    k = torch.randn(B, S, Hkv, D, generator=g, device=dev)
+    v = torch.randn(B, S, Hkv, D, generator=g, device=dev)
+    kpos = torch.stack([torch.randperm(S, generator=g, device=dev)
+                        for _ in range(B)]).to(torch.int32)
+    kpos = torch.where(torch.rand(B, S, generator=g, device=dev) < 0.2, -1,
+                       kpos).contiguous()
+    qpos = torch.randint(0, S, (B, T), generator=g, device=dev,
+                         dtype=torch.int32)
+    qpos[0, :8] = -1                          # rows that see no key
+    o = fa_ops.flash_attention(q, k, v, qpos, kpos, window=window,
+                               softcap=softcap)
+    torch.cuda.synchronize()
+    o_plain = fa_ops.flash_attention_plain(q, k, v, qpos, kpos, window=window,
+                                           softcap=softcap)
+    torch.testing.assert_close(o, o_plain, rtol=2e-5, atol=2e-5)
+    assert torch.all(o[0, :8] == 0.0)
+
+
+def _paged_decode_inputs(dev, seed, B=8, Hq=32, Hkv=8, D=64, page=16,
+                         nb=64, P=600):
+    """The engine's decode shape: one query row per slot, contexts of
+    64-544 keys, -1 holes in the tables and one page shared by two rows."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    lens = torch.randint(63, 544, (B,), generator=g, device=dev,
+                         dtype=torch.int32)
+    clens = torch.ones(B, dtype=torch.int32, device=dev)
+    clens[B - 1] = 0                          # an idle slot
+    need = (lens + clens + page - 1) // page
+    perm = torch.randperm(P, generator=g, device=dev)[:B * nb].reshape(B, nb)
+    bt = torch.where(torch.arange(nb, device=dev)[None] < need[:, None],
+                     perm, -1).to(torch.int32)
+    bt[0, 1] = -1                             # a hole inside the context
+    bt[1, 0] = bt[2, 0]                       # a prefix page shared
+    kp = torch.randn(P, Hkv, page, D, generator=g, device=dev)
+    vp = torch.randn(P, Hkv, page, D, generator=g, device=dev)
+    q = torch.randn(B, 1, Hq, D, generator=g, device=dev)
+    pos = lens[:, None].contiguous()
+    return q, kp, vp, pos, bt, lens, clens
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed", [0, 1])
+def test_paged_kernel_matches_plain_at_decode(seed):
+    dev = _cuda_or_skip()
+    args = _paged_decode_inputs(dev, seed)
+    before = kernels.LAUNCHES["paged_flash_attention"]
+    o = fa_ops.paged_flash_attention(*args, page_size=16)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["paged_flash_attention"] == before + 1
+    o_plain = fa_ops.paged_flash_attention_plain(*args, page_size=16)
+    torch.testing.assert_close(o, o_plain, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["prefill", "decode"])
+def test_flash_kernel_is_deterministic(case):
+    """The split-KV combine (decode) sums in a fixed order: two calls on
+    the same inputs give the same bits."""
+    dev = _cuda_or_skip()
+    B, T, S = (1, 512, 512) if case == "prefill" else (8, 1, 1024)
+    g = torch.Generator(device=dev).manual_seed(9)
+    q = torch.randn(B, T, 32, 64, generator=g, device=dev)
+    k = torch.randn(B, S, 8, 64, generator=g, device=dev)
+    v = torch.randn(B, S, 8, 64, generator=g, device=dev)
+    qpos = torch.arange(S - T, S, dtype=torch.int32, device=dev)
+    qpos = qpos[None].expand(B, T).contiguous()
+    kpos = torch.arange(S, dtype=torch.int32, device=dev)
+    kpos = kpos[None].expand(B, S).contiguous()
+    o1 = fa_ops.flash_attention(q, k, v, qpos, kpos)
+    o2 = fa_ops.flash_attention(q, k, v, qpos, kpos)
+    torch.cuda.synchronize()
+    assert torch.equal(o1, o2)
+
+
+@pytest.mark.gpu
+def test_paged_kernel_is_deterministic():
+    dev = _cuda_or_skip()
+    args = _paged_decode_inputs(dev, 3)
+    o1 = fa_ops.paged_flash_attention(*args, page_size=16)
+    o2 = fa_ops.paged_flash_attention(*args, page_size=16)
+    torch.cuda.synchronize()
+    assert torch.equal(o1, o2)
 
 
 # (B, T, H, N, chunk_lens): decode, a prefill chunk, ragged rows with an
