@@ -14,10 +14,11 @@ Imports nothing of JAX or of the JAX package. Phases, each printing JSON:
                (``library_ms``, never used by the port), and the bound:
                the larger of bytes moved / 3.35 TB/s and flops / 67 TFLOP/s
                (f32 outside the tensor cores; H100 SXM data sheet).
-               Crossbar and flash cases also give the bound of their own
+               Every case also gives the bound of the kernel's own
                arithmetic (``bound_pieces_ms``: three bf16 products on
                the tensor cores at 989 TFLOP/s for crossbar, three TF32
-               products at 495 TFLOP/s for flash), the kernel's device
+               products at 495 TFLOP/s for flash and the chunked wkv
+               kernel, beside the latter's f32 SIMT work), the kernel's device
                time from a profiler trace (``device_ms``; crossbar: cold,
                over copies of the weight that exceed the L2, for M <= 128,
                warm beside it), the yardstick's device time
@@ -26,6 +27,11 @@ Imports nothing of JAX or of the JAX package. Phases, each printing JSON:
                kernels forced at M = 8 .. 1024 on one shape (the
                crossover). Flash: contiguous prefill and decode; paged
                mixed (chunked prefill) and decode (a pure decode tick).
+               wkv: decode, a prefill chunk of 128, a ragged chunk, small
+               decays with exact zeros, a 512-token prompt, each on the
+               kernel the wrapper picks (the register recurrence below
+               T = 8, the chunked tensor-core kernel from there on), and
+               both kernels forced at T = 1 .. 128 (the crossover).
   4. serve   — for each model the port serves, full width and full depth
                (random weights from a seed), on an M8F8 crossbar base with
                two rank-32 adapters, served by the port's paged engine: 8
@@ -44,15 +50,20 @@ Imports nothing of JAX or of the JAX package. Phases, each printing JSON:
                  llama3.2-1b — crossbar + paged flash (engine), crossbar +
                                contiguous flash (forward); the prefix
                                cache serves the shared prefix;
-                 rwkv6-7b    — crossbar + wkv (engine and forward); the
+                 rwkv6-7b    — crossbar + wkv (engine and forward: the
+                               chunked kernel for the prompts' chunks, the
+                               recurrence for decode steps, never the
+                               chunked one in a pure decode tick); the
                                prefix cache is off (recurrent state).
                The llama engine and weights are freed before rwkv6-7b.
-     profile — after each serve, a second wave on the same engine; once
-               every slot decodes, a window of ticks runs untraced (host
-               wall), then the next window under torch.profiler with CUDA
-               activity only: device busy share (device time over wall,
-               both of that window), time by kernel, and the crossbar's
-               and flash's shares of the device time.
+     profile — after each serve, a second wave on the same engine: its
+               first (mixed) ticks, every slot prefilling 128 tokens,
+               under torch.profiler with CUDA activity only; once every
+               slot decodes, a window of ticks untraced (host wall), then
+               the next window traced. Each traced window: device busy
+               share (device time over wall, both of that window), time
+               by kernel, and the crossbar's, flash's and wkv's device
+               time and shares of it.
   5. summary — one ``{"kernels": [...]}`` line, the nvidia-smi line, and
                last ``{"ok": true, "device": {...}}``.
 
@@ -417,53 +428,114 @@ def paged_cases(dev, g):
                       nb=64, P=512)
 
 
-def wkv_cases(dev, g):
-    """The wkv recurrence at rwkv6-7b's shapes (H = 64 heads of N = 64, 8
-    slots): a decode tick, a prefill chunk of 128, and a ragged chunk as
-    the engine builds it (rows of various lengths, one idle), masked as the
-    model masks it (k = 0, w = 1 past each row's length)."""
+# the wkv kernels' own names in a profiler trace: the register recurrence
+# (decode, short chunks) and the chunked tensor-core kernel
+WKV_KERNELS = ("wkv_kernel<", "wkv_chunk_kernel")
+WKV_LAUNCH_KEYS = ("rwkv6_wkv", "rwkv6_wkv_chunk")
+
+
+def _wkv_inputs(dev, g, B, T, H, N, decay="model", clens=None):
+    """rwkv6-7b's wkv inputs: decays as the model makes them, exp(-exp(x))
+    with x in [-6, -1] ("model"), or down to exact zeros ("small_decay":
+    x in [-6, 3], and 1% of the decays exactly 0); ragged rows masked as
+    the model masks them (k = 0, w = 1 past each row's length)."""
+    r, k, v = (torch.randn(B, T, H, N, generator=g, device=dev)
+               for _ in range(3))
+    lo, hi = (-6.0, -1.0) if decay == "model" else (-6.0, 3.0)
+    w = torch.exp(-torch.exp(lo + (hi - lo) * torch.rand(
+        B, T, H, N, generator=g, device=dev)))
+    if decay == "small_decay":
+        zero = torch.rand(B, T, H, N, generator=g, device=dev) < 0.01
+        w = torch.where(zero, 0.0, w)
+    u = 0.5 * torch.ones(H, N, device=dev)
+    s0 = torch.randn(B, H, N, N, generator=g, device=dev)
+    if clens is not None:
+        valid = (torch.arange(T, device=dev)[None] < torch.tensor(
+            clens, device=dev)[:, None])[..., None, None]
+        k = torch.where(valid, k, 0.0)
+        w = torch.where(valid, w, 1.0)
+    return r, k, v, w, u, s0
+
+
+def _wkv_cost(B, T, H, N):
+    """Bytes (r/k/v/w read, y written, the state read and written), f32
+    flops of the recurrence (4 T N^2 per head), and the chunked kernel's
+    own arithmetic: its three products ((r * P) S, (k * Q)^T V: 4 T N^2;
+    A V: 2 T 16 N) in 3xTF32 on the tensor cores, and its f32 SIMT work
+    (decay products 4 T N; A over each 16-step sub-chunk's 136 pairs, 2 N
+    each, and its 120 running products, N each)."""
+    nbytes = 5.0 * B * T * H * N * 4 + 2.0 * B * H * N * N * 4
+    flops = 4.0 * B * T * H * N * N
+    n_sub = -(-T // 16)
+    tensor = 3 * (flops + 2.0 * B * T * H * 16 * N)
+    simt = 4.0 * B * T * H * N + B * H * n_sub * (136 * 2.0 * N + 120.0 * N)
+    return nbytes, flops, tensor, simt
+
+
+def wkv_case(dev, g, label, T, decay="model", clens=None, kernel="auto",
+             model="rwkv6-7b"):
+    from repro_torch import kernels
     from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
 
     B, H, N = 8, 64, 64
-    for label, T, clens in (("decode", 1, None), ("prefill", 128, None),
-                            ("ragged", 128, (128, 100, 64, 1, 0, 128, 37, 5))):
-        r, k, v = (torch.randn(B, T, H, N, generator=g, device=dev)
-                   for _ in range(3))
-        # decays as the model makes them: exp(-exp(x)), x in [-6, -1]
-        w = torch.exp(-torch.exp(-6.0 + 5.0 * torch.rand(
-            B, T, H, N, generator=g, device=dev)))
-        u = 0.5 * torch.ones(H, N, device=dev)
-        s0 = torch.randn(B, H, N, N, generator=g, device=dev)
-        if clens is not None:
-            valid = (torch.arange(T, device=dev)[None] < torch.tensor(
-                clens, device=dev)[:, None])[..., None, None]
-            k = torch.where(valid, k, 0.0)
-            w = torch.where(valid, w, 1.0)
-        args = (r, k, v, w, u, s0)
-        y, s = wkv_ops.rwkv6_wkv(*args)
-        y_plain, s_plain = wkv_ops.rwkv6_wkv_plain(*args)
-        torch.cuda.synchronize()
-        err = max(float((y - y_plain).abs().max()),
-                  float((s - s_plain).abs().max()))
-        # the plain version's own scale: 1e-5 relative and absolute
-        tol = WKV_TOL * (1.0 + max(float(y_plain.abs().max()),
-                                   float(s_plain.abs().max())))
-        nbytes = 5.0 * B * T * H * N * 4 + 2.0 * B * H * N * N * 4
-        flops = 4.0 * B * T * H * N * N
-        yield {
-            "name": "rwkv6_wkv", "model": "rwkv6-7b", "case": label,
-            "shape": {"B": B, "T": T, "H": H, "N": N,
-                      **({"chunk_lens": list(clens)} if clens else {})},
-            "max_abs_err": err, "tol": tol,
-            "ms": timed(lambda: wkv_ops.rwkv6_wkv(*args), 20),
-            "device_ms": device_ms(lambda: wkv_ops.rwkv6_wkv(*args)),
-            "plain_ms": timed(lambda: wkv_ops.rwkv6_wkv_plain(*args), 5),
-            "library_ms": None,
-            "library": "none: no single PyTorch call computes this recurrence",
-            "bound_ms": bound_ms(nbytes, flops),
-            "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
-                         > flops / F32_FLOPS_PER_S else "operations"),
-        }
+    args = _wkv_inputs(dev, g, B, T, H, N, decay, clens)
+    before = dict(kernels.LAUNCHES)
+    y, s = wkv_ops.rwkv6_wkv(*args, kernel=kernel)
+    ran = [k for k in WKV_LAUNCH_KEYS if kernels.LAUNCHES[k] != before[k]]
+    if len(ran) != 1:
+        raise AssertionError(f"one wkv call launched {ran}")
+    y_plain, s_plain = wkv_ops.rwkv6_wkv_plain(*args)
+    torch.cuda.synchronize()
+    err = max(float((y - y_plain).abs().max()),
+              float((s - s_plain).abs().max()))
+    # the plain version's own scale: 1e-5 relative and absolute
+    tol = WKV_TOL * (1.0 + max(float(y_plain.abs().max()),
+                               float(s_plain.abs().max())))
+    nbytes, flops, tensor, simt = _wkv_cost(B, T, H, N)
+    call = lambda: wkv_ops.rwkv6_wkv(*args, kernel=kernel)  # noqa: E731
+    chunked = ran == ["rwkv6_wkv_chunk"]
+    return {
+        "name": ran[0],
+        "model": model, "case": label, "kernel": kernel,
+        "shape": {"B": B, "T": T, "H": H, "N": N, "decay": decay,
+                  **({"chunk_lens": list(clens)} if clens else {})},
+        "max_abs_err": err, "tol": tol,
+        "ms": timed(call, 20),
+        "device_ms": device_ms_by_name([call] * 10, WKV_KERNELS),
+        "host_us": host_us(call),
+        "plain_ms": timed(lambda: wkv_ops.rwkv6_wkv_plain(*args), 5),
+        "library_ms": None,
+        "library": "none: no single PyTorch call computes this recurrence",
+        "bound_ms": bound_ms(nbytes, flops),
+        # the bound of the kernel's own arithmetic: the chunked kernel's
+        # products in 3xTF32 at 495 TFLOP/s beside its f32 SIMT work; the
+        # recurrence's own arithmetic is the f32 bound
+        "bound_pieces_ms": (1e3 * max(nbytes / HBM_BYTES_PER_S,
+                                      tensor / TF32_FLOPS_PER_S
+                                      + simt / F32_FLOPS_PER_S)
+                            if chunked else bound_ms(nbytes, flops)),
+        "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
+                     > flops / F32_FLOPS_PER_S else "operations"),
+    }
+
+
+def wkv_cases(dev, g):
+    """The wkv recurrence at rwkv6-7b's shapes (H = 64 heads of N = 64, 8
+    slots), each kernel as the wrapper picks it: a decode tick, a prefill
+    chunk of 128, a ragged chunk as the engine builds it (rows of various
+    lengths, one idle), the chunk with small decays and exact zeros, and a
+    whole 512-token prompt (the dense forward); then both kernels forced
+    at the engine's chunk buckets T = 1 .. 128 (the crossover)."""
+    for label, T, decay, clens in (
+            ("decode", 1, "model", None), ("prefill", 128, "model", None),
+            ("ragged", 128, "model", (128, 100, 64, 1, 0, 128, 37, 5)),
+            ("small_decay", 128, "small_decay", None),
+            ("prompt", 512, "model", None)):
+        yield wkv_case(dev, g, label, T, decay, clens)
+    for T in (1, 2, 4, 8, 16, 32, 64, 128):
+        for kernel in ("recurrent", "chunk"):
+            yield wkv_case(dev, g, f"crossover T={T}", T, kernel=kernel,
+                           model="crossover")
 
 
 def kernel_phase(dev):
@@ -492,14 +564,25 @@ def kernel_phase(dev):
 
 # kernel -> launches per engine tick / per forward, for each model's path:
 # seven crossbar matrices per layer (llama wq/wk/wv/wo/w1/w3/w2; rwkv
-# r/k/v/g/o/ck/cv), one attention or wkv recurrence per layer
+# r/k/v/g/o/ck/cv), one attention or wkv recurrence per layer ("wkv": the
+# two wkv kernels together; the wrapper picks one by the chunk's T)
 def path_launches(cfg):
     L = cfg.n_layers
     if cfg.block_pattern == ("rwkv",):
-        return ({"crossbar_matmul": 7 * L, "rwkv6_wkv": L},
-                {"crossbar_matmul": 7 * L, "rwkv6_wkv": L})
+        return ({"crossbar_matmul": 7 * L, "wkv": L},
+                {"crossbar_matmul": 7 * L, "wkv": L})
     return ({"crossbar_matmul": 7 * L, "paged_flash_attention": L},
             {"crossbar_matmul": 7 * L, "flash_attention": L})
+
+
+def merge_wkv(launches):
+    """Nonzero launch counts, the two wkv kernels summed as "wkv"."""
+    out = {k: n for k, n in launches.items()
+           if n and k not in WKV_LAUNCH_KEYS}
+    wkv = sum(launches.get(k, 0) for k in WKV_LAUNCH_KEYS)
+    if wkv:
+        out["wkv"] = wkv
+    return out
 
 
 def quantized_matrices(tree) -> int:
@@ -611,16 +694,18 @@ def serve_phase(dev, cfg, *, n_requests=8, max_new=32, prompt_range=(64, 512),
     kernels.reset_launches()
     for r in reqs:
         eng.submit(r)
-    tick_s, tick_kind, tick_decoded = [], [], []
+    tick_s, tick_kind, tick_decoded, tick_chunk = [], [], [], []
     t_serve = time.perf_counter()
     while eng.queue or eng.sched.active():
         pf, dc = eng.prefill_tokens, eng.decode_tokens
+        chunk = kernels.LAUNCHES["rwkv6_wkv_chunk"]
         t = time.perf_counter()
         eng.step()
         torch.cuda.synchronize()
         tick_s.append(time.perf_counter() - t)
         tick_kind.append("prefill" if eng.prefill_tokens > pf else "decode")
         tick_decoded.append(eng.decode_tokens - dc)
+        tick_chunk.append(kernels.LAUNCHES["rwkv6_wkv_chunk"] - chunk)
     serve_s = time.perf_counter() - t_serve
     done = eng.finished
     serve_launches = dict(kernels.LAUNCHES)
@@ -649,9 +734,16 @@ def serve_phase(dev, cfg, *, n_requests=8, max_new=32, prompt_range=(64, 512),
              {k: n * n_forwards for k, n in per_forward.items()})):
         # every kernel of the path, exactly as often as the path runs it;
         # no other kernel
-        if {k: n for k, n in got.items() if n} != want:
+        if merge_wkv(got) != want:
             raise AssertionError(f"the {path} launched {got}, expected "
                                  f"{want}")
+        # rwkv: the prompts' chunks ran the chunked kernel, the decode
+        # steps the recurrence
+        if "wkv" in want and not all(got[k] for k in WKV_LAUNCH_KEYS):
+            raise AssertionError(f"the {path} ran one wkv kernel only: "
+                                 f"{got}")
+    if any(n for n, kind in zip(tick_chunk, tick_kind) if kind == "decode"):
+        raise AssertionError("a pure decode tick ran the chunked wkv kernel")
     st = eng.stats()
     full_attn = cfg.block_pattern == ("attn",)
     if st.prefix_cache.enabled != full_attn:
@@ -720,6 +812,7 @@ def serve_phase(dev, cfg, *, n_requests=8, max_new=32, prompt_range=(64, 512),
         "cow_forks": st.scheduler.cow_forks,
         "preemptions": st.scheduler.preemptions,
         "serve_launches": serve_launches,
+        "chunked_wkv_ticks": sum(1 for n in tick_chunk if n),
         "forward_launches": forward_launches, "forwards": n_forwards,
         "logit_checks": checks, "logit_tol": tol,
         "logit_error_by_depth": by_depth,
@@ -733,41 +826,22 @@ def serve_phase(dev, cfg, *, n_requests=8, max_new=32, prompt_range=(64, 512),
     return result, eng
 
 
-def profile_phase(eng, cfg, dev, *, n_requests=8, prompt_len=256,
-                  window=8, seed=1):
-    """Where a decode tick's time goes: the same engine serves a second
-    wave of requests; once every slot decodes, ``window`` ticks run
-    untraced (host wall), then the next ``window`` ticks run under
-    ``torch.profiler`` tracing CUDA activity only. Device busy share is
-    that traced window's device time over its own wall time; the untraced
-    wall beside it shows what the tracing costs. Also reports the device
-    time by kernel name."""
+def traced_ticks(eng, n):
+    """``n`` engine ticks under ``torch.profiler`` (CUDA activity only):
+    wall, device time and the port kernels' device time per tick, device
+    busy share (device time over the traced wall), launches and prefill
+    tokens per tick, and the top kernels by device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import kernels
-    from repro_torch.serve.api import Request
 
-    rng = np.random.default_rng(seed)
-    for i in range(n_requests):
-        eng.submit(Request(uid=1000 + i, prompt=rng.integers(
-            0, cfg.vocab_size, prompt_len).astype(np.int32),
-            max_new_tokens=2 * window + 8, adapter_id=i % 2))
-    while True:                          # until a tick does no prefill
-        pf = eng.prefill_tokens
-        eng.step()
-        if eng.prefill_tokens == pf:
-            break
     torch.cuda.synchronize()
-    t = time.perf_counter()
-    for _ in range(window):
-        eng.step()
-    torch.cuda.synchronize()
-    untraced_ms = 1e3 * (time.perf_counter() - t)
     before = dict(kernels.LAUNCHES)
+    pf = eng.prefill_tokens
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        for _ in range(window):
+        for _ in range(n):
             eng.step()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t)
@@ -782,28 +856,62 @@ def profile_phase(eng, cfg, dev, *, n_requests=8, prompt_len=256,
     device_ms = sum(by_name.values()) / 1e3
     top = sorted(by_name.items(), key=lambda kv: kv[1], reverse=True)[:10]
     # the port's own kernels (csrc/*.cu), whatever their share of the tick
-    own = {k: us / 1e3 / window for k, us in by_name.items()
-           if any(f"(anonymous namespace)::{n}" in k
-                  for n in CB_KERNELS + FA_KERNELS + ("wkv_kernel<",))}
-    crossbar_ms = sum(v for k, v in own.items()
-                      if any(n in k for n in CB_KERNELS))
-    flash_ms = sum(v for k, v in own.items()
-                   if any(n in k for n in FA_KERNELS))
-    emit({"phase": "profile", "ticks": window, "slots": n_requests,
+    own = {k: us / 1e3 / n for k, us in by_name.items()
+           if any(f"(anonymous namespace)::{m}" in k
+                  for m in CB_KERNELS + FA_KERNELS + WKV_KERNELS)}
+    out = {"ticks": n, "traced_wall_ms_per_tick": wall_ms / n,
+           "device_ms_per_tick": device_ms / n if kern else None,
+           "device_busy_share": device_ms / wall_ms if kern else None,
+           "prefill_tokens_per_tick": (eng.prefill_tokens - pf) / n,
+           "launches_per_tick": {k: v / n for k, v in counts.items()},
+           "top_device_ms_per_tick": {k: us / 1e3 / n for k, us in top},
+           "port_kernels_device_ms_per_tick": own}
+    for label, names in (("crossbar", CB_KERNELS), ("flash", FA_KERNELS),
+                         ("wkv", WKV_KERNELS)):
+        ms = sum(v for k, v in own.items() if any(m in k for m in names))
+        out[f"{label}_device_ms_per_tick"] = ms
+        out[f"{label}_share_of_device"] = (ms * n / device_ms if kern
+                                           else None)
+    return out
+
+
+def profile_phase(eng, cfg, dev, *, n_requests=8, prompt_len=256,
+                  window=8, seed=1):
+    """Where a tick's time goes: the same engine serves a second wave of
+    requests. Its first ``mixed`` ticks, in which every slot prefills a
+    chunk of the prompt (128 tokens a row), run under ``torch.profiler``
+    tracing CUDA activity only. Once every slot decodes, ``window`` ticks
+    run untraced (host wall), then the next ``window`` ticks traced.
+    Device busy share is a traced window's device time over its own wall
+    time; the untraced wall beside the decode window shows what the
+    tracing costs. Also reports the device time by kernel name."""
+    from repro_torch.serve.api import Request
+
+    rng = np.random.default_rng(seed)
+    for i in range(n_requests):
+        eng.submit(Request(uid=1000 + i, prompt=rng.integers(
+            0, cfg.vocab_size, prompt_len).astype(np.int32),
+            max_new_tokens=2 * window + 8, adapter_id=i % 2))
+    mixed = traced_ticks(eng, prompt_len // eng.prefill_chunk)
+    if mixed["prefill_tokens_per_tick"] <= 0:
+        raise AssertionError(f"the wave's first ticks did no prefill: "
+                             f"{mixed}")
+    emit({"phase": "profile", "window": "mixed", "slots": n_requests,
+          **mixed})
+    while True:                          # until a tick does no prefill
+        pf = eng.prefill_tokens
+        eng.step()
+        if eng.prefill_tokens == pf:
+            break
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(window):
+        eng.step()
+    torch.cuda.synchronize()
+    untraced_ms = 1e3 * (time.perf_counter() - t)
+    emit({"phase": "profile", "window": "decode", "slots": n_requests,
           "untraced_wall_ms_per_tick": untraced_ms / window,
-          "traced_wall_ms_per_tick": wall_ms / window,
-          "device_ms_per_tick": device_ms / window if kern else None,
-          "device_busy_share": device_ms / wall_ms if kern else None,
-          "launches_per_tick": {k: v / window for k, v in counts.items()},
-          "top_device_ms_per_tick": {k: us / 1e3 / window
-                                     for k, us in top},
-          "port_kernels_device_ms_per_tick": own,
-          "crossbar_device_ms_per_tick": crossbar_ms,
-          "crossbar_share_of_device": (crossbar_ms * window / device_ms
-                                       if kern else None),
-          "flash_device_ms_per_tick": flash_ms,
-          "flash_share_of_device": (flash_ms * window / device_ms
-                                    if kern else None)})
+          **traced_ticks(eng, window)})
     eng.drain()
 
 
@@ -854,18 +962,22 @@ def main() -> int:
                                {"case": "prefill"}),
            "paged_flash_attention": ("llama3.2-1b", "serve_launches",
                                      {"case": "mixed"}),
-           "rwkv6_wkv": ("rwkv6-7b", "serve_launches", {"case": "decode"})}
+           "rwkv6_wkv": ("rwkv6-7b", "serve_launches", {"case": "decode"}),
+           "rwkv6_wkv_chunk": ("rwkv6-7b", "serve_launches",
+                               {"case": "prefill"})}
     sources = {"crossbar_matmul": "src/repro_torch/csrc/crossbar_matmul.cu",
                "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
                "paged_flash_attention":
                    "src/repro_torch/csrc/flash_attention.cu",
-               "rwkv6_wkv": "src/repro_torch/csrc/rwkv6_wkv.cu"}
+               "rwkv6_wkv": "src/repro_torch/csrc/rwkv6_wkv.cu",
+               "rwkv6_wkv_chunk": "src/repro_torch/csrc/rwkv6_wkv.cu"}
     replaces = {
         "crossbar_matmul": "src/repro/kernels/crossbar_matmul/kernel.py:102",
         "flash_attention": "src/repro/kernels/flash_attention/kernel.py:81",
         "paged_flash_attention":
             "src/repro/kernels/flash_attention/kernel.py:81",
-        "rwkv6_wkv": "src/repro/kernels/rwkv6_wkv/kernel.py:59"}
+        "rwkv6_wkv": "src/repro/kernels/rwkv6_wkv/kernel.py:59",
+        "rwkv6_wkv_chunk": "src/repro/kernels/rwkv6_wkv/kernel.py:59"}
     summary = []
     for name, (arch, path, sel) in rep.items():
         c = next(c for c in cases if c["name"] == name
@@ -887,12 +999,13 @@ def main() -> int:
                                  "library_kernels", "bound_pieces_ms",
                                  "host_us") if k in c},
             "at": c["shape"]})
-        if "flash" in name:          # every case of the kernel beside it
+        if name != "crossbar_matmul":   # every case of the kernel beside it
             summary[-1]["cases"] = [
-                {k: o[k] for k in ("case", "max_abs_err", "ms", "device_ms",
-                                   "host_us", "plain_ms", "library_ms",
-                                   "library_device_ms", "bound_ms",
-                                   "bound_pieces_ms", "bound_by")}
+                {k: o[k] for k in ("case", "kernel", "max_abs_err", "tol",
+                                   "ms", "device_ms", "host_us", "plain_ms",
+                                   "library_ms", "library_device_ms",
+                                   "bound_ms", "bound_pieces_ms", "bound_by")
+                 if k in o}
                 for o in cases if o["name"] == name]
     emit({"kernels": summary})
     print(smi, flush=True)

@@ -1,34 +1,84 @@
-// RWKV6 "Finch" wkv recurrence for Hopper (sm_90a), plain f32 SIMT, with
-// the per-head N x N state held in registers for the whole chunk.
+// RWKV6 "Finch" wkv recurrence for Hopper (sm_90a): a register recurrence
+// for decode and short chunks, and a chunked kernel on the tensor cores
+// for prefill chunks.
 //
 // Replaces: the Pallas TPU kernel `rwkv6_wkv_kernel` in
 //   src/repro/kernels/rwkv6_wkv/kernel.py (body _wkv_kernel), i.e. per head
 //     y_t = r_t . (S + u (.) k_t v_t^T),   S <- diag(w_t) S + k_t v_t^T
-//   returning y and the final S.
+//   returning y and the final S. w is taken as it comes, anywhere in
+//   [0, 1]: w = 1 is how the model masks padded steps, and w =
+//   exp(-exp(x)) is exactly 0 in f32 once x >~ 4.5.
 //
-// What bounds it on H100: at decode (T = 1) almost nothing is computed per
-//   byte: each (b, h) reads its 16 KB state and writes it back, 2 * 8 * 64
-//   * 16 KB = 16.8 MB per layer at 8 slots, ~5 us at 3.35 TB/s. At a chunk
-//   of T steps the work is 4 * T * N^2 flops per (b, h) against 5 * T * N
-//   floats of r/k/v/w/y, so at T = 128 it is bound by f32 arithmetic
-//   (67 TFLOP/s) as long as the state never goes back to device memory.
+// What bounds it on H100: at decode (T = 1) each (b, h) reads its 16 KB
+//   state and writes it back, 2 * 8 * 64 * 16 KB = 16.8 MB per layer at 8
+//   slots, ~5 us at 3.35 TB/s: bytes. A chunk of T steps does 4 T N^2
+//   flops per (b, h) against 5 T N floats of r/k/v/w/y and the state: at
+//   T = 128 (B = 8, H = 64, N = 64) 1.07 GFLOP against 100.7 MB, 16 us of
+//   f32 SIMT work and 30 us of bytes. Walked one step after another (the
+//   recurrence kernel) the steps run at ~12% of the f32 rate: each
+//   thread's step is a 64-long dependent chain of FMAs fed by broadcast
+//   loads, and one 2-warp block per (b, h) leaves most of an SM idle.
 //
-// What this simple design does about it: one block per (b, h) and N
-//   threads; thread j owns column j of S in N registers, read once from s0
-//   and written once as s_final, so the TPU kernel's VMEM-resident state
-//   becomes register-resident and the sequential time grid axis becomes a
-//   loop inside the block. Then
-//     y_j = sum_i r_i S_ij + (sum_i r_i u_i k_i) v_j,
-//     S_ij <- w_i S_ij + k_i v_j
-//   needs no reduction across threads: the scalar a_t = sum_i r_i u_i k_i
-//   is one value per step, computed for a time block at once. r, k, w and
-//   v of a time block of kTB steps are staged in shared memory (each row
-//   one coalesced read); every thread then reads r_i, k_i, w_i as
-//   broadcasts. The (B, T, H, N) layout is read through its strides: no
-//   head folding or padding copies. Ragged rows need no special case: the
-//   model masks their padded steps to k = 0, w = 1, which leaves S
-//   unchanged. Not yet: several heads per block, a time loop split across
-//   warps (chunked form with tensor cores) -- later PRs.
+// What the design does about it:
+//   - Decode and short chunks, T < 8: `wkv_kernel`, one block of N
+//     threads per (b, h); thread j holds column j of S in registers, read
+//     once from s0 and written once, and per step y_j = sum_i r_i S_ij +
+//     (sum_i r_i u_i k_i) v_j and S_ij <- w_i S_ij + k_i v_j, with r/k/w/v
+//     of kTB steps staged in shared memory. At T = 1 it is at its byte
+//     bound. The crossover (CHUNK_MIN_T = 8 in kernels/rwkv6_wkv/ops.py),
+//     measured at rwkv6-7b's shapes on one H100 80GB HBM3 at 700 W by
+//     chip_smoke.py's crossover cases: at T = 4 the recurrence takes 8.0
+//     us against the chunked kernel's 9.4, at T = 8 11.5 against 9.8.
+//   - Chunks (N = 64): `wkv_chunk_kernel`, one block of 4 warps per
+//     (b, h) walking sub-chunks of kSub = 16 steps and carrying the state
+//     from one to the next. Within a sub-chunk that starts at state S,
+//       y_t = (r_t * P_t) . S + sum_{s<t} A[t, s] v_s + (r_t . u * k_t) v_t
+//       S'  = diag(P_16) S + sum_s (k_s * Q_s)^T v_s,
+//     with P_t = prod_{tau<t} w_tau, Q_s = prod_{s<tau<16} w_tau and
+//     A[t, s] = sum_i r_t,i k_s,i prod_{s<tau<t} w_tau,i. Every decay is
+//     a forward product of w, each factor <= 1: nothing overflows, no log
+//     of w is taken and no product of w is divided, so w = 0 and w = 1
+//     are exact (the textbook chunked form scales k by 1 / prod w and
+//     overflows on the decays a model makes). Carrying the state every
+//     16 steps makes the earlier sub-chunks' share of y the first
+//     product: the inter-chunk and cross-sub-chunk terms are one product.
+//   - Tensor cores: the three products ((r * P) S, A V and (k * Q)^T V:
+//     4 T N^2 + 2 T 16 N flops) run on mma.sync.m16n8k8 in 3xTF32, as in
+//     csrc/flash_attention.cu: each operand x is split into big = x
+//     rounded to TF32 and small = x - big rounded to TF32 (two integer ops
+//     each), and each product is small.big + big.small + big.big with
+//     f32 accumulation; the kernel is held to 1e-5 of the f32 result.
+//     Warp w owns S^T rows j in [16 w, 16 w + 16) as mma accumulators for
+//     the whole chunk (32 registers a thread), so every product of a warp
+//     reads only shared operands and its own state: y^T = S^T (r * P)^T
+//     (A operand: the state accumulators, k permuted within each k8 step
+//     so that the accumulator layout is the A layout), + V^T A^T, then
+//     S^T <- S^T diag(P_16) + V^T (k * Q). r * P and k * Q, which every
+//     warp reads, are split into their TF32 pieces once, where the decay
+//     products are made.
+//   - f32 SIMT for the rest: the decay products (one thread per column i,
+//     forward for r * P, backward for k * Q) and A (warp w takes s in
+//     [4 w, 4 w + 4), a group of 8 lanes per s and 8 i per lane, running
+//     products over t, one reduce-scatter over the group's lanes).
+//   - Loads: r/k/w/v of the next sub-chunk arrive by 16-byte cp.async
+//     into the second stage of a two-stage ring while the current one
+//     computes; rows are unpadded and 16-byte aligned (v's 16-byte chunks
+//     XOR-swizzled by the step, so that the A-operand loads fall in
+//     distinct banks). y is staged in shared memory and written by
+//     coalesced 16-byte stores. 56.6 KB of shared memory and at most 128
+//     registers a thread: four blocks an SM, so the 512 blocks of
+//     rwkv6-7b's 8 slots run in one wave on 132 SMs.
+//   - Steps past T (a T that is not a multiple of 16) are zero-filled and
+//     their w taken as 1: they change nothing. Ragged rows need no special
+//     case: the model pads them with k = 0, w = 1. Fixed summation order,
+//     no atomics: the same inputs give the same bits.
+//   Where it stands (benchmarks/torch_wkv_phases.py, one H100 80GB HBM3
+//   at 700 W): 54 us at T = 128 (B = 8, H = 64, N = 64), 1.8x the byte
+//   bound. Its loads and stores alone take 35 us; the 3xTF32 products
+//   add 15 us, A 13 and the decay products 7 on top of the rest: with 4
+//   warps a block the compute hides the memory only in part. Not yet:
+//   wgmma for the products, A balanced over the warps (warp 0 walks 16
+//   steps, warp 3 four), a chunked kernel for N < 64.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -114,15 +164,397 @@ void launch(const float* r, const float* k, const float* v, const float* w,
                                          sb, st, sh);
 }
 
+// ---------------------------------------------------------------------------
+// the chunked kernel
+// ---------------------------------------------------------------------------
+
+constexpr int kSub = 16;      // steps of a sub-chunk
+constexpr int kN = 64;        // the head dim it is written for
+constexpr int kThreads = 128; // 4 warps, each 16 rows j of S^T
+constexpr int kStage = 4 * kSub * kN;   // r, k, w, v of a sub-chunk, floats
+constexpr int kLdR = 144;     // rows of r * P as TF32 pieces, floats
+constexpr int kLdK = 136;     // rows of k * Q as TF32 pieces, floats
+constexpr int kLdA = 20;      // rows of A
+constexpr int kLdY = 68;      // rows of the staged y
+// two stages, r * P and k * Q pieces, A, y, P_16
+constexpr int kSmemFloats = 2 * kStage + kSub * (kLdR + kLdK + kLdA + kLdY) +
+                            kN;
+constexpr int kSmemBytes = kSmemFloats * 4;
+static_assert(kSmemBytes * 4 + 4 * 1024 <= 233472,
+              "four blocks fit in an SM's shared memory");
+
+// x = big + small + O(2^-24 |x|), both TF32 (the low 13 bits zero), each
+// rounded to nearest, ties away (as cvt.rna.tf32.f32, in two integer ops)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
+                                           uint32_t& small) {
+  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  small = (__float_as_uint(x - __uint_as_float(big)) + 0x1000u) & 0xffffe000u;
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a.b in 3xTF32, b given as pieces: small.big + big.small + big.big
+__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ab)[4],
+                                     const uint32_t (&as)[4], uint32_t bb0,
+                                     uint32_t bb1, uint32_t bs0,
+                                     uint32_t bs1) {
+  mma_tf32(d, as, bb0, bb1);
+  mma_tf32(d, ab, bs0, bs1);
+  mma_tf32(d, ab, bb0, bb1);
+}
+
+// the same with b in f32, split here
+__device__ __forceinline__ void mma3f(float (&d)[4], const uint32_t (&ab)[4],
+                                      const uint32_t (&as)[4], float b0,
+                                      float b1) {
+  uint32_t bb0, bs0, bb1, bs1;
+  split_tf32(b0, bb0, bs0);
+  split_tf32(b1, bb1, bs1);
+  mma3(d, ab, as, bb0, bb1, bs0, bs1);
+}
+
+// One step of a reduce-scatter of part[0 .. 2 HALF) over the lane bit
+// MASK: part[j] becomes the sum over the lane pair of entry j + HALF * bit.
+template <int HALF, int MASK>
+__device__ __forceinline__ void reduce_half(float (&part)[kSub], int lane) {
+  const bool hi = lane & MASK;
+#pragma unroll
+  for (int j = 0; j < HALF; ++j) {
+    const float send = hi ? part[j] : part[j + HALF];
+    const float keep = hi ? part[j + HALF] : part[j];
+    part[j] = keep + __shfl_xor_sync(0xffffffffu, send, MASK);
+  }
+}
+
+// cp.async of `bytes` (0 or 16) from global, zero-filling the rest
+__device__ __forceinline__ void cp_async16(void* s, const void* g, int bytes) {
+  const uint32_t sa = static_cast<uint32_t>(__cvta_generic_to_shared(s));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(sa),
+               "l"(g), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// v of step s, column j, in a stage: 16-byte chunks of a row XOR-swizzled
+// by the step, so that the A-operand loads (rows s = q, q + 4, columns j =
+// g, g + 8) fall in distinct banks
+__device__ __forceinline__ int vcol(int s, int j) { return j ^ ((s & 3) << 3); }
+
+// Grid B * H, kThreads threads, kSmemBytes of dynamic shared memory.
+// Fragments of m16n8k8 (g = lane / 4, q = lane % 4): the accumulator holds
+//   (row g, cols 2q, 2q+1) and (row g + 8, same cols); A holds (g, q),
+//   (g + 8, q), (g, q + 4), (g + 8, q + 4); B holds (k q, n g), (k q + 4,
+//   n g). Warp w's state sacc[nn] is S^T rows j = 16 w + g (+ 8), columns
+//   i = 8 nn + 2q (+ 1).
+__global__ void __launch_bounds__(kThreads, 4)
+wkv_chunk_kernel(const float* __restrict__ r, const float* __restrict__ k,
+                 const float* __restrict__ v, const float* __restrict__ w,
+                 const float* __restrict__ u, const float* __restrict__ s0,
+                 float* __restrict__ y, float* __restrict__ s_final, int T,
+                 int H, long long sb, long long st, long long sh) {
+  extern __shared__ __align__(16) float sm[];
+  // r * P pieces: row t, float4 m = {big, big, small, small} of i = 2m, 2m+1
+  float* rp_s = sm + 2 * kStage;
+  // k * Q pieces: row s, float2 i = {big, small}
+  float* kq_s = rp_s + kSub * kLdR;
+  float* a_s = kq_s + kSub * kLdK;       // A         [kSub][kLdA]
+  float* y_s = a_s + kSub * kLdA;        // y         [kSub][kLdY]
+  float* p_s = y_s + kSub * kLdY;        // P_16      [kN]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, q = lane & 3;
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const long long base = b * sb + h * sh;
+  const size_t state = static_cast<size_t>(bh) * kN * kN;
+  const int n_sub = (T + kSub - 1) / kSub;
+
+  // r, k, w, v of sub-chunk c into stage c % 2: 4 x 16 rows of 16 chunks
+  // of 16 bytes, eight copies a thread; steps past T are zero-filled
+  auto issue = [&](int c) {
+    float* dst0 = sm + (c & 1) * kStage;
+#pragma unroll
+    for (int n = 0; n < 4 * kSub * 16 / kThreads; ++n) {
+      const int arr = n >> 1;                       // r, k, w, v
+      const int t = ((n & 1) * kThreads + tid) >> 4, part = tid & 15;
+      const int tg = c * kSub + t;
+      const float* src = arr == 0 ? r : arr == 1 ? k : arr == 2 ? w : v;
+      const bool ok = tg < T;
+      float* dst = dst0 + (arr * kSub + t) * kN +
+                   (arr == 3 ? vcol(t, part * 4) : part * 4);
+      cp_async16(dst, src + (ok ? base + tg * st + part * 4 : 0),
+                 ok ? 16 : 0);
+    }
+  };
+  // y of sub-chunk c from the staging rows, 16 bytes a store
+  auto store_y = [&](int c) {
+#pragma unroll
+    for (int n = 0; n < kSub * 16 / kThreads; ++n) {
+      const int idx = tid + n * kThreads;
+      const int t = idx >> 4, part = idx & 15;
+      const int tg = c * kSub + t;
+      if (tg < T)
+        *reinterpret_cast<float4*>(
+            y + ((static_cast<size_t>(b) * T + tg) * H + h) * kN + part * 4) =
+            *reinterpret_cast<const float4*>(y_s + t * kLdY + part * 4);
+    }
+  };
+
+  if (n_sub > 0) issue(0);
+  cp_async_commit();
+
+  float sacc[8][4];
+#pragma unroll
+  for (int nn = 0; nn < 8; ++nn)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      sacc[nn][e] = s0[state + static_cast<size_t>(8 * nn + 2 * q + (e & 1)) *
+                                   kN + 16 * warp + g + 8 * (e >> 1)];
+  // the A pass: lane c8 of group grp holds i = 4 c8 .. and 32 + 4 c8 ..
+  const int grp = lane >> 3, c8 = lane & 7;
+  const float4 u_lo = *reinterpret_cast<const float4*>(u + h * kN + 4 * c8);
+  const float4 u_hi = *reinterpret_cast<const float4*>(u + h * kN + 32 +
+                                                       4 * c8);
+
+  for (int c = 0; c < n_sub; ++c) {
+    cp_async_wait_all();
+    // stage c has landed, and sub-chunk c - 1 is no longer read
+    __syncthreads();
+    if (c + 1 < n_sub) issue(c + 1);
+    cp_async_commit();
+    if (c > 0) store_y(c - 1);
+
+    const float* rs = sm + (c & 1) * kStage;
+    const float* ks = rs + kSub * kN;
+    const float* ws = ks + kSub * kN;
+    const float* vs = ws + kSub * kN;
+    const int live = min(kSub, T - c * kSub);   // steps past it: w = 1
+
+    // decay products as TF32 pieces: r * P forward (warps 0-1), k * Q
+    // backward (2-3), one column i a thread
+    if (tid < kN) {
+      const int i = tid;
+      float* dst = rp_s + 4 * (i >> 1) + (i & 1);
+      float p = 1.f;
+#pragma unroll
+      for (int t = 0; t < kSub; ++t) {
+        uint32_t big, small;
+        split_tf32(rs[t * kN + i] * p, big, small);
+        dst[t * kLdR] = __uint_as_float(big);
+        dst[t * kLdR + 2] = __uint_as_float(small);
+        p *= t < live ? ws[t * kN + i] : 1.f;
+      }
+      p_s[i] = p;
+    } else {
+      const int i = tid - kN;
+      float p = 1.f;
+#pragma unroll
+      for (int t = kSub - 1; t >= 0; --t) {
+        uint32_t big, small;
+        split_tf32(ks[t * kN + i] * p, big, small);
+        *reinterpret_cast<float2*>(kq_s + t * kLdK + 2 * i) =
+            make_float2(__uint_as_float(big), __uint_as_float(small));
+        p *= t < live ? ws[t * kN + i] : 1.f;
+      }
+    }
+
+    // A[t, s]: warp w takes s in [4 w, 4 w + 4), one s a group of 8
+    // lanes; lane c8 holds i = 4 c8 .. 4 c8 + 3 and 32 + 4 c8 .. ; kd =
+    // k_s * prod_{s<tau<t} w_tau, zero up to t = s; the diagonal is r_s .
+    // (u * k_s). Steps t < 4 w see no s of the warp and are skipped (a
+    // warp-uniform branch).
+    {
+      const int s = 4 * warp + grp;
+      const float* kr = ks + s * kN + 4 * c8;
+      const float* rr = rs + s * kN + 4 * c8;
+      const float4 k_lo = *reinterpret_cast<const float4*>(kr);
+      const float4 k_hi = *reinterpret_cast<const float4*>(kr + 32);
+      const float4 r_lo = *reinterpret_cast<const float4*>(rr);
+      const float4 r_hi = *reinterpret_cast<const float4*>(rr + 32);
+      const float kv[8] = {k_lo.x, k_lo.y, k_lo.z, k_lo.w,
+                           k_hi.x, k_hi.y, k_hi.z, k_hi.w};
+      const float diag =
+          ((r_lo.x * u_lo.x * k_lo.x + r_lo.y * u_lo.y * k_lo.y) +
+           (r_lo.z * u_lo.z * k_lo.z + r_lo.w * u_lo.w * k_lo.w)) +
+          ((r_hi.x * u_hi.x * k_hi.x + r_hi.y * u_hi.y * k_hi.y) +
+           (r_hi.z * u_hi.z * k_hi.z + r_hi.w * u_hi.w * k_hi.w));
+      float kd[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) kd[e] = 0.f;
+      float part[kSub];
+#pragma unroll
+      for (int t = 0; t < kSub; ++t) {
+        part[t] = 0.f;
+        if (t >= 4 * warp) {
+          const float* rt = rs + t * kN + 4 * c8;
+          const float* wt = ws + t * kN + 4 * c8;
+          const float4 a0 = *reinterpret_cast<const float4*>(rt);
+          const float4 a1 = *reinterpret_cast<const float4*>(rt + 32);
+          const float4 w0 = *reinterpret_cast<const float4*>(wt);
+          const float4 w1 = *reinterpret_cast<const float4*>(wt + 32);
+          const float rv[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+          const float wv[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+          float d0 = 0.f, d1 = 0.f;
+#pragma unroll
+          for (int e = 0; e < 8; e += 2) {
+            d0 = fmaf(rv[e], kd[e], d0);
+            d1 = fmaf(rv[e + 1], kd[e + 1], d1);
+          }
+          part[t] = t == s ? diag : d0 + d1;
+          if (t < 4 * warp + 4) {   // t <= s for some groups
+#pragma unroll
+            for (int e = 0; e < 8; ++e) kd[e] = t == s ? kv[e] : kd[e] * wv[e];
+          } else {
+#pragma unroll
+            for (int e = 0; e < 8; ++e) kd[e] *= wv[e];
+          }
+        }
+      }
+      // reduce-scatter over the group's 8 lanes: lane c8 ends with the
+      // sums for t = 8 b2 + 4 b1 + 2 b0 and the next (bits of c8)
+      reduce_half<8, 4>(part, lane);
+      reduce_half<4, 2>(part, lane);
+      reduce_half<2, 1>(part, lane);
+      const int t0 = ((c8 >> 2) & 1) * 8 + ((c8 >> 1) & 1) * 4 + (c8 & 1) * 2;
+      a_s[t0 * kLdA + s] = part[0];         // 0 above the diagonal
+      a_s[(t0 + 1) * kLdA + s] = part[1];
+    }
+    __syncthreads();
+
+    // y^T = S^T (r * P)^T + V^T A^T for this warp's rows j, 16 steps t;
+    // two accumulators per tile (even and odd k8 steps) halve the chain
+    // of dependent mma
+    float yacc[2][4], yodd[2][4];
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) yacc[nt][e] = yodd[nt][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      // k = q is i = 8 kk + 2q, k = q + 4 is i = 8 kk + 2q + 1
+      uint32_t ab[4], as[4];
+      split_tf32(sacc[kk][0], ab[0], as[0]);
+      split_tf32(sacc[kk][2], ab[1], as[1]);
+      split_tf32(sacc[kk][1], ab[2], as[2]);
+      split_tf32(sacc[kk][3], ab[3], as[3]);
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        const float4 x = *reinterpret_cast<const float4*>(
+            rp_s + (8 * nt + g) * kLdR + 4 * (4 * kk + q));
+        const uint32_t b0 = __float_as_uint(x.x), b1 = __float_as_uint(x.y);
+        const uint32_t s0_ = __float_as_uint(x.z), s1_ = __float_as_uint(x.w);
+        if (kk & 1)
+          mma3(yodd[nt], ab, as, b0, b1, s0_, s1_);
+        else
+          mma3(yacc[nt], ab, as, b0, b1, s0_, s1_);
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) yacc[nt][e] += yodd[nt][e];
+    uint32_t vb[2][4], vsm[2][4];   // V^T: rows j, k = s
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      const int s_lo = 8 * kk + q, s_hi = s_lo + 4, j = 16 * warp + g;
+      split_tf32(vs[s_lo * kN + vcol(s_lo, j)], vb[kk][0], vsm[kk][0]);
+      split_tf32(vs[s_lo * kN + vcol(s_lo, j + 8)], vb[kk][1], vsm[kk][1]);
+      split_tf32(vs[s_hi * kN + vcol(s_hi, j)], vb[kk][2], vsm[kk][2]);
+      split_tf32(vs[s_hi * kN + vcol(s_hi, j + 8)], vb[kk][3], vsm[kk][3]);
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        const float* a0 = a_s + (8 * nt + g) * kLdA + 8 * kk + q;
+        mma3f(yacc[nt], vb[kk], vsm[kk], a0[0], a0[4]);
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        y_s[(8 * nt + 2 * q + (e & 1)) * kLdY + 16 * warp + g +
+            8 * (e >> 1)] = yacc[nt][e];
+
+    // S^T <- S^T diag(P_16) + V^T (k * Q)
+#pragma unroll
+    for (int nn = 0; nn < 8; ++nn) {
+      const float2 p = *reinterpret_cast<const float2*>(p_s + 8 * nn + 2 * q);
+      sacc[nn][0] *= p.x;
+      sacc[nn][1] *= p.y;
+      sacc[nn][2] *= p.x;
+      sacc[nn][3] *= p.y;
+    }
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+      for (int nn = 0; nn < 8; ++nn) {
+        const float* k0 = kq_s + (8 * kk + q) * kLdK + 2 * (8 * nn + g);
+        const float2 x0 = *reinterpret_cast<const float2*>(k0);
+        const float2 x1 = *reinterpret_cast<const float2*>(k0 + 4 * kLdK);
+        mma3(sacc[nn], vb[kk], vsm[kk], __float_as_uint(x0.x),
+             __float_as_uint(x1.x), __float_as_uint(x0.y),
+             __float_as_uint(x1.y));
+      }
+  }
+  __syncthreads();   // the last sub-chunk's y is staged
+  if (n_sub > 0) store_y(n_sub - 1);
+#pragma unroll
+  for (int nn = 0; nn < 8; ++nn)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      s_final[state + static_cast<size_t>(8 * nn + 2 * q + (e & 1)) * kN +
+              16 * warp + g + 8 * (e >> 1)] = sacc[nn][e];
+}
+
+cudaError_t launch_chunk(const float* r, const float* k, const float* v,
+                         const float* w, const float* u, const float* s0,
+                         float* y, float* s_final, int B, int T, int H,
+                         long long sb, long long st, long long sh,
+                         cudaStream_t stream) {
+  // the shared memory a block takes, and the largest carveout, so that
+  // four blocks fit an SM (the default carveout may hold fewer)
+  static bool configured = false;  // once per process
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(
+        wkv_chunk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kSmemBytes);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(
+          wkv_chunk_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+          cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  wkv_chunk_kernel<<<B * H, kThreads, kSmemBytes, stream>>>(
+      r, k, v, w, u, s0, y, s_final, T, H, sb, st, sh);
+  return cudaGetLastError();
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+}
+
 }  // namespace
 
-// Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for
-// arguments the kernel does not take: N outside {8, 16, 32, 64}). Allocates
-// nothing, does not synchronise; runs on `stream`.
+// Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue
+// for arguments the kernel does not take: N outside {8, 16, 32, 64}; for
+// `chunked`, N other than 64, or r/k/v/w not 16-byte aligned (pointers,
+// and strides a multiple of 4 floats). `chunked` picks wkv_chunk_kernel,
+// else wkv_kernel. Allocates nothing, does not synchronise; runs on
+// `stream`.
 extern "C" int rwkv6_wkv(const void* r, const void* k, const void* v,
                          const void* w, const void* u, const void* s0, void* y,
                          void* s_final, int B, int T, int H, int N,
-                         long long sb, long long st, long long sh,
+                         long long sb, long long st, long long sh, int chunked,
                          void* stream) {
   if (B <= 0 || T < 0 || H <= 0 || static_cast<long long>(B) * H > 2147483647LL)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -135,6 +567,13 @@ extern "C" int rwkv6_wkv(const void* r, const void* k, const void* v,
   float* yf = static_cast<float*>(y);
   float* of = static_cast<float*>(s_final);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (chunked) {
+    if (N != kN || !aligned16(r) || !aligned16(k) || !aligned16(v) ||
+        !aligned16(w) || !aligned16(u) || sb % 4 || st % 4 || sh % 4)
+      return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(launch_chunk(rf, kf, vf, wf, uf, sf, yf, of, B,
+                                         T, H, sb, st, sh, s));
+  }
   switch (N) {
     case 8:  launch<8>(rf, kf, vf, wf, uf, sf, yf, of, B, T, H, sb, st, sh, s); break;
     case 16: launch<16>(rf, kf, vf, wf, uf, sf, yf, of, B, T, H, sb, st, sh, s); break;

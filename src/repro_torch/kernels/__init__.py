@@ -11,7 +11,8 @@ from __future__ import annotations
 from typing import Dict
 
 LAUNCHES: Dict[str, int] = {"crossbar_matmul": 0, "flash_attention": 0,
-                            "paged_flash_attention": 0, "rwkv6_wkv": 0}
+                            "paged_flash_attention": 0, "rwkv6_wkv": 0,
+                            "rwkv6_wkv_chunk": 0}
 
 
 def reset_launches() -> None:

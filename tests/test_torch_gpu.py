@@ -10,8 +10,9 @@ Tolerances: crossbar 1e-4 relative (max-scaled absolute), as for the
 Pallas kernel — the plain version dequantizes before one product, the
 kernel scales each 128-deep f32 partial sum and carries x as two bf16
 pieces (|x - hi - lo| <= 2^-16 |x|); flash 2e-5, f32 softmax
-attention summed in another order (the kernel's products in 3xTF32); wkv 1e-5 (rtol and atol), as for the
-Pallas kernel: the same f32 recurrence, each step's sums in another order.
+attention summed in another order (the kernel's products in 3xTF32); wkv
+1e-5 (rtol and atol), as for the Pallas kernel: the same f32 recurrence,
+its sums in another order (the chunked kernel's products in 3xTF32).
 """
 import numpy as np
 import pytest
@@ -299,16 +300,107 @@ def test_wkv_kernel_matches_plain(B, T, H, N, clens):
             clens, device=dev)[:, None])[..., None, None]
         k = torch.where(valid, k, 0.0)
         w = torch.where(valid, w, 1.0)
-    before = kernels.LAUNCHES["rwkv6_wkv"]
+    before = _wkv_launches()
     y, s = wkv_ops.rwkv6_wkv(r, k, v, w, u, s0)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES["rwkv6_wkv"] == before + 1
+    assert _wkv_launches() == before + 1     # one of the two kernels
     y_plain, s_plain = wkv_ops.rwkv6_wkv_plain(r, k, v, w, u, s0)
     torch.testing.assert_close(y, y_plain, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(s, s_plain, rtol=1e-5, atol=1e-5)
     if clens is not None and 0 in clens:
         i = clens.index(0)
         assert torch.equal(s[i], s0[i])     # an empty chunk keeps its state
+
+
+def _wkv_launches():
+    return (kernels.LAUNCHES["rwkv6_wkv"]
+            + kernels.LAUNCHES["rwkv6_wkv_chunk"])
+
+
+def _wkv_inputs(dev, B, T, H, N, seed, decay="pallas"):
+    """The Pallas sweep's inputs (w in [0.45, 0.95], u x 0.3, s0 x 0.1),
+    or decays as the model makes them down to exact zeros ("small":
+    exp(-exp(x)), x in [-6, 3], 2% zeros, 2% ones)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r, k, v = (torch.randn(B, T, H, N, generator=g, device=dev)
+               for _ in range(3))
+    if decay == "pallas":
+        w = torch.sigmoid(torch.randn(B, T, H, N, generator=g, device=dev)) \
+            * 0.5 + 0.45
+    else:
+        w = torch.exp(-torch.exp(-6.0 + 9.0 * torch.rand(
+            B, T, H, N, generator=g, device=dev)))
+        pick = torch.rand(B, T, H, N, generator=g, device=dev)
+        w = torch.where(pick < 0.02, 0.0, torch.where(pick > 0.98, 1.0, w))
+    u = torch.randn(H, N, generator=g, device=dev) * 0.3
+    s0 = torch.randn(B, H, N, N, generator=g, device=dev) * 0.1
+    return r, k, v, w, u, s0
+
+
+# across the crossover (CHUNK_MIN_T = 8) and the 16-step sub-chunks
+WKV_CHUNK_T = [1, 7, 8, 15, 16, 17, 33, 128, 200]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["recurrent", "chunk"])
+@pytest.mark.parametrize("T", WKV_CHUNK_T)
+def test_wkv_both_kernels_match_plain_at_any_t(T, kernel):
+    dev = _cuda_or_skip()
+    args = _wkv_inputs(dev, 2, T, 4, 64, T)
+    y, s = wkv_ops.rwkv6_wkv(*args, kernel=kernel)
+    y_plain, s_plain = wkv_ops.rwkv6_wkv_plain(*args)
+    torch.testing.assert_close(y, y_plain, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(s, s_plain, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["recurrent", "chunk"])
+def test_wkv_kernels_take_small_decays_and_exact_zeros(kernel):
+    dev = _cuda_or_skip()
+    args = _wkv_inputs(dev, 2, 130, 4, 64, 5, decay="small")
+    assert bool((args[3] == 0).any()) and bool((args[3] == 1).any())
+    y, s = wkv_ops.rwkv6_wkv(*args, kernel=kernel)
+    y_plain, s_plain = wkv_ops.rwkv6_wkv_plain(*args)
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(s).all())
+    torch.testing.assert_close(y, y_plain, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(s, s_plain, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["recurrent", "chunk"])
+def test_wkv_kernels_are_deterministic(kernel):
+    dev = _cuda_or_skip()
+    args = _wkv_inputs(dev, 8, 128, 64, 64, 9, decay="small")
+    y1, s1 = wkv_ops.rwkv6_wkv(*args, kernel=kernel)
+    y2, s2 = wkv_ops.rwkv6_wkv(*args, kernel=kernel)
+    assert torch.equal(y1, y2) and torch.equal(s1, s2)
+
+
+@pytest.mark.gpu
+def test_wkv_picks_each_kernel_on_its_side_of_the_crossover():
+    """auto: the recurrence below CHUNK_MIN_T, the chunked kernel from it
+    on (N = 64); the recurrence for other head dims and for rows that are
+    not 16-byte aligned, where forcing the chunked kernel raises."""
+    dev = _cuda_or_skip()
+    cut = wkv_ops.CHUNK_MIN_T
+    for T, N, want in ((1, 64, "rwkv6_wkv"), (cut - 1, 64, "rwkv6_wkv"),
+                       (cut, 64, "rwkv6_wkv_chunk"),
+                       (128, 64, "rwkv6_wkv_chunk"), (128, 32, "rwkv6_wkv")):
+        before = dict(kernels.LAUNCHES)
+        wkv_ops.rwkv6_wkv(*_wkv_inputs(dev, 1, T, 2, N, 0))
+        moved = {k for k in kernels.LAUNCHES
+                 if kernels.LAUNCHES[k] != before[k]}
+        assert moved == {want}, (T, N, moved)
+    # r/k/v/w one float past a 16-byte boundary
+    r, k, v, w, u, s0 = _wkv_inputs(dev, 1, 32, 2, 65, 0)
+    r, k, v, w = (x[..., 1:] for x in (r, k, v, w))
+    before = dict(kernels.LAUNCHES)
+    y, s = wkv_ops.rwkv6_wkv(r, k, v, w, u[:, 1:].contiguous(),
+                             s0[:, :, 1:, 1:].contiguous())
+    assert kernels.LAUNCHES["rwkv6_wkv"] == before["rwkv6_wkv"] + 1
+    with pytest.raises(ValueError, match="chunked"):
+        wkv_ops.rwkv6_wkv(r, k, v, w, u[:, 1:].contiguous(),
+                          s0[:, :, 1:, 1:].contiguous(), kernel="chunk")
 
 
 @pytest.mark.gpu
