@@ -55,15 +55,26 @@ Imports nothing of JAX or of the JAX package. Phases, each printing JSON:
                                recurrence for decode steps, never the
                                chunked one in a pure decode tick); the
                                prefix cache is off (recurrent state).
+               The engine runs its mixed step as CUDA graphs, one per
+               (chunk, table) signature: the first tick of a signature
+               eagerly, then captured; every later tick by replay (each
+               replay adds its graph's launches to the counts). The serve
+               line reports the graphs captured, the replays, the capture
+               time and the graphs' pool bytes, and the phase fails unless
+               every tick was a capture or a replay.
                The llama engine and weights are freed before rwkv6-7b.
-     profile — after each serve, a second wave on the same engine: its
-               first (mixed) ticks, every slot prefilling 128 tokens,
-               under torch.profiler with CUDA activity only; once every
-               slot decodes, a window of ticks untraced (host wall), then
-               the next window traced. Each traced window: device busy
-               share (device time over wall, both of that window), time
-               by kernel, and the crossbar's, flash's and wkv's device
-               time and shares of it.
+     profile — after each serve, three more waves of 8 prompts of 256 on
+               the same engine: the first captures every signature the
+               waves meet; the second runs the engine's eager step, the
+               third replays the graphs (the same signatures, so the same
+               work). Each of those two: its first (mixed) tick untraced
+               (host wall), its second traced under torch.profiler with
+               CUDA activity only; once every slot decodes, a window of
+               ticks untraced, then the next window traced. Each traced
+               window: device busy share (device time over wall, both of
+               that window), time by kernel, and the crossbar's, flash's
+               and wkv's device time and shares of it; a
+               ``profile_compare`` line puts eager and graph side by side.
   5. summary — one ``{"kernels": [...]}`` line, the nvidia-smi line, and
                last ``{"ok": true, "device": {...}}``.
 
@@ -71,6 +82,7 @@ Any failed phase raises (exit code 1) and the last line is never printed.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -152,21 +164,63 @@ def device_ms_by_name(fns, names) -> float:
     return sum(device_ms_per_kernel(fns, names).values())
 
 
-def device_ms_per_kernel(fns, names=None) -> dict:
-    """As ``device_ms_by_name``, by kernel name."""
-    from torch.autograd import DeviceType
+@contextlib.contextmanager
+def cuda_trace():
+    """``torch.profiler`` with CUDA activity only, around the body. On the
+    H100 a trace can lose the kernel records of the launches in its first
+    milliseconds and of its last ones, though the kernels ran; an eager
+    tick's first few launches after an idle pause can lose theirs too
+    (``benchmarks/torch_trace_edges.py`` counts all three). So the body
+    stands between two margins, each a marker kernel (``torch.cuda._sleep``,
+    which ``device_events`` and ``lost_launches`` leave out), a
+    synchronisation and ``TRACE_MARGIN_S`` of idle host."""
     from torch.profiler import ProfilerActivity, profile
 
-    fns[0]()
+    def margin():
+        torch.cuda._sleep(MARGIN_CYCLES)
+        torch.cuda.synchronize()
+        time.sleep(TRACE_MARGIN_S)
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        margin()
+        yield prof
+        torch.cuda.synchronize()
+        margin()
+
+
+def device_events(prof):
+    """The device-side events (kernels, copies) of a ``cuda_trace``, its
+    margins' marker kernels left out."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA
+            and MARGIN_KERNEL not in e.name]
+
+
+def lost_launches(prof) -> int:
+    """Kernel launches in a ``cuda_trace`` whose kernel record the trace
+    lacks: the launch call's own record is there, with the correlation id
+    its kernel's record would carry (the margins' launches left out)."""
+    from torch.autograd import DeviceType
+
+    events = prof.events()
+    ids = {e.id for e in events if e.device_type == DeviceType.CUDA}
+    calls = sorted((e for e in events if e.device_type == DeviceType.CPU
+                    and e.name in LAUNCH_API),
+                   key=lambda e: e.time_range.start)[1:-1]
+    return sum(1 for e in calls if e.id not in ids)
+
+
+def device_ms_per_kernel(fns, names=None) -> dict:
+    """As ``device_ms_by_name``, by kernel name."""
+    fns[0]()
+    with cuda_trace() as prof:
         for fn in fns:
             fn()
-        torch.cuda.synchronize()
     out = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA and (
-                names is None or any(n in e.name for n in names)):
+    for e in device_events(prof):
+        if names is None or any(n in e.name for n in names):
             out[e.name] = out.get(e.name, 0.0) + e.time_range.elapsed_us()
     return {k: us / 1e3 / len(fns) for k, us in out.items()}
 
@@ -190,6 +244,14 @@ CB_KERNELS = ("crossbar_decode_kernel<", "crossbar_prefill_kernel<")
 FA_KERNELS = ("flash_kernel<",)
 L2_BYTES = 50e6                # H100 SXM L2; cold timings rotate past it
 COLD_BYTES = 100e6             # codes touched between two uses of a weight
+# each end of a profiler trace: a marker kernel (its name in the trace) of
+# about a microsecond, then idle host time (``cuda_trace``)
+MARGIN_KERNEL = "spin_kernel"
+MARGIN_CYCLES = 2000
+TRACE_MARGIN_S = 0.05
+# the runtime and driver calls that launch one kernel, as a trace names them
+LAUNCH_API = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+              "cuLaunchKernelEx")
 DECODE_M = 128                 # cases up to this M are also timed cold
 
 
@@ -432,6 +494,12 @@ def paged_cases(dev, g):
 # (decode, short chunks) and the chunked tensor-core kernel
 WKV_KERNELS = ("wkv_kernel<", "wkv_chunk_kernel")
 WKV_LAUNCH_KEYS = ("rwkv6_wkv", "rwkv6_wkv_chunk")
+# each launch count of ``kernels.LAUNCHES`` (both flash entry points run
+# one kernel template) beside the kernels it counts in a profiler trace
+LAUNCHED_AS = ((("crossbar_matmul",), CB_KERNELS),
+               (("flash_attention", "paged_flash_attention"), FA_KERNELS),
+               (("rwkv6_wkv",), ("wkv_kernel<",)),
+               (("rwkv6_wkv_chunk",), ("wkv_chunk_kernel",)))
 
 
 def _wkv_inputs(dev, g, B, T, H, N, decay="model", clens=None):
@@ -745,6 +813,14 @@ def serve_phase(dev, cfg, *, n_requests=8, max_new=32, prompt_range=(64, 512),
     if any(n for n, kind in zip(tick_chunk, tick_kind) if kind == "decode"):
         raise AssertionError("a pure decode tick ran the chunked wkv kernel")
     st = eng.stats()
+    cs = st.compile
+    # every tick ran the mixed step as a CUDA graph: the first tick of each
+    # signature eagerly before capturing it, every later one by replay
+    if (cs.compiled_steps != len(cs.step_signatures)
+            or cs.compiled_steps + cs.replays != len(tick_s)):
+        raise AssertionError(f"{len(tick_s)} ticks, {cs.compiled_steps} "
+                             f"graphs of {len(cs.step_signatures)} "
+                             f"signatures, {cs.replays} replays")
     full_attn = cfg.block_pattern == ("attn",)
     if st.prefix_cache.enabled != full_attn:
         raise AssertionError(f"prefix cache enabled={st.prefix_cache.enabled}"
@@ -811,6 +887,10 @@ def serve_phase(dev, cfg, *, n_requests=8, max_new=32, prompt_range=(64, 512),
         "prefix_hit_tokens": st.prefix_cache.hit_tokens,
         "cow_forks": st.scheduler.cow_forks,
         "preemptions": st.scheduler.preemptions,
+        "graphs": {"captured": cs.compiled_steps, "replays": cs.replays,
+                   "capture_ms": cs.capture_ms,
+                   "pool_bytes": cs.graph_pool_bytes,
+                   "signatures": [list(sg) for sg in cs.step_signatures]},
         "serve_launches": serve_launches,
         "chunked_wkv_ticks": sum(1 for n in tick_chunk if n),
         "forward_launches": forward_launches, "forwards": n_forwards,
@@ -826,34 +906,60 @@ def serve_phase(dev, cfg, *, n_requests=8, max_new=32, prompt_range=(64, 512),
     return result, eng
 
 
-def traced_ticks(eng, n):
-    """``n`` engine ticks under ``torch.profiler`` (CUDA activity only):
-    wall, device time and the port kernels' device time per tick, device
-    busy share (device time over the traced wall), launches and prefill
-    tokens per tick, and the top kernels by device time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def port_kernel_counts(kern, counts):
+    """Each ``LAUNCHED_AS`` entry's port kernels among the trace events
+    ``kern``, and its ``kernels.LAUNCHES`` delta from ``counts``."""
+    traced = {"+".join(keys): sum(
+        1 for e in kern if any(f"(anonymous namespace)::{m}" in e.name
+                               for m in names))
+        for keys, names in LAUNCHED_AS}
+    counted = {"+".join(keys): sum(counts[k] for k in keys)
+               for keys, _ in LAUNCHED_AS}
+    return traced, counted
 
+
+def traced_ticks(eng, n, tick):
+    """``n`` engine ticks, each by ``tick()``, in a ``cuda_trace``: wall,
+    device time and the port kernels' device time per tick, device busy
+    share (device time over the traced wall), launches and prefill tokens
+    per tick, and the top kernels by device time.
+
+    Holds the port kernels in the trace against ``kernels.LAUNCHES``. When
+    every tick replayed a graph, the counts were added from what each
+    capture counted, and the trace must hold exactly as many of each port
+    kernel: that shows the replays ran them. Otherwise the wrappers counted
+    their own launches, and the trace may hold fewer by no more than the
+    launches whose kernel record it lost (``lost_launches``), never more."""
     from repro_torch import kernels
 
     torch.cuda.synchronize()
     before = dict(kernels.LAUNCHES)
-    pf = eng.prefill_tokens
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    pf, replays = eng.prefill_tokens, eng.replays
+    with cuda_trace() as prof:
         t = time.perf_counter()
         for _ in range(n):
-            eng.step()
+            tick()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t)
     counts = {k: kernels.LAUNCHES[k] - before[k] for k in before}
 
-    # device-side events only (kernels, copies)
-    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kern = device_events(prof)
     by_name = {}
     for e in kern:
         by_name[e.name[:80]] = (by_name.get(e.name[:80], 0.0)
                                 + e.time_range.elapsed_us())
     device_ms = sum(by_name.values()) / 1e3
+    traced, counted = port_kernel_counts(kern, counts)
+    replayed = eng.replays - replays == n
+    lost = lost_launches(prof)
+    short = sum(counted.values()) - sum(traced.values())
+    if (any(traced[k] > counted[k] for k in traced)
+            or short > (0 if replayed else lost)):
+        how = "every tick replayed" if replayed else "eager ticks"
+        raise AssertionError(
+            f"the trace holds {traced} port kernels, kernels.LAUNCHES "
+            f"counted {counted} ({how}; {lost} kernel launches lost their "
+            f"record)")
     top = sorted(by_name.items(), key=lambda kv: kv[1], reverse=True)[:10]
     # the port's own kernels (csrc/*.cu), whatever their share of the tick
     own = {k: us / 1e3 / n for k, us in by_name.items()
@@ -864,6 +970,8 @@ def traced_ticks(eng, n):
            "device_busy_share": device_ms / wall_ms if kern else None,
            "prefill_tokens_per_tick": (eng.prefill_tokens - pf) / n,
            "launches_per_tick": {k: v / n for k, v in counts.items()},
+           "traced_launches_per_tick": {k: v / n for k, v in traced.items()},
+           "replayed": replayed, "trace_lost_launches": lost,
            "top_device_ms_per_tick": {k: us / 1e3 / n for k, us in top},
            "port_kernels_device_ms_per_tick": own}
     for label, names in (("crossbar", CB_KERNELS), ("flash", FA_KERNELS),
@@ -875,44 +983,181 @@ def traced_ticks(eng, n):
     return out
 
 
-def profile_phase(eng, cfg, dev, *, n_requests=8, prompt_len=256,
-                  window=8, seed=1):
-    """Where a tick's time goes: the same engine serves a second wave of
-    requests. Its first ``mixed`` ticks, in which every slot prefills a
-    chunk of the prompt (128 tokens a row), run under ``torch.profiler``
-    tracing CUDA activity only. Once every slot decodes, ``window`` ticks
-    run untraced (host wall), then the next ``window`` ticks traced.
-    Device busy share is a traced window's device time over its own wall
-    time; the untraced wall beside the decode window shows what the
-    tracing costs. Also reports the device time by kernel name."""
+def untraced_ms(n, tick):
+    """Host wall milliseconds per tick of ``n`` ticks, each by ``tick()``."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(n):
+        tick()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t) / n
+
+
+def host_breakdown(eng, run, n):
+    """Host milliseconds per tick of ``n`` untraced ticks by
+    ``eng._advance(run)``, split at the engine's own calls: admission
+    (``_admit``), page capacity (``sched.ensure``), copy-on-write forks
+    (``_run_forks``), the rest before the step (``assembly``: chunk widths,
+    the mixed batch packed into pinned memory), the step call (``run``:
+    the input copy and the graph launch, or the eager forward's issue),
+    sampling's issue (``sample_tokens``), the ``.cpu()`` read of the tokens
+    (from sampling's return to the first emitted token: mostly waiting for
+    the device), and the bookkeeping after it. Each wrapper costs about a
+    microsecond. Beside them, in the same ticks, ``step_stream``: the
+    stream's time from the step's first operation to its last (CUDA events
+    around the step call; a graph runs it with no host gaps), and its share
+    of the tick's wall."""
+    from repro_torch.serve import engine as engine_mod
+
+    clock = time.perf_counter
+    acc = dict.fromkeys(("admit", "ensure", "forks", "total", "before_step",
+                         "step_call", "sample_issue", "cpu_read",
+                         "after_read"), 0.0)
+    marks = {}
+
+    def timed(name, fn):
+        def wrapped(*a, **k):
+            t = clock()
+            try:
+                return fn(*a, **k)
+            finally:
+                acc[name] += clock() - t
+        return wrapped
+
+    def emit_(*a, **k):
+        marks.setdefault("emit", clock())
+        return emit(*a, **k)
+
+    def run_(sig, staged):
+        marks["run"] = clock()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = run(sig, staged)
+        ev[1].record()
+        events.append(ev)
+        marks["run_end"] = clock()
+        return out
+
+    def sample_(*a, **k):
+        out = sample(*a, **k)
+        marks["sampled"] = clock()
+        return out
+
+    events = []
+    emit, sample, sched = eng._emit, engine_mod.sample_tokens, eng.sched
+    eng._admit = timed("admit", eng._admit)
+    eng._run_forks = timed("forks", eng._run_forks)
+    eng._emit = emit_
+    sched.ensure = timed("ensure", sched.ensure)
+    engine_mod.sample_tokens = sample_
+    done = 0
+    try:
+        torch.cuda.synchronize()
+        for _ in range(n):
+            marks.clear()
+            t0 = clock()
+            eng._advance(run_)
+            t1 = clock()
+            if "emit" not in marks:      # no decode row left
+                break
+            done += 1
+            acc["total"] += t1 - t0
+            acc["before_step"] += marks["run"] - t0
+            acc["step_call"] += marks["run_end"] - marks["run"]
+            acc["sample_issue"] += marks["sampled"] - marks["run_end"]
+            acc["cpu_read"] += marks["emit"] - marks["sampled"]
+            acc["after_read"] += t1 - marks["emit"]
+    finally:
+        for name in ("_admit", "_run_forks", "_emit"):
+            del eng.__dict__[name]
+        del sched.__dict__["ensure"]
+        engine_mod.sample_tokens = sample
+    if not done:
+        raise AssertionError("no decode tick to break down")
+    torch.cuda.synchronize()
+    out = {k: 1e3 * v / done for k, v in acc.items()}
+    out["assembly"] = (out["before_step"] - out["admit"] - out["ensure"]
+                       - out["forks"])
+    out["step_stream"] = sum(a.elapsed_time(b)
+                             for a, b in events[:done]) / done
+    out["step_stream_share"] = out["step_stream"] / out["total"]
+    out["ticks"] = done
+    return out
+
+
+def profile_wave(eng, cfg, tick, *, n_requests, prompt_len, window, seed,
+                 run):
+    """One wave of ``n_requests`` prompts of ``prompt_len`` on ``eng``,
+    every tick by ``tick()``. Its first tick (every slot prefills a chunk)
+    runs untraced (host wall), its second traced; once every slot decodes,
+    4 ticks by ``eng._advance(run)`` give the host breakdown of a decode
+    tick (``host_breakdown``), then ``window`` ticks run untraced and the
+    next ``window`` traced. Device busy share is a traced window's device
+    time over its own wall time. Returns (mixed, decode) results."""
     from repro_torch.serve.api import Request
 
     rng = np.random.default_rng(seed)
     for i in range(n_requests):
-        eng.submit(Request(uid=1000 + i, prompt=rng.integers(
+        eng.submit(Request(uid=10_000 * (seed + 1) + i, prompt=rng.integers(
             0, cfg.vocab_size, prompt_len).astype(np.int32),
             max_new_tokens=2 * window + 8, adapter_id=i % 2))
-    mixed = traced_ticks(eng, prompt_len // eng.prefill_chunk)
-    if mixed["prefill_tokens_per_tick"] <= 0:
-        raise AssertionError(f"the wave's first ticks did no prefill: "
-                             f"{mixed}")
-    emit({"phase": "profile", "window": "mixed", "slots": n_requests,
-          **mixed})
+    pf = eng.prefill_tokens
+    mixed = {"untraced_wall_ms_first_tick": untraced_ms(1, tick),
+             **traced_ticks(eng, 1, tick)}
+    if mixed["prefill_tokens_per_tick"] <= 0 or eng.prefill_tokens - pf < (
+            2 * n_requests * eng.prefill_chunk):
+        raise AssertionError(f"the wave's first ticks did not prefill a "
+                             f"chunk in every slot: {mixed}")
     while True:                          # until a tick does no prefill
         pf = eng.prefill_tokens
-        eng.step()
+        tick()
         if eng.prefill_tokens == pf:
             break
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    for _ in range(window):
-        eng.step()
-    torch.cuda.synchronize()
-    untraced_ms = 1e3 * (time.perf_counter() - t)
-    emit({"phase": "profile", "window": "decode", "slots": n_requests,
-          "untraced_wall_ms_per_tick": untraced_ms / window,
-          **traced_ticks(eng, window)})
-    eng.drain()
+    # mid-decode, before any request of the wave finishes
+    breakdown = host_breakdown(eng, run, 4)
+    decode = {"untraced_wall_ms_per_tick": untraced_ms(window, tick),
+              **traced_ticks(eng, window, tick),
+              "host_breakdown_ms_per_tick": breakdown}
+    while eng.queue or eng.sched.active():
+        tick()
+    return mixed, decode
+
+
+def profile_phase(eng, cfg, dev, *, n_requests=8, prompt_len=256,
+                  window=8):
+    """Where a tick's time goes, with the step eager and as CUDA graphs, in
+    the same run on the same engine: three waves of the same shape (so the
+    same step signatures): the first by ``eng.step`` captures every
+    signature the waves meet (not measured), the second runs the engine's
+    eager step, the third replays the graphs. Each measured wave: its first
+    two (mixed) ticks, every slot prefilling 128 tokens, and a decode
+    window (``profile_wave``). Also reports the device time by kernel name,
+    and the ratio of eager to graph for each number."""
+    kw = dict(n_requests=n_requests, prompt_len=prompt_len, window=window)
+    profile_wave(eng, cfg, eng.step, seed=1, run=eng._replay, **kw)
+    replays = eng.replays
+    eager = profile_wave(eng, cfg, lambda: eng._advance(eng._eager), seed=2,
+                         run=eng._eager, **kw)
+    if eng.replays != replays:
+        raise AssertionError("the eager wave replayed a graph")
+    captured = len(eng._graphs)
+    graph = profile_wave(eng, cfg, eng.step, seed=3, run=eng._replay, **kw)
+    if len(eng._graphs) != captured:
+        raise AssertionError("the measured graph wave captured a graph")
+    out = {}
+    for name, runs in (("mixed", (eager[0], graph[0])),
+                       ("decode", (eager[1], graph[1]))):
+        for step, r in zip(("eager", "graph"), runs):
+            emit({"phase": "profile", "model": cfg.name, "window": name,
+                  "step": step, "slots": n_requests, **r})
+        keys = ("untraced_wall_ms_first_tick", "untraced_wall_ms_per_tick",
+                "traced_wall_ms_per_tick", "device_ms_per_tick",
+                "device_busy_share")
+        keys += ("host_breakdown_ms_per_tick",)
+        out[name] = {step: {k: r[k] for k in keys if k in r}
+                     for step, r in zip(("eager", "graph"), runs)}
+    emit({"phase": "profile_compare", "model": cfg.name,
+          "replays": eng.replays - replays, **out})
 
 
 # ---------------------------------------------------------------------------

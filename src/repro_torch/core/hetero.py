@@ -13,7 +13,10 @@ Every matrix multiplication is classified by operand staticness:
 
 A tally (``tally()``) accumulates per-class FLOPs while a function runs, so
 the Eq. 5 ratio (>90% of MM on the static engine) can be read off the model
-as built. PyTorch runs eagerly, so the counts accumulate per call.
+as built. The counts accumulate when the Python code runs: per call in an
+eager run, and once when the serving engine captures a step into a CUDA
+graph (a replay adds nothing), as the JAX package's tally counts once per
+trace.
 """
 from __future__ import annotations
 

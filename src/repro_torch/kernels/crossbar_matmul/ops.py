@@ -18,7 +18,7 @@ import torch
 
 from repro_torch import kernels
 from repro_torch.core.quant import QuantizedTensor, dequantize
-from repro_torch.kernels import build
+from repro_torch.kernels import build, workspace
 
 CROSSBAR = 128  # ReRAM crossbar size == quantization block == K tile
 _LIB = None
@@ -48,14 +48,12 @@ def _lib():
 
 # (M, Kp, Np, bits, kernel) -> (f32 partials, int tickets) the call needs
 _NEEDS: Dict[tuple, Tuple[int, int]] = {}
-# (device, stream) -> (partials, tickets): the split-K workspace of both
-# kernels, grown on demand. Calls on one stream run in order, so they
-# share it; the tickets are zeroed here once and every call leaves them 0.
-_WORKSPACE: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
+# the split-K workspace of both kernels (``kernels.workspace``)
+WORKSPACES = workspace.Workspaces("crossbar_matmul")
 
 
-def _workspace(M: int, kp: int, np_: int, bits: int, kernel: int, dev: int,
-               stream: int) -> Tuple[int, int, int, int]:
+def _need(M: int, kp: int, np_: int, bits: int, kernel: int) -> Tuple[int,
+                                                                     int]:
     key = (M, kp, np_, bits, kernel)
     need = _NEEDS.get(key)
     if need is None:
@@ -63,18 +61,21 @@ def _workspace(M: int, kp: int, np_: int, bits: int, kernel: int, dev: int,
         partials = _lib().crossbar_matmul_workspace(M, kp, np_, bits, kernel,
                                                     ctypes.byref(tickets))
         need = _NEEDS[key] = (partials, tickets.value)
-    if need == (0, 0):
-        return 0, 0, 0, 0
-    ws = _WORKSPACE.get((dev, stream))
-    if ws is None or ws[0].numel() < need[0] or ws[1].numel() < need[1]:
-        have = ws or (torch.empty(0), torch.empty(0))
-        device = torch.device("cuda", dev)
-        ws = _WORKSPACE[(dev, stream)] = (
-            torch.empty(max(need[0], have[0].numel()), dtype=torch.float32,
-                        device=device),
-            torch.zeros(max(need[1], have[1].numel()), dtype=torch.int32,
-                        device=device))
-    return ws[0].data_ptr(), ws[0].numel(), ws[1].data_ptr(), ws[1].numel()
+    return need
+
+
+def reserve_workspace(device: torch.device, weights, ms) -> None:
+    """Size ``device``'s split-K workspace for the most that ``x (M, K) @
+    qt`` needs over every weight ``qt`` of ``weights`` and every M of
+    ``ms`` (the kernel the wrapper picks by itself), before a CUDA graph
+    captures calls (``kernels.workspace``)."""
+    most = (0, 0)
+    for qt in weights:
+        kp = qt.codes.shape[-2] * (2 if qt.bits == 4 else 1)
+        for M in ms:
+            p, t = _need(M, kp, qt.codes.shape[-1], qt.bits, KERNELS["auto"])
+            most = (max(most[0], p), max(most[1], t))
+    WORKSPACES.reserve(device.index, most)
 
 
 def _check_shapes(x: torch.Tensor, qt: QuantizedTensor) -> None:
@@ -172,7 +173,7 @@ def crossbar_matmul(x: torch.Tensor, qt: QuantizedTensor, *,
     np_, kind = qt.codes.shape[1], KERNELS[kernel]
     dev = x.device.index
     stream = torch._C._cuda_getCurrentRawStream(dev)
-    ws = _workspace(M, kp, np_, qt.bits, kind, dev, stream)
+    ws = WORKSPACES.pointers(_need(M, kp, np_, qt.bits, kind), dev)
     args = (x.data_ptr(), qt.codes.data_ptr(), qt.scales.data_ptr(),
             out.data_ptr(), *ws, M, K, N, kp, np_, qt.bits, kind, stream)
     if dev == torch.cuda.current_device():

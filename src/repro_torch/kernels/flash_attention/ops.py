@@ -10,8 +10,8 @@ no key, as the Pallas kernel does (``ref_attention`` gives the mean of V
 there instead). On CUDA tensors the wrappers launch
 ``csrc/flash_attention.cu`` (tensor cores in 3xTF32, one block per kv
 head's GQA group and row tile, causal tiles skipped, short query tiles
-split over the context through a per-stream workspace); on CPU tensors
-they run the plain versions.
+split over the context through a workspace, ``kernels.workspace``); on
+CPU tensors they run the plain versions.
 """
 from __future__ import annotations
 
@@ -21,7 +21,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch import kernels
-from repro_torch.kernels import build
+from repro_torch.kernels import build, workspace
 
 NEG_INF = -1e30
 HEAD_DIMS = (8, 16, 32, 64)   # head dims the kernel is instantiated for
@@ -114,32 +114,30 @@ def _lib():
 
 # (B, T, Hq, Hkv, S, D) -> (f32 partials, int tickets) the call needs
 _NEEDS: Dict[tuple, Tuple[int, int]] = {}
-# (device, stream) -> (partials, tickets): the split-KV workspace of both
-# entry points, grown on demand. Calls on one stream run in order, so they
-# share it; the tickets are zeroed here once and every call leaves them 0.
-_WORKSPACE: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
+# the split-KV workspace of both entry points (``kernels.workspace``)
+WORKSPACES = workspace.Workspaces("flash_attention")
 
 
-def _workspace(shape: tuple, dev: int, stream: int) -> Tuple[int, int,
-                                                              int, int]:
+def _need_of(shape: tuple) -> Tuple[int, int]:
     need = _NEEDS.get(shape)
     if need is None:
         tickets = ctypes.c_size_t(0)
         partials = _lib().flash_attention_workspace(*shape,
                                                     ctypes.byref(tickets))
         need = _NEEDS[shape] = (partials, tickets.value)
-    if need == (0, 0):
-        return 0, 0, 0, 0
-    ws = _WORKSPACE.get((dev, stream))
-    if ws is None or ws[0].numel() < need[0] or ws[1].numel() < need[1]:
-        have = ws or (torch.empty(0), torch.empty(0))
-        device = torch.device("cuda", dev)
-        ws = _WORKSPACE[(dev, stream)] = (
-            torch.empty(max(need[0], have[0].numel()), dtype=torch.float32,
-                        device=device),
-            torch.zeros(max(need[1], have[1].numel()), dtype=torch.int32,
-                        device=device))
-    return ws[0].data_ptr(), ws[0].numel(), ws[1].data_ptr(), ws[1].numel()
+    return need
+
+
+def reserve_workspace(device: torch.device, shapes) -> None:
+    """Size ``device``'s split-KV workspace for the most that a call of any
+    (B, T, Hq, Hkv, S, D) in ``shapes`` needs (S: nb * page for the paged
+    entry point), before a CUDA graph captures calls
+    (``kernels.workspace``)."""
+    most = (0, 0)
+    for shape in shapes:
+        p, t = _need_of(tuple(shape))
+        most = (max(most[0], p), max(most[1], t))
+    WORKSPACES.reserve(device.index, most)
 
 
 def _call(fn, dev: int, *args) -> int:
@@ -207,7 +205,7 @@ def flash_attention(q, k, v, q_pos, kv_pos, *, window=None,
         return out
     dev = q.device.index
     stream = torch._C._cuda_getCurrentRawStream(dev)
-    ws = _workspace((B, T, Hq, Hkv, S, D), dev, stream)
+    ws = WORKSPACES.pointers(_need_of((B, T, Hq, Hkv, S, D)), dev)
     rc = _call(_lib().flash_attention, dev, q.data_ptr(), k.data_ptr(),
                v.data_ptr(), q_pos.data_ptr(), kv_pos.data_ptr(),
                out.data_ptr(), *ws, B, T, Hq, S, Hkv, D, w, c, stream)
@@ -255,7 +253,7 @@ def paged_flash_attention(q, kp, vp, positions, block_table, lens,
         return out
     dev = q.device.index
     stream = torch._C._cuda_getCurrentRawStream(dev)
-    ws = _workspace((B, T, Hq, Hkv, nb * page, D), dev, stream)
+    ws = WORKSPACES.pointers(_need_of((B, T, Hq, Hkv, nb * page, D)), dev)
     rc = _call(_lib().paged_flash_attention, dev, q.data_ptr(),
                kp.data_ptr(), vp.data_ptr(), positions.data_ptr(),
                block_table.data_ptr(), lens.data_ptr(), chunk_lens.data_ptr(),

@@ -83,21 +83,47 @@ def _record_attention(q, S: int, softcap) -> None:
 
 # ---------------------------------------------------------------------------
 # Paged decode: scatter the chunk into pool pages, attend through the block
-# table. Padded tail tokens of a ragged chunk and positions whose page is
-# unmapped are filtered out before the scatter (``index_put_`` has no
-# mode="drop"), so they can never corrupt a page. Prefix-shared pages need
-# no handling: a page mapped by several tables is read by each, visibility
-# (`gpos < lens + clens`) masks resident tokens beyond a sharer's length,
-# and writes never target a co-held page (the scheduler forks it first).
+# table. The JAX package drops padded tail tokens of a ragged chunk and
+# positions whose page is unmapped (``mode="drop"``); ``index_put_`` has no
+# drop mode, and filtering the rows would wait for the device. So every such
+# row repeats the write of the first valid row instead: the same value to
+# the same place, which leaves the pool bit for bit as JAX's drop does, at a
+# fixed shape and with no host work (a CUDA graph captures it). Prefix-shared
+# pages need no handling: a page mapped by several tables is read by each,
+# visibility (`gpos < lens + clens`) masks resident tokens beyond a sharer's
+# length, and writes never target a co-held page (the scheduler forks it
+# first).
 # ---------------------------------------------------------------------------
 
 
+def paged_write_targets(positions: torch.Tensor, block_table: torch.Tensor,
+                        chunk_lens: torch.Tensor, page_size: int):
+    """Where each of the chunk's B*T rows goes in the pool: (src, page_ids,
+    within), each (B*T,) int64. Row r writes new[src[r]] to
+    pool[page_ids[r], :, within[r]]. A valid row (t < chunk_lens[b], its
+    column inside the table and mapped) writes itself; every other row
+    repeats the first valid row's write. Needs at least one valid row (every
+    active engine tick has one)."""
+    B, T = positions.shape
+    nb = block_table.shape[1]
+    t_idx = torch.arange(T, device=positions.device)
+    valid = t_idx[None, :] < chunk_lens[:, None]             # (B, T)
+    col = torch.div(positions, page_size, rounding_mode="floor")
+    pid = torch.gather(block_table, 1, col.clamp(0, nb - 1).long())
+    ok = (valid & (col < nb) & (pid >= 0)).reshape(-1)
+    first = torch.argmax(ok.to(torch.int32))                 # a valid row
+    src = torch.where(ok, torch.arange(B * T, device=positions.device),
+                      first)
+    within = (positions % page_size).reshape(-1).long()
+    return src, pid.reshape(-1).long()[src], within[src]
+
+
 def paged_pool_update(pool: torch.Tensor, new: torch.Tensor,
-                      rows: torch.Tensor, page_ids: torch.Tensor,
+                      src: torch.Tensor, page_ids: torch.Tensor,
                       within: torch.Tensor) -> None:
-    """In place: pool (P, Hkv, page, D)[page_ids[i], :, within[i]] =
-    new (B*T, Hkv, D)[rows[i]] for the selected (valid) rows."""
-    pool[page_ids, :, within, :] = new[rows].to(pool.dtype)
+    """In place: pool (P, Hkv, page, D)[page_ids[r], :, within[r]] =
+    new (B*T, Hkv, D)[src[r]] for every row r (``paged_write_targets``)."""
+    pool[page_ids, :, within, :] = new[src].to(pool.dtype)
 
 
 def paged_attend(cfg: ModelConfig, q, k, v, positions, pool: Dict, paged, *,
@@ -112,18 +138,10 @@ def paged_attend(cfg: ModelConfig, q, k, v, positions, pool: Dict, paged, *,
     page = paged["page_size"]
     bt = paged["block_table"]                                # (B, nb)
     nb = bt.shape[1]
-    t_idx = torch.arange(T, device=q.device)
-    valid = t_idx[None, :] < clens[:, None]                  # (B, T)
-    col = torch.div(positions, page, rounding_mode="floor")
-    colc = col.clamp(0, nb - 1).long()
-    pid = torch.gather(bt, 1, colc)                          # (B, T)
-    ok = valid & (col < nb) & (pid >= 0)
-    rows = ok.reshape(-1).nonzero().squeeze(1)               # host sync
-    pid_r = pid.reshape(-1)[rows].long()
-    within_r = (positions % page).reshape(-1)[rows].long()
+    targets = paged_write_targets(positions, bt, clens, page)
     for name, new in (("kp", k), ("vp", v)):
         paged_pool_update(pool[name], new.reshape(B * T, *new.shape[2:]),
-                          rows, pid_r, within_r)
+                          *targets)
     if impl == "ref":
         kg = fa_ops.gather_pages(pool["kp"], bt).to(q.dtype)
         vg = fa_ops.gather_pages(pool["vp"], bt).to(q.dtype)

@@ -79,8 +79,8 @@ def rope_sincos(positions: torch.Tensor, head_dim: int, theta: float):
     half = head_dim // 2
     exps = -torch.arange(0, half, dtype=torch.float32,
                          device=positions.device) / half
-    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                   device=positions.device), exps)
+    # a Python base: no host-to-device copy, so a CUDA graph can capture it
+    freqs = torch.pow(theta, exps)
     ang = positions.to(torch.float32)[..., None] * freqs   # (B, T, half)
     return torch.sin(ang), torch.cos(ang)
 

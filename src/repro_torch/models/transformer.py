@@ -16,7 +16,10 @@ import torch
 
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import quant
 from repro_torch.core.lora import layer_slice, scan_period
+from repro_torch.kernels.crossbar_matmul import ops as cb_ops
+from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models import attention, layers, rwkv
 from repro_torch.models.kvcache import (cache_len, position_cache_spec,
                                         zeros_from_spec)
@@ -192,6 +195,39 @@ def forward(cfg: ModelConfig, params: Dict, inputs: Dict[str, torch.Tensor],
             {name: torch.stack([c[name] for c in per_sp])
              for name in per_sp[0]} for per_sp in new_layers)}
     return logits, new_cache, {}
+
+
+def _quantized(tree):
+    """Every QuantizedTensor leaf of a parameter tree."""
+    if quant.is_quantized(tree):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _quantized(v)
+    elif isinstance(tree, (tuple, list)):
+        for v in tree:
+            yield from _quantized(v)
+
+
+def reserve_workspaces(cfg: ModelConfig, params: Dict, exec_cfg: ExecConfig,
+                       device: torch.device, *, rows: int, chunks, tables,
+                       page_size: int) -> None:
+    """Size the kernels' split workspaces on ``device`` for every paged
+    decode-mode ``forward`` over ``rows`` rows, with a chunk of each width
+    in ``chunks`` and a block table of each width in ``tables``: the
+    crossbar matmul of every quantized weight at M = rows * C (and at
+    M = rows, the head's under ``last_idx``), and the paged flash kernel of
+    the attention layers. A CUDA graph captured afterwards finds them large
+    enough (``kernels.workspace``)."""
+    weights = list(_quantized(params))
+    if weights:
+        cb_ops.reserve_workspace(device, weights,
+                                 sorted({rows} | {rows * C for C in chunks}))
+    attn = any(cfg.block_kind(pos) == "attn" for pos in range(scan_period(cfg)))
+    if attn and exec_cfg.attn_impl == "auto":
+        fa_ops.reserve_workspace(
+            device, [(rows, C, cfg.n_heads, cfg.n_kv_heads, nb * page_size,
+                      cfg.hd) for C in chunks for nb in tables])
 
 
 # ---------------------------------------------------------------------------

@@ -6,10 +6,13 @@ Request/Completion pair, one Engine protocol, one factory, typed stats.
     completions = eng.drain()          # {uid: Completion}
     st = eng.stats()                   # EngineStats (typed, frozen)
 
-The port serves through the paged engine only. The dense oracle engine is
-replaced by ``tests/oracle.replay_greedy``; speculative decoding, tensor
-parallelism, prefix-cache persistence and MoE wait for later slices
-(ROADMAP Queue 1 items 8, 10, 12 and 16).
+The port serves through the paged engine only. On a CUDA device it runs
+its mixed step as one CUDA graph per (chunk, table) signature, captured at
+the signature's first tick and replayed after that (``CompileStats``); on
+the CPU the step runs eagerly. The dense oracle engine is replaced by
+``tests/oracle.replay_greedy``; speculative decoding, tensor parallelism,
+prefix-cache persistence and MoE wait for later slices (ROADMAP Queue 1
+items 8, 10, 12 and 16).
 """
 from __future__ import annotations
 
@@ -59,11 +62,19 @@ def completion_of(req: Request) -> Completion:
 
 @dataclass(frozen=True)
 class CompileStats:
-    """Distinct (chunk-bucket, table-width-bucket) step shapes the engine
-    ran. The port runs the step eagerly; these are the shapes a later
-    CUDA-graph capture would record once each."""
+    """The engine's compiled steps, the port's counterpart of the JAX
+    engine's jitted step signatures. ``step_signatures``: the distinct
+    (chunk bucket, table-width bucket) step shapes the engine ran.
+    ``compiled_steps``: CUDA graphs captured, one per signature on a CUDA
+    device (0 on the CPU, which runs the step eagerly). ``replays``: ticks
+    that replayed a graph (each signature's first tick runs eagerly and
+    then captures). ``capture_ms``: host time spent capturing.
+    ``graph_pool_bytes``: device memory the graphs' shared pool reserved."""
     step_signatures: Tuple[Tuple[int, int], ...] = ()
     compiled_steps: int = 0
+    replays: int = 0
+    capture_ms: float = 0.0
+    graph_pool_bytes: int = 0
 
 
 @dataclass(frozen=True)
@@ -114,6 +125,9 @@ class EngineStats:
             "step_signatures": [tuple(sig) for sig
                                 in self.compile.step_signatures],
             "compiled_steps": self.compile.compiled_steps,
+            "graph_replays": self.compile.replays,
+            "capture_ms": self.compile.capture_ms,
+            "graph_pool_bytes": self.compile.graph_pool_bytes,
             "used_pages": s.used_pages,
             "free_pages": s.free_pages,
             "shared_pages": s.shared_pages,

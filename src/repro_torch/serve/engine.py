@@ -21,19 +21,32 @@ their first divergent write. It serves full-attention models only: RWKV
 state is relative to the whole stream and cannot be grafted across
 requests.
 
-The step runs eagerly, in place of ``jax.jit``; capturing one CUDA graph
-per (chunk, table) bucket is a later PR. Speculative decoding, tensor
+On a CUDA device the mixed step runs as CUDA graphs, the port's
+counterpart of the JAX package's ``jax.jit`` of the step: one graph per
+(chunk bucket, table bucket) signature. A signature's first tick runs
+eagerly (it is also the first use of each kernel at that shape), then the
+step is captured without running it; every later tick with that signature
+copies its inputs into the graph's own (from pinned host memory, without a
+wait) and replays it. The graph ends at the last position's logits, and
+sampling runs eagerly after it. All graphs share one memory pool; the
+kernels' split workspaces are reserved for the largest step before any
+capture. A capture that fails raises: nothing falls back to the eager
+step. On the CPU (the tests) the step runs eagerly. Copy-on-write forks
+and slot resets run eagerly between ticks, as they are rare (the JAX
+package jits its forks by fork bucket). Speculative decoding, tensor
 parallelism and prefix-cache persistence raise ``NotImplementedError``
 (ROADMAP Queue 1 items 8, 10 and 16).
 """
 from __future__ import annotations
 
+import time
+from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch import DeviceLike, resolve_device
+from repro_torch import DeviceLike, kernels, resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import lora as lora_lib
 from repro_torch.core.lora import scan_period
@@ -70,6 +83,31 @@ def _stream_len(req: Request) -> int:
     return len(req.prompt) + max(0, len(req.generated) - 1)
 
 
+# A step's int32 inputs travel packed in one buffer, each part starting on
+# 16 bytes (the alignment the flash kernels take): one copy a tick.
+_PARTS = ("tokens", "lens", "clens", "table", "adapter")
+
+
+def _segments(B: int, C: int, nb: int) -> Tuple[Dict[str, Tuple[int, int]],
+                                                 int]:
+    """(offset, length) of each part of the packed inputs, and their end."""
+    out, o = {}, 0
+    for name, n in zip(_PARTS, (B * C, B, B, B * nb, B)):
+        out[name] = (o, n)
+        o += -(-n // 4) * 4
+    return out, o
+
+
+@dataclass
+class _Graph:
+    """One captured mixed step: the packed inputs it reads, the logits it
+    writes, and the kernel launches that one replay makes."""
+    graph: "torch.cuda.CUDAGraph"
+    inputs: torch.Tensor
+    logits: torch.Tensor
+    launches: Dict[str, int]
+
+
 class PagedServeEngine:
     """Continuous batching over a paged, prefix-shared KV arena with
     chunked prefill.
@@ -79,7 +117,9 @@ class PagedServeEngine:
     rows consume their last sampled token, idle rows are masked out via
     ``chunk_lens == 0``. With ``record_logits=True`` the engine keeps, per
     request uid, the logits row each generated token was sampled from
-    (``sampled_logits``), so a caller can hold them against a reference."""
+    (``sampled_logits``), so a caller can hold them against a reference.
+    On a CUDA device each tick replays the graph of its (chunk, table)
+    signature (module docstring)."""
 
     def __init__(self, cfg: ModelConfig, params, adapters: Sequence = (), *,
                  device: DeviceLike = None, max_slots: int = 16,
@@ -137,6 +177,24 @@ class PagedServeEngine:
         self.chunk_buckets = power_buckets(prefill_chunk)
         self.block_buckets = power_buckets(self.sched.max_blocks)
         self._signatures: Set[Tuple[int, int]] = set()
+        self._graphs: Dict[Tuple[int, int], _Graph] = {}
+        self.replays = 0
+        self.capture_s = 0.0
+        self.graph_pool_bytes = 0
+        # pinned host staging of the packed inputs and of the temperatures
+        pin = self.device.type == "cuda"
+        _, most = _segments(max_slots, self.chunk_buckets[-1],
+                            self.block_buckets[-1])
+        self._host = torch.zeros(most, dtype=torch.int32, pin_memory=pin)
+        self._host_temps = torch.zeros(max_slots, dtype=torch.float32,
+                                       pin_memory=pin)
+        if pin:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+            # every signature's split workspaces, before any capture
+            tfm.reserve_workspaces(
+                cfg, params, exec_cfg, self.device, rows=max_slots,
+                chunks=self.chunk_buckets, tables=self.block_buckets,
+                page_size=page_size)
         self._tick = 0
         self.decode_tokens = 0
         self.prefill_tokens = 0
@@ -146,21 +204,81 @@ class PagedServeEngine:
         self.sampled_logits: Dict[int, List[torch.Tensor]] = {}
 
     # ------------------------------------------------------------------
-    def _step_fn(self, tokens, lens, clens, block_table, adapter_idx, temps):
-        C = tokens.shape[1]
+    def _step_fn(self, inputs: torch.Tensor, C: int, nb: int) -> torch.Tensor:
+        """The mixed forward over packed ``inputs`` (``_segments``): writes
+        the pool and the per-slot state in place and returns the last
+        position's logits (B, V). No host work depends on the values, so a
+        CUDA graph captures it whole."""
+        B = self.layout.max_slots
+        seg, _ = _segments(B, C, nb)
+        part = {k: inputs[o:o + n] for k, (o, n) in seg.items()}
+        tokens = part["tokens"].view(B, C)
+        block_table = part["table"].view(B, nb)
+        lens, clens = part["lens"], part["clens"]
+        adapter_idx = (part["adapter"].long() if self.adapters is not None
+                       else None)
         positions = lens[:, None] + torch.arange(
-            C, dtype=torch.int32, device=self.device)[None, :]
+            C, dtype=torch.int32, device=inputs.device)[None, :]
         paged = {"block_table": block_table, "lens": lens,
                  "chunk_lens": clens, "page_size": self.layout.page_size}
         last = torch.clamp(clens.long() - 1, 0, C - 1)
-        # the pool and the per-slot state of self.cache are updated in place
         logits, _, _ = tfm.forward(
             self.cfg, self.params, {"tokens": tokens}, lora=self.adapters,
             cache=self.cache, positions=positions, mode="decode",
             exec_cfg=self.ec, adapter_idx=adapter_idx, paged=paged,
             chunk_lens=clens, last_idx=last)
-        lg = logits[:, 0]                                         # (B, V)
-        return sample_tokens(lg, temps, self._gen), lg
+        return logits[:, 0]                                       # (B, V)
+
+    def _eager(self, sig: Tuple[int, int], staged: torch.Tensor):
+        """Run the step of signature ``sig`` eagerly on the staged inputs."""
+        return self._step_fn(staged.to(self.device, non_blocking=True), *sig)
+
+    def _replay(self, sig: Tuple[int, int], staged: torch.Tensor):
+        """Run the step of signature ``sig`` by its CUDA graph; its first
+        tick runs eagerly and then captures the graph."""
+        g = self._graphs.get(sig)
+        if g is None:
+            lg = self._eager(sig, staged)
+            self._graphs[sig] = self._capture(sig, staged.numel())
+            return lg
+        g.inputs.copy_(staged, non_blocking=True)
+        g.graph.replay()
+        self.replays += 1
+        for name, n in g.launches.items():
+            kernels.LAUNCHES[name] += n
+        return g.logits
+
+    def _capture(self, sig: Tuple[int, int], n: int) -> _Graph:
+        """Capture the step of ``sig`` into the shared pool. Capture records
+        without running, so the pool and the state are not written; the
+        launch counts its wrappers made are taken back and kept as the
+        graph's count per replay."""
+        inputs = torch.zeros(n, dtype=torch.int32, device=self.device)
+        graph = torch.cuda.CUDAGraph()
+        before = dict(kernels.LAUNCHES)
+        torch.cuda.synchronize(self.device)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(self.device)
+        stream = torch.cuda.current_stream(self.device)
+        t = time.perf_counter()
+        try:
+            with torch.cuda.graph(graph, pool=self._graph_pool):
+                logits = self._step_fn(inputs, *sig)
+        except Exception as e:
+            # a capture that fails to end leaves its side stream current
+            torch.cuda.set_stream(stream)
+            e.add_note(f"while capturing the mixed step of signature "
+                       f"(C={sig[0]}, nb={sig[1]})")
+            raise
+        finally:
+            launches = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+            for k, m in launches.items():
+                kernels.LAUNCHES[k] -= m
+        self.capture_s += time.perf_counter() - t
+        self.graph_pool_bytes += (torch.cuda.memory_reserved(self.device)
+                                  - reserved)
+        return _Graph(graph, inputs, logits,
+                      {k: m for k, m in launches.items() if m})
 
     # ------------------------------------------------------------------
     def submit(self, req: Request) -> None:
@@ -256,7 +374,14 @@ class PagedServeEngine:
 
     def step(self) -> None:
         """One tick: admit, resolve CoW forks, build a mixed ragged chunk,
-        run the step, advance lengths, sample/retire."""
+        run the step (a graph replay on a CUDA device), advance lengths,
+        sample/retire."""
+        self._advance(self._replay if self.device.type == "cuda"
+                      else self._eager)
+
+    def _advance(self, run) -> None:
+        """One tick, with ``run(signature, staged_inputs) -> logits`` as
+        the step (``_replay`` or ``_eager``)."""
         self._tick += 1
         self._admit()
         sched = self.sched
@@ -320,24 +445,29 @@ class PagedServeEngine:
             else:
                 tokens[i, 0] = st.req.generated[-1]
                 clens[i] = 1
+        assert clens.any(), "an active tick writes at least one token"
         nb = bucketize(sched.blocks_in_use(active, clens), self.block_buckets)
-        bt = np.ascontiguousarray(sched.tables[:, :nb])
+        adapter = [(sched.slots[i].req.adapter_id if sched.slots[i] else 0)
+                   for i in range(B)]
+        seg, n = _segments(B, C, nb)
+        host = self._host.numpy()
+        for name, arr in (("tokens", tokens), ("lens", sched.lens),
+                          ("clens", clens), ("table", sched.tables[:, :nb]),
+                          ("adapter", adapter)):
+            o, m = seg[name]
+            host[o:o + m] = np.asarray(arr).reshape(-1)
         temps = np.asarray([(sched.slots[i].req.temperature
                              if sched.slots[i] else 0.0) for i in range(B)],
                            np.float32)
-        dev = self.device
-        adapter_idx = (torch.as_tensor(
-            [(sched.slots[i].req.adapter_id if sched.slots[i] else 0)
-             for i in range(B)], dtype=torch.long, device=dev)
-            if self.adapters is not None else None)
         self._signatures.add((C, nb))
-        toks, lg = self._step_fn(
-            torch.as_tensor(tokens, device=dev),
-            torch.as_tensor(sched.lens.copy(), device=dev),
-            torch.as_tensor(clens, device=dev),
-            torch.as_tensor(bt, device=dev), adapter_idx,
-            torch.as_tensor(temps, device=dev))
-        toks_np = toks.cpu().numpy()
+        lg = run((C, nb), self._host[:n])
+        any_sampled = bool((temps > 0).any())
+        temps_t = None
+        if any_sampled:
+            self._host_temps.numpy()[:] = temps
+            temps_t = self._host_temps.to(self.device, non_blocking=True)
+        toks_np = sample_tokens(lg, temps_t, self._gen,
+                                any_sampled=any_sampled).cpu().numpy()
 
         # ---- advance + sample + retire
         for i in active:
@@ -399,7 +529,9 @@ class PagedServeEngine:
             prefill_tokens=self.prefill_tokens,
             compile=CompileStats(
                 step_signatures=tuple(sorted(self._signatures)),
-                compiled_steps=len(self._signatures)),
+                compiled_steps=len(self._graphs), replays=self.replays,
+                capture_ms=1e3 * self.capture_s,
+                graph_pool_bytes=self.graph_pool_bytes),
             scheduler=SchedulerStats(**occ),
             prefix_cache=PrefixCacheStats(
                 enabled=self.prefix is not None,

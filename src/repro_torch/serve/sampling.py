@@ -21,12 +21,17 @@ def gumbel_like(generator: torch.Generator, shape, device) -> torch.Tensor:
     return -torch.log(-torch.log(u))
 
 
-def sample_tokens(logits: torch.Tensor, temps: torch.Tensor,
-                  generator: Optional[torch.Generator] = None) -> torch.Tensor:
-    """logits (B, V), temps (B,) -> (B,) int64. Greedy where temp == 0; the
-    generator is needed (and drawn from) only when some temp > 0."""
+def sample_tokens(logits: torch.Tensor, temps: Optional[torch.Tensor],
+                  generator: Optional[torch.Generator] = None, *,
+                  any_sampled: bool) -> torch.Tensor:
+    """logits (B, V), temps (B,) -> (B,) int64. Greedy where temp == 0.
+
+    ``any_sampled`` says whether some temp is > 0. The caller holds the
+    temperatures on the host, so the choice costs no wait for the device;
+    when it is False, ``temps`` is not read (it may be None) and the
+    generator is not drawn from."""
     greedy = torch.argmax(logits, dim=-1)
-    if not bool((temps > 0).any()):
+    if not any_sampled:
         return greedy
     if generator is None:
         raise ValueError("sampling at temperature > 0 needs a generator")

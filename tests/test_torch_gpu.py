@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, and the
+serving engine's CUDA-graph step against its eager step, on the card.
 
 Every test is marked ``gpu`` and skips without a CUDA device (the kernels
 have no CPU mode). This file imports no JAX, so it also runs on a machine
@@ -483,3 +484,148 @@ def test_smoke_rwkv_engine_launches_the_kernels_and_matches_the_cpu():
         torch.testing.assert_close(
             torch.stack(eng.sampled_logits[uid]).cpu(),
             torch.stack(cpu_eng.sampled_logits[uid]), rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the engine's CUDA-graph step
+# ---------------------------------------------------------------------------
+
+
+def _smoke_engine(arch, dev, **kw):
+    """A smoke-size engine on the card: M8F8 base, two adapters with B != 0,
+    weights from seed 0 (the same on every call)."""
+    cfg = reduce_config(get_config(arch))
+    g = torch.Generator(device=dev).manual_seed(0)
+    params = quant.quantize_params(tfm.init_params(cfg, g, device=dev),
+                                   QuantConfig(8, 8), min_size=1)
+    ads = []
+    for _ in range(2):
+        ad = lora_lib.init_lora_params(cfg, g, device=dev)
+        for entry in ad["layers"]:
+            for ab in entry.values():
+                ab["b"].normal_(0.0, 0.02, generator=g)
+        ads.append(ad)
+    eng = make_engine(cfg, params, ads, device=dev, record_logits=True,
+                      **{**dict(max_slots=3, max_len=48, page_size=4,
+                                prefill_chunk=8), **kw})
+    return cfg, eng
+
+
+def _waves(eng, cfg, run):
+    """Two waves of requests, the second submitted mid-run so that new
+    signatures (longer prompts, wider tables) meet repeated ones; ``run``
+    drives one tick."""
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (3, 9, 5, 21, 14)]
+    for i, p in enumerate(prompts[:3]):
+        eng.submit(Request(uid=i, prompt=p, max_new_tokens=6,
+                           adapter_id=i % 2))
+    ticks = 0
+    while eng.queue or eng.sched.active():
+        if ticks == 5:
+            for i, p in enumerate(prompts[3:], start=3):
+                eng.submit(Request(uid=i, prompt=p, max_new_tokens=8,
+                                   adapter_id=i % 2))
+        run()
+        ticks += 1
+    torch.cuda.synchronize()
+    return {uid: r.generated for uid, r in eng.finished.items()}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "rwkv6-7b"])
+def test_graph_step_equals_the_eager_step(arch):
+    """The graphed engine and the eager step on the same weights give the
+    same greedy tokens and the same logits bits, over a run that repeats
+    signatures and meets new ones mid-run. One graph per signature; every
+    replay counts its kernels' launches, so both runs count alike."""
+    dev = _cuda_or_skip()
+    runs = {}
+    for mode in ("eager", "graph"):
+        cfg, eng = _smoke_engine(arch, dev)
+        kernels.reset_launches()
+        run = eng.step if mode == "graph" else (
+            lambda e=eng: e._advance(e._eager))
+        runs[mode] = (_waves(eng, cfg, run), dict(kernels.LAUNCHES), eng)
+    (toks_e, launches_e, eng_e), (toks_g, launches_g, eng_g) = runs.values()
+    assert toks_g == toks_e and len(toks_g) == 5
+    for uid in toks_e:
+        assert torch.equal(torch.stack(eng_g.sampled_logits[uid]),
+                           torch.stack(eng_e.sampled_logits[uid]))
+    assert launches_g == launches_e and launches_g["crossbar_matmul"] > 0
+    st = eng_g.stats().compile
+    assert st.compiled_steps == len(st.step_signatures) == len(eng_g._graphs)
+    assert st.compiled_steps >= 3                 # signatures met mid-run
+    assert st.replays == eng_g.stats().ticks - st.compiled_steps > 0
+    assert st.graph_pool_bytes > 0 and st.capture_ms > 0
+    assert eng_e.stats().compile.compiled_steps == 0
+
+
+@pytest.mark.gpu
+def test_replayed_step_does_not_sync_and_workspaces_stay_fixed():
+    """A replay (and the eager step it captured) makes no host sync, and a
+    later signature reuses the workspaces reserved before the first
+    capture."""
+    dev = _cuda_or_skip()
+    cfg, eng = _smoke_engine("llama3.2-1b", dev)
+    fixed = [ops.WORKSPACES.current(eng.device.index)
+             for ops in (cb_ops, fa_ops)]
+    assert all(ws is not None for ws in fixed)
+    ptrs = [(ws[0].data_ptr(), ws[1].data_ptr()) for ws in fixed]
+    rng = np.random.default_rng(1)
+    eng.submit(Request(uid=0, prompt=rng.integers(
+        0, cfg.vocab_size, 30).astype(np.int32), max_new_tokens=12))
+    sigs = []
+
+    def recording(sig, staged):
+        sigs.append(sig)
+        return eng._replay(sig, staged)
+
+    while eng.replays == 0 and (eng.queue or eng.sched.active()):
+        eng._advance(recording)
+    assert eng.replays == 1
+    # the last tick again, by replay and eagerly: the same K/V to the same
+    # places (llama keeps no other state), with every host sync an error
+    g = eng._graphs[sigs[-1]]
+    staged = eng._host[:g.inputs.numel()]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        g.inputs.copy_(staged, non_blocking=True)
+        g.graph.replay()
+        eng._step_fn(g.inputs, *sigs[-1])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    eng.drain()
+    torch.cuda.synchronize()
+    assert len(eng._graphs) >= 2
+    assert ptrs == [(ws[0].data_ptr(), ws[1].data_ptr()) for ws in
+                    (ops.WORKSPACES.current(eng.device.index)
+                     for ops in (cb_ops, fa_ops))]
+
+
+@pytest.mark.gpu
+def test_a_failed_capture_raises_with_its_signature():
+    """A step that waits for the device cannot be captured: the engine
+    raises, naming the signature, and does not fall back to eager."""
+    dev = _cuda_or_skip()
+    cfg, eng = _smoke_engine("llama3.2-1b", dev)
+    step_fn = eng._step_fn
+
+    def syncing(inputs, C, nb):
+        out = step_fn(inputs, C, nb)
+        if torch.cuda.is_current_stream_capturing():
+            float(out.sum())             # a host read: illegal in capture
+        return out
+
+    eng._step_fn = syncing
+    eng.submit(Request(uid=0, prompt=np.arange(5, dtype=np.int32) + 1,
+                       max_new_tokens=3))
+    stream = torch.cuda.current_stream(dev)
+    with pytest.raises(Exception) as info:
+        eng.step()
+    assert torch.cuda.current_stream(dev) == stream
+    assert any("signature (C=" in n for n in getattr(info.value,
+                                                     "__notes__", []))
+    assert not eng._graphs

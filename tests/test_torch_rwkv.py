@@ -371,12 +371,14 @@ def test_slot_state_arena_zeroes_only_the_given_slots(setup):
 def oracle(setup):
     memo = {}
 
-    def expected(prompt, adapter_id, max_len):
-        key = (tuple(int(t) for t in prompt), adapter_id, max_len)
+    def expected(prompt, adapter_id, max_len, max_new=N_NEW, eos_id=None):
+        key = (tuple(int(t) for t in prompt), adapter_id, max_len, max_new,
+               eos_id)
         if key not in memo:
             memo[key] = replay_greedy(setup["jcfg"], setup["jax"]["m8f8"],
-                                      setup["jads"], prompt, N_NEW,
-                                      adapter_id=adapter_id, max_len=max_len)
+                                      setup["jads"], prompt, max_new,
+                                      adapter_id=adapter_id, max_len=max_len,
+                                      eos_id=eos_id)
         return memo[key]
 
     return expected
@@ -430,3 +432,40 @@ def test_engine_forced_preemption_matches_replay_oracle(setup, oracle):
     st = _serve(setup, oracle, prompts, max_slots=3, max_len=24,
                 page_size=4, num_pages=5, prefill_chunk=4)
     assert st.scheduler.preemptions >= 1
+
+
+@pytest.mark.parametrize("case", ["eos", "length_cap", "prompt_of_max_len_1"])
+def test_engine_end_of_request_matches_replay_oracle(setup, oracle, case):
+    """The three ways a request ends, each held against the replay oracle
+    with the same stopping rules: an ``eos_id`` stop (the eos token is the
+    third greedy token), a request cut by the length cap (40 new tokens
+    asked, ``max_len`` 16), and a prompt of ``max_len - 1`` tokens (two
+    tokens: the prefill's and one decode)."""
+    rng = np.random.default_rng(11)
+    vocab = setup["cfg"].vocab_size
+    max_len, eos_id = 16, None
+    if case == "eos":
+        prompt, max_new = rng.integers(0, vocab, 5), 8
+        eos_id = oracle(prompt, 1, max_len, max_new)[2]
+    elif case == "length_cap":
+        prompt, max_new = rng.integers(0, vocab, 5), 40
+    else:
+        prompt, max_new = rng.integers(0, vocab, max_len - 1), 5
+    prompt = prompt.astype(np.int32)
+    eng = make_engine(setup["cfg"], setup["torch"]["m8f8"], setup["tads"],
+                      device="cpu", max_slots=2, max_len=max_len,
+                      page_size=4, prefill_chunk=4)
+    eng.submit(Request(uid=0, prompt=prompt, max_new_tokens=max_new,
+                       adapter_id=1, eos_id=eos_id))
+    done = eng.drain()[0]
+    want = oracle(prompt, 1, max_len, max_new, eos_id)
+    assert list(done.tokens) == want
+    if case == "eos":
+        assert done.finish_reason == "eos" and want[-1] == eos_id
+        assert len(want) < max_new
+    else:
+        assert done.finish_reason == "length" and len(want) < max_new
+    if case == "prompt_of_max_len_1":
+        assert len(want) == 2
+    eng.sched.alloc.check_invariants()
+    assert eng.sched.alloc.used_pages == 0

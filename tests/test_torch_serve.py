@@ -40,12 +40,13 @@ def setup():
 
     oracle = {}
 
-    def expected(prompt, adapter_id, max_len):
-        key = (tuple(int(t) for t in prompt), adapter_id, max_len)
+    def expected(prompt, adapter_id, max_len, max_new=N_NEW, eos_id=None):
+        key = (tuple(int(t) for t in prompt), adapter_id, max_len, max_new,
+               eos_id)
         if key not in oracle:
             oracle[key] = replay_greedy(jcfg, base, [ad0, ad1], prompt,
-                                        N_NEW, adapter_id=adapter_id,
-                                        max_len=max_len)
+                                        max_new, adapter_id=adapter_id,
+                                        max_len=max_len, eos_id=eos_id)
         return oracle[key]
 
     return cfg, to_torch(base), [to_torch(ad0), to_torch(ad1)], expected
@@ -148,3 +149,40 @@ def test_engine_rejects_what_it_cannot_serve(setup):
             make_engine(cfg, params, adapters, device="cpu", **kw)
     with pytest.raises(NotImplementedError):
         make_engine(cfg, params, adapters, mode="dense", device="cpu")
+
+
+@pytest.mark.parametrize("case", ["eos", "length_cap", "prompt_of_max_len_1"])
+def test_end_of_request_matches_replay_oracle(setup, case):
+    """The three ways a request ends, each held against the replay oracle
+    with the same stopping rules: an ``eos_id`` stop (the eos token is the
+    third greedy token, so the request ends before ``max_new_tokens``); a
+    request cut by the length cap (40 new tokens asked, ``max_len`` 16);
+    a prompt of ``max_len - 1`` tokens (two tokens: the prefill's and one
+    decode)."""
+    cfg, params, adapters, expected = setup
+    rng = np.random.default_rng(11)
+    max_len, eos_id = 16, None
+    if case == "eos":
+        prompt, max_new = rng.integers(0, cfg.vocab_size, 5), 8
+        free = expected(prompt, 1, max_len, max_new)
+        eos_id = free[2]
+    elif case == "length_cap":
+        prompt, max_new = rng.integers(0, cfg.vocab_size, 5), 40
+    else:
+        prompt, max_new = rng.integers(0, cfg.vocab_size, max_len - 1), 5
+    prompt = prompt.astype(np.int32)
+    eng = make_engine(cfg, params, adapters, device="cpu", max_slots=2,
+                      max_len=max_len, page_size=4, prefill_chunk=4)
+    eng.submit(Request(uid=0, prompt=prompt, max_new_tokens=max_new,
+                       adapter_id=1, eos_id=eos_id))
+    done = eng.drain()[0]
+    want = expected(prompt, 1, max_len, max_new, eos_id)
+    assert list(done.tokens) == want
+    if case == "eos":
+        assert done.finish_reason == "eos" and want[-1] == eos_id
+        assert len(want) < max_new
+    else:
+        assert done.finish_reason == "length" and len(want) < max_new
+    if case == "prompt_of_max_len_1":
+        assert len(want) == 2
+    _drained(eng)
