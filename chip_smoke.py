@@ -27,6 +27,9 @@ Imports nothing of JAX or of the JAX package. Phases, each printing JSON:
                kernels forced at M = 8 .. 1024 on one shape (the
                crossover). Flash: contiguous prefill and decode; paged
                mixed (chunked prefill) and decode (a pure decode tick).
+               Crossbar and flash also at the paper models' shapes: their
+               three K/N pairs (1-4 MB of codes) at M = 8 and 1024, and
+               every flash case at 16 query and 16 kv heads (a group of 1).
                wkv: decode, a prefill chunk of 128, a ragged chunk, small
                decays with exact zeros, a 512-token prompt, each on the
                kernel the wrapper picks (the register recurrence below
@@ -54,7 +57,12 @@ Imports nothing of JAX or of the JAX package. Phases, each printing JSON:
                                chunked kernel for the prompts' chunks, the
                                recurrence for decode steps, never the
                                chunked one in a pure decode tick); the
-                               prefix cache is off (recurrent state).
+                               prefix cache is off (recurrent state);
+                 paper-gpt2-medium, paper-bloom-560m — the paper's own
+                               models (LayerNorm, 16/16 heads, a tanh-GELU
+                               MLP: six crossbar matrices per layer;
+                               vocabularies of 50257 and 250880), as
+                               llama3.2-1b.
                The engine runs its mixed step as CUDA graphs, one per
                (chunk, table) signature: the first tick of a signature
                eagerly, then captured; every later tick by replay (each
@@ -62,8 +70,9 @@ Imports nothing of JAX or of the JAX package. Phases, each printing JSON:
                line reports the graphs captured, the replays, the capture
                time and the graphs' pool bytes, and the phase fails unless
                every tick was a capture or a replay.
-               The llama engine and weights are freed before rwkv6-7b.
-     profile — after each serve, three more waves of 8 prompts of 256 on
+               Each model's engine and weights are freed before the next.
+     profile — after the serve of llama3.2-1b, rwkv6-7b and
+               paper-gpt2-medium, three more waves of 8 prompts of 256 on
                the same engine: the first captures every signature the
                waves meet; the second runs the engine's eager step, the
                third replays the graphs (the same signatures, so the same
@@ -75,8 +84,9 @@ Imports nothing of JAX or of the JAX package. Phases, each printing JSON:
                that window), time by kernel, and the crossbar's, flash's
                and wkv's device time and shares of it; a
                ``profile_compare`` line puts eager and graph side by side.
-  5. summary — one ``{"kernels": [...]}`` line, the nvidia-smi line, and
-               last ``{"ok": true, "device": {...}}``.
+  5. summary — the whole script's seconds, one ``{"kernels": [...]}``
+               line, the nvidia-smi line, and last ``{"ok": true,
+               "device": {...}}``.
 
 Any failed phase raises (exit code 1) and the last line is never printed.
 """
@@ -237,6 +247,8 @@ def bound_ms(nbytes: float, flops: float) -> float:
 # (K, N) of each model's crossbar-quantized layer matrices
 LLAMA_KN = ((2048, 2048), (2048, 512), (2048, 8192), (8192, 2048))
 RWKV_KN = ((4096, 4096), (4096, 14336), (14336, 4096))
+# GPT-2-medium and BLOOM-560m: wq/wk/wv/wo, w1, w2
+PAPER_KN = ((1024, 1024), (1024, 4096), (4096, 1024))
 # the crossbar kernels' own names in a profiler trace
 CB_KERNELS = ("crossbar_decode_kernel<", "crossbar_prefill_kernel<")
 # the flash kernels' (both entry points): flash_kernel<D, false> runs row
@@ -398,10 +410,12 @@ def _flash_times(call, plain, sdpa, nbytes, flops):
     }
 
 
-def flash_cases(dev, g):
+def flash_cases(dev, g, model, Hq, Hkv):
+    """Contiguous prefill (the forward's whole 512-token prompt) and decode
+    (8 rows over 1024 keys) at ``model``'s heads, D = 64."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
 
-    Hq, Hkv, D = 32, 8, 64
+    D = 64
     for label, B, T, S in (("prefill", 1, 512, 512), ("decode", 8, 1, 1024)):
         q = torch.randn(B, T, Hq, D, generator=g, device=dev)
         k = torch.randn(B, S, Hkv, D, generator=g, device=dev)
@@ -418,7 +432,7 @@ def flash_cases(dev, g):
         nbytes, flops = _attn_cost(q, mask,
                                    float(seen.sum()) * Hkv * D * 4 * 2)
         yield {
-            "name": "flash_attention", "case": label,
+            "name": "flash_attention", "case": label, "model": model,
             "shape": {"B": B, "T": T, "S": S, "Hq": Hq, "Hkv": Hkv, "D": D},
             "max_abs_err": float((o - o_plain).abs().max()), "tol": FA_TOL,
             **_flash_times(
@@ -428,10 +442,10 @@ def flash_cases(dev, g):
         }
 
 
-def _paged_case(dev, g, label, lens, clens, C, nb, P):
+def _paged_case(dev, g, model, Hq, Hkv, label, lens, clens, C, nb, P):
     from repro_torch.kernels.flash_attention import ops as fa_ops
 
-    Hq, Hkv, D, page = 32, 8, 64, 16
+    D, page = 64, 16
     B = lens.shape[0]
     need = (lens + clens + page - 1) // page
     perm = torch.randperm(P, generator=g, device=dev)
@@ -460,7 +474,7 @@ def _paged_case(dev, g, label, lens, clens, C, nb, P):
     kg = fa_ops.gather_pages(kp, bt)
     vg = fa_ops.gather_pages(vp, bt)
     return {
-        "name": "paged_flash_attention", "case": label,
+        "name": "paged_flash_attention", "case": label, "model": model,
         "shape": {"B": B, "T": C, "nb": nb, "page": page, "Hq": Hq,
                   "Hkv": Hkv, "D": D,
                   "contexts": (lens + clens).tolist()},
@@ -473,21 +487,22 @@ def _paged_case(dev, g, label, lens, clens, C, nb, P):
     }
 
 
-def paged_cases(dev, g):
-    """Two batches as the engine builds them, pages of 16. mixed: 8 slots,
-    chunk bucket 128 -- five prefill rows at various depths, two decode
-    rows, one idle slot. decode: a pure decode tick of the serve phase's
-    shape -- 8 slots, one row each, contexts 64-544 (prompts of 64-512
-    plus up to 32 generated tokens), block tables 64 wide (max_len 1024)."""
+def paged_cases(dev, g, model, Hq, Hkv):
+    """Two batches as the engine builds them at ``model``'s heads, D = 64,
+    pages of 16. mixed: 8 slots, chunk bucket 128 -- five prefill rows at
+    various depths, two decode rows, one idle slot. decode: a pure decode
+    tick of the serve phase's shape -- 8 slots, one row each, contexts
+    64-544 (prompts of 64-512 plus up to 32 generated tokens), block
+    tables 64 wide (max_len 1024)."""
     i32 = dict(dtype=torch.int32, device=dev)
     yield _paged_case(
-        dev, g, "mixed", torch.tensor([0, 128, 256, 384, 40, 700, 1000, 0],
-                                      **i32),
+        dev, g, model, Hq, Hkv, "mixed",
+        torch.tensor([0, 128, 256, 384, 40, 700, 1000, 0], **i32),
         torch.tensor([128, 128, 128, 100, 128, 1, 1, 0], **i32), C=128,
         nb=63, P=512)
     lens = torch.linspace(63, 543, 8, device=dev).round().to(torch.int32)
-    yield _paged_case(dev, g, "decode", lens, torch.ones(8, **i32), C=1,
-                      nb=64, P=512)
+    yield _paged_case(dev, g, model, Hq, Hkv, "decode", lens,
+                      torch.ones(8, **i32), C=1, nb=64, P=512)
 
 
 # the wkv kernels' own names in a profiler trace: the register recurrence
@@ -614,7 +629,13 @@ def kernel_phase(dev):
                 crossbar_cases(dev, g, "rwkv6-7b", RWKV_KN, (8,),
                                extra_kn=(14336, 4096)),
                 crossover_cases(dev, g),
-                flash_cases(dev, g), paged_cases(dev, g), wkv_cases(dev, g)):
+                crossbar_cases(dev, g, "paper-gpt2-medium", PAPER_KN, (8,)),
+                flash_cases(dev, g, "llama3.2-1b", 32, 8),
+                paged_cases(dev, g, "llama3.2-1b", 32, 8),
+                # the paper models' attention: 16 heads, a group of 1
+                flash_cases(dev, g, "paper-gpt2-medium", 16, 16),
+                paged_cases(dev, g, "paper-gpt2-medium", 16, 16),
+                wkv_cases(dev, g)):
         for case in gen:
             case["ok"] = case["max_abs_err"] <= case["tol"]
             emit({"phase": "kernel", **case})
@@ -631,16 +652,18 @@ def kernel_phase(dev):
 # ---------------------------------------------------------------------------
 
 # kernel -> launches per engine tick / per forward, for each model's path:
-# seven crossbar matrices per layer (llama wq/wk/wv/wo/w1/w3/w2; rwkv
-# r/k/v/g/o/ck/cv), one attention or wkv recurrence per layer ("wkv": the
-# two wkv kernels together; the wrapper picks one by the chunk's T)
-def path_launches(cfg):
+# one crossbar launch per quantized layer matrix (``n_quant``: seven per
+# layer for llama wq/wk/wv/wo/w1/w3/w2 and rwkv r/k/v/g/o/ck/cv, six for
+# the GELU models' wq/wk/wv/wo/w1/w2), one attention or wkv recurrence per
+# layer ("wkv": the two wkv kernels together; the wrapper picks one by the
+# chunk's T)
+def path_launches(cfg, n_quant):
     L = cfg.n_layers
     if cfg.block_pattern == ("rwkv",):
-        return ({"crossbar_matmul": 7 * L, "wkv": L},
-                {"crossbar_matmul": 7 * L, "wkv": L})
-    return ({"crossbar_matmul": 7 * L, "paged_flash_attention": L},
-            {"crossbar_matmul": 7 * L, "flash_attention": L})
+        return ({"crossbar_matmul": n_quant, "wkv": L},
+                {"crossbar_matmul": n_quant, "wkv": L})
+    return ({"crossbar_matmul": n_quant, "paged_flash_attention": L},
+            {"crossbar_matmul": n_quant, "flash_attention": L})
 
 
 def merge_wkv(launches):
@@ -740,6 +763,9 @@ def serve_phase(dev, cfg, *, n_requests=8, max_new=32, prompt_range=(64, 512),
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     n_quant = quantized_matrices(params["layers"])
+    if not n_quant or n_quant % cfg.n_layers:
+        raise AssertionError(f"{n_quant} quantized matrices in "
+                             f"{cfg.n_layers} layers")
     resident_gb = torch.cuda.memory_allocated(dev) / 1e9
 
     rng = np.random.default_rng(seed)
@@ -794,7 +820,7 @@ def serve_phase(dev, cfg, *, n_requests=8, max_new=32, prompt_range=(64, 512),
              if len(r.generated) != max_new}
     if short:
         raise AssertionError(f"requests stopped early: {short}")
-    per_tick, per_forward = path_launches(cfg)
+    per_tick, per_forward = path_launches(cfg, n_quant)
     for path, got, want in (
             ("engine", serve_launches,
              {k: n * len(tick_s) for k, n in per_tick.items()}),
@@ -866,7 +892,9 @@ def serve_phase(dev, cfg, *, n_requests=8, max_new=32, prompt_range=(64, 512),
     result = {
         "phase": "serve", "model": cfg.name, "layers": cfg.n_layers,
         "d_model": cfg.d_model, "vocab": cfg.vocab_size, "base": "M8F8",
-        "quantized_matrices": n_quant, "adapters": 2,
+        "quantized_matrices": n_quant,
+        "quantized_matrices_per_layer": n_quant // cfg.n_layers,
+        "adapters": 2,
         "lora_rank": cfg.lora.rank, "requests": n_requests,
         "prompt_tokens": int(sum(len(r.prompt) for r in reqs)),
         "setup_s": setup_s, "serve_s": serve_s, "ticks": len(tick_s),
@@ -1163,7 +1191,13 @@ def profile_phase(eng, cfg, dev, *, n_requests=8, prompt_len=256,
 # ---------------------------------------------------------------------------
 
 
+# the models served, in order, and those whose engine is then profiled
+SERVED = ("llama3.2-1b", "rwkv6-7b", "paper-gpt2-medium", "paper-bloom-560m")
+PROFILED = ("llama3.2-1b", "rwkv6-7b", "paper-gpt2-medium")
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
               "run needs a CUDA card", file=sys.stderr)
@@ -1189,10 +1223,11 @@ def main() -> int:
 
     cases = kernel_phase(dev)
     serves = {}
-    for arch in ("llama3.2-1b", "rwkv6-7b"):
+    for arch in SERVED:
         cfg = get_config(arch)
         serves[arch], eng = serve_phase(dev, cfg)
-        profile_phase(eng, cfg, dev)
+        if arch in PROFILED:
+            profile_phase(eng, cfg, dev)
         del eng                          # free the model before the next
         gc.collect()
         torch.cuda.empty_cache()
@@ -1204,9 +1239,10 @@ def main() -> int:
                                {"bits": 8, "model": "llama3.2-1b",
                                 "shape": {"M": 8, "K": 2048, "N": 8192}}),
            "flash_attention": ("llama3.2-1b", "forward_launches",
-                               {"case": "prefill"}),
+                               {"case": "prefill", "model": "llama3.2-1b"}),
            "paged_flash_attention": ("llama3.2-1b", "serve_launches",
-                                     {"case": "mixed"}),
+                                     {"case": "mixed",
+                                      "model": "llama3.2-1b"}),
            "rwkv6_wkv": ("rwkv6-7b", "serve_launches", {"case": "decode"}),
            "rwkv6_wkv_chunk": ("rwkv6-7b", "serve_launches",
                                {"case": "prefill"})}
@@ -1246,12 +1282,14 @@ def main() -> int:
             "at": c["shape"]})
         if name != "crossbar_matmul":   # every case of the kernel beside it
             summary[-1]["cases"] = [
-                {k: o[k] for k in ("case", "kernel", "max_abs_err", "tol",
-                                   "ms", "device_ms", "host_us", "plain_ms",
+                {k: o[k] for k in ("case", "model", "kernel", "max_abs_err",
+                                   "tol", "ms", "device_ms", "host_us",
+                                   "plain_ms",
                                    "library_ms", "library_device_ms",
                                    "bound_ms", "bound_pieces_ms", "bound_by")
                  if k in o}
                 for o in cases if o["name"] == name]
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": summary})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import contextlib
 import threading
+from dataclasses import dataclass
 from typing import Dict, Optional
 
 import torch
@@ -109,3 +110,34 @@ def _einsum_flops(spec: str, operands) -> float:
     for s in dim_size.values():
         total *= s
     return 2.0 * total
+
+
+@dataclass
+class BreakdownReport:
+    """Eq. 5 check: MM_ReRAM / MM_systolic for one run of a function."""
+
+    static_flops: float
+    dynamic_flops: float
+    nonlinear_elems: float
+
+    @property
+    def static_share(self) -> float:
+        tot = self.static_flops + self.dynamic_flops
+        return self.static_flops / tot if tot else 0.0
+
+    @property
+    def ratio(self) -> float:
+        return self.static_flops / max(self.dynamic_flops, 1.0)
+
+
+def breakdown_of(fn, *args, **kwargs) -> BreakdownReport:
+    """Run ``fn(*args, **kwargs)`` under ``tally()`` and report the
+    engine-class breakdown.
+
+    Unlike the JAX package's ``breakdown_of``, which traces ``fn``
+    abstractly, this runs ``fn`` for real on its inputs' device: the port
+    counts when the code runs. Each layer of a Python loop counts, where
+    the JAX tally counts a ``lax.scan`` body once."""
+    with tally() as t:
+        fn(*args, **kwargs)
+    return BreakdownReport(t[STATIC], t[DYNAMIC], t["nonlinear"])

@@ -9,9 +9,15 @@ inference through the paged engine, on the CUDA card by default.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \\
       --requests 8 --max-batch 8 --max-len 1024 --prefill-chunk 128
 
+  # the paper's GPT-2-medium (or paper-bloom-560m), full depth
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch paper-gpt2-medium --max-batch 8 --max-len 1024
+
   # smoke size on the CPU (the kernels' plain versions)
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \\
       --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch paper-gpt2-medium --smoke --device cpu
 
 The flags are the JAX launcher's (``repro.launch.serve``) for the paged
 engine. Those whose feature is not ported yet (``--spec-decode``, ``--tp``,

@@ -101,24 +101,36 @@ def apply_rope(x: torch.Tensor, sin: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+_MLPS = ("gated_silu", "gelu")
+
+
 def init_mlp(cfg: ModelConfig, generator: torch.Generator, *, device, dtype,
              lead=()) -> Dict[str, torch.Tensor]:
-    if cfg.mlp != "gated_silu":
+    """``w1`` (d, ff), then for a gated MLP ``w3`` (d, ff), then ``w2``
+    (ff, d), drawn from ``generator`` in that order."""
+    if cfg.mlp not in _MLPS:
         raise NotImplementedError(f"mlp {cfg.mlp!r} is not ported yet "
-                                  "(ROADMAP Queue 1 item 19)")
+                                  "(ROADMAP Queue 1 item 11)")
     d, ff = cfg.d_model, cfg.d_ff
     kw = dict(device=device, dtype=dtype)
-    return {"w1": dense_init(generator, (*lead, d, ff), **kw),
-            "w3": dense_init(generator, (*lead, d, ff), **kw),
-            "w2": dense_init(generator, (*lead, ff, d), fan_in=ff, **kw)}
+    p = {"w1": dense_init(generator, (*lead, d, ff), **kw)}
+    if cfg.mlp == "gated_silu":
+        p["w3"] = dense_init(generator, (*lead, d, ff), **kw)
+    p["w2"] = dense_init(generator, (*lead, ff, d), fan_in=ff, **kw)
+    return p
 
 
 def apply_mlp(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
-    """FF-1/FF-2 (Table II) — STATIC engine: gated SiLU."""
+    """FF-1/FF-2 (Table II) — STATIC engine: gated SiLU, or tanh-approximate
+    GELU (GPT-2/BLOOM style, no gate)."""
     h = hetero.static_matmul(x, p["w1"])
-    g = hetero.static_matmul(x, p["w3"])
-    hetero.record_nonlinear(h.numel())
-    h = torch.nn.functional.silu(h) * g
+    if cfg.mlp == "gated_silu":
+        g = hetero.static_matmul(x, p["w3"])
+        hetero.record_nonlinear(h.numel())
+        h = torch.nn.functional.silu(h) * g
+    else:
+        hetero.record_nonlinear(h.numel())
+        h = torch.nn.functional.gelu(h, approximate="tanh")
     return hetero.static_matmul(h, p["w2"])
 
 

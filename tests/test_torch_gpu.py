@@ -39,13 +39,19 @@ CB_SHAPES = [(32, 128, 128), (64, 256, 384), (100, 300, 130), (8, 520, 250),
              (1, 4096, 512), (16, 4096, 512), (33, 4096, 512),
              (128, 4096, 512),
              # rwkv6-7b's deepest decode shape and widest prefill shape
-             (8, 14336, 4096), (1024, 4096, 14336)]
+             (8, 14336, 4096), (1024, 4096, 14336),
+             # the paper models' (GPT-2-medium, BLOOM-560m) matrices
+             (8, 1024, 1024), (8, 1024, 4096), (8, 4096, 1024),
+             (1024, 1024, 1024), (1024, 1024, 4096), (1024, 4096, 1024)]
 FA_SWEEP = [(2, 64, 64, 4, 2, 16), (1, 32, 96, 4, 4, 8), (2, 64, 64, 8, 2, 32),
             (1, 1, 64, 4, 2, 16), (1, 48, 48, 6, 3, 64),
             # several row and key tiles with ragged edges, G = 4 and 8
             (2, 300, 300, 8, 2, 64), (1, 300, 300, 8, 1, 64),
             # decode rows split over the context (split-KV)
-            (8, 1, 1000, 32, 8, 64)]
+            (8, 1, 1000, 32, 8, 64),
+            # the paper models' 16/16 heads (a group of 1): the forward's
+            # 512-token prompt, and 8 decode rows
+            (1, 512, 512, 16, 16, 64), (8, 1, 1024, 16, 16, 64)]
 FA_FLAGS = [(None, None), (16, None), (None, 20.0)]
 
 
@@ -245,6 +251,45 @@ def test_paged_kernel_matches_plain_at_decode(seed):
     assert kernels.LAUNCHES["paged_flash_attention"] == before + 1
     o_plain = fa_ops.paged_flash_attention_plain(*args, page_size=16)
     torch.testing.assert_close(o, o_plain, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["mixed", "decode"])
+def test_paged_kernel_matches_plain_at_group_1(case):
+    """The paper models' engine ticks, 16 query and 16 kv heads: a mixed
+    tick (8 slots, chunks of 128: prefill rows at several depths, two
+    decode rows, an idle slot) and a pure decode tick. Only the rows of
+    real tokens are compared (the engine discards pad rows)."""
+    dev = _cuda_or_skip()
+    if case == "decode":
+        q, kp, vp, pos, bt, lens, clens = _paged_decode_inputs(dev, 3, Hq=16,
+                                                               Hkv=16)
+    else:
+        g = torch.Generator(device=dev).manual_seed(4)
+        i32 = dict(dtype=torch.int32, device=dev)
+        B, C, H, D, page, nb, P = 8, 128, 16, 64, 16, 63, 512
+        lens = torch.tensor([0, 128, 256, 384, 40, 700, 1000, 0], **i32)
+        clens = torch.tensor([128, 128, 128, 100, 128, 1, 1, 0], **i32)
+        need = (lens + clens + page - 1) // page
+        perm = torch.randperm(P, generator=g, device=dev)
+        bt = torch.full((B, nb), -1, **i32)
+        used = 0
+        for b in range(B):
+            n = int(need[b])
+            bt[b, :n] = perm[used:used + n].to(torch.int32)
+            used += n
+        kp = torch.randn(P, H, page, D, generator=g, device=dev)
+        vp = torch.randn(P, H, page, D, generator=g, device=dev)
+        q = torch.randn(B, C, H, D, generator=g, device=dev)
+        pos = (lens[:, None] + torch.arange(C, device=dev)[None]).to(
+            torch.int32)
+    args = (q, kp, vp, pos, bt, lens, clens)
+    o = fa_ops.paged_flash_attention(*args, page_size=16)
+    torch.cuda.synchronize()
+    o_plain = fa_ops.paged_flash_attention_plain(*args, page_size=16)
+    valid = torch.arange(q.shape[1], device=dev)[None] < clens[:, None]
+    torch.testing.assert_close(o[valid], o_plain[valid], rtol=2e-5,
+                               atol=2e-5)
 
 
 @pytest.mark.gpu
@@ -491,8 +536,8 @@ def test_smoke_rwkv_engine_launches_the_kernels_and_matches_the_cpu():
 # ---------------------------------------------------------------------------
 
 
-def _smoke_engine(arch, dev, **kw):
-    """A smoke-size engine on the card: M8F8 base, two adapters with B != 0,
+def _smoke_model(arch, dev):
+    """A smoke-size model on the card: M8F8 base, two adapters with B != 0,
     weights from seed 0 (the same on every call)."""
     cfg = reduce_config(get_config(arch))
     g = torch.Generator(device=dev).manual_seed(0)
@@ -505,6 +550,12 @@ def _smoke_engine(arch, dev, **kw):
             for ab in entry.values():
                 ab["b"].normal_(0.0, 0.02, generator=g)
         ads.append(ad)
+    return cfg, params, ads
+
+
+def _smoke_engine(arch, dev, **kw):
+    """``_smoke_model``'s model in an engine on the card."""
+    cfg, params, ads = _smoke_model(arch, dev)
     eng = make_engine(cfg, params, ads, device=dev, record_logits=True,
                       **{**dict(max_slots=3, max_len=48, page_size=4,
                                 prefill_chunk=8), **kw})
@@ -629,3 +680,43 @@ def test_a_failed_capture_raises_with_its_signature():
     assert any("signature (C=" in n for n in getattr(info.value,
                                                      "__notes__", []))
     assert not eng._graphs
+
+
+@pytest.mark.gpu
+def test_paper_model_engine_ticks_match_the_plain_forward():
+    """Smoke-size paper-gpt2-medium (LayerNorm, 4/4 heads, a tanh-GELU MLP)
+    served on the card by CUDA graphs: six crossbar launches and one paged
+    flash launch per layer per tick, and every request's sampled logits
+    within 1e-4 of a teacher-forced plain forward (dequantized weights,
+    ``ref_attention``) of its prompt and its tokens."""
+    dev = _cuda_or_skip()
+    cfg, params, ads = _smoke_model("paper-gpt2-medium", dev)
+    eng = make_engine(cfg, params, ads, device=dev, record_logits=True,
+                      max_slots=3, max_len=48, page_size=4, prefill_chunk=8)
+    rng = np.random.default_rng(2)
+    for i, n in enumerate((6, 17, 11)):
+        eng.submit(Request(uid=i, prompt=rng.integers(
+            0, cfg.vocab_size, n).astype(np.int32), max_new_tokens=5,
+            adapter_id=i % 2))
+    kernels.reset_launches()
+    done = eng.drain()
+    torch.cuda.synchronize()
+    ticks = eng.stats().ticks
+    L = cfg.n_layers
+    assert kernels.LAUNCHES["crossbar_matmul"] == 6 * L * ticks
+    assert kernels.LAUNCHES["paged_flash_attention"] == L * ticks
+    assert eng.replays > 0 and eng.stats().compile.compiled_steps > 0
+    plain = quant.dequantize_params(params)
+    ref_ec = tfm.ExecConfig(attn_impl="ref")
+    stacked = lora_lib.stack_adapters(ads)
+    for uid, r in done.items():
+        toks = np.concatenate([r.prompt, np.asarray(r.tokens[:-1],
+                                                    np.int32)])
+        lg, _, _ = tfm.forward(
+            cfg, plain, {"tokens": torch.as_tensor(toks, device=dev)[None]},
+            lora=stacked, adapter_idx=torch.tensor([r.adapter_id],
+                                                   device=dev),
+            mode="prefill", exec_cfg=ref_ec)
+        want = lg[0, len(r.prompt) - 1:]
+        got = torch.stack(eng.sampled_logits[uid])
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
