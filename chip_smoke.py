@@ -35,6 +35,15 @@ Imports nothing of JAX or of the JAX package. Phases, each printing JSON:
                kernel the wrapper picks (the register recurrence below
                T = 8, the chunked tensor-core kernel from there on), and
                both kernels forced at T = 1 .. 128 (the crossover).
+               The train step's backward kernels, at the shapes one of its
+               microbatches (2 of 4 x 512 tokens) gives them:
+               ``crossbar_matmul_t`` (dx = g . dequant(W)^T) at M = 1024
+               on llama3.2-1b's and the paper models' (K, N) pairs against
+               ``torch.matmul(g, W_deq.T)``, and llama's pairs also at the
+               whole batch's M = 2048; ``flash_attention_bwd`` at B = 2,
+               T = S = 512 causal with 32/8 and 16/16 heads against SDPA's
+               backward, llama's heads also at B = 4, and with a window
+               and a softcap on a small shape.
   4. serve   — for each model the port serves, full width and full depth
                (random weights from a seed), on an M8F8 crossbar base with
                two rank-32 adapters, served by the port's paged engine: 8
@@ -84,8 +93,36 @@ Imports nothing of JAX or of the JAX package. Phases, each printing JSON:
                that window), time by kernel, and the crossbar's, flash's
                and wkv's device time and shares of it; a
                ``profile_compare`` line puts eager and graph side by side.
-  5. summary — the whole script's seconds, one ``{"kernels": [...]}``
-               line, the nvidia-smi line, and last ``{"ok": true,
+  5. train   — after the served models, each freed before and after:
+               llama3.2-1b, then paper-gpt2-medium, at full width and
+               depth on an M8F8 base with one rank-32 adapter on wq/wv (B
+               drawn non-zero), SyntheticLM batches of 4 x 512 in 2
+               microbatches, AdamW at lr 1e-3 with warmup-cosine. The
+               first step's loss and every LoRA gradient through the
+               kernels against the plain versions' (dequantized weights,
+               torch.matmul, ref attention, autograd) on the card:
+               relative 1e-4 on the loss, relative L2 1e-3 per leaf; then
+               5 steps' losses the same way; every step's launches of
+               crossbar_matmul, crossbar_matmul_t, flash_attention and
+               flash_attention_bwd held exactly. Then the path: 20 steps
+               through the port's ``Trainer`` (its batches, its adapter
+               init, an async checkpoint every 10 steps into
+               ``build/chip_smoke_ckpt/``), with the launch counts zeroed
+               just before and read just after: step ms and the loss curve
+               from its metrics log, tokens/s, peak memory; then 6 steps
+               of the same step function without the Trainer (the
+               Trainer's own host cost). A second
+               ``Trainer`` restores step 20 onto the card (bit-equal
+               adapters and moments), and ``run_with_restarts`` survives a
+               step that fails once: the re-run step's loss equals the
+               first try's. One more step of the first trainer, traced,
+               gives the device busy share and the device ms by kernel.
+               GPT-2 then takes two noise-aware ``Trainer`` steps
+               (sigma_rel 0.02): finite losses and no crossbar launch
+               (noisy weights are dense products, as in JAX).
+  6. summary — the whole script's seconds, one ``{"kernels": [...]}``
+               line (the backward kernels' launches from llama's train
+               run), the nvidia-smi line, and last ``{"ok": true,
                "device": {...}}``.
 
 Any failed phase raises (exit code 1) and the last line is never printed.
@@ -96,6 +133,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -112,6 +150,9 @@ TF32_FLOPS_PER_S = 495e12      # H100 SXM tf32 tensor cores, dense
 
 CB_TOL = 1e-4                  # relative to max|y|: f32 sums, other order
 FA_TOL = 2e-5                  # f32 softmax attention, other order
+# flash backward: relative and absolute, as tests/test_attention.py holds
+# the JAX package's custom VJP to ref_attention's gradients
+FA_BWD_TOL = 1e-4
 WKV_TOL = 1e-5                 # the f32 recurrence, each step's sums in
                                # another order (as for the Pallas kernel)
 # engine and kernel forward vs the plain forward. llama3.2-1b: absolute,
@@ -128,6 +169,12 @@ WKV_TOL = 1e-5                 # the f32 recurrence, each step's sums in
 # fault (a wrong decay, state carried wrongly) moves logits by their size.
 LOGIT_TOL = 1e-3
 RWKV_LOGIT_TOL_REL = 2e-2
+# train step, kernels vs plain versions (dequantized weights, torch.matmul,
+# ref attention, autograd) on the same state: the loss, relative; each
+# LoRA leaf's gradient, relative L2 (f32 through 16-24 layers summed in
+# other orders)
+TRAIN_LOSS_TOL_REL = 1e-4
+TRAIN_GRAD_TOL_REL = 1e-3
 
 
 def emit(obj) -> None:
@@ -254,6 +301,15 @@ CB_KERNELS = ("crossbar_decode_kernel<", "crossbar_prefill_kernel<")
 # the flash kernels' (both entry points): flash_kernel<D, false> runs row
 # tiles (prefill, chunks), flash_kernel<D, true> the warp split (decode)
 FA_KERNELS = ("flash_kernel<",)
+# the backward kernels: the transposed crossbar read; flash's D_i, dk/dv
+# and dq kernels
+CB_T_KERNELS = ("crossbar_t_kernel<",)
+FA_BWD_KERNELS = ("flash_bwd_",)
+# the train phase's batch (sequences x tokens) and its microbatches; the
+# backward kernels' cases take the shapes one microbatch gives them
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICROBATCHES = 4, 512, 2
+TRAIN_MB = TRAIN_BATCH // TRAIN_MICROBATCHES        # sequences: 2
+TRAIN_M = TRAIN_MB * TRAIN_SEQ                      # rows: 1024
 L2_BYTES = 50e6                # H100 SXM L2; cold timings rotate past it
 COLD_BYTES = 100e6             # codes touched between two uses of a weight
 # each end of a profiler trace: a marker kernel (its name in the trace) of
@@ -505,6 +561,140 @@ def paged_cases(dev, g, model, Hq, Hkv):
                       torch.ones(8, **i32), C=1, nb=64, P=512)
 
 
+def crossbar_t_cases(dev, g):
+    """The transposed crossbar kernel (the backward's dx = g . dequant(W)^T
+    from the same codes), int8, at the rows of one train microbatch
+    (``TRAIN_M``) on llama3.2-1b's four and the paper models' three (K, N)
+    pairs, and llama's pairs also at the whole batch's rows (an extra:
+    the train step never runs it). Yardstick: ``torch.matmul(g,
+    W_deq.T)`` on a pre-dequantized weight. The kernel's own arithmetic
+    is f32 FMAs, so its pieces bound is the f32 bound."""
+    from repro_torch.core import quant
+    from repro_torch.kernels.crossbar_matmul import ops as cb_ops
+
+    for model, shapes, M, case in (
+            ("llama3.2-1b", LLAMA_KN, TRAIN_M, "microbatch"),
+            ("paper-gpt2-medium", PAPER_KN, TRAIN_M, "microbatch"),
+            ("llama3.2-1b", LLAMA_KN, TRAIN_BATCH * TRAIN_SEQ,
+             "whole batch")):
+        for K, N in shapes:
+            w = torch.randn(K, N, generator=g, device=dev) * (K ** -0.5)
+            qt = quant.quantize(w, 8)
+            w_deq = quant.dequantize(qt)
+            gy = torch.randn(M, N, generator=g, device=dev)
+            dx = cb_ops.crossbar_matmul_t(gy, qt)
+            dx_plain = cb_ops.crossbar_matmul_t_plain(gy, qt)
+            torch.cuda.synchronize()
+            nbytes = (gy.numel() * 4 + qt.codes.numel() + qt.scales.numel() * 4
+                      + M * K * 4)
+            flops = 2.0 * M * K * N
+            call = lambda: cb_ops.crossbar_matmul_t(gy, qt)  # noqa: E731
+            lib = lambda: torch.matmul(gy, w_deq.T)          # noqa: E731
+            yield {
+                "name": "crossbar_matmul_t", "model": model, "bits": 8,
+                "case": case, "shape": {"M": M, "K": K, "N": N},
+                "max_abs_err": float((dx - dx_plain).abs().max()),
+                "tol": CB_TOL * float(dx_plain.abs().max()),
+                "ms": timed(call, 20),
+                "device_ms": device_ms_by_name([call] * 10, CB_T_KERNELS),
+                "host_us": host_us(call),
+                "plain_ms": timed(
+                    lambda: cb_ops.crossbar_matmul_t_plain(gy, qt), 5),
+                "library_ms": timed(lib, 20),
+                "library_device_ms": device_ms(lib),
+                "bound_ms": bound_ms(nbytes, flops),
+                "bound_pieces_ms": bound_ms(nbytes, flops),
+                "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
+                             > flops / F32_FLOPS_PER_S else "operations"),
+            }
+
+
+def _sdpa_bwd_yardstick(q, k, v, dout, mask):
+    """One PyTorch call computing the same gradients: the backward of SDPA
+    with the visibility mask, from leaves q, k, v (GQA expanded to the
+    query heads outside the call; its backward sums dk and dv over each
+    group)."""
+    G = q.shape[2] // k.shape[2]
+    ql, kl, vl = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+    o = torch.nn.functional.scaled_dot_product_attention(
+        ql.transpose(1, 2), kl.repeat_interleave(G, dim=2).transpose(1, 2),
+        vl.repeat_interleave(G, dim=2).transpose(1, 2), attn_mask=mask[:, None])
+    do = dout.transpose(1, 2)
+    return lambda: torch.autograd.grad(o, (ql, kl, vl), do, retain_graph=True)
+
+
+def flash_bwd_cases(dev, g):
+    """The flash backward (dq, dk, dv from the forward kernel's out and
+    lse) at one train microbatch's attention: B = ``TRAIN_MB``, T = S =
+    512, causal, at llama3.2-1b's 32/8 heads and the paper models' 16/16;
+    llama's heads also at the whole batch's B (an extra: the train step
+    never runs it); and a window with a softcap on a small shape (SDPA has
+    no softcap: no yardstick).
+    Bound: bytes of q, k, v, out, dout, lse read and dq, dk, dv written;
+    the five products of the FA-2 backward (10 D flops per visible (query
+    head, key) pair) in f32. The kernels' own f32 work recomputes S and dP
+    in both passes: 14 D per pair (``bound_pieces_ms``)."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    D = 64
+    for model, case, B, T, Hq, Hkv, window, softcap in (
+            ("llama3.2-1b", "causal", TRAIN_MB, TRAIN_SEQ, 32, 8, None,
+             None),
+            ("paper-gpt2-medium", "causal", TRAIN_MB, TRAIN_SEQ, 16, 16,
+             None, None),
+            ("llama3.2-1b", "causal, whole batch", TRAIN_BATCH, TRAIN_SEQ,
+             32, 8, None, None),
+            ("window+softcap", "window+softcap", 2, 256, 8, 2, 64, 30.0)):
+        q = torch.randn(B, T, Hq, D, generator=g, device=dev)
+        dout = torch.randn(B, T, Hq, D, generator=g, device=dev)
+        k = torch.randn(B, T, Hkv, D, generator=g, device=dev)
+        v = torch.randn(B, T, Hkv, D, generator=g, device=dev)
+        pos = torch.arange(T, device=dev, dtype=torch.int32)[None].expand(
+            B, T).contiguous()
+        out, lse = fa_ops._launch(q, k, v, pos, pos, window, softcap,
+                                  with_lse=True)
+        kw = dict(window=window, softcap=softcap)
+        args = (q, k, v, pos, pos, out, lse, dout)
+        got = fa_ops.flash_attention_bwd(*args, **kw)
+        want = fa_ops.flash_attention_bwd_plain(*args, **kw)
+        torch.cuda.synchronize()
+        abs_err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        over = max(float(((a - b).abs() - FA_BWD_TOL * b.abs()).max())
+                   for a, b in zip(got, want))
+        mask = fa_ops.visible_mask(pos, pos, window)
+        pairs = float(mask.sum()) * Hq
+        nbytes = 4.0 * (4 * q.numel() + 4 * k.numel() + lse.numel()
+                        + 2 * pos.numel())
+        flops, own = 10.0 * D * pairs, 14.0 * D * pairs
+        call = lambda: fa_ops.flash_attention_bwd(*args, **kw)  # noqa: E731
+        case = {
+            "name": "flash_attention_bwd", "model": model, "case": case,
+            "shape": {"B": B, "T": T, "S": T, "Hq": Hq, "Hkv": Hkv, "D": D,
+                      "window": window, "softcap": softcap},
+            "max_abs_err": abs_err, "max_err_over_rel": over,
+            "tol": FA_BWD_TOL, "ok": over <= FA_BWD_TOL,
+            "ms": timed(call, 20),
+            "device_ms": device_ms_by_name([call] * 10, FA_BWD_KERNELS),
+            "host_us": host_us(call),
+            "plain_ms": timed(
+                lambda: fa_ops.flash_attention_bwd_plain(*args, **kw), 5),
+            "library_ms": None, "library_device_ms": None,
+            "bound_ms": bound_ms(nbytes, flops),
+            "bound_pieces_ms": bound_ms(nbytes, own),
+            "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
+                         > flops / F32_FLOPS_PER_S else "operations"),
+        }
+        if softcap is None:
+            lib = _sdpa_bwd_yardstick(q, k, v, dout, mask)
+            kern = device_ms_per_kernel([lib] * 10)
+            case.update(library_ms=timed(lib, 20),
+                        library_device_ms=sum(kern.values()),
+                        library_kernels=sorted(n[:100] for n in kern))
+        else:
+            case["library"] = "none: scaled_dot_product_attention has no softcap"
+        yield case
+
+
 # the wkv kernels' own names in a profiler trace: the register recurrence
 # (decode, short chunks) and the chunked tensor-core kernel
 WKV_KERNELS = ("wkv_kernel<", "wkv_chunk_kernel")
@@ -635,9 +825,11 @@ def kernel_phase(dev):
                 # the paper models' attention: 16 heads, a group of 1
                 flash_cases(dev, g, "paper-gpt2-medium", 16, 16),
                 paged_cases(dev, g, "paper-gpt2-medium", 16, 16),
-                wkv_cases(dev, g)):
+                wkv_cases(dev, g),
+                # the backward kernels of the train step
+                crossbar_t_cases(dev, g), flash_bwd_cases(dev, g)):
         for case in gen:
-            case["ok"] = case["max_abs_err"] <= case["tol"]
+            case.setdefault("ok", case["max_abs_err"] <= case["tol"])
             emit({"phase": "kernel", **case})
             cases.append(case)
     bad = [c for c in cases if not c["ok"]]
@@ -1189,11 +1381,300 @@ def profile_phase(eng, cfg, dev, *, n_requests=8, prompt_len=256,
 
 
 # ---------------------------------------------------------------------------
+# phase 6: LoRA fine-tuning at full width through the port's train step
+# ---------------------------------------------------------------------------
+
+# every port kernel a train step launches, as a trace names them
+TRAIN_KERNELS = CB_KERNELS + CB_T_KERNELS + FA_KERNELS + FA_BWD_KERNELS
+
+
+def train_launches(cfg, n_quant, microbatches):
+    """kernel -> launches per train step: each quantized matrix's forward
+    once per microbatch, and its dx wherever the matmul's input needs a
+    gradient: every one but the first layer's q/k/v projections, which
+    read the frozen embedding; one flash forward and one backward per layer
+    and microbatch."""
+    L = cfg.n_layers
+    return {"crossbar_matmul": n_quant * microbatches,
+            "crossbar_matmul_t": (n_quant - 3) * microbatches,
+            "flash_attention": L * microbatches,
+            "flash_attention_bwd": L * microbatches}
+
+
+def traced_step(run):
+    """One train step ``run()`` in a ``cuda_trace``: its wall, device time
+    and busy share (device time over the traced wall), the port kernels'
+    device ms by name, and the top kernels."""
+    with cuda_trace() as prof:
+        t = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t)
+    by_name = {}
+    for e in device_events(prof):
+        by_name[e.name[:80]] = (by_name.get(e.name[:80], 0.0)
+                                + e.time_range.elapsed_us() / 1e3)
+    device = sum(by_name.values())
+    own = {k: ms for k, ms in by_name.items()
+           if any(f"(anonymous namespace)::{m}" in k for m in TRAIN_KERNELS)}
+    out = {"traced_wall_ms": wall_ms, "device_ms": device,
+           "device_busy_share": device / wall_ms,
+           "port_kernels_device_ms": own,
+           "top_device_ms": dict(sorted(by_name.items(), key=lambda kv: kv[1],
+                                        reverse=True)[:12])}
+    for label, names in (("crossbar", CB_KERNELS), ("crossbar_t", CB_T_KERNELS),
+                         ("flash", FA_KERNELS), ("flash_bwd", FA_BWD_KERNELS)):
+        ms = sum(v for k, v in own.items() if any(m in k for m in names))
+        out[f"{label}_device_ms"] = ms
+        out[f"{label}_share_of_device"] = ms / device if device else None
+    return out
+
+
+CKPT_ROOT = Path(__file__).resolve().parent / "build" / "chip_smoke_ckpt"
+CKPT_EVERY = 10
+BARE_STEPS = 6
+
+
+def train_phase(dev, cfg, *, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                microbatches=TRAIN_MICROBATCHES, steps=20, checked=5,
+                noise_steps=0, seed=0):
+    """LoRA fine-tuning of ``cfg`` at full width and depth on an M8F8 base
+    (random weights from ``seed``), ``SyntheticLM`` batches of ``batch``
+    x ``seq`` in ``microbatches``, AdamW at lr 1e-3 with warmup-cosine.
+    The kernels' step against the plain versions' (dequantized weights,
+    torch.matmul, ref attention, autograd) on the card, with one rank-32
+    adapter on wq/wv whose B is drawn non-zero (at B = 0 the gradient of A
+    is 0 and hides a wrong dx): the first step's loss and every LoRA
+    gradient, then ``checked`` steps' losses, each path from the same
+    start. Every checked step launches exactly ``train_launches`` of each
+    kernel; the plain path none. Then the path: ``steps`` steps through
+    the port's ``Trainer`` (its own adapter init and batches, an async
+    checkpoint every ``CKPT_EVERY`` steps), the counts zeroed just before
+    and read just after: step ms, tokens/s, peak memory and the loss
+    curve from its metrics log; ``BARE_STEPS`` steps of the same step
+    function without the Trainer beside them. A second ``Trainer``
+    restores the last checkpoint onto the card and survives a step that
+    fails once; one more step of the first, traced. ``noise_steps``
+    noise-aware ``Trainer`` steps (sigma_rel 0.02): dense products of the
+    noisy weights, so no crossbar launch."""
+    from repro_torch import kernels
+    from repro_torch.configs.base import QuantConfig
+    from repro_torch.core import lora as lora_lib
+    from repro_torch.core import quant
+    from repro_torch.core.noise import NoiseConfig
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import adamw
+    from repro_torch.train import steps as st
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    t0 = time.perf_counter()
+    base = tfm.init_params(cfg, g, device=dev)
+    params = quant.quantize_params(base, QuantConfig(mha_bits=8, ff_bits=8))
+    del base
+    gc.collect()
+    lora = lora_lib.init_lora_params(cfg, g, device=dev)
+    for entry in lora["layers"]:
+        for ab in entry.values():
+            ab["b"].normal_(0.0, 0.02, generator=g)
+    n_quant = quantized_matrices(params["layers"])
+    per_step = train_launches(cfg, n_quant, microbatches)
+    ds = SyntheticLM(cfg.vocab_size, seed=seed)
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in
+                ds.batch(i, batch, seq).items()} for i in range(checked)]
+    hp = st.TrainHParams(microbatches=microbatches, adamw=adamw.AdamWConfig(
+        lr=1e-3, schedule=adamw.warmup_cosine(max(steps // 10, 1), steps)))
+    ec_k, ec_p = tfm.ExecConfig(), tfm.ExecConfig(attn_impl="ref")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    # the first step's loss and gradients, kernels against plain versions
+    plain_params = quant.dequantize_params(params)
+    kernels.reset_launches()
+    lk, _, gk = st.accumulate_grads(st.make_loss_fn(cfg, ec_k), lora, params,
+                                    batches[0], microbatches)
+    torch.cuda.synchronize()
+    grad_launches = dict(kernels.LAUNCHES)
+    kernels.reset_launches()
+    lp, _, gp = st.accumulate_grads(st.make_loss_fn(cfg, ec_p), lora,
+                                    plain_params, batches[0], microbatches)
+    torch.cuda.synchronize()
+    plain_launches = {k: n for k, n in kernels.LAUNCHES.items() if n}
+    grad_err = [float((a - b).norm() / b.norm())
+                for a, b in zip(adamw.leaves(gk), adamw.leaves(gp))]
+    first = {"loss_kernels": float(lk), "loss_plain": float(lp),
+             "loss_rel_err": abs(float(lk) - float(lp)) / abs(float(lp)),
+             "grad_rel_err_by_leaf": grad_err,
+             "grad_norm_by_leaf": [float(b.norm())
+                                   for b in adamw.leaves(gp)]}
+    del gk, gp
+
+    # ``checked`` steps on each path from the same start
+    step_k = st.make_train_step(cfg, ec_k, hp)
+    step_p = st.make_train_step(cfg, ec_p, hp)
+    sk = sp = (lora, adamw.init(lora))
+    losses_k, losses_p, step_launches = [], [], []
+    for i in range(checked):
+        kernels.reset_launches()
+        *sk, mk = step_k(params, *sk, batches[i])
+        losses_k.append(float(mk["loss"]))
+        step_launches.append({k: n for k, n in kernels.LAUNCHES.items() if n})
+        kernels.reset_launches()
+        *sp, mp = step_p(plain_params, *sp, batches[i])
+        losses_p.append(float(mp["loss"]))
+        if any(kernels.LAUNCHES.values()):
+            plain_launches = {k: n for k, n in kernels.LAUNCHES.items() if n}
+    del plain_params, sk, sp
+    gc.collect()
+    loss_err = [abs(a - b) / abs(b) for a, b in zip(losses_k, losses_p)]
+
+    # the path: ``steps`` steps through the Trainer, checkpointing
+    ckpt_dir = CKPT_ROOT / cfg.name
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    tc = TrainerConfig(seq_len=seq, global_batch=batch, steps=steps,
+                       ckpt_dir=str(ckpt_dir), ckpt_every=CKPT_EVERY,
+                       hparams=hp, seed=seed, log_every=steps)
+    tr = Trainer(cfg, tc, ds, params=params, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launches()
+    log = tr.run()
+    run_launches = dict(kernels.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    step_ms = [1e3 * r["sec"] for r in log]
+    curve = [r["loss"] for r in log]
+    # the same step function without the Trainer around it, on batches
+    # already on the card: what the Trainer's own host work costs
+    bare_ms = []
+    for i in range(BARE_STEPS):
+        t = time.perf_counter()
+        m = step_k(params, tr.lora, tr.opt_state, batches[i % checked])[2]
+        float(m["loss"])
+        bare_ms.append(1e3 * (time.perf_counter() - t))
+
+    # a restart: a second Trainer restores the last checkpoint onto the
+    # card, bit-equal; a step hook fails once, and ``run_with_restarts``
+    # restores again and re-runs the step
+    fail_at, failed = steps + 1, []
+
+    def fail_once(step):
+        if step == fail_at and not failed:
+            failed.append(step)
+            raise RuntimeError(f"injected failure at step {step}")
+
+    tr2 = Trainer(cfg, dataclasses.replace(tc, steps=steps + 2), ds,
+                  params=params, device=dev, step_hook=fail_once)
+    restored = tr2.maybe_restore()
+    mine = adamw.leaves((tr.lora, tr.opt_state.mu, tr.opt_state.nu))
+    back = adamw.leaves((tr2.lora, tr2.opt_state.mu, tr2.opt_state.nu))
+    restore_equal = restored and tr2.step == steps and all(
+        a.device == b.device and torch.equal(a, b) for a, b in
+        zip(mine, back))
+    kernels.reset_launches()
+    log2 = tr2.run_with_restarts()
+    restart = {"restored_step": steps if restored else None,
+               "restored_bit_equal": restore_equal,
+               "restarts": tr2.fault.restarts,
+               "steps": [r["step"] for r in log2],
+               "losses": [r["loss"] for r in log2],
+               "launches": {k: n for k, n in kernels.LAUNCHES.items() if n},
+               "ckpt_bytes": sum(f.stat().st_size
+                                 for f in ckpt_dir.rglob("*") if f.is_file())}
+    del tr2
+    tr.tc = dataclasses.replace(tc, steps=steps + 1)
+    trace = traced_step(tr.run)
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    del tr
+    gc.collect()
+
+    noise = None
+    if noise_steps:
+        trn = Trainer(cfg, dataclasses.replace(tc, steps=noise_steps,
+                                               ckpt_dir=None), ds,
+                      exec_cfg=tfm.ExecConfig(noise=NoiseConfig(
+                          enabled=True, sigma_rel=0.02)),
+                      params=params, device=dev)
+        kernels.reset_launches()
+        nlosses = [r["loss"] for r in trn.run()]
+        noise = {"sigma_rel": 0.02, "steps": noise_steps, "losses": nlosses,
+                 "launches": {k: n for k, n in kernels.LAUNCHES.items() if n}}
+        del trn
+
+    med = statistics.median(step_ms[1:]) if steps > 1 else step_ms[0]
+    result = {
+        "phase": "train", "model": cfg.name, "layers": cfg.n_layers,
+        "d_model": cfg.d_model, "vocab": cfg.vocab_size, "base": "M8F8",
+        "quantized_matrices": n_quant, "lora_rank": cfg.lora.rank,
+        "lora_targets": list(cfg.lora.targets), "batch": batch, "seq": seq,
+        "microbatches": microbatches, "lr": 1e-3, "setup_s": setup_s,
+        "first_step": first, "grad_tol_rel": TRAIN_GRAD_TOL_REL,
+        "checked_losses_kernels": losses_k, "checked_losses_plain": losses_p,
+        "checked_loss_rel_err": loss_err, "loss_tol_rel": TRAIN_LOSS_TOL_REL,
+        "launches_per_step": per_step, "first_step_launches": grad_launches,
+        "checked_step_launches": step_launches,
+        "plain_launches": plain_launches, "steps": steps,
+        "step_ms": step_ms, "first_step_ms": step_ms[0],
+        "median_step_ms": med, "tokens_per_s": batch * seq / (med / 1e3),
+        "bare_step_ms": bare_ms,
+        "bare_median_step_ms": statistics.median(bare_ms[1:]),
+        "peak_mem_gb": peak_gb, "loss_curve": curve,
+        "run_launches": run_launches, "restart": restart,
+        "traced_step": trace, "noise": noise,
+    }
+    emit(result)
+    problems = []
+    if first["loss_rel_err"] > TRAIN_LOSS_TOL_REL or max(
+            loss_err) > TRAIN_LOSS_TOL_REL:
+        problems.append(f"losses differ: {first['loss_rel_err']}, {loss_err}")
+    if max(grad_err) > TRAIN_GRAD_TOL_REL:
+        problems.append(f"LoRA gradients differ: {grad_err}")
+    if {k: n for k, n in grad_launches.items() if n} != per_step:
+        problems.append(f"the first step launched {grad_launches}, expected "
+                        f"{per_step}")
+    if any(sl != per_step for sl in step_launches):
+        problems.append(f"checked steps launched {step_launches}, expected "
+                        f"{per_step} each")
+    if plain_launches:
+        problems.append(f"the plain path launched {plain_launches}")
+    want_run = {k: n * steps for k, n in per_step.items()}
+    if {k: n for k, n in run_launches.items() if n} != want_run:
+        problems.append(f"the {steps}-step run launched {run_launches}, "
+                        f"expected {want_run}")
+    if not all(np.isfinite(curve)):
+        problems.append(f"non-finite losses: {curve}")
+    want_restart = {k: n * 3 for k, n in per_step.items()}
+    if (not restore_equal or restart["restarts"] != 1
+            or restart["steps"] != [steps + 1, steps + 1, steps + 2]
+            or abs(restart["losses"][0] - restart["losses"][1])
+            > TRAIN_LOSS_TOL_REL * abs(restart["losses"][0])
+            or restart["launches"] != want_restart):
+        problems.append(f"the restart: {restart}, expected a bit-equal "
+                        f"restore of step {steps}, one restart, steps "
+                        f"{[steps + 1, steps + 1, steps + 2]} with the "
+                        f"re-run step's loss equal, launches {want_restart}")
+    if noise is not None:
+        want_n = {"flash_attention": cfg.n_layers * microbatches * noise_steps,
+                  "flash_attention_bwd":
+                      cfg.n_layers * microbatches * noise_steps}
+        if noise["launches"] != want_n or not all(
+                np.isfinite(noise["losses"])):
+            problems.append(f"noise-aware steps: {noise}, expected launches "
+                            f"{want_n}")
+    if problems:
+        raise AssertionError(f"train phase of {cfg.name}: " + "; ".join(
+            problems))
+    return result
+
+
+# ---------------------------------------------------------------------------
 
 
 # the models served, in order, and those whose engine is then profiled
 SERVED = ("llama3.2-1b", "rwkv6-7b", "paper-gpt2-medium", "paper-bloom-560m")
 PROFILED = ("llama3.2-1b", "rwkv6-7b", "paper-gpt2-medium")
+# the models fine-tuned, in order, and their noise-aware steps
+TRAINED = (("llama3.2-1b", 0), ("paper-gpt2-medium", 2))
 
 
 def main() -> int:
@@ -1231,47 +1712,68 @@ def main() -> int:
         del eng                          # free the model before the next
         gc.collect()
         torch.cuda.empty_cache()
+    trains = {}
+    for arch, noise_steps in TRAINED:
+        trains[arch] = train_phase(dev, get_config(arch),
+                                   noise_steps=noise_steps)
+        gc.collect()
+        torch.cuda.empty_cache()
 
     # each kernel: its case at a main-path shape, and its launches from the
-    # path it serves (the engine, or the dense-cache forward for contiguous
-    # flash), with every path's count beside it
-    rep = {"crossbar_matmul": ("llama3.2-1b", "serve_launches",
+    # path it serves (the engine, the dense-cache forward for contiguous
+    # flash, the llama train step's run for the backward kernels), with
+    # every path's count beside it
+    paths = {f"{a} {p.split('_')[0]}": r[p] for a, r in serves.items()
+             for p in ("serve_launches", "forward_launches")}
+    paths.update({f"{a} train": r["run_launches"] for a, r in trains.items()})
+    rep = {"crossbar_matmul": ("llama3.2-1b serve",
                                {"bits": 8, "model": "llama3.2-1b",
                                 "shape": {"M": 8, "K": 2048, "N": 8192}}),
-           "flash_attention": ("llama3.2-1b", "forward_launches",
+           "flash_attention": ("llama3.2-1b forward",
                                {"case": "prefill", "model": "llama3.2-1b"}),
-           "paged_flash_attention": ("llama3.2-1b", "serve_launches",
+           "paged_flash_attention": ("llama3.2-1b serve",
                                      {"case": "mixed",
                                       "model": "llama3.2-1b"}),
-           "rwkv6_wkv": ("rwkv6-7b", "serve_launches", {"case": "decode"}),
-           "rwkv6_wkv_chunk": ("rwkv6-7b", "serve_launches",
-                               {"case": "prefill"})}
+           "rwkv6_wkv": ("rwkv6-7b serve", {"case": "decode"}),
+           "rwkv6_wkv_chunk": ("rwkv6-7b serve", {"case": "prefill"}),
+           "crossbar_matmul_t": ("llama3.2-1b train",
+                                 {"model": "llama3.2-1b",
+                                  "case": "microbatch",
+                                  "shape": {"M": TRAIN_M, "K": 2048,
+                                            "N": 8192}}),
+           "flash_attention_bwd": ("llama3.2-1b train",
+                                   {"case": "causal",
+                                    "model": "llama3.2-1b"})}
     sources = {"crossbar_matmul": "src/repro_torch/csrc/crossbar_matmul.cu",
+               "crossbar_matmul_t": "src/repro_torch/csrc/crossbar_matmul.cu",
                "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
+               "flash_attention_bwd":
+                   "src/repro_torch/csrc/flash_attention.cu",
                "paged_flash_attention":
                    "src/repro_torch/csrc/flash_attention.cu",
                "rwkv6_wkv": "src/repro_torch/csrc/rwkv6_wkv.cu",
                "rwkv6_wkv_chunk": "src/repro_torch/csrc/rwkv6_wkv.cu"}
+    # the backward kernels replace what the JAX package computes by
+    # autodiff around the same Pallas kernels' functions
     replaces = {
         "crossbar_matmul": "src/repro/kernels/crossbar_matmul/kernel.py:102",
+        "crossbar_matmul_t": "src/repro/kernels/crossbar_matmul/kernel.py:102",
         "flash_attention": "src/repro/kernels/flash_attention/kernel.py:81",
+        "flash_attention_bwd": "src/repro/kernels/flash_attention/kernel.py:81",
         "paged_flash_attention":
             "src/repro/kernels/flash_attention/kernel.py:81",
         "rwkv6_wkv": "src/repro/kernels/rwkv6_wkv/kernel.py:59",
         "rwkv6_wkv_chunk": "src/repro/kernels/rwkv6_wkv/kernel.py:59"}
     summary = []
-    for name, (arch, path, sel) in rep.items():
+    for name, (path, sel) in rep.items():
         c = next(c for c in cases if c["name"] == name
                  and all(c.get(k) == v for k, v in sel.items()))
         summary.append({
             "name": name, "route": "cuda", "source": sources[name],
             "replaces": replaces[name],
-            "launches": serves[arch][path][name],
-            "path": f"{arch} {path.split('_')[0]}",
-            "launches_by_path": {f"{a} {p.split('_')[0]}": r[p][name]
-                                 for a, r in serves.items()
-                                 for p in ("serve_launches",
-                                           "forward_launches")},
+            "launches": paths[path][name], "path": path,
+            "launches_by_path": {p: counts.get(name, 0)
+                                 for p, counts in paths.items()},
             "max_abs_err": c["max_abs_err"], "ms": c["ms"],
             "device_ms": c["device_ms"],
             "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
@@ -1282,9 +1784,9 @@ def main() -> int:
             "at": c["shape"]})
         if name != "crossbar_matmul":   # every case of the kernel beside it
             summary[-1]["cases"] = [
-                {k: o[k] for k in ("case", "model", "kernel", "max_abs_err",
-                                   "tol", "ms", "device_ms", "host_us",
-                                   "plain_ms",
+                {k: o[k] for k in ("case", "model", "kernel", "shape",
+                                   "max_abs_err", "tol", "ms", "device_ms",
+                                   "host_us", "plain_ms",
                                    "library_ms", "library_device_ms",
                                    "bound_ms", "bound_pieces_ms", "bound_by")
                  if k in o}

@@ -11,6 +11,9 @@ torch tensors on ``device``:
   * a quantized leaf (any object with ``codes``, ``scales``, ``bits``,
     ``block`` and ``orig_shape``) becomes the port's ``QuantizedTensor``;
   * stacked adapters ((n_sp, n_adapters, ...) leaves) are plain arrays.
+
+``opt_state_to_torch`` carries a JAX ``AdamWState`` (step, mu, nu) across
+as the port's, so that both packages can train on from the same state.
 """
 from __future__ import annotations
 
@@ -50,3 +53,13 @@ def to_torch(tree, device: DeviceLike = None):
         return leaf(node)
 
     return visit(tree)
+
+
+def opt_state_to_torch(state, device: DeviceLike = None):
+    """numpy ``AdamWState`` of the JAX package (``jax.tree.map(np.asarray,
+    state)``) -> the port's ``optim.adamw.AdamWState`` on ``device``."""
+    from repro_torch.optim.adamw import AdamWState
+
+    return AdamWState(step=to_torch(np.asarray(state.step, np.int32), device),
+                      mu=to_torch(state.mu, device),
+                      nu=to_torch(state.nu, device))

@@ -28,6 +28,7 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.core import quant
+from repro_torch.core.noise import NoiseConfig, apply_weight_noise
 from repro_torch.kernels.crossbar_matmul import ops as cb_ops
 
 STATIC = "static"     # -> ReRAM / crossbar path
@@ -72,13 +73,21 @@ def _matmul_flops(x_shape, w_shape) -> float:
     return 2.0 * m * k * n
 
 
-def static_matmul(x: torch.Tensor, w) -> torch.Tensor:
+def static_matmul(x: torch.Tensor, w, *, noise: Optional[NoiseConfig] = None,
+                  rng: Optional[torch.Generator] = None) -> torch.Tensor:
     """Activation x frozen-weight matmul — the ReRAM/crossbar path.
 
     ``w`` is a 2-D tensor or a 2-D ``QuantizedTensor`` (one layer's slice).
-    The training-only weight-noise branch of the JAX function waits for the
-    noise slice (ROADMAP Queue 1 item 18)."""
+    With ``noise`` enabled (noise-aware fine-tuning) the weight is
+    dequantized, perturbed with noise drawn from ``rng`` and multiplied
+    densely with ``torch.matmul``, as the JAX package does outside any
+    Pallas call; otherwise a quantized weight goes to the crossbar
+    kernel."""
     _record(STATIC, _matmul_flops(x.shape, w.shape))
+    if noise is not None and noise.enabled:
+        wd = (quant.dequantize(w, x.dtype) if quant.is_quantized(w)
+              else w.to(x.dtype))
+        return torch.matmul(x, apply_weight_noise(wd, noise, rng))
     if quant.is_quantized(w):
         return cb_ops.crossbar_matmul(x, w)
     return torch.matmul(x, w.to(x.dtype))

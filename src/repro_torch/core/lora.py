@@ -103,12 +103,14 @@ def lora_scale(cfg: ModelConfig) -> float:
     return cfg.lora.alpha / cfg.lora.rank
 
 
-def _tree_map(fn, *trees):
+def tree_map(fn, *trees):
+    """``fn`` over the leaves of trees of one structure (nested dicts,
+    tuples and lists), like ``jax.tree.map``."""
     first = trees[0]
     if isinstance(first, dict):
-        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in first}
+        return {k: tree_map(fn, *(t[k] for t in trees)) for k in first}
     if isinstance(first, (tuple, list)):
-        return type(first)(_tree_map(fn, *xs) for xs in zip(*trees))
+        return type(first)(tree_map(fn, *xs) for xs in zip(*trees))
     return fn(*trees)
 
 
@@ -117,11 +119,11 @@ def stack_adapters(adapters: Sequence):
 
     The stack axis is 1 (leaves (n_sp, d_in, r) -> (n_sp, n_ad, d_in, r))
     so slicing the leading scan-period dim still gives one layer."""
-    return _tree_map(lambda *xs: torch.stack(xs, dim=1), *adapters)
+    return tree_map(lambda *xs: torch.stack(xs, dim=1), *adapters)
 
 
 def layer_slice(tree, i: int):
     """Slice index ``i`` of the leading (scan-period) dim of every leaf."""
     def one(x):
         return x.layer(i) if hasattr(x, "layer") else x[i]
-    return _tree_map(one, tree)
+    return tree_map(one, tree)

@@ -82,6 +82,25 @@
 // Both kernels take int8 (Kp, Np) codes or packed int4 uint8 (Kp/2, Np)
 // codes (row 2i = low nibble, 2i + 1 = high nibble), mask ragged M and K
 // (x beyond M or K reads as 0) and write only up to the original N.
+//
+// transposed (crossbar_matmul_t: the backward of x, dx = g . dequant(W)^T)
+//   Replaces what the JAX package gets from autodiff of its dequantize-
+//   then-dot_general (src/repro/core/hetero.py static_matmul): dx (M, K) =
+//   g (M, N) f32 times the transpose of the same codes, each 128-wide N
+//   tile's partial sum scaled by that crossbar's one scale. The codes get
+//   no gradient. Bound, at the training shapes (M = 1024 rows of a
+//   microbatch, K and N of 512-8192), by arithmetic: 2 M K N flops against K N code bytes and
+//   M (K + N) f32 bytes. Design (simple and right first; a wgmma/TMA
+//   version waits for a later slice): f32 FMAs outside the tensor cores,
+//   so the products are exact f32 as in the plain version. One block of
+//   256 threads per (128-deep K block = one crossbar row, 64 rows of g);
+//   it walks N 16 columns a step: g's 64 x 16 tile and the codes' 128 x
+//   16 tile (converted to f32) go through shared memory, the next step's
+//   loads are in registers while the current one is multiplied, and each
+//   thread keeps a 4 x 8 register tile of partial sums, added as
+//   part * scale after each 128-wide N tile. Both operands are contiguous
+//   along the reduction dim N (codes' rows, g's rows), so every load is a
+//   row segment.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -775,6 +794,161 @@ cudaError_t launch_prefill(const float* x, const uint8_t* codes,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// transposed: dx = g . dequant(W)^T in f32 FMAs
+// ---------------------------------------------------------------------------
+
+constexpr int kTBM = 64;          // rows of g (and dx) per block
+constexpr int kTNS = 16;          // N columns per step
+constexpr int kTThreads = 256;    // 16 x 16: 4 rows x 8 k each
+constexpr int kTLdG = kTBM + 4;   // padded shared row of g^T, floats
+constexpr int kTLdC = kCrossbar + 4;  // padded shared row of the codes
+
+// Grid (Kp / 128, ceil(M / 64)). Thread (tm, tk) = (tid / 16, tid % 16)
+// owns dx rows m0 + 4 tm + i (i < 4) and columns k0 + 8 tk + j (j < 8).
+// Loads of one step: g row m0 + tid / 4, columns n + 4 (tid % 4) .. + 3;
+// int8 codes row k0 + tid / 2, columns n + 8 (tid % 2) .. + 7; int4 packed
+// row k0 / 2 + tid / 4 (rows k0 + 2 (tid / 4) and + 1), columns
+// n + 4 (tid % 4) .. + 3.
+template <int BITS>
+__global__ void __launch_bounds__(kTThreads, 2)
+crossbar_t_kernel(const float* __restrict__ g,
+                  const uint8_t* __restrict__ codes,
+                  const float* __restrict__ scales, float* __restrict__ out,
+                  int M, int K, int N, int Np, int g_vec, int out_vec) {
+  __shared__ __align__(16) float gs[kTNS][kTLdG];   // g^T: [n][m]
+  __shared__ __align__(16) float cs[kTNS][kTLdC];   // codes: [n][k]
+
+  const int tid = threadIdx.x;
+  const int kt = blockIdx.x, k0 = kt * kCrossbar;
+  const int m0 = blockIdx.y * kTBM;
+  const int tk = tid & 15, tm = tid >> 4;
+  const int n_nt = Np / kCrossbar;
+
+  const int gr = tid >> 2, gc = 4 * (tid & 3);
+  const bool g_live = m0 + gr < M;
+  const float* grow = g + static_cast<size_t>(g_live ? m0 + gr : 0) * N;
+
+  float4 gv = make_float4(0.f, 0.f, 0.f, 0.f);
+  uint2 c8 = make_uint2(0u, 0u);
+  uint32_t c4 = 0u;
+  auto load = [&](int n) {
+    const int c = n + gc;
+    if (g_vec) {   // N % 4 == 0: all four columns or none
+      gv = g_live && c < N ? __ldg(reinterpret_cast<const float4*>(grow + c))
+                           : make_float4(0.f, 0.f, 0.f, 0.f);
+    } else {
+      gv.x = g_live && c < N ? __ldg(grow + c) : 0.f;
+      gv.y = g_live && c + 1 < N ? __ldg(grow + c + 1) : 0.f;
+      gv.z = g_live && c + 2 < N ? __ldg(grow + c + 2) : 0.f;
+      gv.w = g_live && c + 3 < N ? __ldg(grow + c + 3) : 0.f;
+    }
+    if constexpr (BITS == 8) {
+      c8 = __ldg(reinterpret_cast<const uint2*>(
+          codes + static_cast<size_t>(k0 + (tid >> 1)) * Np + n +
+          8 * (tid & 1)));
+    } else {
+      c4 = __ldg(reinterpret_cast<const uint32_t*>(
+          codes + static_cast<size_t>(k0 / 2 + (tid >> 2)) * Np + n +
+          4 * (tid & 3)));
+    }
+  };
+  auto store = [&]() {
+    gs[gc][gr] = gv.x;
+    gs[gc + 1][gr] = gv.y;
+    gs[gc + 2][gr] = gv.z;
+    gs[gc + 3][gr] = gv.w;
+    if constexpr (BITS == 8) {
+      const int kk = tid >> 1, nn = 8 * (tid & 1);
+      const uint32_t w[2] = {c8.x, c8.y};
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        cs[nn + e][kk] = static_cast<float>(
+            static_cast<int8_t>((w[e >> 2] >> (8 * (e & 3))) & 0xFFu));
+    } else {
+      const int kk = 2 * (tid >> 2), nn = 4 * (tid & 3);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const uint32_t byte = (c4 >> (8 * e)) & 0xFFu;
+        // sign-extended nibbles: low = row kk, high = row kk + 1
+        cs[nn + e][kk] = static_cast<float>(
+            static_cast<int>((byte & 0xFu) ^ 8u) - 8);
+        cs[nn + e][kk + 1] = static_cast<float>(
+            static_cast<int>((byte >> 4) ^ 8u) - 8);
+      }
+    }
+  };
+
+  float acc[4][8], part[4][8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = part[i][j] = 0.f;
+
+  load(0);
+  for (int n = 0; n < N; n += kTNS) {
+    __syncthreads();   // the last step's products are done with the tiles
+    store();
+    __syncthreads();
+    if (n + kTNS < N) load(n + kTNS);
+#pragma unroll
+    for (int nn = 0; nn < kTNS; ++nn) {
+      const float4 a = *reinterpret_cast<const float4*>(&gs[nn][4 * tm]);
+      const float4 b0 = *reinterpret_cast<const float4*>(&cs[nn][8 * tk]);
+      const float4 b1 =
+          *reinterpret_cast<const float4*>(&cs[nn][8 * tk + 4]);
+      const float av[4] = {a.x, a.y, a.z, a.w};
+      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) part[i][j] = fmaf(av[i], bv[j], part[i][j]);
+    }
+    // post-MVM dequantization: after each 128-wide N tile (crossbar)
+    if ((n + kTNS) % kCrossbar == 0 || n + kTNS >= N) {
+      const float scale = __ldg(scales + kt * n_nt + n / kCrossbar);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          acc[i][j] = fmaf(part[i][j], scale, acc[i][j]);
+          part[i][j] = 0.f;
+        }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int m = m0 + 4 * tm + i;
+    if (m >= M) continue;
+    float* orow = out + static_cast<size_t>(m) * K;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int k = k0 + 8 * tk + 4 * h;
+      if (out_vec && k + 3 < K) {
+        *reinterpret_cast<float4*>(orow + k) =
+            make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2],
+                        acc[i][4 * h + 3]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (k + e < K) orow[k + e] = acc[i][4 * h + e];
+      }
+    }
+  }
+}
+
+template <int BITS>
+cudaError_t launch_t(const float* g, const uint8_t* codes,
+                     const float* scales, float* out, int M, int K, int N,
+                     int Kp, int Np, int g_vec, int out_vec,
+                     cudaStream_t stream) {
+  const dim3 grid(Kp / kCrossbar, (M + kTBM - 1) / kTBM);
+  crossbar_t_kernel<BITS><<<grid, kTThreads, 0, stream>>>(
+      g, codes, scales, out, M, K, N, Np, g_vec, out_vec);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 namespace {
@@ -855,4 +1029,35 @@ extern "C" int crossbar_matmul(const void* x, const void* codes,
                                   st);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+// dx (M, K) = g (M, N) . dequant(codes, scales)^T, f32: the backward of
+// crossbar_matmul with respect to x. Same codes, scales and padding rules
+// as crossbar_matmul (rows of dx beyond K are not written). Returns
+// cudaGetLastError() after the launch (cudaErrorInvalidValue for
+// arguments the kernel does not take). Allocates nothing, needs no
+// workspace, does not synchronise; runs on `stream`.
+extern "C" int crossbar_matmul_t(const void* g, const void* codes,
+                                 const void* scales, void* out, int M, int K,
+                                 int N, int Kp, int Np, int bits,
+                                 void* stream) {
+  if ((bits != 8 && bits != 4) || M <= 0 || K <= 0 || N <= 0 ||
+      Kp % kCrossbar != 0 || Np % kCrossbar != 0 || K > Kp || N > Np ||
+      (M + kTBM - 1) / kTBM > 65535 ||
+      reinterpret_cast<uintptr_t>(codes) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const float* gf = static_cast<const float*>(g);
+  const uint8_t* c = static_cast<const uint8_t*>(codes);
+  const float* sc = static_cast<const float*>(scales);
+  float* o = static_cast<float*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int g_vec = reinterpret_cast<uintptr_t>(g) % 16 == 0 && N % 4 == 0;
+  const int out_vec =
+      reinterpret_cast<uintptr_t>(out) % 16 == 0 && K % 4 == 0;
+  const cudaError_t err =
+      bits == 8 ? launch_t<8>(gf, c, sc, o, M, K, N, Kp, Np, g_vec, out_vec,
+                              st)
+                : launch_t<4>(gf, c, sc, o, M, K, N, Kp, Np, g_vec, out_vec,
+                              st);
+  return static_cast<int>(err);
 }

@@ -77,6 +77,31 @@
 //     l = 0 and weighs 0) and rearms the ticket. One launch, no atomics
 //     on the output: the same inputs give the same bits.
 //   Not yet: wgmma, TMA and warp specialisation (an FA3-style forward).
+//
+// Backward (`flash_attention_bwd`, for LoRA fine-tuning): replaces the
+//   FlashAttention-2 backward that the JAX package writes in plain JAX as
+//   the custom VJP of its blocked attention (src/repro/models/attention.py,
+//   _flash_bwd_scoped): from (q, k, v, out, lse, dout) it recomputes
+//   p = exp(cap(s) - lse) under the same mask, with D_i = sum(dout . out)
+//   per row, ds = p (dp - D_i) times the softcap's 1 - tanh^2, dv = p^T
+//   dout, dk = ds^T (q D^-1/2) and dq = ds k D^-1/2; dk and dv sum over the
+//   GQA group that shares a kv head. Bound at the training shapes (T = S =
+//   512, causal) by arithmetic (f32, ~14 D flops per visible pair over
+//   both kernels against O((T + S) D) bytes). Design (simple and right
+//   first): f32 FMAs outside the tensor cores, three kernels, no atomics
+//   (the same inputs give the same bits):
+//   - flash_bwd_delta_kernel: D_i, one warp per row.
+//   - flash_bwd_dkdv_kernel<D>: one block per (64 keys, batch row, kv
+//     head); K and V stay in shared memory while the block walks the
+//     group's query rows (R = t G + g, as the forward) 64 at a time: S and
+//     dP as 4 x 4 register tiles a thread, p and ds to shared memory, then
+//     dK and dV accumulate in registers. Query tiles that no key of the
+//     block can see (causal, window) are skipped.
+//   - flash_bwd_dq_kernel<D>: one block per (64 query rows, batch row, kv
+//     head) walks the key tiles some row can see, recomputes S, dP and ds,
+//     and accumulates dq in registers.
+//   Rows padded to D + 1 floats keep the shared-memory reads free of bank
+//   conflicts. Not yet: tensor cores, one fused kernel.
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
@@ -107,6 +132,7 @@ struct Params {
   const int* lens;
   const int* chunk_lens;
   float* out;
+  float* lse;               // (B, Hq, T) log-sum-exp of each row, or null
   float* partials;          // splits > 1: [tile][split][RB][D + 2]
   int* tickets;             // splits > 1: [tile]
   int T, Hq, Hkv, G, S, nb, page, window;
@@ -576,7 +602,13 @@ flash_kernel(const Params p) {
     if (!holds) return;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      if (wrow0 + g + 8 * r >= p.rows) continue;
+      const int R = wrow0 + g + 8 * r;
+      if (R >= p.rows) continue;
+      if (p.lse != nullptr && t == 0) {
+        const int tq = R / p.G;
+        p.lse[(static_cast<size_t>(b) * p.Hq + h * p.G + (R - tq * p.G)) *
+                  p.T + tq] = m[r] + logf(fmaxf(l[r], 1e-30f));
+      }
       const float inv = 1.f / fmaxf(l[r], 1e-30f);
       float* o = p.out + qoff[r] + 2 * t;
 #pragma unroll
@@ -658,6 +690,11 @@ flash_kernel(const Params p) {
       L += lj[j] * w[j];
     }
     inv_s[rl] = 1.f / fmaxf(L, 1e-30f);
+    if (p.lse != nullptr) {
+      const int R = row0 + rl, tq = R / p.G;
+      p.lse[(static_cast<size_t>(b) * p.Hq + h * p.G + (R - tq * p.G)) * p.T +
+            tq] = M + logf(fmaxf(L, 1e-30f));
+    }
   }
   __syncthreads();
   // each thread sums two float4s of the output over the splits, a batch
@@ -872,10 +909,14 @@ extern "C" size_t flash_attention_workspace(int B, int T, int Hq, int Hkv,
 // (cudaErrorInvalidValue for shapes the kernel does not take, or a
 // workspace smaller than flash_attention_workspace asks for), allocate
 // nothing and do not synchronise. window <= 0: no window; softcap <= 0:
-// none. Every pointer is 16-byte aligned.
+// none. Every pointer is 16-byte aligned. `lse` (contiguous entry point
+// only; null to skip it) receives each row's log-sum-exp of its scaled,
+// softcapped, masked scores, (B, Hq, T) f32: m + log(max(l, 1e-30)) as
+// the JAX package's blocked attention saves it for its backward.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                const void* q_pos, const void* kv_pos,
-                               void* out, void* partials, size_t n_partials,
+                               void* out, void* lse, void* partials,
+                               size_t n_partials,
                                void* tickets, size_t n_tickets, int B, int T,
                                int Hq, int S, int Hkv, int D, int window,
                                float softcap, void* stream) {
@@ -884,6 +925,7 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
   Params p = base_params(q, k, v, q_pos, out, partials, tickets, T, Hq, Hkv,
                          S, D, window, softcap);
   p.kv_pos = static_cast<const int*>(kv_pos);
+  p.lse = static_cast<float*>(lse);
   const Plan pl = plan(B, T, Hq, Hkv, S, D);
   return launch(p, B, D, pl, n_partials, n_tickets,
                 static_cast<cudaStream_t>(stream));
@@ -908,4 +950,456 @@ extern "C" int paged_flash_attention(
   const Plan pl = plan(B, T, Hq, Hkv, nb * page, D);
   return launch(p, B, D, pl, n_partials, n_tickets,
                 static_cast<cudaStream_t>(stream));
+}
+
+// ---------------------------------------------------------------------------
+// backward
+// ---------------------------------------------------------------------------
+
+namespace {
+
+constexpr int kBT = 64;          // rows of a query tile, keys of a key tile
+constexpr int kBThreads = 256;   // 16 x 16
+
+struct BwdParams {
+  const float* q;
+  const float* k;
+  const float* v;
+  const int* q_pos;
+  const int* kv_pos;
+  const float* out;
+  const float* dout;
+  const float* lse;     // (B, Hq, T)
+  float* delta;         // (B, Hq, T): D_i
+  float* dq;
+  float* dk;
+  float* dv;
+  int T, Hq, Hkv, G, S, window;
+  float softcap, scale;
+  int rows;             // T * G rows of a kv head's group
+};
+
+// Threads of the dK/dV (and dq) accumulation: DG groups along d, each
+// NDT values; the other 256 / DG groups along the tile's 64 keys (rows).
+template <int D>
+struct BwdMap {
+  static constexpr int NDT = D >= 64 ? 4 : (D >= 32 ? 2 : 1);
+  static constexpr int DG = D / NDT;
+  static constexpr int CG = kBThreads / DG;
+  static constexpr int NC = kBT / CG;
+};
+
+// shared floats of both D-templated kernels: four [64][D + 1] tiles, two
+// [64][65] tiles, four [64] rows
+__host__ __device__ constexpr int bwd_smem_floats(int D) {
+  return 4 * kBT * (D + 1) + 2 * kBT * (kBT + 1) + 4 * kBT;
+}
+
+// Grid (ceil(B T Hq / 8)), 256 threads: one warp per (b, t, hq) row.
+__global__ void __launch_bounds__(kBThreads)
+flash_bwd_delta_kernel(const float* __restrict__ out,
+                       const float* __restrict__ dout,
+                       float* __restrict__ delta, int n_rows, int T, int Hq,
+                       int D) {
+  const int row = blockIdx.x * (kBThreads / 32) + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= n_rows) return;   // a whole warp leaves together
+  const float* o = out + static_cast<size_t>(row) * D;
+  const float* d = dout + static_cast<size_t>(row) * D;
+  float sum = 0.f;
+  for (int e = lane; e < D; e += 32) sum = fmaf(o[e], d[e], sum);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    sum += __shfl_xor_sync(0xffffffffu, sum, off);
+  if (lane == 0) {
+    const int b = row / (T * Hq), rem = row - b * T * Hq;
+    const int t = rem / Hq, hq = rem - t * Hq;
+    delta[(static_cast<size_t>(b) * Hq + hq) * T + t] = sum;
+  }
+}
+
+// Row r of a query tile that starts at group row R0: its offset into
+// q/out/dout (B, T, Hq, D) and into lse/delta (B, Hq, T), and its position.
+struct RowRef {
+  size_t qoff, loff;
+  int pos;
+};
+
+__device__ __forceinline__ RowRef row_ref(const BwdParams& p, int b, int h,
+                                          int R, int D) {
+  RowRef ref{0, 0, -1};   // an absent row sees no key
+  if (R < p.rows) {
+    const int tq = R / p.G, hq = h * p.G + (R - tq * p.G);
+    ref.qoff = ((static_cast<size_t>(b) * p.T + tq) * p.Hq + hq) * D;
+    ref.loff = (static_cast<size_t>(b) * p.Hq + hq) * p.T + tq;
+    ref.pos = p.q_pos[static_cast<size_t>(b) * p.T + tq];
+  }
+  return ref;
+}
+
+// the tile's scaled q and dout rows, lse, D_i and positions
+template <int D>
+__device__ __forceinline__ void load_rows(const BwdParams& p, int b, int h,
+                                          int R0, float* qs, float* dos,
+                                          float* lse_s, float* del_s,
+                                          int* qpos_s) {
+  constexpr int LD = D + 1;
+  for (int e = threadIdx.x; e < kBT * D; e += kBThreads) {
+    const int r = e / D, d = e - r * D;
+    const RowRef ref = row_ref(p, b, h, R0 + r, D);
+    const bool ok = R0 + r < p.rows;
+    qs[r * LD + d] = ok ? p.q[ref.qoff + d] * p.scale : 0.f;
+    dos[r * LD + d] = ok ? p.dout[ref.qoff + d] : 0.f;
+  }
+  for (int r = threadIdx.x; r < kBT; r += kBThreads) {
+    const RowRef ref = row_ref(p, b, h, R0 + r, D);
+    const bool ok = R0 + r < p.rows;
+    lse_s[r] = ok ? p.lse[ref.loff] : 0.f;
+    del_s[r] = ok ? p.delta[ref.loff] : 0.f;
+    qpos_s[r] = ref.pos;
+  }
+}
+
+// the key tile's K and V rows (zeros past S)
+template <int D>
+__device__ __forceinline__ void load_keys(const BwdParams& p, int b, int h,
+                                          int s0, float* ks, float* vs) {
+  constexpr int LD = D + 1;
+  for (int e = threadIdx.x; e < kBT * D; e += kBThreads) {
+    const int c = e / D, d = e - c * D;
+    const int s = s0 + c;
+    const size_t off = ((static_cast<size_t>(b) * p.S + s) * p.Hkv + h) * D + d;
+    ks[c * LD + d] = s < p.S ? p.k[off] : 0.f;
+    vs[c * LD + d] = s < p.S ? p.v[off] : 0.f;
+  }
+}
+
+// p and ds of this thread's 4 x 4 (row, key) pairs: rows ty + 16 i, keys
+// tx + 16 j; written to ps (if not null) and dss, [64][65].
+template <int D>
+__device__ __forceinline__ void scores(const BwdParams& p, const float* qs,
+                                       const float* dos, const float* ks,
+                                       const float* vs, const float* lse_s,
+                                       const float* del_s, const int* qpos_s,
+                                       const int* kpos_s, float* ps,
+                                       float* dss) {
+  constexpr int LD = D + 1;
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  float sc[4][4], dp[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) sc[i][j] = dp[i][j] = 0.f;
+#pragma unroll 8
+  for (int d = 0; d < D; ++d) {
+    float a[4], o[4], kk[4], vv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      a[i] = qs[(ty + 16 * i) * LD + d];
+      o[i] = dos[(ty + 16 * i) * LD + d];
+      kk[i] = ks[(tx + 16 * i) * LD + d];
+      vv[i] = vs[(tx + 16 * i) * LD + d];
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        sc[i][j] = fmaf(a[i], kk[j], sc[i][j]);
+        dp[i][j] = fmaf(o[i], vv[j], dp[i][j]);
+      }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = ty + 16 * i;
+    const int qp = qpos_s[r];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = tx + 16 * j;
+      const int kp = kpos_s[c];
+      bool ok = kp >= 0 && kp <= qp;
+      if (p.window > 0) ok = ok && qp - kp < p.window;
+      float s = sc[i][j], dcap = 1.f;
+      if (p.softcap > 0.f) {
+        const float th = tanhf(s / p.softcap);
+        s = p.softcap * th;
+        dcap = 1.f - th * th;
+      }
+      const float pe = ok ? expf(s - lse_s[r]) : 0.f;
+      if (ps != nullptr) ps[r * (kBT + 1) + c] = pe;
+      dss[r * (kBT + 1) + c] = pe * (dp[i][j] - del_s[r]) * dcap;
+    }
+  }
+}
+
+// Grid (ceil(S / 64), B * Hkv), 256 threads.
+template <int D>
+__global__ void __launch_bounds__(kBThreads, 2)
+flash_bwd_dkdv_kernel(const BwdParams p) {
+  using Map = BwdMap<D>;
+  constexpr int LD = D + 1;
+  extern __shared__ __align__(16) float smem[];
+  float* ks = smem;
+  float* vs = ks + kBT * LD;
+  float* qs = vs + kBT * LD;
+  float* dos = qs + kBT * LD;
+  float* ps = dos + kBT * LD;
+  float* dss = ps + kBT * (kBT + 1);
+  float* lse_s = dss + kBT * (kBT + 1);
+  float* del_s = lse_s + kBT;
+  int* qpos_s = reinterpret_cast<int*>(del_s + kBT);
+  int* kpos_s = qpos_s + kBT;
+  __shared__ int s_kmin, s_kmax;
+
+  const int tid = threadIdx.x;
+  const int s0 = blockIdx.x * kBT;
+  const int bh = blockIdx.y, b = bh / p.Hkv, h = bh - b * p.Hkv;
+  if (tid == 0) {
+    s_kmin = INT_MAX;
+    s_kmax = INT_MIN;
+  }
+  load_keys<D>(p, b, h, s0, ks, vs);
+  __syncthreads();
+  if (tid < kBT) {
+    const int s = s0 + tid;
+    const int kp = s < p.S ? p.kv_pos[static_cast<size_t>(b) * p.S + s] : -1;
+    kpos_s[tid] = kp;
+    if (kp >= 0) {
+      atomicMin(&s_kmin, kp);
+      atomicMax(&s_kmax, kp);
+    }
+  }
+  __syncthreads();
+  const int kmin = s_kmin, kmax = s_kmax;
+
+  const int dg = tid % Map::DG, cg = tid / Map::DG;
+  float dk[Map::NC][Map::NDT], dv[Map::NC][Map::NDT];
+#pragma unroll
+  for (int j = 0; j < Map::NC; ++j)
+#pragma unroll
+    for (int i = 0; i < Map::NDT; ++i) dk[j][i] = dv[j][i] = 0.f;
+
+  for (int R0 = 0; R0 < p.rows; R0 += kBT) {
+    // skip a query tile that no key of this block can see
+    bool may = false;
+    if (tid < kBT) {
+      const int pos = row_ref(p, b, h, R0 + tid, D).pos;
+      may = pos >= 0 && pos >= kmin &&
+            (p.window <= 0 ||
+             static_cast<long long>(pos) - p.window < kmax);
+    }
+    if (!__syncthreads_or(may)) continue;
+    load_rows<D>(p, b, h, R0, qs, dos, lse_s, del_s, qpos_s);
+    __syncthreads();
+    scores<D>(p, qs, dos, ks, vs, lse_s, del_s, qpos_s, kpos_s, ps, dss);
+    __syncthreads();
+#pragma unroll 4
+    for (int r = 0; r < kBT; ++r) {
+      float o[Map::NDT], a[Map::NDT];
+#pragma unroll
+      for (int i = 0; i < Map::NDT; ++i) {
+        o[i] = dos[r * LD + dg + Map::DG * i];
+        a[i] = qs[r * LD + dg + Map::DG * i];
+      }
+#pragma unroll
+      for (int j = 0; j < Map::NC; ++j) {
+        const int c = cg + Map::CG * j;
+        const float pe = ps[r * (kBT + 1) + c];
+        const float ds = dss[r * (kBT + 1) + c];
+#pragma unroll
+        for (int i = 0; i < Map::NDT; ++i) {
+          dv[j][i] = fmaf(pe, o[i], dv[j][i]);
+          dk[j][i] = fmaf(ds, a[i], dk[j][i]);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int j = 0; j < Map::NC; ++j) {
+    const int s = s0 + cg + Map::CG * j;
+    if (s >= p.S) continue;
+    const size_t off = ((static_cast<size_t>(b) * p.S + s) * p.Hkv + h) * D;
+#pragma unroll
+    for (int i = 0; i < Map::NDT; ++i) {
+      p.dk[off + dg + Map::DG * i] = dk[j][i];
+      p.dv[off + dg + Map::DG * i] = dv[j][i];
+    }
+  }
+}
+
+// Grid (ceil(rows / 64), B * Hkv), 256 threads.
+template <int D>
+__global__ void __launch_bounds__(kBThreads, 2)
+flash_bwd_dq_kernel(const BwdParams p) {
+  using Map = BwdMap<D>;
+  constexpr int LD = D + 1;
+  extern __shared__ __align__(16) float smem[];
+  float* ks = smem;
+  float* vs = ks + kBT * LD;
+  float* qs = vs + kBT * LD;
+  float* dos = qs + kBT * LD;
+  float* dss = dos + kBT * LD;
+  float* lse_s = dss + 2 * kBT * (kBT + 1);
+  float* del_s = lse_s + kBT;
+  int* qpos_s = reinterpret_cast<int*>(del_s + kBT);
+  int* kpos_s = qpos_s + kBT;
+  __shared__ int s_qmin, s_qmax;
+
+  const int tid = threadIdx.x;
+  const int R0 = blockIdx.x * kBT;
+  const int bh = blockIdx.y, b = bh / p.Hkv, h = bh - b * p.Hkv;
+  if (tid == 0) {
+    s_qmin = INT_MAX;
+    s_qmax = INT_MIN;
+  }
+  load_rows<D>(p, b, h, R0, qs, dos, lse_s, del_s, qpos_s);
+  __syncthreads();
+  if (tid < kBT && qpos_s[tid] >= 0) {
+    atomicMin(&s_qmin, qpos_s[tid]);
+    atomicMax(&s_qmax, qpos_s[tid]);
+  }
+  __syncthreads();
+  const int qmin = s_qmin, qmax = s_qmax;
+
+  const int dg = tid % Map::DG, rg = tid / Map::DG;
+  float dq[Map::NC][Map::NDT];
+#pragma unroll
+  for (int j = 0; j < Map::NC; ++j)
+#pragma unroll
+    for (int i = 0; i < Map::NDT; ++i) dq[j][i] = 0.f;
+
+  for (int s0 = 0; s0 < p.S; s0 += kBT) {
+    // skip a key tile that no row of this block can see
+    bool may = false;
+    if (tid < kBT) {
+      const int s = s0 + tid;
+      const int kp = s < p.S ? p.kv_pos[static_cast<size_t>(b) * p.S + s] : -1;
+      kpos_s[tid] = kp;
+      may = kp >= 0 && kp <= qmax &&
+            (p.window <= 0 || static_cast<long long>(kp) >
+                                  static_cast<long long>(qmin) - p.window);
+    }
+    if (!__syncthreads_or(may)) continue;
+    load_keys<D>(p, b, h, s0, ks, vs);
+    __syncthreads();
+    scores<D>(p, qs, dos, ks, vs, lse_s, del_s, qpos_s, kpos_s, nullptr,
+              dss);
+    __syncthreads();
+#pragma unroll 4
+    for (int c = 0; c < kBT; ++c) {
+      float kk[Map::NDT];
+#pragma unroll
+      for (int i = 0; i < Map::NDT; ++i) kk[i] = ks[c * LD + dg + Map::DG * i];
+#pragma unroll
+      for (int j = 0; j < Map::NC; ++j) {
+        const float ds = dss[(rg + Map::CG * j) * (kBT + 1) + c];
+#pragma unroll
+        for (int i = 0; i < Map::NDT; ++i) dq[j][i] = fmaf(ds, kk[i], dq[j][i]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int j = 0; j < Map::NC; ++j) {
+    const int R = R0 + rg + Map::CG * j;
+    if (R >= p.rows) continue;
+    const RowRef ref = row_ref(p, b, h, R, D);
+#pragma unroll
+    for (int i = 0; i < Map::NDT; ++i)
+      p.dq[ref.qoff + dg + Map::DG * i] = dq[j][i] * p.scale;
+  }
+}
+
+template <int D>
+int launch_bwd(const BwdParams& p, int B, cudaStream_t stream) {
+  static size_t raised[64] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64)
+    return static_cast<int>(cudaErrorInvalidDevice);
+  const size_t smem = static_cast<size_t>(bwd_smem_floats(D)) * 4;
+  if (smem > raised[dev]) {
+    cudaError_t e = cudaFuncSetAttribute(
+        flash_bwd_dkdv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(flash_bwd_dq_kernel<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    raised[dev] = smem;
+  }
+  const unsigned bhkv = static_cast<unsigned>(B * p.Hkv);
+  flash_bwd_dkdv_kernel<D>
+      <<<dim3((p.S + kBT - 1) / kBT, bhkv), kBThreads, smem, stream>>>(p);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  flash_bwd_dq_kernel<D>
+      <<<dim3((p.rows + kBT - 1) / kBT, bhkv), kBThreads, smem, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// The backward of flash_attention (contiguous layout): dq (B, T, Hq, D),
+// dk and dv (B, S, Hkv, D), f32, from q, k, v, q_pos, kv_pos (as the
+// forward), its out and lse, and dout (B, T, Hq, D). `delta` is scratch of
+// B * Hq * T floats that the caller owns. Three launches on `stream`
+// (D_i, then dk/dv, then dq); returns cudaGetLastError() after the last
+// (cudaErrorInvalidValue for shapes the kernels do not take). Allocates
+// nothing, does not synchronise. window <= 0: no window; softcap <= 0:
+// none.
+extern "C" int flash_attention_bwd(const void* q, const void* k,
+                                   const void* v, const void* q_pos,
+                                   const void* kv_pos, const void* out,
+                                   const void* dout, const void* lse,
+                                   void* delta, void* dq, void* dk, void* dv,
+                                   int B, int T, int Hq, int S, int Hkv,
+                                   int D, int window, float softcap,
+                                   void* stream) {
+  if (!shapes_ok(B, T, Hq, Hkv, S, D) || S <= 0 ||
+      static_cast<long long>(B) * Hkv > 65535 ||
+      static_cast<long long>(B) * T * Hq > INT_MAX / 64 ||
+      (static_cast<long long>(T) * (Hq / Hkv) + kBT - 1) / kBT > INT_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  BwdParams p{};
+  p.q = static_cast<const float*>(q);
+  p.k = static_cast<const float*>(k);
+  p.v = static_cast<const float*>(v);
+  p.q_pos = static_cast<const int*>(q_pos);
+  p.kv_pos = static_cast<const int*>(kv_pos);
+  p.out = static_cast<const float*>(out);
+  p.dout = static_cast<const float*>(dout);
+  p.lse = static_cast<const float*>(lse);
+  p.delta = static_cast<float*>(delta);
+  p.dq = static_cast<float*>(dq);
+  p.dk = static_cast<float*>(dk);
+  p.dv = static_cast<float*>(dv);
+  p.T = T;
+  p.Hq = Hq;
+  p.Hkv = Hkv;
+  p.G = Hq / Hkv;
+  p.S = S;
+  p.window = window;
+  p.softcap = softcap;
+  p.scale = 1.f / sqrtf(static_cast<float>(D));
+  p.rows = T * p.G;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int n_rows = B * T * Hq;
+  flash_bwd_delta_kernel<<<(n_rows + kBThreads / 32 - 1) / (kBThreads / 32),
+                           kBThreads, 0, st>>>(p.out, p.dout, p.delta,
+                                               n_rows, T, Hq, D);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  switch (D) {
+    case 8:
+      return launch_bwd<8>(p, B, st);
+    case 16:
+      return launch_bwd<16>(p, B, st);
+    case 32:
+      return launch_bwd<32>(p, B, st);
+    case 64:
+      return launch_bwd<64>(p, B, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -8,6 +8,12 @@ tensor-core kernel for decode-sized M, a wgmma kernel above that; on a CPU
 tensor it runs ``crossbar_matmul_plain``. Ragged M, K and N are masked in
 the kernel, so the wrapper makes no padded copies. A weight's checks run
 once per weight (``_weight_kp``), x's on every call.
+
+Training: an x that needs a gradient goes through ``CrossbarMatmulFn``
+on either device. Its backward is ``crossbar_matmul_t`` (dx = g .
+dequant(W)^T from the same codes): the transposed-read kernel on CUDA
+tensors, ``crossbar_matmul_t_plain`` on CPU tensors. The codes and scales
+get no gradient.
 """
 from __future__ import annotations
 
@@ -31,10 +37,21 @@ def crossbar_matmul_plain(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
     return torch.matmul(x.to(torch.float32), w).to(x.dtype)
 
 
+def crossbar_matmul_t_plain(g: torch.Tensor,
+                            qt: QuantizedTensor) -> torch.Tensor:
+    """g (..., N) @ dequant(qt)^T -> (..., K) in f32: the gradient of
+    ``crossbar_matmul`` with respect to x."""
+    w = dequantize(qt, torch.float32)
+    return torch.matmul(g.to(torch.float32), w.T)
+
+
 def _lib():
     global _LIB
     if _LIB is None:
         lib = build.load("crossbar_matmul")
+        lib.crossbar_matmul_t.argtypes = (
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+        lib.crossbar_matmul_t.restype = ctypes.c_int
         lib.crossbar_matmul.argtypes = (
             [ctypes.c_void_p] * 5 + [ctypes.c_size_t, ctypes.c_void_p]
             + [ctypes.c_int] * 8 + [ctypes.c_void_p])
@@ -155,13 +172,22 @@ def crossbar_matmul(x: torch.Tensor, qt: QuantizedTensor, *,
     ``kernel`` picks the CUDA kernel: ``"auto"`` lets the library choose
     (the split-K decode kernel while its passes over the codes, one per 8
     rows, stay small; the wgmma prefill kernel otherwise); ``"decode"`` or
-    ``"prefill"`` force one, to measure the crossover."""
+    ``"prefill"`` force one, to measure the crossover. A CUDA ``x`` that
+    needs a gradient goes through ``CrossbarMatmulFn`` on either device."""
     _check_shapes(x, qt)
-    if x.device.type == "cpu" and qt.device.type == "cpu":
-        return crossbar_matmul_plain(x, qt)
-    if x.device.type != "cuda":
+    on_cpu = x.device.type == "cpu" and qt.device.type == "cpu"
+    if not on_cpu and x.device.type != "cuda":
         raise ValueError(f"crossbar_matmul: x on {x.device}, weight on "
                          f"{qt.device}")
+    if torch.is_grad_enabled() and x.requires_grad:
+        return CrossbarMatmulFn.apply(x, qt, kernel)
+    if on_cpu:
+        return crossbar_matmul_plain(x, qt)
+    return _launch(x, qt, kernel)
+
+
+def _launch(x: torch.Tensor, qt: QuantizedTensor, kernel: str) -> torch.Tensor:
+    """The forward kernel on CUDA tensors (no autograd)."""
     _check_x(x)
     kp = _weight_kp(qt, x.device)
     K, N = qt.orig_shape
@@ -174,15 +200,71 @@ def crossbar_matmul(x: torch.Tensor, qt: QuantizedTensor, *,
     dev = x.device.index
     stream = torch._C._cuda_getCurrentRawStream(dev)
     ws = WORKSPACES.pointers(_need(M, kp, np_, qt.bits, kind), dev)
-    args = (x.data_ptr(), qt.codes.data_ptr(), qt.scales.data_ptr(),
-            out.data_ptr(), *ws, M, K, N, kp, np_, qt.bits, kind, stream)
-    if dev == torch.cuda.current_device():
-        rc = _lib().crossbar_matmul(*args)
-    else:
-        with torch.cuda.device(dev):
-            rc = _lib().crossbar_matmul(*args)
+    rc = kernels.call_on(_lib().crossbar_matmul, dev, x.data_ptr(),
+                         qt.codes.data_ptr(), qt.scales.data_ptr(),
+                         out.data_ptr(), *ws, M, K, N, kp, np_, qt.bits, kind,
+                         stream)
     if rc != 0:
         raise RuntimeError(f"crossbar_matmul launch failed: CUDA error {rc} "
                            f"(M={M}, K={K}, N={N}, bits={qt.bits})")
     kernels.LAUNCHES["crossbar_matmul"] += 1
     return out
+
+
+def crossbar_matmul_t(g: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
+    """g (..., N) @ dequant(qt)^T -> (..., K) f32, the backward of
+    ``crossbar_matmul`` with respect to x: ``csrc/crossbar_matmul.cu``'s
+    transposed-read kernel on CUDA tensors, ``crossbar_matmul_t_plain`` on
+    CPU tensors."""
+    if qt.ndim != 2:
+        raise ValueError(f"crossbar_matmul_t takes a 2-D weight, got "
+                         f"orig_shape {qt.orig_shape}")
+    K, N = qt.orig_shape
+    if g.shape[-1] != N:
+        raise ValueError(f"g (..., {g.shape[-1]}) @ weight ({K}, {N})^T")
+    if g.device.type == "cpu" and qt.device.type == "cpu":
+        return crossbar_matmul_t_plain(g, qt)
+    if g.device.type != "cuda":
+        raise ValueError(f"crossbar_matmul_t: g on {g.device}, weight on "
+                         f"{qt.device}")
+    if g.dtype != torch.float32:
+        raise TypeError(f"crossbar_matmul_t takes an f32 g, got {g.dtype}")
+    if not g.is_contiguous():
+        raise ValueError("crossbar_matmul_t needs a contiguous g")
+    kp = _weight_kp(qt, g.device)
+    M = g.numel() // N
+    out = torch.empty((*g.shape[:-1], K), device=g.device,
+                      dtype=torch.float32)
+    if M == 0:
+        return out
+    dev = g.device.index
+    stream = torch._C._cuda_getCurrentRawStream(dev)
+    rc = kernels.call_on(_lib().crossbar_matmul_t, dev, g.data_ptr(),
+                         qt.codes.data_ptr(), qt.scales.data_ptr(),
+                         out.data_ptr(), M, K, N, kp, qt.codes.shape[1],
+                         qt.bits, stream)
+    if rc != 0:
+        raise RuntimeError(f"crossbar_matmul_t launch failed: CUDA error {rc}"
+                           f" (M={M}, K={K}, N={N}, bits={qt.bits})")
+    kernels.LAUNCHES["crossbar_matmul_t"] += 1
+    return out
+
+
+class CrossbarMatmulFn(torch.autograd.Function):
+    """``crossbar_matmul`` with a backward: forward by the forward kernel,
+    dx by ``crossbar_matmul_t`` (their plain versions on CPU tensors).
+    The weight is frozen: its codes and scales get no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, qt, kernel):
+        ctx.qt = qt
+        if x.device.type == "cpu":
+            return crossbar_matmul_plain(x, qt)
+        return _launch(x, qt, kernel)
+
+    @staticmethod
+    def backward(ctx, g):
+        dx = None
+        if ctx.needs_input_grad[0]:
+            dx = crossbar_matmul_t(g.contiguous(), ctx.qt)
+        return dx, None, None

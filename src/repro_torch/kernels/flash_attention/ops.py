@@ -12,6 +12,14 @@ there instead). On CUDA tensors the wrappers launch
 head's GQA group and row tile, causal tiles skipped, short query tiles
 split over the context through a workspace, ``kernels.workspace``); on
 CPU tensors they run the plain versions.
+
+Training: q, k or v that need a gradient go through ``FlashAttentionFn``
+on either device. Its forward also gives the per-row log-sum-exp ``lse``
+(B, Hq, T), and its backward runs ``flash_attention_bwd`` (dq, dk, dv
+recomputed from q, k, v, out and lse, as the JAX package's custom VJP of
+its blocked attention): the kernels on CUDA tensors, the plain versions
+on CPU tensors. The paged kernel has no backward (training never pages), so
+``paged_flash_attention`` raises for inputs that need a gradient.
 """
 from __future__ import annotations
 
@@ -39,8 +47,10 @@ def visible_mask(q_pos: torch.Tensor, kv_pos: torch.Tensor,
 
 
 def flash_attention_plain(q, k, v, q_pos, kv_pos, *, window=None,
-                          softcap=None) -> torch.Tensor:
-    """Materialized f32 softmax attention; rows with no visible key -> 0."""
+                          softcap=None, with_lse: bool = False):
+    """Materialized f32 softmax attention; rows with no visible key -> 0.
+    ``with_lse``: also return each row's log-sum-exp (B, Hq, T), as the
+    forward kernel writes it for the backward."""
     B, T, Hq, D = q.shape
     Hkv = k.shape[2]
     G = Hq // Hkv
@@ -54,7 +64,55 @@ def flash_attention_plain(q, k, v, q_pos, kv_pos, *, window=None,
     l = p.sum(dim=-1).clamp_min(1e-30)                        # (B,Hkv,G,T)
     o = torch.einsum("bhgts,bshd->bthgd", p, v.to(torch.float32))
     o = o / l.permute(0, 3, 1, 2)[..., None]
-    return o.reshape(B, T, Hq, D).to(q.dtype)
+    o = o.reshape(B, T, Hq, D).to(q.dtype)
+    if not with_lse:
+        return o
+    lse = s.amax(dim=-1) + torch.log(l)                       # (B,Hkv,G,T)
+    return o, lse.reshape(B, Hq, T)
+
+
+def flash_attention_bwd_plain(q, k, v, q_pos, kv_pos, out, lse, dout, *,
+                              window=None, softcap=None, block_kv: int = 512):
+    """dq, dk, dv of ``flash_attention`` by the blocked recompute that the
+    JAX package's custom VJP runs (``_flash_bwd_scoped``): per block of
+    keys, p = exp(cap(s) - lse) under the mask, dv = p^T dout,
+    ds = p (dout v^T - D_i) (times 1 - tanh^2 with a softcap), dq += ds k,
+    dk = ds^T q D^-1/2; f32. ``lse`` (B, Hq, T) as the forward gives it."""
+    f32 = torch.float32
+    B, T, Hq, D = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    c = D ** -0.5
+    qg = q.to(f32).reshape(B, T, Hkv, G, D) * c
+    do = dout.to(f32).reshape(B, T, Hkv, G, D)
+    drow = torch.sum(do * out.to(f32).reshape(B, T, Hkv, G, D),
+                     dim=-1).permute(0, 2, 3, 1)              # (B,Hkv,G,T)
+    lse_g = lse.to(f32).reshape(B, Hkv, G, T)
+    dq = torch.zeros((B, T, Hkv, G, D), dtype=f32, device=q.device)
+    dk = torch.empty((B, S, Hkv, D), dtype=f32, device=q.device)
+    dv = torch.empty((B, S, Hkv, D), dtype=f32, device=q.device)
+    for s0 in range(0, S, block_kv):
+        kb = k[:, s0:s0 + block_kv].to(f32)
+        vb = v[:, s0:s0 + block_kv].to(f32)
+        s = torch.einsum("bthgd,bshd->bhgts", qg, kb)
+        dcap = None
+        if softcap is not None:
+            t = torch.tanh(s / softcap)
+            s = softcap * t
+            dcap = 1.0 - torch.square(t)
+        msk = visible_mask(q_pos, kv_pos[:, s0:s0 + block_kv],
+                           window)[:, None, None]
+        p = torch.where(msk, torch.exp(s - lse_g[..., None]),
+                        torch.zeros((), dtype=f32, device=q.device))
+        dp = torch.einsum("bthgd,bshd->bhgts", do, vb)
+        dv[:, s0:s0 + block_kv] = torch.einsum("bhgts,bthgd->bshd", p, do)
+        ds = p * (dp - drow[..., None])
+        if dcap is not None:
+            ds = ds * dcap
+        dq += torch.einsum("bhgts,bshd->bthgd", ds, kb)
+        dk[:, s0:s0 + block_kv] = torch.einsum("bhgts,bthgd->bshd", ds, qg)
+    dq = (dq * c).reshape(B, T, Hq, D)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def gather_pages(pool: torch.Tensor, block_table: torch.Tensor) -> torch.Tensor:
@@ -103,7 +161,9 @@ def _lib():
             ctypes.POINTER(cs)]
         lib.flash_attention_workspace.restype = cs
         ws = [vp, cs, vp, cs]           # partials, their count, tickets, ...
-        lib.flash_attention.argtypes = [vp] * 6 + ws + [ci] * 7 + [cf, vp]
+        lib.flash_attention.argtypes = [vp] * 7 + ws + [ci] * 7 + [cf, vp]
+        lib.flash_attention_bwd.argtypes = [vp] * 12 + [ci] * 7 + [cf, vp]
+        lib.flash_attention_bwd.restype = ci
         lib.flash_attention.restype = ci
         lib.paged_flash_attention.argtypes = ([vp] * 8 + ws + [ci] * 8
                                               + [cf, vp])
@@ -140,14 +200,6 @@ def reserve_workspace(device: torch.device, shapes) -> None:
     WORKSPACES.reserve(device.index, most)
 
 
-def _call(fn, dev: int, *args) -> int:
-    """Run a launch with ``dev`` current (entered only when it is not)."""
-    if dev == torch.cuda.current_device():
-        return fn(*args)
-    with torch.cuda.device(dev):
-        return fn(*args)
-
-
 def _need(t: torch.Tensor, name: str, dtype, device, ndim: int) -> None:
     if t.device != device:
         raise ValueError(f"{name} on {t.device}, q on {device}")
@@ -181,12 +233,22 @@ def _check_heads(q, Hkv):
 
 def flash_attention(q, k, v, q_pos, kv_pos, *, window=None,
                     softcap=None) -> torch.Tensor:
-    """q (B, T, Hq, D); k/v (B, S, Hkv, D); q_pos (B, T); kv_pos (B, S)."""
+    """q (B, T, Hq, D); k/v (B, S, Hkv, D); q_pos (B, T); kv_pos (B, S).
+    q, k or v that need a gradient go through ``FlashAttentionFn``."""
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash_attention: no kernel for {q.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttentionFn.apply(q, k, v, q_pos, kv_pos, window,
+                                      softcap)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, q_pos, kv_pos, window=window,
                                      softcap=softcap)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: no kernel for {q.device}")
+    return _launch(q, k, v, q_pos, kv_pos, window, softcap, with_lse=False)
+
+
+def _check_contiguous_args(q, k, v, q_pos, kv_pos):
+    """Shapes, dtypes and layout of the contiguous entry points' inputs;
+    returns (B, T, Hq, S, Hkv, D)."""
     B, T, Hq, D = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     _need(q, "q", torch.float32, q.device, 4)
@@ -199,20 +261,101 @@ def flash_attention(q, k, v, q_pos, kv_pos, *, window=None,
     if tuple(q_pos.shape) != (B, T) or tuple(kv_pos.shape) != (B, S):
         raise ValueError("positions must be (B, T) and (B, S)")
     _check_heads(q, Hkv)
+    return B, T, Hq, S, Hkv, D
+
+
+def _launch(q, k, v, q_pos, kv_pos, window, softcap, *, with_lse: bool):
+    """The forward kernel on CUDA tensors (no autograd): out, and with
+    ``with_lse`` (out, lse (B, Hq, T))."""
+    B, T, Hq, S, Hkv, D = _check_contiguous_args(q, k, v, q_pos, kv_pos)
     w, c = _flags(window, softcap)
     out = torch.empty_like(q)
+    lse = (torch.empty((B, Hq, T), device=q.device, dtype=torch.float32)
+           if with_lse else None)
     if out.numel() == 0:
-        return out
+        return (out, lse) if with_lse else out
     dev = q.device.index
     stream = torch._C._cuda_getCurrentRawStream(dev)
     ws = WORKSPACES.pointers(_need_of((B, T, Hq, Hkv, S, D)), dev)
-    rc = _call(_lib().flash_attention, dev, q.data_ptr(), k.data_ptr(),
-               v.data_ptr(), q_pos.data_ptr(), kv_pos.data_ptr(),
-               out.data_ptr(), *ws, B, T, Hq, S, Hkv, D, w, c, stream)
+    rc = kernels.call_on(
+        _lib().flash_attention, dev, q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), q_pos.data_ptr(), kv_pos.data_ptr(), out.data_ptr(),
+        lse.data_ptr() if with_lse else None, *ws, B, T, Hq, S, Hkv, D, w, c,
+        stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {rc}")
     kernels.LAUNCHES["flash_attention"] += 1
-    return out
+    return (out, lse) if with_lse else out
+
+
+def flash_attention_bwd(q, k, v, q_pos, kv_pos, out, lse, dout, *,
+                        window=None, softcap=None):
+    """(dq, dk, dv) of ``flash_attention`` from its inputs, its ``out`` and
+    ``lse`` (B, Hq, T) and ``dout`` (B, T, Hq, D): the three backward
+    kernels of ``csrc/flash_attention.cu`` on CUDA tensors (one count of
+    ``flash_attention_bwd`` per call), ``flash_attention_bwd_plain`` on
+    CPU tensors."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, q_pos, kv_pos, out, lse,
+                                         dout, window=window, softcap=softcap)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd: no kernel for {q.device}")
+    B, T, Hq, S, Hkv, D = _check_contiguous_args(q, k, v, q_pos, kv_pos)
+    for name, t in (("out", out), ("dout", dout)):
+        _need(t, name, torch.float32, q.device, 4)
+        if t.shape != q.shape:
+            raise ValueError(f"{name} {tuple(t.shape)} != q {tuple(q.shape)}")
+    _need(lse, "lse", torch.float32, q.device, 3)
+    if tuple(lse.shape) != (B, Hq, T):
+        raise ValueError(f"lse {tuple(lse.shape)} != {(B, Hq, T)}")
+    w, c = _flags(window, softcap)
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    if q.numel() == 0 or k.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    delta = torch.empty((B, Hq, T), device=q.device, dtype=torch.float32)
+    dev = q.device.index
+    stream = torch._C._cuda_getCurrentRawStream(dev)
+    rc = kernels.call_on(
+        _lib().flash_attention_bwd, dev, q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), q_pos.data_ptr(), kv_pos.data_ptr(), out.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), B, T, Hq, S, Hkv, D, w, c, stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"flash_attention_bwd launch failed: CUDA error {rc}")
+    kernels.LAUNCHES["flash_attention_bwd"] += 1
+    return dq, dk, dv
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """``flash_attention`` with a backward: the forward kernel also writes
+    ``lse``; the backward runs ``flash_attention_bwd`` on the saved
+    (q, k, v, q_pos, kv_pos, out, lse). Plain versions on CPU tensors.
+    Positions get no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_pos, kv_pos, window, softcap):
+        if q.device.type == "cpu":
+            out, lse = flash_attention_plain(q, k, v, q_pos, kv_pos,
+                                             window=window, softcap=softcap,
+                                             with_lse=True)
+        else:
+            out, lse = _launch(q, k, v, q_pos, kv_pos, window, softcap,
+                               with_lse=True)
+        ctx.save_for_backward(q, k, v, q_pos, kv_pos, out, lse)
+        ctx.flags = (window, softcap)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, q_pos, kv_pos, out, lse = ctx.saved_tensors
+        window, softcap = ctx.flags
+        dq, dk, dv = flash_attention_bwd(q, k, v, q_pos, kv_pos, out, lse,
+                                         dout.contiguous(), window=window,
+                                         softcap=softcap)
+        return dq, dk, dv, None, None, None, None
 
 
 def paged_flash_attention(q, kp, vp, positions, block_table, lens,
@@ -228,6 +371,12 @@ def paged_flash_attention(q, kp, vp, positions, block_table, lens,
             page_size=page_size, window=window, softcap=softcap)
     if q.device.type != "cuda":
         raise ValueError(f"paged_flash_attention: no kernel for {q.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (q, kp, vp)):
+        raise NotImplementedError(
+            "paged_flash_attention has no backward (training never pages): "
+            "run the step under torch.no_grad(), or train through "
+            "flash_attention")
     B, T, Hq, D = q.shape
     _, Hkv, page, _ = kp.shape
     nb = block_table.shape[1]
@@ -254,10 +403,11 @@ def paged_flash_attention(q, kp, vp, positions, block_table, lens,
     dev = q.device.index
     stream = torch._C._cuda_getCurrentRawStream(dev)
     ws = WORKSPACES.pointers(_need_of((B, T, Hq, Hkv, nb * page, D)), dev)
-    rc = _call(_lib().paged_flash_attention, dev, q.data_ptr(),
-               kp.data_ptr(), vp.data_ptr(), positions.data_ptr(),
-               block_table.data_ptr(), lens.data_ptr(), chunk_lens.data_ptr(),
-               out.data_ptr(), *ws, B, T, Hq, Hkv, D, nb, page, w, c, stream)
+    rc = kernels.call_on(
+        _lib().paged_flash_attention, dev, q.data_ptr(), kp.data_ptr(),
+        vp.data_ptr(), positions.data_ptr(), block_table.data_ptr(),
+        lens.data_ptr(), chunk_lens.data_ptr(), out.data_ptr(), *ws, B, T,
+        Hq, Hkv, D, nb, page, w, c, stream)
     if rc != 0:
         raise RuntimeError(
             f"paged_flash_attention launch failed: CUDA error {rc}")

@@ -11,7 +11,9 @@ recurrence for decode and short chunks (counted as ``rwkv6_wkv`` in
 ``kernels.LAUNCHES``), the chunked tensor-core kernel from T =
 ``CHUNK_MIN_T`` on (``rwkv6_wkv_chunk``). On CPU tensors it runs
 ``rwkv6_wkv_plain``. Ragged steps are the caller's: a step with k = 0 and
-w = 1 leaves the state unchanged, which is how the model masks them.
+w = 1 leaves the state unchanged, which is how the model masks them. The
+kernels have no backward yet: on CUDA tensors that need a gradient the
+wrapper raises.
 """
 from __future__ import annotations
 
@@ -102,6 +104,14 @@ def rwkv6_wkv(r, k, v, w, u, s0, *, kernel: str = "auto"):
         if all(t.device.type == "cpu" for t in (r, k, v, w, u, s0)):
             return rwkv6_wkv_plain(r, k, v, w, u, s0)
         raise ValueError(f"rwkv6_wkv: r on {r.device}")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (r, k, v, w, u, s0)):
+        # the kernels have no backward yet: never return a tensor that
+        # cuts the autograd graph
+        raise NotImplementedError(
+            "rwkv6_wkv has no CUDA backward yet (ROADMAP Queue 1 item 22: "
+            "rwkv training and the wkv backward kernel); run rwkv6-7b under "
+            "torch.no_grad() on the card, or with rwkv_impl='ref'")
     _check(r, k, v, w, u, s0)
     sb, st, sh, _ = r.stride()
     ptrs = (r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),

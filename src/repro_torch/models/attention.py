@@ -9,6 +9,11 @@ Two implementations of the fused score + softmax + V step:
                the hand-written CUDA kernel on CUDA tensors, its plain
                version on CPU tensors (a row that sees no key gives 0).
 
+Training (``mode="train"``) self-attends as prefill does and builds no
+cache; on tensors that need a gradient ``auto`` runs the flash wrapper's
+autograd Function: its CUDA backward on the card, the plain backward on
+the CPU.
+
 Paged decode scatters the chunk's K/V into the layer's page pool in place
 (the JAX package returns a new pool and relies on buffer donation) and
 attends through the block table: ``auto`` reads the pool directly in the
@@ -26,6 +31,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import hetero
 from repro_torch.core.lora import lora_delta, lora_scale
+from repro_torch.core.noise import NoiseConfig
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models import layers
 
@@ -185,25 +191,28 @@ def apply_attention_block(
     prefill_cache_len: Optional[int] = None, lora: Optional[Dict] = None,
     adapter_idx: Optional[torch.Tensor] = None, impl: str = "auto",
     paged: Optional[Dict] = None, chunk_lens: Optional[torch.Tensor] = None,
+    noise: Optional[NoiseConfig] = None, rng: Optional[torch.Generator] = None,
 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """MHA-1..MHA-4 for one layer. Returns (out, new_cache).
 
-    mode: "prefill" (self-attend + emit a cache of ``prefill_cache_len``),
+    mode: "train" (self-attend, no cache: new_cache is None), "prefill"
+    (self-attend + emit a cache of ``prefill_cache_len``),
     "decode" (append to a dense cache {"k", "v" (B, Hkv, S, D), "len" (B,)}
     in place and attend over it). ``paged`` switches decode to the page
     pool ``{"kp", "vp"}`` of this layer (see ``paged_attend``).
     ``chunk_lens`` (B,) makes PREFILL ragged: row b holds chunk_lens[b]
-    real tokens followed by padding that is invisible as keys."""
+    real tokens followed by padding that is invisible as keys. ``noise``
+    (noise-aware fine-tuning) perturbs the frozen projections with noise
+    drawn from ``rng``."""
     if kind != "full":
         raise NotImplementedError(_SLIDING)
-    if mode not in ("prefill", "decode"):
-        raise NotImplementedError(f"mode {mode!r} is not ported yet (ROADMAP "
-                                  "Queue 1 item 15)")
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"unknown mode {mode!r}")
     B, T, _ = x.shape
     scale = lora_scale(cfg)
 
     def proj(name):
-        y = hetero.static_matmul(x, p[name])
+        y = hetero.static_matmul(x, p[name], noise=noise, rng=rng)
         if lora is not None and name in lora:
             y = y + lora_delta(x, lora[name], scale, adapter_idx)
         return y
@@ -242,6 +251,9 @@ def apply_attention_block(
         out = attend(q, kc.transpose(1, 2).to(q.dtype),
                      vc.transpose(1, 2).to(q.dtype), positions, kv_pos,
                      kind=kind, window=None, softcap=softcap, impl=impl)
+    elif mode == "train":
+        out = attend(q, k, v, positions, positions, kind=kind, window=None,
+                     softcap=softcap, impl=impl)
     else:
         kv_pos = positions
         if chunk_lens is not None:
@@ -262,7 +274,7 @@ def apply_attention_block(
                      "v": vc.to(q.dtype).contiguous(), "len": lens_out}
 
     out = out.reshape(B, T, cfg.q_dim)
-    y = hetero.static_matmul(out, p["wo"])
+    y = hetero.static_matmul(out, p["wo"], noise=noise, rng=rng)
     if lora is not None and "wo" in lora:
         y = y + lora_delta(out, lora["wo"], scale, adapter_idx)
     return y, new_cache

@@ -14,6 +14,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import hetero
+from repro_torch.core.noise import NoiseConfig
 
 # ---------------------------------------------------------------------------
 # init helpers
@@ -120,18 +121,22 @@ def init_mlp(cfg: ModelConfig, generator: torch.Generator, *, device, dtype,
     return p
 
 
-def apply_mlp(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
+def apply_mlp(cfg: ModelConfig, p, x: torch.Tensor, *,
+              noise: Optional[NoiseConfig] = None,
+              rng: Optional[torch.Generator] = None) -> torch.Tensor:
     """FF-1/FF-2 (Table II) — STATIC engine: gated SiLU, or tanh-approximate
-    GELU (GPT-2/BLOOM style, no gate)."""
-    h = hetero.static_matmul(x, p["w1"])
+    GELU (GPT-2/BLOOM style, no gate). ``noise``: weight noise drawn from
+    ``rng`` (noise-aware fine-tuning)."""
+    nk = dict(noise=noise, rng=rng)
+    h = hetero.static_matmul(x, p["w1"], **nk)
     if cfg.mlp == "gated_silu":
-        g = hetero.static_matmul(x, p["w3"])
+        g = hetero.static_matmul(x, p["w3"], **nk)
         hetero.record_nonlinear(h.numel())
         h = torch.nn.functional.silu(h) * g
     else:
         hetero.record_nonlinear(h.numel())
         h = torch.nn.functional.gelu(h, approximate="tanh")
-    return hetero.static_matmul(h, p["w2"])
+    return hetero.static_matmul(h, p["w2"], **nk)
 
 
 # ---------------------------------------------------------------------------

@@ -10,6 +10,10 @@ state in registers for the whole chunk.
 Recurrence (official Finch form), per head, N = head_dim:
     y_t     = r_t · (S_t + u ⊙ (k_t ⊗ v_t))
     S_{t+1} = diag(w_t) S_t + k_t ⊗ v_t
+
+Training: the wkv kernel has no backward yet, so on the card a forward
+that needs a gradient raises (ROADMAP Queue 1 item 22); on the CPU, and
+with ``impl="ref"``, the plain recurrence runs under ordinary autograd.
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import hetero
 from repro_torch.core.lora import lora_delta, lora_scale
+from repro_torch.core.noise import NoiseConfig
 from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
 from repro_torch.models import layers
 
@@ -114,6 +119,7 @@ def apply_rwkv_block(
     cache: Optional[Dict[str, torch.Tensor]] = None,
     lora: Optional[Dict] = None, adapter_idx: Optional[torch.Tensor] = None,
     impl: str = "auto", chunk_lens: Optional[torch.Tensor] = None,
+    noise: Optional[NoiseConfig] = None, rng: Optional[torch.Generator] = None,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """Full RWKV6 block: x + time_mix(ln1(x)); then + channel_mix(ln2(.)).
 
@@ -123,8 +129,11 @@ def apply_rwkv_block(
     ``chunk_lens`` (B,) marks ragged chunks: padded steps run the wkv
     recurrence with k=0, w=1 (state unchanged) and the emitted shift
     states come from each row's last *valid* token; a row with an empty
-    chunk keeps its incoming shift state."""
+    chunk keeps its incoming shift state. ``noise`` perturbs the frozen
+    projections (as the JAX package: r/k/v/g/o and the channel mix) with
+    noise drawn from ``rng``."""
     rc = cfg.rwkv
+    nk = dict(noise=noise, rng=rng)
     tm = p["time_mix"]
     B, T, d = x.shape
     H, N = d // rc.head_dim, rc.head_dim
@@ -144,7 +153,7 @@ def apply_rwkv_block(
              for i, name in enumerate(MIX_NAMES)}
 
     def proj(name, target):
-        y = hetero.static_matmul(mixed[name], tm[f"{name}_proj"])
+        y = hetero.static_matmul(mixed[name], tm[f"{name}_proj"], **nk)
         if lora is not None and target in lora:
             y = y + lora_delta(mixed[name], lora[target], scale, adapter_idx)
         return y
@@ -153,7 +162,8 @@ def apply_rwkv_block(
     r = proj("r", "wq").reshape(B, T, H, N).to(f32)
     k = proj("k", "wk").reshape(B, T, H, N).to(f32)
     v = proj("v", "wv").reshape(B, T, H, N).to(f32)
-    g = torch.nn.functional.silu(hetero.static_matmul(mixed["g"], tm["g_proj"]))
+    g = torch.nn.functional.silu(hetero.static_matmul(mixed["g"], tm["g_proj"],
+                                                      **nk))
 
     # data-dependent decay w_t in (0, 1), in f32 from the f32 w_base
     w_raw = tm["w_base"] + hetero.dynamic_matmul(
@@ -180,7 +190,7 @@ def apply_rwkv_block(
     yf = yf.reshape(B, T, d) * tm["ln_x"]["scale"] + tm["ln_x"]["bias"]
     hetero.record_nonlinear(yf.numel())
     gated = yf.to(x.dtype) * g
-    att = hetero.static_matmul(gated, tm["o_proj"])
+    att = hetero.static_matmul(gated, tm["o_proj"], **nk)
     if lora is not None and "wo" in lora:
         att = att + lora_delta(gated, lora["wo"], scale, adapter_idx)
     x = x + att
@@ -192,11 +202,11 @@ def apply_rwkv_block(
     xx2 = _token_shift(xn2, cache["shift_c"] if cache is not None else None)
     xk = xn2 + (xx2 - xn2) * cm["mu_k"]
     xr = xn2 + (xx2 - xn2) * cm["mu_r"]
-    kf = hetero.static_matmul(xk, cm["ck_proj"])
+    kf = hetero.static_matmul(xk, cm["ck_proj"], **nk)
     kf = torch.square(torch.relu(kf))
     hetero.record_nonlinear(kf.numel())
-    vf = hetero.static_matmul(kf, cm["cv_proj"])
-    rg = torch.sigmoid(hetero.static_matmul(xr, cm["cr_proj"]))
+    vf = hetero.static_matmul(kf, cm["cv_proj"], **nk)
+    rg = torch.sigmoid(hetero.static_matmul(xr, cm["cr_proj"], **nk))
     x = x + rg * vf
 
     new_cache = None

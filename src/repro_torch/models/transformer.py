@@ -9,7 +9,7 @@ wait for ROADMAP Queue 1 items 12-13.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -18,6 +18,7 @@ from repro_torch import DeviceLike, resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import quant
 from repro_torch.core.lora import layer_slice, scan_period
+from repro_torch.core.noise import NoiseConfig
 from repro_torch.kernels.crossbar_matmul import ops as cb_ops
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models import attention, layers, rwkv
@@ -32,11 +33,16 @@ class ExecConfig:
     ``attn_impl``: "auto" — the flash kernels (CUDA) or their plain
     versions (CPU); "ref" — ``ref_attention`` over materialized scores.
     ``rwkv_impl``: "auto" — the wkv kernel (CUDA) or its plain version
-    (CPU); "ref" — the plain recurrence anywhere."""
+    (CPU); "ref" — the plain recurrence anywhere. ``noise``: weight noise
+    on the frozen projections in train mode (noise-aware fine-tuning; the
+    forward then needs a generator). ``remat`` (recompute each layer in the
+    backward) is not ported: it raises (ROADMAP Queue 1 item 23)."""
 
     attn_impl: str = "auto"
     act_dtype: Any = torch.float32
     rwkv_impl: str = "auto"
+    noise: NoiseConfig = field(default_factory=NoiseConfig)
+    remat: bool = False
 
 
 def _check_supported(cfg: ModelConfig) -> None:
@@ -95,23 +101,25 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *,
 
 def _apply_position(cfg: ModelConfig, ec: ExecConfig, pos: int,
                     x: torch.Tensor, pparams, plora, pcache, positions, mode,
-                    prefill_cache_len, adapter_idx, paged, chunk_lens):
+                    prefill_cache_len, adapter_idx, paged, chunk_lens, rng):
+    noise = ec.noise if (ec.noise.enabled and mode == "train") else None
     if cfg.block_kind(pos) == "rwkv":
         x, newc = rwkv.apply_rwkv_block(
             cfg, pparams, x, cache=pcache, lora=plora,
-            adapter_idx=adapter_idx, impl=ec.rwkv_impl, chunk_lens=chunk_lens)
+            adapter_idx=adapter_idx, impl=ec.rwkv_impl, chunk_lens=chunk_lens,
+            noise=noise, rng=rng)
         return x, (None if mode == "train" else newc)
     h = layers.apply_norm(cfg, pparams["norm"], x)
     delta, newc = attention.apply_attention_block(
         cfg, pparams["attn"], h, positions, kind=cfg.attn_kind(pos),
-        mode="prefill" if mode == "train" else mode, cache=pcache,
-        prefill_cache_len=prefill_cache_len, lora=plora,
-        adapter_idx=adapter_idx, impl=ec.attn_impl, paged=paged,
-        chunk_lens=chunk_lens if mode == "prefill" else None)
+        mode=mode, cache=pcache, prefill_cache_len=prefill_cache_len,
+        lora=plora, adapter_idx=adapter_idx, impl=ec.attn_impl, paged=paged,
+        chunk_lens=chunk_lens if mode == "prefill" else None, noise=noise,
+        rng=rng)
     x = x + delta
     h2 = layers.apply_norm(cfg, pparams["norm2"], x)
-    x = x + layers.apply_mlp(cfg, pparams["ff"], h2)
-    return x, (None if mode == "train" else newc)
+    x = x + layers.apply_mlp(cfg, pparams["ff"], h2, noise=noise, rng=rng)
+    return x, newc
 
 
 def forward(cfg: ModelConfig, params: Dict, inputs: Dict[str, torch.Tensor],
@@ -123,6 +131,7 @@ def forward(cfg: ModelConfig, params: Dict, inputs: Dict[str, torch.Tensor],
             paged: Optional[Dict] = None,
             chunk_lens: Optional[torch.Tensor] = None,
             last_idx: Optional[torch.Tensor] = None,
+            rng: Optional[torch.Generator] = None,
             ) -> Tuple[torch.Tensor, Optional[Dict], Dict]:
     """Returns (logits (B,T,V), new_cache, aux).
 
@@ -136,11 +145,18 @@ def forward(cfg: ModelConfig, params: Dict, inputs: Dict[str, torch.Tensor],
     per slot row). ``last_idx`` (B,) keeps one row
     per sequence before the final norm and the unembed, so logits are
     (B,1,V): a serving step samples only that row. ``aux`` is empty: it
-    carries MoE statistics in the JAX package, and MoE is not ported yet."""
+    carries MoE statistics in the JAX package, and MoE is not ported yet.
+    ``rng``: the generator that weight noise draws from (train mode with
+    ``exec_cfg.noise`` enabled), on the model's device; the JAX package
+    threads a key the same way."""
     _check_supported(cfg)
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
     ec = exec_cfg
+    if ec.remat:
+        raise NotImplementedError("ExecConfig.remat (recompute each layer in "
+                                  "the backward) is not ported yet (ROADMAP "
+                                  "Queue 1 item 23)")
     P = scan_period(cfg)
     n_sp = cfg.n_layers // P
 
@@ -170,7 +186,7 @@ def forward(cfg: ModelConfig, params: Dict, inputs: Dict[str, torch.Tensor],
                     position_cache_spec(cfg, pos, B, 1, ec.act_dtype), (), dev)
             x, newc = _apply_position(cfg, ec, pos, x, pparams, plora, pcache,
                                       positions, mode, prefill_cache_len,
-                                      adapter_idx, paged, chunk_lens)
+                                      adapter_idx, paged, chunk_lens, rng)
             new_layers[pos].append(newc)
 
     if last_idx is not None:

@@ -27,8 +27,11 @@ from repro_torch.core import quant
 from repro_torch.kernels.crossbar_matmul import ops as cb_ops
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
+from repro_torch.launch import train as launch_train
 from repro_torch.models import transformer as tfm
+from repro_torch.optim import adamw
 from repro_torch.serve.api import Request, make_engine
+from repro_torch.train import steps
 
 torch.set_num_threads(2)
 torch.backends.cuda.matmul.allow_tf32 = False   # f32 reference products
@@ -720,3 +723,220 @@ def test_paper_model_engine_ticks_match_the_plain_forward():
         want = lg[0, len(r.prompt) - 1:]
         got = torch.stack(eng.sampled_logits[uid])
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# training: the backward kernels, and gradients that the kernels carry
+# ---------------------------------------------------------------------------
+
+# (M, K, N): the forward's ragged shapes, a decode-sized M, and the
+# training step's M = B * T = 2048 at llama's and the paper models' widths
+CB_T_SHAPES = [(8, 300, 130), (100, 520, 250), (2048, 2048, 512),
+               (8, 2048, 8192), (100, 1024, 4096), (2048, 4096, 1024)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("mkn", CB_T_SHAPES)
+def test_crossbar_t_kernel_matches_plain(bits, mkn):
+    """dx = g . dequant(W)^T from the same codes: the forward's tolerance,
+    1e-4 of max |dx| (f32 sums in another order)."""
+    dev = _cuda_or_skip()
+    M, K, N = mkn
+    gen = torch.Generator(device=dev).manual_seed(M + K + N + bits)
+    w = torch.randn(K, N, generator=gen, device=dev) * K ** -0.5
+    g = torch.randn(M, N, generator=gen, device=dev)
+    qt = quant.quantize(w, bits)
+    before = kernels.LAUNCHES["crossbar_matmul_t"]
+    dx = cb_ops.crossbar_matmul_t(g, qt)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["crossbar_matmul_t"] == before + 1
+    ref = cb_ops.crossbar_matmul_t_plain(g, qt)
+    assert dx.shape == (M, K)
+    torch.testing.assert_close(dx, ref, rtol=1e-4,
+                               atol=1e-4 * float(ref.abs().max()))
+
+
+@pytest.mark.gpu
+def test_crossbar_autograd_runs_both_kernels():
+    """A CUDA x that needs a gradient: the forward kernel, then dx by the
+    transposed kernel; the codes and scales get none."""
+    dev = _cuda_or_skip()
+    x, qt = _crossbar_inputs(dev, 3 * 40, 640, 384, 8, 5)
+    x = x.reshape(3, 40, 640).requires_grad_(True)
+    gy = torch.randn(3, 40, 384, device=dev)
+    kernels.reset_launches()
+    y = cb_ops.crossbar_matmul(x, qt)
+    (y * gy).sum().backward()
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["crossbar_matmul"] == 1
+    assert kernels.LAUNCHES["crossbar_matmul_t"] == 1
+    assert not qt.codes.requires_grad and not qt.scales.requires_grad
+    ref = cb_ops.crossbar_matmul_t_plain(gy, qt)
+    torch.testing.assert_close(x.grad, ref, rtol=1e-4,
+                               atol=1e-4 * float(ref.abs().max()))
+
+
+def _bwd_inputs(dev, B, T, Hq, Hkv, D, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, dout = (torch.randn(B, T, Hq, D, generator=gen, device=dev)
+               for _ in range(2))
+    k, v = (torch.randn(B, T, Hkv, D, generator=gen, device=dev)
+            for _ in range(2))
+    pos = torch.arange(T, device=dev, dtype=torch.int32)[None].expand(
+        B, T).contiguous()
+    return q, k, v, pos, dout
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window,softcap", FA_FLAGS + [(4, 30.0)])
+@pytest.mark.parametrize("D", [8, 64])
+@pytest.mark.parametrize("Hq,Hkv", [(4, 4), (8, 2)])
+@pytest.mark.parametrize("T", [96, 300])
+def test_flash_bwd_kernel_matches_plain(T, Hq, Hkv, D, window, softcap):
+    """dq, dk, dv against the plain blocked recompute, from the kernel's own
+    forward (out, lse): 1e-4 relative and absolute, as the JAX package
+    holds its custom VJP to ref_attention's gradients."""
+    dev = _cuda_or_skip()
+    q, k, v, pos, dout = _bwd_inputs(dev, 2, T, Hq, Hkv, D, T + Hq + D)
+    out, lse = fa_ops._launch(q, k, v, pos, pos, window, softcap,
+                              with_lse=True)
+    out_p, lse_p = fa_ops.flash_attention_plain(
+        q, k, v, pos, pos, window=window, softcap=softcap, with_lse=True)
+    torch.testing.assert_close(out, out_p, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(lse, lse_p, rtol=1e-5, atol=1e-5)
+    before = kernels.LAUNCHES["flash_attention_bwd"]
+    got = fa_ops.flash_attention_bwd(q, k, v, pos, pos, out, lse, dout,
+                                     window=window, softcap=softcap)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_attention_bwd"] == before + 1
+    want = fa_ops.flash_attention_bwd_plain(q, k, v, pos, pos, out, lse,
+                                            dout, window=window,
+                                            softcap=softcap)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_flash_forward_without_lse_is_unchanged():
+    """The serving call (no lse) gives the same bits as the call that also
+    writes lse, on a row-tile and a split-KV (decode) shape."""
+    dev = _cuda_or_skip()
+    for B, T, S in ((2, 300, 300), (8, 1, 1000)):
+        gen = torch.Generator(device=dev).manual_seed(T)
+        q = torch.randn(B, T, 32, 64, generator=gen, device=dev)
+        k, v = (torch.randn(B, S, 8, 64, generator=gen, device=dev)
+                for _ in range(2))
+        qpos = (torch.arange(T, device=dev, dtype=torch.int32)
+                + (S - T))[None].expand(B, T).contiguous()
+        kpos = torch.arange(S, device=dev, dtype=torch.int32)[None].expand(
+            B, S).contiguous()
+        o1 = fa_ops.flash_attention(q, k, v, qpos, kpos)
+        o2, lse = fa_ops._launch(q, k, v, qpos, kpos, None, None,
+                                 with_lse=True)
+        torch.cuda.synchronize()
+        assert torch.equal(o1, o2)
+        _, lse_p = fa_ops.flash_attention_plain(q, k, v, qpos, kpos,
+                                                with_lse=True)
+        torch.testing.assert_close(lse, lse_p, rtol=1e-5, atol=1e-5)
+
+
+def _grads(cfg, params, lora, batch, ec):
+    loss_fn = steps.make_loss_fn(cfg, ec)
+    return steps.value_and_grad(loss_fn, lora, params, batch, None)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "paper-gpt2-medium"])
+def test_lora_grads_through_the_kernels_equal_the_plain_ones(arch):
+    """A 2-layer model on an M8F8 base: the loss and every LoRA gradient
+    with the kernels (crossbar and flash forward and backward) against
+    dequantized weights, ``torch.matmul``, ref attention and autograd. The
+    graph is not cut: every leaf gets a gradient, and every kernel ran as
+    often as the model has matrices and layers."""
+    dev = _cuda_or_skip()
+    cfg = reduce_config(get_config(arch))
+    gen = torch.Generator(device=dev).manual_seed(3)
+    base = tfm.init_params(cfg, gen, device=dev)
+    params = quant.quantize_params(base, QuantConfig(8, 8), min_size=1)
+    lora = lora_lib.init_lora_params(cfg, gen, device=dev)
+    for entry in lora["layers"]:
+        for ab in entry.values():
+            ab["b"].normal_(0.0, 0.02, generator=gen)
+    toks = torch.randint(0, cfg.vocab_size, (2, 40), generator=gen,
+                         device=dev)
+    batch = {"tokens": toks[:, :-1].contiguous(),
+             "labels": toks[:, 1:].contiguous()}
+    kernels.reset_launches()
+    (loss_k, _), g_k = _grads(cfg, params, lora, batch, tfm.ExecConfig())
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    (loss_p, _), g_p = _grads(cfg, quant.dequantize_params(params), lora,
+                              batch, tfm.ExecConfig(attn_impl="ref"))
+    n_quant = sum(qt.codes.shape[0]
+                  for qt in tfm._quantized(params["layers"]))
+    per_layer = n_quant // cfg.n_layers
+    assert launches["crossbar_matmul"] == n_quant
+    # layer 0's q/k/v projections read the embedding, which needs no grad
+    assert launches["crossbar_matmul_t"] == n_quant - 3
+    assert launches["flash_attention"] == cfg.n_layers
+    assert launches["flash_attention_bwd"] == cfg.n_layers
+    assert per_layer in (6, 7)
+    assert abs(float(loss_k) - float(loss_p)) <= 1e-5 * abs(float(loss_p))
+    for a, b in zip(adamw.leaves(g_k), adamw.leaves(g_p)):
+        assert float(b.norm()) > 0
+        assert float((a - b).norm()) <= 1e-4 * float(b.norm())
+
+
+@pytest.mark.gpu
+def test_kernels_without_backward_raise_under_grad():
+    """rwkv6_wkv and the paged flash kernel have no backward: on CUDA
+    inputs that need a gradient they raise, never returning a tensor that
+    cuts the graph; under no_grad they run."""
+    dev = _cuda_or_skip()
+    B, T, H, N = 1, 4, 2, 16
+    r, k, v, w = (torch.rand(B, T, H, N, device=dev) for _ in range(4))
+    u = torch.rand(H, N, device=dev)
+    s0 = torch.zeros(B, H, N, N, device=dev)
+    r.requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="item 22"):
+        wkv_ops.rwkv6_wkv(r, k, v, w, u, s0)
+    with torch.no_grad():
+        wkv_ops.rwkv6_wkv(r, k, v, w, u, s0)
+    q = torch.randn(1, 2, 4, 16, device=dev, requires_grad=True)
+    kp = torch.randn(3, 2, 4, 16, device=dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    args = (q, kp, kp.clone(), torch.tensor([[0, 1]], **i32),
+            torch.tensor([[0]], **i32), torch.tensor([0], **i32),
+            torch.tensor([2], **i32))
+    with pytest.raises(NotImplementedError, match="no backward"):
+        fa_ops.paged_flash_attention(*args, page_size=4)
+    with torch.no_grad():
+        fa_ops.paged_flash_attention(*args, page_size=4)
+
+
+@pytest.mark.gpu
+def test_launcher_trains_checkpoints_and_restores_on_the_card(tmp_path,
+                                                              capsys):
+    """``launch.train`` at smoke size on the card, M8F8 base, with a
+    checkpoint directory: 20 steps save a checkpoint at step 20 (the
+    trainer's ``ckpt_every``); a second launch with ``--steps 22``
+    restores it onto the card and runs steps 21 and 22 through all four
+    training kernels; a third with ``--steps 20`` restores and runs
+    nothing."""
+    dev = _cuda_or_skip()
+    args = ["--arch", "llama3.2-1b", "--smoke", "--device", str(dev),
+            "--batch", "2", "--seq", "32", "--microbatches", "2", "--quant",
+            "M8F8", "--ckpt-dir", str(tmp_path)]
+    log = launch_train.main(args + ["--steps", "20"])
+    assert [r["step"] for r in log] == list(range(1, 21))
+    assert (tmp_path / "step_00000020" / "manifest.json").exists()
+    kernels.reset_launches()
+    log = launch_train.main(args + ["--steps", "22"])
+    assert [r["step"] for r in log] == [21, 22]
+    assert all(np.isfinite(r["loss"]) for r in log)
+    assert all(kernels.LAUNCHES[k] > 0 for k in (
+        "crossbar_matmul", "crossbar_matmul_t", "flash_attention",
+        "flash_attention_bwd"))
+    assert launch_train.main(args + ["--steps", "20"]) == []
+    assert "restored at step 20" in capsys.readouterr().out
