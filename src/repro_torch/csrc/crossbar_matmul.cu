@@ -89,18 +89,29 @@
 //   g (M, N) f32 times the transpose of the same codes, each 128-wide N
 //   tile's partial sum scaled by that crossbar's one scale. The codes get
 //   no gradient. Bound, at the training shapes (M = 1024 rows of a
-//   microbatch, K and N of 512-8192), by arithmetic: 2 M K N flops against K N code bytes and
-//   M (K + N) f32 bytes. Design (simple and right first; a wgmma/TMA
-//   version waits for a later slice): f32 FMAs outside the tensor cores,
-//   so the products are exact f32 as in the plain version. One block of
-//   256 threads per (128-deep K block = one crossbar row, 64 rows of g);
-//   it walks N 16 columns a step: g's 64 x 16 tile and the codes' 128 x
-//   16 tile (converted to f32) go through shared memory, the next step's
-//   loads are in registers while the current one is multiplied, and each
-//   thread keeps a 4 x 8 register tile of partial sums, added as
-//   part * scale after each 128-wide N tile. Both operands are contiguous
-//   along the reduction dim N (codes' rows, g's rows), so every load is a
-//   row segment.
+//   microbatch, K and N of 512-8192), by arithmetic: 2 M K N flops against
+//   K N code bytes and M (K + N) f32 bytes. Design: the prefill kernel's,
+//   transposed. 64 x 256 output tiles of dx, two warpgroups of one
+//   128-wide crossbar row of K each, wgmma m64n128k16 (bf16, f32
+//   accumulate) on g's three bf16 pieces (split_x) against the codes, a
+//   reduction over N in 64-deep stages, double-buffered (convert stage
+//   c + 1 into shared memory and load stage c + 2 into registers while the
+//   tensor cores run stage c). Two stages make one 128-wide N tile, whose
+//   partial is added as part * scales[kt][nt], kt being the warpgroup's
+//   own crossbar row: one scalar per warpgroup and N tile.
+//   - The layout is easier than the forward's: the reduction dim N is
+//     contiguous in g's rows and in the codes' rows, so both operands are
+//     K-major for wgmma as they lie: a code row k is a row of the B tile,
+//     stored (converted to bf16, 128-byte swizzle) without a transpose.
+//     int4's packed row k/2 gives two adjacent B rows, k and k + 1.
+//   - Where the output tiles leave SMs idle, N is split across blocks and
+//     the partial tiles summed in rank order by the block that draws the
+//     last ticket, as in the prefill kernel (prefill_per with the roles of
+//     K and N swapped), through the same caller-owned workspace: the
+//     forward and dx calls run in order on one stream, so one workspace
+//     per device serves both. Two calls give identical bits.
+//   - g beyond M or N reads as 0 (the codes' padding is then multiplied by
+//     0); dx beyond K is not written.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -795,157 +806,211 @@ cudaError_t launch_prefill(const float* x, const uint8_t* codes,
 }
 
 // ---------------------------------------------------------------------------
-// transposed: dx = g . dequant(W)^T in f32 FMAs
+// transposed: dx = g . dequant(W)^T, wgmma on bf16 pieces of g
 // ---------------------------------------------------------------------------
 
-constexpr int kTBM = 64;          // rows of g (and dx) per block
-constexpr int kTNS = 16;          // N columns per step
-constexpr int kTThreads = 256;    // 16 x 16: 4 rows x 8 k each
-constexpr int kTLdG = kTBM + 4;   // padded shared row of g^T, floats
-constexpr int kTLdC = kCrossbar + 4;  // padded shared row of the codes
-
-// Grid (Kp / 128, ceil(M / 64)). Thread (tm, tk) = (tid / 16, tid % 16)
-// owns dx rows m0 + 4 tm + i (i < 4) and columns k0 + 8 tk + j (j < 8).
-// Loads of one step: g row m0 + tid / 4, columns n + 4 (tid % 4) .. + 3;
-// int8 codes row k0 + tid / 2, columns n + 8 (tid % 2) .. + 7; int4 packed
-// row k0 / 2 + tid / 4 (rows k0 + 2 (tid / 4) and + 1), columns
-// n + 4 (tid % 4) .. + 3.
+// Grid (ceil(Kp / 256), ceil(M / 64), S), 256 threads = 2 warpgroups;
+// warpgroup w computes dx rows m0..m0+63, columns k0 + 128 w .. +127 (its
+// crossbar row kt). A stage's shared layout is the prefill kernel's: g's
+// pieces (64 rows x 64 n each), then the codes (256 rows of k x 64 n),
+// all K-major (along n) with the 128-byte swizzle. Each stage, every
+// thread loads and converts 16 n from 16 (tid % 4) of g row tid / 4 (as x
+// in the prefill kernel) and of code rows r + 64 i (r = tid / 4; int8,
+// i < 4) or packed rows r + 64 i (int4, i < 2: B rows 2 (r + 64 i) and
+// 2 (r + 64 i) + 1).
 template <int BITS>
-__global__ void __launch_bounds__(kTThreads, 2)
+__global__ void __launch_bounds__(kPfThreads, 1)
 crossbar_t_kernel(const float* __restrict__ g,
                   const uint8_t* __restrict__ codes,
                   const float* __restrict__ scales, float* __restrict__ out,
-                  int M, int K, int N, int Np, int g_vec, int out_vec) {
-  __shared__ __align__(16) float gs[kTNS][kTLdG];   // g^T: [n][m]
-  __shared__ __align__(16) float cs[kTNS][kTLdC];   // codes: [n][k]
+                  float* __restrict__ partials, int* __restrict__ tickets,
+                  int M, int K, int N, int Kp, int Np, int g_vec, int per) {
+  constexpr int kLoads = BITS == 8 ? 4 : 2;
+  __shared__ bool last;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const uint32_t sbase =
+      static_cast<uint32_t>(__cvta_generic_to_shared(smem));
 
-  const int tid = threadIdx.x;
-  const int kt = blockIdx.x, k0 = kt * kCrossbar;
-  const int m0 = blockIdx.y * kTBM;
-  const int tk = tid & 15, tm = tid >> 4;
-  const int n_nt = Np / kCrossbar;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wg = tid >> 7;
+  const int k0 = blockIdx.x * kPfBN, m0 = blockIdx.y * kPfBM;
+  const int n_nt = Np / kCrossbar, n_kt = Kp / kCrossbar;
+  // this split's N tiles, as 64-deep stages (two per tile)
+  const int S = gridDim.z, rank = blockIdx.z;
+  const int c0 = 2 * rank * per;
+  const int c1 = 2 * (n_nt < (rank + 1) * per ? n_nt : (rank + 1) * per);
+  const int kt = k0 / kCrossbar + wg;      // this warpgroup's crossbar row
+  const bool wg_live = kt < n_kt;
 
-  const int gr = tid >> 2, gc = 4 * (tid & 3);
-  const bool g_live = m0 + gr < M;
-  const float* grow = g + static_cast<size_t>(g_live ? m0 + gr : 0) * N;
+  const int r = tid >> 2, cn = 16 * (tid & 3);
+  const int prow0 = (BITS == 8 ? k0 : k0 / 2) + r;   // first (packed) row
+  const int prows = BITS == 8 ? Kp : Kp / 2;
+  const bool g_live = m0 + r < M;
+  const float* grow = g + static_cast<size_t>(g_live ? m0 + r : 0) * N;
 
-  float4 gv = make_float4(0.f, 0.f, 0.f, 0.f);
-  uint2 c8 = make_uint2(0u, 0u);
-  uint32_t c4 = 0u;
-  auto load = [&](int n) {
-    const int c = n + gc;
-    if (g_vec) {   // N % 4 == 0: all four columns or none
-      gv = g_live && c < N ? __ldg(reinterpret_cast<const float4*>(grow + c))
-                           : make_float4(0.f, 0.f, 0.f, 0.f);
-    } else {
-      gv.x = g_live && c < N ? __ldg(grow + c) : 0.f;
-      gv.y = g_live && c + 1 < N ? __ldg(grow + c + 1) : 0.f;
-      gv.z = g_live && c + 2 < N ? __ldg(grow + c + 2) : 0.f;
-      gv.w = g_live && c + 3 < N ? __ldg(grow + c + 3) : 0.f;
-    }
-    if constexpr (BITS == 8) {
-      c8 = __ldg(reinterpret_cast<const uint2*>(
-          codes + static_cast<size_t>(k0 + (tid >> 1)) * Np + n +
-          8 * (tid & 1)));
-    } else {
-      c4 = __ldg(reinterpret_cast<const uint32_t*>(
-          codes + static_cast<size_t>(k0 / 2 + (tid >> 2)) * Np + n +
-          4 * (tid & 3)));
-    }
-  };
-  auto store = [&]() {
-    gs[gc][gr] = gv.x;
-    gs[gc + 1][gr] = gv.y;
-    gs[gc + 2][gr] = gv.z;
-    gs[gc + 3][gr] = gv.w;
-    if constexpr (BITS == 8) {
-      const int kk = tid >> 1, nn = 8 * (tid & 1);
-      const uint32_t w[2] = {c8.x, c8.y};
+  uint4 craw[kLoads];
+  float graw[16];
+  auto load = [&](int c) {
+    const int n = c * kPfBK + cn;
 #pragma unroll
-      for (int e = 0; e < 8; ++e)
-        cs[nn + e][kk] = static_cast<float>(
-            static_cast<int8_t>((w[e >> 2] >> (8 * (e & 3))) & 0xFFu));
-    } else {
-      const int kk = 2 * (tid >> 2), nn = 4 * (tid & 3);
+    for (int i = 0; i < kLoads; ++i) {
+      const int row = prow0 + 64 * i;
+      craw[i] = row < prows ? __ldg(reinterpret_cast<const uint4*>(
+                                  codes + static_cast<size_t>(row) * Np + n))
+                            : make_uint4(0u, 0u, 0u, 0u);
+    }
+    if (g_live && g_vec && n + 15 < N) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const uint32_t byte = (c4 >> (8 * e)) & 0xFFu;
-        // sign-extended nibbles: low = row kk, high = row kk + 1
-        cs[nn + e][kk] = static_cast<float>(
-            static_cast<int>((byte & 0xFu) ^ 8u) - 8);
-        cs[nn + e][kk + 1] = static_cast<float>(
-            static_cast<int>((byte >> 4) ^ 8u) - 8);
+      for (int q = 0; q < 4; ++q) {
+        const float4 v = __ldg(reinterpret_cast<const float4*>(grow + n) + q);
+        graw[4 * q] = v.x;
+        graw[4 * q + 1] = v.y;
+        graw[4 * q + 2] = v.z;
+        graw[4 * q + 3] = v.w;
       }
+    } else {
+#pragma unroll
+      for (int e = 0; e < 16; ++e)
+        graw[e] = g_live && n + e < N ? __ldg(grow + n + e) : 0.f;
     }
   };
-
-  float acc[4][8], part[4][8];
+  auto store = [&](int st) {
+    uint8_t* a0 = smem + st * kStage;   // piece i at a0 + i * kAPiece
+    uint8_t* b = a0 + kPieces * kAPiece;
+    uint32_t rw[4][4];
+    bias_rows<BITS>(craw, rw);
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+    for (int q = 0; q < 4; ++q) {   // B row of rw[q]: code row k0 + row
+      const int row =
+          BITS == 8 ? r + 64 * q : 2 * (r + 64 * (q >> 1)) + (q & 1);
+      uint32_t w[8];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = part[i][j] = 0.f;
+      for (int j = 0; j < 8; ++j)
+        w[j] = pack_bf16(code_at<BITS>(rw, q, 2 * j),
+                         code_at<BITS>(rw, q, 2 * j + 1));
+      *reinterpret_cast<uint4*>(b + swz(row, 2 * cn)) =
+          make_uint4(w[0], w[1], w[2], w[3]);
+      *reinterpret_cast<uint4*>(b + swz(row, 2 * cn + 16)) =
+          make_uint4(w[4], w[5], w[6], w[7]);
+    }
+    uint32_t pc[8][kPieces];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) split_x(graw[2 * e], graw[2 * e + 1], pc[e]);
+#pragma unroll
+    for (int i = 0; i < kPieces; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<uint4*>(a0 + i * kAPiece +
+                                  swz(r, 2 * cn + 16 * h)) =
+            make_uint4(pc[4 * h][i], pc[4 * h + 1][i], pc[4 * h + 2][i],
+                       pc[4 * h + 3][i]);
+  };
 
-  load(0);
-  for (int n = 0; n < N; n += kTNS) {
-    __syncthreads();   // the last step's products are done with the tiles
-    store();
+  float acc[64], part[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = part[i] = 0.f;
+
+  load(c0);
+  store(0);
+  if (c0 + 1 < c1) load(c0 + 1);
+  fence_async_smem();
+  __syncthreads();
+  for (int c = c0; c < c1; ++c) {   // c0 is even: buffer c & 1 == tile half
+    const uint32_t s_a = sbase + (c & 1) * kStage;   // g pieces, then codes
+    const uint32_t s_b = s_a + kPieces * kAPiece + wg * (kCrossbar * 128);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < kPfBK / 16; ++ks) {
+      const uint64_t db = smem_desc(s_b + 32 * ks);
+#pragma unroll
+      for (int i = 0; i < kPieces; ++i)   // an N tile starts afresh
+        wgmma_m64n128k16(part, smem_desc(s_a + i * kAPiece + 32 * ks), db,
+                         (c & 1) | (ks > 0) | (i > 0));
+    }
+    wgmma_commit();
+    const float scale =
+        (c & 1) && wg_live ? __ldg(scales + kt * n_nt + (c >> 1)) : 0.f;
+    if (c + 1 < c1) store((c + 1) & 1);  // its buffer was read at c - 1
+    if (c + 2 < c1) load(c + 2);
+    wgmma_wait_all();
+    keep(part);
+    if (c & 1) {                                // post-MVM dequantization
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[i] = fmaf(part[i], scale, acc[i]);
+    }
+    fence_async_smem();
     __syncthreads();
-    if (n + kTNS < N) load(n + kTNS);
-#pragma unroll
-    for (int nn = 0; nn < kTNS; ++nn) {
-      const float4 a = *reinterpret_cast<const float4*>(&gs[nn][4 * tm]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&cs[nn][8 * tk]);
-      const float4 b1 =
-          *reinterpret_cast<const float4*>(&cs[nn][8 * tk + 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) part[i][j] = fmaf(av[i], bv[j], part[i][j]);
-    }
-    // post-MVM dequantization: after each 128-wide N tile (crossbar)
-    if ((n + kTNS) % kCrossbar == 0 || n + kTNS >= N) {
-      const float scale = __ldg(scales + kt * n_nt + n / kCrossbar);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          acc[i][j] = fmaf(part[i][j], scale, acc[i][j]);
-          part[i][j] = 0.f;
-        }
-    }
   }
 
+  // N split: each block stores its fragments; the block that draws the
+  // last ticket sums all S in rank order (as in the prefill kernel)
+  if (S > 1) {
+    const int tile = blockIdx.y * gridDim.x + blockIdx.x;
+    float4* frags = reinterpret_cast<float4*>(partials) +
+                    static_cast<size_t>(tile) * S * kPfThreads * 16;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + 4 * tm + i;
-    if (m >= M) continue;
-    float* orow = out + static_cast<size_t>(m) * K;
+    for (int i = 0; i < 16; ++i)
+      frags[(rank * kPfThreads + tid) * 16 + i] = make_float4(
+          acc[4 * i], acc[4 * i + 1], acc[4 * i + 2], acc[4 * i + 3]);
+    __syncthreads();
+    if (tid == 0) last = draw_ticket(tickets + tile) == S - 1;
+    __syncthreads();
+    if (!last) return;
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int k = k0 + 8 * tk + 4 * h;
-      if (out_vec && k + 3 < K) {
-        *reinterpret_cast<float4*>(orow + k) =
-            make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2],
-                        acc[i][4 * h + 3]);
-      } else {
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    for (int q = 0; q < S; ++q) {
+      float4 v[16];
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (k + e < K) orow[k + e] = acc[i][4 * h + e];
+      for (int i = 0; i < 16; ++i)   // L2 (__ldcg: L1 is not coherent)
+        v[i] = __ldcg(frags + (q * kPfThreads + tid) * 16 + i);
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        acc[4 * i] += v[i].x;
+        acc[4 * i + 1] += v[i].y;
+        acc[4 * i + 2] += v[i].z;
+        acc[4 * i + 3] += v[i].w;
       }
+    }
+    if (tid == 0) tickets[tile] = 0;   // ready for the next call
+  }
+
+  if (!wg_live) return;
+  const int w4 = warp & 3, gq = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const int k = kt * kCrossbar + 8 * i + 2 * t;
+#pragma unroll
+    for (int v = 0; v < 4; ++v) {
+      const int m = m0 + 16 * w4 + gq + 8 * (v >> 1), kk = k + (v & 1);
+      if (m < M && kk < K)
+        out[static_cast<size_t>(m) * K + kk] = acc[4 * i + v];
     }
   }
 }
 
+// The transposed kernel's plan is the prefill kernel's with the roles of
+// K (its output width here) and N (its reduction) swapped: the prefill_*
+// helpers take (M, reduction, output width).
 template <int BITS>
 cudaError_t launch_t(const float* g, const uint8_t* codes,
-                     const float* scales, float* out, int M, int K, int N,
-                     int Kp, int Np, int g_vec, int out_vec,
-                     cudaStream_t stream) {
-  const dim3 grid(Kp / kCrossbar, (M + kTBM - 1) / kTBM);
-  crossbar_t_kernel<BITS><<<grid, kTThreads, 0, stream>>>(
-      g, codes, scales, out, M, K, N, Np, g_vec, out_vec);
+                     const float* scales, float* out, float* partials,
+                     int* tickets, int M, int K, int N, int Kp, int Np,
+                     int g_vec, cudaStream_t stream) {
+  static bool configured = false;  // one attribute call per instantiation
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        crossbar_t_kernel<BITS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kPfSmem);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  const dim3 grid((Kp + kPfBN - 1) / kPfBN, (M + kPfBM - 1) / kPfBM,
+                  prefill_splits(M, Np, Kp));
+  crossbar_t_kernel<BITS><<<grid, kPfThreads, kPfSmem, stream>>>(
+      g, codes, scales, out, partials, tickets, M, K, N, Kp, Np, g_vec,
+      prefill_per(M, Np, Kp));
   return cudaGetLastError();
 }
 
@@ -1031,33 +1096,51 @@ extern "C" int crossbar_matmul(const void* x, const void* codes,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Workspace that crossbar_matmul_t needs for these arguments, as
+// crossbar_matmul_workspace (the transposed kernel splits N where its
+// output tiles leave SMs idle). The same workspace serves both entry
+// points when their calls run in order on one stream.
+extern "C" size_t crossbar_matmul_t_workspace(int M, int Kp, int Np,
+                                              int* tickets) {
+  *tickets = 0;
+  if (M <= 0 || Kp < kCrossbar || Np < kCrossbar) return 0;
+  const size_t partials = prefill_partials(M, Np, Kp);  // N, K swapped
+  if (partials > 0) *tickets = prefill_tiles(M, Kp);
+  return partials;
+}
+
 // dx (M, K) = g (M, N) . dequant(codes, scales)^T, f32: the backward of
 // crossbar_matmul with respect to x. Same codes, scales and padding rules
-// as crossbar_matmul (rows of dx beyond K are not written). Returns
+// as crossbar_matmul (columns of dx beyond K are not written). Returns
 // cudaGetLastError() after the launch (cudaErrorInvalidValue for
-// arguments the kernel does not take). Allocates nothing, needs no
-// workspace, does not synchronise; runs on `stream`.
+// arguments the kernel does not take, or a workspace smaller than
+// crossbar_matmul_t_workspace asks for). Allocates nothing, does not
+// synchronise; runs on `stream`.
 extern "C" int crossbar_matmul_t(const void* g, const void* codes,
-                                 const void* scales, void* out, int M, int K,
+                                 const void* scales, void* out,
+                                 void* partials, size_t n_partials,
+                                 void* tickets, int n_tickets, int M, int K,
                                  int N, int Kp, int Np, int bits,
                                  void* stream) {
   if ((bits != 8 && bits != 4) || M <= 0 || K <= 0 || N <= 0 ||
       Kp % kCrossbar != 0 || Np % kCrossbar != 0 || K > Kp || N > Np ||
-      (M + kTBM - 1) / kTBM > 65535 ||
+      (M + kPfBM - 1) / kPfBM > 65535 ||
       reinterpret_cast<uintptr_t>(codes) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t need = prefill_partials(M, Np, Kp);  // N, K swapped
+  if (n_partials < need || (need > 0 && n_tickets < prefill_tiles(M, Kp)))
     return static_cast<int>(cudaErrorInvalidValue);
   const float* gf = static_cast<const float*>(g);
   const uint8_t* c = static_cast<const uint8_t*>(codes);
   const float* sc = static_cast<const float*>(scales);
   float* o = static_cast<float*>(out);
+  float* pa = static_cast<float*>(partials);
+  int* ti = static_cast<int*>(tickets);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int g_vec = reinterpret_cast<uintptr_t>(g) % 16 == 0 && N % 4 == 0;
-  const int out_vec =
-      reinterpret_cast<uintptr_t>(out) % 16 == 0 && K % 4 == 0;
   const cudaError_t err =
-      bits == 8 ? launch_t<8>(gf, c, sc, o, M, K, N, Kp, Np, g_vec, out_vec,
-                              st)
-                : launch_t<4>(gf, c, sc, o, M, K, N, Kp, Np, g_vec, out_vec,
+      bits == 8 ? launch_t<8>(gf, c, sc, o, pa, ti, M, K, N, Kp, Np, g_vec, st)
+                : launch_t<4>(gf, c, sc, o, pa, ti, M, K, N, Kp, Np, g_vec,
                               st);
   return static_cast<int>(err);
 }

@@ -86,22 +86,41 @@
 //   per row, ds = p (dp - D_i) times the softcap's 1 - tanh^2, dv = p^T
 //   dout, dk = ds^T (q D^-1/2) and dq = ds k D^-1/2; dk and dv sum over the
 //   GQA group that shares a kv head. Bound at the training shapes (T = S =
-//   512, causal) by arithmetic (f32, ~14 D flops per visible pair over
-//   both kernels against O((T + S) D) bytes). Design (simple and right
-//   first): f32 FMAs outside the tensor cores, three kernels, no atomics
+//   512, causal) by arithmetic: both passes recompute S and dP, 14 D flops
+//   per visible (query head, key) pair, three TF32 products each, against
+//   O((T + S) D) bytes. Design: three kernels, no atomics on any output
 //   (the same inputs give the same bits):
 //   - flash_bwd_delta_kernel: D_i, one warp per row.
-//   - flash_bwd_dkdv_kernel<D>: one block per (64 keys, batch row, kv
-//     head); K and V stay in shared memory while the block walks the
-//     group's query rows (R = t G + g, as the forward) 64 at a time: S and
-//     dP as 4 x 4 register tiles a thread, p and ds to shared memory, then
-//     dK and dV accumulate in registers. Query tiles that no key of the
-//     block can see (causal, window) are skipped.
-//   - flash_bwd_dq_kernel<D>: one block per (64 query rows, batch row, kv
-//     head) walks the key tiles some row can see, recomputes S, dP and ds,
-//     and accumulates dq in registers.
-//   Rows padded to D + 1 floats keep the shared-memory reads free of bank
-//   conflicts. Not yet: tensor cores, one fused kernel.
+//   - flash_bwd_dkdv_kernel<D>: a block of 4 warps owns 64 keys of a kv
+//     head (K and V stay in shared memory) and streams the group's query
+//     rows (R = t G + g, as the forward) 32 at a time through a
+//     double-buffered cp.async ring (70 KB at D = 64: three blocks fit on
+//     an SM). Each warp computes S^T = K Q^T and
+//     dP^T = V dO^T for its 16 keys with keys as the mma rows, so that
+//     p^T and ds^T land in the accumulator layout, which is the A operand
+//     of dV += P^T dO and dK += dS^T q in registers (rows of a k8 step
+//     permuted as the forward's p.v).
+//   - flash_bwd_dq_kernel<D>: a block owns 64 group rows (q and dO stay in
+//     shared memory) and streams the keys 32 at a time: S, dP, then
+//     dQ += dS K from the accumulators the same way.
+//   - All five products run on mma.sync.m16n8k8 in 3xTF32 (split_tf32,
+//     mma3), as the forward: one TF32 piece leaves ~1e-3, the tolerance is
+//     1e-4 (tests/test_torch_flash_bwd_split.py emulates the scheme on the
+//     CPU and shows one piece failing). Shared rows are padded to D + 4
+//     floats, so every fragment load, along d or along rows, is free of
+//     bank conflicts.
+//   - Causal balance: streamed tiles that no pair of the block can see are
+//     skipped (a list built from the positions, as the forward). Key tile
+//     0 then streams every query tile and the last row tile every key
+//     tile, ~1.8x the mean. So a block takes at most `per` live streamed
+//     tiles (bwd_pass: about two blocks per SM over a causal call's live
+//     pairs), a longer list is split over blocks, and the block that draws
+//     the last ticket sums the splits' dk/dv (or dq) fragments in split
+//     order from the workspace (as the forward's split-KV). The longest
+//     tiles come first in the grid. On the H100 at one train microbatch,
+//     64-row streamed tiles (two blocks an SM) and four blocks per SM in
+//     the plan (more, smaller splits) both timed slower
+//     (benchmarks/torch_flash_bwd_tiles.py).
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
@@ -958,8 +977,17 @@ extern "C" int paged_flash_attention(
 
 namespace {
 
-constexpr int kBT = 64;          // rows of a query tile, keys of a key tile
-constexpr int kBThreads = 256;   // 16 x 16
+constexpr int kBT = 64;    // keys (dk/dv) or rows (dq) of a block
+// Rows (dk/dv) or keys (dq) of a streamed tile, blocks an SM holds (the
+// launch bounds) and blocks for every SM that bwd_pass aims at: of the
+// variants benchmarks/torch_flash_bwd_tiles.py builds and times, these
+// were fastest at one train microbatch on the H100 (PERF.md).
+constexpr int kBS = 32;
+constexpr int kBMinBlocks = 3;
+constexpr int kBWaves = 2;
+constexpr int kBWarps = 4;         // 16 keys (dk/dv) or 16 rows (dq) a warp
+constexpr int kBThreads = kBWarps * 32;
+constexpr int kDeltaThreads = 256;
 
 struct BwdParams {
   const float* q;
@@ -974,34 +1002,22 @@ struct BwdParams {
   float* dq;
   float* dk;
   float* dv;
+  float* partials;      // split tiles: [tile][split][thread][fragment]
+  int* tickets;         // split tiles: [tile]
   int T, Hq, Hkv, G, S, window;
   float softcap, scale;
   int rows;             // T * G rows of a kv head's group
+  int n_stat, n_str;    // stationary and streamed tiles (this launch)
+  int per;              // streamed tiles per block, at most (this launch)
 };
-
-// Threads of the dK/dV (and dq) accumulation: DG groups along d, each
-// NDT values; the other 256 / DG groups along the tile's 64 keys (rows).
-template <int D>
-struct BwdMap {
-  static constexpr int NDT = D >= 64 ? 4 : (D >= 32 ? 2 : 1);
-  static constexpr int DG = D / NDT;
-  static constexpr int CG = kBThreads / DG;
-  static constexpr int NC = kBT / CG;
-};
-
-// shared floats of both D-templated kernels: four [64][D + 1] tiles, two
-// [64][65] tiles, four [64] rows
-__host__ __device__ constexpr int bwd_smem_floats(int D) {
-  return 4 * kBT * (D + 1) + 2 * kBT * (kBT + 1) + 4 * kBT;
-}
 
 // Grid (ceil(B T Hq / 8)), 256 threads: one warp per (b, t, hq) row.
-__global__ void __launch_bounds__(kBThreads)
+__global__ void __launch_bounds__(kDeltaThreads)
 flash_bwd_delta_kernel(const float* __restrict__ out,
                        const float* __restrict__ dout,
                        float* __restrict__ delta, int n_rows, int T, int Hq,
                        int D) {
-  const int row = blockIdx.x * (kBThreads / 32) + (threadIdx.x >> 5);
+  const int row = blockIdx.x * (kDeltaThreads / 32) + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (row >= n_rows) return;   // a whole warp leaves together
   const float* o = out + static_cast<size_t>(row) * D;
@@ -1018,8 +1034,8 @@ flash_bwd_delta_kernel(const float* __restrict__ out,
   }
 }
 
-// Row r of a query tile that starts at group row R0: its offset into
-// q/out/dout (B, T, Hq, D) and into lse/delta (B, Hq, T), and its position.
+// Group row R of kv head (b, h): its offset into q/out/dout (B, T, Hq, D)
+// and into lse/delta (B, Hq, T), and its position (-1: absent, sees no key).
 struct RowRef {
   size_t qoff, loff;
   int pos;
@@ -1027,7 +1043,7 @@ struct RowRef {
 
 __device__ __forceinline__ RowRef row_ref(const BwdParams& p, int b, int h,
                                           int R, int D) {
-  RowRef ref{0, 0, -1};   // an absent row sees no key
+  RowRef ref{0, 0, -1};
   if (R < p.rows) {
     const int tq = R / p.G, hq = h * p.G + (R - tq * p.G);
     ref.qoff = ((static_cast<size_t>(b) * p.T + tq) * p.Hq + hq) * D;
@@ -1037,127 +1053,169 @@ __device__ __forceinline__ RowRef row_ref(const BwdParams& p, int b, int h,
   return ref;
 }
 
-// the tile's scaled q and dout rows, lse, D_i and positions
-template <int D>
-__device__ __forceinline__ void load_rows(const BwdParams& p, int b, int h,
-                                          int R0, float* qs, float* dos,
-                                          float* lse_s, float* del_s,
-                                          int* qpos_s) {
-  constexpr int LD = D + 1;
-  for (int e = threadIdx.x; e < kBT * D; e += kBThreads) {
-    const int r = e / D, d = e - r * D;
-    const RowRef ref = row_ref(p, b, h, R0 + r, D);
-    const bool ok = R0 + r < p.rows;
-    qs[r * LD + d] = ok ? p.q[ref.qoff + d] * p.scale : 0.f;
-    dos[r * LD + d] = ok ? p.dout[ref.qoff + d] : 0.f;
-  }
-  for (int r = threadIdx.x; r < kBT; r += kBThreads) {
-    const RowRef ref = row_ref(p, b, h, R0 + r, D);
-    const bool ok = R0 + r < p.rows;
-    lse_s[r] = ok ? p.lse[ref.loff] : 0.f;
-    del_s[r] = ok ? p.delta[ref.loff] : 0.f;
-    qpos_s[r] = ref.pos;
+// q/out/dout offset of group row R (-1 past the group's rows)
+__device__ __forceinline__ long long row_qoff(const BwdParams& p, int b,
+                                              int h, int R, int D) {
+  if (R >= p.rows) return -1;
+  const int tq = R / p.G, hq = h * p.G + (R - tq * p.G);
+  return ((static_cast<long long>(b) * p.T + tq) * p.Hq + hq) * D;
+}
+
+// cp.async of ROWS rows x D floats into a [ROWS][D + 4] tile: row r from
+// src + off(r), zeros where off(r) < 0. Threads first, first + step, ...
+template <int D, int ROWS, typename Off>
+__device__ __forceinline__ void tile_async(float* dst, const float* src,
+                                           Off off, int first, int step) {
+  constexpr int CH = D / 4, LD = D + 4;
+  for (int c = first; c < ROWS * CH; c += step) {
+    const int r = c / CH, part = c - r * CH;
+    const long long o = off(r);
+    cp_async16(dst + r * LD + part * 4, src + (o >= 0 ? o + part * 4 : 0),
+               o >= 0 ? 16 : 0);
   }
 }
 
-// the key tile's K and V rows (zeros past S)
-template <int D>
-__device__ __forceinline__ void load_keys(const BwdParams& p, int b, int h,
-                                          int s0, float* ks, float* vs) {
-  constexpr int LD = D + 1;
-  for (int e = threadIdx.x; e < kBT * D; e += kBThreads) {
-    const int c = e / D, d = e - c * D;
-    const int s = s0 + c;
-    const size_t off = ((static_cast<size_t>(b) * p.S + s) * p.Hkv + h) * D + d;
-    ks[c * LD + d] = s < p.S ? p.k[off] : 0.f;
-    vs[c * LD + d] = s < p.S ? p.v[off] : 0.f;
-  }
-}
-
-// p and ds of this thread's 4 x 4 (row, key) pairs: rows ty + 16 i, keys
-// tx + 16 j; written to ps (if not null) and dss, [64][65].
-template <int D>
-__device__ __forceinline__ void scores(const BwdParams& p, const float* qs,
-                                       const float* dos, const float* ks,
-                                       const float* vs, const float* lse_s,
-                                       const float* del_s, const int* qpos_s,
-                                       const int* kpos_s, float* ps,
-                                       float* dss) {
-  constexpr int LD = D + 1;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  float sc[4][4], dp[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) sc[i][j] = dp[i][j] = 0.f;
-#pragma unroll 8
-  for (int d = 0; d < D; ++d) {
-    float a[4], o[4], kk[4], vv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      a[i] = qs[(ty + 16 * i) * LD + d];
-      o[i] = dos[(ty + 16 * i) * LD + d];
-      kk[i] = ks[(tx + 16 * i) * LD + d];
-      vv[i] = vs[(tx + 16 * i) * LD + d];
+// Compacts the streamed tiles whose flag `live[i]` is set (i < n) in place,
+// in tile order, by warp 0; returns their count to every thread.
+__device__ __forceinline__ int compact(int* live, int n, int* s_count) {
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    int count = 0;
+    for (int base = 0; base < n; base += 32) {
+      const int i = base + lane;
+      const bool f = i < n && live[i];
+      const unsigned bal = __ballot_sync(0xffffffffu, f);
+      if (f) live[count + __popc(bal & ((1u << lane) - 1u))] = i;
+      count += __popc(bal);
     }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        sc[i][j] = fmaf(a[i], kk[j], sc[i][j]);
-        dp[i][j] = fmaf(o[i], vv[j], dp[i][j]);
-      }
+    if (lane == 0) *s_count = count;
   }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
-    const int qp = qpos_s[r];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = tx + 16 * j;
-      const int kp = kpos_s[c];
-      bool ok = kp >= 0 && kp <= qp;
-      if (p.window > 0) ok = ok && qp - kp < p.window;
-      float s = sc[i][j], dcap = 1.f;
-      if (p.softcap > 0.f) {
-        const float th = tanhf(s / p.softcap);
-        s = p.softcap * th;
-        dcap = 1.f - th * th;
-      }
-      const float pe = ok ? expf(s - lse_s[r]) : 0.f;
-      if (ps != nullptr) ps[r * (kBT + 1) + c] = pe;
-      dss[r * (kBT + 1) + c] = pe * (dp[i][j] - del_s[r]) * dcap;
-    }
-  }
+  __syncthreads();
+  return *s_count;
 }
 
-// Grid (ceil(S / 64), B * Hkv), 256 threads.
-template <int D>
-__global__ void __launch_bounds__(kBThreads, 2)
-flash_bwd_dkdv_kernel(const BwdParams p) {
-  using Map = BwdMap<D>;
-  constexpr int LD = D + 1;
-  extern __shared__ __align__(16) float smem[];
-  float* ks = smem;
-  float* vs = ks + kBT * LD;
-  float* qs = vs + kBT * LD;
-  float* dos = qs + kBT * LD;
-  float* ps = dos + kBT * LD;
-  float* dss = ps + kBT * (kBT + 1);
-  float* lse_s = dss + kBT * (kBT + 1);
-  float* del_s = lse_s + kBT;
-  int* qpos_s = reinterpret_cast<int*>(del_s + kBT);
-  int* kpos_s = qpos_s + kBT;
-  __shared__ int s_kmin, s_kmax;
+// The split of a stationary tile's `count` live streamed tiles over
+// ceil(count / per) blocks: this block's [i0, i1); false when it has none
+// (a tile with no live tile has one split, which writes zeros).
+__device__ __forceinline__ bool my_range(int count, int per, int rank,
+                                         int& splits, int& i0, int& i1) {
+  splits = count > per ? (count + per - 1) / per : 1;
+  if (rank >= splits) return false;
+  i0 = static_cast<int>(static_cast<long long>(count) * rank / splits);
+  i1 = static_cast<int>(static_cast<long long>(count) * (rank + 1) / splits);
+  return true;
+}
 
+// A split tile: every block stores its fragments `acc` at its rank; the one
+// that draws the last ticket sums all splits in rank order into `acc` and
+// returns true (the others return false). As the crossbar kernels' split.
+template <int NF>
+__device__ __forceinline__ bool sum_splits(float (&acc)[NF], float* parts,
+                                           int* ticket, int splits, int rank,
+                                           bool* s_last) {
+  static_assert(NF % 4 == 0, "fragments go as float4s");
+  constexpr int NQ = NF / 4;
+  float4* frags = reinterpret_cast<float4*>(parts);
   const int tid = threadIdx.x;
-  const int s0 = blockIdx.x * kBT;
-  const int bh = blockIdx.y, b = bh / p.Hkv, h = bh - b * p.Hkv;
+#pragma unroll
+  for (int i = 0; i < NQ; ++i)
+    frags[(rank * kBThreads + tid) * NQ + i] =
+        make_float4(acc[4 * i], acc[4 * i + 1], acc[4 * i + 2],
+                    acc[4 * i + 3]);
+  __syncthreads();
+  if (tid == 0) *s_last = draw_ticket(ticket) == splits - 1;
+  __syncthreads();
+  if (!*s_last) return false;
+#pragma unroll
+  for (int i = 0; i < NF; ++i) acc[i] = 0.f;
+  for (int q = 0; q < splits; ++q) {
+    float4 v[NQ];
+#pragma unroll
+    for (int i = 0; i < NQ; ++i)   // L2 (__ldcg: L1 is not coherent)
+      v[i] = __ldcg(frags + (q * kBThreads + tid) * NQ + i);
+#pragma unroll
+    for (int i = 0; i < NQ; ++i) {
+      acc[4 * i] += v[i].x;
+      acc[4 * i + 1] += v[i].y;
+      acc[4 * i + 2] += v[i].z;
+      acc[4 * i + 3] += v[i].w;
+    }
+  }
+  if (tid == 0) *ticket = 0;   // ready for the next call
+  return true;
+}
+
+// p = exp(cap(s) - lse) under the mask and ds = p (dp - D_i) cap'(s), in
+// place of s and dp
+__device__ __forceinline__ void p_and_ds(const BwdParams& p, int qp, int kp,
+                                         float lse, float di, float& s,
+                                         float& dp) {
+  bool ok = kp >= 0 && kp <= qp;
+  if (p.window > 0) ok = ok && qp - kp < p.window;
+  float x = s, dcap = 1.f;
+  if (p.softcap > 0.f) {
+    const float th = tanhf(x / p.softcap);
+    x = p.softcap * th;
+    dcap = 1.f - th * th;
+  }
+  const float pe = ok ? expf(x - lse) : 0.f;
+  s = pe;
+  dp = pe * (dp - di) * dcap;
+}
+
+// Floats of one streamed stage: dk/dv streams q and dout rows with their
+// lse, D_i and positions; dq streams K and V rows with their positions.
+template <int D>
+__host__ __device__ constexpr int dkdv_stage_floats() {
+  return 2 * kBS * (D + 4) + 3 * kBS;
+}
+template <int D>
+__host__ __device__ constexpr int dq_stage_floats() {
+  return 2 * kBS * (D + 4) + kBS;
+}
+
+// Grid (splits, B * Hkv, key tiles), kBThreads threads: key tile
+// blockIdx.z, so that causal key tile 0 (the one every row sees) starts
+// first. Warp w owns keys 16 w .. 16 w + 15 of the tile. Per query tile
+// (kBS group rows): S^T = (K D^-1/2) Q^T and dP^T = V dO^T with keys as
+// the mma rows (8-row n-steps, d the reduction), then p and ds in the
+// accumulators, whose layout is the A operand of dV += P^T dO and
+// dK += dS^T q (the rows of a k8 step permuted: logical k t is row 2t,
+// k t + 4 row 2t + 1); dK takes its D^-1/2 at the end.
+template <int D>
+__global__ void __launch_bounds__(kBThreads, kBMinBlocks)
+flash_bwd_dkdv_kernel(const BwdParams p) {
+  constexpr int LD = D + 4, KS = D / 8, NR = kBS / 8;
+  constexpr int kStageF = dkdv_stage_floats<D>();
+  extern __shared__ __align__(16) float smem[];
+  float* ks = smem;                   // K [64][LD]
+  float* vs = ks + kBT * LD;          // V [64][LD]
+  float* ring = vs + kBT * LD;        // 2 stages: q, dout, lse, D_i, q_pos
+  int* live = reinterpret_cast<int*>(ring + 2 * kStageF);   // [n_str]
+  __shared__ int kpos_s[kBT], s_kmin, s_kmax, s_count;
+  __shared__ bool s_last;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int rank = blockIdx.x, bh = blockIdx.y, kt = blockIdx.z;
+  const int b = bh / p.Hkv, h = bh - b * p.Hkv;
+  const int s0 = kt * kBT;
+
+  // this tile's K and V (zeros past S) land while the row tiles are listed
+  auto key_off = [&](int r) -> long long {
+    const int s = s0 + r;
+    return s < p.S ? ((static_cast<long long>(b) * p.S + s) * p.Hkv + h) * D
+                   : -1;
+  };
+  tile_async<D, kBT>(ks, p.k, key_off, tid, kBThreads);
+  tile_async<D, kBT>(vs, p.v, key_off, tid, kBThreads);
+  cp_async_commit();
+
   if (tid == 0) {
     s_kmin = INT_MAX;
     s_kmax = INT_MIN;
   }
-  load_keys<D>(p, b, h, s0, ks, vs);
   __syncthreads();
   if (tid < kBT) {
     const int s = s0 + tid;
@@ -1170,196 +1228,493 @@ flash_bwd_dkdv_kernel(const BwdParams p) {
   }
   __syncthreads();
   const int kmin = s_kmin, kmax = s_kmax;
-
-  const int dg = tid % Map::DG, cg = tid / Map::DG;
-  float dk[Map::NC][Map::NDT], dv[Map::NC][Map::NDT];
-#pragma unroll
-  for (int j = 0; j < Map::NC; ++j)
-#pragma unroll
-    for (int i = 0; i < Map::NDT; ++i) dk[j][i] = dv[j][i] = 0.f;
-
-  for (int R0 = 0; R0 < p.rows; R0 += kBT) {
-    // skip a query tile that no key of this block can see
-    bool may = false;
-    if (tid < kBT) {
-      const int pos = row_ref(p, b, h, R0 + tid, D).pos;
-      may = pos >= 0 && pos >= kmin &&
-            (p.window <= 0 ||
-             static_cast<long long>(pos) - p.window < kmax);
+  const int kw = 16 * warp;   // this warp's keys: kw .. kw + 15
+  const int kp[2] = {kpos_s[kw + g], kpos_s[kw + g + 8]};
+  // the query tiles holding a row that may see a key of this tile
+  for (int i = tid; i < p.n_str; i += kBThreads) {
+    const int t0 = i * kBS / p.G;
+    const int t1 = (min((i + 1) * kBS, p.rows) - 1) / p.G;
+    bool any = false;
+    for (int tq = t0; tq <= t1; ++tq) {
+      const int pos = p.q_pos[static_cast<size_t>(b) * p.T + tq];
+      any |= pos >= 0 && pos >= kmin &&
+             (p.window <= 0 || static_cast<long long>(pos) - p.window < kmax);
     }
-    if (!__syncthreads_or(may)) continue;
-    load_rows<D>(p, b, h, R0, qs, dos, lse_s, del_s, qpos_s);
-    __syncthreads();
-    scores<D>(p, qs, dos, ks, vs, lse_s, del_s, qpos_s, kpos_s, ps, dss);
-    __syncthreads();
-#pragma unroll 4
-    for (int r = 0; r < kBT; ++r) {
-      float o[Map::NDT], a[Map::NDT];
-#pragma unroll
-      for (int i = 0; i < Map::NDT; ++i) {
-        o[i] = dos[r * LD + dg + Map::DG * i];
-        a[i] = qs[r * LD + dg + Map::DG * i];
-      }
-#pragma unroll
-      for (int j = 0; j < Map::NC; ++j) {
-        const int c = cg + Map::CG * j;
-        const float pe = ps[r * (kBT + 1) + c];
-        const float ds = dss[r * (kBT + 1) + c];
-#pragma unroll
-        for (int i = 0; i < Map::NDT; ++i) {
-          dv[j][i] = fmaf(pe, o[i], dv[j][i]);
-          dk[j][i] = fmaf(ds, a[i], dk[j][i]);
-        }
-      }
-    }
+    live[i] = any;
+  }
+  const int count = compact(live, p.n_str, &s_count);
+  int splits, i0, i1;
+  if (!my_range(count, p.per, rank, splits, i0, i1)) {
+    cp_async_wait<0>();
+    return;
   }
 
+  auto issue = [&](int tile, int st) {
+    float* qs = ring + st * kStageF;
+    float* dos = qs + kBS * LD;
+    float* lse_s = dos + kBS * LD;
+    float* del_s = lse_s + kBS;
+    int* qpos_s = reinterpret_cast<int*>(del_s + kBS);
+    const int R0 = tile * kBS;
+    auto row_off = [&](int r) { return row_qoff(p, b, h, R0 + r, D); };
+    tile_async<D, kBS>(qs, p.q, row_off, tid, kBThreads);
+    tile_async<D, kBS>(dos, p.dout, row_off, tid, kBThreads);
+    for (int r = tid; r < kBS; r += kBThreads) {
+      const RowRef ref = row_ref(p, b, h, R0 + r, D);
+      if (R0 + r < p.rows) {
+        cp_async4(lse_s + r, p.lse + ref.loff);
+        cp_async4(del_s + r, p.delta + ref.loff);
+      } else {
+        lse_s[r] = 0.f;
+        del_s[r] = 0.f;
+      }
+      qpos_s[r] = ref.pos;
+    }
+  };
+
+  if (i0 < i1) issue(live[i0], 0);
+  cp_async_commit();
+
+  float dkv[2][KS][4];   // [0]: dK, [1]: dV; (key g (+8), d 8j + 2t (+1))
 #pragma unroll
-  for (int j = 0; j < Map::NC; ++j) {
-    const int s = s0 + cg + Map::CG * j;
+  for (int a = 0; a < 2; ++a)
+#pragma unroll
+    for (int j = 0; j < KS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dkv[a][j][e] = 0.f;
+
+  for (int i = i0; i < i1; ++i) {
+    const int st = (i - i0) & 1;
+    if (i + 1 < i1) issue(live[i + 1], st ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();   // K, V and query tile i have landed for every thread
+    const float* qs = ring + st * kStageF;
+    const float* dos = qs + kBS * LD;
+    const float* lse_s = dos + kBS * LD;
+    const float* del_s = lse_s + kBS;
+    const int* qpos_s = reinterpret_cast<const int*>(del_s + kBS);
+
+    float sT[NR][4], dpT[NR][4];   // (key g (+8), row 8n + 2t (+1))
+#pragma unroll
+    for (int n = 0; n < NR; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sT[n][e] = dpT[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t kb[4], ksm[4], vb[4], vsm[4];
+      const float* ka = ks + (kw + g) * LD + 8 * kk + t;
+      const float* va = vs + (kw + g) * LD + 8 * kk + t;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {   // (g, t), (g + 8, t), (g, t + 4), ...
+        const int o = (e & 1) * 8 * LD + (e >> 1) * 4;
+        split_tf32(ka[o] * p.scale, kb[e], ksm[e]);
+        split_tf32(va[o], vb[e], vsm[e]);
+      }
+#pragma unroll
+      for (int n = 0; n < NR; ++n) {
+        const float* qr = qs + (8 * n + g) * LD + 8 * kk + t;
+        const float* dr = dos + (8 * n + g) * LD + 8 * kk + t;
+        uint32_t bb0, bs0, bb1, bs1;
+        split_tf32(qr[0], bb0, bs0);
+        split_tf32(qr[4], bb1, bs1);
+        mma3(sT[n], kb, ksm, bb0, bb1, bs0, bs1);
+        split_tf32(dr[0], bb0, bs0);
+        split_tf32(dr[4], bb1, bs1);
+        mma3(dpT[n], vb, vsm, bb0, bb1, bs0, bs1);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < NR; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int rl = 8 * n + 2 * t + (e & 1);
+        p_and_ds(p, qpos_s[rl], kp[e >> 1], lse_s[rl], del_s[rl], sT[n][e],
+                 dpT[n][e]);
+      }
+    // dV += P^T dO and dK += dS^T q, 8 query rows a k step
+#pragma unroll
+    for (int kk = 0; kk < NR; ++kk) {
+      uint32_t pb[4], ps[4], db[4], dsm[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {   // (g, 2t), (g + 8, 2t), (g, 2t + 1), ..
+        const int f = (e >> 1) | ((e & 1) << 1);
+        split_tf32(sT[kk][f], pb[e], ps[e]);
+        split_tf32(dpT[kk][f], db[e], dsm[e]);
+      }
+      const float* o0 = dos + (8 * kk + 2 * t) * LD + g;
+      const float* q0 = qs + (8 * kk + 2 * t) * LD + g;
+#pragma unroll
+      for (int j = 0; j < KS; ++j) {
+        uint32_t bb0, bs0, bb1, bs1;
+        split_tf32(o0[8 * j], bb0, bs0);
+        split_tf32(o0[LD + 8 * j], bb1, bs1);
+        mma3(dkv[1][j], pb, ps, bb0, bb1, bs0, bs1);
+        split_tf32(q0[8 * j], bb0, bs0);
+        split_tf32(q0[LD + 8 * j], bb1, bs1);
+        mma3(dkv[0][j], db, dsm, bb0, bb1, bs0, bs1);
+      }
+    }
+    __syncthreads();   // every warp is done with this stage
+  }
+  cp_async_wait<0>();
+
+  if (splits > 1) {
+    const size_t tile = static_cast<size_t>(bh) * p.n_stat + kt;
+    float flat[8 * KS];
+#pragma unroll
+    for (int i = 0; i < 8 * KS; ++i)
+      flat[i] = dkv[i / (4 * KS)][(i / 4) % KS][i % 4];
+    if (!sum_splits(flat, p.partials + tile * gridDim.x * kBThreads * (8 * KS),
+                    p.tickets + tile, splits, rank, &s_last))
+      return;
+#pragma unroll
+    for (int i = 0; i < 8 * KS; ++i)
+      dkv[i / (4 * KS)][(i / 4) % KS][i % 4] = flat[i];
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int s = s0 + kw + g + 8 * r;
     if (s >= p.S) continue;
     const size_t off = ((static_cast<size_t>(b) * p.S + s) * p.Hkv + h) * D;
 #pragma unroll
-    for (int i = 0; i < Map::NDT; ++i) {
-      p.dk[off + dg + Map::DG * i] = dk[j][i];
-      p.dv[off + dg + Map::DG * i] = dv[j][i];
+    for (int j = 0; j < KS; ++j) {
+      *reinterpret_cast<float2*>(p.dk + off + 8 * j + 2 * t) = make_float2(
+          dkv[0][j][2 * r] * p.scale, dkv[0][j][2 * r + 1] * p.scale);
+      *reinterpret_cast<float2*>(p.dv + off + 8 * j + 2 * t) =
+          make_float2(dkv[1][j][2 * r], dkv[1][j][2 * r + 1]);
     }
   }
 }
 
-// Grid (ceil(rows / 64), B * Hkv), 256 threads.
+// Grid (splits, B * Hkv, row tiles), kBThreads threads: row tile
+// n_stat - 1 - blockIdx.z, so that the causal row tiles that see the most
+// keys start first. Warp w owns group rows 16 w .. 16 w + 15 of the tile.
+// Per key tile (kBS keys): S = (q D^-1/2) K^T and dP = dO V^T (rows as the
+// mma rows), then ds in the accumulators, the A operand of dQ += dS K
+// (keys of a k8 step permuted as in dk/dv).
 template <int D>
-__global__ void __launch_bounds__(kBThreads, 2)
+__global__ void __launch_bounds__(kBThreads, kBMinBlocks)
 flash_bwd_dq_kernel(const BwdParams p) {
-  using Map = BwdMap<D>;
-  constexpr int LD = D + 1;
+  constexpr int LD = D + 4, KS = D / 8, NK = kBS / 8;
+  constexpr int kStageF = dq_stage_floats<D>();
   extern __shared__ __align__(16) float smem[];
-  float* ks = smem;
-  float* vs = ks + kBT * LD;
-  float* qs = vs + kBT * LD;
-  float* dos = qs + kBT * LD;
-  float* dss = dos + kBT * LD;
-  float* lse_s = dss + 2 * kBT * (kBT + 1);
-  float* del_s = lse_s + kBT;
-  int* qpos_s = reinterpret_cast<int*>(del_s + kBT);
-  int* kpos_s = qpos_s + kBT;
-  __shared__ int s_qmin, s_qmax;
+  float* qs = smem;                   // q [64][LD]
+  float* dos = qs + kBT * LD;         // dout [64][LD]
+  float* ring = dos + kBT * LD;       // 2 stages: K, V, kv_pos
+  int* live = reinterpret_cast<int*>(ring + 2 * kStageF);   // [n_str]
+  __shared__ int s_qmin, s_qmax, s_count;
+  __shared__ bool s_last;
 
-  const int tid = threadIdx.x;
-  const int R0 = blockIdx.x * kBT;
-  const int bh = blockIdx.y, b = bh / p.Hkv, h = bh - b * p.Hkv;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int rank = blockIdx.x, bh = blockIdx.y;
+  const int rt = p.n_stat - 1 - static_cast<int>(blockIdx.z);
+  const int b = bh / p.Hkv, h = bh - b * p.Hkv;
+  const int R0 = rt * kBT;
+
+  auto row_off = [&](int r) { return row_qoff(p, b, h, R0 + r, D); };
+  tile_async<D, kBT>(qs, p.q, row_off, tid, kBThreads);
+  tile_async<D, kBT>(dos, p.dout, row_off, tid, kBThreads);
+  cp_async_commit();
+
+  // this thread's rows g and g + 8 of its warp
+  const int rw = 16 * warp;
+  RowRef ref[2];
+  float lse_r[2], del_r[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    ref[r] = row_ref(p, b, h, R0 + rw + g + 8 * r, D);
+    const bool ok = R0 + rw + g + 8 * r < p.rows;
+    lse_r[r] = ok ? p.lse[ref[r].loff] : 0.f;
+    del_r[r] = ok ? p.delta[ref[r].loff] : 0.f;
+  }
   if (tid == 0) {
     s_qmin = INT_MAX;
     s_qmax = INT_MIN;
   }
-  load_rows<D>(p, b, h, R0, qs, dos, lse_s, del_s, qpos_s);
   __syncthreads();
-  if (tid < kBT && qpos_s[tid] >= 0) {
-    atomicMin(&s_qmin, qpos_s[tid]);
-    atomicMax(&s_qmax, qpos_s[tid]);
+  if (tid < kBT) {
+    const int pos = row_ref(p, b, h, R0 + tid, D).pos;
+    if (pos >= 0) {
+      atomicMin(&s_qmin, pos);
+      atomicMax(&s_qmax, pos);
+    }
   }
   __syncthreads();
   const int qmin = s_qmin, qmax = s_qmax;
-
-  const int dg = tid % Map::DG, rg = tid / Map::DG;
-  float dq[Map::NC][Map::NDT];
-#pragma unroll
-  for (int j = 0; j < Map::NC; ++j)
-#pragma unroll
-    for (int i = 0; i < Map::NDT; ++i) dq[j][i] = 0.f;
-
-  for (int s0 = 0; s0 < p.S; s0 += kBT) {
-    // skip a key tile that no row of this block can see
-    bool may = false;
-    if (tid < kBT) {
-      const int s = s0 + tid;
-      const int kp = s < p.S ? p.kv_pos[static_cast<size_t>(b) * p.S + s] : -1;
-      kpos_s[tid] = kp;
-      may = kp >= 0 && kp <= qmax &&
-            (p.window <= 0 || static_cast<long long>(kp) >
-                                  static_cast<long long>(qmin) - p.window);
+  // the key tiles holding a key that some row of this tile may see
+  for (int i = tid; i < p.n_str; i += kBThreads) {
+    const int n = min(kBS, p.S - i * kBS);
+    const int* kp = p.kv_pos + static_cast<size_t>(b) * p.S + i * kBS;
+    bool any = false;
+#pragma unroll 8
+    for (int j = 0; j < n; ++j) {
+      const int pos = kp[j];
+      any |= pos >= 0 && pos <= qmax &&
+             (p.window <= 0 || static_cast<long long>(pos) >
+                                   static_cast<long long>(qmin) - p.window);
     }
-    if (!__syncthreads_or(may)) continue;
-    load_keys<D>(p, b, h, s0, ks, vs);
-    __syncthreads();
-    scores<D>(p, qs, dos, ks, vs, lse_s, del_s, qpos_s, kpos_s, nullptr,
-              dss);
-    __syncthreads();
-#pragma unroll 4
-    for (int c = 0; c < kBT; ++c) {
-      float kk[Map::NDT];
-#pragma unroll
-      for (int i = 0; i < Map::NDT; ++i) kk[i] = ks[c * LD + dg + Map::DG * i];
-#pragma unroll
-      for (int j = 0; j < Map::NC; ++j) {
-        const float ds = dss[(rg + Map::CG * j) * (kBT + 1) + c];
-#pragma unroll
-        for (int i = 0; i < Map::NDT; ++i) dq[j][i] = fmaf(ds, kk[i], dq[j][i]);
-      }
-    }
+    live[i] = any;
+  }
+  const int count = compact(live, p.n_str, &s_count);
+  int splits, i0, i1;
+  if (!my_range(count, p.per, rank, splits, i0, i1)) {
+    cp_async_wait<0>();
+    return;
   }
 
+  auto issue = [&](int tile, int st) {
+    float* kst = ring + st * kStageF;
+    float* vst = kst + kBS * LD;
+    int* kpos_s = reinterpret_cast<int*>(vst + kBS * LD);
+    const int s0 = tile * kBS;
+    auto key_off = [&](int r) -> long long {
+      const int s = s0 + r;
+      return s < p.S
+                 ? ((static_cast<long long>(b) * p.S + s) * p.Hkv + h) * D
+                 : -1;
+    };
+    tile_async<D, kBS>(kst, p.k, key_off, tid, kBThreads);
+    tile_async<D, kBS>(vst, p.v, key_off, tid, kBThreads);
+    for (int r = tid; r < kBS; r += kBThreads) {
+      if (s0 + r < p.S)
+        cp_async4(kpos_s + r,
+                  p.kv_pos + static_cast<size_t>(b) * p.S + s0 + r);
+      else
+        kpos_s[r] = -1;
+    }
+  };
+
+  if (i0 < i1) issue(live[i0], 0);
+  cp_async_commit();
+
+  float dq[KS][4];   // (row g (+8), d 8j + 2t (+1))
 #pragma unroll
-  for (int j = 0; j < Map::NC; ++j) {
-    const int R = R0 + rg + Map::CG * j;
-    if (R >= p.rows) continue;
-    const RowRef ref = row_ref(p, b, h, R, D);
+  for (int j = 0; j < KS; ++j)
 #pragma unroll
-    for (int i = 0; i < Map::NDT; ++i)
-      p.dq[ref.qoff + dg + Map::DG * i] = dq[j][i] * p.scale;
+    for (int e = 0; e < 4; ++e) dq[j][e] = 0.f;
+
+  for (int i = i0; i < i1; ++i) {
+    const int st = (i - i0) & 1;
+    if (i + 1 < i1) issue(live[i + 1], st ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();   // q, dout and key tile i have landed
+    const float* kst = ring + st * kStageF;
+    const float* vst = kst + kBS * LD;
+    const int* kpos_s = reinterpret_cast<const int*>(vst + kBS * LD);
+
+    float sc[NK][4], dp[NK][4];   // (row g (+8), key 8n + 2t (+1))
+#pragma unroll
+    for (int n = 0; n < NK; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t qb[4], qsm[4], ob[4], osm[4];
+      const float* qa = qs + (rw + g) * LD + 8 * kk + t;
+      const float* oa = dos + (rw + g) * LD + 8 * kk + t;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int o = (e & 1) * 8 * LD + (e >> 1) * 4;
+        split_tf32(qa[o] * p.scale, qb[e], qsm[e]);
+        split_tf32(oa[o], ob[e], osm[e]);
+      }
+#pragma unroll
+      for (int n = 0; n < NK; ++n) {
+        const float* kr = kst + (8 * n + g) * LD + 8 * kk + t;
+        const float* vr = vst + (8 * n + g) * LD + 8 * kk + t;
+        uint32_t bb0, bs0, bb1, bs1;
+        split_tf32(kr[0], bb0, bs0);
+        split_tf32(kr[4], bb1, bs1);
+        mma3(sc[n], qb, qsm, bb0, bb1, bs0, bs1);
+        split_tf32(vr[0], bb0, bs0);
+        split_tf32(vr[4], bb1, bs1);
+        mma3(dp[n], ob, osm, bb0, bb1, bs0, bs1);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < NK; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        p_and_ds(p, ref[e >> 1].pos, kpos_s[8 * n + 2 * t + (e & 1)],
+                 lse_r[e >> 1], del_r[e >> 1], sc[n][e], dp[n][e]);
+    // dQ += dS K, 8 keys a k step
+#pragma unroll
+    for (int n = 0; n < NK; ++n) {
+      uint32_t db[4], dsm[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        split_tf32(dp[n][(e >> 1) | ((e & 1) << 1)], db[e], dsm[e]);
+      const float* k0 = kst + (8 * n + 2 * t) * LD + g;
+#pragma unroll
+      for (int j = 0; j < KS; ++j) {
+        uint32_t bb0, bs0, bb1, bs1;
+        split_tf32(k0[8 * j], bb0, bs0);
+        split_tf32(k0[LD + 8 * j], bb1, bs1);
+        mma3(dq[j], db, dsm, bb0, bb1, bs0, bs1);
+      }
+    }
+    __syncthreads();   // every warp is done with this stage
+  }
+  cp_async_wait<0>();
+
+  if (splits > 1) {
+    const size_t tile = static_cast<size_t>(bh) * p.n_stat + rt;
+    float flat[4 * KS];
+#pragma unroll
+    for (int i = 0; i < 4 * KS; ++i) flat[i] = dq[i / 4][i % 4];
+    if (!sum_splits(flat, p.partials + tile * gridDim.x * kBThreads * (4 * KS),
+                    p.tickets + tile, splits, rank, &s_last))
+      return;
+#pragma unroll
+    for (int i = 0; i < 4 * KS; ++i) dq[i / 4][i % 4] = flat[i];
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (R0 + rw + g + 8 * r >= p.rows) continue;
+#pragma unroll
+    for (int j = 0; j < KS; ++j)
+      *reinterpret_cast<float2*>(p.dq + ref[r].qoff + 8 * j + 2 * t) =
+          make_float2(dq[j][2 * r] * p.scale, dq[j][2 * r + 1] * p.scale);
   }
 }
 
+// How one pass of a backward call is cut: its stationary and streamed
+// tiles, the streamed tiles a block takes at most, and the most splits of
+// a stationary tile.
+struct BwdPass {
+  int n_stat, n_str, per, splits;
+};
+
+// A block takes at most `per` streamed tiles, so that the blocks of a
+// causal call (about half of the tile pairs live) come to about
+// kBWaves for every SM: the longest lists (key tile 0, the last
+// row tiles) are cut to the size of the rest, and the blocks fill the card
+// in about equal waves.
+BwdPass bwd_pass(long long bh, int n_stat, int n_str) {
+  BwdPass ps{n_stat, n_str, 1, 1};
+  long long pairs = bh * n_stat * n_str / 2;
+  pairs = pairs > 0 ? pairs : 1;
+  const long long want = static_cast<long long>(kBWaves) * sm_count();
+  const long long per = (pairs + want - 1) / want;
+  ps.per = static_cast<int>(per < n_str ? per : n_str);
+  ps.splits = (n_str + ps.per - 1) / ps.per;
+  return ps;
+}
+
+struct BwdPlan {
+  BwdPass kv, q;               // the dk/dv pass and the dq pass
+  size_t partials, tickets;    // the workspace both need (one after another)
+};
+
+BwdPlan bwd_plan(int B, int T, int Hq, int Hkv, int S, int D) {
+  const long long bh = static_cast<long long>(B) * Hkv;
+  const long long rows = static_cast<long long>(T) * (Hq / Hkv);
+  BwdPlan pl;
+  pl.kv = bwd_pass(bh, static_cast<int>((S + kBT - 1) / kBT),
+                   static_cast<int>((rows + kBS - 1) / kBS));
+  pl.q = bwd_pass(bh, static_cast<int>((rows + kBT - 1) / kBT),
+                  static_cast<int>((S + kBS - 1) / kBS));
+  // dk/dv fragments: D floats a thread; dq: D / 2
+  const size_t kv = pl.kv.splits > 1 ? static_cast<size_t>(bh) * pl.kv.n_stat *
+                                           pl.kv.splits * kBThreads * D
+                                     : 0;
+  const size_t q = pl.q.splits > 1 ? static_cast<size_t>(bh) * pl.q.n_stat *
+                                         pl.q.splits * kBThreads * (D / 2)
+                                   : 0;
+  pl.partials = kv > q ? kv : q;
+  const size_t tk = pl.kv.splits > 1 ? static_cast<size_t>(bh) * pl.kv.n_stat
+                                     : 0;
+  const size_t tq = pl.q.splits > 1 ? static_cast<size_t>(bh) * pl.q.n_stat
+                                    : 0;
+  pl.tickets = tk > tq ? tk : tq;
+  return pl;
+}
+
 template <int D>
-int launch_bwd(const BwdParams& p, int B, cudaStream_t stream) {
-  static size_t raised[64] = {};
+int launch_bwd(BwdParams p, int B, const BwdPlan& pl, cudaStream_t stream) {
+  static bool raised[64] = {};
   int dev = 0;
   if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64)
     return static_cast<int>(cudaErrorInvalidDevice);
-  const size_t smem = static_cast<size_t>(bwd_smem_floats(D)) * 4;
-  if (smem > raised[dev]) {
+  const size_t smem_kv =
+      (2 * kBT * (D + 4) + 2 * dkdv_stage_floats<D>() + pl.kv.n_str) * 4;
+  const size_t smem_q =
+      (2 * kBT * (D + 4) + 2 * dq_stage_floats<D>() + pl.q.n_str) * 4;
+  if (smem_kv > kSmemMax || smem_q > kSmemMax)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (!raised[dev]) {   // allow the most; each launch asks for what it needs
     cudaError_t e = cudaFuncSetAttribute(
         flash_bwd_dkdv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        static_cast<int>(kSmemMax));
     if (e == cudaSuccess)
       e = cudaFuncSetAttribute(flash_bwd_dq_kernel<D>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
+                               static_cast<int>(kSmemMax));
     if (e != cudaSuccess) return static_cast<int>(e);
-    raised[dev] = smem;
+    raised[dev] = true;
   }
   const unsigned bhkv = static_cast<unsigned>(B * p.Hkv);
+  p.n_stat = pl.kv.n_stat;
+  p.n_str = pl.kv.n_str;
+  p.per = pl.kv.per;
   flash_bwd_dkdv_kernel<D>
-      <<<dim3((p.S + kBT - 1) / kBT, bhkv), kBThreads, smem, stream>>>(p);
+      <<<dim3(pl.kv.splits, bhkv, pl.kv.n_stat), kBThreads, smem_kv,
+         stream>>>(p);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
+  p.n_stat = pl.q.n_stat;
+  p.n_str = pl.q.n_str;
+  p.per = pl.q.per;
   flash_bwd_dq_kernel<D>
-      <<<dim3((p.rows + kBT - 1) / kBT, bhkv), kBThreads, smem, stream>>>(p);
+      <<<dim3(pl.q.splits, bhkv, pl.q.n_stat), kBThreads, smem_q, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// The split workspace that flash_attention_bwd needs for these shapes:
+// returns the f32 partials and sets *tickets to the ticket ints (both 0
+// when no tile is split). As flash_attention_workspace: the caller zeroes
+// the tickets once, and every call leaves them at 0.
+extern "C" size_t flash_attention_bwd_workspace(int B, int T, int Hq,
+                                                int Hkv, int S, int D,
+                                                size_t* tickets) {
+  *tickets = 0;
+  if (!shapes_ok(B, T, Hq, Hkv, S, D) || S <= 0) return 0;
+  const BwdPlan pl = bwd_plan(B, T, Hq, Hkv, S, D);
+  *tickets = pl.tickets;
+  return pl.partials;
+}
+
 // The backward of flash_attention (contiguous layout): dq (B, T, Hq, D),
 // dk and dv (B, S, Hkv, D), f32, from q, k, v, q_pos, kv_pos (as the
 // forward), its out and lse, and dout (B, T, Hq, D). `delta` is scratch of
-// B * Hq * T floats that the caller owns. Three launches on `stream`
-// (D_i, then dk/dv, then dq); returns cudaGetLastError() after the last
-// (cudaErrorInvalidValue for shapes the kernels do not take). Allocates
-// nothing, does not synchronise. window <= 0: no window; softcap <= 0:
-// none.
+// B * Hq * T floats that the caller owns, and the split workspace is
+// flash_attention_bwd_workspace's. Three launches on `stream` (D_i, then
+// dk/dv, then dq); returns cudaGetLastError() after the last
+// (cudaErrorInvalidValue for shapes the kernels do not take or a smaller
+// workspace). Allocates nothing, does not synchronise. window <= 0: no
+// window; softcap <= 0: none.
 extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    const void* v, const void* q_pos,
                                    const void* kv_pos, const void* out,
                                    const void* dout, const void* lse,
                                    void* delta, void* dq, void* dk, void* dv,
-                                   int B, int T, int Hq, int S, int Hkv,
-                                   int D, int window, float softcap,
-                                   void* stream) {
+                                   void* partials, size_t n_partials,
+                                   void* tickets, size_t n_tickets, int B,
+                                   int T, int Hq, int S, int Hkv, int D,
+                                   int window, float softcap, void* stream) {
   if (!shapes_ok(B, T, Hq, Hkv, S, D) || S <= 0 ||
       static_cast<long long>(B) * Hkv > 65535 ||
-      static_cast<long long>(B) * T * Hq > INT_MAX / 64 ||
-      (static_cast<long long>(T) * (Hq / Hkv) + kBT - 1) / kBT > INT_MAX)
+      static_cast<long long>(B) * T * Hq > INT_MAX / 64)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const BwdPlan pl = bwd_plan(B, T, Hq, Hkv, S, D);
+  if (pl.kv.n_stat > 65535 || pl.q.n_stat > 65535 ||
+      n_partials < pl.partials || n_tickets < pl.tickets ||
+      (pl.tickets > 0 && (partials == nullptr || tickets == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   BwdParams p{};
   p.q = static_cast<const float*>(q);
@@ -1374,6 +1729,8 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
   p.dq = static_cast<float*>(dq);
   p.dk = static_cast<float*>(dk);
   p.dv = static_cast<float*>(dv);
+  p.partials = static_cast<float*>(partials);
+  p.tickets = static_cast<int*>(tickets);
   p.T = T;
   p.Hq = Hq;
   p.Hkv = Hkv;
@@ -1385,20 +1742,21 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
   p.rows = T * p.G;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int n_rows = B * T * Hq;
-  flash_bwd_delta_kernel<<<(n_rows + kBThreads / 32 - 1) / (kBThreads / 32),
-                           kBThreads, 0, st>>>(p.out, p.dout, p.delta,
-                                               n_rows, T, Hq, D);
+  flash_bwd_delta_kernel<<<(n_rows + kDeltaThreads / 32 - 1) /
+                               (kDeltaThreads / 32),
+                           kDeltaThreads, 0, st>>>(p.out, p.dout, p.delta,
+                                                   n_rows, T, Hq, D);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   switch (D) {
     case 8:
-      return launch_bwd<8>(p, B, st);
+      return launch_bwd<8>(p, B, pl, st);
     case 16:
-      return launch_bwd<16>(p, B, st);
+      return launch_bwd<16>(p, B, pl, st);
     case 32:
-      return launch_bwd<32>(p, B, st);
+      return launch_bwd<32>(p, B, pl, st);
     case 64:
-      return launch_bwd<64>(p, B, st);
+      return launch_bwd<64>(p, B, pl, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

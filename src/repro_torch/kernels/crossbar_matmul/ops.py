@@ -11,9 +11,9 @@ once per weight (``_weight_kp``), x's on every call.
 
 Training: an x that needs a gradient goes through ``CrossbarMatmulFn``
 on either device. Its backward is ``crossbar_matmul_t`` (dx = g .
-dequant(W)^T from the same codes): the transposed-read kernel on CUDA
-tensors, ``crossbar_matmul_t_plain`` on CPU tensors. The codes and scales
-get no gradient.
+dequant(W)^T from the same codes): the prefill kernel's wgmma design
+transposed on CUDA tensors, ``crossbar_matmul_t_plain`` on CPU tensors.
+The codes and scales get no gradient.
 """
 from __future__ import annotations
 
@@ -50,8 +50,12 @@ def _lib():
     if _LIB is None:
         lib = build.load("crossbar_matmul")
         lib.crossbar_matmul_t.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 5 + [ctypes.c_size_t, ctypes.c_void_p]
+            + [ctypes.c_int] * 7 + [ctypes.c_void_p])
         lib.crossbar_matmul_t.restype = ctypes.c_int
+        lib.crossbar_matmul_t_workspace.argtypes = (
+            [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)])
+        lib.crossbar_matmul_t_workspace.restype = ctypes.c_size_t
         lib.crossbar_matmul.argtypes = (
             [ctypes.c_void_p] * 5 + [ctypes.c_size_t, ctypes.c_void_p]
             + [ctypes.c_int] * 8 + [ctypes.c_void_p])
@@ -63,20 +67,25 @@ def _lib():
     return _LIB
 
 
-# (M, Kp, Np, bits, kernel) -> (f32 partials, int tickets) the call needs
+# (M, Kp, Np, bits, kernel) -> (f32 partials, int tickets) the call needs;
+# kernel "t" for ``crossbar_matmul_t``
 _NEEDS: Dict[tuple, Tuple[int, int]] = {}
-# the split-K workspace of both kernels (``kernels.workspace``)
+# the split workspace of the forward kernels and of the transposed one
+# (their calls run in order on one stream: ``kernels.workspace``)
 WORKSPACES = workspace.Workspaces("crossbar_matmul")
 
 
-def _need(M: int, kp: int, np_: int, bits: int, kernel: int) -> Tuple[int,
-                                                                     int]:
+def _need(M: int, kp: int, np_: int, bits: int, kernel) -> Tuple[int, int]:
     key = (M, kp, np_, bits, kernel)
     need = _NEEDS.get(key)
     if need is None:
         tickets = ctypes.c_int(0)
-        partials = _lib().crossbar_matmul_workspace(M, kp, np_, bits, kernel,
-                                                    ctypes.byref(tickets))
+        if kernel == "t":
+            partials = _lib().crossbar_matmul_t_workspace(
+                M, kp, np_, ctypes.byref(tickets))
+        else:
+            partials = _lib().crossbar_matmul_workspace(
+                M, kp, np_, bits, kernel, ctypes.byref(tickets))
         need = _NEEDS[key] = (partials, tickets.value)
     return need
 
@@ -214,8 +223,9 @@ def _launch(x: torch.Tensor, qt: QuantizedTensor, kernel: str) -> torch.Tensor:
 def crossbar_matmul_t(g: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
     """g (..., N) @ dequant(qt)^T -> (..., K) f32, the backward of
     ``crossbar_matmul`` with respect to x: ``csrc/crossbar_matmul.cu``'s
-    transposed-read kernel on CUDA tensors, ``crossbar_matmul_t_plain`` on
-    CPU tensors."""
+    transposed wgmma kernel on CUDA tensors (N split over blocks through
+    the shared workspace where the output tiles leave SMs idle),
+    ``crossbar_matmul_t_plain`` on CPU tensors."""
     if qt.ndim != 2:
         raise ValueError(f"crossbar_matmul_t takes a 2-D weight, got "
                          f"orig_shape {qt.orig_shape}")
@@ -237,12 +247,13 @@ def crossbar_matmul_t(g: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
                       dtype=torch.float32)
     if M == 0:
         return out
-    dev = g.device.index
+    np_, dev = qt.codes.shape[1], g.device.index
     stream = torch._C._cuda_getCurrentRawStream(dev)
+    ws = WORKSPACES.pointers(_need(M, kp, np_, qt.bits, "t"), dev)
     rc = kernels.call_on(_lib().crossbar_matmul_t, dev, g.data_ptr(),
                          qt.codes.data_ptr(), qt.scales.data_ptr(),
-                         out.data_ptr(), M, K, N, kp, qt.codes.shape[1],
-                         qt.bits, stream)
+                         out.data_ptr(), *ws, M, K, N, kp, np_, qt.bits,
+                         stream)
     if rc != 0:
         raise RuntimeError(f"crossbar_matmul_t launch failed: CUDA error {rc}"
                            f" (M={M}, K={K}, N={N}, bits={qt.bits})")

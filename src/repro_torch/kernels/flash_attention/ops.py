@@ -162,7 +162,11 @@ def _lib():
         lib.flash_attention_workspace.restype = cs
         ws = [vp, cs, vp, cs]           # partials, their count, tickets, ...
         lib.flash_attention.argtypes = [vp] * 7 + ws + [ci] * 7 + [cf, vp]
-        lib.flash_attention_bwd.argtypes = [vp] * 12 + [ci] * 7 + [cf, vp]
+        lib.flash_attention_bwd.argtypes = ([vp] * 12 + ws + [ci] * 7
+                                            + [cf, vp])
+        lib.flash_attention_bwd_workspace.argtypes = [ci] * 6 + [
+            ctypes.POINTER(cs)]
+        lib.flash_attention_bwd_workspace.restype = cs
         lib.flash_attention_bwd.restype = ci
         lib.flash_attention.restype = ci
         lib.paged_flash_attention.argtypes = ([vp] * 8 + ws + [ci] * 8
@@ -172,19 +176,23 @@ def _lib():
     return _LIB
 
 
-# (B, T, Hq, Hkv, S, D) -> (f32 partials, int tickets) the call needs
+# (B, T, Hq, Hkv, S, D[, "bwd"]) -> (f32 partials, int tickets) the call
+# needs
 _NEEDS: Dict[tuple, Tuple[int, int]] = {}
-# the split-KV workspace of both entry points (``kernels.workspace``)
+# the split workspace of both forward entry points and of the backward
+# (their calls run in order on one stream: ``kernels.workspace``)
 WORKSPACES = workspace.Workspaces("flash_attention")
 
 
-def _need_of(shape: tuple) -> Tuple[int, int]:
-    need = _NEEDS.get(shape)
+def _need_of(shape: tuple, bwd: bool = False) -> Tuple[int, int]:
+    key = shape + (("bwd",) if bwd else ())
+    need = _NEEDS.get(key)
     if need is None:
         tickets = ctypes.c_size_t(0)
-        partials = _lib().flash_attention_workspace(*shape,
-                                                    ctypes.byref(tickets))
-        need = _NEEDS[shape] = (partials, tickets.value)
+        query = (_lib().flash_attention_bwd_workspace if bwd
+                 else _lib().flash_attention_workspace)
+        partials = query(*shape, ctypes.byref(tickets))
+        need = _NEEDS[key] = (partials, tickets.value)
     return need
 
 
@@ -292,9 +300,10 @@ def flash_attention_bwd(q, k, v, q_pos, kv_pos, out, lse, dout, *,
                         window=None, softcap=None):
     """(dq, dk, dv) of ``flash_attention`` from its inputs, its ``out`` and
     ``lse`` (B, Hq, T) and ``dout`` (B, T, Hq, D): the three backward
-    kernels of ``csrc/flash_attention.cu`` on CUDA tensors (one count of
-    ``flash_attention_bwd`` per call), ``flash_attention_bwd_plain`` on
-    CPU tensors."""
+    kernels of ``csrc/flash_attention.cu`` on CUDA tensors (3xTF32 tensor
+    cores; long causal tiles split over blocks through the shared
+    workspace; one count of ``flash_attention_bwd`` per call),
+    ``flash_attention_bwd_plain`` on CPU tensors."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, q_pos, kv_pos, out, lse,
                                          dout, window=window, softcap=softcap)
@@ -317,11 +326,12 @@ def flash_attention_bwd(q, k, v, q_pos, kv_pos, out, lse, dout, *,
     delta = torch.empty((B, Hq, T), device=q.device, dtype=torch.float32)
     dev = q.device.index
     stream = torch._C._cuda_getCurrentRawStream(dev)
+    ws = WORKSPACES.pointers(_need_of((B, T, Hq, Hkv, S, D), bwd=True), dev)
     rc = kernels.call_on(
         _lib().flash_attention_bwd, dev, q.data_ptr(), k.data_ptr(),
         v.data_ptr(), q_pos.data_ptr(), kv_pos.data_ptr(), out.data_ptr(),
         dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), B, T, Hq, S, Hkv, D, w, c, stream)
+        dk.data_ptr(), dv.data_ptr(), *ws, B, T, Hq, S, Hkv, D, w, c, stream)
     if rc != 0:
         raise RuntimeError(
             f"flash_attention_bwd launch failed: CUDA error {rc}")

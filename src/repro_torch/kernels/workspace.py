@@ -1,10 +1,12 @@
 """Split workspaces of the port's kernels.
 
-``crossbar_matmul``'s split-K kernels and the flash kernels' split-KV
-blocks sum partial results through a workspace that the wrapper owns: f32
-partials and int32 tickets. The tickets are zeroed once, when allocated,
-and every call leaves them at 0, so calls that run in order share one
-workspace: each kernel source has one per device, for every stream. The
+``crossbar_matmul``'s split-K kernels, the transposed crossbar kernel's
+split-N blocks, the flash kernels' split-KV blocks and the flash backward's
+split key and row tiles sum partial results through a workspace that the
+wrapper owns: f32 partials and int32 tickets. The tickets are zeroed once,
+when allocated, and every call leaves them at 0, so calls that run in
+order share one workspace: each kernel source has one per device, for
+every stream. The
 port runs its calls in order on one stream (a CUDA graph is captured on a
 side stream, but capture records without running).
 

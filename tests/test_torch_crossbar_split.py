@@ -12,7 +12,16 @@ three pieces that must stay within the kernels' tolerance,
 for N(0, 1) activations and for rows spread over six decades (post-norm
 activations with outliers). One piece alone (bf16 x) must not: the test
 can tell the schemes apart.
+
+The transposed kernel (``crossbar_matmul_t``, dx = g . dequant(W)^T) runs
+the same scheme with the roles of K and N swapped: g's three bf16 pieces
+against the codes, each 128-wide N tile's partial scaled by
+``scales[kt][nt]`` (kt the crossbar row of dx's columns). It is held the
+same way against ``crossbar_matmul_t_plain`` at the llama3.2-1b training
+depths (K, N of 2048 and 8192).
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -61,6 +70,60 @@ def _case(K, bits, spread, seed):
     if spread:
         x *= (10.0 ** rng.uniform(-3, 3, (M, 1))).astype(np.float32)
     return torch.from_numpy(x), quant.quantize(torch.from_numpy(w), bits)
+
+
+def emulate_t(g: torch.Tensor, qt: quant.QuantizedTensor, pieces: int):
+    """dx = g . dequant(qt)^T as the transposed kernel sums it: per
+    (crossbar row kt, N tile nt), the pieces of g times the codes' tile in
+    f32, times scales[kt][nt], summed over nt."""
+    codes = (_unpack4(qt.codes) if qt.bits == 4 else qt.codes).to(
+        torch.float32)
+    kp, np_ = codes.shape
+    K, n = qt.orig_shape
+    c = codes.reshape(kp // 128, 128, np_ // 128, 128)       # (kt, k, nt, n)
+    part = sum(torch.einsum("mjn,ikjn->mijk",
+                            torch.nn.functional.pad(p, (0, np_ - n)).reshape(
+                                g.shape[0], np_ // 128, 128), c)
+               for p in split_pieces(g, pieces))              # (m, kt, nt, k)
+    dx = (part * qt.scales[None, :, :, None]).sum(dim=2)      # (m, kt, k)
+    return dx.reshape(g.shape[0], kp)[:, :K]
+
+
+@functools.lru_cache(maxsize=None)
+def _weight(K, N, bits):
+    rng = np.random.default_rng(K + N + bits)
+    w = (rng.standard_normal((K, N)) * K ** -0.5).astype(np.float32)
+    return quant.quantize(torch.from_numpy(w), bits)
+
+
+def _case_t(K, N, bits, spread, seed):
+    rng = np.random.default_rng(seed)
+    g = rng.standard_normal((M, N)).astype(np.float32)
+    if spread:
+        g *= (10.0 ** rng.uniform(-3, 3, (M, 1))).astype(np.float32)
+    return torch.from_numpy(g), _weight(K, N, bits)
+
+
+@pytest.mark.parametrize("pieces", [2, 3])
+@pytest.mark.parametrize("spread", [False, True])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("K,N", [(2048, 8192), (8192, 2048)])
+def test_transposed_bf16_pieces_meet_the_kernel_tolerance(K, N, bits, spread,
+                                                          pieces):
+    g, qt = _case_t(K, N, bits, spread, K + 3 * bits + spread)
+    dx_plain = cb_ops.crossbar_matmul_t_plain(g, qt)
+    dx = emulate_t(g, qt, pieces=pieces)
+    err = float((dx - dx_plain).abs().max())
+    assert err <= CB_TOL * float(dx_plain.abs().max()), err
+
+
+@pytest.mark.parametrize("spread", [False, True])
+def test_transposed_one_bf16_piece_breaks_the_kernel_tolerance(spread):
+    g, qt = _case_t(2048, 8192, 8, spread, 11 + spread)
+    dx_plain = cb_ops.crossbar_matmul_t_plain(g, qt)
+    tol = CB_TOL * float(dx_plain.abs().max())
+    assert float((emulate_t(g, qt, pieces=1) - dx_plain).abs().max()) > tol
+    assert float((emulate_t(g, qt, pieces=3) - dx_plain).abs().max()) <= tol
 
 
 @pytest.mark.parametrize("pieces", [2, 3])

@@ -729,10 +729,15 @@ def test_paper_model_engine_ticks_match_the_plain_forward():
 # training: the backward kernels, and gradients that the kernels carry
 # ---------------------------------------------------------------------------
 
-# (M, K, N): the forward's ragged shapes, a decode-sized M, and the
-# training step's M = B * T = 2048 at llama's and the paper models' widths
+# (M, K, N): the forward's ragged shapes, a decode-sized M, the training
+# step's M = B * T = 2048 at llama's and the paper models' widths, and one
+# train microbatch's M = 1024 at llama's four and the paper models' three
+# (K, N) pairs
 CB_T_SHAPES = [(8, 300, 130), (100, 520, 250), (2048, 2048, 512),
-               (8, 2048, 8192), (100, 1024, 4096), (2048, 4096, 1024)]
+               (8, 2048, 8192), (100, 1024, 4096), (2048, 4096, 1024),
+               (1024, 2048, 2048), (1024, 2048, 512), (1024, 2048, 8192),
+               (1024, 8192, 2048), (1024, 1024, 1024), (1024, 1024, 4096),
+               (1024, 4096, 1024)]
 
 
 @pytest.mark.gpu
@@ -755,6 +760,26 @@ def test_crossbar_t_kernel_matches_plain(bits, mkn):
     assert dx.shape == (M, K)
     torch.testing.assert_close(dx, ref, rtol=1e-4,
                                atol=1e-4 * float(ref.abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [8, 4])
+def test_crossbar_t_kernel_gives_the_same_bits_twice(bits):
+    """Two calls on the same inputs, on a microbatch shape whose N
+    reduction the kernel splits over blocks (summed in rank order through
+    the workspace): identical bits."""
+    dev = _cuda_or_skip()
+    M, K, N = 1024, 1024, 4096
+    gen = torch.Generator(device=dev).manual_seed(7 + bits)
+    w = torch.randn(K, N, generator=gen, device=dev) * K ** -0.5
+    g = torch.randn(M, N, generator=gen, device=dev)
+    qt = quant.quantize(w, bits)
+    kp = qt.codes.shape[0] * (2 if bits == 4 else 1)
+    assert cb_ops._need(M, kp, qt.codes.shape[1], bits, "t")[0] > 0
+    dx1 = cb_ops.crossbar_matmul_t(g, qt)
+    dx2 = cb_ops.crossbar_matmul_t(g, qt)
+    torch.cuda.synchronize()
+    assert torch.equal(dx1, dx2)
 
 
 @pytest.mark.gpu
@@ -788,6 +813,25 @@ def _bwd_inputs(dev, B, T, Hq, Hkv, D, seed):
     return q, k, v, pos, dout
 
 
+def _bwd_check(q, k, v, qpos, kpos, dout, window=None, softcap=None):
+    """The backward kernels against the plain version (1e-4 relative and
+    absolute) from the kernel's own forward, one launch counted; returns
+    the kernels' grads and the forward's (out, lse)."""
+    out, lse = fa_ops._launch(q, k, v, qpos, kpos, window, softcap,
+                              with_lse=True)
+    before = kernels.LAUNCHES["flash_attention_bwd"]
+    got = fa_ops.flash_attention_bwd(q, k, v, qpos, kpos, out, lse, dout,
+                                     window=window, softcap=softcap)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_attention_bwd"] == before + 1
+    want = fa_ops.flash_attention_bwd_plain(q, k, v, qpos, kpos, out, lse,
+                                            dout, window=window,
+                                            softcap=softcap)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+    return got, (out, lse)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("window,softcap", FA_FLAGS + [(4, 30.0)])
 @pytest.mark.parametrize("D", [8, 64])
@@ -799,22 +843,54 @@ def test_flash_bwd_kernel_matches_plain(T, Hq, Hkv, D, window, softcap):
     holds its custom VJP to ref_attention's gradients."""
     dev = _cuda_or_skip()
     q, k, v, pos, dout = _bwd_inputs(dev, 2, T, Hq, Hkv, D, T + Hq + D)
-    out, lse = fa_ops._launch(q, k, v, pos, pos, window, softcap,
-                              with_lse=True)
+    _, (out, lse) = _bwd_check(q, k, v, pos, pos, dout, window, softcap)
     out_p, lse_p = fa_ops.flash_attention_plain(
         q, k, v, pos, pos, window=window, softcap=softcap, with_lse=True)
     torch.testing.assert_close(out, out_p, rtol=2e-5, atol=2e-5)
     torch.testing.assert_close(lse, lse_p, rtol=1e-5, atol=1e-5)
-    before = kernels.LAUNCHES["flash_attention_bwd"]
-    got = fa_ops.flash_attention_bwd(q, k, v, pos, pos, out, lse, dout,
-                                     window=window, softcap=softcap)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Hq,Hkv", [(32, 8), (16, 16)])
+def test_flash_bwd_kernel_matches_plain_at_the_microbatch(Hq, Hkv):
+    """One train microbatch's attention: B = 2, T = S = 512 causal, at
+    llama3.2-1b's 32/8 and the paper models' 16/16 heads (long key and
+    row lists split over blocks)."""
+    dev = _cuda_or_skip()
+    q, k, v, pos, dout = _bwd_inputs(dev, 2, 512, Hq, Hkv, 64, Hq + Hkv)
+    _bwd_check(q, k, v, pos, pos, dout)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Hq,Hkv", [(32, 8), (8, 2)])
+def test_flash_bwd_kernel_gives_the_same_bits_twice(Hq, Hkv):
+    """Two backward calls on the same inputs, with dk/dv and dq summed
+    over split blocks: identical bits (no atomics on any output)."""
+    dev = _cuda_or_skip()
+    T = 512 if Hq == 32 else 300
+    q, k, v, pos, dout = _bwd_inputs(dev, 2, T, Hq, Hkv, 64, 11)
+    got, (out, lse) = _bwd_check(q, k, v, pos, pos, dout)
+    again = fa_ops.flash_attention_bwd(q, k, v, pos, pos, out, lse, dout)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES["flash_attention_bwd"] == before + 1
-    want = fa_ops.flash_attention_bwd_plain(q, k, v, pos, pos, out, lse,
-                                            dout, window=window,
-                                            softcap=softcap)
-    for a, b in zip(got, want):
-        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [16, 64])
+def test_flash_bwd_rows_that_see_no_key(D):
+    """Rows at position -1 see no key and keys at -1 are seen by no row:
+    their dq, and their dk and dv, are 0; the rest match the plain
+    version."""
+    dev = _cuda_or_skip()
+    q, k, v, pos, dout = _bwd_inputs(dev, 2, 200, 8, 2, D, 13)
+    qpos, kpos = pos.clone(), pos.clone()
+    qpos[0, 150:] = -1
+    qpos[1, :] = -1              # a whole sequence sees nothing
+    kpos[0, :70] = -1
+    (dq, dk, dv), _ = _bwd_check(q, k, v, qpos, kpos, dout)
+    assert torch.all(dq[0, 150:] == 0) and torch.all(dq[1] == 0)
+    assert torch.all(dk[0, :70] == 0) and torch.all(dv[0, :70] == 0)
+    assert torch.all(dk[1] == 0) and torch.all(dv[1] == 0)
 
 
 @pytest.mark.gpu
