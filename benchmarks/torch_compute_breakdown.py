@@ -5,18 +5,17 @@ and energy breakdown, analytic (``repro_torch.perfmodel``) and tallied from
     PYTHONPATH=src:. python benchmarks/torch_compute_breakdown.py [--device cpu]
 
 Runs on the CUDA card by default and on the CPU given ``--device cpu``.
-The port's ``hetero.breakdown_of`` runs the forward and counts every layer
-of it; the JAX script (``benchmarks/bench_compute_breakdown.py``) traces a
-``lax.scan`` over the layers, whose body its tally counts once. Its forward
-in train mode is the port's prefill (the port has no train mode yet,
-ROADMAP Queue 1 item 15). Writes
+The port's ``hetero.breakdown_of`` runs the forward (train mode, as the
+JAX script's) and counts every layer of it; the JAX script
+(``benchmarks/bench_compute_breakdown.py``) traces a ``lax.scan`` over
+the layers, whose body its tally counts once. Writes
 ``experiments/paper/torch_fig7_compute_breakdown.json``.
 """
 import argparse
 
 import torch
 
-from benchmarks.common import PAPER_MODELS, emit, save_json
+from benchmarks.torch_common import PAPER_MODELS, emit, save_json
 from repro_torch import resolve_device
 from repro_torch.configs import get_config, reduce_config
 from repro_torch.core import hetero, lora as lora_lib

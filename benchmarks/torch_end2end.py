@@ -8,7 +8,7 @@ The port's copy of ``benchmarks/bench_end2end.py`` on ``repro_torch.perfmodel``
 
 It writes ``experiments/paper/torch_fig11_15_end2end.json`` beside the JAX
 script's ``fig11_15_end2end.json``."""
-from benchmarks.common import PAPER_MODELS, emit, save_json
+from benchmarks.torch_common import PAPER_MODELS, emit, save_json
 from repro_torch.perfmodel import baselines as bl
 from repro_torch.perfmodel.atleus import TransformerDims
 

@@ -7,16 +7,15 @@ forms per kernel class, as in ``benchmarks/bench_kernel_complexity.py``.
 
 Runs on the CUDA card by default (the flash kernel for MHA-2/3) and on the
 CPU, with the kernels' plain versions, given ``--device cpu``. The port
-counts when the code runs, so the block runs for real. Its attention has
-no train mode yet (ROADMAP Queue 1 item 15), so the block runs in prefill
-mode over a cache of ``n`` positions: the same products. Writes
+counts when the code runs, so the block runs for real, in prefill mode
+over a cache of ``n`` positions: the same products as train mode. Writes
 ``experiments/paper/torch_tableII_complexity.json``.
 """
 import argparse
 
 import torch
 
-from benchmarks.common import emit, save_json
+from benchmarks.torch_common import emit, save_json
 from repro_torch import resolve_device
 from repro_torch.configs import get_config, reduce_config
 from repro_torch.core import hetero

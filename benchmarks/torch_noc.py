@@ -8,7 +8,7 @@ The port's copy of ``benchmarks/bench_noc.py`` on ``repro_torch.perfmodel``
 
 It writes ``experiments/paper/torch_fig8_noc.json`` beside the JAX
 script's ``fig8_noc.json``."""
-from benchmarks.common import emit, save_json
+from benchmarks.torch_common import emit, save_json
 from repro_torch.perfmodel import cost as cost_mod
 from repro_torch.perfmodel.noc import compare
 

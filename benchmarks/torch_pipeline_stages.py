@@ -8,7 +8,7 @@ The port's copy of ``benchmarks/bench_pipeline_stages.py`` on ``repro_torch.perf
 
 It writes ``experiments/paper/torch_fig10_pipeline_stages.json`` beside the JAX
 script's ``fig10_pipeline_stages.json``."""
-from benchmarks.common import PAPER_MODELS, emit, save_json
+from benchmarks.torch_common import PAPER_MODELS, emit, save_json
 from repro_torch.perfmodel import pipeline as pipe
 from repro_torch.perfmodel.atleus import TransformerDims
 

@@ -9,7 +9,7 @@ The port's copy of ``benchmarks/bench_quant_energy.py`` on ``repro_torch.perfmod
 
 It writes ``experiments/paper/torch_fig12_14_quant_energy.json`` beside the JAX
 script's ``fig12_14_quant_energy.json``."""
-from benchmarks.common import PAPER_MODELS, emit, save_json
+from benchmarks.torch_common import PAPER_MODELS, emit, save_json
 from repro_torch.perfmodel import baselines as bl
 from repro_torch.perfmodel.atleus import TransformerDims
 

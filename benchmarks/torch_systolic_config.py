@@ -8,7 +8,7 @@ The port's copy of ``benchmarks/bench_systolic_config.py`` on ``repro_torch.perf
 
 It writes ``experiments/paper/torch_fig6_systolic_grid.json`` beside the JAX
 script's ``fig6_systolic_grid.json``."""
-from benchmarks.common import PAPER_MODELS, emit, save_json
+from benchmarks.torch_common import PAPER_MODELS, emit, save_json
 from repro_torch.perfmodel import atleus as hw, pipeline as pipe
 from repro_torch.perfmodel.atleus import TransformerDims
 

@@ -38,9 +38,10 @@ Imports nothing of JAX or of the JAX package. Phases, each printing JSON:
                The train step's backward kernels, at the shapes one of its
                microbatches (2 of 4 x 512 tokens) gives them:
                ``crossbar_matmul_t`` (dx = g . dequant(W)^T) at M = 1024
-               on llama3.2-1b's and the paper models' (K, N) pairs against
-               ``torch.matmul(g, W_deq.T)``, and llama's pairs also at the
-               whole batch's M = 2048; ``flash_attention_bwd`` at B = 2,
+               on llama3.2-1b's and the paper models' (K, N) pairs
+               against ``torch.matmul(g, W_deq.T)``, and llama's pairs
+               also at the whole batch's M = 2048; ``flash_attention_bwd``
+               at B = 2,
                T = S = 512 causal with 32/8 and 16/16 heads against SDPA's
                backward, llama's heads also at B = 4, and with a window
                and a softcap on a small shape. Each backward case's line
@@ -83,6 +84,15 @@ Imports nothing of JAX or of the JAX package. Phases, each printing JSON:
                line reports the graphs captured, the replays, the capture
                time and the graphs' pool bytes, and the phase fails unless
                every tick was a capture or a replay.
+               llama3.2-1b is then served again, by the dense oracle engine
+               (``serve_dense`` line: the same weights, adapters and
+               requests, ``max_batch`` 8, a 1024-position arena): each
+               prompt prefilled whole, then one decode step over every
+               slot a tick, captured as one CUDA graph at the first
+               decode tick and replayed after it; its sampled logits
+               against the teacher-forced plain forward (1e-3), its
+               crossbar and contiguous flash launches exact, its KV bytes
+               beside the paged engine's.
                Each model's engine and weights are freed before the next.
      profile — after the serve of llama3.2-1b, rwkv6-7b and
                paper-gpt2-medium, three more waves of 8 prompts of 256 on
@@ -126,11 +136,33 @@ Imports nothing of JAX or of the JAX package. Phases, each printing JSON:
                third is still incomplete).
                GPT-2 then takes two noise-aware ``Trainer`` steps
                (sigma_rel 0.02): finite losses and no crossbar launch
-               (noisy weights are dense products, as in JAX).
-  6. summary — the whole script's seconds, one ``{"kernels": [...]}``
+               (noisy weights are dense products, as in JAX). Then GPT-2
+               again on an M4F4 base (its ``train`` line says ``"base":
+               "M4F4"``), int4 codes through ``crossbar_matmul`` and
+               ``crossbar_matmul_t``: the same checks, with 10 ``Trainer``
+               steps and the restore of step 10.
+  6. kernels — after the train phase (so that the serve and train
+               phases follow the same kernel cases as before these were
+               added), the same checks for the int4 and Fig. 13 cases:
+               ``crossbar_matmul`` in int4 at the paper models' shapes,
+               int8 and int4 at the Fig. 13 fine-tunes' matrices ((128,
+               128), (128, 512), (512, 128) at M = 16 x 64);
+               ``crossbar_matmul_t`` in int4 at the microbatch shapes,
+               int8 and int4 at Fig. 13's.
+  7. figures — the paper's Fig. 9 (``benchmarks/torch_noise.py``) and
+               Fig. 13 (``benchmarks/torch_quant_perplexity.py``) at their
+               full protocols, and the serving-throughput workloads 1-2 at
+               their smoke sizes (``benchmarks/torch_serve_throughput.py``),
+               each with the counts zeroed just before and read just
+               after: one line each with its payload and seconds; fails on
+               a non-finite number, a greedy check that fails or a kernel
+               of its path with no launch. Then 20 Fig. 13 fine-tune steps
+               on an M4F4 base with their launches held exactly.
+  8. summary — the whole script's seconds, one ``{"kernels": [...]}``
                line (the backward kernels' launches from llama's train
-               run), the nvidia-smi line, and last ``{"ok": true,
-               "device": {...}}``.
+               run, every path's count beside each kernel's), the
+               nvidia-smi line, and last ``{"ok": true, "device":
+               {...}}``.
 
 Any failed phase raises (exit code 1) and the last line is never printed.
 """
@@ -397,8 +429,9 @@ def crossbar_case(dev, g, model, bits, K, N, M, qt, w_deq, kernel="auto"):
     return case
 
 
-def crossbar_cases(dev, g, model, shapes, bits_list, extra_kn=None):
-    """Each shape at M = 8 and 1024; int8 ``extra_kn`` also at M = 32 and
+def crossbar_cases(dev, g, model, shapes, bits_list, extra_kn=None,
+                   ms=(8, 1024)):
+    """Each shape at each M of ``ms``; int8 ``extra_kn`` also at M = 32 and
     128, between decode and prefill."""
     from repro_torch.core import quant
 
@@ -407,9 +440,9 @@ def crossbar_cases(dev, g, model, shapes, bits_list, extra_kn=None):
             w = torch.randn(K, N, generator=g, device=dev) * (K ** -0.5)
             qt = quant.quantize(w, bits)
             w_deq = quant.dequantize(qt)
-            ms = ((8, 32, 128, 1024) if bits == 8 and (K, N) == extra_kn
-                  else (8, 1024))
-            for M in ms:
+            m_list = ((8, 32, 128, 1024) if bits == 8 and (K, N) == extra_kn
+                      else ms)
+            for M in m_list:
                 yield crossbar_case(dev, g, model, bits, K, N, M, qt, w_deq)
 
 
@@ -592,55 +625,75 @@ BEFORE_FA_BWD_MS = {("causal", "llama3.2-1b"): 0.7498,
                     ("window+softcap", "window+softcap"): 0.1678}
 
 
-def crossbar_t_cases(dev, g):
+# the Fig. 13 fine-tunes' crossbar matrices (reduced paper-gpt2-medium, d
+# 128, d_ff 512: wq/wk/wv/wo, w1, w2) and their rows (16 x 64 tokens)
+FIG13_KN = ((128, 128), (128, 512), (512, 128))
+FIG13_M = 16 * 64
+
+
+# (model, (K, N) pairs, rows, case, code widths) of the transposed
+# crossbar kernel's cases: int8 at the rows of one train microbatch
+# (``TRAIN_M``) and llama's pairs also at the whole batch's rows (an extra:
+# the train step never runs it); then int4 at the microbatch rows, and int8
+# and int4 at the Fig. 13 fine-tunes' (K, N) pairs and rows
+CB_T_CASES = (("llama3.2-1b", LLAMA_KN, TRAIN_M, "microbatch", (8,)),
+              ("paper-gpt2-medium", PAPER_KN, TRAIN_M, "microbatch", (8,)),
+              ("llama3.2-1b", LLAMA_KN, TRAIN_BATCH * TRAIN_SEQ,
+               "whole batch", (8,)))
+CB_T_CASES_SLICE10 = (
+    ("llama3.2-1b", LLAMA_KN, TRAIN_M, "microbatch", (4,)),
+    ("paper-gpt2-medium", PAPER_KN, TRAIN_M, "microbatch", (4,)),
+    ("fig13", FIG13_KN, FIG13_M, "fig13 fine-tune", (8, 4)))
+
+
+def crossbar_t_cases(dev, g, table=CB_T_CASES):
     """The transposed crossbar kernel (the backward's dx = g . dequant(W)^T
-    from the same codes), int8, at the rows of one train microbatch
-    (``TRAIN_M``) on llama3.2-1b's four and the paper models' three (K, N)
-    pairs, and llama's pairs also at the whole batch's rows (an extra:
-    the train step never runs it). Yardstick: ``torch.matmul(g,
-    W_deq.T)`` on a pre-dequantized weight. Pieces bound: the kernel's
-    three bf16 products (g's pieces against the codes) at 989 TFLOP/s."""
+    from the same codes) at each entry of ``table``. Yardstick:
+    ``torch.matmul(g, W_deq.T)`` on a pre-dequantized weight. Pieces bound:
+    the kernel's three bf16 products (g's pieces against the codes) at 989
+    TFLOP/s."""
+    for model, shapes, M, case, bits_list in table:
+        for bits in bits_list:
+            for K, N in shapes:
+                yield crossbar_t_case(dev, g, model, case, bits, K, N, M)
+
+
+def crossbar_t_case(dev, g, model, case, bits, K, N, M):
     from repro_torch.core import quant
     from repro_torch.kernels.crossbar_matmul import ops as cb_ops
 
-    for model, shapes, M, case in (
-            ("llama3.2-1b", LLAMA_KN, TRAIN_M, "microbatch"),
-            ("paper-gpt2-medium", PAPER_KN, TRAIN_M, "microbatch"),
-            ("llama3.2-1b", LLAMA_KN, TRAIN_BATCH * TRAIN_SEQ,
-             "whole batch")):
-        for K, N in shapes:
-            w = torch.randn(K, N, generator=g, device=dev) * (K ** -0.5)
-            qt = quant.quantize(w, 8)
-            w_deq = quant.dequantize(qt)
-            gy = torch.randn(M, N, generator=g, device=dev)
-            dx = cb_ops.crossbar_matmul_t(gy, qt)
-            dx_plain = cb_ops.crossbar_matmul_t_plain(gy, qt)
-            torch.cuda.synchronize()
-            nbytes = (gy.numel() * 4 + qt.codes.numel() + qt.scales.numel() * 4
-                      + M * K * 4)
-            flops = 2.0 * M * K * N
-            call = lambda: cb_ops.crossbar_matmul_t(gy, qt)  # noqa: E731
-            lib = lambda: torch.matmul(gy, w_deq.T)          # noqa: E731
-            yield {
-                "name": "crossbar_matmul_t", "model": model, "bits": 8,
-                "case": case, "shape": {"M": M, "K": K, "N": N},
-                "max_abs_err": float((dx - dx_plain).abs().max()),
-                "tol": CB_TOL * float(dx_plain.abs().max()),
-                "ms": timed(call, 20),
-                "device_ms": device_ms_by_name([call] * 10, CB_T_KERNELS),
-                "before_device_ms": BEFORE_T_MS[(case, model, K, N)],
-                "before_from": BEFORE_FROM,
-                "host_us": host_us(call),
-                "plain_ms": timed(
-                    lambda: cb_ops.crossbar_matmul_t_plain(gy, qt), 5),
-                "library_ms": timed(lib, 20),
-                "library_device_ms": device_ms(lib),
-                "bound_ms": bound_ms(nbytes, flops),
-                "bound_pieces_ms": 1e3 * max(nbytes / HBM_BYTES_PER_S,
-                                             3 * flops / BF16_FLOPS_PER_S),
-                "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
-                             > flops / F32_FLOPS_PER_S else "operations"),
-            }
+    w = torch.randn(K, N, generator=g, device=dev) * (K ** -0.5)
+    qt = quant.quantize(w, bits)
+    w_deq = quant.dequantize(qt)
+    gy = torch.randn(M, N, generator=g, device=dev)
+    dx = cb_ops.crossbar_matmul_t(gy, qt)
+    dx_plain = cb_ops.crossbar_matmul_t_plain(gy, qt)
+    torch.cuda.synchronize()
+    nbytes = (gy.numel() * 4 + qt.codes.numel() + qt.scales.numel() * 4
+              + M * K * 4)
+    flops = 2.0 * M * K * N
+    call = lambda: cb_ops.crossbar_matmul_t(gy, qt)  # noqa: E731
+    lib = lambda: torch.matmul(gy, w_deq.T)          # noqa: E731
+    before = BEFORE_T_MS.get((case, model, K, N)) if bits == 8 else None
+    return {
+        "name": "crossbar_matmul_t", "model": model, "bits": bits,
+        "case": case, "shape": {"M": M, "K": K, "N": N},
+        "max_abs_err": float((dx - dx_plain).abs().max()),
+        "tol": CB_TOL * float(dx_plain.abs().max()),
+        "ms": timed(call, 20),
+        "device_ms": device_ms_by_name([call] * 10, CB_T_KERNELS),
+        **({"before_device_ms": before, "before_from": BEFORE_FROM}
+           if before is not None else {}),
+        "host_us": host_us(call),
+        "plain_ms": timed(lambda: cb_ops.crossbar_matmul_t_plain(gy, qt), 5),
+        "library_ms": timed(lib, 20),
+        "library_device_ms": device_ms(lib),
+        "bound_ms": bound_ms(nbytes, flops),
+        "bound_pieces_ms": 1e3 * max(nbytes / HBM_BYTES_PER_S,
+                                     3 * flops / BF16_FLOPS_PER_S),
+        "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
+                     > flops / F32_FLOPS_PER_S else "operations"),
+    }
 
 
 def _sdpa_bwd_yardstick(q, k, v, dout, mask):
@@ -849,23 +902,43 @@ def wkv_cases(dev, g):
                            model="crossover")
 
 
-def kernel_phase(dev):
+def path_cases(dev, g):
+    """The kernel phase's cases: every kernel at the serve and train
+    paths' shapes."""
+    return (crossbar_cases(dev, g, "llama3.2-1b", LLAMA_KN, (8, 4),
+                           extra_kn=(8192, 2048)),
+            crossbar_cases(dev, g, "rwkv6-7b", RWKV_KN, (8,),
+                           extra_kn=(14336, 4096)),
+            crossover_cases(dev, g),
+            crossbar_cases(dev, g, "paper-gpt2-medium", PAPER_KN, (8,)),
+            flash_cases(dev, g, "llama3.2-1b", 32, 8),
+            paged_cases(dev, g, "llama3.2-1b", 32, 8),
+            # the paper models' attention: 16 heads, a group of 1
+            flash_cases(dev, g, "paper-gpt2-medium", 16, 16),
+            paged_cases(dev, g, "paper-gpt2-medium", 16, 16),
+            wkv_cases(dev, g),
+            # the backward kernels of the train step
+            crossbar_t_cases(dev, g), flash_bwd_cases(dev, g))
+
+
+def slice10_cases(dev, g):
+    """The crossbar kernels' int4 cases and the Fig. 13 fine-tunes' shapes,
+    taken after the train phase, so that the serve and train phases run
+    after the same kernel cases as before they were added: int4
+    ``crossbar_matmul`` at the paper models' shapes, int8 and int4 at Fig.
+    13's (M = 16 x 64), and ``CB_T_CASES_SLICE10``."""
+    return (crossbar_cases(dev, g, "paper-gpt2-medium", PAPER_KN, (4,)),
+            crossbar_cases(dev, g, "fig13", FIG13_KN, (8, 4),
+                           ms=(FIG13_M,)),
+            crossbar_t_cases(dev, g, CB_T_CASES_SLICE10))
+
+
+def kernel_phase(dev, cases_of=path_cases):
+    """Every case of ``cases_of(dev, g)`` against its plain version, one
+    line each; raises if any disagrees or measured no kernel."""
     g = torch.Generator(device=dev).manual_seed(0)
     cases = []
-    for gen in (crossbar_cases(dev, g, "llama3.2-1b", LLAMA_KN, (8, 4),
-                               extra_kn=(8192, 2048)),
-                crossbar_cases(dev, g, "rwkv6-7b", RWKV_KN, (8,),
-                               extra_kn=(14336, 4096)),
-                crossover_cases(dev, g),
-                crossbar_cases(dev, g, "paper-gpt2-medium", PAPER_KN, (8,)),
-                flash_cases(dev, g, "llama3.2-1b", 32, 8),
-                paged_cases(dev, g, "llama3.2-1b", 32, 8),
-                # the paper models' attention: 16 heads, a group of 1
-                flash_cases(dev, g, "paper-gpt2-medium", 16, 16),
-                paged_cases(dev, g, "paper-gpt2-medium", 16, 16),
-                wkv_cases(dev, g),
-                # the backward kernels of the train step
-                crossbar_t_cases(dev, g), flash_bwd_cases(dev, g)):
+    for gen in cases_of(dev, g):
         for case in gen:
             case.setdefault("ok", case["max_abs_err"] <= case["tol"])
             # a device time of 0 means the trace held no kernel of that
@@ -971,14 +1044,126 @@ def error_by_depth(cfg, params, plain_params, adapters, req, ref_ec, dev):
     return out
 
 
+# the dense engine's traced window: its first tick and its length
+DENSE_TRACE_AT, DENSE_TRACED = 8, 8
+
+
+def dense_serve(dev, cfg, params, adapters, reqs, plain_params, ref_ec,
+                n_quant, paged, *, max_len, max_batch, seed, checked):
+    """The dense oracle engine on the paged engine's weights, adapters and
+    requests: every prompt prefilled whole (eagerly, one forward each),
+    then one decode step over all ``max_batch`` slots a tick, captured as
+    one CUDA graph at the first decode tick and replayed after that. Its
+    sampled logits against the teacher-forced plain forward of its own
+    tokens (``LOGIT_TOL``); its launches exactly one crossbar per quantized
+    matrix and one contiguous flash kernel per layer, per prefill and per
+    decode tick; its KV bytes beside the paged engine's. ``paged``: the
+    paged engine's serve line."""
+    from repro_torch import kernels
+    from repro_torch.serve.api import Request, make_engine
+
+    eng = make_engine(cfg, params, adapters, mode="dense", device=dev,
+                      max_batch=max_batch, max_len=max_len,
+                      record_logits=True, seed=seed)
+    fresh = [Request(uid=r.uid, prompt=r.prompt,
+                     max_new_tokens=r.max_new_tokens, adapter_id=r.adapter_id)
+             for r in reqs]
+    kernels.reset_launches()
+    for r in fresh:
+        eng.submit(r)
+    tick_s, trace = [], None
+    t_serve = time.perf_counter()
+    while eng.queue or any(r is not None for r in eng.slot_req):
+        if len(tick_s) == DENSE_TRACE_AT and trace is None:
+            # a window of replayed decode ticks, every slot busy, traced
+            trace = traced_ticks(eng, DENSE_TRACED, eng.step)
+            continue
+        t = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        tick_s.append(time.perf_counter() - t)
+    serve_s = time.perf_counter() - t_serve
+    launches = {k: n for k, n in kernels.LAUNCHES.items() if n}
+    done = eng.finished
+    st = eng.stats()
+    # every tick decoded (the loop runs while a slot is busy); each request
+    # was prefilled once
+    ticks = len(tick_s) + (DENSE_TRACED if trace else 0)
+    runs = ticks + len(fresh)
+    want = {"crossbar_matmul": n_quant * runs,
+            "flash_attention": cfg.n_layers * runs}
+    checks = {}
+    for uid in checked:
+        r = done[uid]
+        ref = teacher_forced(cfg, plain_params, adapters, r.prompt,
+                             r.generated, r.adapter_id, ref_ec, dev)
+        lg = torch.stack(eng.sampled_logits[uid])
+        checks[uid] = {
+            "positions": int(ref.shape[0]),
+            "engine_vs_plain": (float((lg - ref).abs().max())
+                                if lg.shape == ref.shape else None),
+            "finite": bool(torch.isfinite(lg).all()),
+            "max_abs_logit": float(ref.abs().max()),
+            "argmax_agree": float((lg.argmax(-1) == ref.argmax(-1))
+                                  .float().mean()),
+        }
+    cs = st.compile
+    result = {
+        "phase": "serve_dense", "model": cfg.name, "base": "M8F8",
+        "adapters": len(adapters), "requests": len(fresh),
+        "max_batch": max_batch, "max_len": max_len, "ticks": ticks,
+        "serve_s": serve_s, "prefill_s": eng.prefill_s,
+        "first_tick_ms": 1e3 * tick_s[0],
+        "ms_per_decode_tick": 1e3 * statistics.median(tick_s[1:]),
+        "decode_tick_ms": [1e3 * t for t in tick_s[1:]],
+        "paged_ms_per_decode_tick": paged["ms_per_decode_tick"],
+        "traced_decode_ticks": trace,
+        "decode_tokens": st.decode_tokens,
+        "prefill_tokens": st.prefill_tokens,
+        "decode_tok_s": st.decode_tokens / max(sum(tick_s[1:]), 1e-9),
+        "prefill_signatures": list(cs.prefill_signatures),
+        "kv_bytes": st.kv_bytes, "paged_kv_bytes": paged["kv_bytes"],
+        "graphs": {"captured": cs.compiled_steps, "replays": cs.replays,
+                   "capture_ms": cs.capture_ms,
+                   "pool_bytes": cs.graph_pool_bytes},
+        "launches": launches, "expected_launches": want,
+        "tokens_equal_paged": sum(done[r.uid].generated == r.generated
+                                  for r in reqs),
+        "logit_checks": checks, "logit_tol": LOGIT_TOL,
+    }
+    emit(result)
+    problems = []
+    if sorted(done) != sorted(r.uid for r in fresh) or any(
+            len(done[r.uid].generated) != r.max_new_tokens for r in fresh):
+        problems.append("unfinished or short requests")
+    if launches != want:
+        problems.append(f"launched {launches}, expected {want}")
+    # the first decode tick ran eagerly and captured the graph; every later
+    # one replayed it
+    if cs.compiled_steps != 1 or cs.replays != ticks - 1:
+        problems.append(f"{ticks} ticks, {cs.compiled_steps} graphs, "
+                        f"{cs.replays} replays")
+    if trace is None or not trace["replayed"]:
+        problems.append(f"no traced window of replayed ticks: {trace}")
+    bad = [u for u, c in checks.items() if not c["finite"]
+           or c["engine_vs_plain"] is None
+           or c["engine_vs_plain"] > LOGIT_TOL]
+    if bad:
+        problems.append(f"sampled logits differ from the plain forward: "
+                        f"{checks}")
+    if problems:
+        raise AssertionError("dense engine: " + "; ".join(problems))
+    return result
+
+
 def serve_phase(dev, cfg, *, n_requests=8, max_new=32, prompt_range=(64, 512),
                 shared_prefix=256, max_len=1024, max_slots=8, page_size=16,
-                prefill_chunk=128, seed=0):
+                prefill_chunk=128, seed=0, dense=False):
     from repro_torch import kernels
     from repro_torch.configs.base import QuantConfig
     from repro_torch.core import lora as lora_lib
     from repro_torch.core import quant
-    from repro_torch.models import transformer as tfm
+    from repro_torch.models import kvcache, transformer as tfm
     from repro_torch.serve.api import Request, make_engine
 
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -1116,8 +1301,6 @@ def serve_phase(dev, cfg, *, n_requests=8, max_new=32, prompt_range=(64, 512),
            if cfg.block_pattern == ("rwkv",) else LOGIT_TOL)
     by_depth = error_by_depth(cfg, params, plain_params, adapters,
                               done[checked[1]], ref_ec, dev)
-    del plain_params
-    gc.collect()
 
     pf_s = sum(s for s, k in zip(tick_s, tick_kind) if k == "prefill")
     dc_s = sum(s for s, k in zip(tick_s, tick_kind) if k == "decode")
@@ -1161,11 +1344,19 @@ def serve_phase(dev, cfg, *, n_requests=8, max_new=32, prompt_range=(64, 512),
         "logit_error_by_depth": by_depth,
         "resident_weights_gb": resident_gb,
         "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+        "kv_bytes": kvcache.cache_bytes(eng.cache),
     }
     emit(result)
     if worst > tol:
         raise AssertionError(f"teacher-forced logits differ by {worst} > "
                              f"{tol}: {checks}")
+    if dense:
+        result["dense_launches"] = dense_serve(
+            dev, cfg, params, adapters, reqs, plain_params, ref_ec, n_quant,
+            result, max_len=max_len, max_batch=max_slots, seed=seed,
+            checked=checked)["launches"]
+    del plain_params
+    gc.collect()
     return result, eng
 
 
@@ -1307,10 +1498,11 @@ def host_breakdown(eng, run, n):
         return out
 
     events = []
-    emit, sample, sched = eng._emit, engine_mod.sample_tokens, eng.sched
+    emit, sample = engine_mod._emit, engine_mod.sample_tokens
+    sched = eng.sched
     eng._admit = timed("admit", eng._admit)
     eng._run_forks = timed("forks", eng._run_forks)
-    eng._emit = emit_
+    engine_mod._emit = emit_
     sched.ensure = timed("ensure", sched.ensure)
     engine_mod.sample_tokens = sample_
     done = 0
@@ -1331,9 +1523,10 @@ def host_breakdown(eng, run, n):
             acc["cpu_read"] += marks["emit"] - marks["sampled"]
             acc["after_read"] += t1 - marks["emit"]
     finally:
-        for name in ("_admit", "_run_forks", "_emit"):
+        for name in ("_admit", "_run_forks"):
             del eng.__dict__[name]
         del sched.__dict__["ensure"]
+        engine_mod._emit = emit
         engine_mod.sample_tokens = sample
     if not done:
         raise AssertionError("no decode tick to break down")
@@ -1504,9 +1697,11 @@ BARE_STEPS = 6
 
 def train_phase(dev, cfg, *, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
                 microbatches=TRAIN_MICROBATCHES, steps=20, checked=5,
-                noise_steps=0, seed=0):
-    """LoRA fine-tuning of ``cfg`` at full width and depth on an M8F8 base
-    (random weights from ``seed``), ``SyntheticLM`` batches of ``batch``
+                noise_steps=0, bits=(8, 8), seed=0):
+    """LoRA fine-tuning of ``cfg`` at full width and depth on an MnFm base
+    (``bits``, M8F8 by default; M4F4 puts int4 codes through
+    ``crossbar_matmul`` and ``crossbar_matmul_t``; random weights from
+    ``seed``), ``SyntheticLM`` batches of ``batch``
     x ``seq`` in ``microbatches``, AdamW at lr 1e-3 with warmup-cosine.
     The kernels' step against the plain versions' (dequantized weights,
     torch.matmul, ref attention, autograd) on the card, with one rank-32
@@ -1538,9 +1733,12 @@ def train_phase(dev, cfg, *, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
     g = torch.Generator(device=dev).manual_seed(seed)
     t0 = time.perf_counter()
     base = tfm.init_params(cfg, g, device=dev)
-    params = quant.quantize_params(base, QuantConfig(mha_bits=8, ff_bits=8))
+    params = quant.quantize_params(base, QuantConfig(mha_bits=bits[0],
+                                                     ff_bits=bits[1]))
     del base
     gc.collect()
+    widths = sorted({leaf.bits for leaf in adamw.leaves(params["layers"])
+                     if quant.is_quantized(leaf)})
     lora = lora_lib.init_lora_params(cfg, g, device=dev)
     for entry in lora["layers"]:
         for ab in entry.values():
@@ -1674,7 +1872,8 @@ def train_phase(dev, cfg, *, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
     med = statistics.median(step_ms[1:]) if steps > 1 else step_ms[0]
     result = {
         "phase": "train", "model": cfg.name, "layers": cfg.n_layers,
-        "d_model": cfg.d_model, "vocab": cfg.vocab_size, "base": "M8F8",
+        "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+        "base": f"M{bits[0]}F{bits[1]}", "code_bits": widths,
         "quantized_matrices": n_quant, "lora_rank": cfg.lora.rank,
         "lora_targets": list(cfg.lora.targets), "batch": batch, "seq": seq,
         "microbatches": microbatches, "lr": 1e-3, "setup_s": setup_s,
@@ -1694,6 +1893,8 @@ def train_phase(dev, cfg, *, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
     }
     emit(result)
     problems = []
+    if widths != sorted(set(bits)):
+        problems.append(f"code widths {widths}, expected {bits}")
     if first["loss_rel_err"] > TRAIN_LOSS_TOL_REL or max(
             loss_err) > TRAIN_LOSS_TOL_REL:
         problems.append(f"losses differ: {first['loss_rel_err']}, {loss_err}")
@@ -1738,13 +1939,129 @@ def train_phase(dev, cfg, *, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
 
 
 # ---------------------------------------------------------------------------
+# phase 7: the paper figures that run the model, and the serving workloads
+# ---------------------------------------------------------------------------
+
+FIG13_COUNTED_STEPS = 20
+
+
+def _numbers(tree):
+    """Every float in a nested payload."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _numbers(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _numbers(v)
+    elif isinstance(tree, float):
+        yield tree
+
+
+def fig13_counted_finetune(dev, steps=FIG13_COUNTED_STEPS):
+    """``steps`` Fig. 13 fine-tune steps and the evaluation over an M4F4
+    base (random weights: the launches do not depend on them), the counts
+    zeroed just before and read just after; exactly ``train_launches`` a
+    step (one microbatch) and one crossbar per quantized matrix and one
+    flash kernel per layer for each evaluation batch."""
+    from benchmarks import torch_quant_perplexity as qppl
+    from repro_torch import kernels
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import transformer as tfm
+
+    cfg = qppl.config()
+    base = qppl.quantized(tfm.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev), "M4F4")
+    n_quant = quantized_matrices(base["layers"])
+    kernels.reset_launches()
+    t = time.perf_counter()
+    ppl = qppl.finetune_and_ppl(cfg, base, SyntheticLM(cfg.vocab_size,
+                                                       seed=2), dev,
+                                steps=steps)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    got = {k: n for k, n in kernels.LAUNCHES.items() if n}
+    want = {k: n * steps for k, n in train_launches(cfg, n_quant, 1).items()}
+    for k, n in (("crossbar_matmul", n_quant), ("flash_attention",
+                                                 cfg.n_layers)):
+        want[k] += n * qppl.EVAL_BATCHES
+    result = {"phase": "figures", "figure": "fig13 counted fine-tune",
+              "base": "M4F4", "steps": steps, "seconds": seconds,
+              "ppl": ppl, "launches": got, "expected_launches": want}
+    emit(result)
+    if got != want or not np.isfinite(ppl):
+        raise AssertionError(f"Fig. 13 fine-tune: launched {got}, expected "
+                             f"{want}; ppl {ppl}")
+    return result
+
+
+def figures_phase(dev):
+    """Fig. 9 (``benchmarks/torch_noise.py``), Fig. 13
+    (``benchmarks/torch_quant_perplexity.py``) at their full protocols and
+    the serving-throughput workloads 1-2 at the JAX script's smoke sizes
+    (``benchmarks/torch_serve_throughput.py``), each on the card with the
+    counts zeroed just before and read just after; one line each with its
+    payload and seconds. Fails on a non-finite number, a greedy check that
+    fails, or a kernel of the path with no launch. Then 20 Fig. 13
+    fine-tune steps with their launches held exactly."""
+    import os
+
+    from benchmarks import torch_noise
+    from benchmarks import torch_quant_perplexity as qppl
+    from benchmarks import torch_serve_throughput as tput
+    from repro_torch import kernels
+
+    def smoke_throughput():
+        os.environ["BENCH_SMOKE"] = "1"
+        try:
+            return tput.run(dev)
+        finally:
+            os.environ.pop("BENCH_SMOKE")
+
+    out = {}
+    for name, run, must in (
+            ("fig9", lambda: torch_noise.run(dev),
+             ("flash_attention", "flash_attention_bwd")),
+            ("fig13", lambda: qppl.run(dev),
+             ("crossbar_matmul", "crossbar_matmul_t", "flash_attention",
+              "flash_attention_bwd")),
+            ("serve_throughput (smoke)", smoke_throughput,
+             ("flash_attention", "paged_flash_attention"))):
+        kernels.reset_launches()
+        t = time.perf_counter()
+        payload = run()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        launches = {k: n for k, n in kernels.LAUNCHES.items() if n}
+        emit({"phase": "figures", "figure": name, "seconds": seconds,
+              "launches": launches, "payload": payload})
+        problems = [f"no launch of {k}" for k in must if not launches.get(k)]
+        if not all(np.isfinite(x) for x in _numbers(payload)):
+            problems.append("a non-finite number in the payload")
+        if name.startswith("serve") and not (
+                payload["paged"]["greedy_matches_dense_oracle"]
+                and payload["shared_prefix"]["greedy_matches_dense_oracle"]):
+            problems.append("a greedy check failed")
+        if problems:
+            raise AssertionError(f"{name}: " + "; ".join(problems))
+        out[name] = {"seconds": seconds, "launches": launches,
+                     "payload": payload}
+    out["fig13 counted fine-tune"] = fig13_counted_finetune(dev)
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 
 # the models served, in order, and those whose engine is then profiled
 SERVED = ("llama3.2-1b", "rwkv6-7b", "paper-gpt2-medium", "paper-bloom-560m")
 PROFILED = ("llama3.2-1b", "rwkv6-7b", "paper-gpt2-medium")
-# the models fine-tuned, in order, and their noise-aware steps
-TRAINED = (("llama3.2-1b", 0), ("paper-gpt2-medium", 2))
+# the models the dense oracle engine also serves (after the paged one)
+DENSE = ("llama3.2-1b",)
+# the models fine-tuned, in order: base bits, Trainer steps (a multiple of
+# CKPT_EVERY) and noise-aware steps; GPT-2 again on an int4 base
+TRAINED = (("llama3.2-1b", (8, 8), 20, 0),
+           ("paper-gpt2-medium", (8, 8), 20, 2),
+           ("paper-gpt2-medium", (4, 4), 10, 0))
 
 
 def main() -> int:
@@ -1760,6 +2077,7 @@ def main() -> int:
               f"script from a checkout of the repository", file=sys.stderr)
         return 1
     sys.path.insert(0, str(src))
+    sys.path.append(str(src.parent))        # the benchmarks package
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
 
@@ -1782,18 +2100,21 @@ def main() -> int:
     serves = {}
     for arch in SERVED:
         cfg = get_config(arch)
-        serves[arch], eng = serve_phase(dev, cfg)
+        serves[arch], eng = serve_phase(dev, cfg, dense=arch in DENSE)
         if arch in PROFILED:
             profile_phase(eng, cfg, dev)
         del eng                          # free the model before the next
         gc.collect()
         torch.cuda.empty_cache()
     trains = {}
-    for arch, noise_steps in TRAINED:
-        trains[arch] = train_phase(dev, get_config(arch),
-                                   noise_steps=noise_steps)
+    for arch, bits, steps, noise_steps in TRAINED:
+        key = arch if bits == (8, 8) else f"{arch} M{bits[0]}F{bits[1]}"
+        trains[key] = train_phase(dev, get_config(arch), bits=bits,
+                                  steps=steps, noise_steps=noise_steps)
         gc.collect()
         torch.cuda.empty_cache()
+    cases += kernel_phase(dev, slice10_cases)
+    figures = figures_phase(dev)
 
     # each kernel: its case at a main-path shape, and its launches from the
     # path it serves (the engine, the dense-cache forward for contiguous
@@ -1801,7 +2122,10 @@ def main() -> int:
     # every path's count beside it
     paths = {f"{a} {p.split('_')[0]}": r[p] for a, r in serves.items()
              for p in ("serve_launches", "forward_launches")}
+    paths.update({f"{a} dense": r["dense_launches"] for a, r in serves.items()
+                  if "dense_launches" in r})
     paths.update({f"{a} train": r["run_launches"] for a, r in trains.items()})
+    paths.update({f"{f} figure": r["launches"] for f, r in figures.items()})
     rep = {"crossbar_matmul": ("llama3.2-1b serve",
                                {"bits": 8, "model": "llama3.2-1b",
                                 "shape": {"M": 8, "K": 2048, "N": 8192}}),
@@ -1813,7 +2137,7 @@ def main() -> int:
            "rwkv6_wkv": ("rwkv6-7b serve", {"case": "decode"}),
            "rwkv6_wkv_chunk": ("rwkv6-7b serve", {"case": "prefill"}),
            "crossbar_matmul_t": ("llama3.2-1b train",
-                                 {"model": "llama3.2-1b",
+                                 {"model": "llama3.2-1b", "bits": 8,
                                   "case": "microbatch",
                                   "shape": {"M": TRAIN_M, "K": 2048,
                                             "N": 8192}}),

@@ -1,0 +1,91 @@
+"""Batched multi-adapter serving on the port (paper SS V.G; counterpart of
+``examples/serve_multiadapter.py``): one frozen quantized base, several
+LoRA adapters hot simultaneously, continuous batching over a PAGED KV
+arena: admission is bounded by page occupancy, prompts prefill in
+bucketed chunks, one mixed step (a CUDA graph per signature on the card)
+serves prefill + decode rows, and requests sharing a prompt prefix (same
+adapter) map the same KV pages via the copy-on-write prefix cache instead
+of recomputing them.
+
+    PYTHONPATH=src python examples/torch_serve_multiadapter.py [--device cpu]
+
+The JAX example serves reduced mistral-nemo-12b, whose config the port
+does not carry yet (ROADMAP Queue 1 item 19); this one serves reduced
+llama3.2-1b at the same widths (d_model 128, 4 heads). The flags are the
+JAX example's: speculative decoding (``--spec-decode``, ``--draft``,
+``--spec-k``) and ``--tp`` above 1 raise ``NotImplementedError`` (ROADMAP
+Queue 1 items 10 and 16).
+"""
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs import get_config, reduce_config
+from repro_torch.configs.base import QuantConfig
+from repro_torch.core import lora as lora_lib, quant
+from repro_torch.models.transformer import init_params
+from repro_torch.serve.api import Request, make_engine
+
+ap = argparse.ArgumentParser()
+ap.add_argument("--device", default=None,
+                help="torch device (default: the CUDA card)")
+ap.add_argument("--spec-decode", action="store_true",
+                help="draft-and-verify decoding (ROADMAP Queue 1 item 10)")
+ap.add_argument("--draft", choices=("ngram", "selfdraft"), default=None,
+                help="the drafter (ROADMAP Queue 1 item 10)")
+ap.add_argument("--spec-k", type=int, default=None,
+                help="max draft tokens per slot per tick (ROADMAP Queue 1 "
+                     "item 10)")
+ap.add_argument("--tp", type=int, default=1,
+                help="tensor parallelism (ROADMAP Queue 1 item 16)")
+args = ap.parse_args()
+if args.spec_decode or args.draft is not None or args.spec_k is not None:
+    raise NotImplementedError("speculative decoding is not ported yet "
+                              "(ROADMAP Queue 1 item 10)")
+if args.tp > 1:
+    raise NotImplementedError("tensor-parallel serving is not ported yet "
+                              "(ROADMAP Queue 1 item 16)")
+dev = resolve_device(args.device)
+
+cfg = reduce_config(get_config("llama3.2-1b"), d_model=128, n_heads=4)
+g = torch.Generator(device=dev).manual_seed(0)
+base = quant.quantize_params(init_params(cfg, g, device=dev),
+                             QuantConfig(mha_bits=8, ff_bits=8), min_size=1)
+
+# three "tasks" = three adapters (in production: one per fine-tuned domain)
+adapters = [lora_lib.init_lora_params(cfg, g, device=dev) for _ in range(3)]
+eng = make_engine(cfg, base, adapters, mode="paged", device=dev,
+                  max_slots=4, max_len=96, page_size=8, prefill_chunk=8)
+
+# shared system-prompt prefix per adapter, unique user tail per request:
+# the common case the prefix cache exists for
+rng = np.random.default_rng(0)
+system = [rng.integers(0, cfg.vocab_size, 16).astype(np.int32)
+          for _ in range(3)]
+t0 = time.time()
+for i in range(10):
+    tail = rng.integers(0, cfg.vocab_size,
+                        int(rng.integers(3, 8))).astype(np.int32)
+    eng.submit(Request(
+        uid=i,
+        prompt=np.concatenate([system[i % 3], tail]),
+        max_new_tokens=12,
+        adapter_id=i % 3,
+        temperature=0.8 if i % 2 else 0.0))
+done = eng.drain()
+dt = time.time() - t0
+total = sum(c.n_tokens for c in done.values())
+stats = eng.stats()
+print(f"{len(done)} requests / {total} tokens in {dt:.2f}s "
+      f"({total/dt:.1f} tok/s) with 3 adapters hot")
+print(f"prefix cache: {stats.prefix_cache.hit_tokens} prompt tokens served "
+      f"from resident pages ({stats.prefix_cache.hits} hits, "
+      f"{stats.scheduler.cow_forks} CoW forks)")
+print(f"engine stats: {stats.as_dict()}")
+for uid in sorted(done):
+    c = done[uid]
+    print(f"  req {uid} adapter={c.adapter_id} [{c.finish_reason}]: "
+          f"{list(c.tokens)}")

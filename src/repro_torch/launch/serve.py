@@ -1,5 +1,6 @@
 """Serving launcher of the PyTorch port: batched multi-adapter LoRA
-inference through the paged engine, on the CUDA card by default.
+inference through the paged engine (or the dense oracle, ``--engine
+dense``), on the CUDA card by default.
 
   # full-width llama3.2-1b, random weights, M8F8 crossbar base
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
@@ -19,12 +20,18 @@ inference through the paged engine, on the CUDA card by default.
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --arch paper-gpt2-medium --smoke --device cpu
 
-The flags are the JAX launcher's (``repro.launch.serve``) for the paged
-engine. Those whose feature is not ported yet (``--spec-decode``, ``--tp``,
-``--moe-dispatch capacity``, ``--prefix-cache-path``, ``--engine dense``)
-raise ``NotImplementedError``; flags that would act on nothing here (the
-deprecated ``--paged``, the drafter's ``--draft`` and ``--spec-k``) are
-left out. The base is quantized M8F8 with the port's
+  # the dense max_batch x max_len oracle (decode step as one CUDA graph)
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
+      --engine dense --max-batch 8 --max-len 1024
+
+The flags are the JAX launcher's (``repro.launch.serve``). Those whose
+feature is not ported yet (``--spec-decode``, ``--tp``, ``--moe-dispatch
+capacity``, ``--prefix-cache-path``) raise ``NotImplementedError`` with
+the paged engine; with ``--engine dense`` the first three exit with
+JAX's messages, and the dense oracle ignores ``--prefix-cache-path``, as
+JAX's does. Flags that would act on nothing
+here (the deprecated ``--paged``, the drafter's ``--draft`` and
+``--spec-k``) are left out. The base is quantized M8F8 with the port's
 ``quantize_params``, as ``examples/serve_multiadapter.py`` does.
 """
 from __future__ import annotations
@@ -71,9 +78,15 @@ def main(argv=None):
     ap.add_argument("--prefix-cache-path", default=None)
     args = ap.parse_args(argv)
 
-    if args.engine != "paged":
-        raise NotImplementedError("the dense oracle engine is not ported; "
-                                  "the port serves through the paged engine")
+    if args.engine == "dense":
+        if args.spec_decode:
+            raise SystemExit("--spec-decode requires --engine paged")
+        if args.tp > 1:
+            raise SystemExit("--tp requires --engine paged")
+        if args.moe_dispatch != "dropless":
+            raise SystemExit("--moe-dispatch capacity requires --engine "
+                             "paged (the dense oracle always routes "
+                             "dropless)")
     if args.spec_decode:
         raise NotImplementedError("speculative decoding is not ported yet "
                                   "(ROADMAP Queue 1 item 10)")
@@ -90,13 +103,18 @@ def main(argv=None):
                                    min_size=1 if args.smoke else 1 << 16)
     adapters = [lora_lib.init_lora_params(cfg, g, device=device)
                 for _ in range(args.adapters)]
-    eng = make_engine(cfg, params, adapters, mode="paged", device=device,
-                      max_slots=args.max_batch, max_len=args.max_len,
-                      page_size=args.page_size, num_pages=args.num_pages,
-                      prefill_chunk=args.prefill_chunk,
-                      enable_prefix_cache=not args.no_prefix_cache,
-                      prefix_cache_path=args.prefix_cache_path,
-                      moe_dispatch=args.moe_dispatch, seed=args.seed)
+    if args.engine == "paged":
+        eng = make_engine(cfg, params, adapters, mode="paged", device=device,
+                          max_slots=args.max_batch, max_len=args.max_len,
+                          page_size=args.page_size, num_pages=args.num_pages,
+                          prefill_chunk=args.prefill_chunk,
+                          enable_prefix_cache=not args.no_prefix_cache,
+                          prefix_cache_path=args.prefix_cache_path,
+                          moe_dispatch=args.moe_dispatch, seed=args.seed)
+    else:
+        eng = make_engine(cfg, params, adapters, mode="dense", device=device,
+                          max_batch=args.max_batch, max_len=args.max_len,
+                          seed=args.seed)
     rng = np.random.default_rng(args.seed)
     fams = [rng.integers(0, cfg.vocab_size, 24).astype(np.int32)
             for _ in range(args.prompt_families)]
@@ -119,8 +137,8 @@ def main(argv=None):
     total_toks = sum(c.n_tokens for c in done.values())
     where = (torch.cuda.get_device_name(device) if device.type == "cuda"
              else str(device))
-    print(f"[paged on {where}] served {len(done)} requests / {total_toks} "
-          f"tokens in {dt:.2f}s ({total_toks / dt:.1f} tok/s, "
+    print(f"[{args.engine} on {where}] served {len(done)} requests / "
+          f"{total_toks} tokens in {dt:.2f}s ({total_toks / dt:.1f} tok/s, "
           f"{args.adapters} adapters hot)")
     print(f"  stats: {eng.stats().as_dict()}")
     for uid in sorted(done)[:4]:

@@ -237,11 +237,20 @@ def apply_attention_block(
         cur = cache["len"]
         kc, vc = cache["k"], cache["v"]                      # (B, Hkv, S, D)
         S_cache = kc.shape[2]
+        if T > S_cache:
+            raise ValueError(f"{T} tokens into a dense cache of {S_cache}")
+        if not (x.is_cuda and torch.cuda.is_current_stream_capturing()):
+            # eagerly, a row past its cache is the caller's error; a CUDA
+            # graph's capture cannot wait for the device to check it
+            if int(cur.max()) + T > S_cache:
+                raise ValueError(f"dense cache of {S_cache} positions is "
+                                 f"full")
         rows = torch.arange(B, device=x.device)[:, None]
-        slots = cur.long()[:, None] + torch.arange(T, device=x.device)[None]
-        if int(slots.max()) >= S_cache:
-            raise ValueError(f"dense cache of {S_cache} positions is full")
-        # in place: kc[b, :, cur[b] + t] = k[b, t]
+        # in a graph, a full row writes its last T positions, as JAX's
+        # dynamic_update_slice clamps its start
+        start = torch.clamp(cur.long(), 0, S_cache - T)
+        slots = start[:, None] + torch.arange(T, device=x.device)[None]
+        # in place: kc[b, :, start[b] + t] = k[b, t]
         kc[rows, :, slots] = k.to(kc.dtype)
         vc[rows, :, slots] = v.to(vc.dtype)
         i = torch.arange(S_cache, device=x.device)

@@ -247,3 +247,9 @@ def cache_len(cache) -> Optional[torch.Tensor]:
         if "len" in entry:
             return entry["len"][0]
     return None
+
+
+def cache_bytes(cache) -> int:
+    """Bytes of every leaf of a dense or paged cache tree."""
+    return sum(leaf.numel() * leaf.element_size()
+               for entry in cache["layers"] for leaf in entry.values())

@@ -226,15 +226,16 @@ def _quantized(tree):
 
 
 def reserve_workspaces(cfg: ModelConfig, params: Dict, exec_cfg: ExecConfig,
-                       device: torch.device, *, rows: int, chunks, tables,
-                       page_size: int) -> None:
-    """Size the kernels' split workspaces on ``device`` for every paged
-    decode-mode ``forward`` over ``rows`` rows, with a chunk of each width
-    in ``chunks`` and a block table of each width in ``tables``: the
-    crossbar matmul of every quantized weight at M = rows * C (and at
-    M = rows, the head's under ``last_idx``), and the paged flash kernel of
-    the attention layers. A CUDA graph captured afterwards finds them large
-    enough (``kernels.workspace``)."""
+                       device: torch.device, *, rows: int, chunks,
+                       kv_lens) -> None:
+    """Size the kernels' split workspaces on ``device`` for every
+    decode-mode ``forward`` over ``rows`` rows with a chunk of each width
+    in ``chunks``: the crossbar matmul of every quantized weight at M =
+    rows * C (and at M = rows, the head's under ``last_idx``), and the
+    flash kernel of the attention layers over each key length in
+    ``kv_lens`` (a paged step's block-table widths times the page size, or
+    a dense cache's length). A CUDA graph captured afterwards finds them
+    large enough (``kernels.workspace``)."""
     weights = list(_quantized(params))
     if weights:
         cb_ops.reserve_workspace(device, weights,
@@ -242,8 +243,8 @@ def reserve_workspaces(cfg: ModelConfig, params: Dict, exec_cfg: ExecConfig,
     attn = any(cfg.block_kind(pos) == "attn" for pos in range(scan_period(cfg)))
     if attn and exec_cfg.attn_impl == "auto":
         fa_ops.reserve_workspace(
-            device, [(rows, C, cfg.n_heads, cfg.n_kv_heads, nb * page_size,
-                      cfg.hd) for C in chunks for nb in tables])
+            device, [(rows, C, cfg.n_heads, cfg.n_kv_heads, S, cfg.hd)
+                     for C in chunks for S in kv_lens])
 
 
 # ---------------------------------------------------------------------------

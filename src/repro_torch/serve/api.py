@@ -6,13 +6,16 @@ Request/Completion pair, one Engine protocol, one factory, typed stats.
     completions = eng.drain()          # {uid: Completion}
     st = eng.stats()                   # EngineStats (typed, frozen)
 
-The port serves through the paged engine only. On a CUDA device it runs
-its mixed step as one CUDA graph per (chunk, table) signature, captured at
-the signature's first tick and replayed after that (``CompileStats``); on
-the CPU the step runs eagerly. The dense oracle engine is replaced by
-``tests/oracle.replay_greedy``; speculative decoding, tensor parallelism,
-prefix-cache persistence and MoE wait for later slices (ROADMAP Queue 1
-items 8, 10, 12 and 16).
+Two engines: ``mode="paged"`` (the serving engine: paged KV, chunked
+prefill, prefix sharing) and ``mode="dense"`` (the dense oracle: a fixed
+``max_batch x max_len`` arena, kept for equivalence checks and as the
+throughput benchmark's baseline). On a CUDA device the paged engine runs
+its mixed step as one CUDA graph per (chunk, table) signature and the
+dense engine its decode step as one CUDA graph, each captured at its
+first tick and replayed after that (``CompileStats``); on the CPU the
+steps run eagerly. Speculative decoding, tensor parallelism, prefix-cache
+persistence and MoE wait for later slices (ROADMAP Queue 1 items 8, 10,
+12 and 16).
 """
 from __future__ import annotations
 
@@ -64,17 +67,25 @@ def completion_of(req: Request) -> Completion:
 class CompileStats:
     """The engine's compiled steps, the port's counterpart of the JAX
     engine's jitted step signatures. ``step_signatures``: the distinct
-    (chunk bucket, table-width bucket) step shapes the engine ran.
+    (chunk bucket, table-width bucket) step shapes the paged engine ran.
     ``compiled_steps``: CUDA graphs captured, one per signature on a CUDA
-    device (0 on the CPU, which runs the step eagerly). ``replays``: ticks
-    that replayed a graph (each signature's first tick runs eagerly and
-    then captures). ``capture_ms``: host time spent capturing.
-    ``graph_pool_bytes``: device memory the graphs' shared pool reserved."""
+    device (the dense engine: its one decode graph; 0 on the CPU, which
+    runs the step eagerly). ``replays``: ticks that replayed a graph (each
+    signature's first tick runs eagerly and then captures). ``capture_ms``:
+    host time spent capturing. ``graph_pool_bytes``: device memory the
+    graphs' pool reserved. ``prefill_signatures``: the dense engine's
+    prompt-width buckets, each prefilled eagerly (JAX compiles one prefill
+    per bucket: ``prefill_compiles``)."""
     step_signatures: Tuple[Tuple[int, int], ...] = ()
     compiled_steps: int = 0
     replays: int = 0
     capture_ms: float = 0.0
     graph_pool_bytes: int = 0
+    prefill_signatures: Tuple[int, ...] = ()
+
+    @property
+    def prefill_compiles(self) -> int:
+        return len(self.prefill_signatures)
 
 
 @dataclass(frozen=True)
@@ -103,22 +114,40 @@ class PrefixCacheStats:
 @dataclass(frozen=True)
 class EngineStats:
     """Typed engine counters (``Engine.stats()``); ``as_dict()`` flattens
-    them to the JAX package's key names for JSON output."""
+    them to the JAX package's key names for JSON output. ``scheduler`` and
+    ``prefix_cache`` are None on the dense oracle (it has no page pool),
+    ``kv_bytes`` is set on it only."""
     engine: str
     ticks: int
     decode_tokens: int
     prefill_tokens: int
     compile: CompileStats = CompileStats()
-    scheduler: SchedulerStats = SchedulerStats()
-    prefix_cache: PrefixCacheStats = PrefixCacheStats()
+    scheduler: Optional[SchedulerStats] = None
+    prefix_cache: Optional[PrefixCacheStats] = None
+    kv_bytes: Optional[int] = None
 
     def as_dict(self) -> Dict[str, object]:
-        s, pc = self.scheduler, self.prefix_cache
         d: Dict[str, object] = {
             "engine": self.engine,
             "ticks": self.ticks,
             "decode_tokens": self.decode_tokens,
             "prefill_tokens": self.prefill_tokens,
+        }
+        c = self.compile
+        if self.scheduler is None:                      # dense oracle
+            d.update({
+                "prefill_signatures": list(c.prefill_signatures),
+                "prefill_compiles": c.prefill_compiles,
+                "kv_bytes": self.kv_bytes,
+                "compiled_steps": c.compiled_steps,
+                "graph_replays": c.replays,
+                "capture_ms": c.capture_ms,
+                "graph_pool_bytes": c.graph_pool_bytes,
+            })
+            return d
+        s = self.scheduler
+        pc = self.prefix_cache or PrefixCacheStats()
+        d.update({
             "prefix_hit_tokens": pc.hit_tokens,
             "prefix_hits": pc.hits,
             "prefix_cache_enabled": pc.enabled,
@@ -135,7 +164,7 @@ class EngineStats:
             "preemptions": s.preemptions,
             "reclaimed_pages": s.reclaimed_pages,
             "cow_forks": s.cow_forks,
-        }
+        })
         if pc.enabled:
             d.update({"index_nodes": pc.index_nodes,
                       "index_tails": pc.index_tails,
@@ -155,22 +184,43 @@ class Engine(Protocol):
 
 
 def make_engine(cfg, params, adapters=(), *, mode: str = "paged",
-                device=None, **kwargs) -> Engine:
+                device=None, parallel=None, prefix_cache_path=None,
+                **kwargs) -> Engine:
     """Single construction point for serving engines.
 
     ``mode="paged"`` — paged KV arena, chunked bucketed prefill,
     copy-on-write prefix sharing (``enable_prefix_cache=False`` disables
     it) and page-occupancy scheduling with preemption. Keyword args:
     max_slots, max_len, page_size, num_pages, prefill_chunk,
-    enable_prefix_cache, exec_cfg, seed, record_logits. ``device``: None
-    means the CUDA card (raises without one); "cpu" runs the kernels' plain
-    versions. ``spec``, ``parallel`` with tp > 1, ``prefix_cache_path`` and
-    ``moe_dispatch="capacity"`` are not ported yet and raise."""
-    from repro_torch.serve.engine import PagedServeEngine
+    enable_prefix_cache, exec_cfg, seed, record_logits. ``spec``,
+    ``parallel`` with tp > 1, ``prefix_cache_path`` and
+    ``moe_dispatch="capacity"`` are not ported yet and raise.
+
+    ``mode="dense"`` — the dense ``max_batch x max_len`` oracle, kept for
+    equivalence checks and as the benchmark baseline. Keyword args:
+    max_batch, max_len, exec_cfg, seed, record_logits. Tensor parallelism,
+    ``prefix_cache_path`` and ``spec`` raise ``ValueError`` there, as in
+    the JAX package.
+
+    ``device``: None means the CUDA card (raises without one); "cpu" runs
+    the kernels' plain versions."""
+    from repro_torch.serve.engine import DenseServeEngine, PagedServeEngine
+    if mode == "paged":
+        return PagedServeEngine(cfg, params, adapters, device=device,
+                                parallel=parallel,
+                                prefix_cache_path=prefix_cache_path, **kwargs)
     if mode == "dense":
-        raise NotImplementedError(
-            "the dense oracle engine is not ported: tests/oracle.py "
-            "replay_greedy replaced it as the serving oracle")
-    if mode != "paged":
-        raise ValueError(f"unknown engine mode {mode!r} (expected 'paged')")
-    return PagedServeEngine(cfg, params, adapters, device=device, **kwargs)
+        if parallel is not None and getattr(parallel, "tp", 1) > 1:
+            raise ValueError("tensor parallelism requires mode='paged' (the "
+                             "dense oracle is a single-device baseline)")
+        if prefix_cache_path is not None:
+            raise ValueError("prefix_cache_path requires mode='paged' (the "
+                             "dense oracle has no prefix index)")
+        if kwargs.get("spec") is not None:
+            raise ValueError("spec decoding requires mode='paged' (the "
+                             "dense oracle has no rollback support)")
+        kwargs.pop("spec", None)
+        return DenseServeEngine(cfg, params, adapters, device=device,
+                                **kwargs)
+    raise ValueError(f"unknown engine mode {mode!r} (expected 'paged' or "
+                     f"'dense')")

@@ -1,41 +1,52 @@
-"""Paged serving engine: continuous batching + multi-adapter LoRA decode
-(PyTorch port of ``repro.serve.engine.PagedServeEngine``).
+"""Serving engines: continuous batching + multi-adapter LoRA decode
+(PyTorch port of ``repro.serve.engine``).
 
 The paper's inference story (SS V.G): the frozen base lives on the device
 (crossbar-quantized); switching tasks means swapping only LoRA adapters.
 Here that becomes multi-tenant serving: adapters are stacked along axis 1
-and every request carries an adapter id; one mixed step serves a batch of
-prefill chunks and decode rows of different tasks.
+and every request carries an adapter id; one batched step serves a batch
+of requests of different tasks. Two engines implement the ``serve.api``
+surface; construct them through ``serve.api.make_engine``:
 
-Full-attention KV lives in a shared page pool addressed by per-request
-block tables; RWKV state lives in per-slot rows. Prefill runs in chunks
-padded to a small set of bucket widths; prefill chunks and decode rows run
-through ONE mixed step per tick. Admission and eviction are decided by
-page occupancy (``serve.scheduler``). ``forward`` updates the pool and the
-per-slot state in place, so they carry across ticks in ``self.cache`` (the
-JAX package donates them to its jitted step and takes the new ones back).
-A slot is zeroed through ``SlotStateArena.reset`` whenever a request is
-admitted to it. A radix prefix index (``serve.prefix``) maps new requests
-onto already-resident pages; shared pages are forked copy-on-write before
-their first divergent write. It serves full-attention models only: RWKV
-state is relative to the whole stream and cannot be grafted across
-requests.
+  * ``DenseServeEngine`` — the dense oracle: per-slot KV rows in a fixed
+    ``max_batch x max_len`` arena (``kvcache.init_cache``), one whole-
+    prompt prefill per request, padded to a power-of-two bucket, then one
+    batched decode step over every slot per tick. Kept for equivalence
+    checks and as the throughput benchmark's baseline.
+  * ``PagedServeEngine`` — the serving engine, below.
 
-On a CUDA device the mixed step runs as CUDA graphs, the port's
-counterpart of the JAX package's ``jax.jit`` of the step: one graph per
-(chunk bucket, table bucket) signature. A signature's first tick runs
-eagerly (it is also the first use of each kernel at that shape), then the
-step is captured without running it; every later tick with that signature
-copies its inputs into the graph's own (from pinned host memory, without a
-wait) and replays it. The graph ends at the last position's logits, and
-sampling runs eagerly after it. All graphs share one memory pool; the
-kernels' split workspaces are reserved for the largest step before any
-capture. A capture that fails raises: nothing falls back to the eager
-step. On the CPU (the tests) the step runs eagerly. Copy-on-write forks
-and slot resets run eagerly between ticks, as they are rare (the JAX
-package jits its forks by fork bucket). Speculative decoding, tensor
-parallelism and prefix-cache persistence raise ``NotImplementedError``
-(ROADMAP Queue 1 items 8, 10 and 16).
+Paged engine: full-attention KV lives in a shared page pool addressed by
+per-request block tables; RWKV state lives in per-slot rows. Prefill runs
+in chunks padded to a small set of bucket widths; prefill chunks and
+decode rows run through ONE mixed step per tick. Admission and eviction
+are decided by page occupancy (``serve.scheduler``). ``forward`` updates
+the pool and the per-slot state in place, so they carry across ticks in
+``self.cache`` (the JAX package donates them to its jitted step and takes
+the new ones back). A slot is zeroed through ``SlotStateArena.reset``
+whenever a request is admitted to it. A radix prefix index
+(``serve.prefix``) maps new requests onto already-resident pages; shared
+pages are forked copy-on-write before their first divergent write. It
+serves full-attention models only: RWKV state is relative to the whole
+stream and cannot be grafted across requests.
+
+On a CUDA device both engines run their fixed-shape step as CUDA graphs,
+the port's counterpart of the JAX package's ``jax.jit`` of the step: the
+paged engine one graph per (chunk bucket, table bucket) signature, the
+dense engine one graph of its decode step (its prefill runs eagerly, once
+per request, as JAX compiles it once per bucket). A graph's first tick
+runs eagerly (it is also the first use of each kernel at that shape),
+then the step is captured without running it; every later tick copies its
+inputs into the graph's own (from pinned host memory, without a wait) and
+replays it. The graph ends at the logits, and sampling runs eagerly after
+it. The graphs share one memory pool per engine; the kernels' split
+workspaces are reserved for the largest step before any capture, and the
+cache is written in place, into the tensors the graph captured. A capture
+that fails raises: nothing falls back to the eager step. On the CPU (the
+tests) the steps run eagerly. The paged engine's copy-on-write forks and
+slot resets run eagerly between ticks, as they are rare (the JAX package
+jits its forks by fork bucket). Speculative decoding, tensor parallelism
+and prefix-cache persistence raise ``NotImplementedError`` in the paged
+engine (ROADMAP Queue 1 items 8, 10 and 16).
 """
 from __future__ import annotations
 
@@ -100,12 +111,306 @@ def _segments(B: int, C: int, nb: int) -> Tuple[Dict[str, Tuple[int, int]],
 
 @dataclass
 class _Graph:
-    """One captured mixed step: the packed inputs it reads, the logits it
-    writes, and the kernel launches that one replay makes."""
+    """One captured step: the packed inputs it reads, the logits it writes,
+    and the kernel launches that one replay makes."""
     graph: "torch.cuda.CUDAGraph"
     inputs: torch.Tensor
     logits: torch.Tensor
     launches: Dict[str, int]
+
+
+def _capture(device: torch.device, pool, step_fn, n: int,
+             what: str) -> Tuple[_Graph, float, int]:
+    """Capture ``step_fn(inputs)`` over ``n`` packed int32 inputs into the
+    memory ``pool``: (the graph, host seconds, pool bytes it reserved).
+    Capture records without running, so the cache is not written; the
+    launch counts its wrappers made are taken back and kept as the graph's
+    count per replay."""
+    inputs = torch.zeros(n, dtype=torch.int32, device=device)
+    graph = torch.cuda.CUDAGraph()
+    before = dict(kernels.LAUNCHES)
+    torch.cuda.synchronize(device)
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved(device)
+    stream = torch.cuda.current_stream(device)
+    t = time.perf_counter()
+    try:
+        with torch.cuda.graph(graph, pool=pool):
+            logits = step_fn(inputs)
+    except Exception as e:
+        # a capture that fails to end leaves its side stream current
+        torch.cuda.set_stream(stream)
+        e.add_note(f"while capturing {what}")
+        raise
+    finally:
+        launches = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+        for k, m in launches.items():
+            kernels.LAUNCHES[k] -= m
+    seconds = time.perf_counter() - t
+    pool_bytes = torch.cuda.memory_reserved(device) - reserved
+    return (_Graph(graph, inputs, logits,
+                   {k: m for k, m in launches.items() if m}),
+            seconds, pool_bytes)
+
+
+def _replay(g: _Graph, staged: torch.Tensor) -> torch.Tensor:
+    """Copy the staged inputs into the graph's own, replay it and count
+    its launches."""
+    g.inputs.copy_(staged, non_blocking=True)
+    g.graph.replay()
+    for name, n in g.launches.items():
+        kernels.LAUNCHES[name] += n
+    return g.logits
+
+
+def _ceil4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def _sample(eng, lg: torch.Tensor, temps: np.ndarray) -> np.ndarray:
+    """Tokens (host) sampled from the logits rows ``lg`` at ``temps``: the
+    temperatures go through ``eng._host_temps`` (pinned on a CUDA device)
+    only when some row samples, and ``eng._gen`` draws only then."""
+    any_sampled = bool((temps > 0).any())
+    temps_t = None
+    if any_sampled:
+        n = len(temps)
+        eng._host_temps.numpy()[:n] = temps
+        temps_t = eng._host_temps[:n].to(eng.device, non_blocking=True)
+    return sample_tokens(lg, temps_t, eng._gen,
+                         any_sampled=any_sampled).cpu().numpy()
+
+
+def _emit(eng, req: Request, tok: int, lg_row: torch.Tensor) -> None:
+    """Append a sampled token; keep its logits row with ``record_logits``."""
+    req.generated.append(tok)
+    if eng.record_logits:
+        eng.sampled_logits.setdefault(req.uid, []).append(lg_row.clone())
+
+
+# ---------------------------------------------------------------------------
+# Dense oracle
+# ---------------------------------------------------------------------------
+
+
+class DenseServeEngine:
+    """Slot-based continuous batching over a fixed dense decode arena.
+
+    The equivalence oracle and the benchmark baseline: each request's
+    prompt is prefilled whole (padded to a ``power_buckets`` width, pad
+    tokens masked through ``chunk_lens``) and its cache row is copied into
+    the arena at its slot; every tick then runs one decode step over all
+    ``max_batch`` slots. KV takes ``max_batch x max_len`` whatever the live
+    context. With ``record_logits=True`` the engine keeps, per request uid,
+    the logits row each generated token was sampled from
+    (``sampled_logits``). ``prefill_s``: host seconds spent in prefills,
+    each ending in its first token's host read, so they hold the prefills'
+    device time. On a CUDA device the decode step is one CUDA graph
+    (module docstring)."""
+
+    def __init__(self, cfg: ModelConfig, params, adapters: Sequence = (), *,
+                 device: DeviceLike = None, max_batch: int = 8,
+                 max_len: int = 512, exec_cfg: ExecConfig = ExecConfig(),
+                 seed: int = 0, record_logits: bool = False):
+        self.device = resolve_device(device)
+        table = params["embed"]["table"]
+        if table.device != self.device:
+            raise ValueError(f"params on {table.device}, engine on "
+                             f"{self.device}")
+        self.cfg, self.params, self.ec = cfg, params, exec_cfg
+        self.max_batch, self.max_len = max_batch, max_len
+        self.adapters = (lora_lib.stack_adapters(list(adapters))
+                         if adapters else None)
+        self.cache = kvcache.init_cache(cfg, max_batch, max_len,
+                                        device=self.device)
+        self.slot_req: List[Optional[Request]] = [None] * max_batch
+        self.slot_pos = np.zeros(max_batch, np.int32)
+        # every slot's cache length as the arena holds it: an idle slot's
+        # row keeps decoding (its tokens are dropped), a position a tick
+        self._cache_len = np.zeros(max_batch, np.int64)
+        self.queue: List[Request] = []
+        self.finished: Dict[int, Request] = {}
+        self._gen = torch.Generator(device=self.device)
+        self._gen.manual_seed(seed)
+        self.prefill_buckets = power_buckets(max_len)
+        self._prefill_sigs: Set[int] = set()
+        self._graph: Optional[_Graph] = None
+        self.replays = 0
+        self.capture_s = 0.0
+        self.graph_pool_bytes = 0
+        # the decode step's packed int32 inputs (tokens, positions, adapter
+        # ids; each part on 16 bytes) and the temperatures, staged in
+        # pinned host memory on a CUDA device
+        pin = self.device.type == "cuda"
+        self._host = torch.zeros(3 * _ceil4(max_batch), dtype=torch.int32,
+                                 pin_memory=pin)
+        self._host_temps = torch.zeros(max_batch, dtype=torch.float32,
+                                       pin_memory=pin)
+        if pin:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+            tfm.reserve_workspaces(cfg, params, exec_cfg, self.device,
+                                   rows=max_batch, chunks=(1,),
+                                   kv_lens=(max_len,))
+        self._tick = 0
+        self.decode_tokens = 0
+        self.prefill_tokens = 0
+        self.prefill_s = 0.0
+        self.record_logits = record_logits
+        self.sampled_logits: Dict[int, List[torch.Tensor]] = {}
+
+    # ------------------------------------------------------------------
+    def _prefill(self, slot: int, req: Request) -> torch.Tensor:
+        """Whole-prompt forward of ``req``, padded to its bucket; its cache
+        row is copied into the arena at ``slot``, in place. Returns the
+        last real position's logits (1, V)."""
+        plen = len(req.prompt)
+        padded = bucketize(plen, self.prefill_buckets)
+        self._prefill_sigs.add(padded)
+        toks = np.zeros((1, padded), np.int32)
+        toks[0, :plen] = np.asarray(req.prompt, np.int32)
+        dev = self.device
+        idx = (torch.tensor([req.adapter_id], device=dev)
+               if self.adapters is not None else None)
+        logits, row, _ = tfm.forward(
+            self.cfg, self.params, {"tokens": torch.from_numpy(toks).to(dev)},
+            lora=self.adapters,
+            positions=torch.arange(padded, dtype=torch.int32,
+                                   device=dev)[None],
+            mode="prefill", prefill_cache_len=self.max_len, exec_cfg=self.ec,
+            adapter_idx=idx,
+            chunk_lens=torch.tensor([plen], dtype=torch.int32, device=dev),
+            last_idx=torch.tensor([plen - 1], device=dev))
+        # every leaf is (n_sp, B, ...): the request's row (B = 1) goes to
+        # the arena's row ``slot``
+        for entry, new in zip(self.cache["layers"], row["layers"]):
+            for name, leaf in entry.items():
+                leaf[:, slot].copy_(new[name][:, 0])
+        self.prefill_tokens += plen
+        return logits[:, 0]
+
+    def _decode_fn(self, inputs: torch.Tensor) -> torch.Tensor:
+        """One decode step of every slot over packed ``inputs``: writes the
+        arena in place and returns the logits (B, V). No host work depends
+        on the values, so a CUDA graph captures it whole."""
+        B, o = self.max_batch, _ceil4(self.max_batch)
+        tokens = inputs[:B].view(B, 1)
+        positions = inputs[o:o + B].view(B, 1)
+        adapter_idx = (inputs[2 * o:2 * o + B].long()
+                       if self.adapters is not None else None)
+        logits, _, _ = tfm.forward(
+            self.cfg, self.params, {"tokens": tokens}, lora=self.adapters,
+            cache=self.cache, positions=positions, mode="decode",
+            exec_cfg=self.ec, adapter_idx=adapter_idx)
+        return logits[:, -1]
+
+    def _eager(self, staged: torch.Tensor) -> torch.Tensor:
+        return self._decode_fn(staged.to(self.device, non_blocking=True))
+
+    def _replay(self, staged: torch.Tensor) -> torch.Tensor:
+        """The decode step by its CUDA graph; the first decode tick runs
+        eagerly and then captures the graph."""
+        if self._graph is None:
+            lg = self._eager(staged)
+            self._graph, sec, nbytes = _capture(
+                self.device, self._graph_pool, self._decode_fn,
+                staged.numel(), "the dense decode step")
+            self.capture_s += sec
+            self.graph_pool_bytes += nbytes
+            return lg
+        self.replays += 1
+        return _replay(self._graph, staged)
+
+    # ------------------------------------------------------------------
+    def submit(self, req: Request) -> None:
+        _validate_request(req, self.max_len)
+        self.queue.append(req)
+
+    def _admit(self) -> None:
+        for i in range(self.max_batch):
+            if self.slot_req[i] is None and self.queue:
+                req = self.queue.pop(0)
+                self.slot_req[i] = req
+                t = time.perf_counter()
+                lg = self._prefill(i, req)
+                tok = int(_sample(
+                    self, lg, np.asarray([req.temperature], np.float32))[0])
+                self.prefill_s += time.perf_counter() - t
+                _emit(self, req, tok, lg[0])
+                self.slot_pos[i] = self._cache_len[i] = len(req.prompt)
+
+    def step(self) -> None:
+        """One engine tick: admit queued requests, run one batched decode
+        step for every slot (a graph replay on a CUDA device), retire
+        finished requests."""
+        self._tick += 1
+        self._admit()
+        active = [i for i, r in enumerate(self.slot_req) if r is not None]
+        if not active:
+            return
+        B, o = self.max_batch, _ceil4(self.max_batch)
+        host = self._host.numpy()
+        host[:B] = [r.generated[-1] if r is not None and r.generated else 0
+                    for r in self.slot_req]
+        host[o:o + B] = self.slot_pos
+        host[2 * o:2 * o + B] = [r.adapter_id if r is not None else 0
+                                 for r in self.slot_req]
+        temps = np.asarray([r.temperature if r is not None else 0.0
+                            for r in self.slot_req], np.float32)
+        # an idle row about to pass the arena's end starts again at 0 (in
+        # place, between ticks), so a full row stays a caller's error
+        full = [i for i in range(B) if self.slot_req[i] is None
+                and self._cache_len[i] >= self.max_len]
+        if full:
+            for entry in self.cache["layers"]:
+                if "len" in entry:
+                    entry["len"][:, full] = 0
+            self._cache_len[full] = 0
+        run = self._replay if self.device.type == "cuda" else self._eager
+        lg = run(self._host)
+        self._cache_len += 1
+        toks_np = _sample(self, lg, temps)
+        for i in active:
+            req = self.slot_req[i]
+            self.slot_pos[i] += 1
+            self.decode_tokens += 1
+            tok = int(toks_np[i])
+            _emit(self, req, tok, lg[i])
+            hit_eos = req.eos_id is not None and tok == req.eos_id
+            if (len(req.generated) >= req.max_new_tokens or hit_eos
+                    or self.slot_pos[i] >= self.max_len - 1):
+                req.done = True
+                req.finish_reason = "eos" if hit_eos else "length"
+                self.finished[req.uid] = req
+                self.slot_req[i] = None
+                self.slot_pos[i] = 0
+
+    def run_until_done(self, max_ticks: int = 10_000) -> Dict[int, Request]:
+        for _ in range(max_ticks):
+            if not self.queue and all(r is None for r in self.slot_req):
+                break
+            self.step()
+        return self.finished
+
+    def drain(self, max_ticks: int = 10_000) -> Dict[int, Completion]:
+        self.run_until_done(max_ticks)
+        return {uid: completion_of(r) for uid, r in self.finished.items()}
+
+    def stats(self) -> EngineStats:
+        return EngineStats(
+            engine="dense", ticks=self._tick,
+            decode_tokens=self.decode_tokens,
+            prefill_tokens=self.prefill_tokens,
+            compile=CompileStats(
+                prefill_signatures=tuple(sorted(self._prefill_sigs)),
+                compiled_steps=int(self._graph is not None),
+                replays=self.replays, capture_ms=1e3 * self.capture_s,
+                graph_pool_bytes=self.graph_pool_bytes),
+            kv_bytes=kvcache.cache_bytes(self.cache))
+
+
+# ---------------------------------------------------------------------------
+# Paged engine
+# ---------------------------------------------------------------------------
 
 
 class PagedServeEngine:
@@ -193,8 +498,8 @@ class PagedServeEngine:
             # every signature's split workspaces, before any capture
             tfm.reserve_workspaces(
                 cfg, params, exec_cfg, self.device, rows=max_slots,
-                chunks=self.chunk_buckets, tables=self.block_buckets,
-                page_size=page_size)
+                chunks=self.chunk_buckets,
+                kv_lens=[nb * page_size for nb in self.block_buckets])
         self._tick = 0
         self.decode_tokens = 0
         self.prefill_tokens = 0
@@ -239,46 +544,15 @@ class PagedServeEngine:
         g = self._graphs.get(sig)
         if g is None:
             lg = self._eager(sig, staged)
-            self._graphs[sig] = self._capture(sig, staged.numel())
+            self._graphs[sig], sec, nbytes = _capture(
+                self.device, self._graph_pool,
+                lambda inputs: self._step_fn(inputs, *sig), staged.numel(),
+                f"the mixed step of signature (C={sig[0]}, nb={sig[1]})")
+            self.capture_s += sec
+            self.graph_pool_bytes += nbytes
             return lg
-        g.inputs.copy_(staged, non_blocking=True)
-        g.graph.replay()
         self.replays += 1
-        for name, n in g.launches.items():
-            kernels.LAUNCHES[name] += n
-        return g.logits
-
-    def _capture(self, sig: Tuple[int, int], n: int) -> _Graph:
-        """Capture the step of ``sig`` into the shared pool. Capture records
-        without running, so the pool and the state are not written; the
-        launch counts its wrappers made are taken back and kept as the
-        graph's count per replay."""
-        inputs = torch.zeros(n, dtype=torch.int32, device=self.device)
-        graph = torch.cuda.CUDAGraph()
-        before = dict(kernels.LAUNCHES)
-        torch.cuda.synchronize(self.device)
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(self.device)
-        stream = torch.cuda.current_stream(self.device)
-        t = time.perf_counter()
-        try:
-            with torch.cuda.graph(graph, pool=self._graph_pool):
-                logits = self._step_fn(inputs, *sig)
-        except Exception as e:
-            # a capture that fails to end leaves its side stream current
-            torch.cuda.set_stream(stream)
-            e.add_note(f"while capturing the mixed step of signature "
-                       f"(C={sig[0]}, nb={sig[1]})")
-            raise
-        finally:
-            launches = {k: kernels.LAUNCHES[k] - before[k] for k in before}
-            for k, m in launches.items():
-                kernels.LAUNCHES[k] -= m
-        self.capture_s += time.perf_counter() - t
-        self.graph_pool_bytes += (torch.cuda.memory_reserved(self.device)
-                                  - reserved)
-        return _Graph(graph, inputs, logits,
-                      {k: m for k, m in launches.items() if m})
+        return _replay(g, staged)
 
     # ------------------------------------------------------------------
     def submit(self, req: Request) -> None:
@@ -366,11 +640,6 @@ class PagedServeEngine:
             self.prefix.register(req.adapter_id,
                                  req.prompt[:n_done * self.layout.page_size],
                                  st.pages[:n_done], self._tick)
-
-    def _emit(self, req: Request, tok: int, lg_row: torch.Tensor) -> None:
-        req.generated.append(tok)
-        if self.record_logits:
-            self.sampled_logits.setdefault(req.uid, []).append(lg_row.clone())
 
     def step(self) -> None:
         """One tick: admit, resolve CoW forks, build a mixed ragged chunk,
@@ -461,13 +730,7 @@ class PagedServeEngine:
                            np.float32)
         self._signatures.add((C, nb))
         lg = run((C, nb), self._host[:n])
-        any_sampled = bool((temps > 0).any())
-        temps_t = None
-        if any_sampled:
-            self._host_temps.numpy()[:] = temps
-            temps_t = self._host_temps.to(self.device, non_blocking=True)
-        toks_np = sample_tokens(lg, temps_t, self._gen,
-                                any_sampled=any_sampled).cpu().numpy()
+        toks_np = _sample(self, lg, temps)
 
         # ---- advance + sample + retire
         for i in active:
@@ -476,7 +739,7 @@ class PagedServeEngine:
             sched.lens[i] += int(clens[i])
             if phase[i] == "decode":
                 self.decode_tokens += 1
-                self._emit(req, int(toks_np[i]), lg[i])
+                _emit(self, req, int(toks_np[i]), lg[i])
             else:
                 self.prefill_tokens += int(clens[i])
                 if self.prefix is not None:
@@ -484,7 +747,7 @@ class PagedServeEngine:
                 if sched.lens[i] < _stream_len(req):
                     continue                    # mid-prompt
                 if not req.generated:           # fresh prefill done
-                    self._emit(req, int(toks_np[i]), lg[i])
+                    _emit(self, req, int(toks_np[i]), lg[i])
                 # else: resumed prefill done — next tick decodes generated[-1]
             tok = req.generated[-1]
             hit_eos = req.eos_id is not None and tok == req.eos_id

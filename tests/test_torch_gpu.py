@@ -45,7 +45,10 @@ CB_SHAPES = [(32, 128, 128), (64, 256, 384), (100, 300, 130), (8, 520, 250),
              (8, 14336, 4096), (1024, 4096, 14336),
              # the paper models' (GPT-2-medium, BLOOM-560m) matrices
              (8, 1024, 1024), (8, 1024, 4096), (8, 4096, 1024),
-             (1024, 1024, 1024), (1024, 1024, 4096), (1024, 4096, 1024)]
+             (1024, 1024, 1024), (1024, 1024, 4096), (1024, 4096, 1024),
+             # the Fig. 13 fine-tunes' matrices (d 128, d_ff 512) at their
+             # 16 x 64 rows
+             (1024, 128, 128), (1024, 128, 512), (1024, 512, 128)]
 FA_SWEEP = [(2, 64, 64, 4, 2, 16), (1, 32, 96, 4, 4, 8), (2, 64, 64, 8, 2, 32),
             (1, 1, 64, 4, 2, 16), (1, 48, 48, 6, 3, 64),
             # several row and key tiles with ragged edges, G = 4 and 8
@@ -737,7 +740,10 @@ CB_T_SHAPES = [(8, 300, 130), (100, 520, 250), (2048, 2048, 512),
                (8, 2048, 8192), (100, 1024, 4096), (2048, 4096, 1024),
                (1024, 2048, 2048), (1024, 2048, 512), (1024, 2048, 8192),
                (1024, 8192, 2048), (1024, 1024, 1024), (1024, 1024, 4096),
-               (1024, 4096, 1024)]
+               (1024, 4096, 1024),
+               # the Fig. 13 fine-tunes' dx (K = 128: half of one 256-row
+               # tile of codes)
+               (1024, 128, 128), (1024, 128, 512), (1024, 512, 128)]
 
 
 @pytest.mark.gpu
@@ -1016,3 +1022,60 @@ def test_launcher_trains_checkpoints_and_restores_on_the_card(tmp_path,
         "flash_attention_bwd"))
     assert launch_train.main(args + ["--steps", "20"]) == []
     assert "restored at step 20" in capsys.readouterr().out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "rwkv6-7b",
+                                  "paper-gpt2-medium"])
+def test_dense_engine_graph_equals_its_eager_step(arch):
+    """The dense oracle engine on the card: its decode step replayed from
+    one CUDA graph gives the eager step's tokens and logits bits, over a
+    run that reuses slots and prefills prompts of several buckets; its
+    launches count alike; its greedy tokens equal the CPU engine's on the
+    same weights (the plain versions)."""
+    dev = _cuda_or_skip()
+    cfg, params, ads = _smoke_model(arch, dev)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (3, 9, 5, 21, 14)]
+    runs = {}
+    for mode in ("eager", "graph"):
+        eng = make_engine(cfg, params, ads, mode="dense", device=dev,
+                          max_batch=3, max_len=48, record_logits=True)
+        if mode == "eager":
+            eng._replay = eng._eager
+        for i, p in enumerate(prompts):
+            eng.submit(Request(uid=i, prompt=p, max_new_tokens=6,
+                               adapter_id=i % 2))
+        kernels.reset_launches()
+        done = eng.drain()
+        torch.cuda.synchronize()
+        runs[mode] = (done, dict(kernels.LAUNCHES), eng)
+    (done_e, launches_e, eng_e), (done_g, launches_g, eng_g) = runs.values()
+    assert {u: c.tokens for u, c in done_g.items()} == {
+        u: c.tokens for u, c in done_e.items()}
+    for uid in done_e:
+        assert torch.equal(torch.stack(eng_g.sampled_logits[uid]),
+                           torch.stack(eng_e.sampled_logits[uid]))
+    assert launches_g == launches_e and launches_g["crossbar_matmul"] > 0
+    st = eng_g.stats().compile
+    assert st.compiled_steps == 1 and st.replays == eng_g.stats().ticks - 1
+    assert eng_e.stats().compile.compiled_steps == 0
+    cpu = make_engine(cfg, _to_cpu(params), [_to_cpu(a) for a in ads],
+                      mode="dense", device="cpu", max_batch=3, max_len=48)
+    for i, p in enumerate(prompts):
+        cpu.submit(Request(uid=i, prompt=p, max_new_tokens=6,
+                           adapter_id=i % 2))
+    assert {u: c.tokens for u, c in cpu.drain().items()} == {
+        u: c.tokens for u, c in done_g.items()}
+
+
+def _to_cpu(tree):
+    if quant.is_quantized(tree):
+        return quant.QuantizedTensor(tree.codes.cpu(), tree.scales.cpu(),
+                                     tree.bits, tree.block, tree.orig_shape)
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_to_cpu(v) for v in tree)
+    return tree.cpu()

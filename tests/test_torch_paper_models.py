@@ -219,8 +219,8 @@ def test_flop_tally_matches_jax_breakdown_of(model):
 
 
 def _bench(name, tmp_path, monkeypatch):
-    common = importlib.import_module("benchmarks.common")
-    monkeypatch.setattr(common, "OUT", tmp_path)
+    for common in ("benchmarks.common", "benchmarks.torch_common"):
+        monkeypatch.setattr(importlib.import_module(common), "OUT", tmp_path)
     return importlib.import_module(f"benchmarks.{name}")
 
 

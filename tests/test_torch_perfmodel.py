@@ -234,9 +234,10 @@ FIGURES = [("systolic_config", "fig6_systolic_grid"),
 @pytest.mark.parametrize("bench,out", FIGURES)
 def test_figure_script_payload_equals_jax_script(bench, out, tmp_path,
                                                  monkeypatch):
-    common = importlib.import_module("benchmarks.common")
-    assert common.PAPER_MODELS == PAPER
-    monkeypatch.setattr(common, "OUT", tmp_path)
+    for name in ("benchmarks.common", "benchmarks.torch_common"):
+        common = importlib.import_module(name)
+        assert common.PAPER_MODELS == PAPER
+        monkeypatch.setattr(common, "OUT", tmp_path)
     jb = importlib.import_module(f"benchmarks.bench_{bench}")
     tb = importlib.import_module(f"benchmarks.torch_{bench}")
     want, got = jb.run(), tb.run()

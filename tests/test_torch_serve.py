@@ -3,6 +3,8 @@ package's engine-independent replay oracle ``tests/oracle.replay_greedy``,
 token for token: mixed prompt lengths and adapters, a shared-prefix wave
 with copy-on-write divergence in the middle of a page, and forced
 preemption in a tiny pool. Page refcounts drain to zero afterwards."""
+from types import SimpleNamespace
+
 import jax
 import numpy as np
 import pytest
@@ -147,8 +149,16 @@ def test_engine_rejects_what_it_cannot_serve(setup):
                dict(moe_dispatch="capacity")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             make_engine(cfg, params, adapters, device="cpu", **kw)
-    with pytest.raises(NotImplementedError):
-        make_engine(cfg, params, adapters, mode="dense", device="cpu")
+    # the dense oracle refuses what only the paged engine takes, with the
+    # JAX package's ValueErrors
+    for kw, msg in ((dict(parallel=SimpleNamespace(tp=2)),
+                     "tensor parallelism requires mode='paged'"),
+                    (dict(prefix_cache_path="x.npz"),
+                     "prefix_cache_path requires mode='paged'"),
+                    (dict(spec="ngram"), "spec decoding requires")):
+        with pytest.raises(ValueError, match=msg):
+            make_engine(cfg, params, adapters, mode="dense", device="cpu",
+                        **kw)
 
 
 @pytest.mark.parametrize("case", ["eos", "length_cap", "prompt_of_max_len_1"])
