@@ -79,6 +79,39 @@
 //   warps a block the compute hides the memory only in part. Not yet:
 //   wgmma for the products, A balanced over the warps (warp 0 walks 16
 //   steps, warp 3 four), a chunked kernel for N < 64.
+//
+// The backward, `wkv_bwd_kernel<N>`: the gradient of (y, S_T) with respect
+//   to r, k, v, w, u and s0, from dy and dS_T. The JAX package has no
+//   Pallas backward: it autodiffs its wkv_scan (src/repro/models/rwkv.py),
+//   whose scan it checkpoints every 64 steps. Per head and step, with S_t
+//   the state after step t:
+//     dr_t = S_{t-1} dy_t + u (.) k_t (v_t . dy_t)
+//     dk_t = dS_t v_t + u (.) r_t (v_t . dy_t)
+//     dv_t = dS_t^T k_t + (r_t . (u (.) k_t)) dy_t
+//     dw_t[i] = sum_j dS_t[i, j] S_{t-1}[i, j]
+//     du = sum over b and t of r_t (.) k_t (v_t . dy_t)
+//     dS_{t-1} = diag(w_t) dS_t + r_t dy_t^T,  ds0 = dS_0.
+// What bounds it: 12 N^2 f32 flops per (b, t, h) (the state recomputed,
+//   then dr, dk, dv, dw and dS's step) against 9 floats per (b, t, h, i)
+//   read or written: at the train microbatch (B 2, T 512, H 64, N 64) 3.2
+//   GFLOP, 0.048 ms at 67 TFLOP/s, against 157 MB, 0.047 ms: operations,
+//   just.
+// What the design does about it: dw_t needs S_{t-1} while walking back,
+//   and running the state back ((S_t - k v^T) / w) loses it for rwkv's
+//   small decays. So one block per (b, h) first sweeps the forward,
+//   keeping the state every kCk = 64 steps in the workspace; then, chunk
+//   by chunk from the last, it keeps that chunk's state every kSt = 8 steps
+//   in the workspace too, and recomputes each 8-step piece's states into
+//   shared memory (128 KB at N = 64: one block an SM), walking the piece
+//   back. Threads [0, N) own row i of the state and of dS: every term but
+//   dv is row-local, and each thread reads back only the rows it wrote.
+//   Threads [N, 2N) own column j of dS and give dv_t[j], stepping dS back
+//   themselves with the same arithmetic: no sum across threads, no
+//   atomics, the same inputs give the same bits. du's per-row parts are
+//   summed over B by the wrapper. f32 FMAs on the SIMT cores, 10 N^2 a
+//   step with the recomputes: a simple design first; tensor cores and a
+//   split of the rows over more warps are later work. Its times are in
+//   PERF.md's kernel table.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -539,6 +572,251 @@ cudaError_t launch_chunk(const float* r, const float* k, const float* v,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// the backward kernel
+// ---------------------------------------------------------------------------
+
+constexpr int kCk = 64;            // steps between the sweep's checkpoints
+constexpr int kSt = 8;             // steps whose states sit in shared memory
+constexpr int kSubs = kCk / kSt;   // kSt-step boundaries of one chunk
+
+template <int N>
+constexpr int bwd_smem_bytes() {
+  // the states of kSt steps, r/k/v/w/dy of kSt steps, two scalars a step, u
+  return (kSt * N * N + 5 * kSt * N + 2 * kSt + N) * 4;
+}
+
+// Row i of a state, S[j] = src[j * N + i] (states lie (j, i) in the
+// workspace, so that the row threads' accesses are coalesced).
+template <int N>
+__device__ __forceinline__ void load_row(float (&S)[N], const float* src,
+                                         int i) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) S[j] = src[j * N + i];
+}
+template <int N>
+__device__ __forceinline__ void store_row(float* dst, const float (&S)[N],
+                                          int i) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) dst[j * N + i] = S[j];
+}
+// S <- diag(w_l) S + k_l v_l^T on row i, for staged step l
+template <int N>
+__device__ __forceinline__ void advance_row(float (&S)[N], const float* ks,
+                                            const float* vs, const float* ws,
+                                            int l, int i) {
+  const float wt = ws[l * N + i], kt = ks[l * N + i];
+#pragma unroll
+  for (int j = 0; j < N; ++j) S[j] = fmaf(wt, S[j], kt * vs[l * N + j]);
+}
+
+// Grid B * H, 2 N threads, bwd_smem_bytes<N>() of dynamic shared memory.
+// r/k/v/w (B, T, H, N) f32 with element strides (sb, st, sh, 1); u (H, N);
+// s0, ds (B, H, N, N) contiguous (ds may be null: zero); dy and the four
+// gradients (B, T, H, N) contiguous; du_rows (B, H, N): each row's part of
+// du; ds0 (B, H, N, N). ws: (ceil(T / kCk) + kSubs) N^2 floats per block.
+// Threads [0, N) take row i of the state and of its gradient: S_{t-1}[i, :]
+// and dS_t[i, :] give dr_t[i], dk_t[i], dw_t[i] and du's part, and the
+// state's advance and dS's step back are row-local. Threads [N, 2N) take
+// column j of dS and give dv_t[j] = sum_i dS_t[i, j] k_t[i] + a_t dy_t[j]
+// (the one sum across rows), stepping dS back themselves.
+template <int N>
+__global__ void __launch_bounds__(2 * N)
+wkv_bwd_kernel(const float* __restrict__ r, const float* __restrict__ k,
+               const float* __restrict__ v, const float* __restrict__ w,
+               const float* __restrict__ u, const float* __restrict__ s0,
+               const float* __restrict__ dy, const float* __restrict__ ds,
+               float* __restrict__ dr, float* __restrict__ dk,
+               float* __restrict__ dv, float* __restrict__ dw,
+               float* __restrict__ du_rows, float* __restrict__ ds0,
+               float* __restrict__ ws, int T, int H, long long sb,
+               long long st, long long sh) {
+  extern __shared__ __align__(16) float smem[];
+  float* hist = smem;                 // S_{t0 + l}: [kSt][N (j)][N (i)]
+  float* in_r = hist + kSt * N * N;   // r, k, v, w, dy of the staged steps
+  float* in_k = in_r + kSt * N;
+  float* in_v = in_k + kSt * N;
+  float* in_w = in_v + kSt * N;
+  float* in_dy = in_w + kSt * N;
+  float* a_s = in_dy + kSt * N;       // r_t . (u * k_t)
+  float* vd_s = a_s + kSt;            // v_t . dy_t
+  float* u_s = vd_s + kSt;
+
+  const int tid = threadIdx.x;
+  const bool row = tid < N;
+  const int i = row ? tid : tid - N;  // the row i, or the column j
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const long long base = b * sb + h * sh;
+  const size_t state = static_cast<size_t>(bh) * N * N;
+  const int nc = (T + kCk - 1) / kCk;
+  float* ws1 = ws + static_cast<size_t>(bh) * (nc + kSubs) * N * N;
+  float* ws2 = ws1 + static_cast<size_t>(nc) * N * N;
+
+  // k, v, w (and with `all` r and dy) of steps [t0, t0 + n) into shared
+  // memory, coalesced along the head dim
+  auto stage = [&](int t0, int n, bool all) {
+    for (int idx = tid; idx < n * N; idx += 2 * N) {
+      const int t = idx / N, c = idx % N;
+      const long long off = base + (t0 + t) * st + c;
+      in_k[idx] = k[off];
+      in_v[idx] = v[off];
+      in_w[idx] = w[off];
+      if (all) {
+        in_r[idx] = r[off];
+        in_dy[idx] = dy[((static_cast<size_t>(b) * T + t0 + t) * H + h) * N +
+                        c];
+      }
+    }
+  };
+
+  if (tid < N) u_s[tid] = u[h * N + tid];
+  float S[N];
+  if (row) {
+#pragma unroll
+    for (int j = 0; j < N; ++j)
+      S[j] = s0[state + static_cast<size_t>(i) * N + j];
+  }
+  // 1. the forward sweep: the state at every kCk-step boundary up to the
+  // last chunk's first step into ws1
+  const int t_last = (nc - 1) * kCk;
+  for (int t0 = 0; t0 <= t_last; t0 += kSt) {
+    if (row && t0 % kCk == 0)
+      store_row<N>(ws1 + static_cast<size_t>(t0 / kCk) * N * N, S, i);
+    if (t0 == t_last) break;
+    __syncthreads();
+    stage(t0, kSt, false);
+    __syncthreads();
+    if (row)
+      for (int l = 0; l < kSt; ++l) advance_row<N>(S, in_k, in_v, in_w, l, i);
+  }
+
+  // 2. the chunks from the last: their kSt-step boundaries into ws2, then
+  // their kSt-step pieces from the last, each piece's states recomputed
+  // into hist and walked back
+  float dS[N];
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+    dS[j] = ds == nullptr ? 0.f
+            : ds[state + (row ? static_cast<size_t>(i) * N + j
+                              : static_cast<size_t>(j) * N + i)];
+  float du = 0.f;
+  for (int c = nc - 1; c >= 0; --c) {
+    const int c0 = c * kCk, c1 = min(T, c0 + kCk);
+    const int nsub = (c1 - c0 + kSt - 1) / kSt;
+    if (row) load_row<N>(S, ws1 + static_cast<size_t>(c) * N * N, i);
+    for (int sc = 0; sc < nsub; ++sc) {
+      if (row) store_row<N>(ws2 + static_cast<size_t>(sc) * N * N, S, i);
+      if (sc == nsub - 1) break;
+      __syncthreads();
+      stage(c0 + sc * kSt, kSt, false);
+      __syncthreads();
+      if (row)
+        for (int l = 0; l < kSt; ++l)
+          advance_row<N>(S, in_k, in_v, in_w, l, i);
+    }
+    for (int sc = nsub - 1; sc >= 0; --sc) {
+      const int t0 = c0 + sc * kSt, n = min(kSt, c1 - t0);
+      __syncthreads();   // the previous piece's inputs are no longer read
+      stage(t0, n, true);
+      __syncthreads();
+      if (tid < n) {
+        float a = 0.f;
+        for (int c2 = 0; c2 < N; ++c2)
+          a = fmaf(in_r[tid * N + c2] * u_s[c2], in_k[tid * N + c2], a);
+        a_s[tid] = a;
+      } else if (tid >= kSt && tid < kSt + n) {
+        const int l = tid - kSt;
+        float a = 0.f;
+        for (int c2 = 0; c2 < N; ++c2)
+          a = fmaf(in_v[l * N + c2], in_dy[l * N + c2], a);
+        vd_s[l] = a;
+      }
+      if (row) {
+        load_row<N>(S, ws2 + static_cast<size_t>(sc) * N * N, i);
+        for (int l = 0; l < n; ++l) {
+#pragma unroll
+          for (int j = 0; j < N; ++j) hist[(l * N + j) * N + i] = S[j];
+          if (l + 1 < n) advance_row<N>(S, in_k, in_v, in_w, l, i);
+        }
+      }
+      __syncthreads();
+      if (row) {
+        const float ui = u_s[i];
+        for (int l = n - 1; l >= 0; --l) {
+          const float rt = in_r[l * N + i], kt = in_k[l * N + i];
+          const float wt = in_w[l * N + i], vdy = vd_s[l];
+          const float* sp = hist + l * N * N + i;
+          float ar0 = 0.f, ar1 = 0.f, ak0 = 0.f, ak1 = 0.f, aw0 = 0.f,
+                aw1 = 0.f;
+#pragma unroll
+          for (int j = 0; j < N; j += 2) {
+            const float s_a = sp[j * N], s_b = sp[(j + 1) * N];
+            const float dy_a = in_dy[l * N + j], dy_b = in_dy[l * N + j + 1];
+            ar0 = fmaf(s_a, dy_a, ar0);
+            ar1 = fmaf(s_b, dy_b, ar1);
+            ak0 = fmaf(dS[j], in_v[l * N + j], ak0);
+            ak1 = fmaf(dS[j + 1], in_v[l * N + j + 1], ak1);
+            aw0 = fmaf(dS[j], s_a, aw0);
+            aw1 = fmaf(dS[j + 1], s_b, aw1);
+            dS[j] = fmaf(wt, dS[j], rt * dy_a);
+            dS[j + 1] = fmaf(wt, dS[j + 1], rt * dy_b);
+          }
+          const size_t out =
+              ((static_cast<size_t>(b) * T + t0 + l) * H + h) * N + i;
+          dr[out] = fmaf(ui * kt, vdy, ar0 + ar1);
+          dk[out] = fmaf(ui * rt, vdy, ak0 + ak1);
+          dw[out] = aw0 + aw1;
+          du = fmaf(rt * kt, vdy, du);
+        }
+      } else {
+        for (int l = n - 1; l >= 0; --l) {
+          const float dyj = in_dy[l * N + i];
+          float a0 = 0.f, a1 = 0.f;
+#pragma unroll
+          for (int c2 = 0; c2 < N; c2 += 2) {
+            a0 = fmaf(dS[c2], in_k[l * N + c2], a0);
+            a1 = fmaf(dS[c2 + 1], in_k[l * N + c2 + 1], a1);
+            dS[c2] = fmaf(in_w[l * N + c2], dS[c2], in_r[l * N + c2] * dyj);
+            dS[c2 + 1] = fmaf(in_w[l * N + c2 + 1], dS[c2 + 1],
+                              in_r[l * N + c2 + 1] * dyj);
+          }
+          dv[((static_cast<size_t>(b) * T + t0 + l) * H + h) * N + i] =
+              fmaf(a_s[l], dyj, a0 + a1);
+        }
+      }
+    }
+  }
+  if (row) {
+    du_rows[static_cast<size_t>(bh) * N + i] = du;
+  } else {
+#pragma unroll
+    for (int c2 = 0; c2 < N; ++c2)
+      ds0[state + static_cast<size_t>(c2) * N + i] = dS[c2];
+  }
+}
+
+template <int N>
+cudaError_t launch_bwd(const float* r, const float* k, const float* v,
+                       const float* w, const float* u, const float* s0,
+                       const float* dy, const float* ds, float* dr,
+                       float* dk, float* dv, float* dw, float* du_rows,
+                       float* ds0, float* ws, int B, int T, int H,
+                       long long sb, long long st, long long sh,
+                       cudaStream_t stream) {
+  static bool configured = false;  // once per process and head dim
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        wkv_bwd_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        bwd_smem_bytes<N>());
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  wkv_bwd_kernel<N><<<B * H, 2 * N, bwd_smem_bytes<N>(), stream>>>(
+      r, k, v, w, u, s0, dy, ds, dr, dk, dv, dw, du_rows, ds0, ws, T, H, sb,
+      st, sh);
+  return cudaGetLastError();
+}
+
 bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
@@ -582,4 +860,51 @@ extern "C" int rwkv6_wkv(const void* r, const void* k, const void* v,
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The backward: the gradient of (y, s_final) with respect to r, k, v, w, u
+// and s0 from dy and ds (null: zero). Writes dr, dk, dv, dw (B, T, H, N),
+// du_rows (B, H, N; the caller sums over B) and ds0 (B, H, N, N). Returns
+// cudaGetLastError() after the launch, or cudaErrorInvalidValue for N
+// outside {8, 16, 32, 64} or a workspace of fewer than B H (ceil(T / 64) +
+// 8) N^2 floats. Allocates nothing, does not synchronise; runs on `stream`.
+extern "C" int rwkv6_wkv_bwd(const void* r, const void* k, const void* v,
+                             const void* w, const void* u, const void* s0,
+                             const void* dy, const void* ds, void* dr,
+                             void* dk, void* dv, void* dw, void* du_rows,
+                             void* ds0, void* ws, long long ws_floats, int B,
+                             int T, int H, int N, long long sb, long long st,
+                             long long sh, void* stream) {
+  if (B <= 0 || T < 0 || H <= 0 || static_cast<long long>(B) * H > 2147483647LL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long need = static_cast<long long>(B) * H *
+                         ((T + kCk - 1) / kCk + kSubs) * N * N;
+  if (ws_floats < need) return static_cast<int>(cudaErrorInvalidValue);
+  const float* rf = static_cast<const float*>(r);
+  const float* kf = static_cast<const float*>(k);
+  const float* vf = static_cast<const float*>(v);
+  const float* wf = static_cast<const float*>(w);
+  const float* uf = static_cast<const float*>(u);
+  const float* sf = static_cast<const float*>(s0);
+  const float* dyf = static_cast<const float*>(dy);
+  const float* dsf = static_cast<const float*>(ds);
+  float* o[6] = {static_cast<float*>(dr), static_cast<float*>(dk),
+                 static_cast<float*>(dv), static_cast<float*>(dw),
+                 static_cast<float*>(du_rows), static_cast<float*>(ds0)};
+  float* wsf = static_cast<float*>(ws);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (N) {
+#define WKV_BWD(NN)                                                        \
+  case NN:                                                                 \
+    return static_cast<int>(launch_bwd<NN>(rf, kf, vf, wf, uf, sf, dyf,   \
+                                           dsf, o[0], o[1], o[2], o[3],   \
+                                           o[4], o[5], wsf, B, T, H, sb,  \
+                                           st, sh, s));
+    WKV_BWD(8)
+    WKV_BWD(16)
+    WKV_BWD(32)
+    WKV_BWD(64)
+#undef WKV_BWD
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

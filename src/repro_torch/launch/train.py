@@ -9,12 +9,17 @@
   PYTHONPATH=src python -m repro_torch.launch.train \\
       --arch paper-gpt2-medium --quant M8F8 --noise-sigma 0.02 --steps 20
 
+  # full-width rwkv6-7b (the wkv forward and backward kernels)
+  PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-7b \\
+      --quant M8F8 --steps 10 --batch 4 --seq 512 --microbatches 2
+
   # smoke size on the CPU (the kernels' plain versions)
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \\
       --smoke --device cpu --steps 10
 
 The flags are the JAX launcher's (``repro.launch.train``) plus
-``--device``. Weights are random from ``--seed`` (the two frameworks'
+``--device``; like it, the launcher has no remat flag (``Trainer`` takes
+``exec_cfg=ExecConfig(remat=True)``). Weights are random from ``--seed`` (the two frameworks'
 generators differ, so the same seed gives other weights than JAX's).
 """
 from __future__ import annotations

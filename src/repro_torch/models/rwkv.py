@@ -11,9 +11,11 @@ Recurrence (official Finch form), per head, N = head_dim:
     y_t     = r_t · (S_t + u ⊙ (k_t ⊗ v_t))
     S_{t+1} = diag(w_t) S_t + k_t ⊗ v_t
 
-Training: the wkv kernel has no backward yet, so on the card a forward
-that needs a gradient raises (ROADMAP Queue 1 item 22); on the CPU, and
-with ``impl="ref"``, the plain recurrence runs under ordinary autograd.
+Training: under grad, ``wkv_scan(impl="auto")`` goes through the wkv
+wrapper's autograd Function (``WkvFn``): the forward kernels and the CUDA
+backward kernel on the card, the plain recurrence and its plain backward
+on the CPU. ``impl="ref"`` runs the plain recurrence under ordinary
+autograd anywhere (it keeps every step's state for the backward).
 """
 from __future__ import annotations
 
@@ -102,8 +104,10 @@ def wkv_scan(r, k, v, w, u, s0, *, impl: str = "auto"):
     """The wkv recurrence over a chunk, with the JAX package's FLOP tally.
 
     r/k/v/w (B, T, H, N) f32; u (H, N); s0 (B, H, N, N). ``impl``: "auto"
-    — the CUDA kernel on CUDA tensors, its plain version on the CPU; "ref"
-    — the plain version anywhere. Returns y (B, T, H, N), s_final."""
+    — the CUDA kernel on CUDA tensors, its plain version on the CPU, and
+    under grad both through ``WkvFn`` (whose backward is the CUDA backward
+    kernel, or its plain version); "ref" — the plain version anywhere,
+    under ordinary autograd. Returns y (B, T, H, N), s_final."""
     B, T, H, N = r.shape
     hetero.record_nonlinear(r.numel())
     hetero._record(hetero.DYNAMIC, 4.0 * B * T * H * N ** 2)

@@ -13,6 +13,7 @@ from dataclasses import dataclass, field
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.configs.base import ModelConfig
@@ -35,8 +36,11 @@ class ExecConfig:
     ``rwkv_impl``: "auto" — the wkv kernel (CUDA) or its plain version
     (CPU); "ref" — the plain recurrence anywhere. ``noise``: weight noise
     on the frozen projections in train mode (noise-aware fine-tuning; the
-    forward then needs a generator). ``remat`` (recompute each layer in the
-    backward) is not ported: it raises (ROADMAP Queue 1 item 23)."""
+    forward then needs a generator). ``remat``: in a train-mode forward
+    under grad, each scan period runs under ``torch.utils.checkpoint``,
+    its activations recomputed in the backward, as the JAX package
+    rematerializes its scanned periods; the gradients are the same bits,
+    and every forward kernel of a period launches twice."""
 
     attn_impl: str = "auto"
     act_dtype: Any = torch.float32
@@ -122,6 +126,47 @@ def _apply_position(cfg: ModelConfig, ec: ExecConfig, pos: int,
     return x, newc
 
 
+def _remat_period(cfg: ModelConfig, ec: ExecConfig, sp: int,
+                  x: torch.Tensor, params: Dict, lora: Optional[Dict],
+                  positions, adapter_idx, chunk_lens,
+                  rng: Optional[torch.Generator]) -> torch.Tensor:
+    """Scan period ``sp`` of a train-mode forward under
+    ``torch.utils.checkpoint``: nothing inside it is kept for the backward,
+    which runs it again (the JAX package's ``jax.checkpoint`` of its scan
+    body with ``nothing_saveable``). The whole period reruns (no early
+    stop), so every forward kernel of it launches twice. Weight noise
+    draws from ``rng``, whose state checkpointing does not keep: the rerun
+    starts ``rng`` from the state the period started from, and gives back
+    the state it found, so it draws the same noise and leaves ``rng`` as
+    the rest of the step expects it."""
+    start = rng.get_state() if rng is not None else None
+    ran = []
+
+    def period(x):
+        rerun = bool(ran) and rng is not None
+        ran.append(True)
+        if rerun:
+            found = rng.get_state()
+            rng.set_state(start)
+        try:
+            for pos in range(scan_period(cfg)):
+                plora = (layer_slice(lora["layers"][pos], sp)
+                         if lora is not None else None)
+                x, _ = _apply_position(
+                    cfg, ec, pos, x, layer_slice(params["layers"][pos], sp),
+                    plora, None, positions, "train", None, adapter_idx, None,
+                    chunk_lens, rng)
+        finally:
+            if rerun:
+                rng.set_state(found)
+        return x
+
+    # the model draws no random numbers but from ``rng``
+    with torch.utils.checkpoint.set_checkpoint_early_stop(False):
+        return torch.utils.checkpoint.checkpoint(
+            period, x, use_reentrant=False, preserve_rng_state=False)
+
+
 def forward(cfg: ModelConfig, params: Dict, inputs: Dict[str, torch.Tensor],
             *, lora: Optional[Dict] = None, cache: Optional[Dict] = None,
             positions: Optional[torch.Tensor] = None, mode: str = "train",
@@ -153,10 +198,7 @@ def forward(cfg: ModelConfig, params: Dict, inputs: Dict[str, torch.Tensor],
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
     ec = exec_cfg
-    if ec.remat:
-        raise NotImplementedError("ExecConfig.remat (recompute each layer in "
-                                  "the backward) is not ported yet (ROADMAP "
-                                  "Queue 1 item 23)")
+    remat = ec.remat and mode == "train" and torch.is_grad_enabled()
     P = scan_period(cfg)
     n_sp = cfg.n_layers // P
 
@@ -173,6 +215,10 @@ def forward(cfg: ModelConfig, params: Dict, inputs: Dict[str, torch.Tensor],
 
     new_layers = [[] for _ in range(P)]
     for sp in range(n_sp):
+        if remat:
+            x = _remat_period(cfg, ec, sp, x, params, lora, positions,
+                              adapter_idx, chunk_lens, rng)
+            continue
         for pos in range(P):
             pparams = layer_slice(params["layers"][pos], sp)
             plora = (layer_slice(lora["layers"][pos], sp)

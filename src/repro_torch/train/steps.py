@@ -3,9 +3,9 @@
 Gradient accumulation runs microbatch by microbatch inside the step, as
 the JAX package's microbatch scan does: f32 gradients are summed and
 divided by the count. Only the LoRA tree requires gradients; the frozen
-base never has any. On the card the forward runs the crossbar and flash
-kernels, whose autograd Functions carry the gradient through their CUDA
-backward kernels.
+base never has any. On the card the forward runs the crossbar, flash and
+wkv kernels, whose autograd Functions carry the gradient through their
+CUDA backward kernels.
 """
 from __future__ import annotations
 
@@ -102,10 +102,8 @@ def make_train_step(cfg: ModelConfig, ec: ExecConfig, hp: TrainHParams
                     ) -> Callable:
     """(params, lora, opt_state, batch, rng) -> (lora, opt_state, metrics).
     ``batch``: tokens (B, T), labels (B, T)[, mask]."""
-    if hp.full_finetune:
-        raise NotImplementedError(
-            "full fine-tuning is not ported: the step trains the LoRA tree "
-            "only, as the JAX package's does (ROADMAP Queue 1 item 23)")
+    # ``hp.full_finetune`` is accepted and not read, as in the JAX package:
+    # the step trains the LoRA tree either way (the paper's PEFT mode)
     loss_fn = make_loss_fn(cfg, ec)
 
     def step(params, lora, opt_state, batch, rng=None):

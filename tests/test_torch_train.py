@@ -403,9 +403,34 @@ def test_launcher_trains_at_smoke_size_on_the_cpu(capsys):
                              "--noise-sigma", "0.02", "--microbatches", "2"])
     assert len(log) == 3 and all(np.isfinite(r["loss"]) for r in log)
     assert "quantized base (M8F8)" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="item 23"):
-        steps.make_train_step(get_config("llama3.2-1b"), tfm.ExecConfig(),
-                              steps.TrainHParams(full_finetune=True))
+
+
+def test_full_finetune_step_matches_jax():
+    """``TrainHParams(full_finetune=True)``: the JAX package declares the
+    flag and reads it nowhere, so its step trains the LoRA tree; the
+    port's step does the same. One step each with the flag: the loss, the
+    gradient norm, the new LoRA and the first moments (which hold (1 -
+    b1) times the gradients) as in ``test_train_step_with_microbatches``."""
+    s = _setup("llama3.2-1b", True)
+    jb, tb = _batch(s["cfg"].vocab_size, B=4)
+    jout = jsteps.make_train_step(
+        s["jcfg"], jtfm.ExecConfig(),
+        jsteps.TrainHParams(microbatches=2, full_finetune=True))(
+            s["jparams"], s["jlora"], jadamw.init(s["jlora"]),
+            jax.tree.map(jnp.asarray, jb), jax.random.PRNGKey(0))
+    tout = steps.make_train_step(
+        s["cfg"], tfm.ExecConfig(),
+        steps.TrainHParams(microbatches=2, full_finetune=True))(
+            s["params"], s["lora"], adamw.init(s["lora"]), tb)
+    assert abs(float(tout[2]["loss"]) - float(jout[2]["loss"])) <= (
+        1e-5 * abs(float(jout[2]["loss"])))
+    assert abs(float(tout[2]["grad_norm"]) - float(jout[2]["grad_norm"])) <= (
+        1e-4 * abs(float(jout[2]["grad_norm"])))
+    tleaves = list(adamw.leaves((tout[0], tout[1].mu)))
+    jleaves = jax.tree.leaves((jout[0], jout[1].mu))
+    assert len(tleaves) == len(jleaves) == 4 * len(s["cfg"].lora.targets)
+    for a, b in zip(tleaves, jleaves):
+        assert _rel(a.numpy(), b) <= 1e-4
 
 
 # ---------------------------------------------------------------------------
@@ -454,7 +479,7 @@ def test_noisy_static_matmul_is_a_dense_product_of_the_noisy_weight():
 
 def test_noise_applies_in_train_mode_only():
     """Train-mode logits move under noise and stay finite; prefill ignores
-    the noise config, as JAX's forward does; remat raises."""
+    the noise config, as JAX's forward does."""
     s = _setup("llama3.2-1b", True)
     toks = {"tokens": torch.randint(0, s["cfg"].vocab_size, (2, 12),
                                     generator=torch.Generator().manual_seed(0))}
@@ -466,6 +491,47 @@ def test_noise_applies_in_train_mode_only():
     pre = tfm.forward(s["cfg"], s["params"], toks, lora=s["lora"],
                       mode="prefill", exec_cfg=ec)[0]
     torch.testing.assert_close(pre, base, rtol=1e-6, atol=1e-6)
-    with pytest.raises(NotImplementedError, match="item 23"):
-        tfm.forward(s["cfg"], s["params"], toks,
-                    exec_cfg=tfm.ExecConfig(remat=True))
+
+
+def _remat_grads(cfg, params, lora, batch, remat, noise, microbatches=2):
+    """(loss, LoRA gradients, the generator's state after the step) of
+    one step's batch in ``microbatches``, with ``ExecConfig.remat`` on or
+    off and weight noise (sigma_rel 0.02, from a seeded generator) on or
+    off."""
+    ec = tfm.ExecConfig(remat=remat, noise=NoiseConfig(
+        enabled=noise, sigma_rel=0.02))
+    rng = torch.Generator().manual_seed(7) if noise else None
+    loss, _, grads = steps.accumulate_grads(
+        steps.make_loss_fn(cfg, ec), lora, params, batch, microbatches, rng)
+    return loss, list(adamw.leaves(grads)), (
+        rng.get_state() if rng is not None else None)
+
+
+@pytest.mark.parametrize("noise", [False, True], ids=["plain", "noise"])
+def test_remat_gives_the_same_bits(noise, monkeypatch):
+    """``ExecConfig(remat=True)`` on llama (M8F8, 2 microbatches): the
+    loss and every LoRA gradient are bit-equal to those without remat,
+    with weight noise off and on (the rerun draws the noise its period
+    drew, and leaves the generator where the step without remat does);
+    each layer's forward runs twice with remat, once without."""
+    s = _setup("llama3.2-1b", True)
+    _, tb = _batch(s["cfg"].vocab_size, B=4)
+    runs = {}
+    real = tfm._apply_position
+    for remat in (False, True):
+        ran = []
+
+        def counted(*a, ran=ran, **kw):
+            ran.append(a[2])
+            return real(*a, **kw)
+
+        monkeypatch.setattr(tfm, "_apply_position", counted)
+        runs[remat] = (*_remat_grads(s["cfg"], s["params"], s["lora"], tb,
+                                     remat, noise), len(ran))
+    (l0, g0, st0, n0), (l1, g1, st1, n1) = runs[False], runs[True]
+    assert torch.equal(l0, l1)
+    assert len(g0) == len(g1) == 2 * len(s["cfg"].lora.targets)
+    assert all(torch.equal(a, b) for a, b in zip(g0, g1))
+    if noise:
+        assert torch.equal(st0, st1)
+    assert n0 == 2 * s["cfg"].n_layers and n1 == 2 * n0
