@@ -147,7 +147,9 @@ Imports nothing of JAX or of the JAX package. Phases, each printing JSON:
                the shortfall beside the numbers; a trace that lost a
                training kernel's records is taken again with another
                step, up to 3 times (the phase fails if the third is still
-               incomplete). Then ``remat_check``: one
+               incomplete); rwkv6-7b's trace is also retaken if it lost a
+               wkv backward launch, and must show the chunked wkv
+               backward kernel. Then ``remat_check``: one
                step's loss and LoRA gradients with ``ExecConfig.remat``
                off and on, bit-equal (GPT-2's with weight noise), the
                launches held exactly (each forward kernel twice with
@@ -169,12 +171,14 @@ Imports nothing of JAX or of the JAX package. Phases, each printing JSON:
                int8 and int4 at the Fig. 13 fine-tunes' matrices ((128,
                128), (128, 512), (512, 128) at M = 16 x 64);
                ``crossbar_matmul_t`` in int4 at the microbatch shapes,
-               int8 and int4 at Fig. 13's. Then the wkv backward kernel
+               int8 and int4 at Fig. 13's. Then the wkv backward kernels
                (``rwkv6_wkv_bwd``) against ``rwkv6_wkv_bwd_plain``, each
-               gradient within 1e-4 of its max |.|: one rwkv6-7b train
+               gradient within 1e-4 of its max |.| and two calls giving
+               the same bits: the chunked kernel at one rwkv6-7b train
                microbatch (B 2, T 512, H 64, N 64), the same with a row
-               masked past 300 steps, small decays with exact zeros, and
-               N = 32.
+               masked past 300 steps, and small decays with exact zeros;
+               the recurrence at N = 32 and, as the "before" case, at the
+               microbatch (``kernel="recurrent"``).
   7. figures — the paper's Fig. 9 (``benchmarks/torch_noise.py``) and
                Fig. 13 (``benchmarks/torch_quant_perplexity.py``) at their
                full protocols, and the serving-throughput workloads 1-2 at
@@ -939,8 +943,11 @@ def wkv_cases(dev, g):
                            model="crossover")
 
 
-# the wkv backward kernel's name in a profiler trace
-WKV_BWD_KERNELS = ("wkv_bwd_kernel<",)
+# the wkv backward kernels' names in a profiler trace: the chunked
+# tensor-core kernel (N = 64, the train path's) and the recurrence
+WKV_BWD_KERNEL_OF = {"chunk": ("wkv_bwd_chunk_kernel",),
+                     "recurrent": ("wkv_bwd_kernel<",)}
+WKV_BWD_KERNELS = WKV_BWD_KERNEL_OF["chunk"] + WKV_BWD_KERNEL_OF["recurrent"]
 
 
 def _wkv_bwd_cost(B, T, H, N):
@@ -952,57 +959,85 @@ def _wkv_bwd_cost(B, T, H, N):
     return nbytes, 12.0 * B * T * H * N * N
 
 
-def wkv_bwd_case(dev, g, label, B, T, H, N, decay="model", clens=None):
+def _wkv_bwd_tensor_flops(B, T, H, N):
+    """The chunked backward kernel's products on the tensor cores, per
+    (b, t, h): H = dY S^T, G = V dSe^T, (k * Q) dSe, (r * P)^T dY and the
+    sweep's (k * Q)^T V, 2 N^2 each, and dA = dY V^T and A^T dY over a
+    16-step sub-chunk, 2 16 N each."""
+    return B * T * H * (10.0 * N * N + 64.0 * N)
+
+
+def wkv_bwd_case(dev, g, label, B, T, H, N, decay="model", clens=None,
+                 kernel="auto"):
     """``rwkv6_wkv_bwd`` against ``rwkv6_wkv_bwd_plain`` on the same
     inputs and gradients of y and the final state: each gradient within
-    ``FA_BWD_TOL`` of its max |.|."""
+    ``FA_BWD_TOL`` of its max |.|, and two calls giving the same bits. The
+    device time is of the kernel that ``kernel`` picks (the chunked one at
+    N = 64 unless forced), by its own name."""
     from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
 
+    chunked = kernel == "chunk" or (kernel == "auto"
+                                    and N == wkv_ops.CHUNK_N)
     args = _wkv_inputs(dev, g, B, T, H, N, decay, clens)
     dy = torch.randn(B, T, H, N, generator=g, device=dev)
     ds = torch.randn(B, H, N, N, generator=g, device=dev)
-    got = wkv_ops.rwkv6_wkv_bwd(*args, dy, ds)
+    call = lambda: wkv_ops.rwkv6_wkv_bwd(  # noqa: E731
+        *args, dy, ds, kernel=kernel)
+    got = call()
+    again = call()
     want = wkv_ops.rwkv6_wkv_bwd_plain(*args, dy, ds)
     torch.cuda.synchronize()
+    same_bits = all(torch.equal(a, b) for a, b in zip(got, again))
     errs = [float((a - b).abs().max()) for a, b in zip(got, want)]
     scales = [float(b.abs().max()) for b in want]
     rel = max(e / max(sc, 1e-30) for e, sc in zip(errs, scales))
     nbytes, flops = _wkv_bwd_cost(B, T, H, N)
-    call = lambda: wkv_ops.rwkv6_wkv_bwd(*args, dy, ds)  # noqa: E731
+    tensor = _wkv_bwd_tensor_flops(B, T, H, N)
     return {
         "name": "rwkv6_wkv_bwd", "model": "rwkv6-7b", "case": label,
+        "kernel": "chunk" if chunked else "recurrent",
         "shape": {"B": B, "T": T, "H": H, "N": N, "decay": decay,
                   **({"chunk_lens": list(clens)} if clens else {})},
         "max_abs_err": max(errs), "max_abs_err_by_grad": errs,
         "max_rel_err": rel, "tol_rel": FA_BWD_TOL,
-        "tol": FA_BWD_TOL * max(scales),
-        "ok": rel <= FA_BWD_TOL and all(
+        "tol": FA_BWD_TOL * max(scales), "same_bits": same_bits,
+        "ok": rel <= FA_BWD_TOL and same_bits and all(
             bool(torch.isfinite(x).all()) for x in got),
         "ms": timed(call, 20),
-        "device_ms": device_ms_by_name([call] * 10, WKV_BWD_KERNELS),
+        "device_ms": device_ms_by_name(
+            [call] * 10, WKV_BWD_KERNEL_OF["chunk" if chunked
+                                           else "recurrent"]),
         "host_us": host_us(call, 50),
         "plain_ms": timed(lambda: wkv_ops.rwkv6_wkv_bwd_plain(*args, dy, ds),
                           3, warmup=1),
         "library_ms": None,
         "library": "none: no single PyTorch call computes this gradient",
         "bound_ms": bound_ms(nbytes, flops),
+        **({"bound_pieces_ms": 1e3 * max(nbytes / HBM_BYTES_PER_S,
+                                         3 * tensor / TF32_FLOPS_PER_S)}
+           if chunked else {}),
         "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
                      > flops / F32_FLOPS_PER_S else "operations"),
     }
 
 
 def slice11_cases(dev, g):
-    """The wkv backward kernel, taken after the train phase (so that the
-    earlier phases run after the same kernel cases as before it was
+    """The wkv backward kernels, taken after the train phase (so that the
+    earlier phases run after the same kernel cases as before they were
     added): one rwkv6-7b train microbatch (B 2, T 512, H 64, N 64), the
-    same with a row masked past 300 steps, small decays with exact zeros,
-    and N = 32 (128 heads of the same width)."""
-    yield (wkv_bwd_case(dev, g, label, B, T, H, N, decay, clens)
-           for label, B, T, H, N, decay, clens in (
-               ("microbatch", 2, 512, 64, 64, "model", None),
-               ("ragged", 2, 512, 64, 64, "model", (512, 300)),
-               ("small_decay", 2, 512, 64, 64, "small_decay", None),
-               ("N=32", 2, 512, 128, 32, "model", None)))
+    same with a row masked past 300 steps, small decays with exact zeros
+    (the chunked kernel, as the train path runs them), N = 32 (128 heads
+    of the same width: the recurrence), and the microbatch again through
+    the recurrence (``kernel="recurrent"``, the kernel before the chunked
+    one), in the same process."""
+    yield (wkv_bwd_case(dev, g, label, B, T, H, N, decay, clens, kernel)
+           for label, B, T, H, N, decay, clens, kernel in (
+               ("microbatch", 2, 512, 64, 64, "model", None, "auto"),
+               ("ragged", 2, 512, 64, 64, "model", (512, 300), "auto"),
+               ("small_decay", 2, 512, 64, 64, "small_decay", None, "auto"),
+               ("N=32", 2, 512, 128, 32, "model", None, "auto"),
+               ("microbatch, before", 2, 512, 64, 64, "model", None,
+                "recurrent")))
 
 
 def path_cases(dev, g):
@@ -1858,7 +1893,7 @@ def lost_by_range(prof) -> dict:
     return out
 
 
-def traced_step(run, groups=ATTN_GROUPS, attempts: int = 3):
+def traced_step(run, groups=ATTN_GROUPS, attempts: int = 3, keep=()):
     """One train step ``run()`` in a ``cuda_trace`` with CPU activity and
     the port's launch ranges (``named_launchers``): its wall, device time
     and busy share (device time over the traced wall, which the CPU
@@ -1871,7 +1906,8 @@ def traced_step(run, groups=ATTN_GROUPS, attempts: int = 3):
     whether there are none). A trace in which a group of ``groups`` has no
     device time is taken again with another step, up to ``attempts``
     times (no more: every traced event adds to what later traces lose,
-    ``late_kernel_phase``); if the last is still incomplete, the phase
+    ``late_kernel_phase``), and so is one that lost a launch of a port
+    launcher named in ``keep``; if the last is still incomplete, the phase
     fails. ``attempts`` lists every trace's."""
     tries = []
     for _ in range(attempts):
@@ -1901,7 +1937,8 @@ def traced_step(run, groups=ATTN_GROUPS, attempts: int = 3):
         lost = lost_by_range(prof)
         out.update(lost_launches=sum(lost.values()), lost_by_range=lost)
         tries.append({"complete": all(out[f"{label}_device_ms"] > 0
-                                      for label in groups),
+                                      for label in groups)
+                      and not any(k in name for name in lost for k in keep),
                       "lost_launches": out["lost_launches"],
                       "lost_by_range": lost, "device_ms": device})
         if tries[-1]["complete"]:
@@ -2168,8 +2205,10 @@ def train_phase(dev, cfg, *, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
         tr.tc = dataclasses.replace(tc, steps=tr.step + 1)
         tr.run()
 
+    # rwkv6-7b's trace keeps every wkv backward launch's record
     trace = traced_step(one_more_step,
-                        RWKV_GROUPS if is_rwkv(cfg) else ATTN_GROUPS)
+                        RWKV_GROUPS if is_rwkv(cfg) else ATTN_GROUPS,
+                        keep=("rwkv6_wkv_bwd",) if is_rwkv(cfg) else ())
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     del tr
     gc.collect()
@@ -2236,6 +2275,11 @@ def train_phase(dev, cfg, *, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
     if any(sl != check_step for sl in step_launches):
         problems.append(f"checked steps launched {step_launches}, expected "
                         f"{check_step} each")
+    if is_rwkv(cfg) and not any(
+            m in name for name in trace["port_kernels_device_ms"]
+            for m in WKV_BWD_KERNEL_OF["chunk"]):
+        problems.append(f"the traced step ran no chunked wkv backward: "
+                        f"{trace['port_kernels_device_ms']}")
     if not (remat["bit_equal"] and remat["launches_exact"]):
         problems.append(f"remat: {remat}")
     if plain_launches:
@@ -2488,7 +2532,8 @@ def main() -> int:
            "flash_attention_bwd": ("llama3.2-1b train",
                                    {"case": "causal",
                                     "model": "llama3.2-1b"}),
-           "rwkv6_wkv_bwd": ("rwkv6-7b train", {"case": "microbatch"})}
+           "rwkv6_wkv_bwd": ("rwkv6-7b train", {"case": "microbatch",
+                                                "kernel": "chunk"})}
     sources = {"crossbar_matmul": "src/repro_torch/csrc/crossbar_matmul.cu",
                "crossbar_matmul_t": "src/repro_torch/csrc/crossbar_matmul.cu",
                "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
@@ -2542,6 +2587,7 @@ def main() -> int:
             summary[-1]["cases"] = [
                 {k: o[k] for k in ("case", "model", "kernel", "shape",
                                    "max_abs_err", "tol", "max_rel_err",
+                                   "same_bits",
                                    "tol_rel", "ms", "device_ms",
                                    "host_us", "plain_ms",
                                    "library_ms", "library_device_ms",

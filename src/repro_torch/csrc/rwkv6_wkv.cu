@@ -80,11 +80,11 @@
 //   wgmma for the products, A balanced over the warps (warp 0 walks 16
 //   steps, warp 3 four), a chunked kernel for N < 64.
 //
-// The backward, `wkv_bwd_kernel<N>`: the gradient of (y, S_T) with respect
-//   to r, k, v, w, u and s0, from dy and dS_T. The JAX package has no
-//   Pallas backward: it autodiffs its wkv_scan (src/repro/models/rwkv.py),
-//   whose scan it checkpoints every 64 steps. Per head and step, with S_t
-//   the state after step t:
+// The backward: the gradient of (y, S_T) with respect to r, k, v, w, u and
+//   s0, from dy and dS_T. The JAX package has no Pallas backward: it
+//   autodiffs its wkv_scan (src/repro/models/rwkv.py), whose scan it
+//   checkpoints every 64 steps. Per head and step, with S_t the state after
+//   step t:
 //     dr_t = S_{t-1} dy_t + u (.) k_t (v_t . dy_t)
 //     dk_t = dS_t v_t + u (.) r_t (v_t . dy_t)
 //     dv_t = dS_t^T k_t + (r_t . (u (.) k_t)) dy_t
@@ -95,23 +95,68 @@
 //   then dr, dk, dv, dw and dS's step) against 9 floats per (b, t, h, i)
 //   read or written: at the train microbatch (B 2, T 512, H 64, N 64) 3.2
 //   GFLOP, 0.048 ms at 67 TFLOP/s, against 157 MB, 0.047 ms: operations,
-//   just.
-// What the design does about it: dw_t needs S_{t-1} while walking back,
+//   just. In three TF32 pieces on the tensor cores the products need 0.018
+//   ms: then the bytes bound it.
+// What the design does about it. dw_t needs S_{t-1} while walking back,
 //   and running the state back ((S_t - k v^T) / w) loses it for rwkv's
-//   small decays. So one block per (b, h) first sweeps the forward,
-//   keeping the state every kCk = 64 steps in the workspace; then, chunk
-//   by chunk from the last, it keeps that chunk's state every kSt = 8 steps
-//   in the workspace too, and recomputes each 8-step piece's states into
-//   shared memory (128 KB at N = 64: one block an SM), walking the piece
-//   back. Threads [0, N) own row i of the state and of dS: every term but
-//   dv is row-local, and each thread reads back only the rows it wrote.
-//   Threads [N, 2N) own column j of dS and give dv_t[j], stepping dS back
-//   themselves with the same arithmetic: no sum across threads, no
-//   atomics, the same inputs give the same bits. du's per-row parts are
-//   summed over B by the wrapper. f32 FMAs on the SIMT cores, 10 N^2 a
-//   step with the recomputes: a simple design first; tensor cores and a
-//   split of the rows over more warps are later work. Its times are in
-//   PERF.md's kernel table.
+//   small decays: both kernels sweep the forward first and keep states.
+//   - N = 64 (the train path): `wkv_bwd_chunk_kernel`, sub-chunks of kSub
+//     = 16 steps as in the chunked forward. Inside one that starts at state
+//     S, with dSe the gradient of the state after its last step, P_t, Q_s
+//     and D(s, t) the forward products of w before t, after s and between
+//     them, A the forward's, H = dY S^T, G = V dSe^T, dA = dY V^T (s < t),
+//     vd_t = v_t . dy_t and c_i = sum_j S_ij dSe_ij:
+//       dr_t = P_t H_t + sum_{s<t} dA[t, s] k_s D(s, t) + u k_t vd_t
+//       dk_s = Q_s G_s + sum_{t>s} dA[t, s] r_t D(s, t) + u r_s vd_s
+//       dv_s = (k_s Q_s)^T dSe + sum_{t>s} A[t, s] dy_t + a_s dy_s
+//       dw_tau = c P_tau Q_tau + P_tau x_tau + Q_tau y_tau + z_tau
+//       dS_in = diag(P_16) dSe + (r * P)^T dY,
+//     x_tau = sum_{t>tau} D(tau, t) r_t H_t and y_tau = sum_{s<tau} D(s,
+//     tau) k_s G_s (scans), z_tau = sum_{s<tau<t} D(s, tau) D(tau, t) k_s
+//     r_t dA[t, s] = sum_s alpha_tau[s] beta_tau[s] (alpha forward, beta
+//     backward in tau; beta_s[s] is dk_s's middle term). Every decay is a
+//     forward product of w and each in dw leaves w_tau out: nothing is
+//     divided, no log is taken, w = 0 and w = 1 stay exact.
+//     One block of 16 warps per (b, h): a forward sweep on the tensor
+//     cores keeps the state at the start of every sub-chunk in the
+//     workspace (67 MB at the microbatch), then the sub-chunks are walked
+//     from the last. Four groups of four warps each own 16 key rows i of S
+//     and dS (rows evolve independently): dr, dk, dw and du are local to a
+//     group, dv is a partial over its rows, the groups' partials summed in
+//     group order through shared memory. Warp w of a group owns value
+//     columns [16 w, 16 w + 16) of its rows as mma accumulators. The seven
+//     products (H, G, dA, (k * Q) dSe, A^T dY, (r * P)^T dY and the
+//     sweep's (k * Q)^T V) run on mma.sync.m16n8k8 in 3xTF32, as the
+//     forward's; A, the decays and the per-row terms in f32: one thread
+//     per (row, step), P, Q, x and y as prefix and suffix scans of affine
+//     maps over a row's 16 lanes, z and dr's middle term reduce-scattered
+//     over them. Two barriers a sub-chunk: the row pass of one sub-chunk
+//     runs in the first phase of the next, beside its products and A.
+//     r/k/w/v/dy arrive by cp.async in a two-stage ring. Fixed order
+//     everywhere, no atomics: the same inputs give the same bits.
+//     A cluster of four blocks, each a group, was tried first: 124
+//     clusters of four fit on the card at four blocks an SM, so 128 (b, h)
+//     ran in two waves (0.59 ms), and the cluster barriers and remote
+//     reads cost 37 of the 248 us of one wave
+//     (benchmarks/torch_wkv_bwd_phases.py).
+//     Where it stands (one NVIDIA H100 80GB HBM3 at 700.00 W): 0.323 ms
+//     at the microbatch (benchmarks/torch_wkv_bwd_phases.py) against the
+//     recurrence's 0.646 (chip_smoke.py) and the bytes bound's 0.047, one
+//     block an SM (125 registers, 205 KB of shared memory). Issue- and
+//     latency-bound in lockstep phases, the same time with 8 blocks on
+//     the card as with 128: of 323 us the per-row pass takes 77, the
+//     products H, G and dA 68, A 42, the warps' sums 23 and dv's partial
+//     18, on top of a skeleton of loads and stores that alone takes 107
+//     (HBM: the inputs read twice and the kept states written and read).
+//   - N in {8, 16, 32}, and `kernel="recurrent"`: `wkv_bwd_kernel<N>`, one
+//     block per (b, h) keeps the state every kCk = 64 steps in the
+//     workspace; then, chunk by chunk from the last, that chunk's state
+//     every kSt = 8 steps too, and recomputes each 8-step piece's states
+//     into shared memory, walking the piece back. Threads [0, N) own row i
+//     of the state and of dS: every term but dv is row-local. Threads [N,
+//     2N) own column j of dS and give dv_t[j], stepping dS back
+//     themselves. f32 FMAs on the SIMT cores; du's per-row parts summed
+//     over B by the wrapper, as for the chunked kernel.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -817,6 +862,617 @@ cudaError_t launch_bwd(const float* r, const float* k, const float* v,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// the chunked backward kernel
+// ---------------------------------------------------------------------------
+
+constexpr int kG = 4;                  // row groups of a block
+constexpr int kRows = kN / kG;         // key rows i of a group
+constexpr int kBThreads = kG * kThreads;   // a group of 4 warps each
+constexpr int kLdV = 72;               // rows of the staged v and dy, floats
+constexpr int kLdP = 24;               // rows of r * P, k * Q and A
+constexpr int kLdS = 17;               // rows of the partials and sums
+constexpr int kLdT = 20;               // rows of the row pass's operands
+constexpr int kRkw = kSub * kN;        // r, k or w of a stage, floats
+constexpr int kBStage = 3 * kRkw + 2 * kSub * kLdV;
+// a group's own buffers, from its base
+constexpr int kGRp = 0;                          // r * P        [t][i]
+constexpr int kGKq = kGRp + kSub * kLdP;         // k * Q        [s][i]
+constexpr int kGA = kGKq + kSub * kLdP;          // A's partial  [t][s]
+constexpr int kGPl = kGA + kSub * kLdP;          // P_16         [i]
+constexpr int kGDse = kGPl + kRows;             // dSe [i][j], dv's operand
+constexpr int kGRed = kGDse + kRows * kLdV;      // warps' H, G, dA [3][4]
+constexpr int kGSum = kGRed + 12 * kSub * kLdS;  // H [t][i], G [s][i]
+// r, k, w [i][t] of two sub-chunks (by parity), dA [s][t]
+constexpr int kGT = kGSum + 2 * kSub * kLdS;
+constexpr int kGVd = kGT + 7 * kSub * kLdT;      // v_t . dy_t
+constexpr int kGC = kGVd + kSub;                 // c [i]
+constexpr int kGCp = kGC + kRows;                // warps' c [4][i]
+constexpr int kGOut = kGCp + 4 * kRows;          // dr, dk, dw [3][s][i]
+constexpr int kGDvx = kGOut + 3 * kSub * kLdS;   // dv's partial [s][j]
+constexpr int kGroupFloats = kGDvx + kSub * kLdV;
+constexpr int kBSmemBytes = (2 * kBStage + kG * kGroupFloats) * 4;
+constexpr int kStateSlot = kN * kN;    // floats of a block's state
+static_assert(kBSmemBytes <= 232448, "a block's shared memory");
+static_assert(kStateSlot == 8 * kBThreads, "eight state floats a thread");
+static_assert(kGroupFloats % 4 == 0 && kGDse % 4 == 0 && kGDvx % 4 == 0 &&
+                  kGT % 4 == 0,
+              "16-byte aligned buffers");
+
+__device__ __forceinline__ void split4(const float (&x)[4], uint32_t (&big)[4],
+                                       uint32_t (&small)[4]) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) split_tf32(x[e], big[e], small[e]);
+}
+
+// Grid B * H, kBThreads threads, kBSmemBytes of dynamic shared memory.
+// Arguments as wkv_bwd_kernel's; r/k/v/w/u/dy 16-byte aligned, ws:
+// ceil(T / kSub) N^2 floats per (b, h).
+// Group `grp` (warps 4 grp .. 4 grp + 3) owns the key rows i in [16 grp,
+// 16 grp + 16) of S and dS: rows evolve independently, so dr, dk, dw and
+// du are local to it, and dv is a partial over its rows, the groups'
+// partials summed in group order. Warp gw of a group owns the value
+// columns j in [16 gw, 16 gw + 16) of those rows as m16n8k8 accumulators,
+// S in sacc and dS in dacc: acc[nt][e] is row i = g + 8 (e >> 1) (of the
+// group's), column j = 16 gw + 8 nt + 2q + (e & 1).
+__global__ void __launch_bounds__(kBThreads, 1)
+wkv_bwd_chunk_kernel(const float* __restrict__ r, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ w,
+                     const float* __restrict__ u, const float* __restrict__ s0,
+                     const float* __restrict__ dy,
+                     const float* __restrict__ ds, float* __restrict__ dr,
+                     float* __restrict__ dk, float* __restrict__ dv,
+                     float* __restrict__ dw, float* __restrict__ du_rows,
+                     float* __restrict__ ds0, float* __restrict__ ws, int T,
+                     int H, long long sb, long long st, long long sh) {
+  extern __shared__ __align__(16) float sm[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, q = lane & 3;
+  const int grp = warp >> 2, gw = warp & 3, gt = tid & (kThreads - 1);
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int i0 = grp * kRows, j0 = 16 * gw;
+  const long long base = b * sb + h * sh;
+  const size_t state = static_cast<size_t>(bh) * kN * kN;
+  const int n_sub = (T + kSub - 1) / kSub;
+
+  float* gb = sm + 2 * kBStage + grp * kGroupFloats;   // the group's own
+  float* rp_s = gb + kGRp;
+  float* kq_s = gb + kGKq;
+  float* a_s = gb + kGA;
+  float* pl_s = gb + kGPl;
+  float* dse_s = gb + kGDse;
+  float* out_s = gb + kGOut;
+  float* red_s = gb + kGRed;
+  float* hs_s = gb + kGSum;                      // H   [t][i]
+  float* gs_s = hs_s + kSub * kLdS;              // G   [s][i]
+  // the row pass's operands, 16-byte rows: r, k, w [i][t] of sub-chunk c
+  // at rkw_s(c), and dA [s][t] (0 for s >= t)
+  auto rkw_s = [&](int c) { return gb + kGT + (c & 1) * 3 * kSub * kLdT; };
+  float* dat_s = gb + kGT + 6 * kSub * kLdT;
+  float* vd_s = gb + kGVd;
+  float* c_s = gb + kGC;
+  float* cp_s = gb + kGCp;
+  float* dvx_s = gb + kGDvx;
+  // the block's state at the start of each sub-chunk, in thread order
+  float* wsb = ws + static_cast<size_t>(bh) * n_sub * kStateSlot + tid * 8;
+
+  // r (with `all`), k, w and v (with `all`, dy too) of sub-chunk c into
+  // stage c % 2, 16 bytes a copy; steps past T get w = 1 and zeros, stored
+  // directly (the stage is not being read)
+  auto issue = [&](int c, bool all) {
+    float* dst0 = sm + (c & 1) * kBStage;
+    for (int idx = tid; idx < 3 * kSub * 16; idx += kBThreads) {
+      const int arr = idx >> 8, t = (idx >> 4) & 15, part = idx & 15;
+      if (arr == 0 && !all) continue;
+      const int tg = c * kSub + t;
+      float* d = dst0 + arr * kRkw + t * kN + part * 4;
+      if (tg < T) {
+        const float* src = arr == 0 ? r : arr == 1 ? k : w;
+        cp_async16(d, src + base + tg * st + part * 4, 16);
+      } else {
+        const float f = arr == 2 ? 1.f : 0.f;
+        *reinterpret_cast<float4*>(d) = make_float4(f, f, f, f);
+      }
+    }
+    for (int idx = tid; idx < (all ? 2 : 1) * kSub * 16; idx += kBThreads) {
+      const int arr = idx >> 8, t = (idx >> 4) & 15, part = idx & 15;
+      const int tg = c * kSub + t;
+      float* d = dst0 + 3 * kRkw + (arr * kSub + t) * kLdV + part * 4;
+      if (tg < T) {
+        const float* src =
+            arr == 0 ? v + base + tg * st + part * 4
+                     : dy + ((static_cast<size_t>(b) * T + tg) * H + h) * kN +
+                           part * 4;
+        cp_async16(d, src, 16);
+      } else {
+        *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    }
+  };
+  // dv of sub-chunk c: the groups' partials summed in group order
+  auto store_dv = [&](int c) {
+    const int s = tid >> 5, jj = 2 * (tid & 31);
+    const float* src = sm + 2 * kBStage + kGDvx + s * kLdV + jj;
+    float2 x = *reinterpret_cast<const float2*>(src);
+#pragma unroll
+    for (int gg = 1; gg < kG; ++gg) {
+      const float2 y =
+          *reinterpret_cast<const float2*>(src + gg * kGroupFloats);
+      x.x += y.x;
+      x.y += y.y;
+    }
+    const int tg = c * kSub + s;
+    if (tg < T)
+      *reinterpret_cast<float2*>(
+          dv + ((static_cast<size_t>(b) * T + tg) * H + h) * kN + jj) = x;
+  };
+  // dr, dk, dw of the group's rows of sub-chunk c from its staging rows,
+  // 16 bytes a store
+  auto store_out = [&](int c) {
+    for (int idx = gt; idx < 3 * kSub * 4; idx += kThreads) {
+      const int a = idx >> 6, s = (idx >> 2) & 15, part = idx & 3;
+      const int tg = c * kSub + s;
+      if (tg >= T) continue;
+      const float* src = out_s + (a * kSub + s) * kLdS + 4 * part;
+      float* dst = (a == 0 ? dr : a == 1 ? dk : dw) +
+                   ((static_cast<size_t>(b) * T + tg) * H + h) * kN + i0 +
+                   4 * part;
+      *reinterpret_cast<float4*>(dst) =
+          make_float4(src[0], src[1], src[2], src[3]);
+    }
+  };
+
+  float sacc[2][4], dacc[2][4];
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const size_t at = state + static_cast<size_t>(i0 + g + 8 * (e >> 1)) *
+                                    kN + j0 + 8 * nt + 2 * q + (e & 1);
+      sacc[nt][e] = s0[at];
+      dacc[nt][e] = ds == nullptr ? 0.f : ds[at];
+    }
+
+  // 1. the forward sweep: S <- diag(P_16) S + (k * Q)^T V on the tensor
+  // cores, the state at the start of every sub-chunk kept in ws
+  if (n_sub > 0) issue(0, n_sub == 1);
+  cp_async_commit();
+  for (int c = 0; c < n_sub; ++c) {
+    float4* keep = reinterpret_cast<float4*>(
+        wsb + static_cast<size_t>(c) * kStateSlot);
+    keep[0] = make_float4(sacc[0][0], sacc[0][1], sacc[0][2], sacc[0][3]);
+    keep[1] = make_float4(sacc[1][0], sacc[1][1], sacc[1][2], sacc[1][3]);
+    if (c == n_sub - 1) break;
+    cp_async_wait_all();
+    __syncthreads();   // stage c has landed, kq_s and pl_s are free
+    issue(c + 1, c + 2 == n_sub);   // the last one is the walk's first
+    cp_async_commit();
+    const float* stg = sm + (c & 1) * kBStage;
+    const float* ks = stg + kRkw;
+    const float* wsm = stg + 2 * kRkw;
+    const float* vs = stg + 3 * kRkw;
+    if (gt < kRows) {
+      float p = 1.f;
+#pragma unroll
+      for (int t = kSub - 1; t >= 0; --t) {
+        kq_s[t * kLdP + gt] = ks[t * kN + i0 + gt] * p;
+        p *= wsm[t * kN + i0 + gt];
+      }
+      pl_s[gt] = p;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sacc[nt][e] *= pl_s[g + 8 * (e >> 1)];
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      const int s_lo = 8 * kk + q;
+      const float a[4] = {kq_s[s_lo * kLdP + g], kq_s[s_lo * kLdP + g + 8],
+                          kq_s[(s_lo + 4) * kLdP + g],
+                          kq_s[(s_lo + 4) * kLdP + g + 8]};
+      uint32_t ab[4], as[4];
+      split4(a, ab, as);
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        const int j = j0 + 8 * nt + g;
+        mma3f(sacc[nt], ab, as, vs[s_lo * kLdV + j], vs[(s_lo + 4) * kLdV + j]);
+      }
+    }
+  }
+
+  // 2. the sub-chunks from the last
+  float snext[8];   // the next sub-chunk's state, loaded one ahead
+  // the A pass's u of rows 2 pr, 2 pr + 1 (pr = gt % 8)
+  const float2 u2 = *reinterpret_cast<const float2*>(u + h * kN + i0 +
+                                                     2 * (gt & 7));
+  const int il = gt >> 4, sl = gt & 15;   // the row pass: rows il, il + 8
+  const float u_row[2] = {u[h * kN + i0 + il], u[h * kN + i0 + il + 8]};
+  float du_acc[2] = {0.f, 0.f};
+  // 2f, the row pass of sub-chunk c: dr, dk, dw and du of rows il and
+  // il + 8, lane sl of a row's 16 its step. It runs in the first phase of
+  // sub-chunk c - 1, beside that one's products, with no barrier between
+  // them (r, k, w rows are kept by parity for it).
+  auto rows = [&](int c) {
+    const float* rt_s = rkw_s(c);
+    const float* kt_s = rt_s + kSub * kLdT;
+    const float* wt_s = kt_s + kSub * kLdT;
+    // P, y and Q, x from a prefix and a suffix scan of affine maps over
+    // the row's lanes; beta_tau[sl] backward and alpha_tau[sl] forward
+    // (the row's w and dA's row sl in registers), then z and dr's middle
+    // term summed over the row's lanes (a reduce-scatter: lane sl ends
+    // with step sl)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int i = il + 8 * hh;
+      const float w1 = wt_s[i * kLdT + sl], r1 = rt_s[i * kLdT + sl];
+      const float k1 = kt_s[i * kLdT + sl];
+      const float h1 = hs_s[sl * kLdS + i], g1 = gs_s[sl * kLdS + i];
+      // steps sl .. 15 of x -> w_t x + r_t H_t composed (the suffix), and
+      // steps 0 .. sl of y -> w_t y + k_t G_t (the prefix)
+      float qa = w1, xb = r1 * h1, pa = w1, yb1 = k1 * g1;
+#pragma unroll
+      for (int d = 1; d < kSub; d <<= 1) {
+        const float qa2 = __shfl_down_sync(0xffffffffu, qa, d, kSub);
+        const float xb2 = __shfl_down_sync(0xffffffffu, xb, d, kSub);
+        const float pa2 = __shfl_up_sync(0xffffffffu, pa, d, kSub);
+        const float yb2 = __shfl_up_sync(0xffffffffu, yb1, d, kSub);
+        if (sl + d < kSub) {
+          xb = fmaf(qa, xb2, xb);
+          qa *= qa2;
+        }
+        if (sl >= d) {
+          yb1 = fmaf(pa, yb2, yb1);
+          pa *= pa2;
+        }
+      }
+      // without step sl's own map: Q_sl, x_sl from lane sl + 1, P_sl, y_sl
+      // from lane sl - 1
+      float q_s = __shfl_down_sync(0xffffffffu, qa, 1, kSub);
+      float x_s = __shfl_down_sync(0xffffffffu, xb, 1, kSub);
+      float p_s = __shfl_up_sync(0xffffffffu, pa, 1, kSub);
+      float y_s = __shfl_up_sync(0xffffffffu, yb1, 1, kSub);
+      if (sl == kSub - 1) {
+        q_s = 1.f;
+        x_s = 0.f;
+      }
+      if (sl == 0) {
+        p_s = 1.f;
+        y_s = 0.f;
+      }
+      float wv[kSub], dav[kSub];
+#pragma unroll
+      for (int c4 = 0; c4 < kSub / 4; ++c4) {
+        const float4 x = *reinterpret_cast<const float4*>(wt_s + i * kLdT +
+                                                          4 * c4);
+        const float4 y = *reinterpret_cast<const float4*>(dat_s + sl * kLdT +
+                                                          4 * c4);
+        wv[4 * c4] = x.x; wv[4 * c4 + 1] = x.y;
+        wv[4 * c4 + 2] = x.z; wv[4 * c4 + 3] = x.w;
+        dav[4 * c4] = y.x; dav[4 * c4 + 1] = y.y;
+        dav[4 * c4 + 2] = y.z; dav[4 * c4 + 3] = y.w;
+      }
+      float beta[kSub];
+      float bt = 0.f, dk_mid = 0.f;
+#pragma unroll
+      for (int c4 = kSub / 4 - 1; c4 >= 0; --c4) {
+        const float4 x = *reinterpret_cast<const float4*>(rt_s + i * kLdT +
+                                                          4 * c4);
+        const float rv[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+        for (int e = 3; e >= 0; --e) {
+          const int t = 4 * c4 + e;
+          beta[t] = bt;
+          if (t == sl) dk_mid = bt;
+          bt = fmaf(wv[t], bt, rv[e] * dav[t]);
+        }
+      }
+      float zc[kSub], drc[kSub];
+      float al = 0.f;
+#pragma unroll
+      for (int c4 = 0; c4 < kSub / 4; ++c4) {
+        const float4 x = *reinterpret_cast<const float4*>(kt_s + i * kLdT +
+                                                          4 * c4);
+        const float kv[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int t = 4 * c4 + e;
+          zc[t] = al * beta[t];
+          drc[t] = al * dav[t];
+          al = t == sl ? kv[e] : al * wv[t];
+        }
+      }
+      reduce_half<8, 8>(zc, lane);
+      reduce_half<8, 8>(drc, lane);
+      reduce_half<4, 4>(zc, lane);
+      reduce_half<4, 4>(drc, lane);
+      reduce_half<2, 2>(zc, lane);
+      reduce_half<2, 2>(drc, lane);
+      reduce_half<1, 1>(zc, lane);
+      reduce_half<1, 1>(drc, lane);
+      const float vd1 = vd_s[sl], ui = u_row[hh];
+      out_s[sl * kLdS + i] = fmaf(ui * k1, vd1, p_s * h1 + drc[0]);
+      out_s[(kSub + sl) * kLdS + i] = fmaf(ui * r1, vd1, q_s * g1 + dk_mid);
+      out_s[(2 * kSub + sl) * kLdS + i] =
+          ((c_s[i] * p_s) * q_s + p_s * x_s) + (q_s * y_s + zc[0]);
+      du_acc[hh] = fmaf(r1 * k1, vd1, du_acc[hh]);
+    }
+  };
+  for (int c = n_sub - 1; c >= 0; --c) {
+    cp_async_wait_all();
+    // stage c has landed, and sub-chunk c + 1 is no longer read
+    __syncthreads();
+    if (c > 0) issue(c - 1, true);
+    cp_async_commit();
+    if (c + 1 < n_sub) {
+      store_dv(c + 1);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) sacc[e >> 2][e & 3] = snext[e];
+    }
+    if (c > 0) {
+      const float4* src = reinterpret_cast<const float4*>(
+          wsb + static_cast<size_t>(c - 1) * kStateSlot);
+      const float4 x0 = src[0], x1 = src[1];
+      snext[0] = x0.x; snext[1] = x0.y; snext[2] = x0.z; snext[3] = x0.w;
+      snext[4] = x1.x; snext[5] = x1.y; snext[6] = x1.z; snext[7] = x1.w;
+    }
+    const float* rs = sm + (c & 1) * kBStage;
+    const float* ks = rs + kRkw;
+    const float* wsm = ks + kRkw;
+    const float* vs = wsm + kRkw;
+    const float* dys = vs + kSub * kLdV;
+    float* rt_s = rkw_s(c);
+    float* kt_s = rt_s + kSub * kLdT;
+    float* wt_s = kt_s + kSub * kLdT;
+    if (c + 1 < n_sub) rows(c + 1);
+
+    // 2a. H = dY S^T, G = V dSe^T and dA = dY V^T over this warp's columns
+    // j (k permuted within each k8 step: slot q is j = 8 kk + 2q, slot q +
+    // 4 is j + 1, so that the accumulators are the B operand), and c
+    {
+      float hacc[2][4], gacc[2][4], aacc[2][4];
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) hacc[n][e] = gacc[n][e] = aacc[n][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        const int jj = j0 + 8 * kk + 2 * q;
+        const float2 y0 = *reinterpret_cast<const float2*>(dys + g * kLdV + jj);
+        const float2 y1 =
+            *reinterpret_cast<const float2*>(dys + (g + 8) * kLdV + jj);
+        const float2 v0 = *reinterpret_cast<const float2*>(vs + g * kLdV + jj);
+        const float2 v1 =
+            *reinterpret_cast<const float2*>(vs + (g + 8) * kLdV + jj);
+        const float ya[4] = {y0.x, y1.x, y0.y, y1.y};
+        const float va[4] = {v0.x, v1.x, v0.y, v1.y};
+        uint32_t yb[4], ysm[4], vb[4], vsm[4];
+        split4(ya, yb, ysm);
+        split4(va, vb, vsm);
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+          mma3f(hacc[n], yb, ysm, sacc[kk][2 * n], sacc[kk][2 * n + 1]);
+          mma3f(gacc[n], vb, vsm, dacc[kk][2 * n], dacc[kk][2 * n + 1]);
+          const float2 vt =
+              *reinterpret_cast<const float2*>(vs + (8 * n + g) * kLdV + jj);
+          mma3f(aacc[n], yb, ysm, vt.x, vt.y);
+        }
+      }
+      float* red = red_s + gw * kSub * kLdS;
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int at = (g + 8 * (e >> 1)) * kLdS + 8 * n + 2 * q + (e & 1);
+          red[at] = hacc[n][e];
+          red[4 * kSub * kLdS + at] = gacc[n][e];
+          red[8 * kSub * kLdS + at] = aacc[n][e];
+        }
+      float c_lo = (sacc[0][0] * dacc[0][0] + sacc[0][1] * dacc[0][1]) +
+                   (sacc[1][0] * dacc[1][0] + sacc[1][1] * dacc[1][1]);
+      float c_hi = (sacc[0][2] * dacc[0][2] + sacc[0][3] * dacc[0][3]) +
+                   (sacc[1][2] * dacc[1][2] + sacc[1][3] * dacc[1][3]);
+      c_lo += __shfl_xor_sync(0xffffffffu, c_lo, 1);
+      c_hi += __shfl_xor_sync(0xffffffffu, c_hi, 1);
+      c_lo += __shfl_xor_sync(0xffffffffu, c_lo, 2);
+      c_hi += __shfl_xor_sync(0xffffffffu, c_hi, 2);
+      if (q == 0) {
+        cp_s[gw * kRows + g] = c_lo;
+        cp_s[gw * kRows + g + 8] = c_hi;
+      }
+    }
+    // 2b. A's partial over the group's rows: thread (s = gt / 8, rows 2 pr,
+    // 2 pr + 1 of the group) runs kd = k_s prod_{s<tau<t} w_tau over t
+    // (after t = 15 it is k_s Q_s) and P_t, and the 8 threads of s sum
+    // A[t, s] over their rows (a reduce-scatter); the diagonal is r_s . (u *
+    // k_s). They also write r * P, k * Q, P_16 and step s of the rows of r,
+    // k and w.
+    {
+      const int s = gt >> 3, pr = gt & 7, col = i0 + 2 * pr;
+      const float2 k2 = *reinterpret_cast<const float2*>(ks + s * kN + col);
+      const float2 r2 = *reinterpret_cast<const float2*>(rs + s * kN + col);
+      const float2 w2 = *reinterpret_cast<const float2*>(wsm + s * kN + col);
+      const float diag = r2.x * u2.x * k2.x + r2.y * u2.y * k2.y;
+      float kd0 = 0.f, kd1 = 0.f, p0 = 1.f, p1 = 1.f, ps0 = 1.f, ps1 = 1.f;
+      float part[kSub];
+#pragma unroll
+      for (int t = 0; t < kSub; ++t) {
+        const float2 rt = *reinterpret_cast<const float2*>(rs + t * kN + col);
+        const float2 wt = *reinterpret_cast<const float2*>(wsm + t * kN +
+                                                           col);
+        part[t] = t == s ? diag : rt.x * kd0 + rt.y * kd1;
+        if (t == s) {
+          ps0 = p0;
+          ps1 = p1;
+        }
+        kd0 = t == s ? k2.x : kd0 * wt.x;
+        kd1 = t == s ? k2.y : kd1 * wt.y;
+        p0 *= wt.x;
+        p1 *= wt.y;
+      }
+      *reinterpret_cast<float2*>(rp_s + s * kLdP + 2 * pr) =
+          make_float2(r2.x * ps0, r2.y * ps1);
+      *reinterpret_cast<float2*>(kq_s + s * kLdP + 2 * pr) =
+          make_float2(kd0, kd1);
+      if (s == 0) *reinterpret_cast<float2*>(pl_s + 2 * pr) =
+          make_float2(p0, p1);
+      rt_s[2 * pr * kLdT + s] = r2.x;
+      rt_s[(2 * pr + 1) * kLdT + s] = r2.y;
+      kt_s[2 * pr * kLdT + s] = k2.x;
+      kt_s[(2 * pr + 1) * kLdT + s] = k2.y;
+      wt_s[2 * pr * kLdT + s] = w2.x;
+      wt_s[(2 * pr + 1) * kLdT + s] = w2.y;
+      reduce_half<8, 4>(part, lane);
+      reduce_half<4, 2>(part, lane);
+      reduce_half<2, 1>(part, lane);
+      const int t0 = 2 * (pr & 1) + 4 * ((pr >> 1) & 1) + 8 * (pr >> 2);
+      a_s[t0 * kLdP + s] = part[0];
+      a_s[(t0 + 1) * kLdP + s] = part[1];
+    }
+    __syncthreads();
+    if (c + 1 < n_sub) store_out(c + 1);
+
+    // 2c. the warps' partials summed in warp order: H, G, dA below the
+    // diagonal, vd on it, c
+    for (int e = gt; e < 3 * kSub * kRows; e += kThreads) {
+      const int p = e >> 8, row = (e >> 4) & 15, col = e & 15;
+      const float* src = red_s + (4 * p * kSub + row) * kLdS + col;
+      const float x = ((src[0] + src[kSub * kLdS]) + src[2 * kSub * kLdS]) +
+                      src[3 * kSub * kLdS];
+      if (p < 2) {
+        hs_s[(p * kSub + row) * kLdS + col] = x;
+      } else {
+        dat_s[col * kLdT + row] = col < row ? x : 0.f;
+        if (col == row) vd_s[row] = x;
+      }
+    }
+    if (gt < kRows)
+      c_s[gt] = ((cp_s[gt] + cp_s[kRows + gt]) + cp_s[2 * kRows + gt]) +
+                cp_s[3 * kRows + gt];
+    // dY's B pieces (k = t, n = j) for dv's and dS's products
+    uint32_t yb[2][2][2], ysm[2][2][2];   // [kk][nt][k q, k q + 4]
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        const int lo = 8 * kk + q, j = j0 + 8 * nt + g;
+        split_tf32(dys[lo * kLdV + j], yb[kk][nt][0], ysm[kk][nt][0]);
+        split_tf32(dys[(lo + 4) * kLdV + j], yb[kk][nt][1], ysm[kk][nt][1]);
+      }
+    float vacc[2][4], vacc2[2][4];   // (k * Q) dSe and A^T dY: two chains
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) vacc[nt][e] = vacc2[nt][e] = 0.f;
+    // 2d. dv's partial over the group's rows, this warp's columns:
+    // (k * Q) dSe + A^T dY (dSe through shared memory, warp-local)
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        *reinterpret_cast<float2*>(dse_s + (g + 8 * hh) * kLdV + j0 + 8 * nt +
+                                   2 * q) =
+            make_float2(dacc[nt][2 * hh], dacc[nt][2 * hh + 1]);
+    __syncwarp();
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      const int lo = 8 * kk + q;
+      const float a[4] = {kq_s[g * kLdP + lo], kq_s[(g + 8) * kLdP + lo],
+                          kq_s[g * kLdP + lo + 4],
+                          kq_s[(g + 8) * kLdP + lo + 4]};
+      uint32_t ab[4], as[4];
+      split4(a, ab, as);
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        const int j = j0 + 8 * nt + g;
+        mma3f(vacc[nt], ab, as, dse_s[lo * kLdV + j],
+              dse_s[(lo + 4) * kLdV + j]);
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      const int lo = 8 * kk + q;
+      const float a[4] = {a_s[lo * kLdP + g], a_s[lo * kLdP + g + 8],
+                          a_s[(lo + 4) * kLdP + g],
+                          a_s[(lo + 4) * kLdP + g + 8]};
+      uint32_t ab[4], as[4];
+      split4(a, ab, as);
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+        mma3(vacc2[nt], ab, as, yb[kk][nt][0], yb[kk][nt][1], ysm[kk][nt][0],
+             ysm[kk][nt][1]);
+    }
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        *reinterpret_cast<float2*>(dvx_s + (g + 8 * hh) * kLdV + j0 + 8 * nt +
+                                   2 * q) =
+            make_float2(vacc[nt][2 * hh] + vacc2[nt][2 * hh],
+                        vacc[nt][2 * hh + 1] + vacc2[nt][2 * hh + 1]);
+    // 2e. the gradient into the sub-chunk before: dS <- diag(P_16) dSe +
+    // (r * P)^T dY
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dacc[nt][e] *= pl_s[g + 8 * (e >> 1)];
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      const int lo = 8 * kk + q;
+      const float a[4] = {rp_s[lo * kLdP + g], rp_s[lo * kLdP + g + 8],
+                          rp_s[(lo + 4) * kLdP + g],
+                          rp_s[(lo + 4) * kLdP + g + 8]};
+      uint32_t ab[4], as[4];
+      split4(a, ab, as);
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+        mma3(dacc[nt], ab, as, yb[kk][nt][0], yb[kk][nt][1], ysm[kk][nt][0],
+             ysm[kk][nt][1]);
+    }
+  }
+  __syncthreads();   // sub-chunk 0's sums are written
+  if (n_sub > 0) rows(0);
+  __syncthreads();   // its outputs are staged
+  if (n_sub > 0) {
+    store_out(0);
+    store_dv(0);
+  }
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    float x = du_acc[hh];
+#pragma unroll
+    for (int m = 8; m >= 1; m >>= 1) x += __shfl_xor_sync(0xffffffffu, x, m);
+    if (sl == 0) du_rows[static_cast<size_t>(bh) * kN + i0 + il + 8 * hh] = x;
+  }
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      ds0[state + static_cast<size_t>(i0 + g + 8 * (e >> 1)) * kN + j0 +
+          8 * nt + 2 * q + (e & 1)] = dacc[nt][e];
+}
+
+cudaError_t launch_bwd_chunk(const float* r, const float* k, const float* v,
+                             const float* w, const float* u, const float* s0,
+                             const float* dy, const float* ds, float* dr,
+                             float* dk, float* dv, float* dw, float* du_rows,
+                             float* ds0, float* ws, int B, int T, int H,
+                             long long sb, long long st, long long sh,
+                             cudaStream_t stream) {
+  static bool configured = false;  // once per process
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        wkv_bwd_chunk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kBSmemBytes);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  wkv_bwd_chunk_kernel<<<B * H, kBThreads, kBSmemBytes, stream>>>(
+      r, k, v, w, u, s0, dy, ds, dr, dk, dv, dw, du_rows, ds0, ws, T, H, sb,
+      st, sh);
+  return cudaGetLastError();
+}
+
 bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
@@ -862,23 +1518,41 @@ extern "C" int rwkv6_wkv(const void* r, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The chunked backward kernel's residency on the current device: blocks an
+// SM can hold (its shared memory attribute set first, as for a launch).
+// Returns a cudaError_t.
+extern "C" int rwkv6_wkv_bwd_occupancy(int* blocks_per_sm) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      wkv_bwd_chunk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kBSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, wkv_bwd_chunk_kernel, kBThreads, kBSmemBytes));
+}
+
 // The backward: the gradient of (y, s_final) with respect to r, k, v, w, u
 // and s0 from dy and ds (null: zero). Writes dr, dk, dv, dw (B, T, H, N),
-// du_rows (B, H, N; the caller sums over B) and ds0 (B, H, N, N). Returns
-// cudaGetLastError() after the launch, or cudaErrorInvalidValue for N
-// outside {8, 16, 32, 64} or a workspace of fewer than B H (ceil(T / 64) +
-// 8) N^2 floats. Allocates nothing, does not synchronise; runs on `stream`.
+// du_rows (B, H, N; the caller sums over B) and ds0 (B, H, N, N). `chunked`
+// picks wkv_bwd_chunk_kernel (N = 64; r/k/v/w/u/dy 16-byte aligned, strides
+// a multiple of 4 floats; a workspace of B H ceil(T / 16) N^2 floats), else
+// wkv_bwd_kernel (N in {8, 16, 32, 64}; B H (ceil(T / 64) + 8) N^2 floats).
+// Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue for
+// arguments the kernel does not take or a smaller workspace. Allocates
+// nothing, does not synchronise; runs on `stream`.
 extern "C" int rwkv6_wkv_bwd(const void* r, const void* k, const void* v,
                              const void* w, const void* u, const void* s0,
                              const void* dy, const void* ds, void* dr,
                              void* dk, void* dv, void* dw, void* du_rows,
                              void* ds0, void* ws, long long ws_floats, int B,
                              int T, int H, int N, long long sb, long long st,
-                             long long sh, void* stream) {
+                             long long sh, int chunked, void* stream) {
   if (B <= 0 || T < 0 || H <= 0 || static_cast<long long>(B) * H > 2147483647LL)
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long need = static_cast<long long>(B) * H *
-                         ((T + kCk - 1) / kCk + kSubs) * N * N;
+  const long long need =
+      chunked ? static_cast<long long>(B) * H * ((T + kSub - 1) / kSub) * N *
+                    N
+              : static_cast<long long>(B) * H * ((T + kCk - 1) / kCk + kSubs) *
+                    N * N;
   if (ws_floats < need) return static_cast<int>(cudaErrorInvalidValue);
   const float* rf = static_cast<const float*>(r);
   const float* kf = static_cast<const float*>(k);
@@ -893,6 +1567,16 @@ extern "C" int rwkv6_wkv_bwd(const void* r, const void* k, const void* v,
                  static_cast<float*>(du_rows), static_cast<float*>(ds0)};
   float* wsf = static_cast<float*>(ws);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (chunked) {
+    if (N != kN || !aligned16(r) || !aligned16(k) || !aligned16(v) ||
+        !aligned16(w) || !aligned16(u) || !aligned16(dy) || sb % 4 ||
+        st % 4 || sh % 4)
+      return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(launch_bwd_chunk(rf, kf, vf, wf, uf, sf, dyf, dsf,
+                                             o[0], o[1], o[2], o[3], o[4],
+                                             o[5], wsf, B, T, H, sb, st, sh,
+                                             s));
+  }
   switch (N) {
 #define WKV_BWD(NN)                                                        \
   case NN:                                                                 \

@@ -16,8 +16,10 @@ w = 1 leaves the state unchanged, which is how the model masks them.
 Training: inputs that need a gradient go through ``WkvFn`` on either
 device. Its forward is the same wrapper; its backward is
 ``rwkv6_wkv_bwd``, the gradient of (y, s_final) with respect to all six
-inputs: ``csrc/rwkv6_wkv.cu``'s backward kernel on CUDA tensors (counted as
-``rwkv6_wkv_bwd``), ``rwkv6_wkv_bwd_plain`` on CPU tensors. The JAX package
+inputs: one of ``csrc/rwkv6_wkv.cu``'s two backward kernels on CUDA
+tensors (the chunked tensor-core kernel at N = 64, the recurrence at the
+other head dims; counted together as ``rwkv6_wkv_bwd``),
+``rwkv6_wkv_bwd_plain`` on CPU tensors. The JAX package
 has no Pallas backward: it autodiffs its chunk-checkpointed ``wkv_scan``.
 """
 from __future__ import annotations
@@ -35,11 +37,14 @@ CHUNK_N = 64                  # the head dim of the chunked kernel
 # recurrence's at rwkv6-7b's shapes on an H100 (chip_smoke.py's crossover
 # cases; the numbers are in the source's note and PERF.md).
 CHUNK_MIN_T = 8
-KERNELS = ("auto", "recurrent", "chunk")
-# the backward kernel keeps the forward's state every BWD_CHECKPOINT steps
-# (as the JAX package's wkv_scan checkpoints its scan) and, for the chunk
-# it is in, every BWD_STAGE steps, in its workspace; it recomputes the
-# states of BWD_STAGE steps at a time in shared memory
+KERNELS = ("auto", "recurrent", "chunk")   # of the forward and backward
+# The backward's kernels: "chunk" (N = 64) walks sub-chunks of BWD_SUB
+# steps on the tensor cores and keeps the state at the start of each in
+# its workspace; "recurrent" (any of HEAD_DIMS) keeps the forward's state
+# every BWD_CHECKPOINT steps (as the JAX package's wkv_scan checkpoints its
+# scan) and, for the chunk it is in, every BWD_STAGE steps, recomputing
+# the states of BWD_STAGE steps at a time in shared memory.
+BWD_SUB = 16
 BWD_CHECKPOINT = 64
 BWD_STAGE = 8
 WORKSPACES = workspace.Workspaces("rwkv6_wkv_bwd")
@@ -101,7 +106,7 @@ def _lib():
         lib.rwkv6_wkv.argtypes = [vp] * 8 + [ci] * 4 + [cl] * 3 + [ci, vp]
         lib.rwkv6_wkv.restype = ci
         lib.rwkv6_wkv_bwd.argtypes = ([vp] * 14 + [vp, cl] + [ci] * 4
-                                      + [cl] * 3 + [vp])
+                                      + [cl] * 3 + [ci, vp])
         lib.rwkv6_wkv_bwd.restype = ci
         _LIB = lib
     return _LIB
@@ -130,6 +135,16 @@ def _check(r, k, v, w, u, s0) -> None:
         raise ValueError("rwkv6_wkv needs a unit stride along head_dim")
     if not (u.is_contiguous() and s0.is_contiguous()):
         raise ValueError("rwkv6_wkv needs a contiguous u and s0")
+
+
+def _chunk_ok(N, ptrs, strides) -> bool:
+    """Whether the chunked kernels take these inputs: N = 64, and 16-byte
+    aligned rows (pointers, and strides a multiple of 4 floats)."""
+    aligned = 0
+    for p in ptrs:
+        aligned |= p
+    sb, st, sh = strides
+    return N == CHUNK_N and aligned & 15 == 0 and (sb | st | sh) & 3 == 0
 
 
 def rwkv6_wkv(r, k, v, w, u, s0, *, kernel: str = "auto"):
@@ -167,10 +182,7 @@ def _launch(r, k, v, w, u, s0, kernel):
     sb, st, sh, _ = r.stride()
     ptrs = (r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
             u.data_ptr())
-    # the chunked kernel takes N = 64 and 16-byte aligned rows
-    chunk_ok = (N == CHUNK_N and (ptrs[0] | ptrs[1] | ptrs[2] | ptrs[3]
-                                  | ptrs[4]) & 15 == 0
-                and (sb | st | sh) & 3 == 0)
+    chunk_ok = _chunk_ok(N, ptrs, (sb, st, sh))
     if kernel == "auto":
         chunked = chunk_ok and T >= CHUNK_MIN_T
     else:
@@ -199,26 +211,41 @@ def _launch(r, k, v, w, u, s0, kernel):
     return y, s_final
 
 
-def _bwd_need(B, T, H, N):
-    """f32 floats of the backward's workspace: per (b, h) the state at each
+def _bwd_need(B, T, H, N, chunked):
+    """f32 floats of the backward's workspace: per (b, h) the state at the
+    start of each ``BWD_SUB``-step sub-chunk (``chunked``), or at each
     ``BWD_CHECKPOINT``-step boundary and, for the chunk being walked, at
     each ``BWD_STAGE``-step boundary in it."""
+    if chunked:
+        return B * H * -(-T // BWD_SUB) * N * N
     chunks = -(-T // BWD_CHECKPOINT)
     return B * H * (chunks + BWD_CHECKPOINT // BWD_STAGE) * N * N
 
 
-def rwkv6_wkv_bwd(r, k, v, w, u, s0, dy, ds=None):
+def rwkv6_wkv_bwd(r, k, v, w, u, s0, dy, ds=None, *, kernel: str = "auto"):
     """The gradient of ``rwkv6_wkv`` with respect to (r, k, v, w, u, s0),
     from dy (B, T, H, N) and ds (B, H, N, N), the gradients of y and
     s_final (``ds`` None for zero). Returns (dr, dk, dv, dw) (B, T, H, N),
     du (H, N) and ds0 (B, H, N, N), f32.
 
-    On CUDA tensors it launches ``csrc/rwkv6_wkv.cu``'s backward kernel:
-    one block per (b, h) sweeps the forward, keeping the state every
-    ``BWD_CHECKPOINT`` steps in the workspace, then walks the chunks back,
-    recomputing their states ``BWD_STAGE`` steps at a time; r/k/v/w are
-    read through their strides, as the forward reads them; dy and ds must
-    be contiguous. On CPU tensors it runs ``rwkv6_wkv_bwd_plain``."""
+    On CUDA tensors it launches one of ``csrc/rwkv6_wkv.cu``'s two backward
+    kernels (counted together as ``rwkv6_wkv_bwd``). ``kernel="auto"``
+    takes the chunked kernel where it takes the inputs (N = 64, 16-byte
+    aligned r/k/v/w/u/dy rows), the recurrence otherwise; ``"recurrent"``
+    or ``"chunk"`` force one. The chunked kernel: one block of 16 warps
+    per (b, h), four groups of them each owning 16 key rows, sweeps the
+    forward on the tensor cores keeping the state at the start of every
+    ``BWD_SUB``-step sub-chunk, then walks the sub-chunks back with their
+    products in 3xTF32 on the tensor cores: 0.323 device ms at one
+    rwkv6-7b train microbatch (B 2, T 512, H 64, N 64) on an NVIDIA H100
+    80GB HBM3 at 700 W (``benchmarks/torch_wkv_bwd_phases.py``), against
+    the recurrence's 0.646 (``chip_smoke.py``; PERF.md). The recurrence
+    (any of ``HEAD_DIMS``): one block per (b, h) sweeps the forward,
+    keeping the state every ``BWD_CHECKPOINT`` steps, then walks the
+    chunks back, recomputing their states ``BWD_STAGE`` steps at a time,
+    in f32. Both read r/k/v/w
+    through their strides, as the forward reads them; dy and ds must be
+    contiguous. On CPU tensors it runs ``rwkv6_wkv_bwd_plain``."""
     B, T, H, N = shape = r.shape
     for name, t, want in (("k", k, shape), ("v", v, shape), ("w", w, shape),
                           ("u", u, (H, N)), ("s0", s0, (B, H, N, N)),
@@ -228,6 +255,9 @@ def rwkv6_wkv_bwd(r, k, v, w, u, s0, dy, ds=None):
                              f"{tuple(want)}")
     if ds is not None and ds.shape != (B, H, N, N):
         raise ValueError(f"ds {tuple(ds.shape)}, expected {(B, H, N, N)}")
+    if kernel not in KERNELS:
+        raise ValueError(f"rwkv6_wkv_bwd kernel {kernel!r}, expected one of "
+                         f"{KERNELS}")
     given = [t for t in (r, k, v, w, u, s0, dy, ds) if t is not None]
     if all(t.device.type == "cpu" for t in given):
         return rwkv6_wkv_bwd_plain(r, k, v, w, u, s0, dy, ds)
@@ -243,23 +273,30 @@ def rwkv6_wkv_bwd(r, k, v, w, u, s0, dy, ds=None):
                              f"{t.device}, r f32 on {r.device}")
         if not t.is_contiguous():
             raise ValueError(f"rwkv6_wkv_bwd needs a contiguous {name}")
+    sb, st, sh, _ = r.stride()
+    ptrs = (r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+            u.data_ptr(), dy.data_ptr())
+    chunk_ok = _chunk_ok(N, ptrs, (sb, st, sh))
+    chunked = chunk_ok if kernel == "auto" else kernel == "chunk"
+    if chunked and not chunk_ok:
+        raise ValueError("the chunked rwkv6_wkv_bwd kernel takes N = 64 and "
+                         "16-byte aligned r/k/v/w/u/dy")
     grads = [r.new_empty(shape) for _ in range(4)]
     du_rows = r.new_empty((B, H, N))
     ds0 = r.new_empty((B, H, N, N))
     if B == 0:
         return (*grads, u.new_zeros((H, N)), ds0)
-    need = _bwd_need(B, T, H, N)
+    need = _bwd_need(B, T, H, N, chunked)
     ws, ws_n, _, _ = WORKSPACES.pointers((need, 0), dev)
-    sb, st, sh, _ = r.stride()
     rc = kernels.call_on(
-        _lib().rwkv6_wkv_bwd, dev, r.data_ptr(), k.data_ptr(), v.data_ptr(),
-        w.data_ptr(), u.data_ptr(), s0.data_ptr(), dy.data_ptr(),
+        _lib().rwkv6_wkv_bwd, dev, *ptrs[:5], s0.data_ptr(), ptrs[5],
         0 if ds is None else ds.data_ptr(), *(t.data_ptr() for t in grads),
         du_rows.data_ptr(), ds0.data_ptr(), ws, ws_n, B, T, H, N, sb, st, sh,
-        torch._C._cuda_getCurrentRawStream(dev))
+        int(chunked), torch._C._cuda_getCurrentRawStream(dev))
     if rc != 0:
         raise RuntimeError(f"rwkv6_wkv_bwd launch failed: CUDA error {rc} "
-                           f"(B={B}, T={T}, H={H}, N={N})")
+                           f"(B={B}, T={T}, H={H}, N={N}, "
+                           f"chunked={chunked})")
     kernels.LAUNCHES["rwkv6_wkv_bwd"] += 1
     # du sums the rows' parts in a fixed order (no atomics in the kernel)
     return (*grads, du_rows.sum(0), ds0)

@@ -547,6 +547,26 @@ def test_wkv_bwd_kernel_gives_the_same_bits_twice():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["recurrent", "chunk"])
+def test_wkv_bwd_either_kernel_matches_plain_at_n64(kernel):
+    """At N = 64 both backward kernels can be forced: the chunked one (the
+    default) and the recurrence it replaced, each at 1e-4 of max |.|."""
+    dev = _cuda_or_skip()
+    args, dy, ds = _wkv_bwd_args(dev, 2, 130, 8, 64, "small", None, 11)
+    got = wkv_ops.rwkv6_wkv_bwd(*args, dy, ds, kernel=kernel)
+    torch.cuda.synchronize()
+    _close_rel_max(got, wkv_ops.rwkv6_wkv_bwd_plain(*args, dy, ds))
+
+
+@pytest.mark.gpu
+def test_chunked_wkv_bwd_refuses_other_head_dims():
+    dev = _cuda_or_skip()
+    args, dy, ds = _wkv_bwd_args(dev, 1, 20, 2, 32, "model", None, 3)
+    with pytest.raises(ValueError, match="N = 64"):
+        wkv_ops.rwkv6_wkv_bwd(*args, dy, ds, kernel="chunk")
+
+
+@pytest.mark.gpu
 def test_wkv_bwd_kernel_reads_strided_inputs_and_refuses_others():
     """r/k/v/w as views of one (B, T, 4, H, N) tensor, as the forward
     takes them; a dy that is not contiguous is refused."""

@@ -190,8 +190,15 @@ def test_wkv_bwd_refuses_what_it_does_not_take():
 
 
 def test_bwd_workspace_holds_the_checkpoints():
-    """Per (b, h): one state per started 64-step chunk and eight more for
-    the chunk being walked (16.8 + 16.8 MB at the train microbatch)."""
-    assert wkv_ops._bwd_need(2, 512, 64, 64) == 2 * 64 * (8 + 8) * 64 * 64
-    assert wkv_ops._bwd_need(1, 65, 1, 8) == (2 + 8) * 64
-    assert wkv_ops._bwd_need(1, 1, 1, 8) == (1 + 8) * 64
+    """The chunked kernel: per (b, h) one state per started 16-step
+    sub-chunk (67.1 MB at the train microbatch). The recurrence: one per
+    started 64-step chunk and eight more for the chunk being walked (16.8
+    + 16.8 MB)."""
+    assert (wkv_ops._bwd_need(2, 512, 64, 64, chunked=True)
+            == 2 * 64 * 32 * 64 * 64)
+    assert wkv_ops._bwd_need(1, 17, 1, 64, chunked=True) == 2 * 64 * 64
+    assert wkv_ops._bwd_need(1, 0, 1, 64, chunked=True) == 0
+    assert (wkv_ops._bwd_need(2, 512, 64, 64, chunked=False)
+            == 2 * 64 * (8 + 8) * 64 * 64)
+    assert wkv_ops._bwd_need(1, 65, 1, 8, chunked=False) == (2 + 8) * 64
+    assert wkv_ops._bwd_need(1, 1, 1, 8, chunked=False) == (1 + 8) * 64
