@@ -1,8 +1,8 @@
 """Serving throughput on the port: paged arena + chunked prefill against
 the dense ``max_batch x max_len`` baseline, at 16+ concurrent mixed-length
 requests and 4 LoRA adapters hot (paper SS V.G multi-task serving), by
-``benchmarks/bench_serve_throughput.py``'s protocol (its workloads 1 and
-2, with its sizes, traffic and seeds).
+``benchmarks/bench_serve_throughput.py``'s protocol (its workloads 1, 2
+and 3, with its sizes, traffic and seeds).
 
     PYTHONPATH=src:. python benchmarks/torch_serve_throughput.py [--device cpu]
     BENCH_SMOKE=1 PYTHONPATH=src:. python benchmarks/torch_serve_throughput.py
@@ -23,11 +23,14 @@ signature, never one per prompt length (the JAX script checks its jit
 cache the same way). Workload 2: shared-prefix traffic (requests drawn
 from 4 prompt families), prefix cache on against off: prefill tokens
 computed, prefix-hit rate, peak KV pages, with the greedy tokens held to
-the dense oracle's. The JAX script's workloads 3-6 (speculative decoding,
-tensor parallelism, MoE, Mamba) wait for ROADMAP Queue 1 items 10, 16, 12
-and 13: each prints one line saying so. Writes
+the dense oracle's. Workload 3: the same shared-prefix traffic with
+speculative decoding (``SpecConfig(k=4, drafter="ngram")``, the prefix
+cache on): accept rate, decode tokens per verify step, wall speedup over
+the spec-off run, the greedy tokens held to the dense oracle's. The JAX
+script's workloads 4-6 (tensor parallelism, MoE, Mamba) wait for ROADMAP
+Queue 1 items 16, 12 and 13: each prints one line saying so. Writes
 ``experiments/paper/torch_serve_throughput.json`` with the JAX script's
-payload keys for workloads 1 and 2, and ``device``.
+payload keys for workloads 1-3, and ``device``.
 """
 from __future__ import annotations
 
@@ -46,10 +49,10 @@ from repro_torch.models import kvcache
 from repro_torch.models.transformer import init_params
 from repro_torch.serve.api import Request
 from repro_torch.serve.engine import DenseServeEngine, PagedServeEngine
+from repro_torch.serve.spec import SpecConfig
 
 # the JAX script's workloads that wait for a later slice of the port
-WAITING = (("spec_decode", "speculative decoding", 10),
-           ("tensor_parallel", "tensor-parallel paged decode", 16),
+WAITING = (("tensor_parallel", "tensor-parallel paged decode", 16),
            ("moe_dropless", "MoE dropless against capacity dispatch", 12),
            ("spec_hybrid", "speculative decoding on Mamba+attention", 13))
 
@@ -155,11 +158,11 @@ def run(device=None):
         return DenseServeEngine(cfg, params, adapters=adapters, device=dev,
                                 max_batch=max_slots, max_len=max_len)
 
-    def paged_engine(prefix_cache):
+    def paged_engine(prefix_cache, spec=None):
         return lambda: PagedServeEngine(
             cfg, params, adapters=adapters, device=dev, max_slots=max_slots,
             max_len=max_len, page_size=page, num_pages=num_pages,
-            prefill_chunk=32, enable_prefix_cache=prefix_cache)
+            prefill_chunk=32, enable_prefix_cache=prefix_cache, spec=spec)
 
     dense_eng, dense = _drive(dense_engine, reqs)
     # cache off here: this workload has no prompt overlap to exploit (the
@@ -201,6 +204,26 @@ def run(device=None):
         for u in shared_eng.finished)
     assert identical, "prefix-shared paged decode diverged from dense oracle"
 
+    # ---- spec-decode workload: the same shared-prefix traffic, n-gram
+    # drafter on against off (both with the prefix cache), dense oracle
+    spec_eng, spec = _drive(
+        paged_engine(True, SpecConfig(k=4, drafter="ngram")), sreqs,
+        warm_passes=2)
+    spec_identical = all(
+        spec_eng.finished[u].generated
+        == oracle_eng.finished[100_000 + u % 100_000].generated
+        for u in spec_eng.finished)
+    assert spec_identical, "spec-on greedy decode diverged from dense oracle"
+    sp = spec_eng.stats().as_dict()
+    spec_sigs = len(sp["step_signatures"]) if dev.type == "cuda" else 0
+    assert sp["compiled_steps"] == spec_sigs, sp
+    spec_speedup = spec["tok_per_s"] / max(shared["tok_per_s"], 1e-9)
+    # every verify step emits accepted_in_row + 1 tokens, so the verify
+    # steps number decode_tokens - accepted_tokens: the step compression
+    # that verification buys
+    tokens_per_step = (sp["decode_tokens"]
+                       / max(sp["decode_tokens"] - sp["accepted_tokens"], 1))
+
     ns, ss = nocache_eng.stats().as_dict(), shared_eng.stats().as_dict()
     pb = _page_bytes(shared_eng.cache, num_pages)
     # counters accumulate over every pass (nocache ran 2, shared ran 3);
@@ -231,6 +254,11 @@ def run(device=None):
          f"{'PASS' if prefill_reduction >= 2 else 'BELOW'}_2x_target_"
          f"hit_rate_{hit_rate:.2f}_"
          f"kv_peak_{kv_peak_nocache/max(kv_peak_shared,1):.2f}x_smaller")
+    emit("torch_serve_spec_decode", 0.0,
+         f"accept_rate_{sp['spec_accept_rate']:.2f}_"
+         f"tokens_per_decode_step_{tokens_per_step:.2f}_"
+         f"wall_speedup_{spec_speedup:.2f}x_"
+         f"oracle_{'PASS' if spec_identical else 'DIVERGED'}")
     for key, what, item in WAITING:
         print(f"torch_serve_{key}: not run: {what} waits for ROADMAP "
               f"Queue 1 item {item}")
@@ -277,6 +305,21 @@ def run(device=None):
             "prefix_hit_rate": hit_rate,
             "meets_2x_prefill_reduction": bool(prefill_reduction >= 2),
             "greedy_matches_dense_oracle": bool(identical),
+        },
+        "spec_decode": {
+            "drafter": "ngram", "k": 4,
+            "spec_on": {**spec,
+                        "spec_steps": sp["spec_steps"],
+                        "drafted_tokens": sp["drafted_tokens"],
+                        "accepted_tokens": sp["accepted_tokens"],
+                        "rolled_back_tokens": sp["rolled_back_tokens"],
+                        "rolled_back_pages": sp["rolled_back_pages"],
+                        "compiled_steps": sp["compiled_steps"]},
+            "spec_off_tok_per_s": shared["tok_per_s"],
+            "accept_rate": sp["spec_accept_rate"],
+            "tokens_per_decode_step": tokens_per_step,
+            "decode_throughput_speedup": spec_speedup,
+            "greedy_matches_dense_oracle": bool(spec_identical),
         },
         "waiting": {key: f"ROADMAP Queue 1 item {item}"
                     for key, _, item in WAITING},

@@ -95,6 +95,30 @@ Imports nothing of JAX or of the JAX package. Phases, each printing JSON:
                against the teacher-forced plain forward (1e-3), its
                crossbar and contiguous flash launches exact, its KV bytes
                beside the paged engine's.
+               Speculative decoding (``spec`` lines) after the serve of
+               llama3.2-1b and rwkv6-7b, on the same adapters and requests,
+               with ``record_logits``: llama3.2-1b with the n-gram drafter
+               (k = 4, 32 new tokens) over the M8F8 base, then with the
+               int4 self-drafter (k = 4, 16 new tokens) over the
+               dequantized f32 base (the self-drafter takes no quantized
+               base); rwkv6-7b with the n-gram drafter (k = 4, 32 new
+               tokens). Every emitted token's logits row against the
+               teacher-forced plain forward of the request's own tokens
+               (1e-3; rwkv6-7b 2e-2 of the largest logit); every tick a
+               verify-graph capture or replay; the launches exact per
+               tick (the target) and per draft call (the drafter: k
+               forwards of int4 crossbar and contiguous flash), its draft
+               graphs captured once a signature and replayed; rwkv6-7b
+               must have a recurrent rollback. Reported: accept rate,
+               drafted, accepted and rolled-back tokens, rolled-back
+               pages, decode tok/s and ms a decode tick beside the serve
+               phase's (spec off), and ``tokens_equal_spec_off``. Then
+               prefix persistence (``persist`` line, llama3.2-1b): the
+               serve phase's engine saves its index under ``build/``, a
+               new engine loads it (pages loaded = pages saved, bit-equal
+               to the file) and serves a shared-prefix request alone: a
+               hit on its first tick, its logits within 1e-3, its launches
+               exact.
                Each model's engine and weights are freed before the next.
      profile — after the serve of llama3.2-1b, rwkv6-7b and
                paper-gpt2-medium, three more waves of 8 prompts of 256 on
@@ -181,8 +205,9 @@ Imports nothing of JAX or of the JAX package. Phases, each printing JSON:
                microbatch (``kernel="recurrent"``).
   7. figures — the paper's Fig. 9 (``benchmarks/torch_noise.py``) and
                Fig. 13 (``benchmarks/torch_quant_perplexity.py``) at their
-               full protocols, and the serving-throughput workloads 1-2 at
-               their smoke sizes (``benchmarks/torch_serve_throughput.py``),
+               full protocols, and the serving-throughput workloads 1-3 at
+               their smoke sizes (``benchmarks/torch_serve_throughput.py``;
+               workload 3 speculates with the n-gram drafter),
                each with the counts zeroed just before and read just
                after: one line each with its payload and seconds; fails on
                a non-finite number, a greedy check that fails or a kernel
@@ -1255,21 +1280,8 @@ def dense_serve(dev, cfg, params, adapters, reqs, plain_params, ref_ec,
     runs = ticks + len(fresh)
     want = {"crossbar_matmul": n_quant * runs,
             "flash_attention": cfg.n_layers * runs}
-    checks = {}
-    for uid in checked:
-        r = done[uid]
-        ref = teacher_forced(cfg, plain_params, adapters, r.prompt,
-                             r.generated, r.adapter_id, ref_ec, dev)
-        lg = torch.stack(eng.sampled_logits[uid])
-        checks[uid] = {
-            "positions": int(ref.shape[0]),
-            "engine_vs_plain": (float((lg - ref).abs().max())
-                                if lg.shape == ref.shape else None),
-            "finite": bool(torch.isfinite(lg).all()),
-            "max_abs_logit": float(ref.abs().max()),
-            "argmax_agree": float((lg.argmax(-1) == ref.argmax(-1))
-                                  .float().mean()),
-        }
+    checks = logit_checks(cfg, plain_params, adapters, eng, done, checked,
+                          ref_ec, dev)
     cs = st.compile
     result = {
         "phase": "serve_dense", "model": cfg.name, "base": "M8F8",
@@ -1319,9 +1331,294 @@ def dense_serve(dev, cfg, params, adapters, reqs, plain_params, ref_ec,
     return result
 
 
+def serve_loop(eng, reqs, trace_at=None):
+    """Submit ``reqs`` (fresh copies) to ``eng`` and tick it to the end, a
+    sync after each tick: (finished requests, tick seconds, tick kinds:
+    "prefill" for a tick that prefilled a token, else "decode", decoded
+    tokens per tick, the traced window). With ``trace_at``, the
+    ``SPEC_TRACED`` ticks after the ``trace_at``-th run in a
+    ``traced_ticks`` window instead, left out of the three lists."""
+    from repro_torch.serve.api import Request
+
+    for r in reqs:
+        eng.submit(Request(uid=r.uid, prompt=r.prompt,
+                           max_new_tokens=r.max_new_tokens,
+                           adapter_id=r.adapter_id))
+    tick_s, kind, decoded, trace = [], [], [], None
+    while eng.queue or eng.sched.active():
+        if len(tick_s) == trace_at and trace is None:
+            trace = traced_ticks(eng, SPEC_TRACED, eng.step)
+            continue
+        pf, dc = eng.prefill_tokens, eng.decode_tokens
+        t = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        tick_s.append(time.perf_counter() - t)
+        kind.append("prefill" if eng.prefill_tokens > pf else "decode")
+        decoded.append(eng.decode_tokens - dc)
+    return eng.finished, tick_s, kind, decoded, trace
+
+
+def logit_checks(cfg, plain_params, adapters, eng, done, uids, ref_ec, dev):
+    """Every recorded logits row of each request in ``uids`` against the
+    teacher-forced plain forward of its own tokens: per request the max
+    absolute difference, the max |logit| of the reference and the share of
+    positions whose argmax agrees."""
+    checks = {}
+    for uid in uids:
+        r = done[uid]
+        ref = teacher_forced(cfg, plain_params, adapters, r.prompt,
+                             r.generated, r.adapter_id, ref_ec, dev)
+        lg = torch.stack(eng.sampled_logits[uid])
+        checks[uid] = {
+            "positions": int(ref.shape[0]),
+            "engine_vs_plain": (float((lg - ref).abs().max())
+                                if lg.shape == ref.shape else None),
+            "finite": bool(torch.isfinite(lg).all()),
+            "max_abs_logit": float(ref.abs().max()),
+            "argmax_agree": float((lg.argmax(-1) == ref.argmax(-1))
+                                  .float().mean()),
+        }
+    return checks
+
+
+def spec_serve(dev, cfg, params, adapters, reqs, plain_params, ref_ec,
+               base_tokens, spec_off, *, drafter, k, max_new, base, max_len,
+               max_slots, page_size, prefill_chunk, seed):
+    """Speculative decoding through the port's paged engine on the serve
+    phase's adapters and requests (``max_new`` new tokens each), with
+    ``record_logits``; the counts zeroed just before and read just after.
+
+    ``drafter="ngram"`` serves the serve phase's M8F8 weights ``params``;
+    ``"selfdraft"`` serves the unquantized ``plain_params`` (the
+    self-drafter quantizes them to int4 itself and takes no quantized
+    base), its draft calls CUDA graphs of their own. Every emitted token's
+    logits row against the teacher-forced plain forward of the request's
+    own tokens (``LOGIT_TOL``; rwkv6-7b ``RWKV_LOGIT_TOL_REL`` of the
+    largest logit); every tick a verify-graph capture or replay; each
+    kernel's launches exact: per tick one crossbar per quantized matrix of
+    the target and one paged flash (one wkv) per layer, per draft call k
+    forwards of the drafter (one int4 crossbar per quantized matrix and one
+    contiguous flash per layer each), and the draft graphs captured once a
+    signature and replayed after. ``base_tokens``: the serve phase's
+    tokens (spec off; ``tokens_equal_spec_off`` is reported, not held);
+    ``spec_off``: its ms and tok/s to report beside."""
+    from repro_torch import kernels
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serve.api import make_engine
+    from repro_torch.serve.spec import SpecConfig
+
+    target = params if drafter == "ngram" else plain_params
+    fresh = [dataclasses.replace(r, generated=[], done=False,
+                                 finish_reason="", max_new_tokens=max_new)
+             for r in reqs]
+    eng = make_engine(cfg, target, adapters, mode="paged", device=dev,
+                      max_slots=max_slots, max_len=max_len,
+                      page_size=page_size, prefill_chunk=prefill_chunk,
+                      spec=SpecConfig(k=k, drafter=drafter),
+                      record_logits=True, seed=seed)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    done, tick_s, kind, decoded, trace = serve_loop(eng, fresh,
+                                                    trace_at=SPEC_TRACE_AT)
+    serve_s = time.perf_counter() - t0
+    launches = {k_: n for k_, n in kernels.LAUNCHES.items() if n}
+    st = eng.stats()
+    cs, sp = st.compile, st.spec
+    ticks = len(tick_s) + (SPEC_TRACED if trace else 0)
+    L = cfg.n_layers
+    mixer = "wkv" if cfg.block_pattern == ("rwkv",) else "paged_flash_attention"
+    want = {mixer: L * ticks}
+    n_quant = quantized_matrices(target["layers"])
+    if n_quant:
+        want["crossbar_matmul"] = n_quant * ticks
+    draft = {}
+    if drafter == "selfdraft":
+        dr = eng.drafter
+        n_qd = quantized_matrices(dr.qparams["layers"])
+        want["crossbar_matmul"] = want.get("crossbar_matmul", 0) + (
+            n_qd * k * dr.calls)
+        want["flash_attention"] = L * k * dr.calls
+        draft = {"calls": dr.calls, "signatures": [list(s) for s in
+                                                   sp.draft_signatures],
+                 "graphs": len(dr._graphs), "replays": dr.replays,
+                 "capture_ms": 1e3 * dr.capture_s,
+                 "pool_bytes": dr.graph_pool_bytes,
+                 "quantized_matrices": n_qd,
+                 "bits": sorted({qt.bits for qt in tfm._quantized(
+                     dr.qparams)})}
+    uids = [r.uid for r in fresh]
+    checks = logit_checks(cfg, plain_params, adapters, eng, done, uids,
+                          ref_ec, dev)
+    worst = max((c["engine_vs_plain"] for c in checks.values()
+                 if c["engine_vs_plain"] is not None), default=None)
+    tol = (RWKV_LOGIT_TOL_REL * max(c["max_abs_logit"]
+                                    for c in checks.values())
+           if cfg.block_pattern == ("rwkv",) else LOGIT_TOL)
+    dc_s = [s for s, kd in zip(tick_s, kind) if kd == "decode"]
+    dc_tokens = sum(n for n, kd in zip(decoded, kind) if kd == "decode")
+    result = {
+        "phase": "spec", "model": cfg.name, "base": base,
+        "drafter": drafter, "k": k, "requests": len(fresh),
+        "max_new": max_new, "ticks": ticks,
+        "decode_ticks": len(dc_s), "serve_s": serve_s,
+        "ms_per_decode_tick": 1e3 * sum(dc_s) / max(len(dc_s), 1),
+        "decode_tok_s": dc_tokens / max(sum(dc_s), 1e-9),
+        "spec_off_ms_per_decode_tick": spec_off["ms_per_decode_tick"],
+        "spec_off_decode_tok_s": spec_off["decode_tok_s"],
+        # the means above hold the ticks that captured a graph; the
+        # medians are replayed ticks
+        "median_ms_per_decode_tick": 1e3 * statistics.median(dc_s),
+        "spec_off_median_ms_per_decode_tick": statistics.median(
+            spec_off["decode_tick_ms"]),
+        "decode_tokens_per_decode_tick": dc_tokens / max(len(dc_s), 1),
+        "decode_tick_ms": [1e3 * t for t in dc_s],
+        "traced_ticks": trace,
+        "spec_steps": sp.steps, "accept_rate": sp.accept_rate,
+        "drafted_tokens": sp.drafted_tokens,
+        "accepted_tokens": sp.accepted_tokens,
+        "rolled_back_tokens": sp.rolled_back_tokens,
+        "rolled_back_pages": st.scheduler.rolled_back_pages,
+        "recurrent_rollbacks": sp.recurrent_rollbacks,
+        "decode_tokens": st.decode_tokens,
+        "prefill_tokens": st.prefill_tokens,
+        "tokens_equal_spec_off": sum(
+            done[u].generated == base_tokens[u][:max_new] for u in uids),
+        "graphs": {"captured": cs.compiled_steps, "replays": cs.replays,
+                   "capture_ms": cs.capture_ms,
+                   "pool_bytes": cs.graph_pool_bytes,
+                   "signatures": [list(s) for s in cs.step_signatures]},
+        "draft": draft, "launches": launches, "expected_launches": want,
+        "logit_checks": checks, "logit_tol": tol, "worst": worst,
+    }
+    emit(result)
+    problems = []
+    if sorted(done) != sorted(uids) or any(
+            len(done[u].generated) != max_new for u in uids):
+        problems.append("unfinished or short requests")
+    if merge_wkv(launches) != want:
+        problems.append(f"launched {launches}, expected {want}")
+    if (cs.compiled_steps != len(cs.step_signatures)
+            or cs.compiled_steps + cs.replays != ticks):
+        problems.append(f"{ticks} ticks, {cs.compiled_steps} verify graphs "
+                        f"of {len(cs.step_signatures)} signatures, "
+                        f"{cs.replays} replays")
+    if draft and (draft["graphs"] != len(draft["signatures"])
+                  or draft["graphs"] + draft["replays"] != draft["calls"]
+                  or not draft["replays"] or draft["bits"] != [4]):
+        problems.append(f"draft graphs: {draft}")
+    if not sp.drafted_tokens or not sp.steps:
+        problems.append("nothing was drafted")
+    if trace is None:
+        problems.append("no traced window of verify ticks")
+    if cfg.block_pattern == ("rwkv",) and not sp.recurrent_rollbacks:
+        problems.append("no recurrent rollback was exercised")
+    bad = [u for u, c in checks.items() if not c["finite"]
+           or c["engine_vs_plain"] is None or c["engine_vs_plain"] > tol]
+    if bad:
+        problems.append(f"logits of requests {bad} differ from the plain "
+                        f"forward by more than {tol}")
+    if problems:
+        raise AssertionError(f"spec ({drafter}, {cfg.name}): "
+                             + "; ".join(problems))
+    del eng
+    gc.collect()
+    return result
+
+
+PREFIX_FILE = Path(__file__).resolve().parent / "build" / "chip_smoke_prefix.npz"
+# a spec run's traced window of verify ticks: its first tick and its length
+# (after the prompts' prefill, every graph of a decode tick captured)
+SPEC_TRACE_AT, SPEC_TRACED = 12, 4
+
+
+def persist_serve(dev, cfg, params, adapters, req, plain_params, ref_ec,
+                  n_quant, served, *, max_len, max_slots, page_size,
+                  prefill_chunk, seed):
+    """Prefix-cache persistence on the card: the serve phase's engine
+    ``served`` (spec off) saves its index to ``PREFIX_FILE``; a fresh engine
+    on the same weights loads it at construction (``loaded_pages`` equal to
+    the pages saved, the restored pool pages bit-equal to the file's
+    arrays), then serves ``req`` (a request of the shared prefix) alone:
+    a prefix hit on its first tick, its logits within ``LOGIT_TOL`` of the
+    teacher-forced plain forward, the launches exact per tick (the counts
+    zeroed just before and read just after)."""
+    from repro_torch import kernels
+    from repro_torch.models import kvcache
+    from repro_torch.serve.api import make_engine
+
+    PREFIX_FILE.parent.mkdir(parents=True, exist_ok=True)
+    t = time.perf_counter()
+    saved = served.save_prefix_cache(str(PREFIX_FILE))
+    save_s = time.perf_counter() - t
+    t = time.perf_counter()
+    eng = make_engine(cfg, params, adapters, mode="paged", device=dev,
+                      max_slots=max_slots, max_len=max_len,
+                      page_size=page_size, prefill_chunk=prefill_chunk,
+                      prefix_cache_path=str(PREFIX_FILE), record_logits=True,
+                      seed=seed)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t
+    loaded = eng.stats().prefix_cache.loaded_pages
+    z = np.load(PREFIX_FILE)
+    restored = kvcache.gather_pages(eng.cache, eng.prefix.pages())
+    bit_equal = all(np.array_equal(arr, z[f"pool_{li}_{name}"])
+                    for li, entry in enumerate(restored)
+                    for name, arr in entry.items())
+    fresh = dataclasses.replace(req, generated=[], done=False,
+                                finish_reason="")
+    kernels.reset_launches()
+    eng.submit(fresh)
+    eng.step()
+    torch.cuda.synchronize()
+    first_hit = eng.stats().prefix_cache.hit_tokens
+    done, tick_s, _, _, _ = serve_loop(eng, [])
+    launches = {k: n for k, n in kernels.LAUNCHES.items() if n}
+    ticks = len(tick_s) + 1
+    want = {"crossbar_matmul": n_quant * ticks,
+            "paged_flash_attention": cfg.n_layers * ticks}
+    checks = logit_checks(cfg, plain_params, adapters, eng, done,
+                          [fresh.uid], ref_ec, dev)
+    st = eng.stats()
+    result = {"phase": "persist", "model": cfg.name, "file": PREFIX_FILE.name,
+              "file_bytes": PREFIX_FILE.stat().st_size,
+              "pages_saved": saved, "loaded_pages": loaded,
+              "restored_bit_equal": bit_equal, "save_s": save_s,
+              "construct_and_load_s": load_s, "request": fresh.uid,
+              "prompt_tokens": len(fresh.prompt),
+              "first_tick_hit_tokens": first_hit,
+              "prefill_tokens": st.prefill_tokens, "ticks": ticks,
+              "graphs": st.compile.compiled_steps,
+              "replays": st.compile.replays,
+              "launches": launches, "expected_launches": want,
+              "logit_checks": checks, "logit_tol": LOGIT_TOL}
+    emit(result)
+    problems = []
+    if not saved or loaded != saved or not bit_equal:
+        problems.append(f"{saved} pages saved, {loaded} loaded, bit-equal "
+                        f"{bit_equal}")
+    if first_hit <= 0:
+        problems.append("no prefix hit on the first tick")
+    if launches != want:
+        problems.append(f"launched {launches}, expected {want}")
+    c = checks[fresh.uid]
+    if (not c["finite"] or c["engine_vs_plain"] is None
+            or c["engine_vs_plain"] > LOGIT_TOL):
+        problems.append(f"logits differ from the plain forward: {c}")
+    if st.compile.compiled_steps + st.compile.replays != ticks:
+        problems.append(f"{ticks} ticks, {st.compile.compiled_steps} graphs, "
+                        f"{st.compile.replays} replays")
+    if problems:
+        raise AssertionError("prefix persistence: " + "; ".join(problems))
+    del eng
+    gc.collect()
+    return result
+
+
 def serve_phase(dev, cfg, *, n_requests=8, max_new=32, prompt_range=(64, 512),
                 shared_prefix=256, max_len=1024, max_slots=8, page_size=16,
-                prefill_chunk=128, seed=0, dense=False):
+                prefill_chunk=128, seed=0, dense=False, specs=(),
+                persist=False):
     from repro_torch import kernels
     from repro_torch.configs.base import QuantConfig
     from repro_torch.core import lora as lora_lib
@@ -1486,6 +1783,8 @@ def serve_phase(dev, cfg, *, n_requests=8, max_new=32, prompt_range=(64, 512),
         "ms_per_decode_tick": 1e3 * dc_s / max(n_dc_ticks, 1),
         "prefill_tick_ms": [1e3 * s for s, k in zip(tick_s, tick_kind)
                             if k == "prefill"],
+        "decode_tick_ms": [1e3 * s for s, k in zip(tick_s, tick_kind)
+                           if k == "decode"],
         "prefill_tokens": st.prefill_tokens,
         "decode_tokens": st.decode_tokens,
         # prefill ticks also carry the decode rows of other slots
@@ -1518,6 +1817,21 @@ def serve_phase(dev, cfg, *, n_requests=8, max_new=32, prompt_range=(64, 512),
             dev, cfg, params, adapters, reqs, plain_params, ref_ec, n_quant,
             result, max_len=max_len, max_batch=max_slots, seed=seed,
             checked=checked)["launches"]
+    geometry = dict(max_len=max_len, max_slots=max_slots,
+                    page_size=page_size, prefill_chunk=prefill_chunk,
+                    seed=seed)
+    base_tokens = {u: r.generated for u, r in done.items()}
+    for drafter, k, spec_new in specs:
+        key = "spec" if drafter == "ngram" else drafter
+        result[f"{key}_launches"] = spec_serve(
+            dev, cfg, params, adapters, reqs, plain_params, ref_ec,
+            base_tokens, result, drafter=drafter, k=k, max_new=spec_new,
+            base="M8F8" if drafter == "ngram" else "f32", **geometry)[
+                "launches"]
+    if persist:
+        result["persist_launches"] = persist_serve(
+            dev, cfg, params, adapters, reqs[1], plain_params, ref_ec,
+            n_quant, eng, **geometry)["launches"]
     del plain_params
     gc.collect()
     return result, eng
@@ -2372,7 +2686,7 @@ def fig13_counted_finetune(dev, steps=FIG13_COUNTED_STEPS):
 def figures_phase(dev):
     """Fig. 9 (``benchmarks/torch_noise.py``), Fig. 13
     (``benchmarks/torch_quant_perplexity.py``) at their full protocols and
-    the serving-throughput workloads 1-2 at the JAX script's smoke sizes
+    the serving-throughput workloads 1-3 at the JAX script's smoke sizes
     (``benchmarks/torch_serve_throughput.py``), each on the card with the
     counts zeroed just before and read just after; one line each with its
     payload and seconds. Fails on a non-finite number, a greedy check that
@@ -2414,7 +2728,8 @@ def figures_phase(dev):
             problems.append("a non-finite number in the payload")
         if name.startswith("serve") and not (
                 payload["paged"]["greedy_matches_dense_oracle"]
-                and payload["shared_prefix"]["greedy_matches_dense_oracle"]):
+                and payload["shared_prefix"]["greedy_matches_dense_oracle"]
+                and payload["spec_decode"]["greedy_matches_dense_oracle"]):
             problems.append("a greedy check failed")
         if problems:
             raise AssertionError(f"{name}: " + "; ".join(problems))
@@ -2432,6 +2747,12 @@ SERVED = ("llama3.2-1b", "rwkv6-7b", "paper-gpt2-medium", "paper-bloom-560m")
 PROFILED = ("llama3.2-1b", "rwkv6-7b", "paper-gpt2-medium")
 # the models the dense oracle engine also serves (after the paged one)
 DENSE = ("llama3.2-1b",)
+# speculative decoding after a model's serve, on its weights, adapters and
+# requests: (drafter, k, new tokens per request)
+SPEC = {"llama3.2-1b": (("ngram", 4, 32), ("selfdraft", 4, 16)),
+        "rwkv6-7b": (("ngram", 4, 32),)}
+# the models whose serve engine saves its prefix index for a new engine
+PERSISTED = ("llama3.2-1b",)
 # the models fine-tuned, in order: base bits, Trainer steps (a multiple of
 # CKPT_EVERY) and noise-aware steps; GPT-2 again on an int4 base
 TRAINED = (("llama3.2-1b", (8, 8), 20, 0),
@@ -2487,7 +2808,9 @@ def main() -> int:
     serves = {}
     for arch in SERVED:
         cfg = get_config(arch)
-        serves[arch], eng = serve_phase(dev, cfg, dense=arch in DENSE)
+        serves[arch], eng = serve_phase(dev, cfg, dense=arch in DENSE,
+                                        specs=SPEC.get(arch, ()),
+                                        persist=arch in PERSISTED)
         if arch in PROFILED:
             profile_phase(eng, cfg, dev)
         del eng                          # free the model before the next
@@ -2512,6 +2835,9 @@ def main() -> int:
              for p in ("serve_launches", "forward_launches")}
     paths.update({f"{a} dense": r["dense_launches"] for a, r in serves.items()
                   if "dense_launches" in r})
+    paths.update({f"{a} {k}": r[f"{k}_launches"] for a, r in serves.items()
+                  for k in ("spec", "selfdraft", "persist")
+                  if f"{k}_launches" in r})
     paths.update({f"{a} train": r["run_launches"] for a, r in trains.items()})
     paths.update({f"{f} figure": r["launches"] for f, r in figures.items()})
     rep = {"crossbar_matmul": ("llama3.2-1b serve",

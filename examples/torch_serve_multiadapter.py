@@ -9,12 +9,21 @@ of recomputing them.
 
     PYTHONPATH=src python examples/torch_serve_multiadapter.py [--device cpu]
 
+Speculative decoding rides on the same engine (--spec-decode): a drafter
+guesses up to --spec-k tokens per slot, the verify step checks them all at
+once, and rejected tokens roll the paged KV write cursor back:
+
+    PYTHONPATH=src python examples/torch_serve_multiadapter.py \
+        --spec-decode --draft ngram --spec-k 4
+
 The JAX example serves reduced mistral-nemo-12b, whose config the port
 does not carry yet (ROADMAP Queue 1 item 19); this one serves reduced
 llama3.2-1b at the same widths (d_model 128, 4 heads). The flags are the
-JAX example's: speculative decoding (``--spec-decode``, ``--draft``,
-``--spec-k``) and ``--tp`` above 1 raise ``NotImplementedError`` (ROADMAP
-Queue 1 items 10 and 16).
+JAX example's. ``--draft selfdraft`` raises ``ValueError`` on this
+example's M8F8 base: the self-drafter quantizes the target's weights
+itself and takes no quantized base (the JAX example fails there too:
+its ``quantize_params`` cannot requantize ``QuantizedTensor`` leaves).
+``--tp`` above 1 raises ``NotImplementedError`` (ROADMAP Queue 1 item 16).
 """
 import argparse
 import time
@@ -28,23 +37,22 @@ from repro_torch.configs.base import QuantConfig
 from repro_torch.core import lora as lora_lib, quant
 from repro_torch.models.transformer import init_params
 from repro_torch.serve.api import Request, make_engine
+from repro_torch.serve.spec import SpecConfig
 
 ap = argparse.ArgumentParser()
 ap.add_argument("--device", default=None,
                 help="torch device (default: the CUDA card)")
 ap.add_argument("--spec-decode", action="store_true",
-                help="draft-and-verify decoding (ROADMAP Queue 1 item 10)")
-ap.add_argument("--draft", choices=("ngram", "selfdraft"), default=None,
-                help="the drafter (ROADMAP Queue 1 item 10)")
-ap.add_argument("--spec-k", type=int, default=None,
-                help="max draft tokens per slot per tick (ROADMAP Queue 1 "
-                     "item 10)")
+                help="draft-and-verify decoding with paged-KV rollback")
+ap.add_argument("--draft", choices=("ngram", "selfdraft"), default="ngram",
+                help="model-free n-gram lookup, or the target model with "
+                     "quantize_params-compressed weights as its own drafter "
+                     "(raises on this example's quantized base)")
+ap.add_argument("--spec-k", type=int, default=4,
+                help="max draft tokens per slot per tick")
 ap.add_argument("--tp", type=int, default=1,
                 help="tensor parallelism (ROADMAP Queue 1 item 16)")
 args = ap.parse_args()
-if args.spec_decode or args.draft is not None or args.spec_k is not None:
-    raise NotImplementedError("speculative decoding is not ported yet "
-                              "(ROADMAP Queue 1 item 10)")
 if args.tp > 1:
     raise NotImplementedError("tensor-parallel serving is not ported yet "
                               "(ROADMAP Queue 1 item 16)")
@@ -57,8 +65,11 @@ base = quant.quantize_params(init_params(cfg, g, device=dev),
 
 # three "tasks" = three adapters (in production: one per fine-tuned domain)
 adapters = [lora_lib.init_lora_params(cfg, g, device=dev) for _ in range(3)]
+spec = (SpecConfig(k=args.spec_k, drafter=args.draft)
+        if args.spec_decode else None)
 eng = make_engine(cfg, base, adapters, mode="paged", device=dev,
-                  max_slots=4, max_len=96, page_size=8, prefill_chunk=8)
+                  max_slots=4, max_len=96, page_size=8, prefill_chunk=8,
+                  spec=spec)
 
 # shared system-prompt prefix per adapter, unique user tail per request:
 # the common case the prefix cache exists for
@@ -84,6 +95,13 @@ print(f"{len(done)} requests / {total} tokens in {dt:.2f}s "
 print(f"prefix cache: {stats.prefix_cache.hit_tokens} prompt tokens served "
       f"from resident pages ({stats.prefix_cache.hits} hits, "
       f"{stats.scheduler.cow_forks} CoW forks)")
+if args.spec_decode:
+    sp = stats.spec
+    print(f"spec decode [{args.draft} k={args.spec_k}]: "
+          f"accept_rate={sp.accept_rate:.2f} "
+          f"({sp.accepted_tokens}/{sp.drafted_tokens} drafts survived, "
+          f"{sp.rolled_back_tokens} rolled back, "
+          f"{stats.scheduler.rolled_back_pages} pages reclaimed)")
 print(f"engine stats: {stats.as_dict()}")
 for uid in sorted(done):
     c = done[uid]

@@ -24,15 +24,26 @@ dense``), on the CUDA card by default.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
       --engine dense --max-batch 8 --max-len 1024
 
+  # speculative decoding: n-gram or quantized self-draft drafter
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
+      --smoke --device cpu --spec-decode --draft ngram --spec-k 4
+
+  # prefix-cache persistence: the index is saved at the end of the run and
+  # loaded by the next run given the same path
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
+      --smoke --device cpu --prompt-families 2 \\
+      --prefix-cache-path build/prefix.npz
+
 The flags are the JAX launcher's (``repro.launch.serve``). Those whose
-feature is not ported yet (``--spec-decode``, ``--tp``, ``--moe-dispatch
-capacity``, ``--prefix-cache-path``) raise ``NotImplementedError`` with
-the paged engine; with ``--engine dense`` the first three exit with
-JAX's messages, and the dense oracle ignores ``--prefix-cache-path``, as
-JAX's does. Flags that would act on nothing
-here (the deprecated ``--paged``, the drafter's ``--draft`` and
-``--spec-k``) are left out. The base is quantized M8F8 with the port's
-``quantize_params``, as ``examples/serve_multiadapter.py`` does.
+feature is not ported yet (``--tp``, ``--moe-dispatch capacity``) raise
+``NotImplementedError`` with the paged engine; with ``--engine dense``
+they and ``--spec-decode`` exit with JAX's messages, and the dense oracle
+ignores ``--prefix-cache-path``, as JAX's does. The deprecated
+``--paged`` is left out. The base is quantized M8F8 with the port's
+``quantize_params``, as ``examples/serve_multiadapter.py`` does, except
+under ``--draft selfdraft``: the self-drafter quantizes the base itself
+and takes an unquantized one only (``serve.spec.QuantSelfDrafter``), so
+the base stays f32 there, as the JAX launcher serves it.
 """
 from __future__ import annotations
 
@@ -49,6 +60,7 @@ from repro_torch.core import lora as lora_lib
 from repro_torch.core import quant
 from repro_torch.models.transformer import init_params
 from repro_torch.serve.api import Request, make_engine
+from repro_torch.serve.spec import SpecConfig
 
 
 def main(argv=None):
@@ -71,11 +83,23 @@ def main(argv=None):
     ap.add_argument("--prefill-chunk", type=int, default=32)
     ap.add_argument("--no-prefix-cache", action="store_true")
     ap.add_argument("--prompt-families", type=int, default=0)
-    ap.add_argument("--spec-decode", action="store_true")
+    ap.add_argument("--spec-decode", action="store_true",
+                    help="speculative decoding (paged engine only): draft "
+                         "k tokens per slot, verify in one mixed step, "
+                         "roll back rejected KV")
+    ap.add_argument("--draft", choices=("ngram", "selfdraft"),
+                    default="ngram",
+                    help="drafter: model-free n-gram lookup, or the target "
+                         "model with quantize_params-compressed weights "
+                         "(the base then stays unquantized)")
+    ap.add_argument("--spec-k", type=int, default=4,
+                    help="max draft tokens per slot per tick")
     ap.add_argument("--tp", type=int, default=1)
     ap.add_argument("--moe-dispatch", choices=("dropless", "capacity"),
                     default="dropless")
-    ap.add_argument("--prefix-cache-path", default=None)
+    ap.add_argument("--prefix-cache-path", default=None,
+                    help="persist/restore the prefix index at this .npz "
+                         "path (paged engine)")
     args = ap.parse_args(argv)
 
     if args.engine == "dense":
@@ -87,9 +111,8 @@ def main(argv=None):
             raise SystemExit("--moe-dispatch capacity requires --engine "
                              "paged (the dense oracle always routes "
                              "dropless)")
-    if args.spec_decode:
-        raise NotImplementedError("speculative decoding is not ported yet "
-                                  "(ROADMAP Queue 1 item 10)")
+    spec = (SpecConfig(k=args.spec_k, drafter=args.draft)
+            if args.spec_decode else None)
     if args.tp > 1:
         raise NotImplementedError("tensor-parallel serving is not ported yet "
                                   "(ROADMAP Queue 1 item 16)")
@@ -98,9 +121,11 @@ def main(argv=None):
     if args.smoke:
         cfg = reduce_config(cfg)
     g = torch.Generator(device=device).manual_seed(args.seed)
-    params = quant.quantize_params(init_params(cfg, g, device=device),
-                                   QuantConfig(mha_bits=8, ff_bits=8),
-                                   min_size=1 if args.smoke else 1 << 16)
+    params = init_params(cfg, g, device=device)
+    if spec is None or spec.drafter != "selfdraft":
+        params = quant.quantize_params(params,
+                                       QuantConfig(mha_bits=8, ff_bits=8),
+                                       min_size=1 if args.smoke else 1 << 16)
     adapters = [lora_lib.init_lora_params(cfg, g, device=device)
                 for _ in range(args.adapters)]
     if args.engine == "paged":
@@ -110,11 +135,15 @@ def main(argv=None):
                           prefill_chunk=args.prefill_chunk,
                           enable_prefix_cache=not args.no_prefix_cache,
                           prefix_cache_path=args.prefix_cache_path,
-                          moe_dispatch=args.moe_dispatch, seed=args.seed)
+                          spec=spec, moe_dispatch=args.moe_dispatch,
+                          seed=args.seed)
     else:
         eng = make_engine(cfg, params, adapters, mode="dense", device=device,
                           max_batch=args.max_batch, max_len=args.max_len,
                           seed=args.seed)
+    if args.engine == "paged" and eng.stats().prefix_cache.loaded_pages:
+        print(f"  prefix cache: {eng.stats().prefix_cache.loaded_pages} "
+              f"pages loaded from {args.prefix_cache_path}")
     rng = np.random.default_rng(args.seed)
     fams = [rng.integers(0, cfg.vocab_size, 24).astype(np.int32)
             for _ in range(args.prompt_families)]
@@ -141,6 +170,13 @@ def main(argv=None):
           f"{total_toks} tokens in {dt:.2f}s ({total_toks / dt:.1f} tok/s, "
           f"{args.adapters} adapters hot)")
     print(f"  stats: {eng.stats().as_dict()}")
+    if args.engine == "paged" and args.prefix_cache_path:
+        if eng.prefix is None:
+            print("  prefix cache disabled on this model: nothing saved")
+        else:
+            n = eng.save_prefix_cache()
+            print(f"  prefix cache: {n} pages saved to "
+                  f"{args.prefix_cache_path}")
     for uid in sorted(done)[:4]:
         print(f"  req {uid} adapter={done[uid].adapter_id} "
               f"[{done[uid].finish_reason}]: {done[uid].tokens[:10]}")

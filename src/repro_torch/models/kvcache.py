@@ -11,13 +11,15 @@ updates all of them in place (the JAX package returns new arrays and
 donates the old buffers).
 
 Sliding-window rings and Mamba state wait for ROADMAP Queue 1 items 11
-and 13.
+and 13. ``gather_pages``/``scatter_pages`` move pool pages to and from
+the host (prefix-cache persistence).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
@@ -131,16 +133,22 @@ def reset_slots(cache, slots: Sequence[int]):
 
 
 class SlotStateArena:
-    """Reset of the per-slot decode state of recycled slots.
+    """Checkpoint / restore / reset of the per-slot decode state.
 
-    Under the paged layout full-attention KV is pool-addressed; everything
-    else is per slot: here the RWKV token-shift and wkv state
-    (``rwkv.SLOT_STATE_LEAVES``), cumulative over the whole stream. A slot
-    that a new (or preempted and readmitted) request takes must start from
-    zero state, so the engine resets it at admission. ``tracked`` is False
-    for full-attention-only models, and ``reset`` is then a no-op. The
-    JAX package's ``snapshot``/``restore`` serve speculative decoding and
-    wait for it (ROADMAP Queue 1 item 10)."""
+    Under the paged layout full-attention KV is pool-addressed and rolls
+    back by rewinding the host-side write cursor; everything else is per
+    slot: here the RWKV token-shift and wkv state
+    (``rwkv.SLOT_STATE_LEAVES``), cumulative over the whole stream. A
+    cursor rewind cannot rewind it, so the serving engine snapshots it
+    before each speculative verify chunk and restores it per slot when a
+    draft is rejected; a slot that a new (or preempted and readmitted)
+    request takes is reset to zero at admission. ``tracked`` is False for
+    full-attention-only models: every method is then a no-op.
+
+    The port works in place: ``snapshot`` copies into buffers it is given
+    (a CUDA graph captures the copy into fixed addresses), ``restore`` and
+    ``reset`` write into the cache's own tensors, which the engine's CUDA
+    graphs captured (the JAX package returns new trees instead)."""
 
     def __init__(self, cfg: ModelConfig):
         per_pos: List[Tuple[str, ...]] = []
@@ -151,8 +159,41 @@ class SlotStateArena:
         self.leaves: Tuple[Tuple[str, ...], ...] = tuple(per_pos)
         self.tracked: bool = any(self.leaves)
 
+    def snapshot(self, cache, out=None):
+        """The tracked leaves of every slot: copied into ``out`` (a
+        snapshot this method returned before) in place, or cloned when
+        ``out`` is None. None when nothing is tracked."""
+        if not self.tracked:
+            return None
+        if out is None:
+            return tuple({n: entry[n].clone() for n in names}
+                         for entry, names in zip(cache["layers"],
+                                                 self.leaves))
+        for entry, names, ck in zip(cache["layers"], self.leaves, out):
+            for n in names:
+                ck[n].copy_(entry[n])
+        return out
+
+    def restore(self, cache, ckpt, keep: torch.Tensor):
+        """Per-slot select between the post-chunk state and ``ckpt``, in
+        place. ``keep`` (max_slots,) bool: True keeps the post-chunk state
+        (a full accept: the chunk's writes are all final), False restores
+        the snapshot (a rejection: the engine replays the accepted prefix
+        as a resumed prefill chunk). Leaves are (n_sp, max_slots, ...), so
+        the select broadcasts over axis 1."""
+        if not self.tracked:
+            return cache
+        for entry, names, ck in zip(cache["layers"], self.leaves, ckpt):
+            for n in names:
+                after = entry[n]
+                sel = keep.reshape((1, -1) + (1,) * (after.ndim - 2))
+                after.copy_(torch.where(sel, after, ck[n]))
+        return cache
+
     def reset(self, cache, slots: Sequence[int]):
-        """Zero the tracked rows of ``slots`` in every layer, in place."""
+        """Zero the tracked rows of ``slots`` in every layer, in place, so
+        neither a restored checkpoint nor leftover state of a released
+        request leaks into the slot's next request."""
         if not (self.tracked and slots):
             return cache
         idx = list(slots)
@@ -219,6 +260,18 @@ class PageAllocator:
         """Decref every page; returns how many were ACTUALLY reclaimed."""
         return sum(1 for p in pages if self.decref(p))
 
+    def release_tail(self, pages: List[int], keep: int) -> int:
+        """Speculative-decode rollback: drop this holder's ref on every
+        page past the first ``keep`` and truncate ``pages`` in place. No
+        device work: stale KV past a rewound cursor is invisible (paged
+        attention masks positions >= lens + chunk_lens), and a page
+        co-held elsewhere was forked before the speculative write, so it
+        survives the decref. Returns pages ACTUALLY reclaimed."""
+        assert 0 <= keep <= len(pages), (keep, len(pages))
+        freed = self.free(pages[keep:])
+        del pages[keep:]
+        return freed
+
     def check_invariants(self) -> None:
         assert len(set(self._free)) == len(self._free), "free-list dup"
         assert all(0 <= p < self.num_pages for p in self._free)
@@ -238,6 +291,41 @@ def fork_pages(cache, src: torch.Tensor, dst: torch.Tensor):
             if name in entry:
                 leaf = entry[name]
                 leaf[:, dst] = leaf[:, src]
+    return cache
+
+
+def gather_pages(cache, pages: Sequence[int]) -> List[Dict[str, np.ndarray]]:
+    """Pool page contents on the host: one ``{"kp": arr, "vp": arr}`` dict
+    per scan position (empty where the position has no pool), each
+    ``(n_sp, len(pages), Hkv, page, D)``. Serializes the prefix index
+    (``serve/prefix.py``)."""
+    out = []
+    for entry in cache["layers"]:
+        out.append({})
+        for name in POOL_LEAVES:
+            if name in entry:
+                leaf = entry[name]
+                idx = torch.as_tensor(list(pages), dtype=torch.long,
+                                      device=leaf.device)
+                out[-1][name] = leaf[:, idx].cpu().numpy()
+    return out
+
+
+def scatter_pages(cache, pages: Sequence[int], data):
+    """Inverse of ``gather_pages``, in place: write saved page contents
+    into pool pages ``pages[i]`` of every kp/vp leaf, in each leaf's
+    dtype, into the tensors the engine's CUDA graphs captured. ``data`` is
+    the per-position list ``gather_pages`` produced (possibly a subset of
+    its pages)."""
+    if not pages:
+        return cache
+    for entry, saved in zip(cache["layers"], data):
+        for name, arr in saved.items():
+            leaf = entry[name]
+            idx = torch.as_tensor(list(pages), dtype=torch.long,
+                                  device=leaf.device)
+            leaf[:, idx] = torch.as_tensor(np.asarray(arr)).to(
+                device=leaf.device, dtype=leaf.dtype)
     return cache
 
 

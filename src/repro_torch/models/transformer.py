@@ -236,7 +236,9 @@ def forward(cfg: ModelConfig, params: Dict, inputs: Dict[str, torch.Tensor],
             new_layers[pos].append(newc)
 
     if last_idx is not None:
-        x = x[torch.arange(B, device=dev), last_idx][:, None]
+        rows = torch.arange(B, device=dev)
+        x = (x[rows, last_idx][:, None] if last_idx.ndim == 1
+             else x[rows[:, None], last_idx])
     x = layers.apply_norm(cfg, params["final_norm"], x)
     logits = layers.unembed(cfg, params["embed"], x)
 

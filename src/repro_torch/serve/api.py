@@ -7,15 +7,15 @@ Request/Completion pair, one Engine protocol, one factory, typed stats.
     st = eng.stats()                   # EngineStats (typed, frozen)
 
 Two engines: ``mode="paged"`` (the serving engine: paged KV, chunked
-prefill, prefix sharing) and ``mode="dense"`` (the dense oracle: a fixed
-``max_batch x max_len`` arena, kept for equivalence checks and as the
-throughput benchmark's baseline). On a CUDA device the paged engine runs
-its mixed step as one CUDA graph per (chunk, table) signature and the
-dense engine its decode step as one CUDA graph, each captured at its
-first tick and replayed after that (``CompileStats``); on the CPU the
-steps run eagerly. Speculative decoding, tensor parallelism, prefix-cache
-persistence and MoE wait for later slices (ROADMAP Queue 1 items 8, 10,
-12 and 16).
+prefill, prefix sharing, optional speculative decoding and prefix-cache
+persistence) and ``mode="dense"`` (the dense oracle: a fixed ``max_batch x
+max_len`` arena, kept for equivalence checks and as the throughput
+benchmark's baseline). On a CUDA device the paged engine runs its mixed
+step (and, with ``spec``, its verify step) as one CUDA graph per (chunk,
+table) signature and the dense engine its decode step as one CUDA graph,
+each captured at its first tick and replayed after that
+(``CompileStats``); on the CPU the steps run eagerly. Tensor parallelism
+and MoE wait for later slices (ROADMAP Queue 1 items 12 and 16).
 """
 from __future__ import annotations
 
@@ -97,6 +97,8 @@ class SchedulerStats:
     peak_pages: int = 0
     preemptions: int = 0
     reclaimed_pages: int = 0
+    rolled_back_pages: int = 0
+    recurrent_rollbacks: int = 0
     cow_forks: int = 0
 
 
@@ -109,6 +111,31 @@ class PrefixCacheStats:
     index_tails: int = 0
     index_pages: int = 0
     index_evictions: int = 0
+    loaded_pages: int = 0              # pages restored via prefix_cache_path
+
+
+@dataclass(frozen=True)
+class SpecStats:
+    """Speculative decoding's counters. ``recurrent_rollbacks`` counts
+    verify chunks whose rejection was settled by restoring per-slot
+    recurrent state (``SlotStateArena``) and replaying the accepted
+    prefix: nonzero only on models with per-slot state (rwkv6-7b here).
+    ``disabled_reason`` is kept for the JAX package's key set (no engine
+    sets it). ``draft_signatures``/``draft_compiles``: only a drafter with
+    steps of its own (``QuantSelfDrafter``) reports them: its (context
+    bucket, k) signatures, one CUDA graph each on a CUDA device."""
+    enabled: bool = False
+    disabled_reason: Optional[str] = None
+    k: int = 0
+    drafter: str = ""
+    steps: int = 0
+    drafted_tokens: int = 0
+    accepted_tokens: int = 0
+    rolled_back_tokens: int = 0
+    recurrent_rollbacks: int = 0
+    accept_rate: float = 0.0
+    draft_signatures: Tuple[Tuple[int, int], ...] = ()
+    draft_compiles: Optional[int] = None
 
 
 @dataclass(frozen=True)
@@ -124,6 +151,7 @@ class EngineStats:
     compile: CompileStats = CompileStats()
     scheduler: Optional[SchedulerStats] = None
     prefix_cache: Optional[PrefixCacheStats] = None
+    spec: Optional[SpecStats] = None
     kv_bytes: Optional[int] = None
 
     def as_dict(self) -> Dict[str, object]:
@@ -147,6 +175,7 @@ class EngineStats:
             return d
         s = self.scheduler
         pc = self.prefix_cache or PrefixCacheStats()
+        sp = self.spec or SpecStats()
         d.update({
             "prefix_hit_tokens": pc.hit_tokens,
             "prefix_hits": pc.hits,
@@ -163,8 +192,28 @@ class EngineStats:
             "peak_pages": s.peak_pages,
             "preemptions": s.preemptions,
             "reclaimed_pages": s.reclaimed_pages,
+            "rolled_back_pages": s.rolled_back_pages,
+            "recurrent_rollbacks": s.recurrent_rollbacks,
             "cow_forks": s.cow_forks,
+            "spec_enabled": sp.enabled,
         })
+        if sp.disabled_reason is not None:
+            d["spec_disabled_reason"] = sp.disabled_reason
+        if sp.enabled:
+            d.update({
+                "spec_k": sp.k,
+                "spec_drafter": sp.drafter,
+                "spec_steps": sp.steps,
+                "drafted_tokens": sp.drafted_tokens,
+                "accepted_tokens": sp.accepted_tokens,
+                "rolled_back_tokens": sp.rolled_back_tokens,
+                "spec_recurrent_rollbacks": sp.recurrent_rollbacks,
+                "spec_accept_rate": sp.accept_rate,
+            })
+            if sp.draft_compiles is not None:
+                d["draft_signatures"] = [tuple(sig) for sig
+                                         in sp.draft_signatures]
+                d["draft_compiles"] = sp.draft_compiles
         if pc.enabled:
             d.update({"index_nodes": pc.index_nodes,
                       "index_tails": pc.index_tails,
@@ -192,9 +241,22 @@ def make_engine(cfg, params, adapters=(), *, mode: str = "paged",
     copy-on-write prefix sharing (``enable_prefix_cache=False`` disables
     it) and page-occupancy scheduling with preemption. Keyword args:
     max_slots, max_len, page_size, num_pages, prefill_chunk,
-    enable_prefix_cache, exec_cfg, seed, record_logits. ``spec``,
-    ``parallel`` with tp > 1, ``prefix_cache_path`` and
-    ``moe_dispatch="capacity"`` are not ported yet and raise.
+    enable_prefix_cache, spec, exec_cfg, seed, record_logits. ``parallel``
+    with tp > 1 and ``moe_dispatch="capacity"`` are not ported yet and
+    raise.
+
+    ``spec`` enables draft-and-verify decoding: a ``serve.spec.SpecConfig``
+    or a drafter name (``"ngram"`` / ``"selfdraft"``) for the defaults.
+    ``spec=None`` leaves the engine exactly as without it. On rwkv6-7b the
+    per-slot state is checkpointed around each verify chunk and a
+    rejection replays the accepted prefix
+    (``stats().spec.recurrent_rollbacks``).
+
+    ``prefix_cache_path`` persists the prefix index across restarts: if
+    the file exists its trie and page contents load into the new engine's
+    pool at construction (a missing file is a cold start);
+    ``engine.save_prefix_cache()`` writes it. The file format is the JAX
+    package's, so either package loads the other's.
 
     ``mode="dense"`` — the dense ``max_batch x max_len`` oracle, kept for
     equivalence checks and as the benchmark baseline. Keyword args:

@@ -44,13 +44,27 @@ cache is written in place, into the tensors the graph captured. A capture
 that fails raises: nothing falls back to the eager step. On the CPU (the
 tests) the steps run eagerly. The paged engine's copy-on-write forks and
 slot resets run eagerly between ticks, as they are rare (the JAX package
-jits its forks by fork bucket). Speculative decoding, tensor parallelism
-and prefix-cache persistence raise ``NotImplementedError`` in the paged
-engine (ROADMAP Queue 1 items 8, 10 and 16).
+jits its forks by fork bucket).
+
+Speculative decoding (``spec=``, ``serve.spec``) replaces the paged
+engine's step by a verify step, one CUDA graph per (chunk, table)
+signature as well: it copies the per-slot recurrent state into the
+engine's snapshot buffers (rwkv only), runs the same mixed forward, and
+returns the logits at the positions the tick reads (a decode row's verify
+chunk, a prefill row's last position), never all of (B, C, V). After the
+replay, eagerly: the acceptance rule (``verify_accept``), the per-slot
+restore of the recurrent state in place, then the host's settling
+(``_advance_spec``). The self-drafter's draft runs as CUDA graphs of its
+own. Prefix-cache persistence (``prefix_cache_path=``,
+``save_prefix_cache``) loads the index into the pool in place at
+construction. Tensor parallelism raises ``NotImplementedError`` in the
+paged engine (ROADMAP Queue 1 item 16).
 """
 from __future__ import annotations
 
+import os
 import time
+import warnings
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Set, Tuple
 
@@ -64,11 +78,13 @@ from repro_torch.core.lora import scan_period
 from repro_torch.models import kvcache, transformer as tfm
 from repro_torch.models.kvcache import PagedLayout
 from repro_torch.models.transformer import ExecConfig
+from repro_torch.serve import spec as spec_mod
 from repro_torch.serve.api import (Completion, CompileStats, EngineStats,
                                    PrefixCacheStats, Request, SchedulerStats,
-                                   completion_of)
+                                   SpecStats, completion_of)
 from repro_torch.serve.prefix import PrefixIndex
 from repro_torch.serve.sampling import sample_tokens
+from repro_torch.serve.spec import SpecConfig
 from repro_torch.serve.scheduler import PageScheduler, bucketize, power_buckets
 
 
@@ -95,15 +111,19 @@ def _stream_len(req: Request) -> int:
 
 
 # A step's int32 inputs travel packed in one buffer, each part starting on
-# 16 bytes (the alignment the flash kernels take): one copy a tick.
+# 16 bytes (the alignment the flash kernels take): one copy a tick. The
+# verify step of speculative decoding adds the rows' draft lengths.
 _PARTS = ("tokens", "lens", "clens", "table", "adapter")
+_SPEC_PARTS = _PARTS + ("dlens",)
 
 
-def _segments(B: int, C: int, nb: int) -> Tuple[Dict[str, Tuple[int, int]],
-                                                 int]:
-    """(offset, length) of each part of the packed inputs, and their end."""
+def _segments(B: int, C: int, nb: int, spec: bool = False
+              ) -> Tuple[Dict[str, Tuple[int, int]], int]:
+    """(offset, length) of each part of the packed inputs (``spec``: the
+    verify step's), and their end."""
     out, o = {}, 0
-    for name, n in zip(_PARTS, (B * C, B, B, B * nb, B)):
+    sizes = (B * C, B, B, B * nb, B, B)
+    for name, n in zip(_SPEC_PARTS if spec else _PARTS, sizes):
         out[name] = (o, n)
         o += -(-n // 4) * 4
     return out, o
@@ -111,11 +131,12 @@ def _segments(B: int, C: int, nb: int) -> Tuple[Dict[str, Tuple[int, int]],
 
 @dataclass
 class _Graph:
-    """One captured step: the packed inputs it reads, the logits it writes,
-    and the kernel launches that one replay makes."""
+    """One captured step: the packed inputs it reads, what it returns (the
+    logits, or a tuple of outputs), and the kernel launches that one
+    replay makes."""
     graph: "torch.cuda.CUDAGraph"
     inputs: torch.Tensor
-    logits: torch.Tensor
+    out: object
     launches: Dict[str, int]
 
 
@@ -136,7 +157,7 @@ def _capture(device: torch.device, pool, step_fn, n: int,
     t = time.perf_counter()
     try:
         with torch.cuda.graph(graph, pool=pool):
-            logits = step_fn(inputs)
+            out = step_fn(inputs)
     except Exception as e:
         # a capture that fails to end leaves its side stream current
         torch.cuda.set_stream(stream)
@@ -148,35 +169,40 @@ def _capture(device: torch.device, pool, step_fn, n: int,
             kernels.LAUNCHES[k] -= m
     seconds = time.perf_counter() - t
     pool_bytes = torch.cuda.memory_reserved(device) - reserved
-    return (_Graph(graph, inputs, logits,
+    return (_Graph(graph, inputs, out,
                    {k: m for k, m in launches.items() if m}),
             seconds, pool_bytes)
 
 
-def _replay(g: _Graph, staged: torch.Tensor) -> torch.Tensor:
+def _replay(g: _Graph, staged: torch.Tensor):
     """Copy the staged inputs into the graph's own, replay it and count
     its launches."""
     g.inputs.copy_(staged, non_blocking=True)
     g.graph.replay()
     for name, n in g.launches.items():
         kernels.LAUNCHES[name] += n
-    return g.logits
+    return g.out
 
 
 def _ceil4(n: int) -> int:
     return -(-n // 4) * 4
 
 
+def _device_temps(eng, temps: np.ndarray):
+    """(``temps`` on the device, whether any row samples): the temperatures
+    go through ``eng._host_temps`` (pinned on a CUDA device) only when some
+    row samples, else None."""
+    if not (temps > 0).any():
+        return None, False
+    n = len(temps)
+    eng._host_temps.numpy()[:n] = temps
+    return eng._host_temps[:n].to(eng.device, non_blocking=True), True
+
+
 def _sample(eng, lg: torch.Tensor, temps: np.ndarray) -> np.ndarray:
-    """Tokens (host) sampled from the logits rows ``lg`` at ``temps``: the
-    temperatures go through ``eng._host_temps`` (pinned on a CUDA device)
-    only when some row samples, and ``eng._gen`` draws only then."""
-    any_sampled = bool((temps > 0).any())
-    temps_t = None
-    if any_sampled:
-        n = len(temps)
-        eng._host_temps.numpy()[:n] = temps
-        temps_t = eng._host_temps[:n].to(eng.device, non_blocking=True)
+    """Tokens (host) sampled from the logits rows ``lg`` at ``temps``;
+    ``eng._gen`` draws only when some row samples."""
+    temps_t, any_sampled = _device_temps(eng, temps)
     return sample_tokens(lg, temps_t, eng._gen,
                          any_sampled=any_sampled).cpu().numpy()
 
@@ -424,7 +450,16 @@ class PagedServeEngine:
     request uid, the logits row each generated token was sampled from
     (``sampled_logits``), so a caller can hold them against a reference.
     On a CUDA device each tick replays the graph of its (chunk, table)
-    signature (module docstring)."""
+    signature (module docstring).
+
+    Speculative decoding (``spec``: a ``SpecConfig`` or a drafter name)
+    widens each decoding row to ``[t0, d1..dm]`` with up to ``k`` drafts;
+    the verify step scores them and the rejected suffix rolls back. On
+    rwkv6-7b the per-slot state is snapshotted inside the verify step and
+    restored per slot on a rejection; the cursor then rewinds to the
+    pre-chunk length and the accepted tokens replay as a resumed prefill
+    chunk next tick, which rebuilds the state token-exactly.
+    Full-attention models roll back by the cursor alone."""
 
     def __init__(self, cfg: ModelConfig, params, adapters: Sequence = (), *,
                  device: DeviceLike = None, max_slots: int = 16,
@@ -435,15 +470,9 @@ class PagedServeEngine:
                  moe_dispatch: str = "dropless",
                  exec_cfg: ExecConfig = ExecConfig(), seed: int = 0,
                  record_logits: bool = False):
-        if spec is not None:
-            raise NotImplementedError("speculative decoding is not ported "
-                                      "yet (ROADMAP Queue 1 item 10)")
         if parallel is not None and getattr(parallel, "tp", 1) > 1:
             raise NotImplementedError("tensor-parallel serving is not ported "
                                       "yet (ROADMAP Queue 1 item 16)")
-        if prefix_cache_path is not None:
-            raise NotImplementedError("prefix-cache persistence is not "
-                                      "ported yet (ROADMAP Queue 1 item 8)")
         if moe_dispatch != "dropless":
             raise NotImplementedError("MoE dispatch modes are not ported yet "
                                       "(ROADMAP Queue 1 item 12)")
@@ -479,7 +508,25 @@ class PagedServeEngine:
         self.finished: Dict[int, Request] = {}
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(seed)
-        self.chunk_buckets = power_buckets(prefill_chunk)
+        pin = self.device.type == "cuda"
+        if pin:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        # ---- speculative decoding (spec=None keeps the plain step) ----
+        if isinstance(spec, str):
+            spec = SpecConfig(drafter=spec)
+        self.spec: Optional[SpecConfig] = spec
+        self.drafter = None
+        self._ckpt = None
+        if spec is not None:
+            self.drafter = spec_mod.make_drafter(
+                cfg, params, self.adapters, spec, exec_cfg, max_slots,
+                pool=self._graph_pool if pin else None)
+            # the verify step's snapshot of the per-slot state: one set of
+            # buffers that every verify graph copies into
+            self._ckpt = self.arena.snapshot(self.cache)
+        # verify chunks are 1 + k tokens wide: the chunk ladder takes them
+        self.chunk_buckets = power_buckets(
+            max(prefill_chunk, spec.k + 1 if spec is not None else 1))
         self.block_buckets = power_buckets(self.sched.max_blocks)
         self._signatures: Set[Tuple[int, int]] = set()
         self._graphs: Dict[Tuple[int, int], _Graph] = {}
@@ -487,14 +534,12 @@ class PagedServeEngine:
         self.capture_s = 0.0
         self.graph_pool_bytes = 0
         # pinned host staging of the packed inputs and of the temperatures
-        pin = self.device.type == "cuda"
         _, most = _segments(max_slots, self.chunk_buckets[-1],
-                            self.block_buckets[-1])
+                            self.block_buckets[-1], spec is not None)
         self._host = torch.zeros(most, dtype=torch.int32, pin_memory=pin)
         self._host_temps = torch.zeros(max_slots, dtype=torch.float32,
                                        pin_memory=pin)
         if pin:
-            self._graph_pool = torch.cuda.graph_pool_handle()
             # every signature's split workspaces, before any capture
             tfm.reserve_workspaces(
                 cfg, params, exec_cfg, self.device, rows=max_slots,
@@ -505,8 +550,23 @@ class PagedServeEngine:
         self.prefill_tokens = 0
         self.prefix_hit_tokens = 0
         self.prefix_hits = 0
+        self.drafted_tokens = 0
+        self.accepted_tokens = 0
+        self.rolled_back_tokens = 0
+        self.spec_steps = 0
         self.record_logits = record_logits
         self.sampled_logits: Dict[int, List[torch.Tensor]] = {}
+        # ---- prefix-cache persistence: load a saved index into the fresh
+        # pool, in place (a missing file is a cold start)
+        self.prefix_cache_path = prefix_cache_path
+        self.prefix_loaded_pages = 0
+        if prefix_cache_path is not None and self.prefix is None:
+            warnings.warn("prefix_cache_path ignored: the prefix cache is "
+                          "disabled on this engine", stacklevel=2)
+        elif (prefix_cache_path is not None
+                and os.path.exists(prefix_cache_path)):
+            _, self.prefix_loaded_pages = self.prefix.load(
+                prefix_cache_path, self.cache)
 
     # ------------------------------------------------------------------
     def _step_fn(self, inputs: torch.Tensor, C: int, nb: int) -> torch.Tensor:
@@ -534,9 +594,54 @@ class PagedServeEngine:
             chunk_lens=clens, last_idx=last)
         return logits[:, 0]                                       # (B, V)
 
+    def _spec_step_fn(self, inputs: torch.Tensor, C: int, nb: int):
+        """The speculative verify step over packed ``inputs``: the same
+        mixed forward as ``_step_fn`` (draft tokens ride in as the ragged
+        tail of a decode row's chunk), preceded by a copy of the per-slot
+        recurrent state into the engine's snapshot buffers (rwkv only),
+        and ending at the logits of the positions the tick reads: a verify
+        row's 0..J-1 (J = min(C, k + 1)), any other row's last position in
+        column 0. Returns (logits (B, J, V), tokens (B, J), draft lengths
+        (B,)), the latter two views of ``inputs``. No host work depends on
+        the values, so a CUDA graph captures it whole.
+
+        Pool KV needs no snapshot: a write at position j depends only on
+        inputs <= j, so the cursor alone hides a rejected suffix."""
+        B = self.layout.max_slots
+        J = min(C, self.spec.k + 1)
+        seg, _ = _segments(B, C, nb, spec=True)
+        part = {k: inputs[o:o + n] for k, (o, n) in seg.items()}
+        tokens = part["tokens"].view(B, C)
+        block_table = part["table"].view(B, nb)
+        lens, clens, dlens = part["lens"], part["clens"], part["dlens"]
+        adapter_idx = (part["adapter"].long() if self.adapters is not None
+                       else None)
+        if self.arena.tracked:
+            self.arena.snapshot(self.cache, self._ckpt)
+        dev = inputs.device
+        positions = lens[:, None] + torch.arange(
+            C, dtype=torch.int32, device=dev)[None, :]
+        paged = {"block_table": block_table, "lens": lens,
+                 "chunk_lens": clens, "page_size": self.layout.page_size}
+        first = torch.where(dlens > 0, torch.zeros_like(clens),
+                            torch.clamp(clens - 1, min=0)).long()
+        idx = torch.clamp(first[:, None] + torch.arange(J, device=dev)[None],
+                          max=C - 1)
+        logits, _, _ = tfm.forward(
+            self.cfg, self.params, {"tokens": tokens}, lora=self.adapters,
+            cache=self.cache, positions=positions, mode="decode",
+            exec_cfg=self.ec, adapter_idx=adapter_idx, paged=paged,
+            chunk_lens=clens, last_idx=idx)
+        return logits, tokens[:, :J], dlens                  # (B, J, V)
+
     def _eager(self, sig: Tuple[int, int], staged: torch.Tensor):
         """Run the step of signature ``sig`` eagerly on the staged inputs."""
-        return self._step_fn(staged.to(self.device, non_blocking=True), *sig)
+        return self._fn(staged.to(self.device, non_blocking=True), *sig)
+
+    @property
+    def _fn(self):
+        """The step this engine runs: the verify step with ``spec``."""
+        return self._step_fn if self.spec is None else self._spec_step_fn
 
     def _replay(self, sig: Tuple[int, int], staged: torch.Tensor):
         """Run the step of signature ``sig`` by its CUDA graph; its first
@@ -546,8 +651,9 @@ class PagedServeEngine:
             lg = self._eager(sig, staged)
             self._graphs[sig], sec, nbytes = _capture(
                 self.device, self._graph_pool,
-                lambda inputs: self._step_fn(inputs, *sig), staged.numel(),
-                f"the mixed step of signature (C={sig[0]}, nb={sig[1]})")
+                lambda inputs: self._fn(inputs, *sig), staged.numel(),
+                f"the {'verify' if self.spec else 'mixed'} step of "
+                f"signature (C={sig[0]}, nb={sig[1]})")
             self.capture_s += sec
             self.graph_pool_bytes += nbytes
             return lg
@@ -641,6 +747,98 @@ class PagedServeEngine:
                                  req.prompt[:n_done * self.layout.page_size],
                                  st.pages[:n_done], self._tick)
 
+    def _propose_drafts(self, active: Sequence[int],
+                        phase: Dict[int, str]) -> Dict[int, np.ndarray]:
+        """Ask the drafter for up to k tokens per decoding slot.
+
+        Per-slot caps keep the verified run inside both budgets: appending
+        ``accepted + 1 <= cap + 1`` tokens can neither exceed the request's
+        ``max_new_tokens`` nor push the cache past ``max_len - 1``, so a
+        request finishes on the token it would under plain decode. The
+        drafter is always called with the full ``spec.k`` (one signature);
+        the caps truncate here."""
+        sched = self.sched
+        cand, streams, aids, caps = [], [], [], []
+        for i in active:
+            if phase[i] != "decode":
+                continue
+            req = sched.slots[i].req
+            cap = min(self.spec.k,
+                      req.max_new_tokens - len(req.generated) - 1,
+                      self.max_len - 2 - int(sched.lens[i]))
+            if cap <= 0:
+                continue
+            cand.append(i)
+            caps.append(cap)
+            streams.append(np.concatenate([
+                np.asarray(req.prompt, np.int32),
+                np.asarray(req.generated, np.int32)]))
+            aids.append(req.adapter_id)
+        if not cand:
+            return {}
+        props = self.drafter.propose(streams, aids, self.spec.k)
+        return {i: np.asarray(d, np.int32)[:cap]
+                for i, cap, d in zip(cand, caps, props)
+                if np.asarray(d).size}
+
+    def _retire(self, i: int, reason: str) -> None:
+        """Finish slot ``i``'s request; donate its partial prompt-tail page
+        to the index (later sharers fork it copy-on-write at divergence)."""
+        st = self.sched.slots[i]
+        req = st.req
+        req.done = True
+        req.finish_reason = reason
+        self.finished[req.uid] = req
+        if (self.prefix is not None
+                and len(req.prompt) % self.layout.page_size):
+            self.prefix.register_tail(
+                req.adapter_id, req.prompt,
+                st.pages[len(req.prompt) // self.layout.page_size],
+                self._tick)
+        self.sched.release(i)
+
+    def _advance_spec(self, i: int, m: int, emit_row: np.ndarray, n: int,
+                      lg_rows: torch.Tensor) -> None:
+        """Settle one decode slot after a verified tick: move the write
+        cursor to ``L + accepted + 1``, free pages past it (rejected
+        drafts), and append the emitted tokens in order (``lg_rows[t]`` is
+        token t's logits row): eos / max_new / length-cap checks fire on
+        the token they would under one-at-a-time decode.
+
+        With per-slot recurrent state a rejection cannot be settled by a
+        partial rewind: the state was restored to the pre-chunk snapshot,
+        so the cursor rewinds to ``L`` and the ``n`` accepted tokens
+        re-enter next tick as a resumed prefill chunk (they are in the
+        stream already: ``[generated[-1], emit_0..emit_{n-2}]``)."""
+        sched = self.sched
+        req = sched.slots[i].req
+        L = int(sched.lens[i])
+        self.accepted_tokens += n - 1
+        self.rolled_back_tokens += m - (n - 1)
+        if m and n <= m and self.arena.tracked:
+            sched.rollback(i, L, recurrent=True)
+        elif m:
+            sched.rollback(i, L + n)
+        else:
+            sched.lens[i] = L + n           # plain decode row: n == 1
+        done = None
+        for t in range(n):
+            tok = int(emit_row[t])
+            _emit(self, req, tok, lg_rows[t])
+            self.decode_tokens += 1
+            if req.eos_id is not None and tok == req.eos_id:
+                done = "eos"
+                break
+            if len(req.generated) >= req.max_new_tokens:
+                done = "length"
+                break
+        # cap on the SETTLED position L + n: a recurrent rollback rewinds
+        # lens to L for the replay, but the request has used L + n
+        if done is None and L + n >= self.max_len - 1:
+            done = "length"
+        if done is not None:
+            self._retire(i, done)
+
     def step(self) -> None:
         """One tick: admit, resolve CoW forks, build a mixed ragged chunk,
         run the step (a graph replay on a CUDA device), advance lengths,
@@ -671,6 +869,13 @@ class PagedServeEngine:
             else:
                 want[i] = 1
                 phase[i] = "decode"
+
+        # ---- speculative drafts widen decode rows to 1 + m tokens
+        drafts: Dict[int, np.ndarray] = {}
+        if self.spec is not None:
+            drafts = self._propose_drafts(active, phase)
+            for i, d in drafts.items():
+                want[i] = 1 + d.size
 
         # ---- page capacity (oldest slots are protected; pool pressure
         # reclaims prefix-cache pages first, then preempts the youngest,
@@ -703,6 +908,7 @@ class PagedServeEngine:
         C = bucketize(int(max(want[i] for i in active)), self.chunk_buckets)
         tokens = np.zeros((B, C), np.int32)
         clens = np.zeros(B, np.int32)
+        dlens = np.zeros(B, np.int32)
         for i in active:
             st = sched.slots[i]
             if phase[i] == "prefill":
@@ -714,28 +920,62 @@ class PagedServeEngine:
             else:
                 tokens[i, 0] = st.req.generated[-1]
                 clens[i] = 1
+                d = drafts.get(i)
+                if d is not None:
+                    # verify chunk [t0, d1..dm]: the distribution at index
+                    # j scores the draft at j + 1
+                    tokens[i, 1:1 + d.size] = d
+                    clens[i] = 1 + d.size
+                    dlens[i] = d.size
+                    self.drafted_tokens += int(d.size)
         assert clens.any(), "an active tick writes at least one token"
         nb = bucketize(sched.blocks_in_use(active, clens), self.block_buckets)
         adapter = [(sched.slots[i].req.adapter_id if sched.slots[i] else 0)
                    for i in range(B)]
-        seg, n = _segments(B, C, nb)
+        spec = self.spec is not None
+        seg, n = _segments(B, C, nb, spec)
         host = self._host.numpy()
         for name, arr in (("tokens", tokens), ("lens", sched.lens),
                           ("clens", clens), ("table", sched.tables[:, :nb]),
-                          ("adapter", adapter)):
-            o, m = seg[name]
-            host[o:o + m] = np.asarray(arr).reshape(-1)
+                          ("adapter", adapter), ("dlens", dlens)):
+            if name in seg:
+                o, m = seg[name]
+                host[o:o + m] = np.asarray(arr).reshape(-1)
         temps = np.asarray([(sched.slots[i].req.temperature
                              if sched.slots[i] else 0.0) for i in range(B)],
                            np.float32)
         self._signatures.add((C, nb))
-        lg = run((C, nb), self._host[:n])
-        toks_np = _sample(self, lg, temps)
+        out = run((C, nb), self._host[:n])
+        emit_np = n_emit_np = None
+        if not spec:
+            lg = out
+            toks_np = _sample(self, lg, temps)
+        else:
+            # acceptance, then the per-slot restore in place (a slot keeps
+            # its post-chunk state only without drafts or with all of them
+            # accepted), then one read of the results
+            self.spec_steps += 1
+            lg_v, tok_v, dl_v = out
+            temps_t, any_sampled = _device_temps(self, temps)
+            emit, n_emit = spec_mod.verify_accept(
+                lg_v, tok_v, dl_v, temps_t, self._gen,
+                any_sampled=any_sampled)
+            if self.arena.tracked:
+                self.arena.restore(self.cache, self._ckpt,
+                                   (dl_v == 0) | (n_emit > dl_v))
+            both = torch.cat([emit, n_emit[:, None]], dim=1).cpu().numpy()
+            emit_np, n_emit_np = both[:, :-1], both[:, -1]
+            toks_np = emit_np[:, 0]         # rows without drafts: column 0
+            lg = lg_v[:, 0]
 
         # ---- advance + sample + retire
         for i in active:
             st = sched.slots[i]
             req = st.req
+            if phase[i] == "decode" and spec:
+                self._advance_spec(i, int(dlens[i]), emit_np[i],
+                                   int(n_emit_np[i]), lg_v[i])
+                continue
             sched.lens[i] += int(clens[i])
             if phase[i] == "decode":
                 self.decode_tokens += 1
@@ -755,18 +995,7 @@ class PagedServeEngine:
             len_cap = (phase[i] == "decode"
                        and int(sched.lens[i]) >= self.max_len - 1)
             if len(req.generated) >= req.max_new_tokens or hit_eos or len_cap:
-                req.done = True
-                req.finish_reason = "eos" if hit_eos else "length"
-                self.finished[req.uid] = req
-                if (self.prefix is not None
-                        and len(req.prompt) % self.layout.page_size):
-                    # donate the partial prompt-tail page to the index —
-                    # future sharers fork it copy-on-write at divergence
-                    self.prefix.register_tail(
-                        req.adapter_id, req.prompt,
-                        st.pages[len(req.prompt) // self.layout.page_size],
-                        self._tick)
-                sched.release(i)
+                self._retire(i, "eos" if hit_eos else "length")
 
     def run_until_done(self, max_ticks: int = 100_000) -> Dict[int, Request]:
         for _ in range(max_ticks):
@@ -782,6 +1011,34 @@ class PagedServeEngine:
     def release_prefix_cache(self) -> int:
         """Drop every prefix-index page ref. Returns pages freed."""
         return self.prefix.clear() if self.prefix is not None else 0
+
+    def save_prefix_cache(self, path: Optional[str] = None) -> int:
+        """Write the prefix index (trie and page contents) so a later
+        engine starts warm from it (``prefix_cache_path=``). Returns the
+        number of pages written."""
+        if self.prefix is None:
+            raise ValueError("prefix cache is disabled on this engine")
+        path = path or self.prefix_cache_path
+        if path is None:
+            raise ValueError("no path: pass save_prefix_cache(path) or "
+                             "construct with prefix_cache_path=")
+        return self.prefix.save(path, self.cache)
+
+    def _spec_stats(self) -> SpecStats:
+        if self.spec is None:
+            return SpecStats(enabled=False)
+        sigs = (self.drafter.stats() if hasattr(self.drafter, "stats")
+                else None)
+        return SpecStats(
+            enabled=True, k=self.spec.k, drafter=self.spec.drafter,
+            steps=self.spec_steps, drafted_tokens=self.drafted_tokens,
+            accepted_tokens=self.accepted_tokens,
+            rolled_back_tokens=self.rolled_back_tokens,
+            recurrent_rollbacks=self.sched.recurrent_rollbacks,
+            accept_rate=self.accepted_tokens / max(self.drafted_tokens, 1),
+            draft_signatures=(tuple(tuple(g) for g in sigs["draft_signatures"])
+                              if sigs else ()),
+            draft_compiles=sigs["draft_compiles"] if sigs else None)
 
     def stats(self) -> EngineStats:
         occ = self.sched.occupancy()
@@ -800,4 +1057,6 @@ class PagedServeEngine:
                 enabled=self.prefix is not None,
                 hit_tokens=self.prefix_hit_tokens,
                 hits=self.prefix_hits,
-                **(self.prefix.stats() if self.prefix is not None else {})))
+                loaded_pages=self.prefix_loaded_pages,
+                **(self.prefix.stats() if self.prefix is not None else {})),
+            spec=self._spec_stats())

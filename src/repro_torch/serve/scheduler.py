@@ -17,8 +17,11 @@ slot is about to write while others still hold it is forked copy-on-write:
 ``ensure`` swaps in a fresh page and queues a device-side copy
 (``pending_forks``) that the engine executes before its next mixed step.
 
-Speculative-decode rollback (``rollback``, ``release_tail``) waits for
-ROADMAP Queue 1 item 10.
+Speculative-decode rollback: ``rollback`` sets a slot's write cursor
+after a verify chunk and releases the pages wholly past it
+(``PageAllocator.release_tail``); on models with per-slot recurrent state
+the engine rewinds to the pre-chunk length in lockstep with the state's
+restore (``recurrent=True``).
 """
 from __future__ import annotations
 
@@ -57,6 +60,8 @@ class PageScheduler:
         self.peak_pages = 0
         self.reclaimed_pages = 0          # pages ACTUALLY freed by preemption
         self.cow_forks = 0
+        self.rolled_back_pages = 0        # pages freed by spec rollbacks
+        self.recurrent_rollbacks = 0      # rewinds with a state restore
         self.pending_forks: List[Tuple[int, int, int]] = []  # (slot, src, dst)
         self.evicted: List[object] = []   # preempted requests to requeue
 
@@ -164,6 +169,34 @@ class PageScheduler:
             self.pending_forks.append((slot, pg, new))
         return True
 
+    def rollback(self, slot: int, new_len: int, *,
+                 recurrent: bool = False) -> int:
+        """Set a slot's write cursor to ``new_len`` tokens and release the
+        pages now wholly past it: one call settles a speculative-decode
+        tick (the cursor advances over accepted tokens and rolls back over
+        rejected ones; it stays within the pages already granted).
+
+        ``recurrent=True`` marks a rewind made in lockstep with a per-slot
+        recurrent-state restore (``SlotStateArena``): the engine rewinds to
+        the pre-chunk length and replays the accepted tokens as a resumed
+        prefill chunk. Counted apart, so stats can attribute that prefill.
+
+        Pages in the rejected range were allocated this tick or forked
+        copy-on-write before the speculative write, so dropping this
+        slot's ref never corrupts a co-holder. Returns pages ACTUALLY
+        freed."""
+        st = self.slots[slot]
+        assert st is not None, f"rollback of empty slot {slot}"
+        assert new_len > 0, new_len
+        keep = self.layout.blocks_for(new_len)
+        freed = self.alloc.release_tail(st.pages, keep)
+        self.tables[slot, keep:] = -1
+        self.lens[slot] = new_len
+        self.rolled_back_pages += freed
+        if recurrent:
+            self.recurrent_rollbacks += 1
+        return freed
+
     def take_forks(self) -> List[Tuple[int, int, int]]:
         """Drain queued CoW copies (slot, src, dst)."""
         out, self.pending_forks = self.pending_forks, []
@@ -219,6 +252,8 @@ class PageScheduler:
                 "peak_pages": self.peak_pages,
                 "preemptions": self.preemptions,
                 "reclaimed_pages": self.reclaimed_pages,
+                "rolled_back_pages": self.rolled_back_pages,
+                "recurrent_rollbacks": self.recurrent_rollbacks,
                 "cow_forks": self.cow_forks}
 
 

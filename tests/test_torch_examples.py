@@ -36,11 +36,19 @@ def test_serve_multiadapter(monkeypatch, capsys):
     assert sorted(g["done"]) == list(range(10))
     assert all(c.n_tokens == 12 for c in g["done"].values())
     assert g["stats"].prefix_cache.hit_tokens > 0
-    for flags in (["--spec-decode"], ["--draft", "ngram"], ["--spec-k", "2"],
-                  ["--tp", "2"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
-            _run(monkeypatch, "torch_serve_multiadapter.py", "--device",
-                 "cpu", *flags)
+    g = _run(monkeypatch, "torch_serve_multiadapter.py", "--device", "cpu",
+             "--spec-decode", "--draft", "ngram", "--spec-k", "2")
+    assert sorted(g["done"]) == list(range(10))
+    assert all(c.n_tokens == 12 for c in g["done"].values())
+    assert g["stats"].spec.enabled and g["stats"].spec.k == 2
+    assert "spec decode [ngram k=2]" in capsys.readouterr().out
+    # the self-drafter takes no quantized base (nor does the JAX example's)
+    with pytest.raises(ValueError, match="QuantizedTensor"):
+        _run(monkeypatch, "torch_serve_multiadapter.py", "--device", "cpu",
+             "--spec-decode", "--draft", "selfdraft")
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
+        _run(monkeypatch, "torch_serve_multiadapter.py", "--device", "cpu",
+             "--tp", "2")
 
 
 def test_finetune_qlora_resumes_from_its_checkpoint(tmp_path):

@@ -240,9 +240,10 @@ def test_fig9_and_fig13_scripts_run_with_jax_payload_keys(monkeypatch):
 
 
 def test_serve_throughput_smoke_runs_with_jax_payload_keys(monkeypatch):
-    """Workloads 1-2 at the JAX script's smoke sizes on the CPU: the paged
-    engine's and the prefix-cached engine's greedy tokens equal the dense
-    oracle's, with the JAX script's payload keys for both workloads."""
+    """Workloads 1-3 at the JAX script's smoke sizes on the CPU: the paged
+    engine's, the prefix-cached engine's and the speculating engine's
+    greedy tokens equal the dense oracle's, with the JAX script's payload
+    keys for the three workloads."""
     monkeypatch.setenv("BENCH_SMOKE", "1")
     p = torch_serve_throughput.run("cpu")
     assert {"smoke", "workload", "dense", "paged",
@@ -255,5 +256,12 @@ def test_serve_throughput_smoke_runs_with_jax_payload_keys(monkeypatch):
             "prefix_hit_rate", "meets_2x_prefill_reduction"} <= set(sp)
     assert sp["prefix_cache"]["prefix_hit_tokens"] > 0
     assert p["dense"]["kv_bytes"] > p["paged"]["kv_bytes"] > 0
-    assert set(p["waiting"]) == {"spec_decode", "tensor_parallel",
-                                 "moe_dropless", "spec_hybrid"}
+    sd = p["spec_decode"]
+    assert sd["greedy_matches_dense_oracle"]
+    assert {"drafter", "k", "spec_on", "spec_off_tok_per_s", "accept_rate",
+            "tokens_per_decode_step", "decode_throughput_speedup"} <= set(sd)
+    assert sd["spec_on"]["drafted_tokens"] > 0
+    assert sd["spec_on"]["rolled_back_tokens"] == (
+        sd["spec_on"]["drafted_tokens"] - sd["spec_on"]["accepted_tokens"])
+    assert set(p["waiting"]) == {"tensor_parallel", "moe_dropless",
+                                 "spec_hybrid"}

@@ -29,6 +29,7 @@ from repro_torch.kernels.crossbar_matmul import ops as cb_ops
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
 from repro_torch.launch import train as launch_train
+from repro_torch.models import kvcache
 from repro_torch.models import transformer as tfm
 from repro_torch.optim import adamw
 from repro_torch.serve.api import Request, make_engine
@@ -698,10 +699,10 @@ def _smoke_engine(arch, dev, **kw):
     return cfg, eng
 
 
-def _waves(eng, cfg, run):
-    """Two waves of requests, the second submitted mid-run so that new
-    signatures (longer prompts, wider tables) meet repeated ones; ``run``
-    drives one tick."""
+def _waves(eng, cfg, run, at=5):
+    """Two waves of requests, the second submitted mid-run (at tick
+    ``at``) so that new signatures (longer prompts, wider tables) meet
+    repeated ones; ``run`` drives one tick."""
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
                for n in (3, 9, 5, 21, 14)]
@@ -710,7 +711,7 @@ def _waves(eng, cfg, run):
                            adapter_id=i % 2))
     ticks = 0
     while eng.queue or eng.sched.active():
-        if ticks == 5:
+        if ticks == at:
             for i, p in enumerate(prompts[3:], start=3):
                 eng.submit(Request(uid=i, prompt=p, max_new_tokens=8,
                                    adapter_id=i % 2))
@@ -1302,3 +1303,155 @@ def _to_cpu(tree):
     if isinstance(tree, (tuple, list)):
         return type(tree)(_to_cpu(v) for v in tree)
     return tree.cpu()
+
+
+class _ScriptDrafter:
+    """Proposes the first k - 1 tokens of a known greedy continuation and
+    then a wrong one, so that every verify chunk accepts drafts and then
+    rejects one, the same way in every run. ``truth`` maps a prompt to its
+    greedy tokens."""
+
+    def __init__(self, truth):
+        self.truth = truth
+
+    def propose(self, streams, adapter_ids, k):
+        out = []
+        for s in streams:
+            for prompt, toks in self.truth.items():
+                n = len(prompt)
+                if tuple(s[:n]) == prompt:
+                    i = len(s) - n
+                    nxt = list(toks[i:i + k])
+                    if len(nxt) == k:        # the last one made wrong
+                        nxt[-1] = (nxt[-1] + 1) % 256
+                    out.append(np.asarray(nxt, np.int32))
+                    break
+        return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "rwkv6-7b"])
+def test_spec_verify_graph_equals_the_eager_verify_step(arch):
+    """Speculative decoding on the card: the verify step replayed from one
+    CUDA graph per signature gives the eager verify step's tokens and
+    logits bits (the rwkv snapshot copied inside the graph, restored after
+    it), over waves whose verify chunks accept drafts and then reject one
+    (the drafts scripted from the spec-off engine's greedy tokens); both
+    count the same launches; one graph per signature; the greedy tokens
+    equal the spec-off engine's and the CPU engine's on the same weights."""
+    from repro_torch.serve.spec import SpecConfig
+    dev = _cuda_or_skip()
+    cfg, plain = _smoke_engine(arch, dev)
+    truth = _waves(plain, cfg, plain.step, at=2)
+    drafter = _ScriptDrafter({tuple(int(t) for t in r.prompt): r.generated
+                              for r in plain.finished.values()})
+    runs = {}
+    for mode in ("eager", "graph"):
+        cfg, eng = _smoke_engine(arch, dev, spec=SpecConfig(k=3))
+        eng.drafter = drafter
+        kernels.reset_launches()
+        run = eng.step if mode == "graph" else (
+            lambda e=eng: e._advance(e._eager))
+        runs[mode] = (_waves(eng, cfg, run, at=2), dict(kernels.LAUNCHES),
+                      eng)
+    (toks_e, launches_e, eng_e), (toks_g, launches_g, eng_g) = runs.values()
+    assert toks_g == toks_e == truth and len(toks_g) == 5
+    for uid in toks_e:
+        assert torch.equal(torch.stack(eng_g.sampled_logits[uid]),
+                           torch.stack(eng_e.sampled_logits[uid]))
+    assert launches_g == launches_e and launches_g["crossbar_matmul"] > 0
+    st = eng_g.stats()
+    assert st.compile.compiled_steps == len(st.compile.step_signatures)
+    assert st.compile.replays == st.ticks - st.compile.compiled_steps > 0
+    assert st.spec.accepted_tokens > 0 and st.spec.rolled_back_tokens > 0
+    if arch == "rwkv6-7b":
+        assert st.spec.recurrent_rollbacks > 0
+    cfg, params, ads = _smoke_model(arch, dev)
+    cpu = make_engine(cfg, _to_cpu(params), [_to_cpu(a) for a in ads],
+                      device="cpu", max_slots=3, max_len=48, page_size=4,
+                      prefill_chunk=8, spec=SpecConfig(k=3))
+    cpu.drafter = drafter
+    assert _waves(cpu, cfg, cpu.step, at=2) == toks_g
+
+
+@pytest.mark.gpu
+def test_scatter_pages_writes_into_the_tensors_the_graphs_captured(tmp_path):
+    """After an engine's graphs are captured, ``scatter_pages`` writes into
+    the very pool tensors they captured (pointers unchanged, contents as
+    written), and a prefix file loaded into the live engine then serves a
+    sharer by replay with the saving engine's tokens."""
+    dev = _cuda_or_skip()
+    cfg, saver = _smoke_engine("llama3.2-1b", dev, max_len=64)
+    rng = np.random.default_rng(7)
+    head = rng.integers(0, cfg.vocab_size, 12).astype(np.int32)
+    req = np.concatenate([head, [3, 4]]).astype(np.int32)
+    saver.submit(Request(uid=0, prompt=req, max_new_tokens=5))
+    want = saver.drain()[0].tokens
+    path = str(tmp_path / "prefix.npz")
+    assert saver.save_prefix_cache(path) > 0
+
+    cfg, eng = _smoke_engine("llama3.2-1b", dev, max_len=64)
+    _waves(eng, cfg, eng.step)
+    assert eng._graphs
+    eng.release_prefix_cache()
+    ptrs = [leaf.data_ptr() for e in eng.cache["layers"]
+            for leaf in e.values()]
+    free = eng.sched.alloc.alloc(2)
+    data = [{name: np.random.default_rng(1).standard_normal(
+        (leaf.shape[0], 2) + tuple(leaf.shape[2:])).astype(np.float32)
+        for name, leaf in e.items()} for e in eng.cache["layers"]]
+    assert kvcache.scatter_pages(eng.cache, free, data) is eng.cache
+    assert ptrs == [leaf.data_ptr() for e in eng.cache["layers"]
+                    for leaf in e.values()]
+    for got, w in zip(kvcache.gather_pages(eng.cache, free), data):
+        for name in w:
+            np.testing.assert_array_equal(got[name], w[name])
+    eng.sched.alloc.free(free)
+    _, loaded = eng.prefix.load(path, eng.cache)
+    assert loaded > 0 and ptrs == [leaf.data_ptr() for e in
+                                   eng.cache["layers"] for leaf in e.values()]
+    replays, hits = eng.replays, eng.prefix_hit_tokens
+    eng.submit(Request(uid=99, prompt=req, max_new_tokens=5))
+    assert eng.drain()[99].tokens == want
+    assert eng.prefix_hit_tokens > hits and eng.replays > replays
+
+
+@pytest.mark.gpu
+def test_selfdraft_graphs_equal_its_eager_drafts():
+    """The quantized self-drafter on the card: its drafts by CUDA graph
+    (one per (context bucket, k), captured after an eager first call)
+    equal its eager drafts, count the same launches (int4 crossbar and
+    contiguous flash, k forwards a call), and its crossbar weights are
+    int4."""
+    from repro_torch.serve.spec import QuantSelfDrafter, SpecConfig
+    dev = _cuda_or_skip()
+    cfg = reduce_config(get_config("llama3.2-1b"))
+    g = torch.Generator(device=dev).manual_seed(0)
+    params = tfm.init_params(cfg, g, device=dev)
+    ads = lora_lib.stack_adapters([lora_lib.init_lora_params(cfg, g,
+                                                             device=dev)])
+    spec = SpecConfig(k=3, drafter="selfdraft", draft_ctx=16)
+    dr = QuantSelfDrafter(cfg, params, ads, spec, tfm.ExecConfig(), 3)
+    eager = QuantSelfDrafter(cfg, params, ads, spec, tfm.ExecConfig(), 3)
+    eager._run = eager._eager
+    rng = np.random.default_rng(2)
+    calls = [[rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+              for n in lens] for lens in ((5, 9), (7, 3, 12), (6, 8), (20,))]
+    for streams in calls:
+        launches = []
+        drafts = []
+        for d in (dr, eager):
+            kernels.reset_launches()
+            drafts.append(d.propose(streams, [0] * len(streams), 3))
+            torch.cuda.synchronize()
+            launches.append(dict(kernels.LAUNCHES))
+        for a, b in zip(*drafts):
+            np.testing.assert_array_equal(a, b)
+        assert launches[0] == launches[1]
+        assert launches[0]["crossbar_matmul"] == 3 * 7 * cfg.n_layers
+        assert launches[0]["flash_attention"] == 3 * cfg.n_layers
+    # signatures (16, 3) three times and (8, 3) once: two graphs
+    assert len(dr._graphs) == 2 and dr.replays == 2 and not eager._graphs
+    assert dr.stats()["draft_compiles"] == 2
+    assert {qt.bits for qt in (dr.qparams["layers"][0]["attn"]["wq"],
+                               dr.qparams["layers"][0]["ff"]["w1"])} == {4}
