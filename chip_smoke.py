@@ -50,7 +50,17 @@ Imports nothing of JAX or of the JAX package. Phases, each printing JSON:
                here; ``before_from`` says so). A case whose trace holds
                no kernel of its names (``device_ms`` 0) fails. (The wkv
                backward kernel's cases come after the train phase, in
-               phase 6.)
+               phase 6.) Then gemma2-9b's (since slice 14): the crossbar
+               at its five (K, N) pairs at M = 8 and 1024; flash at head
+               dim 256 with 16 query and 8 kv heads and softcap 50:
+               contiguous prefill of 4608 tokens with the 4096 window and
+               decode over 4640 keys, paged mixed (chunks of 128) and
+               decode (tables 320 wide), and the ring kernel
+               (``ring_flash_attention``: rings of 4096 read with the
+               chunk's own keys) with a chunk of 128 and at decode; and
+               flash at head dim 128 (32/8 heads), a 512-token prefill
+               and 8 decode rows over 1024 keys. SDPA has no softcap, so
+               the gemma cases have no library time.
   4. serve   — for each model the port serves, full width and full depth
                (random weights from a seed), on an M8F8 crossbar base with
                two rank-32 adapters, served by the port's paged engine: 8
@@ -69,6 +79,19 @@ Imports nothing of JAX or of the JAX package. Phases, each printing JSON:
                  llama3.2-1b — crossbar + paged flash (engine), crossbar +
                                contiguous flash (forward); the prefix
                                cache serves the shared prefix;
+                 gemma2-9b   — 42 layers at d 3584, ``max_len`` 5120,
+                               two of the eight prompts 4300-4800 tokens
+                               long (past the 4096 window: the rings wrap):
+                               crossbar + paged flash on the 21 global
+                               layers + the ring kernel on the 21 sliding
+                               ones (engine), crossbar + contiguous flash
+                               (forward: the long request and a short
+                               one); the prefix cache is off (per-slot
+                               rings); a traced window of 8 graph decode
+                               ticks gives the device ms of crossbar,
+                               paged and ring flash; its engine is freed
+                               before the plain reference (the f32
+                               weights need its memory);
                  rwkv6-7b    — crossbar + wkv (engine and forward: the
                                chunked kernel for the prompts' chunks, the
                                recurrence for decode steps, never the
@@ -288,6 +311,38 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
+def ptxas_report(log: str) -> dict:
+    """Registers a thread and spill bytes of each kernel, from one
+    source's ``nvcc -Xptxas=-v`` output, by kernel name (demangled with
+    ``c++filt`` where the toolkit's host has it)."""
+    import re
+
+    out, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            name = m.group(1)
+            out[name] = {}
+        elif name is not None:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          ln)
+            if m:
+                out[name]["spill_stores"] = int(m.group(1))
+                out[name]["spill_loads"] = int(m.group(2))
+            m = re.search(r"Used (\d+) registers", ln)
+            if m:
+                out[name]["registers"] = int(m.group(1))
+    if out and shutil.which("c++filt"):
+        names = list(out)
+        plain = subprocess.run(["c++filt"], input="\n".join(names),
+                               capture_output=True, text=True,
+                               timeout=60).stdout.splitlines()
+        if len(plain) == len(names):
+            out = {p.replace("(anonymous namespace)::", ""): out[n]
+                   for n, p in zip(names, plain)}
+    return out
+
+
 def smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -375,14 +430,16 @@ def lost_launches(prof) -> int:
 
 
 def device_ms_per_kernel(fns, names=None) -> dict:
-    """As ``device_ms_by_name``, by kernel name."""
+    """As ``device_ms_by_name``, by kernel name (a port kernel's name must
+    follow "(anonymous namespace)::")."""
     fns[0]()
     with cuda_trace() as prof:
         for fn in fns:
             fn()
     out = {}
     for e in device_events(prof):
-        if names is None or any(n in e.name for n in names):
+        if names is None or any(f"(anonymous namespace)::{n}" in e.name
+                                for n in names):
             out[e.name] = out.get(e.name, 0.0) + e.time_range.elapsed_us()
     return {k: us / 1e3 / len(fns) for k, us in out.items()}
 
@@ -401,11 +458,17 @@ LLAMA_KN = ((2048, 2048), (2048, 512), (2048, 8192), (8192, 2048))
 RWKV_KN = ((4096, 4096), (4096, 14336), (14336, 4096))
 # GPT-2-medium and BLOOM-560m: wq/wk/wv/wo, w1, w2
 PAPER_KN = ((1024, 1024), (1024, 4096), (4096, 1024))
+# gemma2-9b: wq, wk/wv, wo, w1/w3, w2
+GEMMA_KN = ((3584, 4096), (3584, 2048), (4096, 3584), (3584, 14336),
+            (14336, 3584))
 # the crossbar kernels' own names in a profiler trace
 CB_KERNELS = ("crossbar_decode_kernel<", "crossbar_prefill_kernel<")
 # the flash kernels' (both entry points): flash_kernel<D, false> runs row
 # tiles (prefill, chunks), flash_kernel<D, true> the warp split (decode)
 FA_KERNELS = ("flash_kernel<",)
+# the ring entry point's kernel (its name holds FA_KERNELS' as a part:
+# every match on it goes through the "(anonymous namespace)::" prefix)
+RING_KERNELS = ("ring_flash_kernel<",)
 # the backward kernels: the transposed crossbar read; flash's D_i, dk/dv
 # and dq kernels
 CB_T_KERNELS = ("crossbar_t_kernel<",)
@@ -549,20 +612,23 @@ def _attn_cost(q, mask, kv_bytes):
     return nbytes, 4.0 * D * pairs
 
 
-def _flash_times(call, plain, sdpa, nbytes, flops):
+def _flash_times(call, plain, sdpa, nbytes, flops, names=FA_KERNELS):
     """Times and bounds of one flash case: the kernel (events, and its own
     device time by profiler), the host's time to issue it, the plain
     version, SDPA (events, and its device time with the kernels that ran:
-    f32 with a mask picks SDPA's backend), the f32 bound and the bound of
-    the kernels' own arithmetic (three TF32 products, 495 TFLOP/s)."""
-    sdpa_kernels = device_ms_per_kernel([sdpa] * 10)
+    f32 with a mask picks SDPA's backend; None where SDPA cannot compute
+    the function: a softcap), the f32 bound and the bound of the kernels'
+    own arithmetic (three TF32 products, 495 TFLOP/s)."""
+    sdpa_kernels = (device_ms_per_kernel([sdpa] * 10) if sdpa is not None
+                    else {})
     return {
         "ms": timed(call, 20),
-        "device_ms": device_ms_by_name([call] * 10, FA_KERNELS),
+        "device_ms": device_ms_by_name([call] * 10, names),
         "host_us": host_us(call),
         "plain_ms": timed(plain, 5),
-        "library_ms": timed(sdpa, 20),
-        "library_device_ms": sum(sdpa_kernels.values()),
+        "library_ms": timed(sdpa, 20) if sdpa is not None else None,
+        "library_device_ms": (sum(sdpa_kernels.values())
+                              if sdpa is not None else None),
         "library_kernels": sorted(k[:100] for k in sdpa_kernels),
         "bound_ms": bound_ms(nbytes, flops),
         "bound_pieces_ms": 1e3 * max(nbytes / HBM_BYTES_PER_S,
@@ -572,42 +638,52 @@ def _flash_times(call, plain, sdpa, nbytes, flops):
     }
 
 
+def _contiguous_case(dev, g, model, label, B, T, S, Hq, Hkv, D,
+                     window=None, softcap=None):
+    """One ``flash_attention`` case: B rows of T queries at the last T of S
+    positions over S keys."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    q = torch.randn(B, T, Hq, D, generator=g, device=dev)
+    k = torch.randn(B, S, Hkv, D, generator=g, device=dev)
+    v = torch.randn(B, S, Hkv, D, generator=g, device=dev)
+    qpos = (torch.arange(T, device=dev, dtype=torch.int32) + (S - T))
+    qpos = qpos[None].expand(B, T).contiguous()
+    kpos = torch.arange(S, device=dev, dtype=torch.int32)
+    kpos = kpos[None].expand(B, S).contiguous()
+    kw = dict(window=window, softcap=softcap)
+    o = fa_ops.flash_attention(q, k, v, qpos, kpos, **kw)
+    o_plain = fa_ops.flash_attention_plain(q, k, v, qpos, kpos, **kw)
+    torch.cuda.synchronize()
+    mask = fa_ops.visible_mask(qpos, kpos, window)      # (B, T, S)
+    seen = mask.any(dim=1)                              # keys some row sees
+    nbytes, flops = _attn_cost(q, mask, float(seen.sum()) * Hkv * D * 4 * 2)
+    flags = {k: v for k, v in kw.items() if v is not None}
+    return {
+        "name": "flash_attention", "case": label, "model": model,
+        "shape": {"B": B, "T": T, "S": S, "Hq": Hq, "Hkv": Hkv, "D": D,
+                  **flags},
+        "max_abs_err": float((o - o_plain).abs().max()), "tol": FA_TOL,
+        **_flash_times(
+            lambda: fa_ops.flash_attention(q, k, v, qpos, kpos, **kw),
+            lambda: fa_ops.flash_attention_plain(q, k, v, qpos, kpos, **kw),
+            _sdpa_yardstick(q, k, v, mask) if softcap is None else None,
+            nbytes, flops),
+    }
+
+
 def flash_cases(dev, g, model, Hq, Hkv):
     """Contiguous prefill (the forward's whole 512-token prompt) and decode
     (8 rows over 1024 keys) at ``model``'s heads, D = 64."""
-    from repro_torch.kernels.flash_attention import ops as fa_ops
-
-    D = 64
     for label, B, T, S in (("prefill", 1, 512, 512), ("decode", 8, 1, 1024)):
-        q = torch.randn(B, T, Hq, D, generator=g, device=dev)
-        k = torch.randn(B, S, Hkv, D, generator=g, device=dev)
-        v = torch.randn(B, S, Hkv, D, generator=g, device=dev)
-        qpos = (torch.arange(T, device=dev, dtype=torch.int32) + (S - T))
-        qpos = qpos[None].expand(B, T).contiguous()
-        kpos = torch.arange(S, device=dev, dtype=torch.int32)
-        kpos = kpos[None].expand(B, S).contiguous()
-        o = fa_ops.flash_attention(q, k, v, qpos, kpos)
-        o_plain = fa_ops.flash_attention_plain(q, k, v, qpos, kpos)
-        torch.cuda.synchronize()
-        mask = fa_ops.visible_mask(qpos, kpos, None)        # (B, T, S)
-        seen = mask.any(dim=1)                              # keys some row sees
-        nbytes, flops = _attn_cost(q, mask,
-                                   float(seen.sum()) * Hkv * D * 4 * 2)
-        yield {
-            "name": "flash_attention", "case": label, "model": model,
-            "shape": {"B": B, "T": T, "S": S, "Hq": Hq, "Hkv": Hkv, "D": D},
-            "max_abs_err": float((o - o_plain).abs().max()), "tol": FA_TOL,
-            **_flash_times(
-                lambda: fa_ops.flash_attention(q, k, v, qpos, kpos),
-                lambda: fa_ops.flash_attention_plain(q, k, v, qpos, kpos),
-                _sdpa_yardstick(q, k, v, mask), nbytes, flops),
-        }
+        yield _contiguous_case(dev, g, model, label, B, T, S, Hq, Hkv, 64)
 
 
-def _paged_case(dev, g, model, Hq, Hkv, label, lens, clens, C, nb, P):
+def _paged_case(dev, g, model, Hq, Hkv, label, lens, clens, C, nb, P, D=64,
+                softcap=None):
     from repro_torch.kernels.flash_attention import ops as fa_ops
 
-    D, page = 64, 16
+    page = 16
     B = lens.shape[0]
     need = (lens + clens + page - 1) // page
     perm = torch.randperm(P, generator=g, device=dev)
@@ -622,8 +698,9 @@ def _paged_case(dev, g, model, Hq, Hkv, label, lens, clens, C, nb, P):
     q = torch.randn(B, C, Hq, D, generator=g, device=dev)
     pos = (lens[:, None] + torch.arange(C, device=dev)[None]).to(torch.int32)
     args = (q, kp, vp, pos, bt, lens, clens)
-    o = fa_ops.paged_flash_attention(*args, page_size=page)
-    o_plain = fa_ops.paged_flash_attention_plain(*args, page_size=page)
+    kw = dict(page_size=page, softcap=softcap)
+    o = fa_ops.paged_flash_attention(*args, **kw)
+    o_plain = fa_ops.paged_flash_attention_plain(*args, **kw)
     torch.cuda.synchronize()
     kv_pos = fa_ops.paged_kv_pos(bt, lens, clens, page)
     mask = fa_ops.visible_mask(pos, kv_pos, None)
@@ -639,13 +716,14 @@ def _paged_case(dev, g, model, Hq, Hkv, label, lens, clens, C, nb, P):
         "name": "paged_flash_attention", "case": label, "model": model,
         "shape": {"B": B, "T": C, "nb": nb, "page": page, "Hq": Hq,
                   "Hkv": Hkv, "D": D,
+                  **({"softcap": softcap} if softcap is not None else {}),
                   "contexts": (lens + clens).tolist()},
         "max_abs_err": err, "tol": FA_TOL,
         **_flash_times(
-            lambda: fa_ops.paged_flash_attention(*args, page_size=page),
-            lambda: fa_ops.paged_flash_attention_plain(*args,
-                                                       page_size=page),
-            _sdpa_yardstick(q, kg, vg, mask), nbytes, flops),
+            lambda: fa_ops.paged_flash_attention(*args, **kw),
+            lambda: fa_ops.paged_flash_attention_plain(*args, **kw),
+            _sdpa_yardstick(q, kg, vg, mask) if softcap is None else None,
+            nbytes, flops),
     }
 
 
@@ -665,6 +743,81 @@ def paged_cases(dev, g, model, Hq, Hkv):
     lens = torch.linspace(63, 543, 8, device=dev).round().to(torch.int32)
     yield _paged_case(dev, g, model, Hq, Hkv, "decode", lens,
                       torch.ones(8, **i32), C=1, nb=64, P=512)
+
+
+def _ring_case(dev, g, model, label, lens, clens, T, W, Hq, Hkv, D, window,
+               softcap):
+    """One ``ring_flash_attention`` case: a sliding layer's ring (B, Hkv, W,
+    D) and the chunk's own K/V at the slots' lengths ``lens``."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    B = lens.shape[0]
+    q = torch.randn(B, T, Hq, D, generator=g, device=dev)
+    kr, vr = (torch.randn(B, Hkv, W, D, generator=g, device=dev)
+              for _ in range(2))
+    kc, vc = (torch.randn(B, T, Hkv, D, generator=g, device=dev)
+              for _ in range(2))
+    pos = (lens[:, None] + torch.arange(T, device=dev)[None]).to(torch.int32)
+    args = (q, kr, vr, kc, vc, pos, lens, clens)
+    kw = dict(window=window, softcap=softcap)
+    o = fa_ops.ring_flash_attention(*args, **kw)
+    o_plain = fa_ops.ring_flash_attention_plain(*args, **kw)
+    torch.cuda.synchronize()
+    kv_pos = fa_ops.ring_kv_pos(lens, clens, pos, W)
+    mask = fa_ops.visible_mask(pos, kv_pos, window)
+    valid = torch.arange(T, device=dev)[None] < clens[:, None]
+    err = float((o - o_plain).abs()[valid].max())
+    seen = mask.any(dim=1)
+    nbytes, flops = _attn_cost(q, mask, float(seen.sum()) * Hkv * D * 4 * 2)
+    return {
+        "name": "ring_flash_attention", "case": label, "model": model,
+        "shape": {"B": B, "T": T, "W": W, "Hq": Hq, "Hkv": Hkv, "D": D,
+                  "window": window, "softcap": softcap,
+                  "lens": lens.tolist(), "chunk_lens": clens.tolist()},
+        "max_abs_err": err, "tol": FA_TOL,
+        **_flash_times(lambda: fa_ops.ring_flash_attention(*args, **kw),
+                       lambda: fa_ops.ring_flash_attention_plain(*args, **kw),
+                       None, nbytes, flops, RING_KERNELS),
+    }
+
+
+def gemma_attention_cases(dev, g):
+    """gemma2-9b's attention (16 query and 8 kv heads of 256, softcap 50 on
+    every layer, window 4096 on the sliding ones) at the serve phase's
+    shapes: contiguous prefill of a 4608-token prompt with the window (a
+    sliding layer of the kernel forward) and decode over 4640 keys (a
+    global layer); paged mixed (8 slots, chunks of 128, contexts up to
+    4800) and decode (a pure decode tick, tables 320 wide: max_len 5120);
+    the ring kernel with a chunk of 128 and at decode, on rings of 4096
+    that have wrapped, are filling and are empty. Then head_dim 128 at 32
+    query and 8 kv heads (no model serves it yet: ROADMAP Queue 1 item
+    19): a 512-token prefill and 8 decode rows over 1024 keys. SDPA has no
+    softcap, so the gemma cases have no library time."""
+    i32 = dict(dtype=torch.int32, device=dev)
+    m, H, D, cap, W = "gemma2-9b", (16, 8), 256, 50.0, 4096
+    yield _contiguous_case(dev, g, m, "prefill", 1, 4608, 4608, *H, D,
+                           window=W, softcap=cap)
+    yield _contiguous_case(dev, g, m, "decode", 1, 1, 4640, *H, D,
+                           softcap=cap)
+    yield _paged_case(
+        dev, g, m, *H, "mixed",
+        torch.tensor([0, 128, 2048, 4352, 40, 4700, 300, 0], **i32),
+        torch.tensor([128, 128, 128, 100, 128, 1, 1, 0], **i32), C=128,
+        nb=320, P=2600, D=D, softcap=cap)
+    lens = torch.tensor([80, 200, 330, 440, 530, 4330, 4600, 4811], **i32)
+    yield _paged_case(dev, g, m, *H, "decode", lens, torch.ones(8, **i32),
+                      C=1, nb=320, P=2600, D=D, softcap=cap)
+    yield _ring_case(
+        dev, g, m, "chunk",
+        torch.tensor([0, 128, 2048, 4096, 4352, 9000, 300, 0], **i32),
+        torch.tensor([128, 128, 128, 100, 128, 1, 1, 0], **i32), 128, W,
+        *H, D, W, cap)
+    yield _ring_case(dev, g, m, "decode", lens, torch.ones(8, **i32), 1, W,
+                     *H, D, W, cap)
+    yield _contiguous_case(dev, g, "head_dim 128", "prefill", 1, 512, 512,
+                           32, 8, 128)
+    yield _contiguous_case(dev, g, "head_dim 128", "decode", 8, 1, 1024, 32,
+                           8, 128)
 
 
 # device ms of the backward kernels before their Hopper redesign (f32
@@ -860,6 +1013,7 @@ WKV_LAUNCH_KEYS = ("rwkv6_wkv", "rwkv6_wkv_chunk")
 # one kernel template) beside the kernels it counts in a profiler trace
 LAUNCHED_AS = ((("crossbar_matmul",), CB_KERNELS),
                (("flash_attention", "paged_flash_attention"), FA_KERNELS),
+               (("ring_flash_attention",), RING_KERNELS),
                (("rwkv6_wkv",), ("wkv_kernel<",)),
                (("rwkv6_wkv_chunk",), ("wkv_chunk_kernel",)))
 
@@ -1081,7 +1235,10 @@ def path_cases(dev, g):
             paged_cases(dev, g, "paper-gpt2-medium", 16, 16),
             wkv_cases(dev, g),
             # the backward kernels of the train step
-            crossbar_t_cases(dev, g), flash_bwd_cases(dev, g))
+            crossbar_t_cases(dev, g), flash_bwd_cases(dev, g),
+            # gemma2-9b's matrices and attention
+            crossbar_cases(dev, g, "gemma2-9b", GEMMA_KN, (8,)),
+            gemma_attention_cases(dev, g))
 
 
 def slice10_cases(dev, g):
@@ -1153,13 +1310,26 @@ def late_kernel_phase():
 # the GELU models' wq/wk/wv/wo/w1/w2), one attention or wkv recurrence per
 # layer ("wkv": the two wkv kernels together; the wrapper picks one by the
 # chunk's T)
+# (the engine's sliding-window layers run the ring kernel, its global ones
+# the paged kernel; the forward's dense cache runs the contiguous kernel on
+# every attention layer)
 def path_launches(cfg, n_quant):
     L = cfg.n_layers
     if cfg.block_pattern == ("rwkv",):
         return ({"crossbar_matmul": n_quant, "wkv": L},
                 {"crossbar_matmul": n_quant, "wkv": L})
-    return ({"crossbar_matmul": n_quant, "paged_flash_attention": L},
+    sliding = sum(cfg.attn_kind(i) == "sliding" for i in range(L))
+    engine = {"crossbar_matmul": n_quant,
+              "paged_flash_attention": L - sliding,
+              "ring_flash_attention": sliding}
+    return ({k: n for k, n in engine.items() if n},
             {"crossbar_matmul": n_quant, "flash_attention": L})
+
+
+def full_attention_only(cfg) -> bool:
+    """Every layer full attention: the engines' prefix cache is on."""
+    return all(cfg.block_kind(i) == "attn" and cfg.attn_kind(i) == "full"
+               for i in range(cfg.n_layers))
 
 
 def merge_wkv(launches):
@@ -1210,16 +1380,18 @@ def teacher_forced(cfg, params, adapters, prompt, generated, adapter_id,
 
 def error_by_depth(cfg, params, plain_params, adapters, req, ref_ec, dev):
     """Kernel vs plain logits of one whole-prompt forward through the first
-    L = 1, 2, 4, ... layers only: how the difference grows with depth, and
-    where along the prompt it sits (its largest value, the position of
-    that, the median over positions and the last position)."""
+    L = P, 2P, 4P, ... layers only (P the scan period: 1, gemma2's 2): how
+    the difference grows with depth, and where along the prompt it sits
+    (its largest value, the position of that, the median over positions
+    and the last position)."""
     from repro_torch.core import lora as lora_lib
+    from repro_torch.core.lora import scan_period
     from repro_torch.models import transformer as tfm
 
     kw = dict(lora=lora_lib.stack_adapters(adapters),
               adapter_idx=torch.tensor([req.adapter_id], device=dev))
     toks = {"tokens": torch.as_tensor(np.asarray(req.prompt), device=dev)[None]}
-    out, L = {}, 1
+    out, L = {}, scan_period(cfg)
     while L <= cfg.n_layers:
         cut = dataclasses.replace(cfg, n_layers=L)
         lk = tfm.forward(cut, params, toks, **kw)[0]
@@ -1618,7 +1790,13 @@ def persist_serve(dev, cfg, params, adapters, req, plain_params, ref_ec,
 def serve_phase(dev, cfg, *, n_requests=8, max_new=32, prompt_range=(64, 512),
                 shared_prefix=256, max_len=1024, max_slots=8, page_size=16,
                 prefill_chunk=128, seed=0, dense=False, specs=(),
-                persist=False):
+                persist=False, long_prompts=None, trace_decode=None):
+    """``long_prompts`` (n, (lo, hi)): the last n requests' prompts are
+    drawn from [lo, hi] instead (past a sliding window), one of them is
+    the long request teacher-forced, and the engine is freed before the
+    plain reference (returned as None). ``trace_decode`` (at, n): once
+    ``at`` ticks in a row have decoded, ``n`` ticks run in a
+    ``traced_ticks`` window (counted with the serve's ticks)."""
     from repro_torch import kernels
     from repro_torch.configs.base import QuantConfig
     from repro_torch.core import lora as lora_lib
@@ -1651,8 +1829,10 @@ def serve_phase(dev, cfg, *, n_requests=8, max_new=32, prompt_range=(64, 512),
     rng = np.random.default_rng(seed)
     prefix = rng.integers(0, cfg.vocab_size, shared_prefix).astype(np.int32)
     reqs = []
+    n_long, long_range = long_prompts or (0, None)
     for i in range(n_requests):
-        plen = int(rng.integers(prompt_range[0], prompt_range[1] + 1))
+        lo, hi = (long_range if i >= n_requests - n_long else prompt_range)
+        plen = int(rng.integers(lo, hi + 1))
         prompt = rng.integers(0, cfg.vocab_size, plen).astype(np.int32)
         if i in (1, 2):                  # two requests share a prefix
             plen = max(plen, shared_prefix + 16)
@@ -1669,8 +1849,16 @@ def serve_phase(dev, cfg, *, n_requests=8, max_new=32, prompt_range=(64, 512),
     for r in reqs:
         eng.submit(r)
     tick_s, tick_kind, tick_decoded, tick_chunk = [], [], [], []
+    trace, n_traced = None, 0
     t_serve = time.perf_counter()
     while eng.queue or eng.sched.active():
+        if (trace_decode is not None and trace is None
+                and tick_kind[-trace_decode[0]:] == ["decode"]
+                * trace_decode[0]):
+            # a window of graph decode ticks, traced
+            n_traced = trace_decode[1]
+            trace = traced_ticks(eng, n_traced, eng.step)
+            continue
         pf, dc = eng.prefill_tokens, eng.decode_tokens
         chunk = kernels.LAUNCHES["rwkv6_wkv_chunk"]
         t = time.perf_counter()
@@ -1683,8 +1871,10 @@ def serve_phase(dev, cfg, *, n_requests=8, max_new=32, prompt_range=(64, 512),
     serve_s = time.perf_counter() - t_serve
     done = eng.finished
     serve_launches = dict(kernels.LAUNCHES)
-    # the kernel path of forward (over a dense cache)
-    checked = [1, 0]                     # a prefix sharer and another
+    n_ticks = len(tick_s) + n_traced
+    # the kernel path of forward (over a dense cache): a prefix sharer and
+    # another, or a long request and a short one
+    checked = [n_requests - 1, 0] if n_long else [1, 0]
     kernels.reset_launches()
     kernel_logits = {
         uid: teacher_forced(cfg, params, adapters, done[uid].prompt,
@@ -1703,7 +1893,7 @@ def serve_phase(dev, cfg, *, n_requests=8, max_new=32, prompt_range=(64, 512),
     per_tick, per_forward = path_launches(cfg, n_quant)
     for path, got, want in (
             ("engine", serve_launches,
-             {k: n * len(tick_s) for k, n in per_tick.items()}),
+             {k: n * n_ticks for k, n in per_tick.items()}),
             ("forward", forward_launches,
              {k: n * n_forwards for k, n in per_forward.items()})):
         # every kernel of the path, exactly as often as the path runs it;
@@ -1723,14 +1913,24 @@ def serve_phase(dev, cfg, *, n_requests=8, max_new=32, prompt_range=(64, 512),
     # every tick ran the mixed step as a CUDA graph: the first tick of each
     # signature eagerly before capturing it, every later one by replay
     if (cs.compiled_steps != len(cs.step_signatures)
-            or cs.compiled_steps + cs.replays != len(tick_s)):
-        raise AssertionError(f"{len(tick_s)} ticks, {cs.compiled_steps} "
+            or cs.compiled_steps + cs.replays != n_ticks):
+        raise AssertionError(f"{n_ticks} ticks, {cs.compiled_steps} "
                              f"graphs of {len(cs.step_signatures)} "
                              f"signatures, {cs.replays} replays")
-    full_attn = cfg.block_pattern == ("attn",)
-    if st.prefix_cache.enabled != full_attn:
+    if trace_decode is not None and (trace is None or not trace["replayed"]):
+        raise AssertionError(f"no traced window of replayed decode ticks: "
+                             f"{trace}")
+    if st.prefix_cache.enabled != full_attention_only(cfg):
         raise AssertionError(f"prefix cache enabled={st.prefix_cache.enabled}"
                              f" on {cfg.name}")
+    kv_bytes = kvcache.cache_bytes(eng.cache)
+    sampled = {uid: torch.stack(eng.sampled_logits[uid]) for uid in checked}
+    if n_long:
+        # the plain reference's f32 weights need the engine's memory
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        eng = None
 
     # reference: the same forward with the plain versions
     plain_params = quant.dequantize_params(params)
@@ -1740,7 +1940,7 @@ def serve_phase(dev, cfg, *, n_requests=8, max_new=32, prompt_range=(64, 512),
         r = done[uid]
         ref = teacher_forced(cfg, plain_params, adapters, r.prompt,
                              r.generated, r.adapter_id, ref_ec, dev)
-        eng_lg = torch.stack(eng.sampled_logits[uid])
+        eng_lg = sampled[uid]
         if not torch.isfinite(eng_lg).all():
             raise AssertionError(f"non-finite engine logits, request {uid}")
         if eng_lg.shape != ref.shape:
@@ -1770,12 +1970,14 @@ def serve_phase(dev, cfg, *, n_requests=8, max_new=32, prompt_range=(64, 512),
     result = {
         "phase": "serve", "model": cfg.name, "layers": cfg.n_layers,
         "d_model": cfg.d_model, "vocab": cfg.vocab_size, "base": "M8F8",
-        "quantized_matrices": n_quant,
+        "max_len": max_len, "prompt_lens": [len(r.prompt) for r in reqs],
+        "checked": checked, "quantized_matrices": n_quant,
         "quantized_matrices_per_layer": n_quant // cfg.n_layers,
         "adapters": 2,
         "lora_rank": cfg.lora.rank, "requests": n_requests,
         "prompt_tokens": int(sum(len(r.prompt) for r in reqs)),
-        "setup_s": setup_s, "serve_s": serve_s, "ticks": len(tick_s),
+        "setup_s": setup_s, "serve_s": serve_s, "ticks": n_ticks,
+        "traced_ticks": n_traced, "traced_decode_ticks": trace,
         "prefill_ticks": len(tick_s) - n_dc_ticks,
         "decode_ticks": n_dc_ticks,
         "ms_per_tick": 1e3 * serve_s / max(len(tick_s), 1),
@@ -1806,7 +2008,7 @@ def serve_phase(dev, cfg, *, n_requests=8, max_new=32, prompt_range=(64, 512),
         "logit_error_by_depth": by_depth,
         "resident_weights_gb": resident_gb,
         "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
-        "kv_bytes": kvcache.cache_bytes(eng.cache),
+        "kv_bytes": kv_bytes,
     }
     emit(result)
     if worst > tol:
@@ -1895,7 +2097,8 @@ def traced_ticks(eng, n, tick):
     # the port's own kernels (csrc/*.cu), whatever their share of the tick
     own = {k: us / 1e3 / n for k, us in by_name.items()
            if any(f"(anonymous namespace)::{m}" in k
-                  for m in CB_KERNELS + FA_KERNELS + WKV_KERNELS)}
+                  for m in CB_KERNELS + FA_KERNELS + RING_KERNELS
+                  + WKV_KERNELS)}
     out = {"ticks": n, "traced_wall_ms_per_tick": wall_ms / n,
            "device_ms_per_tick": device_ms / n if kern else None,
            "device_busy_share": device_ms / wall_ms if kern else None,
@@ -1906,8 +2109,9 @@ def traced_ticks(eng, n, tick):
            "top_device_ms_per_tick": {k: us / 1e3 / n for k, us in top},
            "port_kernels_device_ms_per_tick": own}
     for label, names in (("crossbar", CB_KERNELS), ("flash", FA_KERNELS),
-                         ("wkv", WKV_KERNELS)):
-        ms = sum(v for k, v in own.items() if any(m in k for m in names))
+                         ("ring_flash", RING_KERNELS), ("wkv", WKV_KERNELS)):
+        ms = sum(v for k, v in own.items()
+                 if any(f"(anonymous namespace)::{m}" in k for m in names))
         out[f"{label}_device_ms_per_tick"] = ms
         out[f"{label}_share_of_device"] = (ms * n / device_ms if kern
                                            else None)
@@ -2743,7 +2947,13 @@ def figures_phase(dev):
 
 
 # the models served, in order, and those whose engine is then profiled
-SERVED = ("llama3.2-1b", "rwkv6-7b", "paper-gpt2-medium", "paper-bloom-560m")
+SERVED = ("llama3.2-1b", "gemma2-9b", "rwkv6-7b", "paper-gpt2-medium",
+          "paper-bloom-560m")
+# a model's serve geometry where not the default: gemma2-9b's two long
+# prompts pass its 4096-token window (its rings wrap), and a window of its
+# graph decode ticks is traced
+SERVE_KW = {"gemma2-9b": dict(max_len=5120, long_prompts=(2, (4300, 4800)),
+                              trace_decode=(8, 8))}
 PROFILED = ("llama3.2-1b", "rwkv6-7b", "paper-gpt2-medium")
 # the models the dense oracle engine also serves (after the paged one)
 DENSE = ("llama3.2-1b",)
@@ -2801,8 +3011,7 @@ def main() -> int:
     logs = build.build(force=True)
     emit({"phase": "build", "seconds": time.perf_counter() - t,
           "sources": sorted(logs),
-          "ptxas": [ln.strip() for log in logs.values()
-                    for ln in log.splitlines() if "registers" in ln]})
+          "ptxas": {name: ptxas_report(log) for name, log in logs.items()}})
 
     cases = kernel_phase(dev)
     serves = {}
@@ -2810,7 +3019,8 @@ def main() -> int:
         cfg = get_config(arch)
         serves[arch], eng = serve_phase(dev, cfg, dense=arch in DENSE,
                                         specs=SPEC.get(arch, ()),
-                                        persist=arch in PERSISTED)
+                                        persist=arch in PERSISTED,
+                                        **SERVE_KW.get(arch, {}))
         if arch in PROFILED:
             profile_phase(eng, cfg, dev)
         del eng                          # free the model before the next
@@ -2848,6 +3058,8 @@ def main() -> int:
            "paged_flash_attention": ("llama3.2-1b serve",
                                      {"case": "mixed",
                                       "model": "llama3.2-1b"}),
+           "ring_flash_attention": ("gemma2-9b serve",
+                                    {"case": "chunk", "model": "gemma2-9b"}),
            "rwkv6_wkv": ("rwkv6-7b serve", {"case": "decode"}),
            "rwkv6_wkv_chunk": ("rwkv6-7b serve", {"case": "prefill"}),
            "crossbar_matmul_t": ("llama3.2-1b train",
@@ -2867,6 +3079,8 @@ def main() -> int:
                    "src/repro_torch/csrc/flash_attention.cu",
                "paged_flash_attention":
                    "src/repro_torch/csrc/flash_attention.cu",
+               "ring_flash_attention":
+                   "src/repro_torch/csrc/flash_attention.cu",
                "rwkv6_wkv": "src/repro_torch/csrc/rwkv6_wkv.cu",
                "rwkv6_wkv_chunk": "src/repro_torch/csrc/rwkv6_wkv.cu",
                "rwkv6_wkv_bwd": "src/repro_torch/csrc/rwkv6_wkv.cu"}
@@ -2878,6 +3092,8 @@ def main() -> int:
         "flash_attention": "src/repro/kernels/flash_attention/kernel.py:81",
         "flash_attention_bwd": "src/repro/kernels/flash_attention/kernel.py:81",
         "paged_flash_attention":
+            "src/repro/kernels/flash_attention/kernel.py:81",
+        "ring_flash_attention":
             "src/repro/kernels/flash_attention/kernel.py:81",
         "rwkv6_wkv": "src/repro/kernels/rwkv6_wkv/kernel.py:59",
         "rwkv6_wkv_chunk": "src/repro/kernels/rwkv6_wkv/kernel.py:59",

@@ -20,15 +20,15 @@ from repro_torch.configs.shapes import (ALL_SHAPES, DECODE_32K, LONG_500K,
 _ARCH_MODULES = {
     "llama3.2-1b": "llama3_2_1b",
     "rwkv6-7b": "rwkv6_7b",
+    "gemma2-9b": "gemma2_9b",
 }
 
 # architectures of the JAX package that wait for a later slice of the port
 _WAITING = {
-    "mixtral-8x22b": "ROADMAP Queue 1 items 11-12 (sliding window, MoE)",
+    "mixtral-8x22b": "ROADMAP Queue 1 item 12 (MoE)",
     "llama4-scout-17b-a16e": "ROADMAP Queue 1 item 12 (MoE)",
-    "internlm2-20b": "ROADMAP Queue 1 item 19 (config copy, head_dim 128)",
-    "gemma2-9b": "ROADMAP Queue 1 item 11 (sliding window and softcap)",
-    "mistral-nemo-12b": "ROADMAP Queue 1 item 19 (config copy, head_dim 128)",
+    "internlm2-20b": "ROADMAP Queue 1 item 19 (config copy)",
+    "mistral-nemo-12b": "ROADMAP Queue 1 item 19 (config copy)",
     "musicgen-medium": "ROADMAP Queue 1 item 19 (embeddings frontend)",
     "chameleon-34b": "ROADMAP Queue 1 item 19 (qk-norm, embeddings frontend)",
     "jamba-1.5-large-398b": "ROADMAP Queue 1 items 12-13 (MoE, Mamba)",

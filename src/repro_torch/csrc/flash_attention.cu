@@ -9,7 +9,13 @@
 //   gives 0. `paged_flash_attention` computes the same function with K/V
 //   read straight from one layer's page pool (P, Hkv, page, D) through the
 //   block table, in place of the gather that materializes the context in
-//   src/repro/models/attention.py (_paged_attend).
+//   src/repro/models/attention.py (_paged_attend). `ring_flash_attention`
+//   does the same for a sliding-window layer's per-slot ring (B, Hkv, W,
+//   D) and the chunk's own K/V (B, T, Hkv, D), in place of the
+//   concatenation [ring ; chunk] of _paged_attend's ring branch: the keys'
+//   positions are computed in the kernel from the slot lengths. Head dims
+//   8 to 256 forward (gemma2's 256; 128 for later models), 8 to 64
+//   backward.
 //
 // Precision: 3xTF32. Both products (q.k and p.v) multiply two inexact f32
 //   operands, and the port holds the kernel to 2e-5 of the f32 result. One
@@ -26,10 +32,11 @@
 //
 // What bounds it on H100: at decode (one query row per slot) the kernel
 //   reads each kv head's visible K/V once for 4*D*G flops per key, so it
-//   is bound by bytes (8 KB per key across the 8 kv heads at D = 64). At
-//   prefill (T = S = 512, causal) it does ~T*S/2*4*D flops per q head
-//   against scores that never leave the SM: bound by tensor-core
-//   operations (three TF32 products at 495 TFLOP/s).
+//   is bound by bytes (8 KB per key across the 8 kv heads at D = 64; 16 KB
+//   at gemma2's D = 256, whose rings of 4096 keys make a decode tick's
+//   largest byte stream). At prefill (T = S = 512, causal) it does
+//   ~T*S/2*4*D flops per q head against scores that never leave the SM:
+//   bound by tensor-core operations (three TF32 products at 495 TFLOP/s).
 //
 // What the design does about it:
 //   - One block of 4 warps per (batch row, kv head, row tile[, KV split]).
@@ -65,9 +72,17 @@
 //     a key some row of the block may see, from the positions themselves
 //     (the contiguous kernel scans kv_pos, so any explicit positions
 //     work; the paged kernel reads its block-table row and stops at
-//     min(lens + chunk_lens, max q_pos + 1)). A tile outside the list is
-//     neither loaded nor multiplied: causal prefill skips the upper
-//     triangle, decode reads only the live context.
+//     min(lens + chunk_lens, max q_pos + 1); the ring kernel computes each
+//     key's position). A tile outside the list is neither loaded nor
+//     multiplied: causal prefill skips the upper triangle, decode reads
+//     only the live context, a window's keys behind it are skipped.
+//   - Head dims 128 and 256: a thread's D/2-float accumulator and q's D/2
+//     TF32 pieces (each of big and small) no longer fit 255 registers
+//     together, so from D = 128 q is kept, scaled, in shared memory and
+//     split per k8 step (the same pieces), and a block holds one SM
+//     (launch bounds 1: up to 255 registers); at D = 256 tiles are 32 keys
+//     (8 at decode) so that two stages of K and V stay within a block's
+//     227 KB (about 134 KB, and 68 KB of q at 64 rows).
 //   - Split-KV when the row tiles leave SMs idle (decode; also prefill of
 //     one short sequence): the live tiles are split evenly over up to
 //     kMaxSplit blocks, aiming at two blocks per SM. Each block writes its
@@ -131,14 +146,29 @@ namespace {
 constexpr float kNegInf = -1e30f;
 constexpr int kMaxSplit = 32;   // KV splits of one row tile, at most
 
-// Floats of the ring: 128 key rows of K and V (two stages of 64-key tiles,
-// or two 16-key tiles for each of four warps), and room for the combines'
+// Keys of a tile: 64 (row tiles) or 16 (warp split), halved twice at
+// D = 256 so that two stages of K and V still fit a block's shared memory.
+__host__ __device__ constexpr int tile_keys(int D, bool ws) {
+  return ws ? (D >= 256 ? 8 : 16) : (D >= 256 ? 32 : 64);
+}
+// Key rows of the ring (two stages of tiles, or two tiles for each of four
+// warps): 128, 64 at D = 256.
+__host__ __device__ constexpr int ring_keys(int D) {
+  return D >= 256 ? 64 : 128;
+}
+// Floats of the ring: its key rows of K and V, and room for the combines'
 // scratch (which reuses it after the loop).
-constexpr int kRingKeys = 128;
 __host__ __device__ constexpr int ring_floats(int D, int RB) {
-  return kRingKeys * (2 * D + 12) > RB * (2 * kMaxSplit + 1)
-             ? kRingKeys * (2 * D + 12)
+  return ring_keys(D) * (2 * D + 12) > RB * (2 * kMaxSplit + 1)
+             ? ring_keys(D) * (2 * D + 12)
              : RB * (2 * kMaxSplit + 1);
+}
+// From D = 128 a warp's q pieces (D/2 registers a thread for each of big
+// and small) no longer fit beside its D/2-float accumulator: q is kept,
+// scaled, in shared memory ([RB][D + 8]) and split per k8 step.
+__host__ __device__ constexpr bool q_in_smem(int D) { return D >= 128; }
+__host__ __device__ constexpr int q_floats(int D, int RB) {
+  return q_in_smem(D) ? RB * (D + 8) : 0;
 }
 
 struct Params {
@@ -150,11 +180,13 @@ struct Params {
   const int* block_table;   // paged only (nullptr: contiguous)
   const int* lens;
   const int* chunk_lens;
+  const float* kc;          // ring only: the chunk's own K, V
+  const float* vc;
   float* out;
   float* lse;               // (B, Hq, T) log-sum-exp of each row, or null
   float* partials;          // splits > 1: [tile][split][RB][D + 2]
   int* tickets;             // splits > 1: [tile]
-  int T, Hq, Hkv, G, S, nb, page, window;
+  int T, Hq, Hkv, G, S, nb, page, W, window;
   float softcap, scale;
   int rows, row_tiles, splits, n_tiles;
 };
@@ -237,31 +269,41 @@ constexpr int kWarps = 4;   // warps of a block
 //   in page block_table[b, s / page] at row s % page; it is visible iff
 //   that entry is >= 0 and s < lens[b] + chunk_lens[b], and its position
 //   is s.
+// Ring (RING, `ring_flash_attention`): keys s < W are one sliding layer's
+//   ring k, v (B, Hkv, W, D), where slot s holds the latest position
+//   congruent to s mod W below lens[b]: last - ((last - s) mod W) with
+//   last = lens[b] - 1 (negative, so invisible, for a slot not yet
+//   written); keys W + t are the chunk's own kc, vc (B, T, Hkv, D) at
+//   q_pos[b, t], visible for t < chunk_lens[b]. One launch reads both, so
+//   the ring is never copied next to the chunk.
 // Two ways to cut a block's work (WS):
-//   rows (WS false): 64 rows, each warp its own 16; tiles of 64 keys in a
-//     ring of two stages that all warps share.
+//   rows (WS false): 64 rows, each warp its own 16; tiles of 64 keys (32
+//     at D = 256) in a ring of two stages that all warps share.
 //   warp split (WS true, G*T <= 16 rows: decode): 16 rows that every warp
-//     holds; warp w takes every kWarps-th tile of 16 keys through two
-//     buffers of its own, and the warps' (m, l, acc) are combined in
-//     shared memory (in warp order) before the block's epilogue.
+//     holds; warp w takes every kWarps-th tile of 16 keys (8 at D = 256)
+//     through two buffers of its own, and the warps' (m, l, acc) are
+//     combined in shared memory (in warp order) before the block's
+//     epilogue.
 // Fragments (g = lane / 4, t = lane % 4): the m16n8k8 accumulator holds
 //   (row g, cols 2t, 2t+1) and (row g + 8, same cols); A holds (g, t),
 //   (g + 8, t), (g, t + 4), (g + 8, t + 4); B holds (k t, n g), (k t + 4,
 //   n g).
-template <int D, bool WS>
-__global__ void __launch_bounds__(kWarps * 32, 3)
-flash_kernel(const Params p) {
+template <int D, bool WS, bool RING>
+__device__ __forceinline__ void flash_body(const Params& p) {
   constexpr int NW = kWarps, NT = NW * 32;
-  constexpr int KT = WS ? 16 : 64;     // keys of a tile
+  constexpr int KT = tile_keys(D, WS);     // keys of a tile
   constexpr int RB = WS ? 16 : 16 * NW;   // rows of a block
   constexpr int LDK = D + 8;           // padded shared K row, floats
   constexpr int LDV = D + 4;           // padded shared V row, floats
+  constexpr int LDQ = D + 8;           // padded shared q row, floats
+  constexpr bool QS = q_in_smem(D);
   constexpr int KS = D / 8;            // k8 steps over D
   constexpr int NJ = KT / 8;           // 8-key steps over a tile
   constexpr int CH = D / 4;            // 16-byte chunks of one key row
   constexpr int kBuf = KT * (LDK + LDV);   // one tile: K then V, floats
   static_assert(NJ * 4 <= 32, "the visibility mask is one word");
-  static_assert((WS ? 2 * NW : 2) * kBuf <= ring_floats(D, RB),
+  static_assert((WS ? 2 * NW : 2) * kBuf <= ring_floats(D, RB) &&
+                    (WS ? 2 * NW : 2) * KT <= ring_keys(D),
                 "the ring holds the tile buffers");
   static_assert(RB * (2 * kMaxSplit + 1) <= ring_floats(D, RB) &&
                     (!WS || NW * 16 * (D + 2) <= ring_floats(D, RB)),
@@ -269,8 +311,9 @@ flash_kernel(const Params p) {
 
   extern __shared__ __align__(16) float smem[];
   float* ring = smem;   // tile buffers, then the combines' scratch
-  int* kpos_s = reinterpret_cast<int*>(smem + ring_floats(D, RB));
-  int* live = kpos_s + kRingKeys;  // kpos_s: [buffers][KT]; live: [n_tiles]
+  float* q_s = smem + ring_floats(D, RB);   // QS: [RB][LDQ], scaled
+  int* kpos_s = reinterpret_cast<int*>(q_s + q_floats(D, RB));
+  int* live = kpos_s + ring_keys(D);  // kpos_s: [buffers][KT]; live: [n_tiles]
   int* bt_s = live + p.n_tiles;    // [nb]
   __shared__ int s_minq[NW], s_maxq[NW], s_count;
   __shared__ bool s_last;
@@ -279,7 +322,7 @@ flash_kernel(const Params p) {
   const int g = lane >> 2, t = lane & 3;
   const int split = blockIdx.x, rt = blockIdx.y;
   const int bh = blockIdx.z, b = bh / p.Hkv, h = bh % p.Hkv;
-  const bool paged = p.block_table != nullptr;
+  const bool paged = !RING && p.block_table != nullptr;
   const int row0 = rt * RB, wrow0 = row0 + (WS ? 0 : warp * 16);
   const bool warp_live = wrow0 < p.rows;
   // the warps whose rows the epilogue writes (warp split: warp 0 holds
@@ -292,6 +335,20 @@ flash_kernel(const Params p) {
       bt_s[i] = p.block_table[static_cast<size_t>(b) * p.nb + i];
     s_end = min(p.nb * p.page, p.lens[b] + p.chunk_lens[b]);
   }
+  // RING: the position of key s (-1: invisible)
+  const int last = RING ? p.lens[b] - 1 : 0;
+  const int clen = RING ? p.chunk_lens[b] : 0;
+  if (RING) s_end = p.W + clen;
+  auto ring_pos = [&](int s) -> int {
+    if (s < p.W) {
+      int d = (last - s) % p.W;
+      d += d < 0 ? p.W : 0;
+      const int pos = last - d;
+      return pos < 0 ? -1 : pos;
+    }
+    return s < s_end ? p.q_pos[static_cast<size_t>(b) * p.T + (s - p.W)]
+                     : -1;
+  };
 
   // this thread's rows g and g + 8: positions, and the block's range
   int qp[2];
@@ -330,7 +387,12 @@ flash_kernel(const Params p) {
   for (int tile = tid; tile < p.n_tiles; tile += NT) {
     const int s0 = tile * KT;
     bool any = false;
-    if (paged) {
+    if (RING) {
+      for (int j = 0; j < KT && lo <= hi; ++j) {
+        const int pos = ring_pos(s0 + j);
+        any |= pos >= lo && pos <= hi;
+      }
+    } else if (paged) {
       const int a = max(s0, lo), e = min(min(s0 + KT, s_end), hi + 1) - 1;
       for (int pg = a / p.page; a <= e && pg <= e / p.page; ++pg)
         any |= bt_s[pg] >= 0;
@@ -388,7 +450,20 @@ flash_kernel(const Params p) {
       const int s = s0 + j;
       size_t off = 0;
       bool ok;
-      if (paged) {
+      const float* kb = p.k;
+      const float* vb = p.v;
+      if (RING) {
+        ok = ring_pos(s) >= 0;
+        if (s >= p.W) {
+          kb = p.kc;
+          vb = p.vc;
+          if (ok)
+            off = ((static_cast<size_t>(b) * p.T + (s - p.W)) * p.Hkv + h) *
+                  D;
+        } else if (ok) {
+          off = ((static_cast<size_t>(b) * p.Hkv + h) * p.W + s) * D;
+        }
+      } else if (paged) {
         const int pid = s < s_end ? bt_s[s / p.page] : -1;
         ok = pid >= 0;
         if (ok)
@@ -399,13 +474,15 @@ flash_kernel(const Params p) {
         if (ok) off = ((static_cast<size_t>(b) * p.S + s) * p.Hkv + h) * D;
       }
       off += part * 4;
-      cp_async16(ks + j * LDK + part * 4, p.k + (ok ? off : 0), ok ? 16 : 0);
-      cp_async16(vs + j * LDV + part * 4, p.v + (ok ? off : 0), ok ? 16 : 0);
+      cp_async16(ks + j * LDK + part * 4, ok ? kb + off : p.k, ok ? 16 : 0);
+      cp_async16(vs + j * LDV + part * 4, ok ? vb + off : p.v, ok ? 16 : 0);
     }
     int* kps = kpos_s + bi * KT;
     for (int j = first; j < KT; j += step) {
       const int s = s0 + j;
-      if (paged)
+      if (RING)
+        kps[j] = ring_pos(s);
+      else if (paged)
         kps[j] = s < s_end && bt_s[s / p.page] >= 0 ? s : -1;
       else if (s < p.S)
         cp_async4(kps + j, p.kv_pos + static_cast<size_t>(b) * p.S + s);
@@ -425,18 +502,55 @@ flash_kernel(const Params p) {
   // q fragments of this warp's rows, scaled, as TF32 pieces. Inside each
   // k8 step the d order is free (it is summed over): logical k = t is
   // d = 2t and k = t + 4 is d = 2t + 1, for q here and for K below, so
-  // each thread's two values of a row are one 8-byte load.
-  uint32_t qb[KS][4], qs[KS][4];
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk)
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
+  // each thread's two values of a row are one 8-byte load. QS: the block's
+  // rows, scaled, in shared memory, split per k8 step by `qfrag`.
+  uint32_t qb[QS ? 1 : KS][4], qs[QS ? 1 : KS][4];
+  if constexpr (QS) {
+    for (int c = tid; c < RB * (D / 2); c += NT) {
+      const int rl = c / (D / 2), d = 2 * (c - rl * (D / 2));
+      const int R = row0 + rl;
       float2 x = make_float2(0.f, 0.f);
-      if (wrow0 + g + 8 * r < p.rows)
-        x = *reinterpret_cast<const float2*>(p.q + qoff[r] + kk * 8 + 2 * t);
-      split_tf32(x.x * p.scale, qb[kk][r], qs[kk][r]);
-      split_tf32(x.y * p.scale, qb[kk][r + 2], qs[kk][r + 2]);
+      if (R < p.rows) {
+        const int tq = R / p.G;
+        x = *reinterpret_cast<const float2*>(
+            p.q + ((static_cast<size_t>(b) * p.T + tq) * p.Hq + h * p.G +
+                   (R - tq * p.G)) * D + d);
+      }
+      *reinterpret_cast<float2*>(q_s + rl * LDQ + d) =
+          make_float2(x.x * p.scale, x.y * p.scale);
     }
+    __syncthreads();
+  } else {
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float2 x = make_float2(0.f, 0.f);
+        if (wrow0 + g + 8 * r < p.rows)
+          x = *reinterpret_cast<const float2*>(p.q + qoff[r] + kk * 8 +
+                                               2 * t);
+        split_tf32(x.x * p.scale, qb[kk][r], qs[kk][r]);
+        split_tf32(x.y * p.scale, qb[kk][r + 2], qs[kk][r + 2]);
+      }
+  }
+  // the A fragment of k8 step kk, as TF32 pieces
+  auto qfrag = [&](int kk, uint32_t (&ab)[4], uint32_t (&as)[4]) {
+    if constexpr (QS) {
+      const float* q0 = q_s + (wrow0 - row0 + g) * LDQ + kk * 8 + 2 * t;
+      const float2 x0 = *reinterpret_cast<const float2*>(q0);
+      const float2 x1 = *reinterpret_cast<const float2*>(q0 + 8 * LDQ);
+      split_tf32(x0.x, ab[0], as[0]);
+      split_tf32(x1.x, ab[1], as[1]);
+      split_tf32(x0.y, ab[2], as[2]);
+      split_tf32(x1.y, ab[3], as[3]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        ab[e] = qb[kk][e];
+        as[e] = qs[kk][e];
+      }
+    }
+  };
 
   float acc[KS][4];
 #pragma unroll
@@ -458,7 +572,9 @@ flash_kernel(const Params p) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < KS; ++kk)
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t ab[4], as[4];
+      qfrag(kk, ab, as);
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
         const float2 kv = *reinterpret_cast<const float2*>(
@@ -466,8 +582,9 @@ flash_kernel(const Params p) {
         uint32_t bb0, bs0, bb1, bs1;
         split_tf32(kv.x, bb0, bs0);
         split_tf32(kv.y, bb1, bs1);
-        mma3(sc[j], qb[kk], qs[kk], bb0, bb1, bs0, bs1);
+        mma3(sc[j], ab, as, bb0, bb1, bs0, bs1);
       }
+    }
 
     uint32_t vis = 0;
 #pragma unroll
@@ -773,6 +890,20 @@ flash_kernel(const Params p) {
   if (tid == 0) p.tickets[tile_id] = 0;   // ready for the next call
 }
 
+// From D = 128 a thread's accumulator alone is D/2 registers: one block an
+// SM lets it take up to 255 (three cap it at 170).
+template <int D, bool WS>
+__global__ void __launch_bounds__(kWarps * 32, (D >= 128 ? 1 : 3))
+flash_kernel(const Params p) {
+  flash_body<D, WS, false>(p);
+}
+
+template <int D, bool WS>
+__global__ void __launch_bounds__(kWarps * 32, (D >= 128 ? 1 : 3))
+ring_flash_kernel(const Params p) {
+  flash_body<D, WS, true>(p);
+}
+
 // ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
@@ -802,7 +933,7 @@ Plan plan(int B, int T, int Hq, int Hkv, int S, int D) {
   const int G = Hq / Hkv;
   pl.rows = T * G;
   pl.ws = pl.rows <= 16;
-  pl.kt = pl.ws ? 16 : 64;
+  pl.kt = tile_keys(D, pl.ws);
   pl.rb = pl.ws ? 16 : 16 * kWarps;
   pl.row_tiles = (pl.rows + pl.rb - 1) / pl.rb;
   pl.n_tiles = (S + pl.kt - 1) / pl.kt;
@@ -823,15 +954,15 @@ Plan plan(int B, int T, int Hq, int Hkv, int S, int D) {
 }
 
 size_t smem_bytes(const Plan& pl, int D, int nb) {
-  return (static_cast<size_t>(ring_floats(D, pl.rb)) + kRingKeys +
-          pl.n_tiles + nb) * 4;
+  return (static_cast<size_t>(ring_floats(D, pl.rb)) + q_floats(D, pl.rb) +
+          ring_keys(D) + pl.n_tiles + nb) * 4;
 }
 
 // a block's shared memory (232,448 bytes on the H100), less room for the
 // kernel's few static bytes
 constexpr size_t kSmemMax = 232448 - 1024;
 
-template <int D, bool WS>
+template <int D, bool WS, bool RING>
 int launch_one(const Params& p, dim3 grid, size_t smem, cudaStream_t stream) {
   // raise the dynamic shared memory limit when a call needs more than the
   // last raise on this device
@@ -839,19 +970,20 @@ int launch_one(const Params& p, dim3 grid, size_t smem, cudaStream_t stream) {
   int dev = 0;
   if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64)
     return static_cast<int>(cudaErrorInvalidDevice);
+  auto kernel = RING ? ring_flash_kernel<D, WS> : flash_kernel<D, WS>;
   if (smem > raised[dev]) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_kernel<D, WS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
     raised[dev] = smem;
   }
-  flash_kernel<D, WS><<<grid, kWarps * 32, smem, stream>>>(p);
+  kernel<<<grid, kWarps * 32, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
 int launch(Params p, int B, int D, const Plan& pl, size_t n_partials,
-           size_t n_tickets, cudaStream_t stream) {
+           size_t n_tickets, cudaStream_t stream, bool ring = false) {
   const long long bhkv = static_cast<long long>(B) * p.Hkv;
   if (bhkv > 65535 || pl.row_tiles > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -865,24 +997,33 @@ int launch(Params p, int B, int D, const Plan& pl, size_t n_partials,
   p.splits = pl.splits;
   p.n_tiles = pl.n_tiles;
   const dim3 grid(pl.splits, pl.row_tiles, static_cast<unsigned>(bhkv));
-#define REPRO_FLASH_CASE(DIM)                                           \
-  case DIM:                                                             \
-    return pl.ws ? launch_one<DIM, true>(p, grid, smem, stream)         \
-                 : launch_one<DIM, false>(p, grid, smem, stream);
+#define REPRO_FLASH_CASE(DIM)                                              \
+  case DIM:                                                                \
+    if (ring)                                                              \
+      return pl.ws ? launch_one<DIM, true, true>(p, grid, smem, stream)    \
+                   : launch_one<DIM, false, true>(p, grid, smem, stream);  \
+    return pl.ws ? launch_one<DIM, true, false>(p, grid, smem, stream)     \
+                 : launch_one<DIM, false, false>(p, grid, smem, stream);
   switch (D) {
     REPRO_FLASH_CASE(8)
     REPRO_FLASH_CASE(16)
     REPRO_FLASH_CASE(32)
     REPRO_FLASH_CASE(64)
+    REPRO_FLASH_CASE(128)
+    REPRO_FLASH_CASE(256)
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef REPRO_FLASH_CASE
 }
 
+// head dims of the forward kernels, and of the backward kernels
 bool shapes_ok(int B, int T, int Hq, int Hkv, int S, int D) {
   return B > 0 && T > 0 && Hq > 0 && Hkv > 0 && S >= 0 && Hq % Hkv == 0 &&
-         (D == 8 || D == 16 || D == 32 || D == 64);
+         (D == 8 || D == 16 || D == 32 || D == 64 || D == 128 || D == 256);
+}
+bool bwd_shapes_ok(int B, int T, int Hq, int Hkv, int S, int D) {
+  return shapes_ok(B, T, Hq, Hkv, S, D) && D <= 64;
 }
 
 Params base_params(const void* q, const void* k, const void* v,
@@ -969,6 +1110,32 @@ extern "C" int paged_flash_attention(
   const Plan pl = plan(B, T, Hq, Hkv, nb * page, D);
   return launch(p, B, D, pl, n_partials, n_tickets,
                 static_cast<cudaStream_t>(stream));
+}
+
+// One sliding layer's ring kr, vr (B, Hkv, W, D) and the chunk's own kc, vc
+// (B, T, Hkv, D), read in one launch (see flash_body, RING): the W ring
+// keys' positions from lens, the chunk's from q_pos where t <
+// chunk_lens[b]. The split workspace is flash_attention_workspace's for
+// S = W + T.
+extern "C" int ring_flash_attention(
+    const void* q, const void* kr, const void* vr, const void* kc,
+    const void* vc, const void* q_pos, const void* lens,
+    const void* chunk_lens, void* out, void* partials, size_t n_partials,
+    void* tickets, size_t n_tickets, int B, int T, int Hq, int Hkv, int D,
+    int W, int window, float softcap, void* stream) {
+  if (W <= 0 || static_cast<long long>(W) + T > INT_MAX ||
+      !shapes_ok(B, T, Hq, Hkv, W + T, D))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Params p = base_params(q, kr, vr, q_pos, out, partials, tickets, T, Hq, Hkv,
+                         W + T, D, window, softcap);
+  p.kc = static_cast<const float*>(kc);
+  p.vc = static_cast<const float*>(vc);
+  p.lens = static_cast<const int*>(lens);
+  p.chunk_lens = static_cast<const int*>(chunk_lens);
+  p.W = W;
+  const Plan pl = plan(B, T, Hq, Hkv, W + T, D);
+  return launch(p, B, D, pl, n_partials, n_tickets,
+                static_cast<cudaStream_t>(stream), true);
 }
 
 // ---------------------------------------------------------------------------
@@ -1683,7 +1850,7 @@ extern "C" size_t flash_attention_bwd_workspace(int B, int T, int Hq,
                                                 int Hkv, int S, int D,
                                                 size_t* tickets) {
   *tickets = 0;
-  if (!shapes_ok(B, T, Hq, Hkv, S, D) || S <= 0) return 0;
+  if (!bwd_shapes_ok(B, T, Hq, Hkv, S, D) || S <= 0) return 0;
   const BwdPlan pl = bwd_plan(B, T, Hq, Hkv, S, D);
   *tickets = pl.tickets;
   return pl.partials;
@@ -1707,7 +1874,7 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    void* tickets, size_t n_tickets, int B,
                                    int T, int Hq, int S, int Hkv, int D,
                                    int window, float softcap, void* stream) {
-  if (!shapes_ok(B, T, Hq, Hkv, S, D) || S <= 0 ||
+  if (!bwd_shapes_ok(B, T, Hq, Hkv, S, D) || S <= 0 ||
       static_cast<long long>(B) * Hkv > 65535 ||
       static_cast<long long>(B) * T * Hq > INT_MAX / 64)
     return static_cast<int>(cudaErrorInvalidValue);

@@ -5,9 +5,12 @@
 k/v (B, S, Hkv, D), explicit positions q_pos (B, T) / kv_pos (B, S) where
 ``kv_pos == -1`` marks an invalid key. ``paged_flash_attention`` computes
 the same function with K/V read from one layer's page pool
-(P, Hkv, page, D) through a block table. Both give 0 for a row that sees
-no key, as the Pallas kernel does (``ref_attention`` gives the mean of V
-there instead). On CUDA tensors the wrappers launch
+(P, Hkv, page, D) through a block table, ``ring_flash_attention`` with
+K/V read from a sliding-window layer's per-slot ring (B, Hkv, W, D) and
+the chunk's own K/V, in one launch. All give 0 for a row that sees no
+key, as the Pallas kernel does (``ref_attention`` gives the mean of V
+there instead). Head dims ``HEAD_DIMS`` forward, ``BWD_HEAD_DIMS``
+backward. On CUDA tensors the wrappers launch
 ``csrc/flash_attention.cu`` (tensor cores in 3xTF32, one block per kv
 head's GQA group and row tile, causal tiles skipped, short query tiles
 split over the context through a workspace, ``kernels.workspace``); on
@@ -18,8 +21,9 @@ on either device. Its forward also gives the per-row log-sum-exp ``lse``
 (B, Hq, T), and its backward runs ``flash_attention_bwd`` (dq, dk, dv
 recomputed from q, k, v, out and lse, as the JAX package's custom VJP of
 its blocked attention): the kernels on CUDA tensors, the plain versions
-on CPU tensors. The paged kernel has no backward (training never pages), so
-``paged_flash_attention`` raises for inputs that need a gradient.
+on CPU tensors. The paged and ring kernels have no backward (training
+never pages), so ``paged_flash_attention`` and ``ring_flash_attention``
+raise for inputs that need a gradient.
 """
 from __future__ import annotations
 
@@ -32,7 +36,8 @@ from repro_torch import kernels
 from repro_torch.kernels import build, workspace
 
 NEG_INF = -1e30
-HEAD_DIMS = (8, 16, 32, 64)   # head dims the kernel is instantiated for
+HEAD_DIMS = (8, 16, 32, 64, 128, 256)   # head dims of the forward kernels
+BWD_HEAD_DIMS = (8, 16, 32, 64)         # and of the backward kernels
 _LIB = None
 
 
@@ -146,6 +151,40 @@ def paged_flash_attention_plain(q, kp, vp, positions, block_table, lens,
                                  softcap=softcap)
 
 
+def ring_slot_pos(last: torch.Tensor, W: int) -> torch.Tensor:
+    """(B, W) positions a ring of W slots holds when ``last`` (B, 1) is
+    the latest position written: slot i holds the latest position
+    congruent to i mod W, at most ``last`` (negative for a slot not yet
+    written)."""
+    i = torch.arange(W, device=last.device)[None, :]
+    return last - torch.remainder(last - i, W)
+
+
+def ring_kv_pos(lens, chunk_lens, positions, W: int) -> torch.Tensor:
+    """(B, W + T) key positions of [a sliding layer's ring ; the chunk]:
+    the ring's slots after ``lens`` positions (``ring_slot_pos``), chunk
+    key t is ``positions[:, t]`` where t < ``chunk_lens``, else -1."""
+    B, T = positions.shape
+    hist = ring_slot_pos((lens.long() - 1)[:, None], W)
+    t = torch.arange(T, device=positions.device)[None, :]
+    chunk = torch.where(t < chunk_lens[:, None], positions.long(),
+                        torch.full_like(hist[:, :1], -1))
+    return torch.cat([hist, chunk], dim=1)
+
+
+def ring_flash_attention_plain(q, k_ring, v_ring, k_chunk, v_chunk,
+                               positions, lens, chunk_lens, *, window=None,
+                               softcap=None) -> torch.Tensor:
+    """The concatenation [ring (B, Hkv, W, D) ; chunk (B, T, Hkv, D)] that
+    the JAX package's ``_paged_attend`` materializes, then
+    ``flash_attention_plain``."""
+    kg = torch.cat([k_ring.transpose(1, 2).to(q.dtype), k_chunk], dim=1)
+    vg = torch.cat([v_ring.transpose(1, 2).to(q.dtype), v_chunk], dim=1)
+    kv_pos = ring_kv_pos(lens, chunk_lens, positions, k_ring.shape[2])
+    return flash_attention_plain(q, kg, vg, positions, kv_pos, window=window,
+                                 softcap=softcap)
+
+
 # ---------------------------------------------------------------------------
 # CUDA wrappers
 # ---------------------------------------------------------------------------
@@ -172,6 +211,9 @@ def _lib():
         lib.paged_flash_attention.argtypes = ([vp] * 8 + ws + [ci] * 8
                                               + [cf, vp])
         lib.paged_flash_attention.restype = ci
+        lib.ring_flash_attention.argtypes = ([vp] * 9 + ws + [ci] * 7
+                                             + [cf, vp])
+        lib.ring_flash_attention.restype = ci
         _LIB = lib
     return _LIB
 
@@ -309,6 +351,11 @@ def flash_attention_bwd(q, k, v, q_pos, kv_pos, out, lse, dout, *,
                                          dout, window=window, softcap=softcap)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd: no kernel for {q.device}")
+    if q.shape[-1] not in BWD_HEAD_DIMS:
+        raise NotImplementedError(
+            f"flash_attention_bwd takes head_dim in {BWD_HEAD_DIMS}, got "
+            f"{q.shape[-1]}: the backward kernels at head_dim 128 and 256 "
+            f"wait for ROADMAP Queue 1 item 25")
     B, T, Hq, S, Hkv, D = _check_contiguous_args(q, k, v, q_pos, kv_pos)
     for name, t in (("out", out), ("dout", dout)):
         _need(t, name, torch.float32, q.device, 4)
@@ -422,4 +469,63 @@ def paged_flash_attention(q, kp, vp, positions, block_table, lens,
         raise RuntimeError(
             f"paged_flash_attention launch failed: CUDA error {rc}")
     kernels.LAUNCHES["paged_flash_attention"] += 1
+    return out
+
+
+def ring_flash_attention(q, k_ring, v_ring, k_chunk, v_chunk, positions,
+                         lens, chunk_lens, *, window=None,
+                         softcap=None) -> torch.Tensor:
+    """q (B, T, Hq, D) attends to [one sliding layer's ring k_ring/v_ring
+    (B, Hkv, W, D) ; the chunk's own k_chunk/v_chunk (B, T, Hkv, D)] with
+    the keys' positions of ``ring_kv_pos``: the ring entry point of
+    ``csrc/flash_attention.cu`` on CUDA tensors, which reads both in one
+    launch with no concatenation, ``ring_flash_attention_plain`` on CPU
+    tensors. The ring is read as it stands: the caller writes the chunk
+    back after this call."""
+    if q.device.type == "cpu":
+        return ring_flash_attention_plain(
+            q, k_ring, v_ring, k_chunk, v_chunk, positions, lens, chunk_lens,
+            window=window, softcap=softcap)
+    if q.device.type != "cuda":
+        raise ValueError(f"ring_flash_attention: no kernel for {q.device}")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k_ring, v_ring, k_chunk, v_chunk)):
+        raise NotImplementedError(
+            "ring_flash_attention has no backward (training never reads a "
+            "ring): run the step under torch.no_grad(), or train through "
+            "flash_attention")
+    B, T, Hq, D = q.shape
+    _, Hkv, W, _ = k_ring.shape
+    _need(q, "q", torch.float32, q.device, 4)
+    for name, t, shape in (("k_ring", k_ring, (B, Hkv, W, D)),
+                           ("v_ring", v_ring, (B, Hkv, W, D)),
+                           ("k_chunk", k_chunk, (B, T, Hkv, D)),
+                           ("v_chunk", v_chunk, (B, T, Hkv, D))):
+        _need(t, name, torch.float32, q.device, 4)
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} {tuple(t.shape)} != {shape}")
+    _need(positions, "positions", torch.int32, q.device, 2)
+    _need(lens, "lens", torch.int32, q.device, 1)
+    _need(chunk_lens, "chunk_lens", torch.int32, q.device, 1)
+    if (tuple(positions.shape) != (B, T) or lens.shape[0] != B
+            or chunk_lens.shape[0] != B or W == 0):
+        raise ValueError("positions (B, T), lens (B,), chunk_lens (B,) and a "
+                         "ring of W > 0 slots must match q")
+    _check_heads(q, Hkv)
+    w, c = _flags(window, softcap)
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    dev = q.device.index
+    stream = torch._C._cuda_getCurrentRawStream(dev)
+    ws = WORKSPACES.pointers(_need_of((B, T, Hq, Hkv, W + T, D)), dev)
+    rc = kernels.call_on(
+        _lib().ring_flash_attention, dev, q.data_ptr(), k_ring.data_ptr(),
+        v_ring.data_ptr(), k_chunk.data_ptr(), v_chunk.data_ptr(),
+        positions.data_ptr(), lens.data_ptr(), chunk_lens.data_ptr(),
+        out.data_ptr(), *ws, B, T, Hq, Hkv, D, W, w, c, stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"ring_flash_attention launch failed: CUDA error {rc}")
+    kernels.LAUNCHES["ring_flash_attention"] += 1
     return out

@@ -1,5 +1,6 @@
 """Attention: the DYNAMIC-engine computation (Atleus MHA-2/MHA-3), PyTorch
-port of the full-attention part of ``repro.models.attention``.
+port of the full- and sliding-window-attention part of
+``repro.models.attention`` (qk-norm waits for ROADMAP Queue 1 item 19).
 
 Two implementations of the fused score + softmax + V step:
 
@@ -19,8 +20,17 @@ Paged decode scatters the chunk's K/V into the layer's page pool in place
 attends through the block table: ``auto`` reads the pool directly in the
 paged kernel, ``ref`` materializes the gather as the JAX package does.
 
-The sliding-window ring branch, ``banded_attention`` and
-``blocked_attention`` wait for ROADMAP Queue 1 item 11.
+Sliding-window layers (gemma2's local layers) attend with the window, by
+the JAX package's rule: no window unless the kind is "sliding", and none
+when it covers every key. Their cache is a ring of W slots, slot i holding
+the latest position congruent to i mod W: prefill builds it from each
+row's last W real tokens, dense decode writes token t at (cur + t) mod W,
+and the paged ring branch attends over [ring history ; the chunk's own
+K/V] (``auto``: the ring flash kernel reads both in one launch; ``ref``:
+the concatenation, as the JAX package) and then writes the chunk back,
+last wins. The JAX package's ``banded_attention`` and
+``blocked_attention`` (its own lowerings of the same function) have no
+counterpart: the flash kernels take every shape.
 """
 from __future__ import annotations
 
@@ -36,9 +46,11 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models import layers
 
 NEG_INF = -1e30
+# cache leaves under the paged layout: the full-attention pool, addressed
+# through block tables (rolled back by the host's cursor), and a sliding
+# layer's per-slot ring (snapshot and restored by ``SlotStateArena``)
 POOL_LEAVES = ("kp", "vp")
-
-_SLIDING = "sliding-window attention is not ported yet (ROADMAP Queue 1 item 11)"
+SLOT_STATE_LEAVES = ("k", "v")
 
 
 def _softcap(scores: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
@@ -65,23 +77,34 @@ def ref_attention(q, k, v, q_pos, kv_pos, *, window: Optional[int] = None,
     return o.reshape(B, T, Hq, D)
 
 
+def _window(kind: str, window: Optional[int], S: int) -> Optional[int]:
+    """The JAX package's rule: a window only on a sliding layer, and none
+    when it covers all ``S`` keys (sliding degenerates to full causal)."""
+    window = window if kind == "sliding" else None
+    return None if window is not None and window >= S else window
+
+
 def attend(q, k, v, q_pos, kv_pos, *, kind: str, window: Optional[int],
            softcap: Optional[float], impl: str) -> torch.Tensor:
-    if kind != "full":
-        raise NotImplementedError(_SLIDING)
+    window = _window(kind, window, k.shape[1])
     if impl == "ref":
-        return ref_attention(q, k, v, q_pos, kv_pos, softcap=softcap)
+        return ref_attention(q, k, v, q_pos, kv_pos, window=window,
+                             softcap=softcap)
     if impl != "auto":
         raise ValueError(f"attn impl {impl!r} (expected 'auto' or 'ref')")
     _record_attention(q, k.shape[1], softcap)
     i32 = torch.int32
     return fa_ops.flash_attention(q.contiguous(), k.contiguous(),
                                   v.contiguous(), q_pos.to(i32).contiguous(),
-                                  kv_pos.to(i32).contiguous(), softcap=softcap)
+                                  kv_pos.to(i32).contiguous(), window=window,
+                                  softcap=softcap)
 
 
 def _record_attention(q, S: int, softcap) -> None:
-    """The fused kernels' share of the FLOP tally: QK^T and PV."""
+    """The fused kernels' share of the FLOP tally: QK^T and PV over all S
+    keys, as the JAX package's ``ref_attention`` counts them (it also
+    picks that path for every shape the tests compare; its banded path
+    counts only the band)."""
     B, T, Hq, D = q.shape
     hetero._record(hetero.DYNAMIC, 4.0 * B * T * Hq * S * D)
     hetero.record_nonlinear(B * T * Hq * S * (2 if softcap else 1))
@@ -132,13 +155,71 @@ def paged_pool_update(pool: torch.Tensor, new: torch.Tensor,
     pool[page_ids, :, within, :] = new[src].to(pool.dtype)
 
 
+def ring_write_targets(positions: torch.Tensor, chunk_lens: torch.Tensor,
+                       W: int):
+    """Where the chunk's B*T rows go in a ring (B, Hkv, W, D): (src, rows,
+    slots), each (B*T,) int64; row r writes new[src[r]] to
+    ring[rows[r], :, slots[r]]. Of the chunk's tokens that share a slot
+    (t and t + W) only the latest valid one writes (the JAX package's
+    last-wins mask: t < chunk_lens and t + W >= chunk_lens); every other
+    row repeats the first writing row's write, as in
+    ``paged_write_targets``, so duplicate indices always carry the same
+    value. Needs a writing row (every active engine tick has one)."""
+    B, T = positions.shape
+    dev = positions.device
+    t_idx = torch.arange(T, device=dev)[None, :]
+    write = ((t_idx < chunk_lens[:, None])
+             & (t_idx + W >= chunk_lens[:, None])).reshape(-1)
+    first = torch.argmax(write.to(torch.int32))
+    src = torch.where(write, torch.arange(B * T, device=dev), first)
+    rows = torch.arange(B, device=dev).repeat_interleave(T)
+    slots = torch.remainder(positions, W).reshape(-1).long()
+    return src, rows[src], slots[src]
+
+
+def _ring_attend(cfg: ModelConfig, q, k, v, positions, ring: Dict, paged, *,
+                 kind, softcap, impl):
+    """Chunked-prefill / decode attention of a sliding layer against its
+    per-slot ring ``{"k", "v"}`` (each (B, Hkv, W, D), updated in place):
+    attend over [ring history ; the chunk's own K/V] (a chunk longer than
+    the ring is legal: its tokens attend each other directly), then write
+    the chunk into the ring, last wins."""
+    B, T = q.shape[0], q.shape[1]
+    lens, clens = paged["lens"], paged["chunk_lens"]
+    kc, vc = ring["k"], ring["v"]
+    W = kc.shape[2]
+    window = _window(kind, cfg.attn.window, W + T)
+    if impl == "ref":
+        kg = torch.cat([kc.transpose(1, 2).to(q.dtype), k], dim=1)
+        vg = torch.cat([vc.transpose(1, 2).to(q.dtype), v], dim=1)
+        kv_pos = fa_ops.ring_kv_pos(lens, clens, positions, W)
+        out = ref_attention(q, kg, vg, positions, kv_pos, window=window,
+                            softcap=softcap)
+    elif impl == "auto":
+        _record_attention(q, W + T, softcap)
+        i32 = torch.int32
+        out = fa_ops.ring_flash_attention(
+            q.contiguous(), kc, vc, k.contiguous(), v.contiguous(),
+            positions.to(i32).contiguous(), lens.to(i32).contiguous(),
+            clens.to(i32).contiguous(), window=window, softcap=softcap)
+    else:
+        raise ValueError(f"attn impl {impl!r} (expected 'auto' or 'ref')")
+    src, rows, slots = ring_write_targets(positions, clens, W)
+    for leaf, new in ((kc, k), (vc, v)):
+        leaf[rows, :, slots, :] = new.reshape(
+            B * T, *new.shape[2:])[src].to(leaf.dtype)
+    return out
+
+
 def paged_attend(cfg: ModelConfig, q, k, v, positions, pool: Dict, paged, *,
                  kind, softcap, impl):
     """Chunked-prefill / decode attention against one layer's page pool
-    ``{"kp", "vp"}`` (each (P, Hkv, page, D), updated in place).
+    ``{"kp", "vp"}`` (each (P, Hkv, page, D), updated in place), or a
+    sliding layer's ring ``{"k", "v"}`` (``_ring_attend``).
     ``paged``: block_table (B, nb), lens (B,), chunk_lens (B,), page_size."""
-    if kind != "full" or "kp" not in pool:
-        raise NotImplementedError(_SLIDING)
+    if "kp" not in pool:
+        return _ring_attend(cfg, q, k, v, positions, pool, paged, kind=kind,
+                            softcap=softcap, impl=impl)
     B, T = q.shape[0], q.shape[1]
     lens, clens = paged["lens"], paged["chunk_lens"]
     page = paged["page_size"]
@@ -203,9 +284,8 @@ def apply_attention_block(
     ``chunk_lens`` (B,) makes PREFILL ragged: row b holds chunk_lens[b]
     real tokens followed by padding that is invisible as keys. ``noise``
     (noise-aware fine-tuning) perturbs the frozen projections with noise
-    drawn from ``rng``."""
-    if kind != "full":
-        raise NotImplementedError(_SLIDING)
+    drawn from ``rng``. A sliding layer's dense cache is a ring (module
+    docstring)."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
     B, T, _ = x.shape
@@ -239,46 +319,69 @@ def apply_attention_block(
         S_cache = kc.shape[2]
         if T > S_cache:
             raise ValueError(f"{T} tokens into a dense cache of {S_cache}")
-        if not (x.is_cuda and torch.cuda.is_current_stream_capturing()):
-            # eagerly, a row past its cache is the caller's error; a CUDA
-            # graph's capture cannot wait for the device to check it
-            if int(cur.max()) + T > S_cache:
-                raise ValueError(f"dense cache of {S_cache} positions is "
-                                 f"full")
         rows = torch.arange(B, device=x.device)[:, None]
-        # in a graph, a full row writes its last T positions, as JAX's
-        # dynamic_update_slice clamps its start
-        start = torch.clamp(cur.long(), 0, S_cache - T)
-        slots = start[:, None] + torch.arange(T, device=x.device)[None]
-        # in place: kc[b, :, start[b] + t] = k[b, t]
+        t_idx = torch.arange(T, device=x.device)[None]
+        if kind == "sliding":
+            # the ring: token t at (cur + t) mod W. Exact for T = 1, as every
+            # engine decodes here; a T > 1 chunk that passes the ring's end
+            # evicts keys its own earlier tokens still see (the JAX package
+            # also clamps such a write; the paged ring branch attends to
+            # the chunk before it writes)
+            slots = torch.remainder(cur.long()[:, None] + t_idx, S_cache)
+            kv_pos = fa_ops.ring_slot_pos(cur.long()[:, None] + T - 1,
+                                          S_cache)
+        else:
+            if not (x.is_cuda and torch.cuda.is_current_stream_capturing()):
+                # eagerly, a row past its cache is the caller's error; a
+                # CUDA graph's capture cannot wait for the device to check
+                if int(cur.max()) + T > S_cache:
+                    raise ValueError(f"dense cache of {S_cache} positions "
+                                     f"is full")
+            # in a graph, a full row writes its last T positions, as JAX's
+            # dynamic_update_slice clamps its start
+            start = torch.clamp(cur.long(), 0, S_cache - T)
+            slots = start[:, None] + t_idx
+            i = torch.arange(S_cache, device=x.device)[None, :]
+            kv_pos = torch.where(i < (cur[:, None] + T), i,
+                                 torch.full_like(i, -1))
+        # in place: kc[b, :, slots[b, t]] = k[b, t]
         kc[rows, :, slots] = k.to(kc.dtype)
         vc[rows, :, slots] = v.to(vc.dtype)
-        i = torch.arange(S_cache, device=x.device)
-        kv_pos = torch.where(i[None, :] < (cur[:, None] + T), i[None, :],
-                             torch.full_like(i[None, :], -1))
         new_cache = {"k": kc, "v": vc, "len": cur + T}
         out = attend(q, kc.transpose(1, 2).to(q.dtype),
                      vc.transpose(1, 2).to(q.dtype), positions, kv_pos,
-                     kind=kind, window=None, softcap=softcap, impl=impl)
+                     kind=kind, window=cfg.attn.window, softcap=softcap,
+                     impl=impl)
     elif mode == "train":
-        out = attend(q, k, v, positions, positions, kind=kind, window=None,
-                     softcap=softcap, impl=impl)
+        out = attend(q, k, v, positions, positions, kind=kind,
+                     window=cfg.attn.window, softcap=softcap, impl=impl)
     else:
         kv_pos = positions
         if chunk_lens is not None:
             t_idx = torch.arange(T, device=x.device)[None, :]
             kv_pos = torch.where(t_idx < chunk_lens[:, None], kv_pos,
                                  torch.full_like(kv_pos, -1))
-        out = attend(q, k, v, positions, kv_pos, kind=kind, window=None,
-                     softcap=softcap, impl=impl)
+        out = attend(q, k, v, positions, kv_pos, kind=kind,
+                     window=cfg.attn.window, softcap=softcap, impl=impl)
         S_cache = prefill_cache_len if prefill_cache_len is not None else T
-        pad = S_cache - T
         k_t = k.transpose(1, 2)                              # (B, Hkv, T, D)
         v_t = v.transpose(1, 2)
-        kc = torch.nn.functional.pad(k_t, (0, 0, 0, pad))
-        vc = torch.nn.functional.pad(v_t, (0, 0, 0, pad))
         lens_out = (torch.full((B,), T, dtype=torch.int32, device=x.device)
                     if chunk_lens is None else chunk_lens.to(torch.int32))
+        if kind == "sliding":
+            # the ring from each row's last W real tokens (a slot not yet
+            # written takes token 0, as JAX's clip: its position is
+            # negative, so it is never seen)
+            W = min(cfg.attn.window, S_cache)
+            src = torch.clamp(fa_ops.ring_slot_pos(
+                lens_out.long()[:, None] - 1, W), 0, max(T - 1, 0))
+            idx = src[:, None, :, None].expand(B, k_t.shape[1], W, cfg.hd)
+            kc = torch.gather(k_t, 2, idx)
+            vc = torch.gather(v_t, 2, idx)
+        else:
+            pad = S_cache - T
+            kc = torch.nn.functional.pad(k_t, (0, 0, 0, pad))
+            vc = torch.nn.functional.pad(v_t, (0, 0, 0, pad))
         new_cache = {"k": kc.to(q.dtype).contiguous(),
                      "v": vc.to(q.dtype).contiguous(), "len": lens_out}
 

@@ -1,18 +1,21 @@
-"""Decode-time state: dense KV caches, the paged KV pool and per-slot RWKV
-state (PyTorch port of ``repro.models.kvcache`` for full attention and
-RWKV).
+"""Decode-time state: dense KV caches, sliding-window rings, the paged KV
+pool and per-slot RWKV state (PyTorch port of ``repro.models.kvcache`` for
+full and sliding-window attention and RWKV).
 
 Cache layout mirrors the parameter scan layout: ``cache["layers"]`` is a
 tuple (one entry per scan-period position) of dicts whose leaves are
-stacked over scan periods. Dense KV is (n_sp, B, H_kv, S, D); the paged
-pool is (n_sp, pages, H_kv, page, D); RWKV keeps per-row token-shift
-buffers (n_sp, B, d) and the wkv state (n_sp, B, H, N, N) f32. The port
-updates all of them in place (the JAX package returns new arrays and
-donates the old buffers).
+stacked over scan periods. Dense KV is (n_sp, B, H_kv, S, D), S =
+``max_len`` (full attention) or a ring of ``min(window, max_len)`` slots
+(sliding window); under the paged layout full attention reads the pool
+(n_sp, pages, H_kv, page, D) and sliding layers keep a per-slot ring
+(n_sp, max_slots, H_kv, W, D); RWKV keeps per-row token-shift buffers
+(n_sp, B, d) and the wkv state (n_sp, B, H, N, N) f32. The port updates
+all of them in place (the JAX package returns new arrays and donates the
+old buffers).
 
-Sliding-window rings and Mamba state wait for ROADMAP Queue 1 items 11
-and 13. ``gather_pages``/``scatter_pages`` move pool pages to and from
-the host (prefix-cache persistence).
+Mamba state waits for ROADMAP Queue 1 item 13. ``gather_pages`` /
+``scatter_pages`` move pool pages to and from the host (prefix-cache
+persistence).
 """
 from __future__ import annotations
 
@@ -24,22 +27,25 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.lora import scan_period
-from repro_torch.models import rwkv
+from repro_torch.models import attention, rwkv
 from repro_torch.models.attention import POOL_LEAVES
 
 
 def _check_ported(cfg: ModelConfig, pos: int) -> None:
-    kind = cfg.block_kind(pos)
-    if kind == "rwkv" or (kind == "attn" and cfg.attn_kind(pos) == "full"):
-        return
-    raise NotImplementedError(
-        "sliding-window and Mamba state are not ported yet (ROADMAP Queue 1 "
-        "items 11 and 13)")
+    if cfg.block_kind(pos) not in ("attn", "rwkv"):
+        raise NotImplementedError(
+            "Mamba state is not ported yet (ROADMAP Queue 1 item 13)")
+
+
+def ring_len(cfg: ModelConfig, max_len: int) -> int:
+    """Slots of a sliding layer's ring: ``min(window, max_len)``."""
+    return min(cfg.attn.window, max_len)
 
 
 def position_cache_spec(cfg: ModelConfig, pos: int, batch: int, max_len: int,
                         kv_dtype=torch.float32):
-    """{leaf: (shape, dtype)} for one scan position's cache (no stacking)."""
+    """{leaf: (shape, dtype)} for one scan position's cache (no stacking).
+    A sliding layer's K/V is a ring of ``ring_len`` slots."""
     _check_ported(cfg, pos)
     if cfg.block_kind(pos) == "rwkv":
         rc = cfg.rwkv
@@ -49,9 +55,11 @@ def position_cache_spec(cfg: ModelConfig, pos: int, batch: int, max_len: int,
             "shift_c": ((batch, cfg.d_model), kv_dtype),
             "wkv": ((batch, H, rc.head_dim, rc.head_dim), torch.float32),
         }
+    S = (ring_len(cfg, max_len) if cfg.attn_kind(pos) == "sliding"
+         else max_len)
     return {
-        "k": ((batch, cfg.n_kv_heads, max_len, cfg.hd), kv_dtype),
-        "v": ((batch, cfg.n_kv_heads, max_len, cfg.hd), kv_dtype),
+        "k": ((batch, cfg.n_kv_heads, S, cfg.hd), kv_dtype),
+        "v": ((batch, cfg.n_kv_heads, S, cfg.hd), kv_dtype),
         "len": ((batch,), torch.int32),
     }
 
@@ -98,10 +106,16 @@ class PagedLayout:
 def position_paged_spec(cfg: ModelConfig, pos: int, layout: PagedLayout,
                         max_len: int, kv_dtype=torch.float32):
     """{leaf: (shape, dtype)} for one scan position under the paged layout:
-    full attention reads the shared page pool, recurrent state keeps the
-    dense per-slot layout at batch = max_slots."""
+    full attention reads the shared page pool, a sliding layer keeps a ring
+    of ``ring_len`` slots per slot (no "len" leaf: lengths come with each
+    step), recurrent state keeps the dense per-slot layout at batch =
+    max_slots."""
+    _check_ported(cfg, pos)
     if cfg.block_kind(pos) == "attn":
-        _check_ported(cfg, pos)
+        if cfg.attn_kind(pos) == "sliding":
+            shape = (layout.max_slots, cfg.n_kv_heads,
+                     ring_len(cfg, max_len), cfg.hd)
+            return {"k": (shape, kv_dtype), "v": (shape, kv_dtype)}
         shape = (layout.num_pages, cfg.n_kv_heads, layout.page_size, cfg.hd)
         return {"kp": (shape, kv_dtype), "vp": (shape, kv_dtype)}
     return position_cache_spec(cfg, pos, layout.max_slots, max_len, kv_dtype)
@@ -119,7 +133,8 @@ def init_paged_cache(cfg: ModelConfig, layout: PagedLayout, max_len: int, *,
 
 
 def reset_slots(cache, slots: Sequence[int]):
-    """Zero the per-slot rows (recurrent state) of reused slots, in place.
+    """Zero the per-slot rows (ring KV, recurrent state) of reused slots, in
+    place.
     Page-pool leaves need no reset: a recycled page is only readable below
     the owning request's length, and every position below it is rewritten
     before it becomes visible."""
@@ -137,11 +152,12 @@ class SlotStateArena:
 
     Under the paged layout full-attention KV is pool-addressed and rolls
     back by rewinding the host-side write cursor; everything else is per
-    slot: here the RWKV token-shift and wkv state
-    (``rwkv.SLOT_STATE_LEAVES``), cumulative over the whole stream. A
-    cursor rewind cannot rewind it, so the serving engine snapshots it
-    before each speculative verify chunk and restores it per slot when a
-    draft is rejected; a slot that a new (or preempted and readmitted)
+    slot: the sliding-window ring (``attention.SLOT_STATE_LEAVES``) and the
+    RWKV token-shift and wkv state (``rwkv.SLOT_STATE_LEAVES``), cumulative
+    over the whole stream. A cursor rewind cannot rewind them, so the
+    serving engine snapshots them before each speculative verify chunk and
+    restores them per slot when a draft is rejected; a slot that a new (or
+    preempted and readmitted)
     request takes is reset to zero at admission. ``tracked`` is False for
     full-attention-only models: every method is then a no-op.
 
@@ -154,8 +170,12 @@ class SlotStateArena:
         per_pos: List[Tuple[str, ...]] = []
         for pos in range(scan_period(cfg)):
             _check_ported(cfg, pos)
-            per_pos.append(tuple(rwkv.SLOT_STATE_LEAVES)
-                           if cfg.block_kind(pos) == "rwkv" else ())
+            if cfg.block_kind(pos) == "rwkv":
+                per_pos.append(tuple(rwkv.SLOT_STATE_LEAVES))
+            elif cfg.attn_kind(pos) == "sliding":
+                per_pos.append(tuple(attention.SLOT_STATE_LEAVES))
+            else:
+                per_pos.append(())
         self.leaves: Tuple[Tuple[str, ...], ...] = tuple(per_pos)
         self.tracked: bool = any(self.leaves)
 

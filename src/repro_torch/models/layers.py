@@ -102,7 +102,7 @@ def apply_rope(x: torch.Tensor, sin: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-_MLPS = ("gated_silu", "gelu")
+_MLPS = ("gated_silu", "gated_gelu", "gelu")
 
 
 def init_mlp(cfg: ModelConfig, generator: torch.Generator, *, device, dtype,
@@ -110,32 +110,37 @@ def init_mlp(cfg: ModelConfig, generator: torch.Generator, *, device, dtype,
     """``w1`` (d, ff), then for a gated MLP ``w3`` (d, ff), then ``w2``
     (ff, d), drawn from ``generator`` in that order."""
     if cfg.mlp not in _MLPS:
-        raise NotImplementedError(f"mlp {cfg.mlp!r} is not ported yet "
-                                  "(ROADMAP Queue 1 item 11)")
+        raise ValueError(f"unknown mlp {cfg.mlp!r}")
     d, ff = cfg.d_model, cfg.d_ff
     kw = dict(device=device, dtype=dtype)
     p = {"w1": dense_init(generator, (*lead, d, ff), **kw)}
-    if cfg.mlp == "gated_silu":
+    if cfg.mlp.startswith("gated"):
         p["w3"] = dense_init(generator, (*lead, d, ff), **kw)
     p["w2"] = dense_init(generator, (*lead, ff, d), fan_in=ff, **kw)
     return p
 
 
+def _act(cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
+    hetero.record_nonlinear(h.numel())
+    if "silu" in cfg.mlp:
+        return torch.nn.functional.silu(h)
+    return torch.nn.functional.gelu(h, approximate="tanh")
+
+
 def apply_mlp(cfg: ModelConfig, p, x: torch.Tensor, *,
               noise: Optional[NoiseConfig] = None,
               rng: Optional[torch.Generator] = None) -> torch.Tensor:
-    """FF-1/FF-2 (Table II) — STATIC engine: gated SiLU, or tanh-approximate
-    GELU (GPT-2/BLOOM style, no gate). ``noise``: weight noise drawn from
-    ``rng`` (noise-aware fine-tuning)."""
+    """FF-1/FF-2 (Table II) — STATIC engine: gated SiLU (llama), gated
+    tanh-approximate GELU (gemma2), or tanh-approximate GELU (GPT-2/BLOOM
+    style, no gate). ``noise``: weight noise drawn from ``rng``
+    (noise-aware fine-tuning)."""
     nk = dict(noise=noise, rng=rng)
     h = hetero.static_matmul(x, p["w1"], **nk)
-    if cfg.mlp == "gated_silu":
+    if cfg.mlp.startswith("gated"):
         g = hetero.static_matmul(x, p["w3"], **nk)
-        hetero.record_nonlinear(h.numel())
-        h = torch.nn.functional.silu(h) * g
+        h = _act(cfg, h) * g
     else:
-        hetero.record_nonlinear(h.numel())
-        h = torch.nn.functional.gelu(h, approximate="tanh")
+        h = _act(cfg, h)
     return hetero.static_matmul(h, p["w2"], **nk)
 
 

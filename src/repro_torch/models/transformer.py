@@ -1,6 +1,6 @@
 """Config-driven decoder: embeds -> loop over period-blocks -> norm -> head
-(PyTorch port of ``repro.models.transformer`` for full-attention and RWKV
-models).
+(PyTorch port of ``repro.models.transformer`` for full- and
+sliding-window-attention and RWKV models).
 
 The JAX package scans over stacked scan periods with ``lax.scan``; the port
 runs the same layout as a Python loop, slicing one period's weights, LoRA
@@ -275,14 +275,16 @@ def _quantized(tree):
 
 def reserve_workspaces(cfg: ModelConfig, params: Dict, exec_cfg: ExecConfig,
                        device: torch.device, *, rows: int, chunks,
-                       kv_lens) -> None:
+                       kv_lens, ring_len: Optional[int] = None) -> None:
     """Size the kernels' split workspaces on ``device`` for every
     decode-mode ``forward`` over ``rows`` rows with a chunk of each width
     in ``chunks``: the crossbar matmul of every quantized weight at M =
-    rows * C (and at M = rows, the head's under ``last_idx``), and the
-    flash kernel of the attention layers over each key length in
-    ``kv_lens`` (a paged step's block-table widths times the page size, or
-    a dense cache's length). A CUDA graph captured afterwards finds them
+    rows * C (and at M = rows, the head's under ``last_idx``), the flash
+    kernel of the attention layers over each key length in ``kv_lens`` (a
+    paged step's block-table widths times the page size, or a dense
+    cache's length; a dense cache's ring is no longer), and, with
+    ``ring_len``, the ring kernel of a paged step's sliding layers over
+    ``ring_len + C`` keys. A CUDA graph captured afterwards finds them
     large enough (``kernels.workspace``)."""
     weights = list(_quantized(params))
     if weights:
@@ -290,9 +292,13 @@ def reserve_workspaces(cfg: ModelConfig, params: Dict, exec_cfg: ExecConfig,
                                  sorted({rows} | {rows * C for C in chunks}))
     attn = any(cfg.block_kind(pos) == "attn" for pos in range(scan_period(cfg)))
     if attn and exec_cfg.attn_impl == "auto":
-        fa_ops.reserve_workspace(
-            device, [(rows, C, cfg.n_heads, cfg.n_kv_heads, S, cfg.hd)
-                     for C in chunks for S in kv_lens])
+        heads = (cfg.n_heads, cfg.n_kv_heads)
+        shapes = [(rows, C, *heads, S, cfg.hd)
+                  for C in chunks for S in kv_lens]
+        if ring_len is not None:
+            shapes += [(rows, C, *heads, ring_len + C, cfg.hd)
+                       for C in chunks]
+        fa_ops.reserve_workspace(device, shapes)
 
 
 # ---------------------------------------------------------------------------

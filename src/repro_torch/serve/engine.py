@@ -88,6 +88,14 @@ from repro_torch.serve.spec import SpecConfig
 from repro_torch.serve.scheduler import PageScheduler, bucketize, power_buckets
 
 
+def _ring_len(cfg: ModelConfig, max_len: int) -> Optional[int]:
+    """Slots of the model's sliding-window rings (None: it has none)."""
+    sliding = any(cfg.block_kind(pos) == "attn"
+                  and cfg.attn_kind(pos) == "sliding"
+                  for pos in range(scan_period(cfg)))
+    return kvcache.ring_len(cfg, max_len) if sliding else None
+
+
 def _validate_request(req: Request, max_len: int) -> None:
     if len(req.prompt) == 0:
         raise ValueError(f"request uid={req.uid}: empty prompt")
@@ -274,6 +282,8 @@ class DenseServeEngine:
                                        pin_memory=pin)
         if pin:
             self._graph_pool = torch.cuda.graph_pool_handle()
+            # a sliding layer's ring (at most max_len slots) needs no
+            # more than the full layers' cache: a split grows with S
             tfm.reserve_workspaces(cfg, params, exec_cfg, self.device,
                                    rows=max_batch, chunks=(1,),
                                    kv_lens=(max_len,))
@@ -544,7 +554,8 @@ class PagedServeEngine:
             tfm.reserve_workspaces(
                 cfg, params, exec_cfg, self.device, rows=max_slots,
                 chunks=self.chunk_buckets,
-                kv_lens=[nb * page_size for nb in self.block_buckets])
+                kv_lens=[nb * page_size for nb in self.block_buckets],
+                ring_len=_ring_len(cfg, max_len))
         self._tick = 0
         self.decode_tokens = 0
         self.prefill_tokens = 0

@@ -1,7 +1,8 @@
 """The port's dense oracle engine (``DenseServeEngine``, CPU, plain kernel
 versions) against the JAX package's ``DenseServeEngine`` and the
 engine-independent replay oracle ``tests/oracle.replay_greedy``, token for
-token, on reduced llama3.2-1b, rwkv6-7b and paper-gpt2-medium, each with a
+token, on reduced llama3.2-1b, rwkv6-7b, paper-gpt2-medium and gemma2-9b
+(sliding-window rings that wrap inside the 32-position arena), each with a
 plain f32 base and an M8F8 crossbar base, two adapters, mixed prompt
 lengths (one pads to a larger bucket), slot reuse, an eos stop and a
 length cap. Its stats (prefill buckets, KV bytes) and ``cache_bytes`` of
@@ -34,7 +35,7 @@ from repro_torch.serve.engine import DenseServeEngine
 
 torch.set_num_threads(2)
 KEY = jax.random.PRNGKey(3)
-ARCHS = ("llama3.2-1b", "rwkv6-7b", "paper-gpt2-medium")
+ARCHS = ("llama3.2-1b", "rwkv6-7b", "paper-gpt2-medium", "gemma2-9b")
 MAX_LEN, MAX_BATCH = 32, 3
 # prompt lengths in two buckets, 8 and 16 (5 and 11 pad to the bucket
 # above them; the eos and length-cap prompts below take the same two)

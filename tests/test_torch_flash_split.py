@@ -12,7 +12,14 @@ split that saw no key has l = 0 and weighs 0). It must stay within the
 kernels' tolerance, 2e-5, at the served shapes (heads cut to keep the CPU
 run short) for N(0, 1) inputs, a peaked softmax (q x 4), softcap and a
 window. One TF32 piece must not: the test can tell the schemes apart.
+At head_dim 256 the kernels take 32-key tiles (8 at decode) and read q
+from shared memory (the same pieces); the ring entry point reads its keys
+from two sources, the ring's W slots and then the chunk's own keys, with
+positions it computes itself: both are emulated against
+``ring_flash_attention_plain``.
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -182,3 +189,76 @@ def test_pieces_carry_f32():
     # both pieces are TF32: the low 13 bits are zero
     for p in (big, small):
         assert int((p.view(torch.int32) & 0x1FFF).abs().max()) == 0
+
+
+# head_dim 256 (gemma2): 32-key tiles at prefill, 8-key tiles split over
+# blocks at decode, GQA 2 (heads cut from 16/8)
+D256_CASES = [("prefill", 1, 128, 128, 4, 2, 32, 1),
+              ("decode_split4", 2, 1, 512, 4, 2, 8, 4)]
+
+
+@pytest.mark.parametrize("case", D256_CASES, ids=[c[0] for c in D256_CASES])
+def test_d256_tiles_meet_the_kernel_tolerance(case):
+    _, B, T, S, Hq, Hkv, kt, splits = case
+    q, k, v, qpos, kpos = _inputs(B, T, S, Hq, Hkv, 256, S, 2.0)
+    kw = dict(window=96, softcap=50.0)
+    o_plain = fa_ops.flash_attention_plain(q, k, v, qpos, kpos, **kw)
+    o = emulate(q, k, v, qpos, kpos, kt=kt, splits=splits, **kw)
+    assert float((o - o_plain).abs().max()) <= FA_TOL
+
+
+def ring_key_positions(lens, chunk_lens, positions, W):
+    """The ring kernel's key positions, as ``ring_pos`` computes them in
+    ``csrc/flash_attention.cu`` (C's remainder truncates toward zero):
+    ring slot s < W holds last - ((last - s) mod W) for last = lens - 1,
+    -1 where that is negative; chunk key W + t is positions[t] for t <
+    chunk_lens, else -1."""
+    B, T = positions.shape
+    out = np.full((B, W + T), -1, np.int64)
+    for b in range(B):
+        last = int(lens[b]) - 1
+        for s in range(W):
+            d = int(math.fmod(last - s, W))
+            d += W if d < 0 else 0
+            out[b, s] = max(last - d, -1)
+        for t in range(int(chunk_lens[b])):
+            out[b, W + t] = int(positions[b, t])
+    return torch.from_numpy(out)
+
+
+# (label, D, T, W, lens, chunk_lens, kt, splits): decode on wrapped and
+# unwritten rings at head_dim 256; a chunk longer than its ring at 16
+RING_CASES = [("decode_d256", 256, 1, 64, (100, 30), (1, 1), 8, 4),
+              ("chunk_t_gt_w", 16, 40, 32, (5, 70), (40, 33), 64, 1)]
+
+
+@pytest.mark.parametrize("case", RING_CASES, ids=[c[0] for c in RING_CASES])
+def test_ring_key_source_and_positions(case):
+    """Keys s < W from the ring (B, Hkv, W, D), keys W + t from the chunk
+    (B, T, Hkv, D), at the kernel's own positions: those equal
+    ``ring_kv_pos`` wherever a key is visible (both negative elsewhere),
+    and the emulated kernel is within the tolerance of
+    ``ring_flash_attention_plain``."""
+    _, D, T, W, lens, clens, kt, splits = case
+    B, Hq, Hkv = len(lens), 4, 2
+    rng = np.random.default_rng(W + T)
+    t = lambda *shape: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(shape).astype(np.float32))
+    q, kr, vr = t(B, T, Hq, D), t(B, Hkv, W, D), t(B, Hkv, W, D)
+    kc, vc = t(B, T, Hkv, D), t(B, T, Hkv, D)
+    lens = torch.tensor(lens, dtype=torch.int32)
+    clens = torch.tensor(clens, dtype=torch.int32)
+    pos = (lens[:, None] + torch.arange(T)[None]).to(torch.int32)
+    kpos = ring_key_positions(lens, clens, pos, W)
+    ref_pos = fa_ops.ring_kv_pos(lens, clens, pos, W)
+    assert torch.equal(kpos >= 0, ref_pos >= 0)
+    assert torch.equal(kpos[kpos >= 0], ref_pos[kpos >= 0])
+    # the kernel's key s, from its source
+    k = torch.cat([kr.transpose(1, 2), kc], dim=1)
+    v = torch.cat([vr.transpose(1, 2), vc], dim=1)
+    kw = dict(window=W, softcap=50.0)
+    o_plain = fa_ops.ring_flash_attention_plain(q, kr, vr, kc, vc, pos, lens,
+                                                clens, **kw)
+    o = emulate(q, k, v, pos, kpos, kt=kt, splits=splits, **kw)
+    valid = torch.arange(T)[None] < clens[:, None]
+    assert float((o - o_plain).abs()[valid].max()) <= FA_TOL

@@ -59,7 +59,11 @@ FA_SWEEP = [(2, 64, 64, 4, 2, 16), (1, 32, 96, 4, 4, 8), (2, 64, 64, 8, 2, 32),
             (8, 1, 1000, 32, 8, 64),
             # the paper models' 16/16 heads (a group of 1): the forward's
             # 512-token prompt, and 8 decode rows
-            (1, 512, 512, 16, 16, 64), (8, 1, 1024, 16, 16, 64)]
+            (1, 512, 512, 16, 16, 64), (8, 1, 1024, 16, 16, 64),
+            # head_dim 128 (32/8 heads) and 256 (gemma2's 16/8): ragged
+            # prefill tiles, decode split over the context
+            (1, 100, 300, 32, 8, 128), (4, 1, 700, 32, 8, 128),
+            (1, 200, 200, 16, 8, 256), (8, 1, 600, 16, 8, 256)]
 FA_FLAGS = [(None, None), (16, None), (None, 20.0)]
 
 
@@ -246,6 +250,94 @@ def _paged_decode_inputs(dev, seed, B=8, Hq=32, Hkv=8, D=64, page=16,
     q = torch.randn(B, 1, Hq, D, generator=g, device=dev)
     pos = lens[:, None].contiguous()
     return q, kp, vp, pos, bt, lens, clens
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed", [0, 1])
+def test_paged_kernel_matches_plain_at_d256(seed):
+    """gemma2's paged decode (16/8 heads of 256, softcap 50) and a mixed
+    chunk over the same pool."""
+    dev = _cuda_or_skip()
+    q, kp, vp, pos, bt, lens, clens = _paged_decode_inputs(
+        dev, seed, Hq=16, Hkv=8, D=256)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    C = 24
+    qc = torch.randn(q.shape[0], C, 16, 256, generator=g, device=dev)
+    cl = torch.tensor([24, 7, 0, 24, 1, 13, 24, 0], dtype=torch.int32,
+                      device=dev)
+    lc = torch.clamp(lens - 24, min=0).contiguous()
+    pc = (lc[:, None] + torch.arange(C, device=dev)[None]).to(torch.int32)
+    for args in ((q, kp, vp, pos, bt, lens, clens),
+                 (qc, kp, vp, pc, bt, lc, cl)):
+        o = fa_ops.paged_flash_attention(*args, page_size=16, softcap=50.0)
+        torch.cuda.synchronize()
+        o_plain = fa_ops.paged_flash_attention_plain(*args, page_size=16,
+                                                     softcap=50.0)
+        valid = torch.arange(args[0].shape[1], device=dev)[None] < args[6][
+            :, None]
+        torch.testing.assert_close(o[valid], o_plain[valid], rtol=2e-5,
+                                   atol=2e-5)
+
+
+def _ring_inputs(dev, seed, T, W, lens, clens, Hq=16, Hkv=8, D=256):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    B = len(lens)
+    q = torch.randn(B, T, Hq, D, generator=g, device=dev)
+    kr, vr = (torch.randn(B, Hkv, W, D, generator=g, device=dev)
+              for _ in range(2))
+    kc, vc = (torch.randn(B, T, Hkv, D, generator=g, device=dev)
+              for _ in range(2))
+    lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+    clens = torch.tensor(clens, dtype=torch.int32, device=dev)
+    pos = (lens[:, None] + torch.arange(T, device=dev)[None]).to(torch.int32)
+    return q, kr, vr, kc, vc, pos, lens, clens
+
+
+# (label, T, W, lens, chunk_lens, D, window): decode over wrapped and
+# unwritten rings; a ragged chunk with an empty row; a chunk longer than
+# its ring; head_dims 256, 128 and 64
+RING_SWEEP = [("decode_wrapped", 1, 256, (300, 17, 256, 0, 1000), (1,) * 5,
+               256, 256),
+              ("ragged", 40, 64, (0, 70, 5, 200), (40, 0, 33, 9), 256, 64),
+              ("t_gt_w", 100, 32, (0, 50, 77), (100, 64, 3), 128, 32),
+              ("window_narrower", 16, 128, (130, 7), (16, 16), 64, 40)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("softcap", [None, 50.0])
+@pytest.mark.parametrize("case", RING_SWEEP, ids=[c[0] for c in RING_SWEEP])
+def test_ring_kernel_matches_plain(case, softcap):
+    dev = _cuda_or_skip()
+    _, T, W, lens, clens, D, window = case
+    Hq, Hkv = (16, 8) if D == 256 else (32, 8)
+    args = _ring_inputs(dev, T + W, T, W, lens, clens, Hq, Hkv, D)
+    before = kernels.LAUNCHES["ring_flash_attention"]
+    o = fa_ops.ring_flash_attention(*args, window=window, softcap=softcap)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["ring_flash_attention"] == before + 1
+    o_plain = fa_ops.ring_flash_attention_plain(*args, window=window,
+                                                softcap=softcap)
+    valid = torch.arange(T, device=dev)[None] < args[7][:, None]
+    torch.testing.assert_close(o[valid], o_plain[valid], rtol=2e-5,
+                               atol=2e-5)
+    # the same bits twice (split-KV sums in split order)
+    assert torch.equal(o, fa_ops.ring_flash_attention(
+        *args, window=window, softcap=softcap))
+
+
+@pytest.mark.gpu
+def test_flash_refuses_other_head_dims_and_the_backward_above_64():
+    dev = _cuda_or_skip()
+    q = torch.randn(1, 4, 2, 96, device=dev)
+    pos = torch.arange(4, dtype=torch.int32, device=dev)[None].contiguous()
+    with pytest.raises(ValueError, match="head_dim"):
+        fa_ops.flash_attention(q, q[:, :, :1].contiguous(),
+                               q[:, :, :1].contiguous(), pos, pos)
+    q = torch.randn(1, 4, 2, 128, device=dev, requires_grad=True)
+    k = torch.randn(1, 4, 1, 128, device=dev)
+    out = fa_ops.flash_attention(q, k, k, pos, pos)
+    with pytest.raises(NotImplementedError, match="item 25"):
+        out.sum().backward()
 
 
 @pytest.mark.gpu
@@ -722,7 +814,7 @@ def _waves(eng, cfg, run, at=5):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("arch", ["llama3.2-1b", "rwkv6-7b"])
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "rwkv6-7b", "gemma2-9b"])
 def test_graph_step_equals_the_eager_step(arch):
     """The graphed engine and the eager step on the same weights give the
     same greedy tokens and the same logits bits, over a run that repeats
@@ -1195,10 +1287,10 @@ def test_remat_gives_the_same_bits_on_the_card(arch, noise):
 
 @pytest.mark.gpu
 def test_kernels_without_backward_raise_under_grad():
-    """The paged flash kernel has no backward: on CUDA inputs that need a
-    gradient it raises, never returning a tensor that cuts the graph;
-    under no_grad it runs. rwkv6_wkv has one now: under grad it goes
-    through ``WkvFn``."""
+    """The paged and ring flash kernels have no backward: on CUDA inputs
+    that need a gradient each raises, never returning a tensor that cuts
+    the graph; under no_grad it runs. rwkv6_wkv has one now: under grad it
+    goes through ``WkvFn``."""
     dev = _cuda_or_skip()
     B, T, H, N = 1, 4, 2, 16
     r, k, v, w = (torch.rand(B, T, H, N, device=dev) for _ in range(4))
@@ -1219,6 +1311,12 @@ def test_kernels_without_backward_raise_under_grad():
         fa_ops.paged_flash_attention(*args, page_size=4)
     with torch.no_grad():
         fa_ops.paged_flash_attention(*args, page_size=4)
+    ring = _ring_inputs(dev, 0, 2, 4, (3,), (2,), Hq=4, Hkv=2, D=16)
+    ring[0].requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        fa_ops.ring_flash_attention(*ring)
+    with torch.no_grad():
+        fa_ops.ring_flash_attention(*ring)
 
 
 @pytest.mark.gpu

@@ -196,8 +196,12 @@ def test_entry_points_refuse_cpu_unless_asked(setup, monkeypatch):
 def test_config_copy_matches_jax_field_for_field(setup):
     """The port's configs are a copy: same fields, same values."""
     import dataclasses
-    full = (jax_get_config("llama3.2-1b"), get_config("llama3.2-1b"))
-    for jc, tc in (full, (setup["jcfg"], setup["cfg"])):
+    pairs = [(jax_get_config("llama3.2-1b"), get_config("llama3.2-1b")),
+             (setup["jcfg"], setup["cfg"])]
+    for arch in ("gemma2-9b",):
+        jc, tc = jax_get_config(arch), get_config(arch)
+        pairs += [(jc, tc), (jax_reduce_config(jc), reduce_config(tc))]
+    for jc, tc in pairs:
         assert dataclasses.asdict(jc) == dataclasses.asdict(tc)
 
 
@@ -205,6 +209,6 @@ def test_unported_architectures_raise_not_implemented():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_config("jamba-1.5-large-398b")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("gemma2-9b")
+        get_config("mistral-nemo-12b")
     with pytest.raises(KeyError):
         get_config("no-such-arch")

@@ -135,9 +135,13 @@ def test_gelu_init_mlp_draws_w1_then_w2_and_has_no_gate():
     w1 = layers.dense_init(g, (cfg.d_model, cfg.d_ff), **kw)
     w2 = layers.dense_init(g, (cfg.d_ff, cfg.d_model), fan_in=cfg.d_ff, **kw)
     assert torch.equal(p["w1"], w1) and torch.equal(p["w2"], w2)
+    # gemma2's gated GELU draws a gate between them; an unknown MLP raises
     gated = dataclasses.replace(cfg, mlp="gated_gelu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        layers.init_mlp(gated, torch.Generator(), **kw)
+    pg = layers.init_mlp(gated, torch.Generator().manual_seed(3), **kw)
+    assert list(pg) == ["w1", "w3", "w2"] and torch.equal(pg["w1"], w1)
+    with pytest.raises(ValueError, match="unknown mlp"):
+        layers.init_mlp(dataclasses.replace(cfg, mlp="relu"),
+                        torch.Generator(), **kw)
 
 
 @pytest.mark.parametrize("base", ["plain", "m8f8"])
