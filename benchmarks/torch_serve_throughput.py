@@ -1,8 +1,8 @@
 """Serving throughput on the port: paged arena + chunked prefill against
 the dense ``max_batch x max_len`` baseline, at 16+ concurrent mixed-length
 requests and 4 LoRA adapters hot (paper SS V.G multi-task serving), by
-``benchmarks/bench_serve_throughput.py``'s protocol (its workloads 1, 2
-and 3, with its sizes, traffic and seeds).
+``benchmarks/bench_serve_throughput.py``'s protocol (its workloads 1, 2,
+3 and 5, with its sizes, traffic and seeds).
 
     PYTHONPATH=src:. python benchmarks/torch_serve_throughput.py [--device cpu]
     BENCH_SMOKE=1 PYTHONPATH=src:. python benchmarks/torch_serve_throughput.py
@@ -26,11 +26,16 @@ computed, prefix-hit rate, peak KV pages, with the greedy tokens held to
 the dense oracle's. Workload 3: the same shared-prefix traffic with
 speculative decoding (``SpecConfig(k=4, drafter="ngram")``, the prefix
 cache on): accept rate, decode tokens per verify step, wall speedup over
-the spec-off run, the greedy tokens held to the dense oracle's. The JAX
-script's workloads 4-6 (tensor parallelism, MoE, Mamba) wait for ROADMAP
-Queue 1 items 16, 12 and 13: each prints one line saying so. Writes
+the spec-off run, the greedy tokens held to the dense oracle's. Workload
+5: MoE dispatch on reduced llama4-scout (the base unquantized, as in the
+JAX script), dropless (the serving default) against the capacity
+baseline on traffic that makes capacity drop (prompts of 6-48 tokens in
+chunks of 8): tokens/s of both, the capacity run's dropped assignments,
+the dropless greedy tokens held to the dense oracle's. The JAX script's
+workloads 4 and 6 (tensor parallelism, Mamba) wait for ROADMAP Queue 1
+items 16 and 13: each prints one line saying so. Writes
 ``experiments/paper/torch_serve_throughput.json`` with the JAX script's
-payload keys for workloads 1-3, and ``device``.
+payload keys for workloads 1, 2, 3 and 5, and ``device``.
 """
 from __future__ import annotations
 
@@ -53,7 +58,6 @@ from repro_torch.serve.spec import SpecConfig
 
 # the JAX script's workloads that wait for a later slice of the port
 WAITING = (("tensor_parallel", "tensor-parallel paged decode", 16),
-           ("moe_dropless", "MoE dropless against capacity dispatch", 12),
            ("spec_hybrid", "speculative decoding on Mamba+attention", 13))
 
 
@@ -224,6 +228,41 @@ def run(device=None):
     tokens_per_step = (sp["decode_tokens"]
                        / max(sp["decode_tokens"] - sp["accepted_tokens"], 1))
 
+    # ---- MoE workload: dropless (serving default) vs capacity dispatch on
+    # a reduced llama4-scout, dense oracle for greedy equivalence. Prompt
+    # widths 6..48 under prefill_chunk=8 land real capacity drops at the
+    # default capacity_factor (1.25): C = ceil(8*1.25/4) = 3 rows for an
+    # 8-wide top-1 chunk over 4 reduced experts.
+    mcfg = reduce_config(get_config("llama4-scout-17b-a16e"))
+    mparams = init_params(mcfg, torch.Generator(device=dev).manual_seed(1),
+                          device=dev)
+    mrng = np.random.default_rng(2)
+    m_req, m_new = (6, 6) if smoke else (12, 10)
+    mreqs = [dict(uid=i,
+                  prompt=mrng.integers(1, mcfg.vocab_size,
+                                       int(mrng.integers(6, 48)))
+                  .astype(np.int32),
+                  max_new_tokens=m_new) for i in range(m_req)]
+    moe_kw = dict(device=dev, max_slots=8, max_len=128, page_size=8,
+                  prefill_chunk=8, enable_prefix_cache=False)
+    dropless_eng, dropless = _drive(
+        lambda: PagedServeEngine(mcfg, mparams, **moe_kw), mreqs)
+    capacity_eng, capacity = _drive(
+        lambda: PagedServeEngine(mcfg, mparams, moe_dispatch="capacity",
+                                 **moe_kw), mreqs)
+    moracle_eng, _ = _drive(
+        lambda: DenseServeEngine(mcfg, mparams, device=dev, max_batch=8,
+                                 max_len=128), mreqs)
+    moe_dl = dropless_eng.stats()
+    moe_cap = capacity_eng.stats()
+    assert moe_dl.moe.dropped_tokens == 0, \
+        "dropless serving dropped MoE tokens"
+    moe_identical = all(
+        dropless_eng.finished[u].generated
+        == moracle_eng.finished[100_000 + u % 100_000].generated
+        for u in dropless_eng.finished)
+    assert moe_identical, "dropless MoE decode diverged from dense oracle"
+
     ns, ss = nocache_eng.stats().as_dict(), shared_eng.stats().as_dict()
     pb = _page_bytes(shared_eng.cache, num_pages)
     # counters accumulate over every pass (nocache ran 2, shared ran 3);
@@ -259,6 +298,11 @@ def run(device=None):
          f"tokens_per_decode_step_{tokens_per_step:.2f}_"
          f"wall_speedup_{spec_speedup:.2f}x_"
          f"oracle_{'PASS' if spec_identical else 'DIVERGED'}")
+    emit("torch_serve_moe_dropless", 0.0,
+         f"dropless_tok/s={dropless['tok_per_s']:.1f}_"
+         f"capacity_tok/s={capacity['tok_per_s']:.1f}_"
+         f"dropped_0_vs_{moe_cap.moe.dropped_tokens}_"
+         f"oracle_{'PASS' if moe_identical else 'DIVERGED'}")
     for key, what, item in WAITING:
         print(f"torch_serve_{key}: not run: {what} waits for ROADMAP "
               f"Queue 1 item {item}")
@@ -320,6 +364,19 @@ def run(device=None):
             "tokens_per_decode_step": tokens_per_step,
             "decode_throughput_speedup": spec_speedup,
             "greedy_matches_dense_oracle": bool(spec_identical),
+        },
+        "moe_dropless": {
+            "arch": "llama4-scout-17b-a16e (reduced)",
+            "workload": {"n_requests": m_req, "prompt_lens": "6..48",
+                         "max_new": m_new, "prefill_chunk": 8},
+            "dropless": {**dropless,
+                         "dropped_tokens": moe_dl.moe.dropped_tokens},
+            "capacity": {**capacity,
+                         "dropped_tokens": moe_cap.moe.dropped_tokens},
+            "dropless_over_capacity_tok_per_s":
+                dropless["tok_per_s"] / max(capacity["tok_per_s"], 1e-9),
+            "capacity_dropped_tokens": moe_cap.moe.dropped_tokens,
+            "greedy_matches_dense_oracle": bool(moe_identical),
         },
         "waiting": {key: f"ROADMAP Queue 1 item {item}"
                     for key, _, item in WAITING},

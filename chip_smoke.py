@@ -60,7 +60,21 @@ Imports nothing of JAX or of the JAX package. Phases, each printing JSON:
                chunk's own keys) with a chunk of 128 and at decode; and
                flash at head dim 128 (32/8 heads), a 512-token prefill
                and 8 decode rows over 1024 keys. SDPA has no softcap, so
-               the gemma cases have no library time.
+               the gemma cases have no library time. Then the MoE models'
+               (since slice 15): ``grouped_crossbar_matmul`` on
+               llama4-scout-17b-a16e's 16 expert stacks of (5120, 8192)
+               and (8192, 5120) and mixtral-8x22b's 8 of (6144, 16384)
+               and (16384, 6144), int8 and int4, at 8 decode rows on 8
+               distinct experts and on one expert, and 1024 prefill rows
+               spread uniformly and skewed with one expert empty, each on
+               the kernel the MoE layer picks; every row past a slot's
+               count must be 0; the bound counts only the experts hit;
+               the library time is ``torch.bmm`` over the JAX package's
+               dropless buffer (C = T rows per slot) with the dequantized
+               stack. Then flash at head dim 128 with 40/8 heads
+               (llama4-scout, a GQA group of 5) and 48/8 (mixtral, a group
+               of 6: its 4400-token prefill with the 4096 window, and the
+               ring kernel on rings of 4096).
   4. serve   — for each model the port serves, full width and full depth
                (random weights from a seed), on an M8F8 crossbar base with
                two rank-32 adapters, served by the port's paged engine: 8
@@ -101,7 +115,29 @@ Imports nothing of JAX or of the JAX package. Phases, each printing JSON:
                                models (LayerNorm, 16/16 heads, a tanh-GELU
                                MLP: six crossbar matrices per layer;
                                vocabularies of 50257 and 250880), as
-                               llama3.2-1b.
+                               llama3.2-1b;
+                 llama4-scout-17b-a16e — ``moe_serve_phase``: d 5120, 40/8
+                               heads of 128 with qk-norm, 16 experts of
+                               8192 (top-1) and a shared expert, a
+                               vocabulary of 202048, at 24 of its 48
+                               layers (the M8F8 codes of all 48 take 106
+                               GB), its base drawn and quantized one layer
+                               at a time; per tick exactly 168 crossbar
+                               (attention and shared expert), 72 grouped
+                               (the expert stacks) and 24 paged flash
+                               launches; a traced window of 8 graph decode
+                               ticks; the engine freed, two requests
+                               teacher-forced through the kernels and
+                               through ``streamed_reference`` (one layer's
+                               dequantized f32 weights at a time), both
+                               paths' MoE routing recorded
+                               (``moe.ROUTES``, the engine's through
+                               ``EngineRoutes``): every routing flip
+                               against the reference is listed with the
+                               reference's top-k margin (a flip at a
+                               margin of ``FLIP_MARGIN`` or more fails),
+                               and the logits are held to 1e-3 at every
+                               position before a path's first flip.
                The engine runs its mixed step as CUDA graphs, one per
                (chunk, table) signature: the first tick of a signature
                eagerly, then captured; every later tick by replay (each
@@ -156,6 +192,14 @@ Imports nothing of JAX or of the JAX package. Phases, each printing JSON:
                that window), time by kernel, and the crossbar's, flash's
                and wkv's device time and shares of it; a
                ``profile_compare`` line puts eager and graph side by side.
+     forward — after the serves (``forward_phase``), teacher-forced
+               forwards at full width, kernels against the plain versions
+               (1e-3 on every position's logits before a routing flip),
+               launches exact: mixtral-8x22b at 2 of its 56 layers (top-2
+               over 8 experts with renormalised gates; a 4400-token prompt
+               past its 4096 window, then 4 decode steps over the ring),
+               musicgen-medium at full depth from precomputed embeddings
+               (48 layers, d 1536, 24/24 heads of 64, LayerNorm, GELU).
   5. train   — after the served models, each freed before and after:
                llama3.2-1b, then paper-gpt2-medium, then rwkv6-7b, at
                full width and depth on an M8F8 base with one rank-32
@@ -228,9 +272,11 @@ Imports nothing of JAX or of the JAX package. Phases, each printing JSON:
                microbatch (``kernel="recurrent"``).
   7. figures — the paper's Fig. 9 (``benchmarks/torch_noise.py``) and
                Fig. 13 (``benchmarks/torch_quant_perplexity.py``) at their
-               full protocols, and the serving-throughput workloads 1-3 at
-               their smoke sizes (``benchmarks/torch_serve_throughput.py``;
-               workload 3 speculates with the n-gram drafter),
+               full protocols, and the serving-throughput workloads 1-3 and
+               5 at their smoke sizes (``benchmarks/torch_serve_throughput.py``;
+               workload 3 speculates with the n-gram drafter, workload 5
+               serves reduced llama4-scout dropless against the capacity
+               baseline, which must drop),
                each with the counts zeroed just before and read just
                after: one line each with its payload and seconds; fails on
                a non-finite number, a greedy check that fails or a kernel
@@ -461,8 +507,13 @@ PAPER_KN = ((1024, 1024), (1024, 4096), (4096, 1024))
 # gemma2-9b: wq, wk/wv, wo, w1/w3, w2
 GEMMA_KN = ((3584, 4096), (3584, 2048), (4096, 3584), (3584, 14336),
             (14336, 3584))
+# llama4-scout-17b-a16e's and mixtral-8x22b's expert matrices (w1/w3, w2)
+LLAMA4_KN = ((5120, 8192), (8192, 5120))
+MIXTRAL_KN = ((6144, 16384), (16384, 6144))
 # the crossbar kernels' own names in a profiler trace
 CB_KERNELS = ("crossbar_decode_kernel<", "crossbar_prefill_kernel<")
+# the grouped entry point's (the same kernels' bodies over slots' rows)
+GROUPED_KERNELS = ("grouped_decode_kernel<", "grouped_prefill_kernel<")
 # the flash kernels' (both entry points): flash_kernel<D, false> runs row
 # tiles (prefill, chunks), flash_kernel<D, true> the warp split (decode)
 FA_KERNELS = ("flash_kernel<",)
@@ -1012,6 +1063,7 @@ WKV_LAUNCH_KEYS = ("rwkv6_wkv", "rwkv6_wkv_chunk")
 # each launch count of ``kernels.LAUNCHES`` (both flash entry points run
 # one kernel template) beside the kernels it counts in a profiler trace
 LAUNCHED_AS = ((("crossbar_matmul",), CB_KERNELS),
+               (("grouped_crossbar_matmul",), GROUPED_KERNELS),
                (("flash_attention", "paged_flash_attention"), FA_KERNELS),
                (("ring_flash_attention",), RING_KERNELS),
                (("rwkv6_wkv",), ("wkv_kernel<",)),
@@ -1219,6 +1271,158 @@ def slice11_cases(dev, g):
                 "recurrent")))
 
 
+def _grouped_counts(dist, slots, dev):
+    """Rows per slot of a grouped case: 8 decode rows on 8 distinct slots
+    or on one slot; 1024 prefill rows spread uniformly, or skewed (slot s
+    takes a share ~ 1 / (s + 1)) with the last slot empty."""
+    if dist == "decode_spread":
+        c = torch.zeros(slots, dtype=torch.int64)
+        c[torch.randperm(slots, generator=torch.Generator().manual_seed(
+            slots))[:8]] = 1
+    elif dist == "decode_one":
+        c = torch.zeros(slots, dtype=torch.int64)
+        c[slots // 2] = 8
+    elif dist == "prefill_uniform":
+        c = torch.full((slots,), 1024 // slots, dtype=torch.int64)
+    else:
+        share = 1.0 / torch.arange(1, slots + 1, dtype=torch.float64)
+        share[-1] = 0.0
+        c = torch.floor(1024 * share / share.sum()).to(torch.int64)
+        c[0] += 1024 - int(c.sum())
+    return c.to(torch.int32).to(dev)
+
+
+def grouped_case(dev, g, model, bits, K, N, qt, w_deq, dist):
+    """One ``grouped_crossbar_matmul`` case at ``dist``'s routing, on the
+    kernel (and row tile) the MoE layer picks for that many rows. Bound:
+    the codes and scales of the slots that hold rows, their x rows and the
+    whole output, or the products of the live rows. Library: ``torch.bmm``
+    over the JAX package's dropless buffer (C = T rows per slot: the 8
+    decode rows are 8 sequences of 1 token, the 1024 prefill rows 8 of
+    128) with the dequantized stack."""
+    from repro_torch.kernels.crossbar_matmul import ops as cb_ops
+
+    slots = qt.codes.shape[0]
+    counts = _grouped_counts(dist, slots, dev)
+    rows = int(counts.sum())
+    kernel = cb_ops.grouped_kernel(rows, qt)
+    tile = cb_ops.GROUPED_TILE[kernel]
+    bases = torch.cat([torch.zeros(1, dtype=torch.int32, device=dev),
+                       torch.cumsum((counts + tile - 1) // tile * tile, 0)
+                       .to(torch.int32)])
+    R = cb_ops.grouped_rows(rows, slots, tile)
+    x = torch.randn(R, K, generator=g, device=dev)
+    call = lambda: cb_ops.grouped_crossbar_matmul(  # noqa: E731
+        x, qt, bases, counts, kernel)
+    y = call()
+    y_plain = cb_ops.grouped_crossbar_matmul_plain(x, qt, bases, counts)
+    torch.cuda.synchronize()
+    live = torch.zeros(R, dtype=torch.bool, device=dev)
+    for b, c in zip(bases.tolist(), counts.tolist()):
+        live[b:b + c] = True
+    err = float((y - y_plain).abs().max())
+    tol = CB_TOL * float(y_plain.abs().max())
+    dead_zero = bool((y[~live] == 0).all())
+    hit = int((counts > 0).sum())
+    per_slot = qt.codes[0].numel() + qt.scales[0].numel() * 4
+    nbytes = hit * per_slot + rows * K * 4 + R * N * 4
+    flops = 2.0 * rows * K * N
+    T = 1 if rows == 8 else 128
+    xin = torch.randn(slots, 8 * T, K, generator=g, device=dev)
+    library = lambda: torch.bmm(xin, w_deq)  # noqa: E731
+    case = {
+        "name": "grouped_crossbar_matmul", "case": dist, "model": model,
+        "bits": bits, "kernel": kernel,
+        "shape": {"rows": rows, "R": R, "slots": slots, "K": K, "N": N,
+                  "counts": counts.tolist(), "slots_hit": hit},
+        "max_abs_err": err, "tol": tol, "rows_past_counts_zero": dead_zero,
+        "ms": timed(call, 20),
+        "device_ms": device_ms_by_name([call] * 10, GROUPED_KERNELS),
+        "host_us": host_us(call, 50),
+        "plain_ms": timed(lambda: cb_ops.grouped_crossbar_matmul_plain(
+            x, qt, bases, counts), 3, warmup=1),
+        "library": "torch.bmm over the JAX dropless buffer "
+                   f"({slots}, {8 * T}, {K}), dequantized weights",
+        "library_ms": timed(library, 5, warmup=1),
+        "library_device_ms": device_ms_by_name([library] * 3, None),
+        "bound_ms": bound_ms(nbytes, flops),
+        "bound_pieces_ms": 1e3 * max(nbytes / HBM_BYTES_PER_S,
+                                     3 * flops / BF16_FLOPS_PER_S),
+        "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
+                     > flops / F32_FLOPS_PER_S else "operations"),
+    }
+    case["ok"] = err <= tol and dead_zero
+    del xin
+    return case
+
+
+GROUPED_DISTS = ("decode_spread", "decode_one", "prefill_uniform",
+                 "prefill_skewed")
+
+
+def grouped_cases(dev, g, model, slots, shapes, bits_list=(8, 4)):
+    """``grouped_crossbar_matmul`` on ``model``'s expert stacks (``slots``
+    of each (K, N)), at each routing of ``GROUPED_DISTS``."""
+    from repro_torch.core import quant
+
+    for bits in bits_list:
+        for K, N in shapes:
+            w = torch.randn(slots, K, N, generator=g, device=dev) * K ** -0.5
+            qt = quant.quantize(w, bits)
+            del w
+            w_deq = quant.dequantize(qt)
+            for dist in GROUPED_DISTS:
+                yield grouped_case(dev, g, model, bits, K, N, qt, w_deq, dist)
+            del qt, w_deq
+            gc.collect()
+            torch.cuda.empty_cache()
+
+
+def moe_attention_cases(dev, g):
+    """The attention of the two MoE models at head_dim 128: llama4-scout's
+    40 query and 8 kv heads (a GQA group of 5) and mixtral's 48/8 (a group
+    of 6; its 4096 window): contiguous prefill (llama4: 512 tokens;
+    mixtral: the forward phase's 4400-token prompt with the window) and 8
+    decode rows over 1024 keys; paged mixed and decode as ``paged_cases``;
+    mixtral's ring kernel with a chunk of 128 and at decode on rings of
+    4096."""
+    i32 = dict(dtype=torch.int32, device=dev)
+    for m, H in (("llama4-scout-17b-a16e", (40, 8)),
+                 ("mixtral-8x22b", (48, 8))):
+        if m.startswith("mixtral"):
+            yield _contiguous_case(dev, g, m, "prefill", 1, 4400, 4400, *H,
+                                   128, window=4096)
+        else:
+            yield _contiguous_case(dev, g, m, "prefill", 1, 512, 512, *H,
+                                   128)
+        yield _contiguous_case(dev, g, m, "decode", 8, 1, 1024, *H, 128)
+        yield _paged_case(
+            dev, g, m, *H, "mixed",
+            torch.tensor([0, 128, 256, 384, 40, 700, 1000, 0], **i32),
+            torch.tensor([128, 128, 128, 100, 128, 1, 1, 0], **i32), C=128,
+            nb=63, P=512, D=128)
+        lens = torch.linspace(63, 543, 8, device=dev).round().to(torch.int32)
+        yield _paged_case(dev, g, m, *H, "decode", lens,
+                          torch.ones(8, **i32), C=1, nb=64, P=512, D=128)
+    H, W = (48, 8), 4096
+    yield _ring_case(
+        dev, g, "mixtral-8x22b", "chunk",
+        torch.tensor([0, 128, 2048, 4096, 4352, 9000, 300, 0], **i32),
+        torch.tensor([128, 128, 128, 100, 128, 1, 1, 0], **i32), 128, W,
+        *H, 128, W, None)
+    lens = torch.tensor([80, 200, 330, 440, 530, 4330, 4600, 4811], **i32)
+    yield _ring_case(dev, g, "mixtral-8x22b", "decode", lens,
+                     torch.ones(8, **i32), 1, W, *H, 128, W, None)
+
+
+def slice15_cases(dev, g):
+    """The MoE models' kernels: the grouped crossbar at llama4-scout's 16
+    and mixtral's 8 expert stacks (int8 and int4), and their attention."""
+    return (grouped_cases(dev, g, "llama4-scout-17b-a16e", 16, LLAMA4_KN),
+            grouped_cases(dev, g, "mixtral-8x22b", 8, MIXTRAL_KN),
+            moe_attention_cases(dev, g))
+
+
 def path_cases(dev, g):
     """The kernel phase's cases: every kernel at the serve and train
     paths' shapes."""
@@ -1238,7 +1442,9 @@ def path_cases(dev, g):
             crossbar_t_cases(dev, g), flash_bwd_cases(dev, g),
             # gemma2-9b's matrices and attention
             crossbar_cases(dev, g, "gemma2-9b", GEMMA_KN, (8,)),
-            gemma_attention_cases(dev, g))
+            gemma_attention_cases(dev, g),
+            # the MoE models' expert stacks and attention
+            *slice15_cases(dev, g))
 
 
 def slice10_cases(dev, g):
@@ -2039,6 +2245,560 @@ def serve_phase(dev, cfg, *, n_requests=8, max_new=32, prompt_range=(64, 512),
     return result, eng
 
 
+# ---------------------------------------------------------------------------
+# the MoE models: llama4-scout served at full width, mixtral and musicgen
+# forwards at full width, each held against its plain version
+# ---------------------------------------------------------------------------
+
+# a routing flip between a kernel path and the plain reference is a fault
+# unless the reference's top-k margin there (the k-th router probability
+# minus the (k+1)-th) is below this
+FLIP_MARGIN = 1e-4
+
+
+def quantized_kinds(tree):
+    """(layer matrices on the crossbar path, expert stacks on the grouped
+    one): quantized leaves stacked (n_sp, K, N) and (n_sp, slots, K, N)."""
+    from repro_torch.core import quant
+    if quant.is_quantized(tree):
+        n = tree.codes.shape[0]
+        return (0, n) if tree.ndim == 4 else (n, 0)
+    kids = (tree.values() if isinstance(tree, dict)
+            else tree if isinstance(tree, (tuple, list)) else ())
+    out = (0, 0)
+    for v in kids:
+        a, b = quantized_kinds(v)
+        out = (out[0] + a, out[1] + b)
+    return out
+
+
+class EngineRoutes:
+    """The routing of every token a paged engine runs, by request and
+    position: ``moe.ROUTES`` records each MoE layer's experts, and a
+    wrapper of the engine's ``_replay`` maps a tick's rows to requests. A
+    replayed graph rewrites the tensors its capture recorded, so each
+    tick's experts are stacked into a tensor of their own right after the
+    tick (on the device, no sync: ``table`` reads them after the run)."""
+
+    def __init__(self, eng, cfg):
+        from repro_torch.models import moe
+        self.eng, self.moe = eng, moe
+        self.layers = sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers))
+        self.graph_routes = {}
+        self.ticks = []
+        self._orig = eng._replay
+        moe.ROUTES = []
+        eng._replay = self._replay
+
+    def _replay(self, sig, staged):
+        from repro_torch.serve.engine import _segments
+        eng, moe = self.eng, self.moe
+        seg, _ = _segments(eng.layout.max_slots, *sig)
+        host = staged.numpy()
+        lens, clens = (host[o:o + n].copy() for o, n in
+                       (seg["lens"], seg["clens"]))
+        uids = {i: eng.sched.slots[i].req.uid for i in eng.sched.active()}
+        had = sig in eng._graphs
+        n0 = len(moe.ROUTES)
+        out = self._orig(sig, staged)
+        new = moe.ROUTES[n0:]
+        del moe.ROUTES[n0:]
+        if had:
+            routes = self.graph_routes[sig]
+        else:
+            routes = new[:self.layers]
+            if len(new) == 2 * self.layers:       # the capture's tensors
+                self.graph_routes[sig] = new[self.layers:]
+        # (L, B, C, k): a copy on the device, read by ``table``
+        self.ticks.append((uids, lens, clens,
+                           torch.stack([r["experts"] for r in routes])))
+        return out
+
+    def close(self):
+        self.eng._replay = self._orig
+        self.moe.ROUTES = None
+
+    def table(self, reqs):
+        """{uid: (positions, L, k) experts} over each request's stream (a
+        position the prefix cache served comes from the request that
+        computed it: same adapter, same tokens up to it)."""
+        torch.cuda.synchronize()
+        seen = {}
+        for uids, lens, clens, ex in self.ticks:
+            ex = ex.cpu().numpy()
+            for i, uid in uids.items():
+                for t in range(int(clens[i])):
+                    seen.setdefault(uid, {})[int(lens[i]) + t] = ex[:, i, t]
+        out = {}
+        for uid, r in reqs.items():
+            stream = np.concatenate([r.prompt, np.asarray(r.generated[:-1],
+                                                          np.int32)])
+            rows = []
+            for pos in range(len(stream)):
+                got = seen.get(uid, {}).get(pos)
+                if got is None:
+                    for u, o in reqs.items():
+                        if (o.adapter_id == r.adapter_id
+                                and len(o.prompt) > pos
+                                and np.array_equal(o.prompt[:pos + 1],
+                                                   stream[:pos + 1])
+                                and pos in seen.get(u, {})):
+                            got = seen[u][pos]
+                            break
+                if got is None:
+                    raise AssertionError(f"no routing of request {uid} at "
+                                         f"position {pos}")
+                rows.append(got)
+            out[uid] = np.stack(rows)
+        return out
+
+
+def forward_routes(entries, layers, key="experts"):
+    """(positions, L, ...) of ``key`` ("experts" or "margin") over one
+    sequence's prefill then decode steps, from ``moe.ROUTES`` entries (L
+    per forward, batch of 1)."""
+    steps = [entries[i:i + layers] for i in range(0, len(entries), layers)]
+    return np.stack([np.concatenate([s[l][key][0].cpu().numpy()
+                                     for s in steps])
+                     for l in range(layers)], axis=1)
+
+
+def streamed_reference(cfg, params, adapters, reqs, dev):
+    """The plain reference of each request's teacher-forced logits (at the
+    last prompt token and every generated one but the last) without ever
+    holding more than one layer's dequantized weights: every request's
+    whole stream goes through the model one layer at a time (train mode:
+    causal ``ref_attention`` over the stream), with that layer's f32
+    weights dequantized, and the MoE layers' routing recorded. Returns
+    per request (logits, experts (positions, L, k), margins (positions,
+    L))."""
+    from repro_torch.core import lora as lora_lib
+    from repro_torch.core import quant
+    from repro_torch.core.lora import layer_slice, scan_period
+    from repro_torch.models import layers, moe
+    from repro_torch.models import transformer as tfm
+
+    ec = tfm.ExecConfig(attn_impl="ref", moe_dispatch="dropless")
+    ads = lora_lib.stack_adapters(adapters)
+    seqs = [np.concatenate([r.prompt, np.asarray(r.generated[:-1], np.int32)])
+            for r in reqs]
+    xs = [layers.embed_tokens(cfg, params["embed"],
+                              torch.as_tensor(s, device=dev)[None],
+                              torch.float32) for s in seqs]
+    routes = [[] for _ in reqs]
+    margins = [[] for _ in reqs]
+    P = scan_period(cfg)
+    try:
+        for sp in range(cfg.n_layers // P):
+            for pos in range(P):
+                lp = quant.dequantize_params(
+                    layer_slice(params["layers"][pos], sp))
+                la = layer_slice(ads["layers"][pos], sp)
+                for j, r in enumerate(reqs):
+                    T = xs[j].shape[1]
+                    moe.ROUTES = []
+                    xs[j], _, _ = tfm._apply_position(
+                        cfg, ec, pos, xs[j], lp, la, None,
+                        torch.arange(T, device=dev, dtype=torch.int32)[None],
+                        "train", None,
+                        torch.tensor([r.adapter_id], device=dev), None, None,
+                        None)
+                    for e in moe.ROUTES:
+                        routes[j].append(e["experts"][0].cpu())
+                        margins[j].append(e["margin"][0].cpu())
+                del lp
+    finally:
+        moe.ROUTES = None
+    out = []
+    for j, r in enumerate(reqs):
+        x = layers.apply_norm(cfg, params["final_norm"],
+                              xs[j][:, len(r.prompt) - 1:])
+        lg = layers.unembed(cfg, params["embed"], x)[0]
+        out.append((lg, torch.stack(routes[j], 1).numpy(),
+                    torch.stack(margins[j], 1).numpy()))
+    return out
+
+
+def routing_check(path_experts, ref_experts, ref_margin, first_row,
+                  path_logits, ref_logits):
+    """A path's routing and logits against the reference's. Every position
+    and layer whose top-k expert set differs is a flip, listed with the
+    reference's margin there; the logits are held only at rows whose
+    position comes before the first flip (a flip moves the flipped token's
+    output by O(1), and attention carries it to every later position).
+    ``first_row``: the position of logits row 0."""
+    a = np.sort(path_experts, -1)
+    b = np.sort(ref_experts, -1)
+    flips = [{"position": int(p), "layer": int(l),
+              "experts": a[p, l].tolist(), "reference": b[p, l].tolist(),
+              "margin": float(ref_margin[p, l])}
+             for p, l in zip(*np.nonzero((a != b).any(-1)))]
+    first = min((f["position"] for f in flips), default=None)
+    rows = [j for j in range(ref_logits.shape[0])
+            if first is None or first_row + j < first]
+    err = (float((path_logits[rows] - ref_logits[rows]).abs().max())
+           if rows else None)
+    return {"flips": flips, "checked_rows": len(rows),
+            "rows": int(ref_logits.shape[0]), "max_abs_err": err,
+            "min_margin": float(ref_margin.min()),
+            "flip_over_margin": [f for f in flips
+                                 if f["margin"] >= FLIP_MARGIN]}
+
+
+def moe_serve_phase(dev, cfg, *, layers=24, n_requests=8, max_new=32,
+                    prompt_range=(64, 512), shared_prefix=256, max_len=1024,
+                    max_slots=8, page_size=16, prefill_chunk=128, seed=0,
+                    trace_decode=(8, 8)):
+    """An MoE model at full width, depth cut to ``layers``, served as
+    ``serve_phase`` serves (two rank-32 adapters with B != 0, 8 greedy
+    requests of 64-512 tokens, two sharing a prefix, 32 new tokens each,
+    the graph-captured mixed step), on an M8F8 base drawn and quantized one
+    scan period at a time (``init_quantized_params``: its f32 base would
+    not fit). Each tick's launches exact: one crossbar launch per layer
+    matrix (attention and the shared expert), one grouped launch per
+    expert stack, one paged flash launch per layer; every tick a capture
+    or a replay; a traced window of graph decode ticks. Then the engine is
+    freed, two requests are teacher-forced through ``forward`` with the
+    kernels (over a dense cache) and through ``streamed_reference``; both
+    paths' routing is held to the reference's (``routing_check``) and
+    their logits to ``LOGIT_TOL`` before the first flip. Returns (the
+    serve line, None)."""
+    from repro_torch import kernels
+    from repro_torch.configs.base import QuantConfig
+    from repro_torch.core import lora as lora_lib
+    from repro_torch.models import kvcache, moe
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serve.api import Request, make_engine
+
+    full_layers = cfg.n_layers
+    cfg = dataclasses.replace(cfg, n_layers=layers)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = tfm.init_quantized_params(cfg, g, QuantConfig(mha_bits=8,
+                                                           ff_bits=8),
+                                       device=dev)
+    adapters = []
+    for _ in range(2):
+        ad = lora_lib.init_lora_params(cfg, g, device=dev)
+        for entry in ad["layers"]:
+            for ab in entry.values():    # a "trained" adapter: B != 0
+                ab["b"].normal_(0.0, 0.02, generator=g)
+        adapters.append(ad)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    n_quant, n_grouped = quantized_kinds(params["layers"])
+    resident_gb = torch.cuda.memory_allocated(dev) / 1e9
+
+    rng = np.random.default_rng(seed)
+    prefix = rng.integers(0, cfg.vocab_size, shared_prefix).astype(np.int32)
+    reqs = []
+    for i in range(n_requests):
+        plen = int(rng.integers(prompt_range[0], prompt_range[1] + 1))
+        prompt = rng.integers(0, cfg.vocab_size, plen).astype(np.int32)
+        if i in (1, 2):                  # two requests share a prefix
+            plen = max(plen, shared_prefix + 16)
+            prompt = np.concatenate([prefix, rng.integers(
+                0, cfg.vocab_size, plen - shared_prefix).astype(np.int32)])
+        reqs.append(Request(uid=i, prompt=prompt, max_new_tokens=max_new,
+                            adapter_id=1 if i in (1, 2) else i % 2))
+
+    eng = make_engine(cfg, params, adapters, mode="paged", device=dev,
+                      max_slots=max_slots, max_len=max_len,
+                      page_size=page_size, prefill_chunk=prefill_chunk,
+                      record_logits=True, seed=seed)
+    route_log = EngineRoutes(eng, cfg)
+    kernels.reset_launches()
+    for r in reqs:
+        eng.submit(r)
+    tick_s, tick_kind, tick_decoded = [], [], []
+    trace, n_traced = None, 0
+    t_serve = time.perf_counter()
+    try:
+        while eng.queue or eng.sched.active():
+            if (trace is None and tick_kind[-trace_decode[0]:]
+                    == ["decode"] * trace_decode[0]):
+                n_traced = trace_decode[1]
+                trace = traced_ticks(eng, n_traced, eng.step)
+                continue
+            pf, dc = eng.prefill_tokens, eng.decode_tokens
+            t = time.perf_counter()
+            eng.step()
+            torch.cuda.synchronize()
+            tick_s.append(time.perf_counter() - t)
+            tick_kind.append("prefill" if eng.prefill_tokens > pf
+                             else "decode")
+            tick_decoded.append(eng.decode_tokens - dc)
+        serve_s = time.perf_counter() - t_serve
+        serve_launches = dict(kernels.LAUNCHES)
+        done = eng.finished
+        engine_experts = route_log.table(done)
+    finally:
+        route_log.close()
+    del route_log
+    n_ticks = len(tick_s) + n_traced
+    if sorted(done) != list(range(n_requests)):
+        raise AssertionError(f"unfinished requests: {sorted(done)}")
+    short = {u: len(r.generated) for u, r in done.items()
+             if len(r.generated) != max_new}
+    if short:
+        raise AssertionError(f"requests stopped early: {short}")
+    st = eng.stats()
+    cs = st.compile
+    per_tick = {"crossbar_matmul": n_quant,
+                "grouped_crossbar_matmul": n_grouped,
+                "paged_flash_attention": layers}
+    got = {k: n for k, n in serve_launches.items() if n}
+    if got != {k: n * n_ticks for k, n in per_tick.items()}:
+        raise AssertionError(f"the engine launched {got}, expected "
+                             f"{per_tick} a tick over {n_ticks} ticks")
+    if (cs.compiled_steps != len(cs.step_signatures)
+            or cs.compiled_steps + cs.replays != n_ticks):
+        raise AssertionError(f"{n_ticks} ticks, {cs.compiled_steps} "
+                             f"graphs of {len(cs.step_signatures)} "
+                             f"signatures, {cs.replays} replays")
+    if trace is None or not trace["replayed"]:
+        raise AssertionError(f"no traced window of replayed decode ticks: "
+                             f"{trace}")
+    if not st.prefix_cache.enabled or st.moe.dropped_tokens:
+        raise AssertionError(f"prefix cache {st.prefix_cache.enabled}, "
+                             f"{st.moe.dropped_tokens} dropped tokens")
+    checked = [1, 0]
+    sampled = {uid: torch.stack(eng.sampled_logits[uid]) for uid in checked}
+    kv_bytes = kvcache.cache_bytes(eng.cache)
+    graph_pool_bytes = cs.graph_pool_bytes
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the kernel path of forward over a dense cache, its routing recorded
+    kernels.reset_launches()
+    kernel_logits, kernel_experts = {}, {}
+    try:
+        for uid in checked:
+            r = done[uid]
+            moe.ROUTES = []
+            kernel_logits[uid] = teacher_forced(
+                cfg, params, adapters, r.prompt, r.generated, r.adapter_id,
+                tfm.ExecConfig(moe_dispatch="dropless"), dev)
+            kernel_experts[uid] = forward_routes(moe.ROUTES, layers)
+    finally:
+        moe.ROUTES = None
+    torch.cuda.synchronize()
+    forward_launches = {k: n for k, n in kernels.LAUNCHES.items() if n}
+    n_forwards = sum(len(done[uid].generated) for uid in checked)
+    want = {"crossbar_matmul": n_quant, "grouped_crossbar_matmul": n_grouped,
+            "flash_attention": layers}
+    if forward_launches != {k: n * n_forwards for k, n in want.items()}:
+        raise AssertionError(f"the forward launched {forward_launches}, "
+                             f"expected {want} a forward over {n_forwards}")
+
+    t_ref = time.perf_counter()
+    refs = streamed_reference(cfg, params, adapters,
+                              [done[u] for u in checked], dev)
+    ref_s = time.perf_counter() - t_ref
+    checks, problems = {}, []
+    for uid, (ref, ref_ex, ref_margin) in zip(checked, refs):
+        first_row = len(done[uid].prompt) - 1
+        if not torch.isfinite(sampled[uid]).all():
+            problems.append(f"non-finite engine logits, request {uid}")
+        c = {"positions": int(ref.shape[0]),
+             "max_abs_logit": float(ref.abs().max())}
+        for path, lg, ex in (("engine", sampled[uid], engine_experts[uid]),
+                             ("kernel_forward", kernel_logits[uid],
+                              kernel_experts[uid])):
+            if ex.shape != ref_ex.shape or lg.shape != ref.shape:
+                problems.append(f"{path} shapes {ex.shape} {lg.shape}, "
+                                f"reference {ref_ex.shape} {ref.shape}")
+                continue
+            c[path] = routing_check(ex, ref_ex, ref_margin, first_row, lg,
+                                    ref)
+            c[path]["argmax_agree"] = float(
+                (lg.argmax(-1) == ref.argmax(-1)).float().mean())
+            if c[path]["flip_over_margin"]:
+                problems.append(f"request {uid}, {path}: routing flips at "
+                                f"margins >= {FLIP_MARGIN}")
+            if (c[path]["max_abs_err"] is not None
+                    and c[path]["max_abs_err"] > LOGIT_TOL):
+                problems.append(f"request {uid}, {path}: logits differ by "
+                                f"{c[path]['max_abs_err']} > {LOGIT_TOL}")
+        checks[uid] = c
+    n_checked = sum(c[p]["checked_rows"] for c in checks.values()
+                    for p in ("engine", "kernel_forward") if p in c)
+    if not n_checked:
+        problems.append("no logits row before a routing flip")
+
+    pf_s = sum(s for s, k in zip(tick_s, tick_kind) if k == "prefill")
+    dc_s = sum(s for s, k in zip(tick_s, tick_kind) if k == "decode")
+    dc_tokens = sum(n for n, k in zip(tick_decoded, tick_kind)
+                    if k == "decode")
+    n_dc_ticks = tick_kind.count("decode")
+    result = {
+        "phase": "serve", "model": cfg.name, "layers": layers,
+        "depth_cut": f"{layers} of {full_layers} layers",
+        "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+        "experts": cfg.moe.n_experts, "top_k": cfg.moe.top_k,
+        "base": "M8F8 (drawn and quantized one layer at a time)",
+        "max_len": max_len, "prompt_lens": [len(r.prompt) for r in reqs],
+        "checked": checked, "quantized_matrices": n_quant,
+        "grouped_stacks": n_grouped, "adapters": 2,
+        "lora_rank": cfg.lora.rank, "requests": n_requests,
+        "prompt_tokens": int(sum(len(r.prompt) for r in reqs)),
+        "setup_s": setup_s, "serve_s": serve_s, "reference_s": ref_s,
+        "ticks": n_ticks, "traced_ticks": n_traced,
+        "traced_decode_ticks": trace,
+        "prefill_ticks": len(tick_s) - n_dc_ticks,
+        "decode_ticks": n_dc_ticks,
+        "ms_per_tick": 1e3 * serve_s / max(len(tick_s), 1),
+        "ms_per_prefill_tick": 1e3 * pf_s / max(len(tick_s) - n_dc_ticks, 1),
+        "ms_per_decode_tick": 1e3 * dc_s / max(n_dc_ticks, 1),
+        "prefill_tick_ms": [1e3 * s for s, k in zip(tick_s, tick_kind)
+                            if k == "prefill"],
+        "decode_tick_ms": [1e3 * s for s, k in zip(tick_s, tick_kind)
+                           if k == "decode"],
+        "prefill_tokens": st.prefill_tokens,
+        "decode_tokens": st.decode_tokens,
+        "decode_tok_s": dc_tokens / max(dc_s, 1e-9),
+        "tok_s": (st.prefill_tokens + st.decode_tokens) / serve_s,
+        "prefix_cache_enabled": st.prefix_cache.enabled,
+        "prefix_hit_tokens": st.prefix_cache.hit_tokens,
+        "preemptions": st.scheduler.preemptions,
+        "moe": {"dispatch": st.moe.dispatch,
+                "dropped_tokens": st.moe.dropped_tokens},
+        "graphs": {"captured": cs.compiled_steps, "replays": cs.replays,
+                   "capture_ms": cs.capture_ms, "pool_bytes": graph_pool_bytes,
+                   "signatures": [list(sg) for sg in cs.step_signatures]},
+        "serve_launches": serve_launches,
+        "forward_launches": forward_launches, "forwards": n_forwards,
+        "logit_checks": checks, "logit_tol": LOGIT_TOL,
+        "flip_margin": FLIP_MARGIN,
+        "resident_weights_gb": resident_gb,
+        "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+        "kv_bytes": kv_bytes,
+    }
+    emit(result)
+    if problems:
+        raise AssertionError(f"{cfg.name}: " + "; ".join(problems))
+    del params
+    gc.collect()
+    return result, None
+
+
+def forward_phase(dev, cfg, *, layers=None, embeds=False, prompt_len=512,
+                  decode_steps=4, seed=0):
+    """A teacher-forced forward at full width (``layers`` cuts the depth):
+    a prefill of ``prompt_len`` positions, then ``decode_steps`` decode
+    steps over the dense cache, from tokens or (``embeds``) from
+    precomputed embeddings, through the kernels on an M8F8 base and
+    through the plain versions (dequantized weights, ``ref_attention``)
+    on the same weights and inputs: the launches exact per forward, the
+    logits of every position held to ``LOGIT_TOL`` before the first
+    routing flip (MoE)."""
+    from repro_torch import kernels
+    from repro_torch.configs.base import QuantConfig
+    from repro_torch.core import quant
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tfm
+
+    full_layers = cfg.n_layers
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    t0 = time.perf_counter()
+    params = tfm.init_quantized_params(cfg, g, QuantConfig(mha_bits=8,
+                                                           ff_bits=8),
+                                       device=dev)
+    n_quant, n_grouped = quantized_kinds(params["layers"])
+    T = prompt_len + decode_steps
+    if embeds:
+        stream = [{"embeds": 0.02 * torch.randn(1, n, cfg.d_model,
+                                                generator=g, device=dev)}
+                  for n in (prompt_len,) + (1,) * decode_steps]
+    else:
+        toks = torch.randint(0, cfg.vocab_size, (1, T), generator=g,
+                             device=dev)
+        stream = [{"tokens": toks[:, :prompt_len]}] + [
+            {"tokens": toks[:, prompt_len + i:prompt_len + i + 1]}
+            for i in range(decode_steps)]
+    setup_s = time.perf_counter() - t0
+    L = cfg.n_layers
+    has_moe = n_grouped > 0
+
+    def run(p, ec):
+        moe.ROUTES = [] if has_moe else None
+        try:
+            lg, cache, _ = tfm.forward(cfg, p, stream[0], mode="prefill",
+                                       prefill_cache_len=T, exec_cfg=ec)
+            rows = [lg[0]]
+            for inp in stream[1:]:
+                lg, cache, _ = tfm.forward(cfg, p, inp, mode="decode",
+                                           cache=cache, exec_cfg=ec)
+                rows.append(lg[0])
+            routes = forward_routes(moe.ROUTES, L) if has_moe else None
+            margins = (forward_routes(moe.ROUTES, L, "margin") if has_moe
+                       else None)
+        finally:
+            moe.ROUTES = None
+        return torch.cat(rows), routes, margins
+
+    kernels.reset_launches()
+    t = time.perf_counter()
+    lk, ek, _ = run(params, tfm.ExecConfig(moe_dispatch="dropless"))
+    torch.cuda.synchronize()
+    kernel_s = time.perf_counter() - t
+    launches = {k: n for k, n in kernels.LAUNCHES.items() if n}
+    n_fwd = 1 + decode_steps
+    want = {"crossbar_matmul": n_quant * n_fwd, "flash_attention": L * n_fwd}
+    if has_moe:
+        want["grouped_crossbar_matmul"] = n_grouped * n_fwd
+    plain = quant.dequantize_params(params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    lp, ep, mp = run(plain, tfm.ExecConfig(attn_impl="ref",
+                                           moe_dispatch="dropless"))
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t
+    if has_moe:
+        check = routing_check(ek, ep, mp, 0, lk, lp)
+    else:
+        check = {"flips": [], "checked_rows": T, "rows": T,
+                 "max_abs_err": float((lk - lp).abs().max()),
+                 "flip_over_margin": []}
+    result = {
+        "phase": "forward", "model": cfg.name, "layers": L,
+        "depth_cut": (f"{L} of {full_layers} layers" if L != full_layers
+                      else None),
+        "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads],
+        "head_dim": cfg.hd, "input": "embeds" if embeds else "tokens",
+        "prompt_len": prompt_len, "decode_steps": decode_steps,
+        "window": cfg.attn.window, "base": "M8F8",
+        "quantized_matrices": n_quant, "grouped_stacks": n_grouped,
+        "launches": launches, "expected_launches": want,
+        "setup_s": setup_s, "kernel_s": kernel_s, "plain_s": plain_s,
+        "finite": bool(torch.isfinite(lk).all()),
+        "max_abs_logit": float(lp.abs().max()), "logit_tol": LOGIT_TOL,
+        "check": check,
+    }
+    emit(result)
+    problems = []
+    if launches != want:
+        problems.append(f"launched {launches}, expected {want}")
+    if not result["finite"]:
+        problems.append("non-finite logits")
+    if check["flip_over_margin"]:
+        problems.append(f"routing flips at margins >= {FLIP_MARGIN}")
+    if check["max_abs_err"] is None or check["max_abs_err"] > LOGIT_TOL:
+        problems.append(f"logits differ by {check['max_abs_err']}")
+    if problems:
+        raise AssertionError(f"{cfg.name} forward: " + "; ".join(problems))
+    del plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result
+
+
 def port_kernel_counts(kern, counts):
     """Each ``LAUNCHED_AS`` entry's port kernels among the trace events
     ``kern``, and its ``kernels.LAUNCHES`` delta from ``counts``."""
@@ -2097,8 +2857,8 @@ def traced_ticks(eng, n, tick):
     # the port's own kernels (csrc/*.cu), whatever their share of the tick
     own = {k: us / 1e3 / n for k, us in by_name.items()
            if any(f"(anonymous namespace)::{m}" in k
-                  for m in CB_KERNELS + FA_KERNELS + RING_KERNELS
-                  + WKV_KERNELS)}
+                  for m in CB_KERNELS + GROUPED_KERNELS + FA_KERNELS
+                  + RING_KERNELS + WKV_KERNELS)}
     out = {"ticks": n, "traced_wall_ms_per_tick": wall_ms / n,
            "device_ms_per_tick": device_ms / n if kern else None,
            "device_busy_share": device_ms / wall_ms if kern else None,
@@ -2108,7 +2868,8 @@ def traced_ticks(eng, n, tick):
            "replayed": replayed, "trace_lost_launches": lost,
            "top_device_ms_per_tick": {k: us / 1e3 / n for k, us in top},
            "port_kernels_device_ms_per_tick": own}
-    for label, names in (("crossbar", CB_KERNELS), ("flash", FA_KERNELS),
+    for label, names in (("crossbar", CB_KERNELS),
+                         ("grouped", GROUPED_KERNELS), ("flash", FA_KERNELS),
                          ("ring_flash", RING_KERNELS), ("wkv", WKV_KERNELS)):
         ms = sum(v for k, v in own.items()
                  if any(f"(anonymous namespace)::{m}" in k for m in names))
@@ -2348,6 +3109,7 @@ def train_launches(cfg, n_quant, microbatches, seq=TRAIN_SEQ, remat=False):
 # launch whose kernel record the trace lost is named by its range
 PORT_LAUNCHERS = (
     ("repro_torch.kernels.crossbar_matmul.ops", "_launch"),
+    ("repro_torch.kernels.crossbar_matmul.ops", "grouped_crossbar_matmul"),
     ("repro_torch.kernels.crossbar_matmul.ops", "crossbar_matmul_t"),
     ("repro_torch.kernels.flash_attention.ops", "_launch"),
     ("repro_torch.kernels.flash_attention.ops", "flash_attention_bwd"),
@@ -2890,7 +3652,8 @@ def fig13_counted_finetune(dev, steps=FIG13_COUNTED_STEPS):
 def figures_phase(dev):
     """Fig. 9 (``benchmarks/torch_noise.py``), Fig. 13
     (``benchmarks/torch_quant_perplexity.py``) at their full protocols and
-    the serving-throughput workloads 1-3 at the JAX script's smoke sizes
+    the serving-throughput workloads 1-3 and 5 at the JAX script's smoke
+    sizes
     (``benchmarks/torch_serve_throughput.py``), each on the card with the
     counts zeroed just before and read just after; one line each with its
     payload and seconds. Fails on a non-finite number, a greedy check that
@@ -2933,8 +3696,12 @@ def figures_phase(dev):
         if name.startswith("serve") and not (
                 payload["paged"]["greedy_matches_dense_oracle"]
                 and payload["shared_prefix"]["greedy_matches_dense_oracle"]
-                and payload["spec_decode"]["greedy_matches_dense_oracle"]):
+                and payload["spec_decode"]["greedy_matches_dense_oracle"]
+                and payload["moe_dropless"]["greedy_matches_dense_oracle"]):
             problems.append("a greedy check failed")
+        if name.startswith("serve") and not (
+                payload["moe_dropless"]["capacity_dropped_tokens"] > 0):
+            problems.append("the MoE capacity baseline dropped nothing")
         if problems:
             raise AssertionError(f"{name}: " + "; ".join(problems))
         out[name] = {"seconds": seconds, "launches": launches,
@@ -2948,12 +3715,23 @@ def figures_phase(dev):
 
 # the models served, in order, and those whose engine is then profiled
 SERVED = ("llama3.2-1b", "gemma2-9b", "rwkv6-7b", "paper-gpt2-medium",
-          "paper-bloom-560m")
+          "paper-bloom-560m", "llama4-scout-17b-a16e")
 # a model's serve geometry where not the default: gemma2-9b's two long
 # prompts pass its 4096-token window (its rings wrap), and a window of its
-# graph decode ticks is traced
+# graph decode ticks is traced; llama4-scout (``moe_serve_phase``) at 24
+# of its 48 layers (the M8F8 codes of 48 would take 106 GB), with a traced
+# window of graph decode ticks
 SERVE_KW = {"gemma2-9b": dict(max_len=5120, long_prompts=(2, (4300, 4800)),
-                              trace_decode=(8, 8))}
+                              trace_decode=(8, 8)),
+            "llama4-scout-17b-a16e": dict(layers=24, trace_decode=(8, 8))}
+# the forwards at full width after the serves (``forward_phase``):
+# mixtral-8x22b at 2 of its 56 layers (top-2 over 8 experts, a prompt past
+# its 4096 window: GQA group 6 through the windowed flash kernel, then
+# decode over the ring), musicgen-medium at full depth from embeddings
+FORWARDS = (("mixtral-8x22b", dict(layers=2, prompt_len=4400,
+                                   decode_steps=4)),
+            ("musicgen-medium", dict(embeds=True, prompt_len=512,
+                                     decode_steps=4)))
 PROFILED = ("llama3.2-1b", "rwkv6-7b", "paper-gpt2-medium")
 # the models the dense oracle engine also serves (after the paged one)
 DENSE = ("llama3.2-1b",)
@@ -3017,13 +3795,22 @@ def main() -> int:
     serves = {}
     for arch in SERVED:
         cfg = get_config(arch)
-        serves[arch], eng = serve_phase(dev, cfg, dense=arch in DENSE,
-                                        specs=SPEC.get(arch, ()),
-                                        persist=arch in PERSISTED,
-                                        **SERVE_KW.get(arch, {}))
+        if cfg.moe is not None:
+            serves[arch], eng = moe_serve_phase(dev, cfg,
+                                                **SERVE_KW.get(arch, {}))
+        else:
+            serves[arch], eng = serve_phase(dev, cfg, dense=arch in DENSE,
+                                            specs=SPEC.get(arch, ()),
+                                            persist=arch in PERSISTED,
+                                            **SERVE_KW.get(arch, {}))
         if arch in PROFILED:
             profile_phase(eng, cfg, dev)
         del eng                          # free the model before the next
+        gc.collect()
+        torch.cuda.empty_cache()
+    forwards = {}
+    for arch, kw in FORWARDS:
+        forwards[arch] = forward_phase(dev, get_config(arch), **kw)
         gc.collect()
         torch.cuda.empty_cache()
     trains = {}
@@ -3048,11 +3835,16 @@ def main() -> int:
     paths.update({f"{a} {k}": r[f"{k}_launches"] for a, r in serves.items()
                   for k in ("spec", "selfdraft", "persist")
                   if f"{k}_launches" in r})
+    paths.update({f"{a} forward": r["launches"]
+                  for a, r in forwards.items()})
     paths.update({f"{a} train": r["run_launches"] for a, r in trains.items()})
     paths.update({f"{f} figure": r["launches"] for f, r in figures.items()})
     rep = {"crossbar_matmul": ("llama3.2-1b serve",
                                {"bits": 8, "model": "llama3.2-1b",
                                 "shape": {"M": 8, "K": 2048, "N": 8192}}),
+           "grouped_crossbar_matmul": ("llama4-scout-17b-a16e serve",
+                                       {"bits": 8, "case": "decode_spread",
+                                        "model": "llama4-scout-17b-a16e"}),
            "flash_attention": ("llama3.2-1b forward",
                                {"case": "prefill", "model": "llama3.2-1b"}),
            "paged_flash_attention": ("llama3.2-1b serve",
@@ -3073,6 +3865,8 @@ def main() -> int:
            "rwkv6_wkv_bwd": ("rwkv6-7b train", {"case": "microbatch",
                                                 "kernel": "chunk"})}
     sources = {"crossbar_matmul": "src/repro_torch/csrc/crossbar_matmul.cu",
+               "grouped_crossbar_matmul":
+                   "src/repro_torch/csrc/crossbar_matmul.cu",
                "crossbar_matmul_t": "src/repro_torch/csrc/crossbar_matmul.cu",
                "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
                "flash_attention_bwd":
@@ -3088,6 +3882,8 @@ def main() -> int:
     # autodiff around the same Pallas kernels' functions
     replaces = {
         "crossbar_matmul": "src/repro/kernels/crossbar_matmul/kernel.py:102",
+        "grouped_crossbar_matmul":
+            "src/repro/kernels/crossbar_matmul/kernel.py:102",
         "crossbar_matmul_t": "src/repro/kernels/crossbar_matmul/kernel.py:102",
         "flash_attention": "src/repro/kernels/flash_attention/kernel.py:81",
         "flash_attention_bwd": "src/repro/kernels/flash_attention/kernel.py:81",
@@ -3105,6 +3901,12 @@ def main() -> int:
         "flash_attention_bwd":
             "src/repro/models/attention.py:244 (blocked_attention's VJP)",
         "rwkv6_wkv_bwd": "src/repro/models/rwkv.py:83 (wkv_scan)"}
+    # what the JAX package computes in place of the grouped kernel, outside
+    # any Pallas call
+    einsum_of = {
+        "grouped_crossbar_matmul":
+            "src/repro/models/moe.py:213 (static_einsum over the dequantized "
+            "expert stack, C = T rows per slot)"}
     summary = []
     for name, (path, sel) in rep.items():
         c = next(c for c in cases if c["name"] == name
@@ -3114,6 +3916,8 @@ def main() -> int:
             "replaces": replaces[name],
             **({"jax_autodiff_of": autodiff_of[name]}
                if name in autodiff_of else {}),
+            **({"jax_einsum_of": einsum_of[name]}
+               if name in einsum_of else {}),
             "launches": paths[path][name], "path": path,
             "launches_by_path": {p: counts.get(name, 0)
                                  for p, counts in paths.items()},
@@ -3127,8 +3931,9 @@ def main() -> int:
             "at": c["shape"]})
         if name != "crossbar_matmul":   # every case of the kernel beside it
             summary[-1]["cases"] = [
-                {k: o[k] for k in ("case", "model", "kernel", "shape",
-                                   "max_abs_err", "tol", "max_rel_err",
+                {k: o[k] for k in ("case", "model", "kernel", "bits",
+                                   "shape", "max_abs_err", "tol",
+                                   "max_rel_err",
                                    "same_bits",
                                    "tol_rel", "ms", "device_ms",
                                    "host_us", "plain_ms",

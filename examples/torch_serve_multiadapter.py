@@ -16,13 +16,12 @@ once, and rejected tokens roll the paged KV write cursor back:
     PYTHONPATH=src python examples/torch_serve_multiadapter.py \
         --spec-decode --draft ngram --spec-k 4
 
-The JAX example serves reduced mistral-nemo-12b, whose config the port
-does not carry yet (ROADMAP Queue 1 item 19); this one serves reduced
-llama3.2-1b at the same widths (d_model 128, 4 heads). The flags are the
-JAX example's. ``--draft selfdraft`` raises ``ValueError`` on this
-example's M8F8 base: the self-drafter quantizes the target's weights
-itself and takes no quantized base (the JAX example fails there too:
-its ``quantize_params`` cannot requantize ``QuantizedTensor`` leaves).
+It serves reduced mistral-nemo-12b (d_model 128, 4 heads), as the JAX
+example does. The flags are the JAX example's. ``--draft selfdraft``
+raises ``ValueError`` on this example's M8F8 base: the self-drafter
+quantizes the target's weights itself and takes no quantized base (the
+JAX example fails there too: its ``quantize_params`` cannot requantize
+``QuantizedTensor`` leaves).
 ``--tp`` above 1 raises ``NotImplementedError`` (ROADMAP Queue 1 item 16).
 """
 import argparse
@@ -58,7 +57,7 @@ if args.tp > 1:
                               "(ROADMAP Queue 1 item 16)")
 dev = resolve_device(args.device)
 
-cfg = reduce_config(get_config("llama3.2-1b"), d_model=128, n_heads=4)
+cfg = reduce_config(get_config("mistral-nemo-12b"), d_model=128, n_heads=4)
 g = torch.Generator(device=dev).manual_seed(0)
 base = quant.quantize_params(init_params(cfg, g, device=dev),
                              QuantConfig(mha_bits=8, ff_bits=8), min_size=1)

@@ -93,6 +93,52 @@ def static_matmul(x: torch.Tensor, w, *, noise: Optional[NoiseConfig] = None,
     return torch.matmul(x, w.to(x.dtype))
 
 
+def static_grouped_matmul(x: torch.Tensor, w, bases: torch.Tensor,
+                          counts: torch.Tensor, *, kernel: Optional[str],
+                          jax_rows: int, noise: Optional[NoiseConfig] = None,
+                          rng: Optional[torch.Generator] = None
+                          ) -> torch.Tensor:
+    """The expert products of a mixture-of-experts layer on the STATIC
+    engine: the port's counterpart of the JAX package's ``static_einsum``
+    ("sbcd,sdf->sbcf" over the slots' stacked weights).
+
+    ``x`` (R, K) holds the routed rows grouped by slot (``models.moe``'s
+    compact buffer: slot s owns rows ``bases[s]`` .. ``bases[s] +
+    counts[s] - 1``) and ``w`` stacks the slots' (K, N) weights. A
+    quantized ``w`` goes to the ``grouped_crossbar_matmul`` kernel with
+    ``kernel`` ("decode" or "prefill", which fixed the buffer's row tile);
+    a plain one (or a noisy one: noise-aware fine-tuning perturbs the
+    dequantized stack with noise drawn from ``rng``) to a dense product per
+    slot. The tally counts what the JAX package's einsum counts:
+    2 * slots * ``jax_rows`` * K * N, its buffer holding ``jax_rows`` rows
+    per slot (B * C), whatever rows the port computes."""
+    slots, K, N = w.shape[-3:]
+    _record(STATIC, 2.0 * slots * jax_rows * K * N)
+    if noise is not None and noise.enabled:
+        wd = (quant.dequantize(w, x.dtype) if quant.is_quantized(w)
+              else w.to(x.dtype))
+        return _dense_grouped(x, apply_weight_noise(wd, noise, rng), bases,
+                              counts)
+    if quant.is_quantized(w):
+        return cb_ops.grouped_crossbar_matmul(x, w, bases, counts, kernel)
+    return _dense_grouped(x, w.to(x.dtype), bases, counts)
+
+
+def _dense_grouped(x: torch.Tensor, w: torch.Tensor, bases: torch.Tensor,
+                   counts: torch.Tensor) -> torch.Tensor:
+    """``grouped_crossbar_matmul``'s function on a dense (slots, K, N) stack,
+    with no host read (a CUDA graph captures it): each slot's product over
+    every row, kept where the row is one of its live rows (``torch.where``,
+    so the other rows' values never reach the result); 0 elsewhere."""
+    r = torch.arange(x.shape[0], device=x.device)
+    out = torch.zeros((x.shape[0], w.shape[-1]), device=x.device,
+                      dtype=x.dtype)
+    for s in range(w.shape[0]):
+        live = (r >= bases[s]) & (r < bases[s] + counts[s])
+        out = torch.where(live[:, None], torch.matmul(x, w[s]), out)
+    return out
+
+
 def dynamic_matmul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Dynamic-operand matmul ``x (..., m, k) @ y (..., k, n)``."""
     k = x.shape[-1]

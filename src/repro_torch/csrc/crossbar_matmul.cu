@@ -83,6 +83,22 @@
 // codes (row 2i = low nibble, 2i + 1 = high nibble), mask ragged M and K
 // (x beyond M or K reads as 0) and write only up to the original N.
 //
+// grouped (grouped_crossbar_matmul: a mixture-of-experts layer's expert
+//   products). Replaces what the JAX package computes outside any Pallas
+//   call as static_einsum("sbcd,sdf->sbcf") over a dequantized (slots, d,
+//   f) stack (src/repro/models/moe.py apply_moe, src/repro/core/hetero.py
+//   static_einsum), on a buffer of C = T rows per slot. Here the routed
+//   (token, slot) assignments lie compactly in one buffer, grouped by
+//   slot, each slot's rows padded to the kernel's row tile; y[r] =
+//   x[r] @ dequant(codes[s], scales[s]) for the live rows r of slot s, 0
+//   in every other row. Design: the decode and prefill kernels above, with
+//   the slot taken from the row tile (group_of: the slots' bases and
+//   counts are read from device memory, so the grid depends only on the
+//   buffer's size and a CUDA graph replays the call for any routing); a
+//   tile of padding only is zeroed without reading a code, so a decode
+//   tick reads the codes of the experts its rows hit and no others. The
+//   same per-crossbar scaling of each 128-deep K tile's partial sum.
+//
 // transposed (crossbar_matmul_t: the backward of x, dx = g . dequant(W)^T)
 //   Replaces what the JAX package gets from autodiff of its dequantize-
 //   then-dot_general (src/repro/core/hetero.py static_matmul): dx (M, K) =
@@ -191,6 +207,36 @@ __device__ __forceinline__ float code_at(const uint32_t (&rw)[4][4], int row,
 }
 
 // ---------------------------------------------------------------------------
+// grouped rows (grouped_crossbar_matmul): the rows of x and out are grouped
+// by slot. Slot s holds rows bases[s] .. bases[s] + counts[s] - 1 (its live
+// rows), then padding up to bases[s + 1]; rows from bases[slots] on are
+// padding too. Every base is a multiple of the kernel's row tile (8 rows
+// decode, 64 prefill), so a tile lies in one slot.
+// ---------------------------------------------------------------------------
+
+// The slot that holds row m0 (*slot; `slots` when none does) and the end
+// of its live rows (m0 when the tile holds padding only).
+__device__ __forceinline__ int group_of(const int* __restrict__ bases,
+                                        const int* __restrict__ counts,
+                                        int slots, int m0, int* slot) {
+  int s = 0;
+  while (s < slots && __ldg(bases + s + 1) <= m0) ++s;
+  *slot = s;
+  return s < slots ? __ldg(bases + s) + __ldg(counts + s) : m0;
+}
+
+// Zeros of out rows m0 .. m0 + rows - 1, columns n0 .. n0 + cols - 1 (those
+// below M and N), written by the whole block.
+__device__ __forceinline__ void zero_tile(float* __restrict__ out, int m0,
+                                          int rows, int n0, int cols, int M,
+                                          int N) {
+  for (int i = threadIdx.x; i < rows * cols; i += blockDim.x) {
+    const int m = m0 + i / cols, n = n0 + i % cols;
+    if (m < M && n < N) out[static_cast<size_t>(m) * N + n] = 0.f;
+  }
+}
+
+// ---------------------------------------------------------------------------
 // decode: split-K, cp.async ring, mma.sync with swapped operands
 // ---------------------------------------------------------------------------
 
@@ -266,14 +312,17 @@ __device__ __forceinline__ uint4 lds128(uint32_t saddr) {
 // fragment value d[j][v] is m = m0 + 2 t + (v & 1), n = n0 + 16 g + 2 j +
 // (v >> 1). Each thread copies (cp.async) exactly the bytes it reads back,
 // so the ring needs no barrier: a step's group is waited on by its thread.
-template <int BITS>
-__global__ void __launch_bounds__(kDecWarps * 32, 4)
-crossbar_decode_kernel(const float* __restrict__ x,
-                       const uint8_t* __restrict__ codes,
-                       const float* __restrict__ scales,
-                       float* __restrict__ out, float* __restrict__ partials,
-                       int* __restrict__ tickets, int M, int K, int N, int Kp,
-                       int Np, int x_vec) {
+//
+// The body is shared with the grouped entry point (GROUPED: the rows of x
+// belong to slots, each with its own codes; see group_of).
+template <int BITS, bool GROUPED>
+__device__ __forceinline__ void decode_body(
+    const float* __restrict__ x, const uint8_t* __restrict__ codes,
+    const float* __restrict__ scales, float* __restrict__ out,
+    float* __restrict__ partials, int* __restrict__ tickets, int M, int K,
+    int N, int Kp, int Np, int x_vec, const int* __restrict__ bases,
+    const int* __restrict__ counts, int slots, size_t code_stride,
+    int scale_stride) {
   constexpr int kLoads = BITS == 8 ? 4 : 2;   // 16-byte code rows per step
   __shared__ bool last;
   extern __shared__ __align__(16) uint8_t dsmem[];
@@ -283,13 +332,25 @@ crossbar_decode_kernel(const float* __restrict__ x,
   const int S = gridDim.x, rank = blockIdx.x;
   const int m0 = blockIdx.y * 8;
   const int nt = blockIdx.z, n0 = nt * kCrossbar;
+  int Mx = M;   // rows of x that hold data: the rest read as 0
+  if constexpr (GROUPED) {
+    int slot;
+    const int live = group_of(bases, counts, slots, m0, &slot);
+    if (m0 >= live) {   // padding only: zeros, and no code is read
+      if (rank == 0) zero_tile(out, m0, 8, n0, kCrossbar, M, N);
+      return;
+    }
+    Mx = live;
+    codes += slot * code_stride;
+    scales += static_cast<size_t>(slot) * scale_stride;
+  }
   const int n_nt = Np / kCrossbar, n_kt = Kp / kCrossbar;
   const int stride = S * kDecWarps;           // K tiles between a warp's own
   const int first = rank * kDecWarps + warp;  // this warp's first K tile
   const int n_tiles = first < n_kt ? (n_kt - first + stride - 1) / stride : 0;
   const int n_steps = n_tiles * kDecSteps;
   const int xm = m0 + g;
-  const float* xrow = x + static_cast<size_t>(xm < M ? xm : 0) * K;
+  const float* xrow = x + static_cast<size_t>(xm < Mx ? xm : 0) * K;
   const uint8_t* ccol = codes + n0 + 16 * g;
   const uint32_t ring = static_cast<uint32_t>(__cvta_generic_to_shared(dsmem)) +
                         warp * kDecStages * kDecSlot;
@@ -312,12 +373,12 @@ crossbar_decode_kernel(const float* __restrict__ x,
     }
     const uint32_t xs = slot + 16 * 128 + 16 * lane;
     if (x_vec) {
-      const bool live = xm < M && k < K;   // K % 4 == 0: all 4 or none
+      const bool live = xm < Mx && k < K;   // K % 4 == 0: all 4 or none
       cp_async16(xs, live ? xrow + k : x, live ? 16 : 0);
     } else {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const bool live = xm < M && k + e < K;
+        const bool live = xm < Mx && k + e < K;
         cp_async4(xs + 4 * e, live ? xrow + k + e : x, live ? 4 : 0);
       }
     }
@@ -464,6 +525,33 @@ crossbar_decode_kernel(const float* __restrict__ x,
   if (threadIdx.x == 0) tickets[tile] = 0;   // ready for the next call
 }
 
+template <int BITS>
+__global__ void __launch_bounds__(kDecWarps * 32, 4)
+crossbar_decode_kernel(const float* __restrict__ x,
+                       const uint8_t* __restrict__ codes,
+                       const float* __restrict__ scales,
+                       float* __restrict__ out, float* __restrict__ partials,
+                       int* __restrict__ tickets, int M, int K, int N, int Kp,
+                       int Np, int x_vec) {
+  decode_body<BITS, false>(x, codes, scales, out, partials, tickets, M, K, N,
+                           Kp, Np, x_vec, nullptr, nullptr, 0, 0, 0);
+}
+
+template <int BITS>
+__global__ void __launch_bounds__(kDecWarps * 32, 4)
+grouped_decode_kernel(const float* __restrict__ x,
+                      const uint8_t* __restrict__ codes,
+                      const float* __restrict__ scales,
+                      float* __restrict__ out, float* __restrict__ partials,
+                      int* __restrict__ tickets, int M, int K, int N, int Kp,
+                      int Np, int x_vec, const int* __restrict__ bases,
+                      const int* __restrict__ counts, int slots,
+                      size_t code_stride, int scale_stride) {
+  decode_body<BITS, true>(x, codes, scales, out, partials, tickets, M, K, N,
+                          Kp, Np, x_vec, bases, counts, slots, code_stride,
+                          scale_stride);
+}
+
 // SMs of the card (of the first device asked: one card model)
 int sm_count() {
   static int sms = 0;
@@ -589,14 +677,17 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
 // (kg = lane % 16) of columns 16 ng .. +15 (ng = 2 warp + lane / 16),
 // written transposed (K-major) as 8-byte runs of 4 k; x row tid / 4, 16 k
 // from 16 (tid % 4), written as 16-byte runs of each piece.
-template <int BITS>
-__global__ void __launch_bounds__(kPfThreads, 1)
-crossbar_prefill_kernel(const float* __restrict__ x,
-                        const uint8_t* __restrict__ codes,
-                        const float* __restrict__ scales,
-                        float* __restrict__ out, float* __restrict__ partials,
-                        int* __restrict__ tickets, int M, int K, int N, int Kp,
-                        int Np, int x_vec, int per) {
+//
+// The body is shared with the grouped entry point (GROUPED, as in the
+// decode kernel).
+template <int BITS, bool GROUPED>
+__device__ __forceinline__ void prefill_body(
+    const float* __restrict__ x, const uint8_t* __restrict__ codes,
+    const float* __restrict__ scales, float* __restrict__ out,
+    float* __restrict__ partials, int* __restrict__ tickets, int M, int K,
+    int N, int Kp, int Np, int x_vec, int per, const int* __restrict__ bases,
+    const int* __restrict__ counts, int slots, size_t code_stride,
+    int scale_stride) {
   constexpr int kLoads = BITS == 8 ? 4 : 2;
   __shared__ bool last;
   extern __shared__ uint8_t smem_raw[];
@@ -611,6 +702,18 @@ crossbar_prefill_kernel(const float* __restrict__ x,
   const int n_nt = Np / kCrossbar, n_kt = Kp / kCrossbar;
   // this split's crossbar tiles, as 64-deep stages (two per tile)
   const int S = gridDim.z, rank = blockIdx.z;
+  int Mx = M;   // rows of x that hold data: the rest read as 0
+  if constexpr (GROUPED) {
+    int slot;
+    const int live = group_of(bases, counts, slots, m0, &slot);
+    if (m0 >= live) {   // padding only: zeros, and no code is read
+      if (rank == 0) zero_tile(out, m0, kPfBM, n0, kPfBN, M, N);
+      return;
+    }
+    Mx = live;
+    codes += slot * code_stride;
+    scales += static_cast<size_t>(slot) * scale_stride;
+  }
   const int c0 = 2 * rank * per;
   const int c1 = 2 * (n_kt < (rank + 1) * per ? n_kt : (rank + 1) * per);
   const int nt = n0 / kCrossbar + wg;      // this warpgroup's crossbar column
@@ -620,7 +723,7 @@ crossbar_prefill_kernel(const float* __restrict__ x,
   const bool c_live = n0 + 16 * ng < Np;
   const uint8_t* ccol = codes + n0 + 16 * ng;
   const int xr = tid >> 2, xk = 16 * (tid & 3);
-  const bool x_live = m0 + xr < M;
+  const bool x_live = m0 + xr < Mx;
   const float* xrow = x + static_cast<size_t>(x_live ? m0 + xr : 0) * K;
 
   uint4 craw[kLoads];
@@ -756,6 +859,34 @@ crossbar_prefill_kernel(const float* __restrict__ x,
   }
 }
 
+template <int BITS>
+__global__ void __launch_bounds__(kPfThreads, 1)
+crossbar_prefill_kernel(const float* __restrict__ x,
+                        const uint8_t* __restrict__ codes,
+                        const float* __restrict__ scales,
+                        float* __restrict__ out, float* __restrict__ partials,
+                        int* __restrict__ tickets, int M, int K, int N, int Kp,
+                        int Np, int x_vec, int per) {
+  prefill_body<BITS, false>(x, codes, scales, out, partials, tickets, M, K,
+                            N, Kp, Np, x_vec, per, nullptr, nullptr, 0, 0, 0);
+}
+
+template <int BITS>
+__global__ void __launch_bounds__(kPfThreads, 1)
+grouped_prefill_kernel(const float* __restrict__ x,
+                       const uint8_t* __restrict__ codes,
+                       const float* __restrict__ scales,
+                       float* __restrict__ out, float* __restrict__ partials,
+                       int* __restrict__ tickets, int M, int K, int N, int Kp,
+                       int Np, int x_vec, int per,
+                       const int* __restrict__ bases,
+                       const int* __restrict__ counts, int slots,
+                       size_t code_stride, int scale_stride) {
+  prefill_body<BITS, true>(x, codes, scales, out, partials, tickets, M, K, N,
+                           Kp, Np, x_vec, per, bases, counts, slots,
+                           code_stride, scale_stride);
+}
+
 // (M tile, N tile) pairs of the prefill kernel: one ticket each
 int prefill_tiles(int M, int Np) {
   return ((Np + kPfBN - 1) / kPfBN) * ((M + kPfBM - 1) / kPfBM);
@@ -802,6 +933,52 @@ cudaError_t launch_prefill(const float* x, const uint8_t* codes,
   crossbar_prefill_kernel<BITS><<<grid, kPfThreads, kPfSmem, stream>>>(
       x, codes, scales, out, partials, tickets, M, K, N, Kp, Np, x_vec,
       prefill_per(M, Kp, Np));
+  return cudaGetLastError();
+}
+
+// The grouped entry point's launches: the plain kernels' grids over the
+// buffer's R rows, each block reading the codes of its row tile's slot.
+struct Groups {
+  const int* bases;
+  const int* counts;
+  int slots;
+  size_t code_stride;   // bytes of one slot's codes
+  int scale_stride;     // scales of one slot
+};
+
+template <int BITS>
+cudaError_t launch_grouped_decode(const float* x, const uint8_t* codes,
+                                  const float* scales, float* out,
+                                  float* partials, int* tickets, int R, int K,
+                                  int N, int Kp, int Np, int x_vec,
+                                  const Groups& gr, cudaStream_t stream) {
+  const dim3 grid(decode_splits(R, Kp, Np), R / 8, Np / kCrossbar);
+  grouped_decode_kernel<BITS><<<grid, kDecWarps * 32, kDecSmem, stream>>>(
+      x, codes, scales, out, partials, tickets, R, K, N, Kp, Np, x_vec,
+      gr.bases, gr.counts, gr.slots, gr.code_stride, gr.scale_stride);
+  return cudaGetLastError();
+}
+
+template <int BITS>
+cudaError_t launch_grouped_prefill(const float* x, const uint8_t* codes,
+                                   const float* scales, float* out,
+                                   float* partials, int* tickets, int R,
+                                   int K, int N, int Kp, int Np, int x_vec,
+                                   const Groups& gr, cudaStream_t stream) {
+  static bool configured = false;  // one attribute call per instantiation
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        grouped_prefill_kernel<BITS>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kPfSmem);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  const dim3 grid((Np + kPfBN - 1) / kPfBN, R / kPfBM,
+                  prefill_splits(R, Kp, Np));
+  grouped_prefill_kernel<BITS><<<grid, kPfThreads, kPfSmem, stream>>>(
+      x, codes, scales, out, partials, tickets, R, K, N, Kp, Np, x_vec,
+      prefill_per(R, Kp, Np), gr.bases, gr.counts, gr.slots, gr.code_stride,
+      gr.scale_stride);
   return cudaGetLastError();
 }
 
@@ -1092,6 +1269,69 @@ extern "C" int crossbar_matmul(const void* x, const void* codes,
                                   st)
               : launch_prefill<4>(xf, c, sc, o, pa, ti, M, K, N, Kp, Np, x_vec,
                                   st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// y[r] = x[r] (R, K) f32 @ dequant(codes[s], scales[s]) for every row r of
+// slot s's live rows (see group_of: bases (slots + 1) and counts (slots),
+// int32 on the device, bases multiples of the row tile), zeros in every
+// other row of out (R, N): the expert products of a mixture-of-experts
+// layer. codes (slots, Kp or Kp / 2, Np) and scales (slots, Kp / 128,
+// Np / 128) are the slots' weights stacked, each as crossbar_matmul takes
+// one. kernel 1 runs the decode kernel over 8-row tiles, 2 the prefill
+// kernel over 64-row tiles; R must be a multiple of the tile. The grid
+// is fixed by R: a block whose tile holds padding only writes its zeros
+// and reads no code, so a CUDA graph replays the call for any counts. The
+// workspace is crossbar_matmul_workspace(R, Kp, Np, bits, kernel)'s.
+// Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for
+// arguments the kernels do not take). Allocates nothing, does not
+// synchronise; runs on `stream`.
+extern "C" int grouped_crossbar_matmul(const void* x, const void* codes,
+                                       const void* scales, void* out,
+                                       void* partials, size_t n_partials,
+                                       void* tickets, int n_tickets,
+                                       const void* bases, const void* counts,
+                                       int slots, int R, int K, int N, int Kp,
+                                       int Np, int bits, int kernel,
+                                       void* stream) {
+  const int tile = kernel == 1 ? 8 : kPfBM;
+  if ((bits != 8 && bits != 4) || (kernel != 1 && kernel != 2) || R <= 0 ||
+      R % tile != 0 || slots <= 0 || K <= 0 || N <= 0 ||
+      Kp % kCrossbar != 0 || Np % kCrossbar != 0 || K > Kp || N > Np ||
+      R / tile > 65535 || Np / kCrossbar > 65535 ||
+      reinterpret_cast<uintptr_t>(codes) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool decode = kernel == 1;
+  const size_t need = decode ? decode_partials(R, Kp, Np)
+                             : prefill_partials(R, Kp, Np);
+  const int need_tickets =
+      need == 0 ? 0 : (decode ? decode_tiles(R, Np) : prefill_tiles(R, Np));
+  if (n_partials < need || n_tickets < need_tickets)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Groups gr{static_cast<const int*>(bases),
+                  static_cast<const int*>(counts), slots,
+                  static_cast<size_t>(Kp) * Np * bits / 8,
+                  (Kp / kCrossbar) * (Np / kCrossbar)};
+  const float* xf = static_cast<const float*>(x);
+  const uint8_t* c = static_cast<const uint8_t*>(codes);
+  const float* sc = static_cast<const float*>(scales);
+  float* o = static_cast<float*>(out);
+  float* pa = static_cast<float*>(partials);
+  int* ti = static_cast<int*>(tickets);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int x_vec = reinterpret_cast<uintptr_t>(x) % 16 == 0 && K % 4 == 0;
+  cudaError_t err;
+  if (decode)
+    err = bits == 8 ? launch_grouped_decode<8>(xf, c, sc, o, pa, ti, R, K, N,
+                                               Kp, Np, x_vec, gr, st)
+                    : launch_grouped_decode<4>(xf, c, sc, o, pa, ti, R, K, N,
+                                               Kp, Np, x_vec, gr, st);
+  else
+    err = bits == 8 ? launch_grouped_prefill<8>(xf, c, sc, o, pa, ti, R, K,
+                                                N, Kp, Np, x_vec, gr, st)
+                    : launch_grouped_prefill<4>(xf, c, sc, o, pa, ti, R, K,
+                                                N, Kp, Np, x_vec, gr, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -23,6 +23,7 @@ from typing import Dict
 import torch
 
 LAUNCHES: Dict[str, int] = {"crossbar_matmul": 0, "crossbar_matmul_t": 0,
+                            "grouped_crossbar_matmul": 0,
                             "flash_attention": 0, "flash_attention_bwd": 0,
                             "paged_flash_attention": 0,
                             "ring_flash_attention": 0, "rwkv6_wkv": 0,

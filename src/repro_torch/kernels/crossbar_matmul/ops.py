@@ -14,6 +14,18 @@ on either device. Its backward is ``crossbar_matmul_t`` (dx = g .
 dequant(W)^T from the same codes): the prefill kernel's wgmma design
 transposed on CUDA tensors, ``crossbar_matmul_t_plain`` on CPU tensors.
 The codes and scales get no gradient.
+
+``grouped_crossbar_matmul(x, qt, bases, counts, kernel)``: the expert
+products of a mixture-of-experts layer. ``qt`` stacks the slots' (K, N)
+weights as (slots, K, N); the rows of ``x`` (R, K) are grouped by slot
+(slot s owns rows ``bases[s]`` .. ``bases[s] + counts[s] - 1``, then
+padding to ``bases[s + 1]``; ``bases`` are multiples of the kernel's row
+tile, ``GROUPED_TILE``). Every live row gets its slot's product and every
+other row 0. On a CUDA tensor it launches the same source's grouped
+kernels, which read ``bases`` and ``counts`` from device memory (a CUDA
+graph captures the call whatever the routing); on a CPU tensor
+``grouped_crossbar_matmul_plain``. It has no backward yet (ROADMAP Queue 1
+item 26).
 """
 from __future__ import annotations
 
@@ -63,6 +75,11 @@ def _lib():
         lib.crossbar_matmul_workspace.argtypes = (
             [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)])
         lib.crossbar_matmul_workspace.restype = ctypes.c_size_t
+        lib.grouped_crossbar_matmul.argtypes = (
+            [ctypes.c_void_p] * 5 + [ctypes.c_size_t, ctypes.c_void_p,
+                                     ctypes.c_int]
+            + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+        lib.grouped_crossbar_matmul.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 
@@ -279,3 +296,148 @@ class CrossbarMatmulFn(torch.autograd.Function):
         if ctx.needs_input_grad[0]:
             dx = crossbar_matmul_t(g.contiguous(), ctx.qt)
         return dx, None, None
+
+
+# ---------------------------------------------------------------------------
+# grouped: the expert products of a mixture-of-experts layer
+# ---------------------------------------------------------------------------
+
+# rows a block of each grouped kernel owns: every slot's rows are padded to
+# a multiple of it
+GROUPED_TILE = {"decode": 8, "prefill": 64}
+DECODE_MAX_BYTES = 96 << 20     # csrc/crossbar_matmul.cu kDecodeMaxBytes
+
+
+def grouped_kernel(rows: int, qt: QuantizedTensor) -> str:
+    """The grouped kernel for ``rows`` routed assignments over the slots of
+    ``qt`` (slots, K, N), by ``picks_decode``'s rule on the rows a slot
+    holds when they spread over as many slots as they can: the decode
+    kernel while its passes over one slot's codes (one per 8 rows) read at
+    most 96 MiB, or make one pass."""
+    slots = qt.codes.shape[0]
+    per = -(-rows // max(1, min(rows, slots)))
+    passes = -(-per // 8)
+    code_bytes = qt.codes[0].numel()
+    return ("decode" if passes == 1 or passes * code_bytes
+            <= DECODE_MAX_BYTES else "prefill")
+
+
+def grouped_rows(rows: int, slots: int, tile: int) -> int:
+    """Rows of a grouped buffer that holds ``rows`` assignments over
+    ``slots`` slots, each slot's padded to a multiple of ``tile``: at most
+    ``tile - 1`` padding rows for each slot that holds any."""
+    n = rows + min(rows, slots) * (tile - 1)
+    return -(-n // tile) * tile
+
+
+def grouped_crossbar_matmul_plain(x: torch.Tensor, qt: QuantizedTensor,
+                                  bases: torch.Tensor,
+                                  counts: torch.Tensor) -> torch.Tensor:
+    """Per slot, dequantize then ``torch.matmul`` in f32 over its live rows;
+    every other row 0. Reads ``bases`` and ``counts`` on the host."""
+    out = torch.zeros((x.shape[0], qt.orig_shape[-1]), device=x.device,
+                      dtype=torch.float32)
+    xf = x.to(torch.float32)
+    for s, (b, c) in enumerate(zip(bases.tolist(), counts.tolist())):
+        if c:
+            w = dequantize(qt.layer(s), torch.float32)
+            out[b:b + c] = torch.matmul(xf[b:b + c], w)
+    return out.to(x.dtype)
+
+
+def _check_grouped(x, qt, bases, counts, kernel) -> None:
+    if qt.ndim != 3:
+        raise ValueError(f"grouped_crossbar_matmul takes a (slots, K, N) "
+                         f"weight, got orig_shape {qt.orig_shape}")
+    slots, K, N = qt.orig_shape
+    if qt.codes.shape[0] != slots:
+        raise ValueError(f"codes {tuple(qt.codes.shape)} of {slots} slots")
+    if x.ndim != 2 or x.shape[1] != K:
+        raise ValueError(f"x {tuple(x.shape)} @ weight ({slots}, {K}, {N}): "
+                         f"x must be (R, {K})")
+    if tuple(bases.shape) != (slots + 1,) or tuple(counts.shape) != (slots,):
+        raise ValueError(f"bases {tuple(bases.shape)} / counts "
+                         f"{tuple(counts.shape)} for {slots} slots")
+    if kernel not in GROUPED_TILE:
+        raise ValueError(f"kernel {kernel!r} (expected one of "
+                         f"{sorted(GROUPED_TILE)})")
+    if x.shape[0] % GROUPED_TILE[kernel]:
+        raise ValueError(f"{x.shape[0]} rows: the {kernel} kernel's buffer "
+                         f"is a multiple of {GROUPED_TILE[kernel]} rows")
+
+
+def _grouped_weight_kp(qt: QuantizedTensor, device: torch.device) -> int:
+    """``_check_weight`` for each slot's (K, N) weight; returns the padded
+    K. The stack must be contiguous (one slot's codes after another's)."""
+    kp = _weight_kp(qt.layer(0), device)
+    for name, t in (("codes", qt.codes), ("scales", qt.scales)):
+        if not t.is_contiguous():
+            raise ValueError(f"grouped_crossbar_matmul needs contiguous "
+                             f"{name}")
+    return kp
+
+
+def reserve_grouped_workspace(device: torch.device, weights, rows) -> None:
+    """Size ``device``'s workspace for every grouped call of each (slots,
+    K, N) weight of ``weights`` over each number of routed assignments in
+    ``rows`` (the kernel and buffer that ``models.moe`` picks for it)."""
+    most = (0, 0)
+    for qt in weights:
+        slots = qt.codes.shape[0]
+        kp = qt.codes.shape[-2] * (2 if qt.bits == 4 else 1)
+        for n in rows:
+            kernel = grouped_kernel(n, qt)
+            R = grouped_rows(n, slots, GROUPED_TILE[kernel])
+            p, t = _need(R, kp, qt.codes.shape[-1], qt.bits, KERNELS[kernel])
+            most = (max(most[0], p), max(most[1], t))
+    WORKSPACES.reserve(device.index, most)
+
+
+def grouped_crossbar_matmul(x: torch.Tensor, qt: QuantizedTensor,
+                            bases: torch.Tensor, counts: torch.Tensor,
+                            kernel: str) -> torch.Tensor:
+    """x (R, K) grouped by slot @ qt (slots, K, N) -> (R, N): each live row
+    of slot s times dequant(qt[s]), 0 in every other row. ``bases`` (slots
+    + 1,) and ``counts`` (slots,) int32 on x's device; ``kernel``
+    ("decode" or "prefill") fixes the row tile that ``bases`` respect.
+    No backward: a CUDA ``x`` that needs a gradient raises."""
+    _check_grouped(x, qt, bases, counts, kernel)
+    on_cpu = x.device.type == "cpu" and qt.device.type == "cpu"
+    if on_cpu:
+        return grouped_crossbar_matmul_plain(x, qt, bases, counts)
+    if x.device.type != "cuda":
+        raise ValueError(f"grouped_crossbar_matmul: x on {x.device}, weight "
+                         f"on {qt.device}")
+    if torch.is_grad_enabled() and x.requires_grad:
+        raise NotImplementedError(
+            "grouped_crossbar_matmul has no backward yet (ROADMAP Queue 1 "
+            "item 26: MoE training)")
+    _check_x(x)
+    for name, t in (("bases", bases), ("counts", counts)):
+        if t.dtype != torch.int32 or t.device != x.device:
+            raise TypeError(f"{name} must be int32 on {x.device}, got "
+                            f"{t.dtype} on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"grouped_crossbar_matmul needs contiguous "
+                             f"{name}")
+    kp = _grouped_weight_kp(qt, x.device)
+    slots, K, N = qt.orig_shape
+    R = x.shape[0]
+    out = torch.empty((R, N), device=x.device, dtype=torch.float32)
+    if R == 0:
+        return out
+    np_, kind = qt.codes.shape[-1], KERNELS[kernel]
+    dev = x.device.index
+    stream = torch._C._cuda_getCurrentRawStream(dev)
+    ws = WORKSPACES.pointers(_need(R, kp, np_, qt.bits, kind), dev)
+    rc = kernels.call_on(_lib().grouped_crossbar_matmul, dev, x.data_ptr(),
+                         qt.codes.data_ptr(), qt.scales.data_ptr(),
+                         out.data_ptr(), *ws, bases.data_ptr(),
+                         counts.data_ptr(), slots, R, K, N, kp, np_, qt.bits,
+                         kind, stream)
+    if rc != 0:
+        raise RuntimeError(f"grouped_crossbar_matmul launch failed: CUDA "
+                           f"error {rc} (R={R}, slots={slots}, K={K}, N={N}, "
+                           f"bits={qt.bits}, kernel={kernel})")
+    kernels.LAUNCHES["grouped_crossbar_matmul"] += 1
+    return out

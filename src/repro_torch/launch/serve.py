@@ -34,13 +34,23 @@ dense``), on the CUDA card by default.
       --smoke --device cpu --prompt-families 2 \\
       --prefix-cache-path build/prefix.npz
 
-The flags are the JAX launcher's (``repro.launch.serve``). Those whose
-feature is not ported yet (``--tp``, ``--moe-dispatch capacity``) raise
-``NotImplementedError`` with the paged engine; with ``--engine dense``
-they and ``--spec-decode`` exit with JAX's messages, and the dense oracle
-ignores ``--prefix-cache-path``, as JAX's does. The deprecated
+  # a mixture-of-experts model (dropless routing; ``--moe-dispatch
+  # capacity`` is the benchmark baseline, paged engine only)
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch llama4-scout-17b-a16e --smoke --device cpu \\
+      --moe-dispatch capacity
+
+The flags are the JAX launcher's (``repro.launch.serve``). ``--tp``, whose
+feature is not ported yet, raises ``NotImplementedError`` with the paged
+engine; with ``--engine dense`` it, ``--moe-dispatch capacity`` and
+``--spec-decode`` exit with JAX's messages, and the dense oracle ignores
+``--prefix-cache-path``, as JAX's does. The models that take precomputed
+embeddings (musicgen-medium, chameleon-34b) are served from tokens, as the
+JAX engines serve them. The deprecated
 ``--paged`` is left out. The base is quantized M8F8 with the port's
-``quantize_params``, as ``examples/serve_multiadapter.py`` does, except
+``quantize_params`` (one scan period at a time:
+``transformer.init_quantized_params``), as
+``examples/serve_multiadapter.py`` quantizes it, except
 under ``--draft selfdraft``: the self-drafter quantizes the base itself
 and takes an unquantized one only (``serve.spec.QuantSelfDrafter``), so
 the base stays f32 there, as the JAX launcher serves it.
@@ -57,8 +67,8 @@ from repro_torch import resolve_device
 from repro_torch.configs import get_config, reduce_config
 from repro_torch.configs.base import QuantConfig
 from repro_torch.core import lora as lora_lib
-from repro_torch.core import quant
-from repro_torch.models.transformer import init_params
+from repro_torch.models.transformer import (init_params,
+                                            init_quantized_params)
 from repro_torch.serve.api import Request, make_engine
 from repro_torch.serve.spec import SpecConfig
 
@@ -121,11 +131,14 @@ def main(argv=None):
     if args.smoke:
         cfg = reduce_config(cfg)
     g = torch.Generator(device=device).manual_seed(args.seed)
-    params = init_params(cfg, g, device=device)
     if spec is None or spec.drafter != "selfdraft":
-        params = quant.quantize_params(params,
-                                       QuantConfig(mha_bits=8, ff_bits=8),
-                                       min_size=1 if args.smoke else 1 << 16)
+        # drawn and quantized one scan period at a time: the f32 base of a
+        # large model is never whole on the device
+        params = init_quantized_params(
+            cfg, g, QuantConfig(mha_bits=8, ff_bits=8), device=device,
+            min_size=1 if args.smoke else 1 << 16)
+    else:
+        params = init_params(cfg, g, device=device)
     adapters = [lora_lib.init_lora_params(cfg, g, device=device)
                 for _ in range(args.adapters)]
     if args.engine == "paged":
@@ -170,6 +183,10 @@ def main(argv=None):
           f"{total_toks} tokens in {dt:.2f}s ({total_toks / dt:.1f} tok/s, "
           f"{args.adapters} adapters hot)")
     print(f"  stats: {eng.stats().as_dict()}")
+    moe_stats = eng.stats().moe
+    if moe_stats.enabled:
+        print(f"  moe[{moe_stats.dispatch}]: "
+              f"dropped_tokens={moe_stats.dropped_tokens}")
     if args.engine == "paged" and args.prefix_cache_path:
         if eng.prefix is None:
             print("  prefix cache disabled on this model: nothing saved")

@@ -1,6 +1,9 @@
 """Attention: the DYNAMIC-engine computation (Atleus MHA-2/MHA-3), PyTorch
 port of the full- and sliding-window-attention part of
-``repro.models.attention`` (qk-norm waits for ROADMAP Queue 1 item 19).
+``repro.models.attention``, with chameleon/llama4-style qk-norm (an f32
+RMS norm of each query and key head over head_dim, applied after the
+projections and their LoRA deltas and before RoPE, so the cached K is
+already normed and roped).
 
 Two implementations of the fused score + softmax + V step:
 
@@ -252,18 +255,27 @@ def paged_attend(cfg: ModelConfig, q, k, v, positions, pool: Dict, paged, *,
 
 def init_attn(cfg: ModelConfig, generator: torch.Generator, *, device, dtype,
               lead=()) -> Dict[str, torch.Tensor]:
-    if cfg.attn.qk_norm:
-        raise NotImplementedError("qk-norm is not ported yet (ROADMAP "
-                                  "Queue 1 item 19)")
     d = cfg.d_model
     kw = dict(device=device, dtype=dtype)
-    return {
+    p = {
         "wq": layers.dense_init(generator, (*lead, d, cfg.q_dim), **kw),
         "wk": layers.dense_init(generator, (*lead, d, cfg.kv_dim), **kw),
         "wv": layers.dense_init(generator, (*lead, d, cfg.kv_dim), **kw),
         "wo": layers.dense_init(generator, (*lead, cfg.q_dim, d),
                                 fan_in=cfg.q_dim, **kw),
     }
+    if cfg.attn.qk_norm:
+        p["q_norm"] = torch.ones((*lead, cfg.hd), **kw)
+        p["k_norm"] = torch.ones((*lead, cfg.hd), **kw)
+    return p
+
+
+def _qk_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    """RMS norm of each head over head_dim in f32, times ``scale`` (hd,)."""
+    xf = x.to(torch.float32)
+    var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)
+            * scale.to(torch.float32)).to(x.dtype)
 
 
 def apply_attention_block(
@@ -300,6 +312,9 @@ def apply_attention_block(
     q = proj("wq").reshape(B, T, cfg.n_heads, cfg.hd)
     k = proj("wk").reshape(B, T, cfg.n_kv_heads, cfg.hd)
     v = proj("wv").reshape(B, T, cfg.n_kv_heads, cfg.hd)
+    if cfg.attn.qk_norm:
+        q = _qk_norm(q, p["q_norm"], cfg.norm_eps)
+        k = _qk_norm(k, p["k_norm"], cfg.norm_eps)
 
     sin, cos = layers.rope_sincos(positions, cfg.hd, cfg.attn.rope_theta)
     q = layers.apply_rope(q, sin, cos)

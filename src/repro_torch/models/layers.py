@@ -120,11 +120,16 @@ def init_mlp(cfg: ModelConfig, generator: torch.Generator, *, device, dtype,
     return p
 
 
-def _act(cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
-    hetero.record_nonlinear(h.numel())
+def activation(cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
+    """The MLP's nonlinearity, uncounted (``_act`` counts it)."""
     if "silu" in cfg.mlp:
         return torch.nn.functional.silu(h)
     return torch.nn.functional.gelu(h, approximate="tanh")
+
+
+def _act(cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
+    hetero.record_nonlinear(h.numel())
+    return activation(cfg, h)
 
 
 def apply_mlp(cfg: ModelConfig, p, x: torch.Tensor, *,

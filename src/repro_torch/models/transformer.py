@@ -1,28 +1,29 @@
 """Config-driven decoder: embeds -> loop over period-blocks -> norm -> head
 (PyTorch port of ``repro.models.transformer`` for full- and
-sliding-window-attention and RWKV models).
+sliding-window-attention and RWKV blocks, each with a dense or a
+mixture-of-experts FF, from tokens or from precomputed embeddings).
 
 The JAX package scans over stacked scan periods with ``lax.scan``; the port
 runs the same layout as a Python loop, slicing one period's weights, LoRA
-leaves and cache views out of the stacked tensors. MoE and Mamba blocks
-wait for ROADMAP Queue 1 items 12-13.
+leaves and cache views out of the stacked tensors. Mamba blocks wait for
+ROADMAP Queue 1 item 13.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.utils.checkpoint
 
 from repro_torch import DeviceLike, resolve_device
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, QuantConfig
 from repro_torch.core import quant
-from repro_torch.core.lora import layer_slice, scan_period
+from repro_torch.core.lora import layer_slice, scan_period, tree_map
 from repro_torch.core.noise import NoiseConfig
 from repro_torch.kernels.crossbar_matmul import ops as cb_ops
 from repro_torch.kernels.flash_attention import ops as fa_ops
-from repro_torch.models import attention, layers, rwkv
+from repro_torch.models import attention, layers, moe, rwkv
 from repro_torch.models.kvcache import (cache_len, position_cache_spec,
                                         zeros_from_spec)
 
@@ -40,13 +41,19 @@ class ExecConfig:
     under grad, each scan period runs under ``torch.utils.checkpoint``,
     its activations recomputed in the backward, as the JAX package
     rematerializes its scanned periods; the gradients are the same bits,
-    and every forward kernel of a period launches twice."""
+    and every forward kernel of a period launches twice. ``moe_dispatch``
+    ("capacity", the training default, or "dropless", which the serving
+    engines force), ``capacity_factor`` (None: the config's) and
+    ``moe_group_size``: the MoE layers' routing (``models.moe``)."""
 
     attn_impl: str = "auto"
     act_dtype: Any = torch.float32
     rwkv_impl: str = "auto"
     noise: NoiseConfig = field(default_factory=NoiseConfig)
     remat: bool = False
+    capacity_factor: Optional[float] = None
+    moe_group_size: Optional[int] = None
+    moe_dispatch: str = "capacity"
 
 
 def _check_supported(cfg: ModelConfig) -> None:
@@ -55,12 +62,6 @@ def _check_supported(cfg: ModelConfig) -> None:
             raise NotImplementedError(
                 f"{cfg.block_kind(pos)!r} blocks are not ported yet (ROADMAP "
                 "Queue 1 item 13)")
-        if cfg.is_moe_layer(pos):
-            raise NotImplementedError("MoE layers are not ported yet "
-                                      "(ROADMAP Queue 1 item 12)")
-    if cfg.frontend != "tokens":
-        raise NotImplementedError("embedding frontends are not ported yet "
-                                  "(ROADMAP Queue 1 item 19)")
 
 
 # ---------------------------------------------------------------------------
@@ -76,26 +77,79 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *,
     tests carry the JAX weights across with ``repro_torch.bridge``."""
     _check_supported(cfg)
     device = resolve_device(device)
-    p = scan_period(cfg)
-    n_sp = cfg.n_layers // p
+    kw = dict(device=device, dtype=dtype)
+    layer_trees = _init_layers(cfg, generator,
+                               cfg.n_layers // scan_period(cfg), **kw)
+    return {
+        "embed": layers.init_embed(cfg, generator, **kw),
+        "final_norm": layers.init_norm(cfg, **kw),
+        "layers": layer_trees,
+    }
+
+
+def _init_layers(cfg: ModelConfig, generator: torch.Generator, n_sp: int, *,
+                 device, dtype) -> Tuple[Dict, ...]:
+    """Each scan-period position's layer tree, leaves stacked (n_sp, ...)."""
     kw = dict(device=device, dtype=dtype)
     layer_trees = []
-    for pos in range(p):
+    for pos in range(scan_period(cfg)):
         if cfg.block_kind(pos) == "rwkv":
             layer_trees.append(rwkv.init_rwkv(cfg, generator, lead=(n_sp,),
                                               **kw))
             continue
+        ff = (moe.init_moe(cfg, generator, lead=(n_sp,), **kw)
+              if cfg.is_moe_layer(pos)
+              else layers.init_mlp(cfg, generator, lead=(n_sp,), **kw))
         layer_trees.append({
             "norm": layers.init_norm(cfg, lead=(n_sp,), **kw),
             "norm2": layers.init_norm(cfg, lead=(n_sp,), **kw),
             "attn": attention.init_attn(cfg, generator, lead=(n_sp,), **kw),
-            "ff": layers.init_mlp(cfg, generator, lead=(n_sp,), **kw),
+            "ff": ff,
         })
-    return {
-        "embed": layers.init_embed(cfg, generator, **kw),
-        "final_norm": layers.init_norm(cfg, **kw),
-        "layers": tuple(layer_trees),
-    }
+    return tuple(layer_trees)
+
+
+def init_quantized_params(cfg: ModelConfig, generator: torch.Generator,
+                          quant_cfg: QuantConfig, *, device: DeviceLike = None,
+                          min_size: int = 1 << 16) -> Dict:
+    """Random weights as ``init_params`` gives them, quantized by
+    ``quant.quantize_params`` one scan period at a time, so that the f32
+    base is never whole on the device (llama4-scout's 24 layers would take
+    211 GB in f32). Each period is drawn, quantized and copied into stacked
+    codes and scales; the embeddings stay f32. The random stream is not
+    ``init_params``' (its leaves are drawn per period, not per leaf), and
+    ``min_size`` is judged on one period's leaf."""
+    _check_supported(cfg)
+    device = resolve_device(device)
+    kw = dict(device=device, dtype=torch.float32)
+    n_sp = cfg.n_layers // scan_period(cfg)
+    stacked = None
+
+    def alloc(leaf):
+        if quant.is_quantized(leaf):
+            return quant.QuantizedTensor(
+                leaf.codes.new_empty((n_sp, *leaf.codes.shape[1:])),
+                leaf.scales.new_empty((n_sp, *leaf.scales.shape[1:])),
+                leaf.bits, leaf.block, (n_sp, *leaf.orig_shape[1:]))
+        return leaf.new_empty((n_sp, *leaf.shape[1:]))
+
+    def put(dst, src, sp):
+        if quant.is_quantized(dst):
+            dst.codes[sp].copy_(src.codes[0])
+            dst.scales[sp].copy_(src.scales[0])
+        else:
+            dst[sp].copy_(src[0])
+
+    for sp in range(n_sp):
+        one = quant.quantize_params(_init_layers(cfg, generator, 1, **kw),
+                                    quant_cfg, min_size=min_size)
+        if stacked is None:
+            stacked = tree_map(alloc, one)
+        tree_map(lambda d, s_: put(d, s_, sp), stacked, one)
+        del one
+    return {"embed": layers.init_embed(cfg, generator, **kw),
+            "final_norm": layers.init_norm(cfg, **kw),
+            "layers": stacked}
 
 
 # ---------------------------------------------------------------------------
@@ -106,13 +160,14 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *,
 def _apply_position(cfg: ModelConfig, ec: ExecConfig, pos: int,
                     x: torch.Tensor, pparams, plora, pcache, positions, mode,
                     prefill_cache_len, adapter_idx, paged, chunk_lens, rng):
+    """One layer: (x, its new cache entry, its MoE aux or {})."""
     noise = ec.noise if (ec.noise.enabled and mode == "train") else None
     if cfg.block_kind(pos) == "rwkv":
         x, newc = rwkv.apply_rwkv_block(
             cfg, pparams, x, cache=pcache, lora=plora,
             adapter_idx=adapter_idx, impl=ec.rwkv_impl, chunk_lens=chunk_lens,
             noise=noise, rng=rng)
-        return x, (None if mode == "train" else newc)
+        return x, (None if mode == "train" else newc), {}
     h = layers.apply_norm(cfg, pparams["norm"], x)
     delta, newc = attention.apply_attention_block(
         cfg, pparams["attn"], h, positions, kind=cfg.attn_kind(pos),
@@ -122,14 +177,27 @@ def _apply_position(cfg: ModelConfig, ec: ExecConfig, pos: int,
         rng=rng)
     x = x + delta
     h2 = layers.apply_norm(cfg, pparams["norm2"], x)
-    x = x + layers.apply_mlp(cfg, pparams["ff"], h2, noise=noise, rng=rng)
-    return x, newc
+    aux = {}
+    if cfg.is_moe_layer(pos):
+        token_mask = None
+        if chunk_lens is not None:
+            token_mask = (torch.arange(x.shape[1], device=x.device)[None, :]
+                          < chunk_lens[:, None])
+        ff_out, aux = moe.apply_moe(
+            cfg, pparams["ff"], h2, noise=noise, rng=rng,
+            capacity_factor=ec.capacity_factor, group_size=ec.moe_group_size,
+            token_mask=token_mask, dispatch=ec.moe_dispatch)
+    else:
+        ff_out = layers.apply_mlp(cfg, pparams["ff"], h2, noise=noise,
+                                  rng=rng)
+    return x + ff_out, newc, aux
 
 
 def _remat_period(cfg: ModelConfig, ec: ExecConfig, sp: int,
                   x: torch.Tensor, params: Dict, lora: Optional[Dict],
                   positions, adapter_idx, chunk_lens,
-                  rng: Optional[torch.Generator]) -> torch.Tensor:
+                  rng: Optional[torch.Generator], stats: List[Dict]
+                  ) -> torch.Tensor:
     """Scan period ``sp`` of a train-mode forward under
     ``torch.utils.checkpoint``: nothing inside it is kept for the backward,
     which runs it again (the JAX package's ``jax.checkpoint`` of its scan
@@ -138,12 +206,14 @@ def _remat_period(cfg: ModelConfig, ec: ExecConfig, sp: int,
     draws from ``rng``, whose state checkpointing does not keep: the rerun
     starts ``rng`` from the state the period started from, and gives back
     the state it found, so it draws the same noise and leaves ``rng`` as
-    the rest of the step expects it."""
+    the rest of the step expects it. The first run's MoE aux of each layer
+    is appended to ``stats``."""
     start = rng.get_state() if rng is not None else None
     ran = []
 
     def period(x):
         rerun = bool(ran) and rng is not None
+        first = not ran
         ran.append(True)
         if rerun:
             found = rng.get_state()
@@ -152,10 +222,12 @@ def _remat_period(cfg: ModelConfig, ec: ExecConfig, sp: int,
             for pos in range(scan_period(cfg)):
                 plora = (layer_slice(lora["layers"][pos], sp)
                          if lora is not None else None)
-                x, _ = _apply_position(
+                x, _, aux = _apply_position(
                     cfg, ec, pos, x, layer_slice(params["layers"][pos], sp),
                     plora, None, positions, "train", None, adapter_idx, None,
                     chunk_lens, rng)
+                if aux and first:
+                    stats.append(aux)
         finally:
             if rerun:
                 rng.set_state(found)
@@ -165,6 +237,12 @@ def _remat_period(cfg: ModelConfig, ec: ExecConfig, sp: int,
     with torch.utils.checkpoint.set_checkpoint_early_stop(False):
         return torch.utils.checkpoint.checkpoint(
             period, x, use_reentrant=False, preserve_rng_state=False)
+
+
+def _remat_stats(stats: List[Dict]):
+    """(lb_loss, dropped) summed over the MoE aux of a remat period."""
+    return (sum(a["lb_loss"] for a in stats),
+            sum(a["dropped_tokens"] for a in stats))
 
 
 def forward(cfg: ModelConfig, params: Dict, inputs: Dict[str, torch.Tensor],
@@ -180,7 +258,9 @@ def forward(cfg: ModelConfig, params: Dict, inputs: Dict[str, torch.Tensor],
             ) -> Tuple[torch.Tensor, Optional[Dict], Dict]:
     """Returns (logits (B,T,V), new_cache, aux).
 
-    inputs: {"tokens": (B,T) int}. positions: (B,T) global token positions
+    inputs: {"tokens": (B,T) int} or {"embeds": (B,T,d)} (the stub
+    frontend of musicgen/chameleon: precomputed embeddings, cast to
+    ``exec_cfg.act_dtype``). positions: (B,T) global token positions
     (default: arange, or the dense cache's length in decode). mode:
     "train" (no cache), "prefill" (emit a dense cache of
     ``prefill_cache_len``; RWKV state starts from zero), "decode" (update
@@ -189,8 +269,10 @@ def forward(cfg: ModelConfig, params: Dict, inputs: Dict[str, torch.Tensor],
     page pool, see ``attention.apply_attention_block``, and RWKV state is
     per slot row). ``last_idx`` (B,) keeps one row
     per sequence before the final norm and the unembed, so logits are
-    (B,1,V): a serving step samples only that row. ``aux`` is empty: it
-    carries MoE statistics in the JAX package, and MoE is not ported yet.
+    (B,1,V): a serving step samples only that row. ``aux``: "lb_loss" (the
+    MoE load-balance loss) and "moe_dropped_tokens" (assignments dropped
+    by capacity; 0 under dropless dispatch), each summed over the layers
+    (0 without MoE layers).
     ``rng``: the generator that weight noise draws from (train mode with
     ``exec_cfg.noise`` enabled), on the model's device; the JAX package
     threads a key the same way."""
@@ -202,8 +284,11 @@ def forward(cfg: ModelConfig, params: Dict, inputs: Dict[str, torch.Tensor],
     P = scan_period(cfg)
     n_sp = cfg.n_layers // P
 
-    x = layers.embed_tokens(cfg, params["embed"], inputs["tokens"],
-                            ec.act_dtype)
+    if "tokens" in inputs:
+        x = layers.embed_tokens(cfg, params["embed"], inputs["tokens"],
+                                ec.act_dtype)
+    else:
+        x = inputs["embeds"].to(ec.act_dtype)
     B, T = x.shape[0], x.shape[1]
     dev = x.device
     if positions is None:
@@ -214,10 +299,16 @@ def forward(cfg: ModelConfig, params: Dict, inputs: Dict[str, torch.Tensor],
                      else ar.expand(B, T))
 
     new_layers = [[] for _ in range(P)]
+    lb_total = torch.zeros((), dtype=torch.float32, device=dev)
+    drop_total = torch.zeros((), dtype=torch.float32, device=dev)
     for sp in range(n_sp):
         if remat:
+            stats: List[Dict] = []
             x = _remat_period(cfg, ec, sp, x, params, lora, positions,
-                              adapter_idx, chunk_lens, rng)
+                              adapter_idx, chunk_lens, rng, stats)
+            if stats:
+                lb, drop = _remat_stats(stats)
+                lb_total, drop_total = lb_total + lb, drop_total + drop
             continue
         for pos in range(P):
             pparams = layer_slice(params["layers"][pos], sp)
@@ -230,10 +321,13 @@ def forward(cfg: ModelConfig, params: Dict, inputs: Dict[str, torch.Tensor],
                 # recurrent state must come out of prefill: start at zero
                 pcache = zeros_from_spec(
                     position_cache_spec(cfg, pos, B, 1, ec.act_dtype), (), dev)
-            x, newc = _apply_position(cfg, ec, pos, x, pparams, plora, pcache,
-                                      positions, mode, prefill_cache_len,
-                                      adapter_idx, paged, chunk_lens, rng)
+            x, newc, aux = _apply_position(
+                cfg, ec, pos, x, pparams, plora, pcache, positions, mode,
+                prefill_cache_len, adapter_idx, paged, chunk_lens, rng)
             new_layers[pos].append(newc)
+            if aux:
+                lb_total = lb_total + aux["lb_loss"]
+                drop_total = drop_total + aux["dropped_tokens"]
 
     if last_idx is not None:
         rows = torch.arange(B, device=dev)
@@ -258,7 +352,8 @@ def forward(cfg: ModelConfig, params: Dict, inputs: Dict[str, torch.Tensor],
         new_cache = {"layers": tuple(
             {name: torch.stack([c[name] for c in per_sp])
              for name in per_sp[0]} for per_sp in new_layers)}
-    return logits, new_cache, {}
+    return logits, new_cache, {"lb_loss": lb_total,
+                               "moe_dropped_tokens": drop_total}
 
 
 def _quantized(tree):
@@ -279,7 +374,8 @@ def reserve_workspaces(cfg: ModelConfig, params: Dict, exec_cfg: ExecConfig,
     """Size the kernels' split workspaces on ``device`` for every
     decode-mode ``forward`` over ``rows`` rows with a chunk of each width
     in ``chunks``: the crossbar matmul of every quantized weight at M =
-    rows * C (and at M = rows, the head's under ``last_idx``), the flash
+    rows * C (and at M = rows, the head's under ``last_idx``), the grouped
+    kernel of every quantized expert stack over its routed rows, the flash
     kernel of the attention layers over each key length in ``kv_lens`` (a
     paged step's block-table widths times the page size, or a dense
     cache's length; a dense cache's ring is no longer), and, with
@@ -287,9 +383,19 @@ def reserve_workspaces(cfg: ModelConfig, params: Dict, exec_cfg: ExecConfig,
     ``ring_len + C`` keys. A CUDA graph captured afterwards finds them
     large enough (``kernels.workspace``)."""
     weights = list(_quantized(params))
-    if weights:
-        cb_ops.reserve_workspace(device, weights,
+    # a layer's matrix is stacked (n_sp, K, N), its experts (n_sp, slots,
+    # K, N): those go to the grouped kernel over rows * C * k * tpe routed
+    # assignments
+    mats = [w for w in weights if w.ndim != 4]
+    experts = [w.layer(0) for w in weights if w.ndim == 4]
+    if mats:
+        cb_ops.reserve_workspace(device, mats,
                                  sorted({rows} | {rows * C for C in chunks}))
+    if experts:
+        k_slots = cfg.moe.top_k * (experts[0].codes.shape[0]
+                                   // cfg.moe.n_experts)
+        cb_ops.reserve_grouped_workspace(
+            device, experts, sorted({rows * C * k_slots for C in chunks}))
     attn = any(cfg.block_kind(pos) == "attn" for pos in range(scan_period(cfg)))
     if attn and exec_cfg.attn_impl == "auto":
         heads = (cfg.n_heads, cfg.n_kv_heads)

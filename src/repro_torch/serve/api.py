@@ -139,6 +139,19 @@ class SpecStats:
 
 
 @dataclass(frozen=True)
+class MoEStats:
+    """MoE routing accounting. ``dispatch`` is the mode the engine forces
+    ("dropless" for every serving row: prefill chunks, decode rows,
+    spec-verify tails; "capacity" only when asked for as a benchmark
+    baseline). ``dropped_tokens`` counts (token, expert) assignments
+    dropped by capacity: 0 under dropless, and the engines raise if it
+    ever is not."""
+    enabled: bool = False               # does the model have MoE layers?
+    dispatch: str = "dropless"
+    dropped_tokens: int = 0
+
+
+@dataclass(frozen=True)
 class EngineStats:
     """Typed engine counters (``Engine.stats()``); ``as_dict()`` flattens
     them to the JAX package's key names for JSON output. ``scheduler`` and
@@ -152,6 +165,7 @@ class EngineStats:
     scheduler: Optional[SchedulerStats] = None
     prefix_cache: Optional[PrefixCacheStats] = None
     spec: Optional[SpecStats] = None
+    moe: MoEStats = MoEStats()
     kv_bytes: Optional[int] = None
 
     def as_dict(self) -> Dict[str, object]:
@@ -160,6 +174,8 @@ class EngineStats:
             "ticks": self.ticks,
             "decode_tokens": self.decode_tokens,
             "prefill_tokens": self.prefill_tokens,
+            "moe_dispatch": self.moe.dispatch,
+            "moe_dropped_tokens": self.moe.dropped_tokens,
         }
         c = self.compile
         if self.scheduler is None:                      # dense oracle
@@ -241,9 +257,10 @@ def make_engine(cfg, params, adapters=(), *, mode: str = "paged",
     copy-on-write prefix sharing (``enable_prefix_cache=False`` disables
     it) and page-occupancy scheduling with preemption. Keyword args:
     max_slots, max_len, page_size, num_pages, prefill_chunk,
-    enable_prefix_cache, spec, exec_cfg, seed, record_logits. ``parallel``
-    with tp > 1 and ``moe_dispatch="capacity"`` are not ported yet and
-    raise.
+    enable_prefix_cache, spec, moe_dispatch, exec_cfg, seed,
+    record_logits. MoE models route dropless unless
+    ``moe_dispatch="capacity"`` asks for the benchmark baseline. ``parallel``
+    with tp > 1 is not ported yet and raises.
 
     ``spec`` enables draft-and-verify decoding: a ``serve.spec.SpecConfig``
     or a drafter name (``"ngram"`` / ``"selfdraft"``) for the defaults.

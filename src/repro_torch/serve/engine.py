@@ -59,9 +59,19 @@ own. Prefix-cache persistence (``prefix_cache_path=``,
 ``save_prefix_cache``) loads the index into the pool in place at
 construction. Tensor parallelism raises ``NotImplementedError`` in the
 paged engine (ROADMAP Queue 1 item 16).
+
+Mixture-of-experts models route drop-free in both engines
+(``moe_dispatch="dropless"``, as the JAX package forces it): capacity
+drops would make a request's greedy tokens depend on how its prompt was
+chunked, preempted or batched. The paged engine takes
+``moe_dispatch="capacity"`` as a baseline for benchmarking. Each step
+writes its drop count into a device buffer of the engine, which reaches
+the host in the tick's one existing read (the sampled tokens'); a nonzero
+count under dropless raises.
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 import time
 import warnings
@@ -80,8 +90,8 @@ from repro_torch.models.kvcache import PagedLayout
 from repro_torch.models.transformer import ExecConfig
 from repro_torch.serve import spec as spec_mod
 from repro_torch.serve.api import (Completion, CompileStats, EngineStats,
-                                   PrefixCacheStats, Request, SchedulerStats,
-                                   SpecStats, completion_of)
+                                   MoEStats, PrefixCacheStats, Request,
+                                   SchedulerStats, SpecStats, completion_of)
 from repro_torch.serve.prefix import PrefixIndex
 from repro_torch.serve.sampling import sample_tokens
 from repro_torch.serve.spec import SpecConfig
@@ -103,6 +113,31 @@ def _validate_request(req: Request, max_len: int) -> None:
         raise ValueError(f"request uid={req.uid}: prompt of "
                          f"{len(req.prompt)} tokens exceeds "
                          f"max_len={max_len}")
+
+
+def _force_moe_dispatch(exec_cfg: ExecConfig, dispatch: str) -> ExecConfig:
+    """Serving routes MoE tokens drop-free: capacity drops would make a
+    request's greedy tokens depend on how its prompt was chunked,
+    preempted, or batched. ``dispatch="capacity"`` is allowed only as an
+    explicit baseline for benchmarking the dropless overhead."""
+    if dispatch not in ("dropless", "capacity"):
+        raise ValueError(f"unknown moe_dispatch {dispatch!r} "
+                         "(expected 'dropless' or 'capacity')")
+    return dataclasses.replace(exec_cfg, moe_dispatch=dispatch)
+
+
+def _track_drops(engine, dropped: int) -> None:
+    """Accumulate a step's MoE drop count; under dropless dispatch any
+    nonzero count is an invariant violation, not a statistic."""
+    engine.moe_dropped_tokens += dropped
+    if dropped and engine.ec.moe_dispatch == "dropless":
+        raise RuntimeError(
+            f"dropless MoE dispatch dropped {dropped} (token, expert) "
+            "assignments — the drop-free invariant is broken")
+
+
+def _has_moe(cfg: ModelConfig) -> bool:
+    return any(cfg.is_moe_layer(i) for i in range(cfg.n_layers))
 
 
 def _stream(req: Request) -> np.ndarray:
@@ -207,12 +242,19 @@ def _device_temps(eng, temps: np.ndarray):
     return eng._host_temps[:n].to(eng.device, non_blocking=True), True
 
 
-def _sample(eng, lg: torch.Tensor, temps: np.ndarray) -> np.ndarray:
+def _sample(eng, lg: torch.Tensor, temps: np.ndarray,
+            drops: Optional[torch.Tensor] = None) -> np.ndarray:
     """Tokens (host) sampled from the logits rows ``lg`` at ``temps``;
-    ``eng._gen`` draws only when some row samples."""
+    ``eng._gen`` draws only when some row samples. ``drops`` (1,): the
+    step's MoE drop count on the device, read in the same copy to the host
+    and tracked (``_track_drops``)."""
     temps_t, any_sampled = _device_temps(eng, temps)
-    return sample_tokens(lg, temps_t, eng._gen,
-                         any_sampled=any_sampled).cpu().numpy()
+    toks = sample_tokens(lg, temps_t, eng._gen, any_sampled=any_sampled)
+    if drops is None:
+        return toks.cpu().numpy()
+    host = torch.cat([toks, drops.to(toks.dtype)]).cpu().numpy()
+    _track_drops(eng, int(host[-1]))
+    return host[:-1]
 
 
 def _emit(eng, req: Request, tok: int, lg_row: torch.Tensor) -> None:
@@ -251,7 +293,15 @@ class DenseServeEngine:
         if table.device != self.device:
             raise ValueError(f"params on {table.device}, engine on "
                              f"{self.device}")
-        self.cfg, self.params, self.ec = cfg, params, exec_cfg
+        self.cfg, self.params = cfg, params
+        # the oracle decodes one token per row and prefills whole prompts:
+        # dropless makes the whole-prompt pass routing-identical to any
+        # chunking of it
+        self.ec = _force_moe_dispatch(exec_cfg, "dropless")
+        self._has_moe = _has_moe(cfg)
+        self.moe_dropped_tokens = 0
+        # the last step's drop count, written on the device by the step
+        self._drops = torch.zeros(1, device=self.device)
         self.max_batch, self.max_len = max_batch, max_len
         self.adapters = (lora_lib.stack_adapters(list(adapters))
                          if adapters else None)
@@ -284,7 +334,7 @@ class DenseServeEngine:
             self._graph_pool = torch.cuda.graph_pool_handle()
             # a sliding layer's ring (at most max_len slots) needs no
             # more than the full layers' cache: a split grows with S
-            tfm.reserve_workspaces(cfg, params, exec_cfg, self.device,
+            tfm.reserve_workspaces(cfg, params, self.ec, self.device,
                                    rows=max_batch, chunks=(1,),
                                    kv_lens=(max_len,))
         self._tick = 0
@@ -295,10 +345,11 @@ class DenseServeEngine:
         self.sampled_logits: Dict[int, List[torch.Tensor]] = {}
 
     # ------------------------------------------------------------------
-    def _prefill(self, slot: int, req: Request) -> torch.Tensor:
+    def _prefill(self, slot: int, req: Request
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Whole-prompt forward of ``req``, padded to its bucket; its cache
         row is copied into the arena at ``slot``, in place. Returns the
-        last real position's logits (1, V)."""
+        last real position's logits (1, V) and the MoE drop count (1,)."""
         plen = len(req.prompt)
         padded = bucketize(plen, self.prefill_buckets)
         self._prefill_sigs.add(padded)
@@ -307,7 +358,7 @@ class DenseServeEngine:
         dev = self.device
         idx = (torch.tensor([req.adapter_id], device=dev)
                if self.adapters is not None else None)
-        logits, row, _ = tfm.forward(
+        logits, row, aux = tfm.forward(
             self.cfg, self.params, {"tokens": torch.from_numpy(toks).to(dev)},
             lora=self.adapters,
             positions=torch.arange(padded, dtype=torch.int32,
@@ -322,7 +373,7 @@ class DenseServeEngine:
             for name, leaf in entry.items():
                 leaf[:, slot].copy_(new[name][:, 0])
         self.prefill_tokens += plen
-        return logits[:, 0]
+        return logits[:, 0], aux["moe_dropped_tokens"].reshape(1)
 
     def _decode_fn(self, inputs: torch.Tensor) -> torch.Tensor:
         """One decode step of every slot over packed ``inputs``: writes the
@@ -333,10 +384,12 @@ class DenseServeEngine:
         positions = inputs[o:o + B].view(B, 1)
         adapter_idx = (inputs[2 * o:2 * o + B].long()
                        if self.adapters is not None else None)
-        logits, _, _ = tfm.forward(
+        logits, _, aux = tfm.forward(
             self.cfg, self.params, {"tokens": tokens}, lora=self.adapters,
             cache=self.cache, positions=positions, mode="decode",
             exec_cfg=self.ec, adapter_idx=adapter_idx)
+        if self._has_moe:
+            self._drops.copy_(aux["moe_dropped_tokens"].reshape(1))
         return logits[:, -1]
 
     def _eager(self, staged: torch.Tensor) -> torch.Tensor:
@@ -367,9 +420,10 @@ class DenseServeEngine:
                 req = self.queue.pop(0)
                 self.slot_req[i] = req
                 t = time.perf_counter()
-                lg = self._prefill(i, req)
+                lg, drops = self._prefill(i, req)
                 tok = int(_sample(
-                    self, lg, np.asarray([req.temperature], np.float32))[0])
+                    self, lg, np.asarray([req.temperature], np.float32),
+                    drops if self._has_moe else None)[0])
                 self.prefill_s += time.perf_counter() - t
                 _emit(self, req, tok, lg[0])
                 self.slot_pos[i] = self._cache_len[i] = len(req.prompt)
@@ -404,7 +458,8 @@ class DenseServeEngine:
         run = self._replay if self.device.type == "cuda" else self._eager
         lg = run(self._host)
         self._cache_len += 1
-        toks_np = _sample(self, lg, temps)
+        toks_np = _sample(self, lg, temps,
+                          self._drops if self._has_moe else None)
         for i in active:
             req = self.slot_req[i]
             self.slot_pos[i] += 1
@@ -441,6 +496,8 @@ class DenseServeEngine:
                 compiled_steps=int(self._graph is not None),
                 replays=self.replays, capture_ms=1e3 * self.capture_s,
                 graph_pool_bytes=self.graph_pool_bytes),
+            moe=MoEStats(enabled=self._has_moe, dispatch=self.ec.moe_dispatch,
+                         dropped_tokens=self.moe_dropped_tokens),
             kv_bytes=kvcache.cache_bytes(self.cache))
 
 
@@ -483,15 +540,19 @@ class PagedServeEngine:
         if parallel is not None and getattr(parallel, "tp", 1) > 1:
             raise NotImplementedError("tensor-parallel serving is not ported "
                                       "yet (ROADMAP Queue 1 item 16)")
-        if moe_dispatch != "dropless":
-            raise NotImplementedError("MoE dispatch modes are not ported yet "
-                                      "(ROADMAP Queue 1 item 12)")
         self.device = resolve_device(device)
         table = params["embed"]["table"]
         if table.device != self.device:
             raise ValueError(f"params on {table.device}, engine on "
                              f"{self.device}")
-        self.cfg, self.params, self.ec = cfg, params, exec_cfg
+        self.cfg, self.params = cfg, params
+        # dropless (default): every serving row (prefill chunk, decode row,
+        # spec-verify tail) routes MoE tokens drop-free; "capacity" only as
+        # a benchmark baseline
+        self.ec = exec_cfg = _force_moe_dispatch(exec_cfg, moe_dispatch)
+        self._has_moe = _has_moe(cfg)
+        self.moe_dropped_tokens = 0
+        self._drops = torch.zeros(1, device=self.device)
         self.max_len = max_len
         self.prefill_chunk = prefill_chunk
         if num_pages is None:
@@ -598,11 +659,13 @@ class PagedServeEngine:
         paged = {"block_table": block_table, "lens": lens,
                  "chunk_lens": clens, "page_size": self.layout.page_size}
         last = torch.clamp(clens.long() - 1, 0, C - 1)
-        logits, _, _ = tfm.forward(
+        logits, _, aux = tfm.forward(
             self.cfg, self.params, {"tokens": tokens}, lora=self.adapters,
             cache=self.cache, positions=positions, mode="decode",
             exec_cfg=self.ec, adapter_idx=adapter_idx, paged=paged,
             chunk_lens=clens, last_idx=last)
+        if self._has_moe:
+            self._drops.copy_(aux["moe_dropped_tokens"].reshape(1))
         return logits[:, 0]                                       # (B, V)
 
     def _spec_step_fn(self, inputs: torch.Tensor, C: int, nb: int):
@@ -638,11 +701,13 @@ class PagedServeEngine:
                             torch.clamp(clens - 1, min=0)).long()
         idx = torch.clamp(first[:, None] + torch.arange(J, device=dev)[None],
                           max=C - 1)
-        logits, _, _ = tfm.forward(
+        logits, _, aux = tfm.forward(
             self.cfg, self.params, {"tokens": tokens}, lora=self.adapters,
             cache=self.cache, positions=positions, mode="decode",
             exec_cfg=self.ec, adapter_idx=adapter_idx, paged=paged,
             chunk_lens=clens, last_idx=idx)
+        if self._has_moe:
+            self._drops.copy_(aux["moe_dropped_tokens"].reshape(1))
         return logits, tokens[:, :J], dlens                  # (B, J, V)
 
     def _eager(self, sig: Tuple[int, int], staged: torch.Tensor):
@@ -958,9 +1023,10 @@ class PagedServeEngine:
         self._signatures.add((C, nb))
         out = run((C, nb), self._host[:n])
         emit_np = n_emit_np = None
+        drops = self._drops if self._has_moe else None
         if not spec:
             lg = out
-            toks_np = _sample(self, lg, temps)
+            toks_np = _sample(self, lg, temps, drops)
         else:
             # acceptance, then the per-slot restore in place (a slot keeps
             # its post-chunk state only without drafts or with all of them
@@ -974,8 +1040,15 @@ class PagedServeEngine:
             if self.arena.tracked:
                 self.arena.restore(self.cache, self._ckpt,
                                    (dl_v == 0) | (n_emit > dl_v))
-            both = torch.cat([emit, n_emit[:, None]], dim=1).cpu().numpy()
-            emit_np, n_emit_np = both[:, :-1], both[:, -1]
+            both = torch.cat([emit, n_emit[:, None]], dim=1)
+            flat = both.reshape(-1)
+            if drops is not None:
+                flat = torch.cat([flat, drops.to(flat.dtype)])
+            host = flat.cpu().numpy()
+            if drops is not None:
+                _track_drops(self, int(host[-1]))
+            host = host[:both.numel()].reshape(both.shape)
+            emit_np, n_emit_np = host[:, :-1], host[:, -1]
             toks_np = emit_np[:, 0]         # rows without drafts: column 0
             lg = lg_v[:, 0]
 
@@ -1070,4 +1143,6 @@ class PagedServeEngine:
                 hits=self.prefix_hits,
                 loaded_pages=self.prefix_loaded_pages,
                 **(self.prefix.stats() if self.prefix is not None else {})),
-            spec=self._spec_stats())
+            spec=self._spec_stats(),
+            moe=MoEStats(enabled=self._has_moe, dispatch=self.ec.moe_dispatch,
+                         dropped_tokens=self.moe_dropped_tokens))

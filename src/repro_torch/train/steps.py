@@ -40,20 +40,18 @@ def _split_micro(batch: Dict[str, torch.Tensor], n: int
 
 def make_loss_fn(cfg: ModelConfig, ec: ExecConfig):
     """(lora, params, micro, rng) -> (loss, metrics): train-mode forward
-    and the token-mean cross entropy. ``rng``: the generator weight noise
+    from ``micro["tokens"]`` (or, without tokens, from precomputed
+    ``micro["embeds"]``) and the token-mean cross entropy, with the MoE
+    load-balance loss as a metric. ``rng``: the generator weight noise
     draws from (None without noise)."""
     def loss_fn(lora, params, micro, rng: Optional[torch.Generator]):
-        if "tokens" not in micro:
-            raise NotImplementedError("embedding frontends are not ported "
-                                      "yet (ROADMAP Queue 1 item 19)")
-        logits, _, _ = tfm.forward(cfg, params, {"tokens": micro["tokens"]},
-                                   lora=lora, mode="train", exec_cfg=ec,
-                                   rng=rng)
+        inputs = ({"tokens": micro["tokens"]} if "tokens" in micro
+                  else {"embeds": micro["embeds"]})
+        logits, _, aux = tfm.forward(cfg, params, inputs, lora=lora,
+                                     mode="train", exec_cfg=ec, rng=rng)
         loss, metrics = tfm.lm_loss(cfg, logits, micro["labels"],
                                     micro.get("mask"))
-        # the JAX package's MoE load-balance loss; MoE is not ported
-        return loss, {**metrics, "lb_loss": torch.zeros(
-            (), dtype=torch.float32, device=loss.device)}
+        return loss, {**metrics, "lb_loss": aux["lb_loss"]}
     return loss_fn
 
 
@@ -101,7 +99,7 @@ def accumulate_grads(loss_fn, lora, params, batch, n: int, rng=None
 def make_train_step(cfg: ModelConfig, ec: ExecConfig, hp: TrainHParams
                     ) -> Callable:
     """(params, lora, opt_state, batch, rng) -> (lora, opt_state, metrics).
-    ``batch``: tokens (B, T), labels (B, T)[, mask]."""
+    ``batch``: tokens (B, T) or embeds (B, T, d), labels (B, T)[, mask]."""
     # ``hp.full_finetune`` is accepted and not read, as in the JAX package:
     # the step trains the LoRA tree either way (the paper's PEFT mode)
     loss_fn = make_loss_fn(cfg, ec)

@@ -4,7 +4,7 @@ step, its MnFm quantization, an M4F4 LoRA step and its perplexity
 evaluation (``benchmarks/torch_quant_perplexity.py`` against
 ``benchmarks/bench_quant_perplexity.py``); Fig. 9's accuracy evaluation
 and its noisy draw (``benchmarks/torch_noise.py`` against
-``benchmarks/bench_noise.py``); the serving-throughput workloads 1-2
+``benchmarks/bench_noise.py``); the serving-throughput workloads 1-3 and 5
 (``benchmarks/torch_serve_throughput.py``) at the JAX script's smoke sizes.
 Weights are JAX's, carried across by ``repro_torch.bridge``; the Fig.
 config (reduced paper-gpt2-medium, 2 layers, d 128) in f32.
@@ -240,10 +240,11 @@ def test_fig9_and_fig13_scripts_run_with_jax_payload_keys(monkeypatch):
 
 
 def test_serve_throughput_smoke_runs_with_jax_payload_keys(monkeypatch):
-    """Workloads 1-3 at the JAX script's smoke sizes on the CPU: the paged
-    engine's, the prefix-cached engine's and the speculating engine's
-    greedy tokens equal the dense oracle's, with the JAX script's payload
-    keys for the three workloads."""
+    """Workloads 1-3 and 5 at the JAX script's smoke sizes on the CPU: the
+    paged engine's, the prefix-cached engine's, the speculating engine's
+    and the dropless MoE engine's greedy tokens equal the dense oracle's
+    (and the capacity baseline drops), with the JAX script's payload keys
+    for the four workloads."""
     monkeypatch.setenv("BENCH_SMOKE", "1")
     p = torch_serve_throughput.run("cpu")
     assert {"smoke", "workload", "dense", "paged",
@@ -263,5 +264,8 @@ def test_serve_throughput_smoke_runs_with_jax_payload_keys(monkeypatch):
     assert sd["spec_on"]["drafted_tokens"] > 0
     assert sd["spec_on"]["rolled_back_tokens"] == (
         sd["spec_on"]["drafted_tokens"] - sd["spec_on"]["accepted_tokens"])
-    assert set(p["waiting"]) == {"tensor_parallel", "moe_dropless",
-                                 "spec_hybrid"}
+    md = p["moe_dropless"]
+    assert md["greedy_matches_dense_oracle"]
+    assert md["dropless"]["dropped_tokens"] == 0
+    assert md["capacity_dropped_tokens"] > 0
+    assert set(p["waiting"]) == {"tensor_parallel", "spec_hybrid"}

@@ -7,9 +7,10 @@ that has only PyTorch:
 
     PYTHONPATH=src python -m pytest --noconftest -q -m gpu tests/test_torch_gpu.py
 
-Tolerances: crossbar 1e-4 relative (max-scaled absolute), as for the
-Pallas kernel — the plain version dequantizes before one product, the
-kernel scales each 128-deep f32 partial sum and carries x as two bf16
+Tolerances: crossbar (and its grouped entry point) 1e-4 relative
+(max-scaled absolute), as for the Pallas kernel — the plain version
+dequantizes before one product, the kernel scales each 128-deep f32
+partial sum and carries x as two bf16
 pieces (|x - hi - lo| <= 2^-16 |x|); flash 2e-5, f32 softmax
 attention summed in another order (the kernel's products in 3xTF32); wkv
 1e-5 (rtol and atol), as for the Pallas kernel: the same f32 recurrence,
@@ -814,7 +815,8 @@ def _waves(eng, cfg, run, at=5):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("arch", ["llama3.2-1b", "rwkv6-7b", "gemma2-9b"])
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "rwkv6-7b", "gemma2-9b",
+                                  "llama4-scout-17b-a16e", "mixtral-8x22b"])
 def test_graph_step_equals_the_eager_step(arch):
     """The graphed engine and the eager step on the same weights give the
     same greedy tokens and the same logits bits, over a run that repeats
@@ -1553,3 +1555,131 @@ def test_selfdraft_graphs_equal_its_eager_drafts():
     assert dr.stats()["draft_compiles"] == 2
     assert {qt.bits for qt in (dr.qparams["layers"][0]["attn"]["wq"],
                                dr.qparams["layers"][0]["ff"]["w1"])} == {4}
+
+
+# ---------------------------------------------------------------------------
+# the grouped crossbar kernel (a mixture-of-experts layer's expert products)
+# ---------------------------------------------------------------------------
+
+# rows per slot: spread with empty slots, one slot full, every slot empty
+GROUPED_COUNTS = {"spread": [3, 0, 17, 1, 0, 64, 9, 2],
+                  "one_full": [0, 0, 0, 0, 0, 96, 0, 0],
+                  "all_empty": [0] * 8}
+
+
+def _grouped_inputs(dev, K, N, bits, counts, kernel, seed):
+    """A (slots, K, N) stack, its grouped buffer for ``counts`` (padding
+    rows hold data too: nothing of them may reach the result), bases and
+    counts on the card."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    slots = len(counts)
+    qt = quant.quantize(torch.randn(slots, K, N, generator=g, device=dev)
+                        * K ** -0.5, bits)
+    tile = cb_ops.GROUPED_TILE[kernel]
+    c = torch.tensor(counts, dtype=torch.int32, device=dev)
+    bases = torch.cat([torch.zeros(1, dtype=torch.int32, device=dev),
+                       torch.cumsum((c + tile - 1) // tile * tile, 0)
+                       .to(torch.int32)])
+    R = cb_ops.grouped_rows(max(sum(counts), 1), slots, tile)
+    x = torch.randn(R, K, generator=g, device=dev)
+    return x, qt, bases, c
+
+
+def _live_rows(bases, counts, R):
+    live = torch.zeros(R, dtype=torch.bool)
+    for b, c in zip(bases.tolist(), counts.tolist()):
+        live[b:b + c] = True
+    return live
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dist", sorted(GROUPED_COUNTS))
+@pytest.mark.parametrize("kernel", ["decode", "prefill"])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("kn", [(256, 384), (640, 1000)])
+def test_grouped_kernel_matches_plain(kn, bits, kernel, dist):
+    """Every live row within crossbar's tolerance of the plain version;
+    every other row exactly 0 (padding, empty slots, rows past the last
+    slot), whatever the buffer held there."""
+    dev = _cuda_or_skip()
+    x, qt, bases, counts = _grouped_inputs(dev, *kn, bits,
+                                           GROUPED_COUNTS[dist], kernel,
+                                           sum(kn) + bits)
+    before = kernels.LAUNCHES["grouped_crossbar_matmul"]
+    y = cb_ops.grouped_crossbar_matmul(x, qt, bases, counts, kernel)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["grouped_crossbar_matmul"] == before + 1
+    yr = cb_ops.grouped_crossbar_matmul_plain(x, qt, bases, counts)
+    torch.testing.assert_close(y, yr, rtol=1e-4,
+                               atol=1e-4 * max(float(yr.abs().max()), 1e-30))
+    dead = ~_live_rows(bases, counts, x.shape[0]).to(dev)
+    assert bool((y[dead] == 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["decode", "prefill"])
+def test_grouped_kernel_at_llama4_scout_width(kernel):
+    """llama4-scout's expert stack (16 slots of (5120, 8192) in int8): 8
+    decode rows on 8 distinct experts, or 1024 rows over the experts."""
+    dev = _cuda_or_skip()
+    counts = ([1] * 8 + [0] * 8 if kernel == "decode"
+              else [64, 100, 0, 30, 64, 64, 90, 38, 64, 64, 64, 64, 94, 64,
+                    64, 96])
+    x, qt, bases, c = _grouped_inputs(dev, 5120, 8192, 8, counts, kernel, 7)
+    y = cb_ops.grouped_crossbar_matmul(x, qt, bases, c, kernel)
+    yr = cb_ops.grouped_crossbar_matmul_plain(x, qt, bases, c)
+    torch.cuda.synchronize()
+    assert float((y - yr).abs().max()) <= 1e-4 * float(yr.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["decode", "prefill"])
+def test_grouped_kernel_replays_in_a_graph_for_new_counts(kernel):
+    """Captured once in a CUDA graph, replayed after the counts and bases
+    (and x) change in place: each replay gives the plain version of its
+    own routing, with every row past a count 0."""
+    dev = _cuda_or_skip()
+    K, N = 256, 384
+    x, qt, bases, counts = _grouped_inputs(
+        dev, K, N, 8, GROUPED_COUNTS["spread"], kernel, 3)
+    # warm up: the eager call sizes the workspace before the capture
+    cb_ops.grouped_crossbar_matmul(x, qt, bases, counts, kernel)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y = cb_ops.grouped_crossbar_matmul(x, qt, bases, counts, kernel)
+    tile = cb_ops.GROUPED_TILE[kernel]
+    for new in ([5, 5, 5, 5, 5, 5, 5, 5], [0, 0, 96, 0, 0, 0, 0, 0],
+                [1, 2, 3, 4, 0, 0, 0, 0], [0] * 8):
+        c = torch.tensor(new, dtype=torch.int32, device=dev)
+        b = torch.cat([torch.zeros(1, dtype=torch.int32, device=dev),
+                       torch.cumsum((c + tile - 1) // tile * tile, 0)
+                       .to(torch.int32)])
+        assert int(b[-1]) <= x.shape[0]
+        counts.copy_(c)
+        bases.copy_(b)
+        x.copy_(torch.randn_like(x))
+        graph.replay()
+        torch.cuda.synchronize()
+        yr = cb_ops.grouped_crossbar_matmul_plain(x, qt, b, c)
+        torch.testing.assert_close(
+            y, yr, rtol=1e-4, atol=1e-4 * max(float(yr.abs().max()), 1e-30))
+        assert bool((y[~_live_rows(b, c, x.shape[0]).to(dev)] == 0).all())
+
+
+@pytest.mark.gpu
+def test_grouped_kernel_has_no_backward_and_refuses_bad_layouts():
+    dev = _cuda_or_skip()
+    x, qt, bases, counts = _grouped_inputs(dev, 256, 128, 8, [3, 4], "decode",
+                                           0)
+    x.requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="item 26"):
+        cb_ops.grouped_crossbar_matmul(x, qt, bases, counts, "decode")
+    with torch.no_grad():
+        cb_ops.grouped_crossbar_matmul(x, qt, bases, counts, "decode")
+    with pytest.raises(ValueError, match="multiple of 64"):
+        cb_ops.grouped_crossbar_matmul(x.detach(), qt, bases, counts,
+                                       "prefill")
+    with pytest.raises(TypeError):
+        cb_ops.grouped_crossbar_matmul(x.detach(), qt, bases.long(), counts,
+                                       "decode")

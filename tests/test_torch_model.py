@@ -208,7 +208,5 @@ def test_config_copy_matches_jax_field_for_field(setup):
 def test_unported_architectures_raise_not_implemented():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_config("jamba-1.5-large-398b")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("mistral-nemo-12b")
     with pytest.raises(KeyError):
         get_config("no-such-arch")

@@ -145,9 +145,11 @@ def test_engine_rejects_what_it_cannot_serve(setup):
         eng.submit(Request(uid=1, prompt=np.ones(16, np.int32)))
     with pytest.raises(ValueError, match="pages"):
         eng.submit(Request(uid=2, prompt=np.ones(12, np.int32)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="moe_dispatch"):
         make_engine(cfg, params, adapters, device="cpu",
-                    moe_dispatch="capacity")
+                    moe_dispatch="bogus")
+    assert make_engine(cfg, params, adapters, device="cpu",
+                       moe_dispatch="capacity").ec.moe_dispatch == "capacity"
     # the dense oracle refuses what only the paged engine takes, with the
     # JAX package's ValueErrors
     for kw, msg in ((dict(parallel=SimpleNamespace(tp=2)),
