@@ -74,7 +74,15 @@ Imports nothing of JAX or of the JAX package. Phases, each printing JSON:
                stack. Then flash at head dim 128 with 40/8 heads
                (llama4-scout, a GQA group of 5) and 48/8 (mixtral, a group
                of 6: its 4400-token prefill with the 4096 window, and the
-               ring kernel on rings of 4096).
+               ring kernel on rings of 4096; SDPA over the gathered [ring ;
+               chunk] K/V with the visibility mask is its library time).
+               Then (since slice 16) flash at the heads of the three
+               head-dim-128 forwards: 48/8 (internlm2-20b), 32/8
+               (mistral-nemo-12b) and 64/8 (chameleon-34b, a GQA group of
+               8): contiguous prefill of 512 tokens and 8 decode rows over
+               1024 keys, paged mixed and decode, each against SDPA. At
+               head dims 128 and 256 the flash cases run ``wg_body`` (wgmma;
+               decode through the work list over the live keys).
   4. serve   — for each model the port serves, full width and full depth
                (random weights from a seed), on an M8F8 crossbar base with
                two rank-32 adapters, served by the port's paged engine: 8
@@ -199,7 +207,12 @@ Imports nothing of JAX or of the JAX package. Phases, each printing JSON:
                over 8 experts with renormalised gates; a 4400-token prompt
                past its 4096 window, then 4 decode steps over the ring),
                musicgen-medium at full depth from precomputed embeddings
-               (48 layers, d 1536, 24/24 heads of 64, LayerNorm, GELU).
+               (48 layers, d 1536, 24/24 heads of 64, LayerNorm, GELU);
+               since slice 16, at 8 layers each, a 512-token prompt and 4
+               decode steps: internlm2-20b (d 6144, 48/8 heads of 128),
+               mistral-nemo-12b (d 5120, 32/8 heads of 128: a query width
+               of 4096 below d_model) and chameleon-34b (d 8192, 64/8
+               heads of 128 with qk-norm, from precomputed embeddings).
   5. train   — after the served models, each freed before and after:
                llama3.2-1b, then paper-gpt2-medium, then rwkv6-7b, at
                full width and depth on an M8F8 base with one rank-32
@@ -515,11 +528,14 @@ CB_KERNELS = ("crossbar_decode_kernel<", "crossbar_prefill_kernel<")
 # the grouped entry point's (the same kernels' bodies over slots' rows)
 GROUPED_KERNELS = ("grouped_decode_kernel<", "grouped_prefill_kernel<")
 # the flash kernels' (both entry points): flash_kernel<D, false> runs row
-# tiles (prefill, chunks), flash_kernel<D, true> the warp split (decode)
-FA_KERNELS = ("flash_kernel<",)
-# the ring entry point's kernel (its name holds FA_KERNELS' as a part:
-# every match on it goes through the "(anonymous namespace)::" prefix)
-RING_KERNELS = ("ring_flash_kernel<",)
+# tiles (prefill, chunks; wgmma from D = 128), flash_kernel<D, true> the
+# warp split (decode, G*T <= 16 rows) at D <= 64; from D = 128 decode (G*T
+# <= 8 rows) is flash_decode_kernel<D, RP> (f32 on the CUDA cores, the
+# work list over the live keys)
+FA_KERNELS = ("flash_kernel<", "flash_decode_kernel<")
+# the ring entry point's kernels (their names hold FA_KERNELS' as a part:
+# every match on them goes through the "(anonymous namespace)::" prefix)
+RING_KERNELS = ("ring_flash_kernel<", "ring_flash_decode_kernel<")
 # the backward kernels: the transposed crossbar read; flash's D_i, dk/dv
 # and dq kernels
 CB_T_KERNELS = ("crossbar_t_kernel<",)
@@ -820,6 +836,13 @@ def _ring_case(dev, g, model, label, lens, clens, T, W, Hq, Hkv, D, window,
     err = float((o - o_plain).abs()[valid].max())
     seen = mask.any(dim=1)
     nbytes, flops = _attn_cost(q, mask, float(seen.sum()) * Hkv * D * 4 * 2)
+    # SDPA has no softcap; without one, SDPA over the gathered [ring ;
+    # chunk] K/V with the visibility mask computes the same function
+    sdpa = None
+    if softcap is None:
+        kg = torch.cat([kr.transpose(1, 2), kc], dim=1).contiguous()
+        vg = torch.cat([vr.transpose(1, 2), vc], dim=1).contiguous()
+        sdpa = _sdpa_yardstick(q, kg, vg, mask)
     return {
         "name": "ring_flash_attention", "case": label, "model": model,
         "shape": {"B": B, "T": T, "W": W, "Hq": Hq, "Hkv": Hkv, "D": D,
@@ -828,7 +851,7 @@ def _ring_case(dev, g, model, label, lens, clens, T, W, Hq, Hkv, D, window,
         "max_abs_err": err, "tol": FA_TOL,
         **_flash_times(lambda: fa_ops.ring_flash_attention(*args, **kw),
                        lambda: fa_ops.ring_flash_attention_plain(*args, **kw),
-                       None, nbytes, flops, RING_KERNELS),
+                       sdpa, nbytes, flops, RING_KERNELS),
     }
 
 
@@ -1415,6 +1438,27 @@ def moe_attention_cases(dev, g):
                      torch.ones(8, **i32), 1, W, *H, 128, W, None)
 
 
+def head_dim_128_cases(dev, g):
+    """Flash at the heads of the three head-dim-128 forwards (slice 16):
+    internlm2-20b's 48/8, mistral-nemo-12b's 32/8 and chameleon-34b's 64/8
+    (a GQA group of 8): contiguous prefill of the forward's 512-token
+    prompt and 8 decode rows over 1024 keys, paged mixed and decode as
+    ``paged_cases``, each against SDPA."""
+    i32 = dict(dtype=torch.int32, device=dev)
+    for m, H in (("internlm2-20b", (48, 8)), ("mistral-nemo-12b", (32, 8)),
+                 ("chameleon-34b", (64, 8))):
+        yield _contiguous_case(dev, g, m, "prefill", 1, 512, 512, *H, 128)
+        yield _contiguous_case(dev, g, m, "decode", 8, 1, 1024, *H, 128)
+        yield _paged_case(
+            dev, g, m, *H, "mixed",
+            torch.tensor([0, 128, 256, 384, 40, 700, 1000, 0], **i32),
+            torch.tensor([128, 128, 128, 100, 128, 1, 1, 0], **i32), C=128,
+            nb=63, P=512, D=128)
+        lens = torch.linspace(63, 543, 8, device=dev).round().to(torch.int32)
+        yield _paged_case(dev, g, m, *H, "decode", lens,
+                          torch.ones(8, **i32), C=1, nb=64, P=512, D=128)
+
+
 def slice15_cases(dev, g):
     """The MoE models' kernels: the grouped crossbar at llama4-scout's 16
     and mixtral's 8 expert stacks (int8 and int4), and their attention."""
@@ -1444,7 +1488,9 @@ def path_cases(dev, g):
             crossbar_cases(dev, g, "gemma2-9b", GEMMA_KN, (8,)),
             gemma_attention_cases(dev, g),
             # the MoE models' expert stacks and attention
-            *slice15_cases(dev, g))
+            *slice15_cases(dev, g),
+            # the head-dim-128 forwards' attention
+            head_dim_128_cases(dev, g))
 
 
 def slice10_cases(dev, g):
@@ -3727,11 +3773,24 @@ SERVE_KW = {"gemma2-9b": dict(max_len=5120, long_prompts=(2, (4300, 4800)),
 # the forwards at full width after the serves (``forward_phase``):
 # mixtral-8x22b at 2 of its 56 layers (top-2 over 8 experts, a prompt past
 # its 4096 window: GQA group 6 through the windowed flash kernel, then
-# decode over the ring), musicgen-medium at full depth from embeddings
+# decode over the ring), musicgen-medium at full depth from embeddings;
+# the three head-dim-128 models at 8 layers each (the plain reference
+# holds every layer's dequantized f32 weights at once: 2.8 GB a layer for
+# chameleon-34b, 1.4 for internlm2-20b, 1.1 for mistral-nemo-12b, so full
+# depth would not fit beside the codes; 8 layers keep it under 25 GB):
+# internlm2-20b (48/8 heads), mistral-nemo-12b (32/8, a query width of 4096
+# below its d_model of 5120), chameleon-34b (64/8, qk-norm, from its
+# embeddings frontend)
 FORWARDS = (("mixtral-8x22b", dict(layers=2, prompt_len=4400,
                                    decode_steps=4)),
             ("musicgen-medium", dict(embeds=True, prompt_len=512,
-                                     decode_steps=4)))
+                                     decode_steps=4)),
+            ("internlm2-20b", dict(layers=8, prompt_len=512,
+                                   decode_steps=4)),
+            ("mistral-nemo-12b", dict(layers=8, prompt_len=512,
+                                      decode_steps=4)),
+            ("chameleon-34b", dict(layers=8, embeds=True, prompt_len=512,
+                                   decode_steps=4)))
 PROFILED = ("llama3.2-1b", "rwkv6-7b", "paper-gpt2-medium")
 # the models the dense oracle engine also serves (after the paged one)
 DENSE = ("llama3.2-1b",)

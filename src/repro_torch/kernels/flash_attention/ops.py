@@ -13,8 +13,10 @@ there instead). Head dims ``HEAD_DIMS`` forward, ``BWD_HEAD_DIMS``
 backward. On CUDA tensors the wrappers launch
 ``csrc/flash_attention.cu`` (tensor cores in 3xTF32, one block per kv
 head's GQA group and row tile, causal tiles skipped, short query tiles
-split over the context through a workspace, ``kernels.workspace``); on
-CPU tensors they run the plain versions.
+split over the context through a workspace, ``kernels.workspace``; at
+head dims 128 and 256 row tiles on wgmma and decode in f32 over a work
+list of the live keys that the kernel derives from ``lens``, mirrored by
+``decode_work_list``); on CPU tensors they run the plain versions.
 
 Training: q, k or v that need a gradient go through ``FlashAttentionFn``
 on either device. Its forward also gives the per-row log-sum-exp ``lse``
@@ -183,6 +185,82 @@ def ring_flash_attention_plain(q, k_ring, v_ring, k_chunk, v_chunk,
     kv_pos = ring_kv_pos(lens, chunk_lens, positions, k_ring.shape[2])
     return flash_attention_plain(q, kg, vg, positions, kv_pos, window=window,
                                  softcap=softcap)
+
+
+# ---------------------------------------------------------------------------
+# the head-dim 128 and 256 kernels' cut, and their decode work list (mirrors)
+# ---------------------------------------------------------------------------
+
+# csrc/flash_attention.cu: ``wg_body``'s keys of a tile and rows of a block
+# (row tiles, G*T > 8 rows), ``decode_body``'s rows (G*T <= 8), keys of a
+# unit and blocks an SM holds
+WG_KEYS = {128: 32, 256: 16}
+WG_ROWS = {128: 128, 256: 64}
+DECODE_ROWS = 8
+DECODE_KEYS = 16
+DECODE_BLOCKS_PER_SM = {128: 3, 256: 2}
+MAX_SPLIT = 32                 # ``kMaxSplit``: splits of one item, at most
+
+
+def decode_grid(B: int, Hkv: int, D: int, sms: int = 132) -> int:
+    """Blocks of a decode launch at head dim 128 or 256 (``plan``): whole
+    blocks per SM, at least one per (slot, kv head). Set by the shapes
+    alone, so a captured CUDA graph stays valid while ``lens`` change."""
+    want = max(B * Hkv, DECODE_BLOCKS_PER_SM[D] * sms)
+    return -(-want // sms) * sms
+
+
+def slot_units(kt: int, lens, chunk_lens, *, n_tiles: int = 0,
+               ring_w: Optional[int] = None, pool_keys: Optional[int] = None):
+    """Each slot's units, the tiles (``kt`` keys) that may hold a visible
+    key, as ``decode_body`` counts them: the contiguous entry point's every tile
+    (``n_tiles``); the paged one's tiles below min(pool_keys, lens +
+    chunk_lens); the ring's written slots' tiles (min(lens, W)) then the
+    chunk's (chunk_lens), as (ring units, all units) pairs."""
+    out = []
+    for b in range(len(lens)):
+        if ring_w is not None:
+            ur = -(-min(max(int(lens[b]), 0), ring_w) // kt)
+            out.append((ur, ur + -(-int(chunk_lens[b]) // kt)))
+        elif pool_keys is not None:
+            end = min(pool_keys, int(lens[b]) + int(chunk_lens[b]))
+            out.append((0, -(-end // kt)))
+        else:
+            out.append((0, n_tiles))
+    return out
+
+
+def decode_work_list(units, Hkv: int, grid: int):
+    """The decode work list that each block of ``decode_body`` derives on
+    the device (a pure mirror of its rule, for the tests; nothing on the card
+    path calls it). ``units``: ``slot_units``' (ring units, units) per
+    slot. Live slots (units > 0) get n = 1 + spare * units // (all units *
+    Hkv) splits per kv head (at most units and ``MAX_SPLIT``), spare being
+    the blocks beyond one per live (slot, head); slot b's heads take
+    consecutive blocks in slot order. Returns one dict per block that has
+    an item: block, b, h, split, n, first (the block of split 0, whose
+    index its partials start at) and the unit range [u0, u1)."""
+    U = sum(u for _, u in units)
+    live = sum(1 for _, u in units if u > 0)
+    spare = max(0, grid - live * Hkv)
+    items, start = [], 0
+    for b, (_, u) in enumerate(units):
+        if u == 0:
+            continue
+        n = min(1 + spare * u // (U * Hkv), u, MAX_SPLIT)
+        for h in range(Hkv):
+            for j in range(n):
+                items.append(dict(block=start + h * n + j, b=b, h=h, split=j,
+                                  n=n, first=start + h * n,
+                                  u0=u * j // n, u1=u * (j + 1) // n))
+        start += n * Hkv
+    return items
+
+
+def unit_tile(x: int, ring_units: int, n_ring_tiles: int) -> int:
+    """The tile of a slot's unit x: ring units are the first ring tiles,
+    the rest the chunk's tiles (after the ``n_ring_tiles`` ring tiles)."""
+    return x if x < ring_units else n_ring_tiles + (x - ring_units)
 
 
 # ---------------------------------------------------------------------------

@@ -262,3 +262,323 @@ def test_ring_key_source_and_positions(case):
     o = emulate(q, k, v, pos, kpos, kt=kt, splits=splits, **kw)
     valid = torch.arange(T)[None] < clens[:, None]
     assert float((o - o_plain).abs()[valid].max()) <= FA_TOL
+
+
+
+
+# ---------------------------------------------------------------------------
+# head dims 128 and 256: ``wg_body`` (row tiles) and ``decode_body``
+# ---------------------------------------------------------------------------
+# Row tiles (G*T > 8 rows) run on wgmma: each tile's pieces are made once in
+# shared memory (K as it lies, V transposed), q's once per block, and each
+# product is small.big + big.small + big.big per k8 step; tiles are
+# ``fa_ops.WG_KEYS`` keys, blocks ``fa_ops.WG_ROWS`` rows (two warpgroups:
+# of 64 rows each at D = 128, of 128 columns each at D = 256, whose halves
+# of q.k are added in warpgroup order), a block's live tiles split evenly
+# when the row tiles leave SMs idle. Decode (G*T <= 8) runs in f32 on the CUDA cores over the work list
+# that ``fa_ops.decode_work_list`` mirrors (units of ``DECODE_KEYS`` keys);
+# a (slot, kv head)'s splits are combined in split order. The ring's slots
+# and the chunk's keys tile apart.
+
+def _source():
+    from pathlib import Path
+    return (Path(fa_ops.__file__).resolve().parents[2] / "csrc"
+            / "flash_attention.cu").read_text()
+
+
+def _constant(src, pattern):
+    import re
+    m = re.search(pattern, src)
+    assert m is not None, pattern
+    return [int(x) for x in m.groups()]
+
+
+def test_wg_and_decode_cut_matches_the_source_and_fits_a_block():
+    """The mirrors' tile keys, rows and decode constants are the source's;
+    a row block's q pieces (each warpgroup's 64 rows), the four planes of a
+    tile and the raw stage fit a block's 227 KB with 1 KB for alignment and
+    1 KB for the static bytes; a V^T row (the tile's keys) is one swizzle
+    row of 128 or 64 bytes and tiles split into whole k8 steps; the decode
+    block's static arrays fit 48 KB and its padded rows times its chunk's
+    keys are one value a lane."""
+    src = _source()
+    k256, k128 = _constant(src, r"constexpr int wg_keys\(int D\) \{ return "
+                                r"D >= 256 \? (\d+) : (\d+); \}")
+    (groups,) = _constant(src, r"constexpr int kWgGroups = (\d+);")
+    (cs_from,) = _constant(src, r"constexpr bool wg_split_columns\(int D\) "
+                                r"\{ return D >= (\d+); \}")
+    (stages,) = _constant(src, r"constexpr int kWgStages = (\d+);")
+    (rows,) = _constant(src, r"constexpr int kDecRows = (\d+);")
+    (dkeys,) = _constant(src, r"constexpr int kDecKeys = (\d+);")
+    (chunk,) = _constant(src, r"constexpr int kDecChunk = (\d+);")
+    (warps,) = _constant(src, r"constexpr int kDecWarps = (\d+);")
+    b256, b128 = _constant(src, r"dec_blocks_per_sm\(int D\) \{\s*return "
+                                r"D >= 256 \? (\d+) : (\d+);")
+    assert {128: k128, 256: k256} == fa_ops.WG_KEYS
+    # warpgroups split a block's rows below cs_from and its columns from
+    # there: 64 rows a warpgroup, or 64 rows in all
+    assert {D: 64 if D >= cs_from else 64 * groups
+            for D in (128, 256)} == fa_ops.WG_ROWS
+    assert (rows, dkeys) == (fa_ops.DECODE_ROWS, fa_ops.DECODE_KEYS)
+    assert {128: b128, 256: b256} == fa_ops.DECODE_BLOCKS_PER_SM
+    assert rows * chunk == 32 and dkeys % chunk == 0
+    for D in (128, 256):
+        kt, q_sets = fa_ops.WG_KEYS[D], fa_ops.WG_ROWS[D] // 64
+        plane = kt * D * 4
+        total = 1024 + 2 * q_sets * 64 * D * 4 + 4 * plane + 2 * stages * plane
+        assert total <= 232448 - 1024, (D, total)
+        assert kt * 4 in (64, 128) and kt % 8 == 0 and D % 32 == 0
+        assert (rows + warps * rows) * D * 4 + 1024 <= 48 * 1024
+
+
+def _run_tiles(qr, kb, vb, kp, qp, tiles, kt, window, softcap, pieces,
+               halves=False):
+    """One split's (m, l, acc) over ``tiles`` of one (slot, kv head): the
+    kernels' online softmax; products in 3xTF32 (pieces 2), one TF32 piece
+    (1) or f32 (0: the decode kernel's FMAs); ``halves``: q.k as the sum of
+    its two column halves' products, first half first (D = 256)."""
+    rows, D = qr.shape
+    m = torch.full((rows,), NEG_INF)
+    l = torch.zeros(rows)
+    acc = torch.zeros(rows, D)
+    mul = (lambda a, b: a @ b) if pieces == 0 else (  # noqa: E731
+        lambda a, b: product(a, b, pieces))
+    for tile in tiles:
+        keys = slice(tile * kt, (tile + 1) * kt)
+        kpos = kp[keys]
+        # keys that no row may see are 0 (the planes; the decode's loads)
+        ok = (kpos >= 0)[:, None]
+        kt_ = torch.where(ok, kb[keys], torch.zeros_like(kb[keys]))
+        vt_ = torch.where(ok, vb[keys], torch.zeros_like(vb[keys]))
+        if halves:
+            c = qr.shape[1] // 2
+            s = mul(qr[:, :c], kt_[:, :c].T) + mul(qr[:, c:], kt_[:, c:].T)
+        else:
+            s = mul(qr, kt_.T)
+        if softcap is not None:
+            s = softcap * torch.tanh(s / softcap)
+        vis = (kpos[None] >= 0) & (kpos[None] <= qp[:, None])
+        if window is not None:
+            vis &= (qp[:, None] - kpos[None]) < window
+        s = torch.where(vis, s, torch.full_like(s, NEG_INF))
+        m_new = torch.maximum(m, s.amax(dim=1))
+        corr = torch.exp(m - m_new)
+        p = torch.where(vis, torch.exp(s - m_new[:, None]), torch.zeros_like(s))
+        l = l * corr + p.sum(dim=1)
+        acc = acc * corr[:, None] + mul(p, vt_)
+        m = m_new
+    return m, l, acc
+
+
+def _combine(parts):
+    """Splits' (m, l, acc) summed in split order, each weighing
+    exp(m_j - M) (0 where l_j = 0)."""
+    if len(parts) == 1:
+        m, l, acc = parts[0]
+        return acc / l.clamp_min(1e-30)[:, None]
+    ms = torch.stack([p[0] for p in parts])
+    ls = torch.stack([p[1] for p in parts])
+    M = torch.where(ls > 0, ms, torch.full_like(ms, NEG_INF)).amax(0)
+    w = torch.where(ls > 0, torch.exp(ms - M), torch.zeros_like(ms))
+    total = torch.zeros_like(parts[0][2])
+    for j in range(len(parts)):
+        total = total + parts[j][2] * w[j][:, None]
+    return total / (ls * w).sum(0).clamp_min(1e-30)[:, None]
+
+
+def emulate_wg(q, k, v, q_pos, kv_pos, *, window=None, softcap=None,
+               units=None, pieces=2, grid=None, n_ring_tiles=0):
+    """The head-dim 128 / 256 kernels' arithmetic for q (B, T, Hq, D) over
+    k/v (B, S, Hkv, D) with key positions kv_pos (-1: no key). G*T > 8:
+    ``wg_body``'s row tiles (``WG_ROWS`` rows, ``WG_KEYS``-key tiles, one
+    split: the shapes here leave no SM idle) in 3xTF32 (``pieces``). Else
+    ``decode_body``: the work list over ``units`` (``fa_ops.slot_units`` in
+    ``DECODE_KEYS``-key units, all tiles by default; a ring's units map to
+    tiles past its ``n_ring_tiles``) on a grid of ``grid`` blocks, each
+    item's live units in f32, the splits combined in order."""
+    B, T, Hq, D = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    rows = T * G
+    qr = q.reshape(B, T, Hkv, G, D).permute(0, 2, 1, 3, 4).reshape(
+        B, Hkv, rows, D) * (D ** -0.5)
+    qp = q_pos.repeat_interleave(G, dim=1)
+    out = torch.zeros(B, Hkv, rows, D)
+
+    def live(b, r0, r1, tile, kt):
+        qs = qp[b, r0:r1]
+        lo = 0 if window is None else max(0, int(qs.min()) - window + 1)
+        kpt = kv_pos[b, tile * kt:(tile + 1) * kt]
+        return bool(((kpt >= lo) & (kpt <= int(qs.max()))).any())
+
+    if rows > fa_ops.DECODE_ROWS:
+        kt, rb = fa_ops.WG_KEYS[D], fa_ops.WG_ROWS[D]
+        n_tiles = -(-S // kt)
+        for b in range(B):
+            for h in range(Hkv):
+                for r0 in range(0, rows, rb):
+                    r1 = min(rows, r0 + rb)
+                    tiles = [i for i in range(n_tiles)
+                             if live(b, r0, r1, i, kt)]
+                    part = _run_tiles(qr[b, h, r0:r1], k[b, :, h], v[b, :, h],
+                                      kv_pos[b], qp[b, r0:r1], tiles, kt,
+                                      window, softcap, pieces,
+                                      halves=D >= 256)
+                    out[b, h, r0:r1] = _combine([part])
+    else:
+        kt = fa_ops.DECODE_KEYS
+        units = units or [(0, -(-S // kt))] * B
+        items = fa_ops.decode_work_list(
+            units, Hkv, grid or fa_ops.decode_grid(B, Hkv, D))
+        for b in range(B):
+            for h in range(Hkv):
+                mine = sorted((it for it in items
+                               if it["b"] == b and it["h"] == h),
+                              key=lambda it: it["split"])
+                parts = []
+                for it in mine:
+                    tiles = [fa_ops.unit_tile(x, units[b][0], n_ring_tiles)
+                             for x in range(it["u0"], it["u1"])]
+                    tiles = [x for x in tiles if live(b, 0, rows, x, kt)]
+                    parts.append(_run_tiles(qr[b, h], k[b, :, h], v[b, :, h],
+                                            kv_pos[b], qp[b], tiles, kt,
+                                            window, softcap, 0))
+                if parts:
+                    out[b, h] = _combine(parts)
+    return out.reshape(B, Hkv, T, G, D).permute(0, 2, 1, 3, 4).reshape(
+        B, T, Hq, D)
+
+
+# (label, B, T, S, Hq, Hkv, D): row tiles at GQA 8 (chameleon's 64/8,
+# heads cut; two blocks of 128 rows), at GQA 8 with T = 2 (16 rows: row
+# tiles, not decode) and at GQA 2 (gemma2's 16/8); decode over the work
+# list at GQA 5, 8 and 2
+WG_CASES = [("prefill_d128_g8", 1, 40, 160, 16, 2, 128),
+            ("rows16_d128_g8", 2, 2, 300, 16, 2, 128),
+            ("prefill_d256_g2", 1, 48, 96, 4, 2, 256),
+            ("decode_d128_g5", 3, 1, 700, 10, 2, 128),
+            ("decode_d128_g8", 2, 1, 300, 16, 2, 128),
+            ("decode_d256_g2", 4, 1, 500, 4, 2, 256)]
+
+
+@pytest.mark.parametrize("window,softcap", [(None, None), (96, 50.0)])
+@pytest.mark.parametrize("case", WG_CASES, ids=[c[0] for c in WG_CASES])
+def test_wg_and_decode_meet_the_kernel_tolerance(case, window, softcap):
+    _, B, T, S, Hq, Hkv, D = case
+    q, k, v, qpos, kpos = _inputs(B, T, S, Hq, Hkv, D, S + T, 2.0)
+    kw = dict(window=window, softcap=softcap)
+    o_plain = fa_ops.flash_attention_plain(q, k, v, qpos, kpos, **kw)
+    # a small grid, so that the decode rows split over many blocks
+    o = emulate_wg(q, k, v, qpos, kpos, grid=24, **kw)
+    assert float((o - o_plain).abs().max()) <= FA_TOL
+
+
+@pytest.mark.parametrize("case", WG_CASES[:3],
+                         ids=[c[0] for c in WG_CASES[:3]])
+def test_wg_one_tf32_piece_breaks_the_kernel_tolerance(case):
+    _, B, T, S, Hq, Hkv, D = case
+    q, k, v, qpos, kpos = _inputs(B, T, S, Hq, Hkv, D, 7)
+    o_plain = fa_ops.flash_attention_plain(q, k, v, qpos, kpos)
+    err1 = float((emulate_wg(q, k, v, qpos, kpos, pieces=1)
+                  - o_plain).abs().max())
+    err3 = float((emulate_wg(q, k, v, qpos, kpos) - o_plain).abs().max())
+    assert err1 > FA_TOL >= err3
+
+
+def _decode_slots(kind):
+    """Slots as a decode tick holds them: idle ones among live ones of
+    every length (paged: pool of 320 pages of 16 a table row; ring: a ring
+    of 256 that has wrapped, is filling and is empty)."""
+    lens = [0, 37, 300, 0, 1, 4811, 128, 0]
+    clens = [0, 1, 1, 0, 1, 1, 1, 0]
+    if kind == "ring":
+        lens[5], lens[1] = 9000, 200
+    return lens, clens
+
+
+@pytest.mark.parametrize("D", [128, 256])
+@pytest.mark.parametrize("kind", ["paged", "ring", "contiguous"])
+def test_decode_work_list_covers_every_live_key_once(kind, D):
+    """Every live key of every live (slot, kv head) lies in exactly one
+    item's tiles, an idle slot gets no item, blocks are distinct and inside
+    the grid, a long context gets more blocks than a short one, and the
+    grid depends on the shapes only."""
+    kt, B, Hkv = fa_ops.DECODE_KEYS, 8, 8
+    lens, clens = _decode_slots(kind)
+    W, page, nb = 256, 16, 320
+    kw = ({"ring_w": W} if kind == "ring" else
+          {"pool_keys": nb * page} if kind == "paged" else
+          {"n_tiles": -(-5000 // kt)})
+    units = fa_ops.slot_units(kt, lens, clens, **kw)
+    grid = fa_ops.decode_grid(B, Hkv, D)
+    assert grid % 132 == 0 and grid >= B * Hkv
+    assert grid == fa_ops.decode_grid(B, Hkv, D)    # no lens in the rule
+    items = fa_ops.decode_work_list(units, Hkv, grid)
+    blocks = [it["block"] for it in items]
+    assert len(set(blocks)) == len(blocks) and max(blocks) < grid
+    n_rt = -(-W // kt) if kind == "ring" else 0
+    for b in range(B):
+        ur, u = units[b]
+        # the contiguous entry point has no lens: every slot is read
+        idle = kind != "contiguous" and lens[b] + clens[b] == 0
+        assert (u == 0) == idle
+        # the keys this slot may hold, by tile
+        if kind == "ring":
+            keys = [s // kt for s in range(min(lens[b], W))]
+            keys += [n_rt + c // kt for c in range(clens[b])]
+        elif kind == "paged":
+            keys = [s // kt for s in range(lens[b] + clens[b])]
+        else:
+            keys = [s // kt for s in range(5000)]
+        for h in range(Hkv):
+            mine = [it for it in items if it["b"] == b and it["h"] == h]
+            assert bool(mine) == (not idle)
+            if idle:
+                continue
+            n = mine[0]["n"]
+            assert [it["split"] for it in mine] == list(range(n))
+            assert all(it["first"] == mine[0]["block"] for it in mine)
+            tiles = [fa_ops.unit_tile(x, ur, n_rt) for it in mine
+                     for x in range(it["u0"], it["u1"])]
+            for tile in keys:
+                assert tiles.count(tile) == 1
+    if kind != "contiguous":
+        n_of = {it["b"]: it["n"] for it in items}
+        assert n_of[5] > n_of[1]
+
+
+def test_ring_and_idle_decode_meet_the_kernel_tolerance():
+    """The ring's slots and the chunk's keys tiled apart, through the
+    decode work list with an idle slot, at D = 256 (gemma2's softcap and
+    window)."""
+    D, kt, Hq, Hkv, W = 256, fa_ops.DECODE_KEYS, 4, 2, 64
+    lens = torch.tensor([100, 0, 30, 5], dtype=torch.int32)
+    clens = torch.tensor([1, 0, 1, 1], dtype=torch.int32)
+    B, T = 4, 1
+    rng = np.random.default_rng(11)
+    t = lambda *shape: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(shape).astype(np.float32))
+    q, kr, vr = t(B, T, Hq, D), t(B, Hkv, W, D), t(B, Hkv, W, D)
+    kc, vc = t(B, T, Hkv, D), t(B, T, Hkv, D)
+    pos = (lens[:, None] + torch.arange(T)[None]).to(torch.int32)
+    kw = dict(window=W, softcap=50.0)
+    o_plain = fa_ops.ring_flash_attention_plain(q, kr, vr, kc, vc, pos, lens,
+                                                clens, **kw)
+    # the kernel's key space: ring tiles, then chunk tiles
+    n_rt = -(-W // kt)
+    kpos_ring = ring_key_positions(lens, clens, pos, W)
+    S = (n_rt + -(-T // kt)) * kt
+    k = torch.zeros(B, S, Hkv, D)
+    v = torch.zeros(B, S, Hkv, D)
+    kpos = torch.full((B, S), -1, dtype=torch.int64)
+    k[:, :W], v[:, :W] = kr.transpose(1, 2), vr.transpose(1, 2)
+    k[:, n_rt * kt:n_rt * kt + T] = kc
+    v[:, n_rt * kt:n_rt * kt + T] = vc
+    kpos[:, :W] = kpos_ring[:, :W]
+    kpos[:, n_rt * kt:n_rt * kt + T] = kpos_ring[:, W:]
+    units = fa_ops.slot_units(kt, lens.tolist(), clens.tolist(), ring_w=W)
+    o = emulate_wg(q, k, v, pos, kpos, units=units, grid=24,
+                   n_ring_tiles=n_rt, **kw)
+    valid = torch.arange(T)[None] < clens[:, None]
+    assert float((o - o_plain).abs()[valid].max()) <= FA_TOL
+    assert torch.all(o[1] == 0.0)     # the idle slot: no item, no key

@@ -424,6 +424,166 @@ def test_paged_kernel_is_deterministic():
     assert torch.equal(o1, o2)
 
 
+# head dims 128 and 256 (``wg_body``: wgmma row tiles; decode through the
+# work list over the live keys): GQA groups 1, 4, 5, 6 and 8
+WG_GROUPS = [(8, 8), (32, 8), (40, 8), (48, 8), (64, 8)]
+
+
+def _wg_paged_mixed(dev, g, Hq, Hkv, D, C=24, page=16, nb=40, P=400):
+    """A mixed tick: prefill rows at several depths, decode rows, idle
+    slots between live ones, a -1 hole inside a context."""
+    i32 = dict(dtype=torch.int32, device=dev)
+    lens = torch.tensor([0, 0, 60, 300, 0, 7, 500, 0], **i32)
+    clens = torch.tensor([24, 0, 24, 1, 0, 13, 1, 0], **i32)
+    B = lens.shape[0]
+    need = (lens + clens + page - 1) // page
+    perm = torch.randperm(P, generator=g, device=dev)
+    bt = torch.full((B, nb), -1, **i32)
+    used = 0
+    for b in range(B):
+        n = int(need[b])
+        bt[b, :n] = perm[used:used + n].to(torch.int32)
+        used += n
+    bt[3, 2] = -1
+    kp = torch.randn(P, Hkv, page, D, generator=g, device=dev)
+    vp = torch.randn(P, Hkv, page, D, generator=g, device=dev)
+    q = torch.randn(B, C, Hq, D, generator=g, device=dev)
+    pos = (lens[:, None] + torch.arange(C, device=dev)[None]).to(torch.int32)
+    return q, kp, vp, pos, bt, lens, clens
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window,softcap", [(None, None), (48, 30.0)])
+@pytest.mark.parametrize("Hq,Hkv", WG_GROUPS,
+                         ids=[f"g{h // k}" for h, k in WG_GROUPS])
+@pytest.mark.parametrize("D", [128, 256])
+def test_wg_flash_matches_plain_on_every_entry_point(D, Hq, Hkv, window,
+                                                     softcap):
+    """Contiguous prefill (-1 holes in kv_pos) and decode, paged mixed and
+    decode (idle slots among live ones), the ring's chunk and decode: each
+    within 2e-5 of its plain version, the same bits twice."""
+    dev = _cuda_or_skip()
+    g = torch.Generator(device=dev).manual_seed(D + Hq)
+    kw = dict(window=window, softcap=softcap)
+    for B, T, S in ((2, 80, 200), (4, 1, 700)):
+        q = torch.randn(B, T, Hq, D, generator=g, device=dev)
+        k = torch.randn(B, S, Hkv, D, generator=g, device=dev)
+        v = torch.randn(B, S, Hkv, D, generator=g, device=dev)
+        qpos = torch.arange(S - T, S, dtype=torch.int32, device=dev)
+        qpos = qpos[None].expand(B, T).contiguous()
+        kpos = torch.arange(S, dtype=torch.int32, device=dev)
+        kpos = torch.where(kpos % 7 == 3, -1, kpos)[None].expand(
+            B, S).contiguous()
+        o = fa_ops.flash_attention(q, k, v, qpos, kpos, **kw)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(
+            o, fa_ops.flash_attention_plain(q, k, v, qpos, kpos, **kw),
+            rtol=2e-5, atol=2e-5)
+        assert torch.equal(o, fa_ops.flash_attention(q, k, v, qpos, kpos,
+                                                     **kw))
+    for args in (_wg_paged_mixed(dev, g, Hq, Hkv, D),
+                 _paged_decode_inputs(dev, D, Hq=Hq, Hkv=Hkv, D=D, nb=40,
+                                      P=400)):
+        o = fa_ops.paged_flash_attention(*args, page_size=16, **kw)
+        torch.cuda.synchronize()
+        o_plain = fa_ops.paged_flash_attention_plain(*args, page_size=16,
+                                                     **kw)
+        valid = torch.arange(args[0].shape[1], device=dev)[None] < args[6][
+            :, None]
+        torch.testing.assert_close(o[valid], o_plain[valid], rtol=2e-5,
+                                   atol=2e-5)
+        assert torch.equal(o, fa_ops.paged_flash_attention(
+            *args, page_size=16, **kw))
+    for T, lens, clens in ((24, (0, 70, 5, 0, 200), (24, 0, 17, 0, 24)),
+                           (1, (300, 0, 17, 64, 1000), (1, 0, 1, 1, 1))):
+        args = _ring_inputs(dev, T + D, T, 64, lens, clens, Hq, Hkv, D)
+        o = fa_ops.ring_flash_attention(*args, **kw)
+        torch.cuda.synchronize()
+        o_plain = fa_ops.ring_flash_attention_plain(*args, **kw)
+        valid = torch.arange(T, device=dev)[None] < args[7][:, None]
+        torch.testing.assert_close(o[valid], o_plain[valid], rtol=2e-5,
+                                   atol=2e-5)
+        assert torch.equal(o, fa_ops.ring_flash_attention(*args, **kw))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["prefill", "decode"])
+@pytest.mark.parametrize("D", [128, 256])
+def test_wg_flash_kernel_is_deterministic(D, case):
+    """At head dims 128 and 256 (row tiles split over the context for one
+    short prefill; decode split by the work list): the same bits twice."""
+    dev = _cuda_or_skip()
+    B, T, S = (1, 512, 512) if case == "prefill" else (8, 1, 1024)
+    g = torch.Generator(device=dev).manual_seed(D)
+    q = torch.randn(B, T, 32, D, generator=g, device=dev)
+    k = torch.randn(B, S, 8, D, generator=g, device=dev)
+    v = torch.randn(B, S, 8, D, generator=g, device=dev)
+    qpos = torch.arange(S - T, S, dtype=torch.int32, device=dev)
+    qpos = qpos[None].expand(B, T).contiguous()
+    kpos = torch.arange(S, dtype=torch.int32, device=dev)
+    kpos = kpos[None].expand(B, S).contiguous()
+    o1 = fa_ops.flash_attention(q, k, v, qpos, kpos)
+    o2 = fa_ops.flash_attention(q, k, v, qpos, kpos)
+    torch.cuda.synchronize()
+    assert torch.equal(o1, o2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("entry", ["paged", "ring"])
+@pytest.mark.parametrize("D", [128, 256])
+def test_wg_decode_graph_replays_new_lens_bit_for_bit(entry, D):
+    """A decode call captured once in a CUDA graph and replayed after lens
+    change (slots going idle, idle slots coming live, contexts growing
+    past many tiles): the grid is set by the shapes, the work list is
+    derived from lens on the card, so each replay equals the eager call
+    bit for bit and the plain version within 2e-5."""
+    dev = _cuda_or_skip()
+    Hq, Hkv = (16, 8) if D == 256 else (40, 8)
+    i32 = dict(dtype=torch.int32, device=dev)
+    ticks = [([80, 0, 330, 0, 530, 1300, 7, 0], [1, 0, 1, 0, 1, 1, 1, 0]),
+             ([0, 90, 331, 12, 0, 1301, 900, 0], [0, 1, 1, 1, 0, 1, 1, 0]),
+             ([1400, 91, 0, 0, 0, 0, 0, 3], [1, 1, 0, 0, 0, 0, 0, 1])]
+    if entry == "paged":
+        q, kp, vp, pos, bt, lens, clens = _paged_decode_inputs(
+            dev, 7, Hq=Hq, Hkv=Hkv, D=D, nb=96, P=800)
+        bt.copy_(torch.arange(8 * 96, device=dev, dtype=torch.int32)
+                 .reshape(8, 96) % 800)
+        args = (q, kp, vp, pos, bt, lens, clens)
+
+        def call():
+            return fa_ops.paged_flash_attention(*args, page_size=16)
+
+        def plain():
+            return fa_ops.paged_flash_attention_plain(*args, page_size=16)
+    else:
+        args = _ring_inputs(dev, 7, 1, 256, [1] * 8, [1] * 8, Hq, Hkv, D)
+        _, _, _, _, _, pos, lens, clens = args
+
+        def call():
+            return fa_ops.ring_flash_attention(*args, window=256,
+                                               softcap=50.0)
+
+        def plain():
+            return fa_ops.ring_flash_attention_plain(*args, window=256,
+                                                     softcap=50.0)
+    call()                                   # sizes the workspace
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    for tick_lens, tick_clens in ticks:
+        lens.copy_(torch.tensor(tick_lens, **i32))
+        clens.copy_(torch.tensor(tick_clens, **i32))
+        pos.copy_(lens[:, None])
+        graph.replay()
+        eager = call()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+        valid = clens > 0
+        torch.testing.assert_close(out[valid], plain()[valid], rtol=2e-5,
+                                   atol=2e-5)
+
+
 # (B, T, H, N, chunk_lens): decode, a prefill chunk, ragged rows with an
 # empty one, and the other instantiated head dims
 WKV_CASES = [(8, 1, 64, 64, None), (2, 128, 8, 64, None),
