@@ -2,7 +2,7 @@
 the dense ``max_batch x max_len`` baseline, at 16+ concurrent mixed-length
 requests and 4 LoRA adapters hot (paper SS V.G multi-task serving), by
 ``benchmarks/bench_serve_throughput.py``'s protocol (its workloads 1, 2,
-3 and 5, with its sizes, traffic and seeds).
+3, 5 and 6, with its sizes, traffic and seeds).
 
     PYTHONPATH=src:. python benchmarks/torch_serve_throughput.py [--device cpu]
     BENCH_SMOKE=1 PYTHONPATH=src:. python benchmarks/torch_serve_throughput.py
@@ -31,11 +31,16 @@ the spec-off run, the greedy tokens held to the dense oracle's. Workload
 JAX script), dropless (the serving default) against the capacity
 baseline on traffic that makes capacity drop (prompts of 6-48 tokens in
 chunks of 8): tokens/s of both, the capacity run's dropped assignments,
-the dropless greedy tokens held to the dense oracle's. The JAX script's
-workloads 4 and 6 (tensor parallelism, Mamba) wait for ROADMAP Queue 1
-items 16 and 13: each prints one line saying so. Writes
-``experiments/paper/torch_serve_throughput.json`` with the JAX script's
-payload keys for workloads 1, 2, 3 and 5, and ``device``.
+the dropless greedy tokens held to the dense oracle's. Workload 6:
+speculative decoding on the Mamba+attention hybrid (reduced
+jamba-1.5-large-398b, unquantized, n-gram drafter, motif-tiled prompts
+that the drafter can follow): every rejected draft restores the slots'
+Mamba state (``SlotStateArena``) and replays the accepted prefix; accept
+rate, recurrent rollbacks, tokens/s with spec on and off, the greedy
+tokens held to the dense oracle's. The JAX script's workload 4 (tensor
+parallelism) waits for ROADMAP Queue 1 item 16 and prints one line saying
+so. Writes ``experiments/paper/torch_serve_throughput.json`` with the JAX
+script's payload keys for workloads 1, 2, 3, 5 and 6, and ``device``.
 """
 from __future__ import annotations
 
@@ -57,8 +62,7 @@ from repro_torch.serve.engine import DenseServeEngine, PagedServeEngine
 from repro_torch.serve.spec import SpecConfig
 
 # the JAX script's workloads that wait for a later slice of the port
-WAITING = (("tensor_parallel", "tensor-parallel paged decode", 16),
-           ("spec_hybrid", "speculative decoding on Mamba+attention", 13))
+WAITING = (("tensor_parallel", "tensor-parallel paged decode", 16),)
 
 
 def _requests(n, vocab, rng, max_new):
@@ -263,6 +267,43 @@ def run(device=None):
         for u in dropless_eng.finished)
     assert moe_identical, "dropless MoE decode diverged from dense oracle"
 
+    # ---- spec-on-hybrid workload: speculative decoding on the Mamba +
+    # attention hybrid. Every rejected draft goes through the
+    # SlotStateArena checkpoint / restore and the recurrent rollback and
+    # replay, so greedy equivalence with the dense engine is the bar.
+    hcfg = reduce_config(get_config("jamba-1.5-large-398b"))
+    hparams = init_params(hcfg, torch.Generator(device=dev).manual_seed(2),
+                          device=dev)
+    hrng = np.random.default_rng(3)
+    h_req, h_new = (5, 10) if smoke else (10, 16)
+    # motif-tiled prompts: repetitive enough that the n-gram drafter gets
+    # real acceptances, so both accept and reject paths are measured
+    hreqs = []
+    for i in range(h_req):
+        motif = hrng.integers(1, hcfg.vocab_size, 3).astype(np.int32)
+        hreqs.append(dict(uid=i,
+                          prompt=np.tile(motif, int(hrng.integers(3, 8))),
+                          max_new_tokens=h_new))
+    hyb_kw = dict(device=dev, max_slots=4, max_len=64, page_size=8,
+                  prefill_chunk=8)
+    hyb_off_eng, hyb_off = _drive(
+        lambda: PagedServeEngine(hcfg, hparams, **hyb_kw), hreqs)
+    hyb_on_eng, hyb_on = _drive(
+        lambda: PagedServeEngine(hcfg, hparams,
+                                 spec=SpecConfig(k=4, drafter="ngram"),
+                                 **hyb_kw), hreqs)
+    horacle_eng, _ = _drive(
+        lambda: DenseServeEngine(hcfg, hparams, device=dev, max_batch=4,
+                                 max_len=64), hreqs)
+    hst = hyb_on_eng.stats()
+    assert hst.spec.enabled and hst.spec.disabled_reason is None
+    hsd = hst.as_dict()
+    hyb_identical = all(
+        hyb_on_eng.finished[u].generated
+        == horacle_eng.finished[100_000 + u % 100_000].generated
+        for u in hyb_on_eng.finished)
+    assert hyb_identical, "spec-on hybrid decode diverged from dense oracle"
+
     ns, ss = nocache_eng.stats().as_dict(), shared_eng.stats().as_dict()
     pb = _page_bytes(shared_eng.cache, num_pages)
     # counters accumulate over every pass (nocache ran 2, shared ran 3);
@@ -303,6 +344,11 @@ def run(device=None):
          f"capacity_tok/s={capacity['tok_per_s']:.1f}_"
          f"dropped_0_vs_{moe_cap.moe.dropped_tokens}_"
          f"oracle_{'PASS' if moe_identical else 'DIVERGED'}")
+    emit("torch_serve_spec_hybrid", 0.0,
+         f"accept_rate_{hsd['spec_accept_rate']:.2f}_"
+         f"recurrent_rollbacks_{hsd['spec_recurrent_rollbacks']}_"
+         f"tok/s_on_{hyb_on['tok_per_s']:.1f}_off_{hyb_off['tok_per_s']:.1f}_"
+         f"oracle_{'PASS' if hyb_identical else 'DIVERGED'}")
     for key, what, item in WAITING:
         print(f"torch_serve_{key}: not run: {what} waits for ROADMAP "
               f"Queue 1 item {item}")
@@ -377,6 +423,21 @@ def run(device=None):
                 dropless["tok_per_s"] / max(capacity["tok_per_s"], 1e-9),
             "capacity_dropped_tokens": moe_cap.moe.dropped_tokens,
             "greedy_matches_dense_oracle": bool(moe_identical),
+        },
+        "spec_hybrid": {
+            "arch": "jamba-1.5-large-398b (reduced)",
+            "drafter": "ngram", "k": 4,
+            "workload": {"n_requests": h_req, "prompt_lens": "9..21",
+                         "max_new": h_new, "prefill_chunk": 8},
+            "spec_on": {**hyb_on,
+                        "drafted_tokens": hsd["drafted_tokens"],
+                        "accepted_tokens": hsd["accepted_tokens"],
+                        "rolled_back_tokens": hsd["rolled_back_tokens"],
+                        "recurrent_rollbacks":
+                            hsd["spec_recurrent_rollbacks"]},
+            "spec_off_tok_per_s": hyb_off["tok_per_s"],
+            "accept_rate": hsd["spec_accept_rate"],
+            "greedy_matches_dense_oracle": bool(hyb_identical),
         },
         "waiting": {key: f"ROADMAP Queue 1 item {item}"
                     for key, _, item in WAITING},

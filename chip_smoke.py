@@ -82,7 +82,16 @@ Imports nothing of JAX or of the JAX package. Phases, each printing JSON:
                8): contiguous prefill of 512 tokens and 8 decode rows over
                1024 keys, paged mixed and decode, each against SDPA. At
                head dims 128 and 256 the flash cases run ``wg_body`` (wgmma;
-               decode through the work list over the live keys).
+               decode through the work list over the live keys). Then
+               jamba-1.5-large-398b's (since slice 17): ``selective_scan``
+               at d_in 16384 and d_state 16 (a decode tick on 8 slots, a
+               128-token chunk on 8 slots, the same ragged with one row
+               idle, a 512-token prompt), within 1e-5 of max |y| and of
+               max |h_final|, the same bits twice, bound by bytes, no
+               library time; the crossbar at its Mamba projections
+               (8192 x 32768, 16384 x 8192) at M = 8 and 1024; the grouped
+               crossbar decoding 8 tokens top-2 over its 16 expert stacks
+               of (8192, 24576) and (24576, 8192).
   4. serve   — for each model the port serves, full width and full depth
                (random weights from a seed), on an M8F8 crossbar base with
                two rank-32 adapters, served by the port's paged engine: 8
@@ -145,7 +154,25 @@ Imports nothing of JAX or of the JAX package. Phases, each printing JSON:
                                reference's top-k margin (a flip at a
                                margin of ``FLIP_MARGIN`` or more fails),
                                and the logits are held to 1e-3 at every
-                               position before a path's first flip.
+                               position before a path's first flip;
+                 jamba-1.5-large-398b — ``moe_serve_phase`` at one scan
+                               period, 8 of its 72 layers (1 attention
+                               with 64/8 heads of 128, 7 Mamba with d_in
+                               16384 and d_state 16, 16 experts of 24576
+                               top-2 on 4 of them; the M8F8 codes of one
+                               period take 48.8 GB, two would not fit),
+                               adapters also on mamba_in and mamba_out;
+                               per tick exactly 30 crossbar, 12 grouped,
+                               1 paged flash and 7 ``selective_scan``
+                               launches; the prefix cache off (per-slot
+                               Mamba state); the reference streams each
+                               MoE layer one expert at a time
+                               (``streamed_moe``) and runs the Mamba
+                               layers' plain conv and scan; then n-gram
+                               speculation (k = 4, 32 new tokens) on the
+                               same geometry, its logits and routing held
+                               to the streamed reference, with a
+                               recurrent rollback of the Mamba state.
                The engine runs its mixed step as CUDA graphs, one per
                (chunk, table) signature: the first tick of a signature
                eagerly, then captured; every later tick by replay (each
@@ -286,10 +313,12 @@ Imports nothing of JAX or of the JAX package. Phases, each printing JSON:
   7. figures — the paper's Fig. 9 (``benchmarks/torch_noise.py``) and
                Fig. 13 (``benchmarks/torch_quant_perplexity.py``) at their
                full protocols, and the serving-throughput workloads 1-3 and
-               5 at their smoke sizes (``benchmarks/torch_serve_throughput.py``;
-               workload 3 speculates with the n-gram drafter, workload 5
-               serves reduced llama4-scout dropless against the capacity
-               baseline, which must drop),
+               5 and 6 at their smoke sizes
+               (``benchmarks/torch_serve_throughput.py``; workload 3
+               speculates with the n-gram drafter, workload 5 serves
+               reduced llama4-scout dropless against the capacity
+               baseline, which must drop, workload 6 speculates on reduced
+               jamba, which must roll its Mamba state back),
                each with the counts zeroed just before and read just
                after: one line each with its payload and seconds; fails on
                a non-finite number, a greedy check that fails or a kernel
@@ -331,6 +360,10 @@ FA_TOL = 2e-5                  # f32 softmax attention, other order
 FA_BWD_TOL = 1e-4
 WKV_TOL = 1e-5                 # the f32 recurrence, each step's sums in
                                # another order (as for the Pallas kernel)
+# selective scan: relative to max |y| and to max |h_final| (the same f32
+# recurrence with fused multiply-adds, each y a dot product over the N
+# states summed in another order)
+SCAN_TOL = 1e-5
 # engine and kernel forward vs the plain forward. llama3.2-1b: absolute,
 # on logits of magnitude ~5 (16 f32 layers summed in other orders).
 # rwkv6-7b: relative to the largest plain logit. Its 32 random-init layers
@@ -523,6 +556,10 @@ GEMMA_KN = ((3584, 4096), (3584, 2048), (4096, 3584), (3584, 14336),
 # llama4-scout-17b-a16e's and mixtral-8x22b's expert matrices (w1/w3, w2)
 LLAMA4_KN = ((5120, 8192), (8192, 5120))
 MIXTRAL_KN = ((6144, 16384), (16384, 6144))
+# jamba-1.5-large-398b's Mamba projections (in_proj, out_proj) and expert
+# matrices (w1/w3, w2)
+JAMBA_MAMBA_KN = ((8192, 32768), (16384, 8192))
+JAMBA_KN = ((8192, 24576), (24576, 8192))
 # the crossbar kernels' own names in a profiler trace
 CB_KERNELS = ("crossbar_decode_kernel<", "crossbar_prefill_kernel<")
 # the grouped entry point's (the same kernels' bodies over slots' rows)
@@ -1090,7 +1127,9 @@ LAUNCHED_AS = ((("crossbar_matmul",), CB_KERNELS),
                (("flash_attention", "paged_flash_attention"), FA_KERNELS),
                (("ring_flash_attention",), RING_KERNELS),
                (("rwkv6_wkv",), ("wkv_kernel<",)),
-               (("rwkv6_wkv_chunk",), ("wkv_chunk_kernel",)))
+               (("rwkv6_wkv_chunk",), ("wkv_chunk_kernel",)),
+               (("selective_scan",), ("selective_scan_kernel<",)))
+SCAN_KERNELS = ("selective_scan_kernel<",)
 
 
 def _wkv_inputs(dev, g, B, T, H, N, decay="model", clens=None):
@@ -1296,9 +1335,15 @@ def slice11_cases(dev, g):
 
 def _grouped_counts(dist, slots, dev):
     """Rows per slot of a grouped case: 8 decode rows on 8 distinct slots
-    or on one slot; 1024 prefill rows spread uniformly, or skewed (slot s
+    or on one slot, or 8 decode tokens each routed top-2 to two distinct
+    slots (16 rows); 1024 prefill rows spread uniformly, or skewed (slot s
     takes a share ~ 1 / (s + 1)) with the last slot empty."""
-    if dist == "decode_spread":
+    if dist == "decode_top2":
+        c = torch.zeros(slots, dtype=torch.int64)
+        gen = torch.Generator().manual_seed(slots + 2)
+        for _ in range(8):
+            c[torch.randperm(slots, generator=gen)[:2]] += 1
+    elif dist == "decode_spread":
         c = torch.zeros(slots, dtype=torch.int64)
         c[torch.randperm(slots, generator=torch.Generator().manual_seed(
             slots))[:8]] = 1
@@ -1320,7 +1365,7 @@ def grouped_case(dev, g, model, bits, K, N, qt, w_deq, dist):
     kernel (and row tile) the MoE layer picks for that many rows. Bound:
     the codes and scales of the slots that hold rows, their x rows and the
     whole output, or the products of the live rows. Library: ``torch.bmm``
-    over the JAX package's dropless buffer (C = T rows per slot: the 8
+    over the JAX package's dropless buffer (C = T rows per slot: the
     decode rows are 8 sequences of 1 token, the 1024 prefill rows 8 of
     128) with the dequantized stack."""
     from repro_torch.kernels.crossbar_matmul import ops as cb_ops
@@ -1350,7 +1395,7 @@ def grouped_case(dev, g, model, bits, K, N, qt, w_deq, dist):
     per_slot = qt.codes[0].numel() + qt.scales[0].numel() * 4
     nbytes = hit * per_slot + rows * K * 4 + R * N * 4
     flops = 2.0 * rows * K * N
-    T = 1 if rows == 8 else 128
+    T = 1 if dist.startswith("decode") else 128
     xin = torch.randn(slots, 8 * T, K, generator=g, device=dev)
     library = lambda: torch.bmm(xin, w_deq)  # noqa: E731
     case = {
@@ -1383,18 +1428,19 @@ GROUPED_DISTS = ("decode_spread", "decode_one", "prefill_uniform",
                  "prefill_skewed")
 
 
-def grouped_cases(dev, g, model, slots, shapes, bits_list=(8, 4)):
+def grouped_cases(dev, g, model, slots, shapes, bits_list=(8, 4),
+                  dists=GROUPED_DISTS):
     """``grouped_crossbar_matmul`` on ``model``'s expert stacks (``slots``
-    of each (K, N)), at each routing of ``GROUPED_DISTS``."""
+    of each (K, N)), at each routing of ``dists``."""
     from repro_torch.core import quant
 
     for bits in bits_list:
         for K, N in shapes:
             w = torch.randn(slots, K, N, generator=g, device=dev) * K ** -0.5
-            qt = quant.quantize(w, bits)
+            qt = quant.quantize_slices(w, bits)
             del w
             w_deq = quant.dequantize(qt)
-            for dist in GROUPED_DISTS:
+            for dist in dists:
                 yield grouped_case(dev, g, model, bits, K, N, qt, w_deq, dist)
             del qt, w_deq
             gc.collect()
@@ -1459,6 +1505,106 @@ def head_dim_128_cases(dev, g):
                           torch.ones(8, **i32), C=1, nb=64, P=512, D=128)
 
 
+def _scan_inputs(dev, g, B, T, D, N, clens=None):
+    """jamba's scan inputs as its Mamba block makes them: dt =
+    softplus(dt_proj(.) + dt_bias) (masked to 0 past each row's length),
+    x the conv's SiLU output, B and C views of x_proj's output (its
+    strides), A = -exp(A_log) = -(1..N), a carried state h0."""
+    r = D // 32                                    # dt_rank: d_model / 16
+    dt = torch.nn.functional.softplus(
+        torch.randn(B, T, D, generator=g, device=dev) - 4.0)
+    if clens is not None:
+        valid = (torch.arange(T, device=dev)[None]
+                 < torch.tensor(clens, device=dev)[:, None])
+        dt = dt * valid[..., None]
+    xi = torch.nn.functional.silu(torch.randn(B, T, D, generator=g,
+                                              device=dev))
+    dbc = torch.randn(B, T, r + 2 * N, generator=g, device=dev)
+    Bc, Cc = dbc[..., r:r + N], dbc[..., r + N:]
+    A = -torch.arange(1, N + 1, device=dev, dtype=torch.float32).expand(
+        D, N).contiguous()
+    h0 = torch.randn(B, D, N, generator=g, device=dev)
+    return dt, Bc, Cc, xi, A, h0
+
+
+def _scan_cost(B, T, D, N):
+    """Bytes (dt and x read, y written, B and C read, A read, the state
+    read and written once) and f32 operations (per step, channel and
+    state: dt A, the decay times h, dt x B, their sum, h C and its sum;
+    per step and channel dt x; the exponentials not counted)."""
+    nbytes = 4.0 * (3 * B * T * D + 2 * B * T * N + D * N + 2 * B * D * N)
+    flops = 6.0 * B * T * D * N + B * T * D
+    return nbytes, flops
+
+
+def scan_case(dev, g, label, B, T, clens=None, model="jamba-1.5-large-398b",
+              D=16384, N=16):
+    """``selective_scan`` at jamba's width (d_in 16384, d_state 16) against
+    its plain version: within ``SCAN_TOL`` of max |y| and of max
+    |h_final|, the same bits on two calls. No single PyTorch call
+    computes the scan: no library time."""
+    from repro_torch import kernels
+    from repro_torch.kernels.selective_scan import ops as scan_ops
+
+    args = _scan_inputs(dev, g, B, T, D, N, clens)
+    before = kernels.LAUNCHES["selective_scan"]
+    y, h = scan_ops.selective_scan(*args)
+    y2, h2 = scan_ops.selective_scan(*args)
+    launched = kernels.LAUNCHES["selective_scan"] - before
+    y_plain, h_plain = scan_ops.selective_scan_plain(*args)
+    torch.cuda.synchronize()
+    err_y = float((y - y_plain).abs().max())
+    err_h = float((h - h_plain).abs().max())
+    max_y, max_h = float(y_plain.abs().max()), float(h_plain.abs().max())
+    same = bool(torch.equal(y, y2) and torch.equal(h, h2))
+    nbytes, flops = _scan_cost(B, T, D, N)
+    call = lambda: scan_ops.selective_scan(*args)  # noqa: E731
+    case = {
+        "name": "selective_scan", "model": model, "case": label,
+        "shape": {"B": B, "T": T, "D": D, "N": N,
+                  **({"chunk_lens": list(clens)} if clens else {})},
+        "max_abs_err": max(err_y, err_h),
+        "max_rel_err": max(err_y / max_y, err_h / max_h),
+        "tol": SCAN_TOL * max(max_y, max_h), "tol_rel": SCAN_TOL,
+        "same_bits": same,
+        "ms": timed(call, 20),
+        "device_ms": device_ms_by_name([call] * 10, SCAN_KERNELS),
+        "host_us": host_us(call),
+        "plain_ms": timed(lambda: scan_ops.selective_scan_plain(*args), 3,
+                          warmup=1),
+        "library_ms": None,
+        "library": "none: no single PyTorch call computes this scan",
+        "bound_ms": bound_ms(nbytes, flops),
+        "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
+                     > flops / F32_FLOPS_PER_S else "operations"),
+    }
+    case["ok"] = (err_y <= SCAN_TOL * max_y and err_h <= SCAN_TOL * max_h
+                  and same and launched == 2)
+    if clens is not None and 0 in clens:        # an idle row keeps its state
+        i = clens.index(0)
+        case["idle_row_kept"] = bool(torch.equal(h[i], args[5][i]))
+        case["ok"] = case["ok"] and case["idle_row_kept"]
+    return case
+
+
+def jamba_cases(dev, g):
+    """jamba-1.5-large-398b's kernels (slice 17): ``selective_scan`` at
+    the main path's three shapes (a decode tick on 8 slots, a 128-token
+    prefill chunk on 8 slots, also ragged as the engine masks it, and a
+    512-token prompt); the crossbar at the Mamba projections (in_proj
+    8192 x 32768, out_proj 16384 x 8192) at M = 8 and 1024; the grouped
+    crossbar decoding 8 tokens top-2 over the 16 expert stacks."""
+    yield scan_case(dev, g, "decode", 8, 1)
+    yield scan_case(dev, g, "prefill", 8, 128)
+    yield scan_case(dev, g, "ragged", 8, 128,
+                    clens=(128, 100, 64, 1, 0, 128, 37, 5))
+    yield scan_case(dev, g, "prompt", 1, 512)
+    yield from crossbar_cases(dev, g, "jamba-1.5-large-398b", JAMBA_MAMBA_KN,
+                              (8,))
+    yield from grouped_cases(dev, g, "jamba-1.5-large-398b", 16, JAMBA_KN,
+                             bits_list=(8,), dists=("decode_top2",))
+
+
 def slice15_cases(dev, g):
     """The MoE models' kernels: the grouped crossbar at llama4-scout's 16
     and mixtral's 8 expert stacks (int8 and int4), and their attention."""
@@ -1490,7 +1636,9 @@ def path_cases(dev, g):
             # the MoE models' expert stacks and attention
             *slice15_cases(dev, g),
             # the head-dim-128 forwards' attention
-            head_dim_128_cases(dev, g))
+            head_dim_128_cases(dev, g),
+            # jamba's selective scan, Mamba projections and experts
+            jamba_cases(dev, g))
 
 
 def slice10_cases(dev, g):
@@ -2401,30 +2549,96 @@ class EngineRoutes:
 
 def forward_routes(entries, layers, key="experts"):
     """(positions, L, ...) of ``key`` ("experts" or "margin") over one
-    sequence's prefill then decode steps, from ``moe.ROUTES`` entries (L
-    per forward, batch of 1)."""
+    sequence's prefill then decode steps, from ``moe.ROUTES`` entries (L,
+    the MoE layers, per forward, batch of 1)."""
     steps = [entries[i:i + layers] for i in range(0, len(entries), layers)]
     return np.stack([np.concatenate([s[l][key][0].cpu().numpy()
                                      for s in steps])
                      for l in range(layers)], axis=1)
 
 
+def streamed_moe(cfg, p, x, **_):
+    """``moe.apply_moe`` under dropless routing as the plain reference
+    computes it, one expert at a time: the routing as ``apply_moe``'s (f32
+    router, top-k, renormalised gates; recorded in ``moe.ROUTES``), then
+    each expert's FF over the tokens routed to it, with that expert's
+    matrices dequantized alone (2.4 GB in f32 at jamba's width, where a
+    layer's three stacks would take 38.6 GB), weighted by its gate. The
+    shared expert, if any, is a plain MLP of dequantized weights."""
+    from repro_torch.core import quant
+    from repro_torch.models import layers, moe
+
+    B, T, d = x.shape
+    E, k = cfg.moe.n_experts, cfg.moe.top_k
+    if moe.live_slots(p["w1"]) != E:
+        raise ValueError("the streamed reference takes one slot per expert")
+    probs = torch.softmax(torch.matmul(x.to(torch.float32), p["router"]), -1)
+    gate, eidx = torch.topk(probs, k, dim=-1)
+    if moe.ROUTES is not None:
+        top = torch.topk(probs, min(k + 1, E), dim=-1).values
+        margin = (top[..., k - 1] - top[..., k] if E > k
+                  else torch.full_like(top[..., 0], float("inf")))
+        moe.ROUTES.append({"experts": eidx, "margin": margin})
+    if cfg.moe.router_norm_topk:
+        gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+    flat = x.reshape(B * T, d)
+    ef, gf = eidx.reshape(B * T, k), gate.reshape(B * T, k)
+    y = torch.zeros_like(flat)
+
+    def mat(name, e):
+        w = p[name]
+        return quant.dequantize(w.layer(e)) if quant.is_quantized(w) else w[e]
+
+    for e in range(E):
+        wt = torch.where(ef == e, gf, torch.zeros_like(gf)).sum(-1)
+        rows = torch.nonzero(wt, as_tuple=True)[0]
+        if not rows.numel():
+            continue
+        xe = flat[rows]
+        h = xe @ mat("w1", e)
+        if cfg.mlp.startswith("gated"):
+            h = layers.activation(cfg, h) * (xe @ mat("w3", e))
+        else:
+            h = layers.activation(cfg, h)
+        y[rows] += (h @ mat("w2", e)) * wt[rows, None].to(x.dtype)
+    y = y.reshape(B, T, d)
+    if cfg.moe.shared_expert:
+        y = y + layers.apply_mlp(cfg, p["shared"], x)
+    zero = torch.zeros((), device=x.device)
+    return y.to(x.dtype), {"lb_loss": zero, "router_z": zero,
+                           "dropped_tokens": zero}
+
+
+def dequantize_but_experts(tree):
+    """One layer's tree with every quantized matrix dequantized to f32 but
+    the expert stacks (quantized and 3-D), which ``streamed_moe``
+    dequantizes one expert at a time."""
+    from repro_torch.core import quant
+    if quant.is_quantized(tree):
+        return tree if tree.ndim == 3 else quant.dequantize(tree)
+    if isinstance(tree, dict):
+        return {k: dequantize_but_experts(v) for k, v in tree.items()}
+    return tree
+
+
 def streamed_reference(cfg, params, adapters, reqs, dev):
     """The plain reference of each request's teacher-forced logits (at the
     last prompt token and every generated one but the last) without ever
-    holding more than one layer's dequantized weights: every request's
-    whole stream goes through the model one layer at a time (train mode:
-    causal ``ref_attention`` over the stream), with that layer's f32
-    weights dequantized, and the MoE layers' routing recorded. Returns
-    per request (logits, experts (positions, L, k), margins (positions,
-    L))."""
+    holding more than one layer's dense weights but its experts, and one
+    expert's: every request's whole stream goes through the model one
+    layer at a time (train mode: causal ``ref_attention`` over the stream,
+    the Mamba layers' plain conv and ``selective_scan_plain`` from a zero
+    state), with that layer's f32 weights dequantized but its expert
+    stacks (``streamed_moe`` takes them one expert at a time), and the MoE
+    layers' routing recorded. Returns per request (logits, experts
+    (positions, L, k), margins (positions, L))."""
     from repro_torch.core import lora as lora_lib
-    from repro_torch.core import quant
     from repro_torch.core.lora import layer_slice, scan_period
     from repro_torch.models import layers, moe
     from repro_torch.models import transformer as tfm
 
-    ec = tfm.ExecConfig(attn_impl="ref", moe_dispatch="dropless")
+    ec = tfm.ExecConfig(attn_impl="ref", ssm_impl="ref",
+                        moe_dispatch="dropless")
     ads = lora_lib.stack_adapters(adapters)
     seqs = [np.concatenate([r.prompt, np.asarray(r.generated[:-1], np.int32)])
             for r in reqs]
@@ -2434,10 +2648,12 @@ def streamed_reference(cfg, params, adapters, reqs, dev):
     routes = [[] for _ in reqs]
     margins = [[] for _ in reqs]
     P = scan_period(cfg)
+    apply_moe = moe.apply_moe
+    moe.apply_moe = streamed_moe
     try:
         for sp in range(cfg.n_layers // P):
             for pos in range(P):
-                lp = quant.dequantize_params(
+                lp = dequantize_but_experts(
                     layer_slice(params["layers"][pos], sp))
                 la = layer_slice(ads["layers"][pos], sp)
                 for j, r in enumerate(reqs):
@@ -2454,6 +2670,7 @@ def streamed_reference(cfg, params, adapters, reqs, dev):
                         margins[j].append(e["margin"][0].cpu())
                 del lp
     finally:
+        moe.apply_moe = apply_moe
         moe.ROUTES = None
     out = []
     for j, r in enumerate(reqs):
@@ -2491,24 +2708,34 @@ def routing_check(path_experts, ref_experts, ref_margin, first_row,
                                  if f["margin"] >= FLIP_MARGIN]}
 
 
+def layer_counts(cfg):
+    """(attention layers, Mamba layers) of a model."""
+    kinds = cfg.layer_kinds()
+    return kinds.count("attn"), kinds.count("mamba")
+
+
 def moe_serve_phase(dev, cfg, *, layers=24, n_requests=8, max_new=32,
                     prompt_range=(64, 512), shared_prefix=256, max_len=1024,
                     max_slots=8, page_size=16, prefill_chunk=128, seed=0,
-                    trace_decode=(8, 8)):
+                    trace_decode=(8, 8), spec=None, lora_targets=None):
     """An MoE model at full width, depth cut to ``layers``, served as
-    ``serve_phase`` serves (two rank-32 adapters with B != 0, 8 greedy
-    requests of 64-512 tokens, two sharing a prefix, 32 new tokens each,
-    the graph-captured mixed step), on an M8F8 base drawn and quantized one
-    scan period at a time (``init_quantized_params``: its f32 base would
-    not fit). Each tick's launches exact: one crossbar launch per layer
-    matrix (attention and the shared expert), one grouped launch per
-    expert stack, one paged flash launch per layer; every tick a capture
-    or a replay; a traced window of graph decode ticks. Then the engine is
+    ``serve_phase`` serves (two rank-32 adapters with B != 0 on every
+    LoRA target of the config, 8 greedy requests of 64-512 tokens, two
+    sharing a prefix, 32 new tokens each, the graph-captured mixed step),
+    on an M8F8 base drawn and quantized one leaf at a time
+    (``init_quantized_params``: its f32 base would not fit). Each tick's
+    launches exact: one crossbar launch per layer matrix (attention, the
+    Mamba projections and the shared expert), one grouped launch per
+    expert stack, one paged flash launch per attention layer, one
+    ``selective_scan`` launch per Mamba layer; every tick a capture or a
+    replay; a traced window of graph decode ticks. Then the engine is
     freed, two requests are teacher-forced through ``forward`` with the
     kernels (over a dense cache) and through ``streamed_reference``; both
     paths' routing is held to the reference's (``routing_check``) and
-    their logits to ``LOGIT_TOL`` before the first flip. Returns (the
-    serve line, None)."""
+    their logits to ``LOGIT_TOL`` before the first flip. With ``spec``
+    (drafter, k, new tokens), ``moe_spec_pass`` then speculates on the same
+    engine geometry. ``lora_targets`` replaces the config's LoRA targets.
+    Returns (the serve line, None)."""
     from repro_torch import kernels
     from repro_torch.configs.base import QuantConfig
     from repro_torch.core import lora as lora_lib
@@ -2518,6 +2745,9 @@ def moe_serve_phase(dev, cfg, *, layers=24, n_requests=8, max_new=32,
 
     full_layers = cfg.n_layers
     cfg = dataclasses.replace(cfg, n_layers=layers)
+    if lora_targets is not None:
+        cfg = dataclasses.replace(cfg, lora=dataclasses.replace(
+            cfg.lora, targets=tuple(lora_targets)))
     g = torch.Generator(device=dev).manual_seed(seed)
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
@@ -2559,6 +2789,7 @@ def moe_serve_phase(dev, cfg, *, layers=24, n_requests=8, max_new=32,
         eng.submit(r)
     tick_s, tick_kind, tick_decoded = [], [], []
     trace, n_traced = None, 0
+    n_attn, n_mamba = layer_counts(cfg)
     t_serve = time.perf_counter()
     try:
         while eng.queue or eng.sched.active():
@@ -2593,7 +2824,9 @@ def moe_serve_phase(dev, cfg, *, layers=24, n_requests=8, max_new=32,
     cs = st.compile
     per_tick = {"crossbar_matmul": n_quant,
                 "grouped_crossbar_matmul": n_grouped,
-                "paged_flash_attention": layers}
+                "paged_flash_attention": n_attn,
+                "selective_scan": n_mamba}
+    per_tick = {k: n for k, n in per_tick.items() if n}
     got = {k: n for k, n in serve_launches.items() if n}
     if got != {k: n * n_ticks for k, n in per_tick.items()}:
         raise AssertionError(f"the engine launched {got}, expected "
@@ -2606,7 +2839,8 @@ def moe_serve_phase(dev, cfg, *, layers=24, n_requests=8, max_new=32,
     if trace is None or not trace["replayed"]:
         raise AssertionError(f"no traced window of replayed decode ticks: "
                              f"{trace}")
-    if not st.prefix_cache.enabled or st.moe.dropped_tokens:
+    if (st.prefix_cache.enabled != full_attention_only(cfg)
+            or st.moe.dropped_tokens):
         raise AssertionError(f"prefix cache {st.prefix_cache.enabled}, "
                              f"{st.moe.dropped_tokens} dropped tokens")
     checked = [1, 0]
@@ -2627,14 +2861,16 @@ def moe_serve_phase(dev, cfg, *, layers=24, n_requests=8, max_new=32,
             kernel_logits[uid] = teacher_forced(
                 cfg, params, adapters, r.prompt, r.generated, r.adapter_id,
                 tfm.ExecConfig(moe_dispatch="dropless"), dev)
-            kernel_experts[uid] = forward_routes(moe.ROUTES, layers)
+            kernel_experts[uid] = forward_routes(
+                moe.ROUTES, sum(map(cfg.is_moe_layer, range(layers))))
     finally:
         moe.ROUTES = None
     torch.cuda.synchronize()
     forward_launches = {k: n for k, n in kernels.LAUNCHES.items() if n}
     n_forwards = sum(len(done[uid].generated) for uid in checked)
     want = {"crossbar_matmul": n_quant, "grouped_crossbar_matmul": n_grouped,
-            "flash_attention": layers}
+            "flash_attention": n_attn, "selective_scan": n_mamba}
+    want = {k: n for k, n in want.items() if n}
     if forward_launches != {k: n * n_forwards for k, n in want.items()}:
         raise AssertionError(f"the forward launched {forward_launches}, "
                              f"expected {want} a forward over {n_forwards}")
@@ -2683,8 +2919,10 @@ def moe_serve_phase(dev, cfg, *, layers=24, n_requests=8, max_new=32,
         "phase": "serve", "model": cfg.name, "layers": layers,
         "depth_cut": f"{layers} of {full_layers} layers",
         "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+        "attention_layers": n_attn, "mamba_layers": n_mamba,
         "experts": cfg.moe.n_experts, "top_k": cfg.moe.top_k,
-        "base": "M8F8 (drawn and quantized one layer at a time)",
+        "base": "M8F8 (drawn and quantized one leaf at a time)",
+        "lora_targets": list(cfg.lora.targets),
         "max_len": max_len, "prompt_lens": [len(r.prompt) for r in reqs],
         "checked": checked, "quantized_matrices": n_quant,
         "grouped_stacks": n_grouped, "adapters": 2,
@@ -2725,9 +2963,159 @@ def moe_serve_phase(dev, cfg, *, layers=24, n_requests=8, max_new=32,
     emit(result)
     if problems:
         raise AssertionError(f"{cfg.name}: " + "; ".join(problems))
+    if spec is not None:
+        drafter, k, spec_new = spec
+        line = moe_spec_pass(
+            dev, cfg, params, adapters, reqs, result, drafter=drafter, k=k,
+            max_new=spec_new, max_len=max_len, max_slots=max_slots,
+            page_size=page_size, prefill_chunk=prefill_chunk, seed=seed)
+        result["spec_launches"] = line["launches"]
     del params
     gc.collect()
     return result, None
+
+
+def moe_spec_pass(dev, cfg, params, adapters, reqs, served, *, drafter, k,
+                  max_new, max_len, max_slots, page_size, prefill_chunk,
+                  seed):
+    """Speculative decoding on ``moe_serve_phase``'s weights, adapters,
+    requests and engine geometry, checked as ``spec_serve`` checks
+    llama3.2-1b's: every tick a verify-graph capture or replay, the
+    launches exact per tick, something drafted, a traced window of verify
+    ticks, a recurrent rollback on a model with per-slot state; and every
+    emitted token's logits row held to ``streamed_reference`` of the
+    request's own stream (``LOGIT_TOL`` before a path's first routing
+    flip, no flip at a margin of ``FLIP_MARGIN`` or more; the engine's
+    routing recorded by ``EngineRoutes``). ``served``: the serve line
+    (its tokens and decode tick times are reported beside). Emits and
+    returns the ``spec`` line."""
+    from repro_torch import kernels
+    from repro_torch.serve.api import make_engine
+    from repro_torch.serve.spec import SpecConfig
+
+    fresh = [dataclasses.replace(r, generated=[], done=False,
+                                 finish_reason="", max_new_tokens=max_new)
+             for r in reqs]
+    eng = make_engine(cfg, params, adapters, mode="paged", device=dev,
+                      max_slots=max_slots, max_len=max_len,
+                      page_size=page_size, prefill_chunk=prefill_chunk,
+                      spec=SpecConfig(k=k, drafter=drafter),
+                      record_logits=True, seed=seed)
+    route_log = EngineRoutes(eng, cfg)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        done, tick_s, kind, decoded, trace = serve_loop(
+            eng, fresh, trace_at=SPEC_TRACE_AT)
+        serve_s = time.perf_counter() - t0
+        launches = {k_: n for k_, n in kernels.LAUNCHES.items() if n}
+        engine_experts = route_log.table(done)
+    finally:
+        route_log.close()
+    st = eng.stats()
+    cs, sp = st.compile, st.spec
+    ticks = len(tick_s) + (SPEC_TRACED if trace else 0)
+    n_attn, n_mamba = layer_counts(cfg)
+    n_quant, n_grouped = quantized_kinds(params["layers"])
+    per_tick = {"crossbar_matmul": n_quant,
+                "grouped_crossbar_matmul": n_grouped,
+                "paged_flash_attention": n_attn, "selective_scan": n_mamba}
+    want = {k_: n * ticks for k_, n in per_tick.items() if n}
+    sampled = {u: torch.stack(eng.sampled_logits[u]) for u in done}
+    uids = [r.uid for r in fresh]
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t_ref = time.perf_counter()
+    refs = streamed_reference(cfg, params, adapters, [done[u] for u in uids],
+                              dev)
+    ref_s = time.perf_counter() - t_ref
+    checks, problems = {}, []
+    for uid, (ref, ref_ex, ref_margin) in zip(uids, refs):
+        lg, ex = sampled[uid], engine_experts[uid]
+        c = {"positions": int(ref.shape[0]),
+             "max_abs_logit": float(ref.abs().max()),
+             "finite": bool(torch.isfinite(lg).all())}
+        if ex.shape != ref_ex.shape or lg.shape != ref.shape:
+            problems.append(f"request {uid}: shapes {ex.shape} {lg.shape}, "
+                            f"reference {ref_ex.shape} {ref.shape}")
+        else:
+            c.update(routing_check(ex, ref_ex, ref_margin,
+                                   len(done[uid].prompt) - 1, lg, ref))
+            c["argmax_agree"] = float(
+                (lg.argmax(-1) == ref.argmax(-1)).float().mean())
+            if c["flip_over_margin"]:
+                problems.append(f"request {uid}: routing flips at margins "
+                                f">= {FLIP_MARGIN}")
+            if c["max_abs_err"] is not None and c["max_abs_err"] > LOGIT_TOL:
+                problems.append(f"request {uid}: logits differ by "
+                                f"{c['max_abs_err']} > {LOGIT_TOL}")
+        if not c["finite"]:
+            problems.append(f"non-finite logits, request {uid}")
+        checks[uid] = c
+    if not sum(c.get("checked_rows", 0) for c in checks.values()):
+        problems.append("no logits row before a routing flip")
+    dc_s = [s for s, kd in zip(tick_s, kind) if kd == "decode"]
+    dc_tokens = sum(n for n, kd in zip(decoded, kind) if kd == "decode")
+    base_tokens = {r.uid: r.generated for r in reqs}
+    result = {
+        "phase": "spec", "model": cfg.name, "layers": cfg.n_layers,
+        "base": "M8F8", "drafter": drafter, "k": k, "requests": len(fresh),
+        "max_new": max_new, "ticks": ticks, "decode_ticks": len(dc_s),
+        "serve_s": serve_s, "reference_s": ref_s,
+        "ms_per_decode_tick": 1e3 * sum(dc_s) / max(len(dc_s), 1),
+        "median_ms_per_decode_tick": (1e3 * statistics.median(dc_s)
+                                      if dc_s else None),
+        "spec_off_ms_per_decode_tick": served["ms_per_decode_tick"],
+        "spec_off_median_ms_per_decode_tick": (
+            statistics.median(served["decode_tick_ms"])
+            if served["decode_tick_ms"] else None),
+        "decode_tok_s": dc_tokens / max(sum(dc_s), 1e-9),
+        "spec_off_decode_tok_s": served["decode_tok_s"],
+        "decode_tokens_per_decode_tick": dc_tokens / max(len(dc_s), 1),
+        "traced_ticks": trace,
+        "spec_steps": sp.steps, "accept_rate": sp.accept_rate,
+        "drafted_tokens": sp.drafted_tokens,
+        "accepted_tokens": sp.accepted_tokens,
+        "rolled_back_tokens": sp.rolled_back_tokens,
+        "rolled_back_pages": st.scheduler.rolled_back_pages,
+        "recurrent_rollbacks": sp.recurrent_rollbacks,
+        "decode_tokens": st.decode_tokens,
+        "prefill_tokens": st.prefill_tokens,
+        # over the tokens both runs made
+        "tokens_equal_spec_off": sum(
+            done[u].generated[:len(base_tokens[u])]
+            == base_tokens[u][:max_new] for u in uids),
+        "graphs": {"captured": cs.compiled_steps, "replays": cs.replays,
+                   "capture_ms": cs.capture_ms,
+                   "pool_bytes": cs.graph_pool_bytes,
+                   "signatures": [list(s) for s in cs.step_signatures]},
+        "launches": launches, "expected_launches": want,
+        "logit_checks": checks, "logit_tol": LOGIT_TOL,
+        "flip_margin": FLIP_MARGIN,
+    }
+    emit(result)
+    if sorted(done) != sorted(uids) or any(
+            len(done[u].generated) != max_new for u in uids):
+        problems.append("unfinished or short requests")
+    if launches != want:
+        problems.append(f"launched {launches}, expected {want}")
+    if (cs.compiled_steps != len(cs.step_signatures)
+            or cs.compiled_steps + cs.replays != ticks):
+        problems.append(f"{ticks} ticks, {cs.compiled_steps} verify graphs "
+                        f"of {len(cs.step_signatures)} signatures, "
+                        f"{cs.replays} replays")
+    if not sp.drafted_tokens or not sp.steps:
+        problems.append("nothing was drafted")
+    if trace is None:
+        problems.append("no traced window of verify ticks")
+    if not full_attention_only(cfg) and not sp.recurrent_rollbacks:
+        problems.append("no recurrent rollback was exercised")
+    if problems:
+        raise AssertionError(f"spec ({drafter}, {cfg.name}): "
+                             + "; ".join(problems))
+    return result
 
 
 def forward_phase(dev, cfg, *, layers=None, embeds=False, prompt_len=512,
@@ -2904,7 +3292,7 @@ def traced_ticks(eng, n, tick):
     own = {k: us / 1e3 / n for k, us in by_name.items()
            if any(f"(anonymous namespace)::{m}" in k
                   for m in CB_KERNELS + GROUPED_KERNELS + FA_KERNELS
-                  + RING_KERNELS + WKV_KERNELS)}
+                  + RING_KERNELS + WKV_KERNELS + SCAN_KERNELS)}
     out = {"ticks": n, "traced_wall_ms_per_tick": wall_ms / n,
            "device_ms_per_tick": device_ms / n if kern else None,
            "device_busy_share": device_ms / wall_ms if kern else None,
@@ -2916,7 +3304,8 @@ def traced_ticks(eng, n, tick):
            "port_kernels_device_ms_per_tick": own}
     for label, names in (("crossbar", CB_KERNELS),
                          ("grouped", GROUPED_KERNELS), ("flash", FA_KERNELS),
-                         ("ring_flash", RING_KERNELS), ("wkv", WKV_KERNELS)):
+                         ("ring_flash", RING_KERNELS), ("wkv", WKV_KERNELS),
+                         ("scan", SCAN_KERNELS)):
         ms = sum(v for k, v in own.items()
                  if any(f"(anonymous namespace)::{m}" in k for m in names))
         out[f"{label}_device_ms_per_tick"] = ms
@@ -3698,7 +4087,7 @@ def fig13_counted_finetune(dev, steps=FIG13_COUNTED_STEPS):
 def figures_phase(dev):
     """Fig. 9 (``benchmarks/torch_noise.py``), Fig. 13
     (``benchmarks/torch_quant_perplexity.py``) at their full protocols and
-    the serving-throughput workloads 1-3 and 5 at the JAX script's smoke
+    the serving-throughput workloads 1-3, 5 and 6 at the JAX script's smoke
     sizes
     (``benchmarks/torch_serve_throughput.py``), each on the card with the
     counts zeroed just before and read just after; one line each with its
@@ -3727,7 +4116,7 @@ def figures_phase(dev):
              ("crossbar_matmul", "crossbar_matmul_t", "flash_attention",
               "flash_attention_bwd")),
             ("serve_throughput (smoke)", smoke_throughput,
-             ("flash_attention", "paged_flash_attention"))):
+             ("flash_attention", "paged_flash_attention", "selective_scan"))):
         kernels.reset_launches()
         t = time.perf_counter()
         payload = run()
@@ -3743,11 +4132,15 @@ def figures_phase(dev):
                 payload["paged"]["greedy_matches_dense_oracle"]
                 and payload["shared_prefix"]["greedy_matches_dense_oracle"]
                 and payload["spec_decode"]["greedy_matches_dense_oracle"]
-                and payload["moe_dropless"]["greedy_matches_dense_oracle"]):
+                and payload["moe_dropless"]["greedy_matches_dense_oracle"]
+                and payload["spec_hybrid"]["greedy_matches_dense_oracle"]):
             problems.append("a greedy check failed")
         if name.startswith("serve") and not (
                 payload["moe_dropless"]["capacity_dropped_tokens"] > 0):
             problems.append("the MoE capacity baseline dropped nothing")
+        if name.startswith("serve") and not (
+                payload["spec_hybrid"]["spec_on"]["recurrent_rollbacks"] > 0):
+            problems.append("the hybrid's speculation never rolled back")
         if problems:
             raise AssertionError(f"{name}: " + "; ".join(problems))
         out[name] = {"seconds": seconds, "launches": launches,
@@ -3761,15 +4154,21 @@ def figures_phase(dev):
 
 # the models served, in order, and those whose engine is then profiled
 SERVED = ("llama3.2-1b", "gemma2-9b", "rwkv6-7b", "paper-gpt2-medium",
-          "paper-bloom-560m", "llama4-scout-17b-a16e")
+          "paper-bloom-560m", "llama4-scout-17b-a16e", "jamba-1.5-large-398b")
 # a model's serve geometry where not the default: gemma2-9b's two long
 # prompts pass its 4096-token window (its rings wrap), and a window of its
 # graph decode ticks is traced; llama4-scout (``moe_serve_phase``) at 24
 # of its 48 layers (the M8F8 codes of 48 would take 106 GB), with a traced
-# window of graph decode ticks
+# window of graph decode ticks; jamba-1.5-large-398b at one scan period, 8
+# of its 72 layers (1 attention, 7 Mamba, 4 MoE FFs: 48.8 GB of M8F8 codes;
+# two periods would not fit), its adapters also on the Mamba projections,
+# then n-gram speculation on the same engine geometry
 SERVE_KW = {"gemma2-9b": dict(max_len=5120, long_prompts=(2, (4300, 4800)),
                               trace_decode=(8, 8)),
-            "llama4-scout-17b-a16e": dict(layers=24, trace_decode=(8, 8))}
+            "llama4-scout-17b-a16e": dict(layers=24, trace_decode=(8, 8)),
+            "jamba-1.5-large-398b": dict(
+                layers=8, trace_decode=(8, 8), spec=("ngram", 4, 32),
+                lora_targets=("wq", "wv", "mamba_in", "mamba_out"))}
 # the forwards at full width after the serves (``forward_phase``):
 # mixtral-8x22b at 2 of its 56 layers (top-2 over 8 experts, a prompt past
 # its 4096 window: GQA group 6 through the windowed flash kernel, then
@@ -3913,6 +4312,8 @@ def main() -> int:
                                     {"case": "chunk", "model": "gemma2-9b"}),
            "rwkv6_wkv": ("rwkv6-7b serve", {"case": "decode"}),
            "rwkv6_wkv_chunk": ("rwkv6-7b serve", {"case": "prefill"}),
+           "selective_scan": ("jamba-1.5-large-398b serve",
+                              {"case": "decode"}),
            "crossbar_matmul_t": ("llama3.2-1b train",
                                  {"model": "llama3.2-1b", "bits": 8,
                                   "case": "microbatch",
@@ -3936,7 +4337,8 @@ def main() -> int:
                    "src/repro_torch/csrc/flash_attention.cu",
                "rwkv6_wkv": "src/repro_torch/csrc/rwkv6_wkv.cu",
                "rwkv6_wkv_chunk": "src/repro_torch/csrc/rwkv6_wkv.cu",
-               "rwkv6_wkv_bwd": "src/repro_torch/csrc/rwkv6_wkv.cu"}
+               "rwkv6_wkv_bwd": "src/repro_torch/csrc/rwkv6_wkv.cu",
+               "selective_scan": "src/repro_torch/csrc/selective_scan.cu"}
     # the backward kernels replace what the JAX package computes by
     # autodiff around the same Pallas kernels' functions
     replaces = {
@@ -3952,7 +4354,9 @@ def main() -> int:
             "src/repro/kernels/flash_attention/kernel.py:81",
         "rwkv6_wkv": "src/repro/kernels/rwkv6_wkv/kernel.py:59",
         "rwkv6_wkv_chunk": "src/repro/kernels/rwkv6_wkv/kernel.py:59",
-        "rwkv6_wkv_bwd": "src/repro/kernels/rwkv6_wkv/kernel.py:59"}
+        "rwkv6_wkv_bwd": "src/repro/kernels/rwkv6_wkv/kernel.py:59",
+        # no Pallas kernel: the JAX function it replaces
+        "selective_scan": "src/repro/models/ssm.py:89"}
     # what the JAX package computes in place of each backward kernel
     autodiff_of = {
         "crossbar_matmul_t":
@@ -3966,6 +4370,11 @@ def main() -> int:
         "grouped_crossbar_matmul":
             "src/repro/models/moe.py:213 (static_einsum over the dequantized "
             "expert stack, C = T rows per slot)"}
+    # what the JAX package computes in place of the scan kernel
+    scan_of = {
+        "selective_scan":
+            "src/repro/models/ssm.py:89 (_selective_scan: lax.scan over "
+            "chunks, associative_scan inside, no Pallas call)"}
     summary = []
     for name, (path, sel) in rep.items():
         c = next(c for c in cases if c["name"] == name
@@ -3977,6 +4386,7 @@ def main() -> int:
                if name in autodiff_of else {}),
             **({"jax_einsum_of": einsum_of[name]}
                if name in einsum_of else {}),
+            **({"jax_scan_of": scan_of[name]} if name in scan_of else {}),
             "launches": paths[path][name], "path": path,
             "launches_by_path": {p: counts.get(name, 0)
                                  for p, counts in paths.items()},

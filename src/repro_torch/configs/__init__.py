@@ -1,20 +1,19 @@
 """Config registry: ``get_config("<arch-id>")`` / ``--arch <id>``.
 
-The port carries the configs of the architectures it can run (nine of
-the JAX package's ten: dense, sliding-window, MoE, RWKV, and the
-embedding-frontend stubs of musicgen-medium and chameleon-34b), and the
-paper's own two evaluation models (``"paper-gpt2-medium"``,
-``"paper-bloom-560m"``), which, as in the JAX package, ``get_config``
-resolves but ``ARCH_IDS`` leaves out. Asking for the one architecture
-that is not ported (``jamba-1.5-large-398b``, which needs Mamba) raises
-``NotImplementedError`` naming the ROADMAP item that ports it.
+The port carries the configs of every architecture of the JAX package
+(dense, sliding-window, MoE, RWKV, the Mamba+attention hybrid
+jamba-1.5-large-398b, and the embedding-frontend stubs of musicgen-medium
+and chameleon-34b), in its order, and the paper's own two evaluation
+models (``"paper-gpt2-medium"``, ``"paper-bloom-560m"``), which, as in the
+JAX package, ``get_config`` resolves but ``ARCH_IDS`` leaves out.
 """
 from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import (AttnConfig, LoRAConfig, ModelConfig,
-                                      MoEConfig, QuantConfig, reduce_config)
+from repro_torch.configs.base import (AttnConfig, LoRAConfig, MambaConfig,
+                                      ModelConfig, MoEConfig, QuantConfig,
+                                      reduce_config)
 from repro_torch.configs.shapes import (ALL_SHAPES, DECODE_32K, LONG_500K,
                                         PREFILL_32K, SHAPES, TRAIN_4K,
                                         ShapeSuite, cell_supported)
@@ -28,12 +27,8 @@ _ARCH_MODULES = {
     "llama3.2-1b": "llama3_2_1b",
     "musicgen-medium": "musicgen_medium",
     "chameleon-34b": "chameleon_34b",
+    "jamba-1.5-large-398b": "jamba_1_5_large_398b",
     "rwkv6-7b": "rwkv6_7b",
-}
-
-# the architecture of the JAX package that waits for a later slice
-_WAITING = {
-    "jamba-1.5-large-398b": "ROADMAP Queue 1 item 13 (Mamba)",
 }
 
 ARCH_IDS = tuple(_ARCH_MODULES)
@@ -48,14 +43,11 @@ def get_config(name: str) -> ModelConfig:
         mod = importlib.import_module("repro_torch.configs.paper_models")
         return {"paper-gpt2-medium": mod.GPT2_MEDIUM,
                 "paper-bloom-560m": mod.BLOOM_560M}[name]
-    if name in _WAITING:
-        raise NotImplementedError(
-            f"arch {name!r} is not ported yet: {_WAITING[name]}")
     raise KeyError(f"unknown arch {name!r}; known: {sorted(ARCH_IDS)}")
 
 
-__all__ = ["ModelConfig", "AttnConfig", "MoEConfig", "LoRAConfig",
-           "QuantConfig",
+__all__ = ["ModelConfig", "AttnConfig", "MoEConfig", "MambaConfig",
+           "LoRAConfig", "QuantConfig",
            "reduce_config", "get_config", "ARCH_IDS", "ALL_SHAPES", "SHAPES",
            "ShapeSuite", "TRAIN_4K", "PREFILL_32K", "DECODE_32K", "LONG_500K",
            "cell_supported"]

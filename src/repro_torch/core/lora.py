@@ -18,22 +18,19 @@ from repro_torch.core import hetero
 
 # target name -> path inside the per-position param tree, per block kind.
 # rwkv has no attention; the paper's W_Q/W_V targets translate to the
-# receptance/value time-mix projections. Mamba waits for ROADMAP Queue 1
-# item 13.
+# receptance/value time-mix projections. A Mamba block takes its own
+# targets, its input and output projections.
 TARGET_PATHS = {
     "attn": {"wq": ("attn", "wq"), "wk": ("attn", "wk"),
              "wv": ("attn", "wv"), "wo": ("attn", "wo")},
     "rwkv": {"wq": ("time_mix", "r_proj"), "wk": ("time_mix", "k_proj"),
              "wv": ("time_mix", "v_proj"), "wo": ("time_mix", "o_proj")},
+    "mamba": {"mamba_in": ("in_proj",), "mamba_out": ("out_proj",)},
 }
 
 
 def _targets_for(cfg: ModelConfig, kind: str) -> Dict[str, Tuple[str, ...]]:
-    if kind not in TARGET_PATHS:
-        raise NotImplementedError(
-            f"LoRA on {kind!r} blocks is not ported yet (ROADMAP Queue 1 "
-            "item 13)")
-    paths = TARGET_PATHS[kind]
+    paths = TARGET_PATHS.get(kind, {})
     return {t: paths[t] for t in cfg.lora.targets if t in paths}
 
 
@@ -41,6 +38,9 @@ def _weight_shape(cfg: ModelConfig, kind: str, target: str) -> Tuple[int, int]:
     d = cfg.d_model
     if kind == "rwkv":
         return (d, d)
+    if kind == "mamba":
+        d_in = cfg.mamba.expand * d
+        return {"mamba_in": (d, 2 * d_in), "mamba_out": (d_in, d)}[target]
     return {"wq": (d, cfg.q_dim), "wk": (d, cfg.kv_dim),
             "wv": (d, cfg.kv_dim), "wo": (cfg.q_dim, d)}[target]
 

@@ -17,7 +17,7 @@ round half to even and divide in f32.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -143,26 +143,56 @@ WEIGHT_CLASS = {
 }
 
 
+def quantize_slices(w: torch.Tensor, bits: int,
+                    block: int = 128) -> QuantizedTensor:
+    """``quantize(w, bits, block)``, one (di, dj) matrix along the leading
+    dims at a time: the same codes and scales, with the temporaries of one
+    matrix (an expert stack's f32 copies would not fit beside the codes)."""
+    if w.ndim == 2:
+        return quantize(w, bits, block)
+    lead = tuple(w.shape[:-2])
+    flat = w.reshape(-1, *w.shape[-2:])
+    first = quantize(flat[0], bits, block)
+    codes = first.codes.new_empty((flat.shape[0], *first.codes.shape))
+    scales = first.scales.new_empty((flat.shape[0], *first.scales.shape))
+    codes[0], scales[0] = first.codes, first.scales
+    for i in range(1, flat.shape[0]):
+        q = quantize(flat[i], bits, block)
+        codes[i], scales[i] = q.codes, q.scales
+    return QuantizedTensor(codes.reshape(*lead, *first.codes.shape),
+                           scales.reshape(*lead, *first.scales.shape), bits,
+                           block, tuple(w.shape))
+
+
+def quantize_leaf(key: Optional[str], w, quant_cfg, *,
+                  min_size: int = 1 << 16):
+    """One leaf under MnFm: a tensor of at least two dims and ``min_size``
+    elements whose key is in WEIGHT_CLASS gets its class' bit width (16 =
+    left in original precision); anything else comes back as it is."""
+    if (not isinstance(w, torch.Tensor) or w.ndim < 2
+            or w.numel() < min_size):
+        return w
+    cls = WEIGHT_CLASS.get(key)
+    bits = {"mha": quant_cfg.mha_bits, "ff": quant_cfg.ff_bits,
+            None: 16}[cls]
+    if bits >= 16:
+        return w
+    return quantize_slices(w, bits, quant_cfg.block)
+
+
 def quantize_params(params, quant_cfg, *, min_size: int = 1 << 16):
     """Apply MnFm crossbar-wise quantization to a base parameter tree.
 
-    Walks nested dicts / tuples / lists; a tensor leaf whose innermost dict
-    key is in WEIGHT_CLASS gets the class' bit width (16 = leave in
-    original precision). Quantization runs on the leaf's own device."""
-    bits_for = {"mha": quant_cfg.mha_bits, "ff": quant_cfg.ff_bits}
+    Walks nested dicts / tuples / lists and quantizes each tensor leaf by
+    its innermost dict key (``quantize_leaf``). Quantization runs on the
+    leaf's own device."""
 
     def visit(node, key):
         if isinstance(node, dict):
             return {k: visit(v, k) for k, v in node.items()}
         if isinstance(node, (tuple, list)):
             return type(node)(visit(v, key) for v in node)
-        if (not isinstance(node, torch.Tensor) or node.ndim < 2
-                or node.numel() < min_size):
-            return node
-        cls = WEIGHT_CLASS.get(key)
-        if cls is None or bits_for[cls] >= 16:
-            return node
-        return quantize(node, bits_for[cls], quant_cfg.block)
+        return quantize_leaf(key, node, quant_cfg, min_size=min_size)
 
     return visit(params, None)
 

@@ -27,7 +27,8 @@ LAUNCHES: Dict[str, int] = {"crossbar_matmul": 0, "crossbar_matmul_t": 0,
                             "flash_attention": 0, "flash_attention_bwd": 0,
                             "paged_flash_attention": 0,
                             "ring_flash_attention": 0, "rwkv6_wkv": 0,
-                            "rwkv6_wkv_chunk": 0, "rwkv6_wkv_bwd": 0}
+                            "rwkv6_wkv_chunk": 0, "rwkv6_wkv_bwd": 0,
+                            "selective_scan": 0}
 
 
 def reset_launches() -> None:

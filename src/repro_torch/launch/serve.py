@@ -10,6 +10,12 @@ dense``), on the CUDA card by default.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \\
       --requests 8 --max-batch 8 --max-len 1024 --prefill-chunk 128
 
+  # full-width jamba-1.5-large-398b at one scan period (8 of its 72
+  # layers: 1 attention, 7 Mamba, 4 MoE FFs; its M8F8 codes take 48.8 GB)
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch jamba-1.5-large-398b --layers 8 --max-batch 8 --max-len 1024 \\
+      --prefill-chunk 128
+
   # the paper's GPT-2-medium (or paper-bloom-560m), full depth
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --arch paper-gpt2-medium --max-batch 8 --max-len 1024
@@ -19,6 +25,8 @@ dense``), on the CUDA card by default.
       --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --arch paper-gpt2-medium --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch jamba-1.5-large-398b --smoke --device cpu
 
   # the dense max_batch x max_len oracle (decode step as one CUDA graph)
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
@@ -44,11 +52,14 @@ The flags are the JAX launcher's (``repro.launch.serve``). ``--tp``, whose
 feature is not ported yet, raises ``NotImplementedError`` with the paged
 engine; with ``--engine dense`` it, ``--moe-dispatch capacity`` and
 ``--spec-decode`` exit with JAX's messages, and the dense oracle ignores
-``--prefix-cache-path``, as JAX's does. The models that take precomputed
+``--prefix-cache-path``, as JAX's does. ``--layers`` (not in the JAX
+launcher) cuts the depth to that many layers, a multiple of the scan
+period, for a model whose codes would not fit the card whole. The models
+that take precomputed
 embeddings (musicgen-medium, chameleon-34b) are served from tokens, as the
 JAX engines serve them. The deprecated
 ``--paged`` is left out. The base is quantized M8F8 with the port's
-``quantize_params`` (one scan period at a time:
+``quantize_params`` (one leaf at a time:
 ``transformer.init_quantized_params``), as
 ``examples/serve_multiadapter.py`` quantizes it, except
 under ``--draft selfdraft``: the self-drafter quantizes the base itself
@@ -58,6 +69,7 @@ the base stays f32 there, as the JAX launcher serves it.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -77,6 +89,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to this many layers (a multiple of "
+                         "the scan period)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; 'cpu' runs "
                          "the kernels' plain versions)")
@@ -130,9 +145,11 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = reduce_config(cfg)
+    if args.layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers).validate()
     g = torch.Generator(device=device).manual_seed(args.seed)
     if spec is None or spec.drafter != "selfdraft":
-        # drawn and quantized one scan period at a time: the f32 base of a
+        # each leaf quantized as soon as it is drawn: the f32 base of a
         # large model is never whole on the device
         params = init_quantized_params(
             cfg, g, QuantConfig(mha_bits=8, ff_bits=8), device=device,

@@ -258,11 +258,14 @@ def init_attn(cfg: ModelConfig, generator: torch.Generator, *, device, dtype,
     d = cfg.d_model
     kw = dict(device=device, dtype=dtype)
     p = {
-        "wq": layers.dense_init(generator, (*lead, d, cfg.q_dim), **kw),
-        "wk": layers.dense_init(generator, (*lead, d, cfg.kv_dim), **kw),
-        "wv": layers.dense_init(generator, (*lead, d, cfg.kv_dim), **kw),
+        "wq": layers.dense_init(generator, (*lead, d, cfg.q_dim), name="wq",
+                                **kw),
+        "wk": layers.dense_init(generator, (*lead, d, cfg.kv_dim), name="wk",
+                                **kw),
+        "wv": layers.dense_init(generator, (*lead, d, cfg.kv_dim), name="wv",
+                                **kw),
         "wo": layers.dense_init(generator, (*lead, cfg.q_dim, d),
-                                fan_in=cfg.q_dim, **kw),
+                                fan_in=cfg.q_dim, name="wo", **kw),
     }
     if cfg.attn.qk_norm:
         p["q_norm"] = torch.ones((*lead, cfg.hd), **kw)

@@ -1,6 +1,6 @@
 """Decode-time state: dense KV caches, sliding-window rings, the paged KV
-pool and per-slot RWKV state (PyTorch port of ``repro.models.kvcache`` for
-full and sliding-window attention and RWKV).
+pool and per-slot Mamba and RWKV state (PyTorch port of
+``repro.models.kvcache``).
 
 Cache layout mirrors the parameter scan layout: ``cache["layers"]`` is a
 tuple (one entry per scan-period position) of dicts whose leaves are
@@ -8,12 +8,11 @@ stacked over scan periods. Dense KV is (n_sp, B, H_kv, S, D), S =
 ``max_len`` (full attention) or a ring of ``min(window, max_len)`` slots
 (sliding window); under the paged layout full attention reads the pool
 (n_sp, pages, H_kv, page, D) and sliding layers keep a per-slot ring
-(n_sp, max_slots, H_kv, W, D); RWKV keeps per-row token-shift buffers
-(n_sp, B, d) and the wkv state (n_sp, B, H, N, N) f32. The port updates
-all of them in place (the JAX package returns new arrays and donates the
-old buffers).
-
-Mamba state waits for ROADMAP Queue 1 item 13. ``gather_pages`` /
+(n_sp, max_slots, H_kv, W, D); Mamba keeps per-row conv tails (n_sp, B,
+d_conv - 1, d_in) and the SSM state (n_sp, B, d_in, d_state) f32; RWKV
+keeps per-row token-shift buffers (n_sp, B, d) and the wkv state (n_sp, B,
+H, N, N) f32. The port updates all of them in place (the JAX package
+returns new arrays and donates the old buffers). ``gather_pages`` /
 ``scatter_pages`` move pool pages to and from the host (prefix-cache
 persistence).
 """
@@ -27,14 +26,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.lora import scan_period
-from repro_torch.models import attention, rwkv
+from repro_torch.models import attention, rwkv, ssm
 from repro_torch.models.attention import POOL_LEAVES
-
-
-def _check_ported(cfg: ModelConfig, pos: int) -> None:
-    if cfg.block_kind(pos) not in ("attn", "rwkv"):
-        raise NotImplementedError(
-            "Mamba state is not ported yet (ROADMAP Queue 1 item 13)")
 
 
 def ring_len(cfg: ModelConfig, max_len: int) -> int:
@@ -46,8 +39,23 @@ def position_cache_spec(cfg: ModelConfig, pos: int, batch: int, max_len: int,
                         kv_dtype=torch.float32):
     """{leaf: (shape, dtype)} for one scan position's cache (no stacking).
     A sliding layer's K/V is a ring of ``ring_len`` slots."""
-    _check_ported(cfg, pos)
-    if cfg.block_kind(pos) == "rwkv":
+    kind = cfg.block_kind(pos)
+    if kind == "attn":
+        S = (ring_len(cfg, max_len) if cfg.attn_kind(pos) == "sliding"
+             else max_len)
+        return {
+            "k": ((batch, cfg.n_kv_heads, S, cfg.hd), kv_dtype),
+            "v": ((batch, cfg.n_kv_heads, S, cfg.hd), kv_dtype),
+            "len": ((batch,), torch.int32),
+        }
+    if kind == "mamba":
+        mc = cfg.mamba
+        d_in = mc.expand * cfg.d_model
+        return {
+            "conv": ((batch, mc.d_conv - 1, d_in), kv_dtype),
+            "ssm": ((batch, d_in, mc.d_state), torch.float32),
+        }
+    if kind == "rwkv":
         rc = cfg.rwkv
         H = cfg.d_model // rc.head_dim
         return {
@@ -55,13 +63,7 @@ def position_cache_spec(cfg: ModelConfig, pos: int, batch: int, max_len: int,
             "shift_c": ((batch, cfg.d_model), kv_dtype),
             "wkv": ((batch, H, rc.head_dim, rc.head_dim), torch.float32),
         }
-    S = (ring_len(cfg, max_len) if cfg.attn_kind(pos) == "sliding"
-         else max_len)
-    return {
-        "k": ((batch, cfg.n_kv_heads, S, cfg.hd), kv_dtype),
-        "v": ((batch, cfg.n_kv_heads, S, cfg.hd), kv_dtype),
-        "len": ((batch,), torch.int32),
-    }
+    raise KeyError(kind)
 
 
 def zeros_from_spec(spec, lead, device):
@@ -110,7 +112,6 @@ def position_paged_spec(cfg: ModelConfig, pos: int, layout: PagedLayout,
     of ``ring_len`` slots per slot (no "len" leaf: lengths come with each
     step), recurrent state keeps the dense per-slot layout at batch =
     max_slots."""
-    _check_ported(cfg, pos)
     if cfg.block_kind(pos) == "attn":
         if cfg.attn_kind(pos) == "sliding":
             shape = (layout.max_slots, cfg.n_kv_heads,
@@ -152,9 +153,10 @@ class SlotStateArena:
 
     Under the paged layout full-attention KV is pool-addressed and rolls
     back by rewinding the host-side write cursor; everything else is per
-    slot: the sliding-window ring (``attention.SLOT_STATE_LEAVES``) and the
-    RWKV token-shift and wkv state (``rwkv.SLOT_STATE_LEAVES``), cumulative
-    over the whole stream. A cursor rewind cannot rewind them, so the
+    slot: the sliding-window ring (``attention.SLOT_STATE_LEAVES``), the
+    Mamba conv tail and SSM state (``ssm.SLOT_STATE_LEAVES``) and the RWKV
+    token-shift and wkv state (``rwkv.SLOT_STATE_LEAVES``), cumulative over
+    the whole stream. A cursor rewind cannot rewind them, so the
     serving engine snapshots them before each speculative verify chunk and
     restores them per slot when a draft is rejected; a slot that a new (or
     preempted and readmitted)
@@ -169,9 +171,11 @@ class SlotStateArena:
     def __init__(self, cfg: ModelConfig):
         per_pos: List[Tuple[str, ...]] = []
         for pos in range(scan_period(cfg)):
-            _check_ported(cfg, pos)
-            if cfg.block_kind(pos) == "rwkv":
+            kind = cfg.block_kind(pos)
+            if kind == "rwkv":
                 per_pos.append(tuple(rwkv.SLOT_STATE_LEAVES))
+            elif kind == "mamba":
+                per_pos.append(tuple(ssm.SLOT_STATE_LEAVES))
             elif cfg.attn_kind(pos) == "sliding":
                 per_pos.append(tuple(attention.SLOT_STATE_LEAVES))
             else:

@@ -7,8 +7,10 @@ stored (d_in, d_out) and applied as ``x @ w``.
 """
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Dict, Optional
+import threading
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -21,14 +23,40 @@ from repro_torch.core.noise import NoiseConfig
 # ---------------------------------------------------------------------------
 
 
+class _LeafHook(threading.local):
+    fn: Optional[Callable] = None
+
+
+_LEAF_HOOK = _LeafHook()
+
+
+@contextlib.contextmanager
+def leaf_hook(fn: Callable[[str, torch.Tensor], object]):
+    """Inside the block, every weight matrix that ``dense_init`` draws under
+    a ``name`` goes to ``fn(name, tensor)`` as soon as it is drawn, and
+    ``dense_init`` returns what ``fn`` returns (``transformer.
+    init_quantized_params`` quantizes each leaf there, before the next one
+    is drawn). The draws themselves are unchanged."""
+    prev = _LEAF_HOOK.fn
+    _LEAF_HOOK.fn = fn
+    try:
+        yield
+    finally:
+        _LEAF_HOOK.fn = prev
+
+
 def dense_init(generator: torch.Generator, shape, *, device, dtype,
-               fan_in: Optional[int] = None) -> torch.Tensor:
-    """Truncated normal in [-2, 2] scaled by 1/sqrt(fan_in)."""
+               fan_in: Optional[int] = None, name: Optional[str] = None):
+    """Truncated normal in [-2, 2] scaled by 1/sqrt(fan_in), scaled in
+    place (one leaf's memory). ``name`` (the leaf's key in the parameter
+    tree) hands the leaf to the ``leaf_hook`` in force, if any."""
     fan_in = fan_in if fan_in is not None else (
         shape[-2] if len(shape) >= 2 else shape[-1])
     w = torch.empty(shape, device=device, dtype=torch.float32)
     torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
-    return (w * (1.0 / math.sqrt(fan_in))).to(dtype)
+    w = w.mul_(1.0 / math.sqrt(fan_in)).to(dtype)
+    hook = _LEAF_HOOK.fn
+    return w if hook is None or name is None else hook(name, w)
 
 
 def init_norm(cfg: ModelConfig, *, device, dtype, lead=()) -> Dict[str, torch.Tensor]:
@@ -113,10 +141,11 @@ def init_mlp(cfg: ModelConfig, generator: torch.Generator, *, device, dtype,
         raise ValueError(f"unknown mlp {cfg.mlp!r}")
     d, ff = cfg.d_model, cfg.d_ff
     kw = dict(device=device, dtype=dtype)
-    p = {"w1": dense_init(generator, (*lead, d, ff), **kw)}
+    p = {"w1": dense_init(generator, (*lead, d, ff), name="w1", **kw)}
     if cfg.mlp.startswith("gated"):
-        p["w3"] = dense_init(generator, (*lead, d, ff), **kw)
-    p["w2"] = dense_init(generator, (*lead, ff, d), fan_in=ff, **kw)
+        p["w3"] = dense_init(generator, (*lead, d, ff), name="w3", **kw)
+    p["w2"] = dense_init(generator, (*lead, ff, d), fan_in=ff, name="w2",
+                         **kw)
     return p
 
 

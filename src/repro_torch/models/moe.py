@@ -80,11 +80,13 @@ def init_moe(cfg: ModelConfig, generator: torch.Generator, *, device, dtype,
     kw = dict(device=device, dtype=dtype)
     p = {"router": layers.dense_init(generator, (*lead, d, cfg.moe.n_experts),
                                      device=device, dtype=torch.float32),
-         "w1": layers.dense_init(generator, (*lead, slots, d, ffp), **kw),
+         "w1": layers.dense_init(generator, (*lead, slots, d, ffp), name="w1",
+                                 **kw),
          "w2": layers.dense_init(generator, (*lead, slots, ffp, d),
-                                 fan_in=ff, **kw)}
+                                 fan_in=ff, name="w2", **kw)}
     if cfg.mlp.startswith("gated"):
-        p["w3"] = layers.dense_init(generator, (*lead, slots, d, ffp), **kw)
+        p["w3"] = layers.dense_init(generator, (*lead, slots, d, ffp),
+                                    name="w3", **kw)
     if cfg.moe.shared_expert:
         p["shared"] = layers.init_mlp(cfg, generator, lead=lead, **kw)
     return p

@@ -76,16 +76,19 @@ def init_rwkv(cfg: ModelConfig, generator: torch.Generator, *, device, dtype,
             "w_lora_b": normal((rc.decay_lora, d), 0.02),
             "u": fixed(0.5 * torch.ones(H, rc.head_dim, device=device),
                        torch.float32),
-            **{f"{n}_proj": layers.dense_init(generator, (*lead, d, d), **kw)
+            **{f"{n}_proj": layers.dense_init(generator, (*lead, d, d),
+                                              name=f"{n}_proj", **kw)
                for n in ("r", "k", "v", "g", "o")},
             "ln_x": {"scale": fixed(ones), "bias": fixed(zeros)},
         },
         "channel_mix": {
             "mu_k": fixed(mu_x),
             "mu_r": fixed(mu_x),
-            "ck_proj": layers.dense_init(generator, (*lead, d, cfg.d_ff), **kw),
+            "ck_proj": layers.dense_init(generator, (*lead, d, cfg.d_ff),
+                                         name="ck_proj", **kw),
             "cv_proj": layers.dense_init(generator, (*lead, cfg.d_ff, d),
-                                         fan_in=cfg.d_ff, **kw),
+                                         fan_in=cfg.d_ff, name="cv_proj",
+                                         **kw),
             "cr_proj": layers.dense_init(generator, (*lead, d, d), **kw),
         },
     }

@@ -1,12 +1,11 @@
 """Config-driven decoder: embeds -> loop over period-blocks -> norm -> head
-(PyTorch port of ``repro.models.transformer`` for full- and
-sliding-window-attention and RWKV blocks, each with a dense or a
-mixture-of-experts FF, from tokens or from precomputed embeddings).
+(PyTorch port of ``repro.models.transformer``: full- and
+sliding-window-attention, Mamba and RWKV blocks, each but RWKV with a dense
+or a mixture-of-experts FF, from tokens or from precomputed embeddings).
 
 The JAX package scans over stacked scan periods with ``lax.scan``; the port
 runs the same layout as a Python loop, slicing one period's weights, LoRA
-leaves and cache views out of the stacked tensors. Mamba blocks wait for
-ROADMAP Queue 1 item 13.
+leaves and cache views out of the stacked tensors.
 """
 from __future__ import annotations
 
@@ -23,7 +22,7 @@ from repro_torch.core.lora import layer_slice, scan_period, tree_map
 from repro_torch.core.noise import NoiseConfig
 from repro_torch.kernels.crossbar_matmul import ops as cb_ops
 from repro_torch.kernels.flash_attention import ops as fa_ops
-from repro_torch.models import attention, layers, moe, rwkv
+from repro_torch.models import attention, layers, moe, rwkv, ssm
 from repro_torch.models.kvcache import (cache_len, position_cache_spec,
                                         zeros_from_spec)
 
@@ -35,7 +34,8 @@ class ExecConfig:
     ``attn_impl``: "auto" — the flash kernels (CUDA) or their plain
     versions (CPU); "ref" — ``ref_attention`` over materialized scores.
     ``rwkv_impl``: "auto" — the wkv kernel (CUDA) or its plain version
-    (CPU); "ref" — the plain recurrence anywhere. ``noise``: weight noise
+    (CPU); "ref" — the plain recurrence anywhere. ``ssm_impl``: the same
+    for the Mamba blocks' selective scan. ``noise``: weight noise
     on the frozen projections in train mode (noise-aware fine-tuning; the
     forward then needs a generator). ``remat``: in a train-mode forward
     under grad, each scan period runs under ``torch.utils.checkpoint``,
@@ -49,19 +49,12 @@ class ExecConfig:
     attn_impl: str = "auto"
     act_dtype: Any = torch.float32
     rwkv_impl: str = "auto"
+    ssm_impl: str = "auto"
     noise: NoiseConfig = field(default_factory=NoiseConfig)
     remat: bool = False
     capacity_factor: Optional[float] = None
     moe_group_size: Optional[int] = None
     moe_dispatch: str = "capacity"
-
-
-def _check_supported(cfg: ModelConfig) -> None:
-    for pos in range(scan_period(cfg)):
-        if cfg.block_kind(pos) not in ("attn", "rwkv"):
-            raise NotImplementedError(
-                f"{cfg.block_kind(pos)!r} blocks are not ported yet (ROADMAP "
-                "Queue 1 item 13)")
 
 
 # ---------------------------------------------------------------------------
@@ -75,7 +68,6 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *,
     (which must live on ``device``). Layer leaves are stacked
     (n_scan_periods, ...). The two frameworks' generators differ, so parity
     tests carry the JAX weights across with ``repro_torch.bridge``."""
-    _check_supported(cfg)
     device = resolve_device(device)
     kw = dict(device=device, dtype=dtype)
     layer_trees = _init_layers(cfg, generator,
@@ -97,33 +89,45 @@ def _init_layers(cfg: ModelConfig, generator: torch.Generator, n_sp: int, *,
             layer_trees.append(rwkv.init_rwkv(cfg, generator, lead=(n_sp,),
                                               **kw))
             continue
+        # the FF is drawn before the mixer
         ff = (moe.init_moe(cfg, generator, lead=(n_sp,), **kw)
               if cfg.is_moe_layer(pos)
               else layers.init_mlp(cfg, generator, lead=(n_sp,), **kw))
+        mixer = ({"mamba": ssm.init_mamba(cfg, generator, lead=(n_sp,),
+                                          **kw)}
+                 if cfg.block_kind(pos) == "mamba" else
+                 {"attn": attention.init_attn(cfg, generator, lead=(n_sp,),
+                                              **kw)})
         layer_trees.append({
             "norm": layers.init_norm(cfg, lead=(n_sp,), **kw),
             "norm2": layers.init_norm(cfg, lead=(n_sp,), **kw),
-            "attn": attention.init_attn(cfg, generator, lead=(n_sp,), **kw),
-            "ff": ff,
-        })
+            **mixer, "ff": ff})
     return tuple(layer_trees)
 
 
 def init_quantized_params(cfg: ModelConfig, generator: torch.Generator,
                           quant_cfg: QuantConfig, *, device: DeviceLike = None,
                           min_size: int = 1 << 16) -> Dict:
-    """Random weights as ``init_params`` gives them, quantized by
-    ``quant.quantize_params`` one scan period at a time, so that the f32
-    base is never whole on the device (llama4-scout's 24 layers would take
-    211 GB in f32). Each period is drawn, quantized and copied into stacked
-    codes and scales; the embeddings stay f32. The random stream is not
-    ``init_params``' (its leaves are drawn per period, not per leaf), and
+    """Random weights as ``init_params`` gives them, quantized as
+    ``quant.quantize_params`` quantizes them, one leaf at a time, so that
+    the f32 base is never whole on the device: each weight matrix is
+    quantized (``quant.quantize_leaf``, one matrix of a stack at a time)
+    as soon as it is drawn, before the next one is (``layers.leaf_hook``).
+    The peak is the codes plus one f32 leaf: jamba-1.5-large's scan period
+    would take 176 GB in f32, one of its expert stacks 12.9 GB. Scan
+    periods are drawn one after the other and copied into stacked codes
+    and scales (a model of one period keeps its own); the embeddings stay
+    f32. The random stream is not ``init_params``' (its leaves are drawn
+    per period, not stacked over periods); for every model it is the one
+    this function drew when it quantized a whole period at a time, and
     ``min_size`` is judged on one period's leaf."""
-    _check_supported(cfg)
     device = resolve_device(device)
     kw = dict(device=device, dtype=torch.float32)
     n_sp = cfg.n_layers // scan_period(cfg)
     stacked = None
+
+    def quantize_drawn(name, w):
+        return quant.quantize_leaf(name, w, quant_cfg, min_size=min_size)
 
     def alloc(leaf):
         if quant.is_quantized(leaf):
@@ -141,8 +145,13 @@ def init_quantized_params(cfg: ModelConfig, generator: torch.Generator,
             dst[sp].copy_(src[0])
 
     for sp in range(n_sp):
-        one = quant.quantize_params(_init_layers(cfg, generator, 1, **kw),
-                                    quant_cfg, min_size=min_size)
+        with layers.leaf_hook(quantize_drawn):
+            one = _init_layers(cfg, generator, 1, **kw)
+        # a leaf drawn without a name would be quantized here, whole
+        one = quant.quantize_params(one, quant_cfg, min_size=min_size)
+        if n_sp == 1:
+            stacked = one
+            break
         if stacked is None:
             stacked = tree_map(alloc, one)
         tree_map(lambda d, s_: put(d, s_, sp), stacked, one)
@@ -162,19 +171,27 @@ def _apply_position(cfg: ModelConfig, ec: ExecConfig, pos: int,
                     prefill_cache_len, adapter_idx, paged, chunk_lens, rng):
     """One layer: (x, its new cache entry, its MoE aux or {})."""
     noise = ec.noise if (ec.noise.enabled and mode == "train") else None
-    if cfg.block_kind(pos) == "rwkv":
+    kind = cfg.block_kind(pos)
+    if kind == "rwkv":
         x, newc = rwkv.apply_rwkv_block(
             cfg, pparams, x, cache=pcache, lora=plora,
             adapter_idx=adapter_idx, impl=ec.rwkv_impl, chunk_lens=chunk_lens,
             noise=noise, rng=rng)
         return x, (None if mode == "train" else newc), {}
     h = layers.apply_norm(cfg, pparams["norm"], x)
-    delta, newc = attention.apply_attention_block(
-        cfg, pparams["attn"], h, positions, kind=cfg.attn_kind(pos),
-        mode=mode, cache=pcache, prefill_cache_len=prefill_cache_len,
-        lora=plora, adapter_idx=adapter_idx, impl=ec.attn_impl, paged=paged,
-        chunk_lens=chunk_lens if mode == "prefill" else None, noise=noise,
-        rng=rng)
+    if kind == "mamba":
+        # the conv and scan mask ragged chunks in every mode
+        delta, newc = ssm.apply_mamba_block(
+            cfg, pparams["mamba"], h, cache=pcache, lora=plora,
+            adapter_idx=adapter_idx, impl=ec.ssm_impl, chunk_lens=chunk_lens,
+            noise=noise, rng=rng)
+    else:
+        delta, newc = attention.apply_attention_block(
+            cfg, pparams["attn"], h, positions, kind=cfg.attn_kind(pos),
+            mode=mode, cache=pcache, prefill_cache_len=prefill_cache_len,
+            lora=plora, adapter_idx=adapter_idx, impl=ec.attn_impl,
+            paged=paged, chunk_lens=chunk_lens if mode == "prefill" else None,
+            noise=noise, rng=rng)
     x = x + delta
     h2 = layers.apply_norm(cfg, pparams["norm2"], x)
     aux = {}
@@ -263,11 +280,12 @@ def forward(cfg: ModelConfig, params: Dict, inputs: Dict[str, torch.Tensor],
     ``exec_cfg.act_dtype``). positions: (B,T) global token positions
     (default: arange, or the dense cache's length in decode). mode:
     "train" (no cache), "prefill" (emit a dense cache of
-    ``prefill_cache_len``; RWKV state starts from zero), "decode" (update
-    ``cache`` in place and return it: K/V are appended, lengths advance and
-    RWKV state is overwritten; with ``paged`` the attention cache is the
-    page pool, see ``attention.apply_attention_block``, and RWKV state is
-    per slot row). ``last_idx`` (B,) keeps one row
+    ``prefill_cache_len``; Mamba and RWKV state start from zero), "decode"
+    (update ``cache`` in place and return it: K/V are appended, lengths
+    advance and Mamba and RWKV state is overwritten; with ``paged`` the
+    attention cache is the page pool, see
+    ``attention.apply_attention_block``, and recurrent state is per slot
+    row). ``last_idx`` (B,) keeps one row
     per sequence before the final norm and the unembed, so logits are
     (B,1,V): a serving step samples only that row. ``aux``: "lb_loss" (the
     MoE load-balance loss) and "moe_dropped_tokens" (assignments dropped
@@ -276,7 +294,6 @@ def forward(cfg: ModelConfig, params: Dict, inputs: Dict[str, torch.Tensor],
     ``rng``: the generator that weight noise draws from (train mode with
     ``exec_cfg.noise`` enabled), on the model's device; the JAX package
     threads a key the same way."""
-    _check_supported(cfg)
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
     ec = exec_cfg
@@ -340,7 +357,8 @@ def forward(cfg: ModelConfig, params: Dict, inputs: Dict[str, torch.Tensor],
     if mode == "decode":
         # K/V (dense or pool) were written in place into the caller's
         # stacked tensors and come back as views of them; every other leaf
-        # (lengths, RWKV state) is a new tensor, copied into its layer here
+        # (lengths, Mamba and RWKV state) is a new tensor, copied into its
+        # layer here
         for entry, per_sp in zip(cache["layers"], new_layers):
             for sp, newc in enumerate(per_sp):
                 for name, leaf in newc.items():

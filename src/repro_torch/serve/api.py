@@ -119,7 +119,8 @@ class SpecStats:
     """Speculative decoding's counters. ``recurrent_rollbacks`` counts
     verify chunks whose rejection was settled by restoring per-slot
     recurrent state (``SlotStateArena``) and replaying the accepted
-    prefix: nonzero only on models with per-slot state (rwkv6-7b here).
+    prefix: nonzero only on models with per-slot state (jamba-1.5-large-
+    398b's Mamba state, rwkv6-7b's, gemma2-9b's rings).
     ``disabled_reason`` is kept for the JAX package's key set (no engine
     sets it). ``draft_signatures``/``draft_compiles``: only a drafter with
     steps of its own (``QuantSelfDrafter``) reports them: its (context
@@ -264,8 +265,9 @@ def make_engine(cfg, params, adapters=(), *, mode: str = "paged",
 
     ``spec`` enables draft-and-verify decoding: a ``serve.spec.SpecConfig``
     or a drafter name (``"ngram"`` / ``"selfdraft"``) for the defaults.
-    ``spec=None`` leaves the engine exactly as without it. On rwkv6-7b the
-    per-slot state is checkpointed around each verify chunk and a
+    ``spec=None`` leaves the engine exactly as without it. On models with
+    per-slot state (jamba-1.5-large-398b, rwkv6-7b, gemma2-9b) that
+    state is checkpointed around each verify chunk and a
     rejection replays the accepted prefix
     (``stats().spec.recurrent_rollbacks``).
 

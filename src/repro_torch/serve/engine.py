@@ -49,7 +49,8 @@ jits its forks by fork bucket).
 Speculative decoding (``spec=``, ``serve.spec``) replaces the paged
 engine's step by a verify step, one CUDA graph per (chunk, table)
 signature as well: it copies the per-slot recurrent state into the
-engine's snapshot buffers (rwkv only), runs the same mixed forward, and
+engine's snapshot buffers (sliding-window rings, Mamba and RWKV state;
+nothing on a full-attention model), runs the same mixed forward, and
 returns the logits at the positions the tick reads (a decode row's verify
 chunk, a prefill row's last position), never all of (B, C, V). After the
 replay, eagerly: the acceptance rule (``verify_accept``), the per-slot
@@ -522,7 +523,9 @@ class PagedServeEngine:
     Speculative decoding (``spec``: a ``SpecConfig`` or a drafter name)
     widens each decoding row to ``[t0, d1..dm]`` with up to ``k`` drafts;
     the verify step scores them and the rejected suffix rolls back. On
-    rwkv6-7b the per-slot state is snapshotted inside the verify step and
+    models with per-slot state (sliding-window rings, Mamba and RWKV
+    state: gemma2-9b, jamba-1.5-large-398b, rwkv6-7b) that state is
+    snapshotted inside the verify step and
     restored per slot on a rejection; the cursor then rewinds to the
     pre-chunk length and the accepted tokens replay as a resumed prefill
     chunk next tick, which rebuilds the state token-exactly.
@@ -672,7 +675,8 @@ class PagedServeEngine:
         """The speculative verify step over packed ``inputs``: the same
         mixed forward as ``_step_fn`` (draft tokens ride in as the ragged
         tail of a decode row's chunk), preceded by a copy of the per-slot
-        recurrent state into the engine's snapshot buffers (rwkv only),
+        state into the engine's snapshot buffers (``SlotStateArena``: rings,
+        Mamba and RWKV state),
         and ending at the logits of the positions the tick reads: a verify
         row's 0..J-1 (J = min(C, k + 1)), any other row's last position in
         column 0. Returns (logits (B, J, V), tokens (B, J), draft lengths

@@ -3,8 +3,8 @@ embeddings frontend (CPU, plain kernel versions), against the JAX package
 on the same weights (carried across by ``repro_torch.bridge``):
 
   * ``get_config`` resolves mixtral-8x22b, llama4-scout-17b-a16e,
-    internlm2-20b, mistral-nemo-12b, musicgen-medium and chameleon-34b,
-    field for field as JAX's, full and reduced; jamba still raises;
+    internlm2-20b, mistral-nemo-12b, musicgen-medium, chameleon-34b and
+    jamba-1.5-large-398b, field for field as JAX's, full and reduced;
   * qk-norm (reduced chameleon-34b): prefill from tokens then decode over
     the dense cache, logits and the normed, roped K in the cache;
   * the embeddings frontend (reduced musicgen-medium and chameleon-34b):
@@ -40,7 +40,8 @@ torch.set_num_threads(2)
 KEY = jax.random.PRNGKey(5)
 TOL = 1e-4
 NEW_ARCHS = ("mixtral-8x22b", "llama4-scout-17b-a16e", "internlm2-20b",
-             "mistral-nemo-12b", "musicgen-medium", "chameleon-34b")
+             "mistral-nemo-12b", "musicgen-medium", "chameleon-34b",
+             "jamba-1.5-large-398b")
 
 
 def _to_torch(tree):
@@ -54,8 +55,6 @@ def test_new_configs_match_jax_field_for_field(arch):
     assert (dataclasses.asdict(jax_reduce_config(jc))
             == dataclasses.asdict(reduce_config(tc)))
     assert arch in ARCH_IDS
-    with pytest.raises(NotImplementedError, match="item 13"):
-        get_config("jamba-1.5-large-398b")
 
 
 @functools.lru_cache(maxsize=None)

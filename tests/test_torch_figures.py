@@ -240,11 +240,12 @@ def test_fig9_and_fig13_scripts_run_with_jax_payload_keys(monkeypatch):
 
 
 def test_serve_throughput_smoke_runs_with_jax_payload_keys(monkeypatch):
-    """Workloads 1-3 and 5 at the JAX script's smoke sizes on the CPU: the
-    paged engine's, the prefix-cached engine's, the speculating engine's
-    and the dropless MoE engine's greedy tokens equal the dense oracle's
-    (and the capacity baseline drops), with the JAX script's payload keys
-    for the four workloads."""
+    """Workloads 1-3, 5 and 6 at the JAX script's smoke sizes on the CPU:
+    the paged engine's, the prefix-cached engine's, the speculating
+    engine's, the dropless MoE engine's and the speculating hybrid
+    (reduced jamba) engine's greedy tokens equal the dense oracle's (the
+    capacity baseline drops, the hybrid rolls its Mamba state back), with
+    the JAX script's payload keys for the five workloads."""
     monkeypatch.setenv("BENCH_SMOKE", "1")
     p = torch_serve_throughput.run("cpu")
     assert {"smoke", "workload", "dense", "paged",
@@ -268,4 +269,9 @@ def test_serve_throughput_smoke_runs_with_jax_payload_keys(monkeypatch):
     assert md["greedy_matches_dense_oracle"]
     assert md["dropless"]["dropped_tokens"] == 0
     assert md["capacity_dropped_tokens"] > 0
-    assert set(p["waiting"]) == {"tensor_parallel", "spec_hybrid"}
+    hy = p["spec_hybrid"]
+    assert hy["greedy_matches_dense_oracle"]
+    assert {"arch", "drafter", "k", "workload", "spec_on",
+            "spec_off_tok_per_s", "accept_rate"} <= set(hy)
+    assert hy["spec_on"]["recurrent_rollbacks"] > 0
+    assert set(p["waiting"]) == {"tensor_parallel"}

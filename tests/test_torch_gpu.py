@@ -14,7 +14,10 @@ partial sum and carries x as two bf16
 pieces (|x - hi - lo| <= 2^-16 |x|); flash 2e-5, f32 softmax
 attention summed in another order (the kernel's products in 3xTF32); wkv
 1e-5 (rtol and atol), as for the Pallas kernel: the same f32 recurrence,
-its sums in another order (the chunked kernel's products in 3xTF32).
+its sums in another order (the chunked kernel's products in 3xTF32);
+selective scan 1e-5 of max |y| and of max |h_final|: the same f32
+recurrence as its plain version, with fused multiply-adds and each
+channel's dot product with C summed in another order.
 """
 import numpy as np
 import pytest
@@ -29,8 +32,9 @@ from repro_torch.core.noise import NoiseConfig
 from repro_torch.kernels.crossbar_matmul import ops as cb_ops
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
+from repro_torch.kernels.selective_scan import ops as scan_ops
 from repro_torch.launch import train as launch_train
-from repro_torch.models import kvcache
+from repro_torch.models import kvcache, ssm
 from repro_torch.models import transformer as tfm
 from repro_torch.optim import adamw
 from repro_torch.serve.api import Request, make_engine
@@ -976,7 +980,8 @@ def _waves(eng, cfg, run, at=5):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("arch", ["llama3.2-1b", "rwkv6-7b", "gemma2-9b",
-                                  "llama4-scout-17b-a16e", "mixtral-8x22b"])
+                                  "llama4-scout-17b-a16e", "mixtral-8x22b",
+                                  "jamba-1.5-large-398b"])
 def test_graph_step_equals_the_eager_step(arch):
     """The graphed engine and the eager step on the same weights give the
     same greedy tokens and the same logits bits, over a run that repeats
@@ -1590,7 +1595,8 @@ class _ScriptDrafter:
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("arch", ["llama3.2-1b", "rwkv6-7b"])
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "rwkv6-7b",
+                                  "jamba-1.5-large-398b"])
 def test_spec_verify_graph_equals_the_eager_verify_step(arch):
     """Speculative decoding on the card: the verify step replayed from one
     CUDA graph per signature gives the eager verify step's tokens and
@@ -1624,7 +1630,7 @@ def test_spec_verify_graph_equals_the_eager_verify_step(arch):
     assert st.compile.compiled_steps == len(st.compile.step_signatures)
     assert st.compile.replays == st.ticks - st.compile.compiled_steps > 0
     assert st.spec.accepted_tokens > 0 and st.spec.rolled_back_tokens > 0
-    if arch == "rwkv6-7b":
+    if arch in ("rwkv6-7b", "jamba-1.5-large-398b"):
         assert st.spec.recurrent_rollbacks > 0
     cfg, params, ads = _smoke_model(arch, dev)
     cpu = make_engine(cfg, _to_cpu(params), [_to_cpu(a) for a in ads],
@@ -1843,3 +1849,147 @@ def test_grouped_kernel_has_no_backward_and_refuses_bad_layouts():
     with pytest.raises(TypeError):
         cb_ops.grouped_crossbar_matmul(x.detach(), qt, bases.long(), counts,
                                        "decode")
+
+
+# ---------------------------------------------------------------------------
+# the selective scan (jamba's Mamba layers)
+# ---------------------------------------------------------------------------
+
+# (B, T, chunk_lens): decode on 8 slots, a prefill chunk of 128 on 8 slots
+# (ragged as the engine masks it, one row idle), a 512-token prompt
+SCAN_CASES = [(8, 1, None), (8, 128, None),
+              (8, 128, (128, 100, 64, 1, 0, 128, 37, 5)), (1, 512, None)]
+
+
+def _scan_inputs(dev, B, T, D, N, seed, clens=None, strided=True):
+    """jamba's scan inputs: dt = softplus(x + dt_bias) as the block makes
+    it (masked to 0 past each row's length), B and C as views of one
+    projection's output (its strides), A = -exp(log(1..N)) per channel."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dt = torch.nn.functional.softplus(
+        torch.randn(B, T, D, generator=g, device=dev) - 4.0)
+    if clens is not None:
+        valid = (torch.arange(T, device=dev)[None]
+                 < torch.tensor(clens, device=dev)[:, None])
+        dt = dt * valid[..., None]
+    xi = torch.randn(B, T, D, generator=g, device=dev)
+    if strided:
+        dbc = torch.randn(B, T, 32 + 2 * N, generator=g, device=dev)
+        Bc, Cc = dbc[..., 32:32 + N], dbc[..., 32 + N:]
+    else:
+        Bc, Cc = (torch.randn(B, T, N, generator=g, device=dev)
+                  for _ in range(2))
+    A = -torch.arange(1, N + 1, device=dev, dtype=torch.float32).expand(
+        D, N).contiguous() * torch.rand(D, 1, generator=g, device=dev)
+    h0 = torch.randn(B, D, N, generator=g, device=dev)
+    return dt, Bc, Cc, xi, A, h0
+
+
+def _scan_close(y, h, y_plain, h_plain):
+    for got, want in ((y, y_plain), (h, h_plain)):
+        scale = max(float(want.abs().max()), 1e-30)
+        assert float((got - want).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,T,clens", SCAN_CASES)
+def test_selective_scan_kernel_matches_plain_at_jamba_width(B, T, clens):
+    """D = 16384 channels of 16 states (jamba's d_in and d_state): one
+    launch, the plain version's result, the same bits twice; a row of
+    length 0 keeps its state."""
+    dev = _cuda_or_skip()
+    args = _scan_inputs(dev, B, T, 16384, 16, seed=B + T, clens=clens)
+    before = kernels.LAUNCHES["selective_scan"]
+    y, h = scan_ops.selective_scan(*args)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["selective_scan"] == before + 1
+    y_plain, h_plain = scan_ops.selective_scan_plain(*args)
+    _scan_close(y, h, y_plain, h_plain)
+    y2, h2 = scan_ops.selective_scan(*args)
+    assert torch.equal(y, y2) and torch.equal(h, h2)
+    if clens is not None:
+        i = clens.index(0)
+        assert torch.equal(h[i], args[5][i])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N", [4, 16])
+@pytest.mark.parametrize("D,strided", [(100, True), (4096, False)])
+def test_selective_scan_kernel_at_every_state_width(N, D, strided):
+    """Each instantiated d_state (the reduced configs' 4, jamba's 16), a D
+    that is not a multiple of the block's 32 channels, contiguous and
+    strided B/C, a T past one tile of 64 steps."""
+    dev = _cuda_or_skip()
+    args = _scan_inputs(dev, 2, 70, D, N, seed=N + D, strided=strided)
+    y, h = scan_ops.selective_scan(*args)
+    _scan_close(y, h, *scan_ops.selective_scan_plain(*args))
+
+
+@pytest.mark.gpu
+def test_selective_scan_raises_under_grad_and_refuses_bad_inputs():
+    dev = _cuda_or_skip()
+    dt, Bc, Cc, xi, A, h0 = _scan_inputs(dev, 1, 4, 64, 16, seed=0)
+    with pytest.raises(NotImplementedError, match="item 28"):
+        scan_ops.selective_scan(dt, Bc, Cc, xi.requires_grad_(True), A, h0)
+    with torch.no_grad():
+        scan_ops.selective_scan(dt, Bc, Cc, xi, A, h0)
+    xi = xi.detach()
+    with pytest.raises(ValueError, match="d_state"):
+        scan_ops.selective_scan(dt, Bc[..., :3], Cc[..., :3], xi,
+                                A[:, :3].contiguous(), h0[..., :3].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        scan_ops.selective_scan(dt.transpose(1, 2).contiguous().transpose(
+            1, 2), Bc, Cc, xi, A, h0)
+    with pytest.raises(TypeError):
+        scan_ops.selective_scan(dt.double(), Bc, Cc, xi, A, h0)
+
+
+@pytest.mark.gpu
+def test_mamba_block_replays_in_a_cuda_graph():
+    """A Mamba block at jamba's width (d 8192, d_in 16384) with its M8F8
+    in_proj/out_proj, a ragged chunk and a carried state, captured once in
+    a CUDA graph: each replay on new inputs gives the eager block's output
+    and state, and launches the crossbar kernel twice and the scan once."""
+    dev = _cuda_or_skip()
+    cfg = get_config("jamba-1.5-large-398b")
+    g = torch.Generator(device=dev).manual_seed(0)
+    p = ssm.init_mamba(cfg, g, device=dev, dtype=torch.float32)
+    p = quant.quantize_params(p, QuantConfig(8, 8))
+    assert quant.is_quantized(p["in_proj"]) and not quant.is_quantized(
+        p["x_proj"])
+    B, T = 8, 16
+    d_in = 2 * cfg.d_model
+    x = torch.randn(B, T, cfg.d_model, generator=g, device=dev)
+    clens = torch.tensor([16, 9, 0, 1, 16, 3, 5, 16], dtype=torch.int32,
+                         device=dev)
+    cache = {"conv": torch.randn(B, 3, d_in, generator=g, device=dev),
+             "ssm": torch.randn(B, d_in, 16, generator=g, device=dev)}
+    cb_ops.reserve_workspace(dev, [p["in_proj"], p["out_proj"]], [B * T])
+
+    def block():
+        return ssm.apply_mamba_block(cfg, p, x, cache=cache,
+                                     chunk_lens=clens)
+
+    block()                                     # warm up
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y, newc = block()
+    for seed in (1, 2):
+        gs = torch.Generator(device=dev).manual_seed(seed)
+        x.copy_(torch.randn(x.shape, generator=gs, device=dev))
+        cache["ssm"].copy_(torch.randn(cache["ssm"].shape, generator=gs,
+                                       device=dev))
+        before = dict(kernels.LAUNCHES)
+        want_y, want_c = block()
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["selective_scan"] == before[
+            "selective_scan"] + 1
+        assert kernels.LAUNCHES["crossbar_matmul"] == before[
+            "crossbar_matmul"] + 2
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(y, want_y)
+        for name in ssm.SLOT_STATE_LEAVES:
+            assert torch.equal(newc[name], want_c[name])
+        assert torch.equal(newc["ssm"][2], cache["ssm"][2])
