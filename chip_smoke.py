@@ -91,7 +91,24 @@ Imports nothing of JAX or of the JAX package. Phases, each printing JSON:
                library time; the crossbar at its Mamba projections
                (8192 x 32768, 16384 x 8192) at M = 8 and 1024; the grouped
                crossbar decoding 8 tokens top-2 over its 16 expert stacks
-               of (8192, 24576) and (24576, 8192).
+               of (8192, 24576) and (24576, 8192). Then the MoE decode's
+               (since slice 18; the grouped decode kernel runs a work
+               list over the live row groups, and llama4-scout's grouped
+               cases add 8 tokens top-2): ``moe_route`` and
+               ``moe_combine`` at llama4-scout's, mixtral's and jamba's
+               routers (16 / 8 / 16 experts, top-1 / 2 / 2) at a decode
+               tick (8 tokens) and a mixed tick (8 x 128 with the
+               engine's ragged chunk lens), each against its plain
+               version on the card (``moe_ops.compare_routes``: ids where
+               the plain margin is >= 1e-5, rows, bases, counts and
+               buffer rows bit-equal, gates, weights and aux within 1e-6;
+               the combine within 1e-6 of max |y|), the same bits twice,
+               with the plain version's device ms and kernels a call
+               beside, bound by bytes, no library call; then a whole
+               dropless MoE layer at full width (llama4-scout at both
+               ticks, mixtral at decode) against ``streamed_moe`` within
+               1e-4 of max |y| on the real tokens, its device ms and
+               kernels a call.
   4. serve   — for each model the port serves, full width and full depth
                (random weights from a seed), on an M8F8 crossbar base with
                two rank-32 adapters, served by the port's paged engine: 8
@@ -141,8 +158,11 @@ Imports nothing of JAX or of the JAX package. Phases, each printing JSON:
                                GB), its base drawn and quantized one layer
                                at a time; per tick exactly 168 crossbar
                                (attention and shared expert), 72 grouped
-                               (the expert stacks) and 24 paged flash
-                               launches; a traced window of 8 graph decode
+                               (the expert stacks), 24 paged flash, and
+                               (since slice 18) 24 ``moe_route`` and 24
+                               ``moe_combine`` launches (the kernel
+                               forward likewise per forward); a traced
+                               window of 8 graph decode
                                ticks; the engine freed, two requests
                                teacher-forced through the kernels and
                                through ``streamed_reference`` (one layer's
@@ -163,7 +183,8 @@ Imports nothing of JAX or of the JAX package. Phases, each printing JSON:
                                period take 48.8 GB, two would not fit),
                                adapters also on mamba_in and mamba_out;
                                per tick exactly 30 crossbar, 12 grouped,
-                               1 paged flash and 7 ``selective_scan``
+                               1 paged flash, 7 ``selective_scan``, 4
+                               ``moe_route`` and 4 ``moe_combine``
                                launches; the prefix cache off (per-slot
                                Mamba state); the reference streams each
                                MoE layer one expert at a time
@@ -562,8 +583,12 @@ JAMBA_MAMBA_KN = ((8192, 32768), (16384, 8192))
 JAMBA_KN = ((8192, 24576), (24576, 8192))
 # the crossbar kernels' own names in a profiler trace
 CB_KERNELS = ("crossbar_decode_kernel<", "crossbar_prefill_kernel<")
-# the grouped entry point's (the same kernels' bodies over slots' rows)
-GROUPED_KERNELS = ("grouped_decode_kernel<", "grouped_prefill_kernel<")
+# the grouped entry point's: at decode the work list over the live row
+# groups, at prefill the prefill kernel's body over slots' rows
+GROUPED_KERNELS = ("grouped_live_decode_kernel<", "grouped_prefill_kernel<")
+# the MoE layer's routing and layout, and its combine (csrc/moe_route.cu)
+ROUTE_KERNELS = ("moe_route_kernel",)
+COMBINE_KERNELS = ("moe_combine_kernel",)
 # the flash kernels' (both entry points): flash_kernel<D, false> runs row
 # tiles (prefill, chunks; wgmma from D = 128), flash_kernel<D, true> the
 # warp split (decode, G*T <= 16 rows) at D <= 64; from D = 128 decode (G*T
@@ -1128,7 +1153,9 @@ LAUNCHED_AS = ((("crossbar_matmul",), CB_KERNELS),
                (("ring_flash_attention",), RING_KERNELS),
                (("rwkv6_wkv",), ("wkv_kernel<",)),
                (("rwkv6_wkv_chunk",), ("wkv_chunk_kernel",)),
-               (("selective_scan",), ("selective_scan_kernel<",)))
+               (("selective_scan",), ("selective_scan_kernel<",)),
+               (("moe_route",), ROUTE_KERNELS),
+               (("moe_combine",), COMBINE_KERNELS))
 SCAN_KERNELS = ("selective_scan_kernel<",)
 
 
@@ -1605,10 +1632,228 @@ def jamba_cases(dev, g):
                              bits_list=(8,), dists=("decode_top2",))
 
 
+# (model, experts, top_k, renormalised, d_model, shared expert) of the MoE
+# models' routers (one slot an expert, as they are served), and the tokens
+# (B, T) of a decode tick on 8 slots and of a mixed tick (every slot
+# prefills 128; the engine's ragged chunk lens in the mask)
+MOE_ROUTERS = (("llama4-scout-17b-a16e", 16, 1, False, 5120, True),
+               ("mixtral-8x22b", 8, 2, True, 6144, False),
+               ("jamba-1.5-large-398b", 16, 2, True, 8192, False))
+MOE_TICKS = (("decode", 8, 1), ("mixed", 8, 128))
+MIXED_CLENS = (128, 100, 64, 1, 0, 128, 37, 5)
+
+
+def _tick_mask(dev, label, B, T):
+    """Real tokens of a tick: all at decode; at a mixed tick the first
+    ``MIXED_CLENS[b]`` of slot b's 128."""
+    if label == "decode":
+        return torch.ones(B, T, dtype=torch.bool, device=dev)
+    return (torch.arange(T, device=dev)[None]
+            < torch.tensor(MIXED_CLENS, device=dev)[:, None])
+
+
+def device_kernels(fn, reps: int = 3):
+    """(device ms, device kernels) per call of ``fn`` over ``reps`` traced
+    calls: every kernel it launches, whoever wrote it."""
+    fn()
+    with cuda_trace() as prof:
+        for _ in range(reps):
+            fn()
+    ev = device_events(prof)
+    return (sum(e.time_range.elapsed_us() for e in ev) / 1e3 / reps,
+            len(ev) / reps)
+
+
+def moe_route_cases(dev, g):
+    """``moe_route`` and ``moe_combine`` (slice 18) at the MoE models'
+    decode and mixed ticks, each against its plain version on the same
+    inputs (``moe_ops.compare_routes``: expert ids where the plain margin
+    is >= 1e-5, rows, bases, counts and buffer rows bit-equal, gates,
+    weights and aux within 1e-6 relative; the combine within 1e-6 of max
+    |y|), with the plain version's device time and device kernels a call
+    beside the kernel's. Router logits x @ W for a random f32 router of
+    the model's width (``layers.dense_init``'s scale). Bound: the bytes
+    each reads and writes once (no operation counts: a few per byte); no
+    single PyTorch call computes either function."""
+    from repro_torch.kernels.crossbar_matmul import ops as cb_ops
+    from repro_torch.kernels.moe_route import ops as moe_ops
+
+    for model, E, k, norm, d, has_shared in MOE_ROUTERS:
+        router = torch.randn(d, E, generator=g, device=dev) * d ** -0.5
+        for label, B, T in MOE_TICKS:
+            n, A = B * T, B * T * k
+            x = torch.randn(n, d, generator=g, device=dev)
+            logits = x @ router
+            mask = _tick_mask(dev, label, B, T).reshape(n)
+            # the decode kernel's row tile at a decode tick, the prefill
+            # kernel's at a mixed one (``cb_ops.grouped_kernel``'s pick at
+            # these widths)
+            tile = cb_ops.GROUPED_TILE["decode" if label == "decode"
+                                       else "prefill"]
+            kw = dict(top_k=k, tpe=1, norm_topk=norm, tile=tile,
+                      R=cb_ops.grouped_rows(A, E, tile))
+            route = lambda: moe_ops.moe_route(  # noqa: E731
+                logits, mask, x, **kw)
+            plain = lambda: moe_ops.moe_route_plain(  # noqa: E731
+                logits, mask, x, **kw)
+            got, again, want = route(), route(), plain()
+            torch.cuda.synchronize()
+            check = moe_ops.compare_routes(got, want)
+            kept = want.weights > 0
+            same = all(torch.equal(a, b) for a, b in zip(got[:-1], again[:-1]))
+            same = same and torch.equal(got.xbuf[want.rows[kept]],
+                                        again.xbuf[want.rows[kept]])
+            n_kept = int(kept.sum())
+            # tokens with a kept assignment: the x rows the kernel reads
+            n_read = int(kept.reshape(n, k).any(1).sum())
+            err = max(float((got.gate - want.gate).abs().max()),
+                      float((got.aux - want.aux).abs().max()))
+            scale = max(float(want.gate.abs().max()),
+                        float(want.aux.abs().max()))
+            nbytes = (n * E * 4 + n + n_read * d * 4 + n_kept * d * 4
+                      + n * k * 12 + n * 4 + 12 + A * 12 + (2 * E + 1) * 4)
+            plain_dev, plain_kernels = device_kernels(plain)
+            shape = {"tokens": n, "E": E, "top_k": k, "d": d,
+                     "R": kw["R"], "kept": n_kept}
+            common = {"model": model, "case": label, "shape": shape,
+                      "library": "none (no single PyTorch call)",
+                      "library_ms": None, "bound_by": "bytes"}
+            yield {"name": "moe_route", **common,
+                   "check": check, "same_bits": same,
+                   "max_abs_err": err, "tol": moe_ops.ROUTE_TOL * scale,
+                   "ms": timed(route, 20),
+                   "device_ms": device_ms_by_name([route] * 10,
+                                                  ROUTE_KERNELS),
+                   "host_us": host_us(route, 50),
+                   "plain_ms": timed(plain, 5, warmup=1),
+                   "plain_device_ms": plain_dev,
+                   "plain_device_kernels": plain_kernels,
+                   "bound_ms": bound_ms(nbytes, 0.0),
+                   "ok": check["ok"] and check["layout_equal"] is not False
+                   and same}
+            out = torch.randn(kw["R"], d, generator=g, device=dev)
+            shared = (torch.randn(n, d, generator=g, device=dev)
+                      if has_shared else None)
+            rows, w = want.rows.reshape(n, k), want.weights.reshape(n, k)
+            comb = lambda: moe_ops.moe_combine(  # noqa: E731
+                out, rows, w, shared)
+            plain_c = lambda: moe_ops.moe_combine_plain(  # noqa: E731
+                out, rows, w, shared)
+            y, y2, yp = comb(), comb(), plain_c()
+            torch.cuda.synchronize()
+            err = float((y - yp).abs().max())
+            nbytes = (n_kept * d * 4 + A * 12 + n * d * 4
+                      + (n * d * 4 if has_shared else 0))
+            plain_dev, plain_kernels = device_kernels(plain_c)
+            yield {"name": "moe_combine", **common,
+                   "shape": {**shape, "shared": has_shared},
+                   "same_bits": bool(torch.equal(y, y2)),
+                   "max_abs_err": err,
+                   "tol": moe_ops.ROUTE_TOL * float(yp.abs().max()),
+                   "ms": timed(comb, 20),
+                   "device_ms": device_ms_by_name([comb] * 10,
+                                                  COMBINE_KERNELS),
+                   "host_us": host_us(comb, 50),
+                   "plain_ms": timed(plain_c, 5, warmup=1),
+                   "plain_device_ms": plain_dev,
+                   "plain_device_kernels": plain_kernels,
+                   "bound_ms": bound_ms(nbytes, 0.0),
+                   "ok": err <= moe_ops.ROUTE_TOL * float(yp.abs().max())
+                   and bool(torch.equal(y, y2))}
+            del x, out, shared, got, again, want
+
+
+# the whole MoE layers timed and checked: (model, ticks)
+MOE_LAYERS = (("llama4-scout-17b-a16e", MOE_TICKS),
+              ("mixtral-8x22b", MOE_TICKS[:1]))
+
+
+def moe_layer(dev, g, cfg):
+    """One MoE layer of ``cfg`` at full width, its expert stacks and
+    shared expert M8F8 (the router f32), drawn one matrix at a time."""
+    from repro_torch.core import quant
+    from repro_torch.models import layers, moe
+
+    d, ff, E = cfg.d_model, cfg.d_ff, cfg.moe.n_experts
+    p = {"router": layers.dense_init(g, (d, E), device=dev,
+                                     dtype=torch.float32)}
+    names = ["w1", "w2"] + (["w3"] if cfg.mlp.startswith("gated") else [])
+    for name in names:
+        shape = (E, ff, d) if name == "w2" else (E, d, ff)
+        w = layers.dense_init(g, shape, fan_in=shape[1], device=dev,
+                              dtype=torch.float32)
+        p[name] = quant.quantize_slices(w, 8)
+        del w
+    if cfg.moe.shared_expert:
+        mlp = layers.init_mlp(cfg, g, device=dev, dtype=torch.float32)
+        p["shared"] = {k: quant.quantize(v, 8) for k, v in mlp.items()}
+    assert moe.live_slots(p["w1"]) == E
+    return p
+
+
+def moe_layer_cases(dev, g, layers_of=MOE_LAYERS):
+    """A whole dropless MoE layer (``moe.apply_moe`` on CUDA tensors: the
+    router's product, ``moe_route``, the grouped products, the activation,
+    ``moe_combine``; llama4-scout's shared expert on the crossbar) at full
+    width, held at ``CB_TOL`` of max |y| on the real tokens against
+    ``streamed_moe`` (each expert's FF over its tokens with that expert's
+    weights dequantized alone, the routing in torch ops); its device ms
+    and device kernels a call (every kernel), and the ms of those that are
+    neither the grouped nor the crossbar kernels (the layer's small
+    kernels), beside the port kernels' launches a call."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+
+    for model, ticks in layers_of:
+        cfg = get_config(model)
+        p = moe_layer(dev, g, cfg)
+        p_ref = dequantize_but_experts(p)      # the shared expert in f32
+        for label, B, T in ticks:
+            x = torch.randn(B, T, cfg.d_model, generator=g, device=dev)
+            mask = _tick_mask(dev, label, B, T)
+            run = lambda: moe.apply_moe(  # noqa: E731
+                cfg, p, x, token_mask=mask, dispatch="dropless")[0]
+            kernels.reset_launches()
+            y = run()
+            launches = {k: n for k, n in kernels.LAUNCHES.items() if n}
+            ref = streamed_moe(cfg, p_ref, x)[0]
+            torch.cuda.synchronize()
+            err = float((y - ref)[mask].abs().max())
+            tol = CB_TOL * float(ref[mask].abs().max())
+            dev_ms, n_kernels = device_kernels(run)
+            big = device_ms_by_name([run] * 3, GROUPED_KERNELS + CB_KERNELS)
+            yield {"name": "moe_layer", "model": model, "case": label,
+                   "shape": {"B": B, "T": T, "d": cfg.d_model,
+                             "d_ff": cfg.d_ff, "E": cfg.moe.n_experts,
+                             "top_k": cfg.moe.top_k,
+                             "real_tokens": int(mask.sum())},
+                   "launches": launches, "max_abs_err": err, "tol": tol,
+                   "ms": timed(run, 10), "device_ms": dev_ms,
+                   "device_kernels": n_kernels,
+                   "grouped_and_crossbar_device_ms": big,
+                   "other_device_ms": dev_ms - big,
+                   "plain": "streamed_moe (torch routing, each expert "
+                            "dequantized alone)",
+                   "plain_ms": timed(lambda: streamed_moe(cfg, p_ref, x),
+                                     2, warmup=1)}
+            del x, y, ref
+        del p, p_ref
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def slice18_cases(dev, g):
+    """The MoE decode's kernels (slice 18): ``moe_route`` and
+    ``moe_combine`` at the three MoE models' ticks, then whole layers."""
+    return (moe_route_cases(dev, g), moe_layer_cases(dev, g))
+
+
 def slice15_cases(dev, g):
     """The MoE models' kernels: the grouped crossbar at llama4-scout's 16
     and mixtral's 8 expert stacks (int8 and int4), and their attention."""
-    return (grouped_cases(dev, g, "llama4-scout-17b-a16e", 16, LLAMA4_KN),
+    return (grouped_cases(dev, g, "llama4-scout-17b-a16e", 16, LLAMA4_KN,
+                          dists=GROUPED_DISTS + ("decode_top2",)),
             grouped_cases(dev, g, "mixtral-8x22b", 8, MIXTRAL_KN),
             moe_attention_cases(dev, g))
 
@@ -1638,7 +1883,9 @@ def path_cases(dev, g):
             # the head-dim-128 forwards' attention
             head_dim_128_cases(dev, g),
             # jamba's selective scan, Mamba projections and experts
-            jamba_cases(dev, g))
+            jamba_cases(dev, g),
+            # the MoE layer's routing and combine kernels, whole layers
+            *slice18_cases(dev, g))
 
 
 def slice10_cases(dev, g):
@@ -2714,6 +2961,27 @@ def layer_counts(cfg):
     return kinds.count("attn"), kinds.count("mamba")
 
 
+def moe_layers(cfg) -> int:
+    """MoE FF layers of a model: one ``moe_route`` and one ``moe_combine``
+    launch each a tick or a forward under dropless dispatch."""
+    return sum(map(cfg.is_moe_layer, range(cfg.n_layers)))
+
+
+@contextlib.contextmanager
+def plain_moe_routing():
+    """``moe_route`` and ``moe_combine`` as their plain versions (torch
+    ops) on CUDA tensors too, for the body: a reference path's routing
+    and combine then run none of the kernels under test."""
+    from repro_torch.kernels.moe_route import ops as moe_ops
+    saved = moe_ops.moe_route, moe_ops.moe_combine
+    moe_ops.moe_route = moe_ops.moe_route_plain
+    moe_ops.moe_combine = moe_ops.moe_combine_plain
+    try:
+        yield
+    finally:
+        moe_ops.moe_route, moe_ops.moe_combine = saved
+
+
 def moe_serve_phase(dev, cfg, *, layers=24, n_requests=8, max_new=32,
                     prompt_range=(64, 512), shared_prefix=256, max_len=1024,
                     max_slots=8, page_size=16, prefill_chunk=128, seed=0,
@@ -2822,10 +3090,12 @@ def moe_serve_phase(dev, cfg, *, layers=24, n_requests=8, max_new=32,
         raise AssertionError(f"requests stopped early: {short}")
     st = eng.stats()
     cs = st.compile
+    n_moe = moe_layers(cfg)
     per_tick = {"crossbar_matmul": n_quant,
                 "grouped_crossbar_matmul": n_grouped,
                 "paged_flash_attention": n_attn,
-                "selective_scan": n_mamba}
+                "selective_scan": n_mamba, "moe_route": n_moe,
+                "moe_combine": n_moe}
     per_tick = {k: n for k, n in per_tick.items() if n}
     got = {k: n for k, n in serve_launches.items() if n}
     if got != {k: n * n_ticks for k, n in per_tick.items()}:
@@ -2869,7 +3139,8 @@ def moe_serve_phase(dev, cfg, *, layers=24, n_requests=8, max_new=32,
     forward_launches = {k: n for k, n in kernels.LAUNCHES.items() if n}
     n_forwards = sum(len(done[uid].generated) for uid in checked)
     want = {"crossbar_matmul": n_quant, "grouped_crossbar_matmul": n_grouped,
-            "flash_attention": n_attn, "selective_scan": n_mamba}
+            "flash_attention": n_attn, "selective_scan": n_mamba,
+            "moe_route": n_moe, "moe_combine": n_moe}
     want = {k: n for k, n in want.items() if n}
     if forward_launches != {k: n * n_forwards for k, n in want.items()}:
         raise AssertionError(f"the forward launched {forward_launches}, "
@@ -3019,7 +3290,8 @@ def moe_spec_pass(dev, cfg, params, adapters, reqs, served, *, drafter, k,
     n_quant, n_grouped = quantized_kinds(params["layers"])
     per_tick = {"crossbar_matmul": n_quant,
                 "grouped_crossbar_matmul": n_grouped,
-                "paged_flash_attention": n_attn, "selective_scan": n_mamba}
+                "paged_flash_attention": n_attn, "selective_scan": n_mamba,
+                "moe_route": moe_layers(cfg), "moe_combine": moe_layers(cfg)}
     want = {k_: n * ticks for k_, n in per_tick.items() if n}
     sampled = {u: torch.stack(eng.sampled_logits[u]) for u in done}
     uids = [r.uid for r in fresh]
@@ -3185,13 +3457,15 @@ def forward_phase(dev, cfg, *, layers=None, embeds=False, prompt_len=512,
     want = {"crossbar_matmul": n_quant * n_fwd, "flash_attention": L * n_fwd}
     if has_moe:
         want["grouped_crossbar_matmul"] = n_grouped * n_fwd
+        want["moe_route"] = want["moe_combine"] = moe_layers(cfg) * n_fwd
     plain = quant.dequantize_params(params)
     del params
     gc.collect()
     torch.cuda.empty_cache()
     t = time.perf_counter()
-    lp, ep, mp = run(plain, tfm.ExecConfig(attn_impl="ref",
-                                           moe_dispatch="dropless"))
+    with plain_moe_routing():
+        lp, ep, mp = run(plain, tfm.ExecConfig(attn_impl="ref",
+                                               moe_dispatch="dropless"))
     torch.cuda.synchronize()
     plain_s = time.perf_counter() - t
     if has_moe:
@@ -3292,7 +3566,8 @@ def traced_ticks(eng, n, tick):
     own = {k: us / 1e3 / n for k, us in by_name.items()
            if any(f"(anonymous namespace)::{m}" in k
                   for m in CB_KERNELS + GROUPED_KERNELS + FA_KERNELS
-                  + RING_KERNELS + WKV_KERNELS + SCAN_KERNELS)}
+                  + RING_KERNELS + WKV_KERNELS + SCAN_KERNELS
+                  + ROUTE_KERNELS + COMBINE_KERNELS)}
     out = {"ticks": n, "traced_wall_ms_per_tick": wall_ms / n,
            "device_ms_per_tick": device_ms / n if kern else None,
            "device_busy_share": device_ms / wall_ms if kern else None,
@@ -3305,7 +3580,8 @@ def traced_ticks(eng, n, tick):
     for label, names in (("crossbar", CB_KERNELS),
                          ("grouped", GROUPED_KERNELS), ("flash", FA_KERNELS),
                          ("ring_flash", RING_KERNELS), ("wkv", WKV_KERNELS),
-                         ("scan", SCAN_KERNELS)):
+                         ("scan", SCAN_KERNELS), ("moe_route", ROUTE_KERNELS),
+                         ("moe_combine", COMBINE_KERNELS)):
         ms = sum(v for k, v in own.items()
                  if any(f"(anonymous namespace)::{m}" in k for m in names))
         out[f"{label}_device_ms_per_tick"] = ms
@@ -3549,7 +3825,9 @@ PORT_LAUNCHERS = (
     ("repro_torch.kernels.flash_attention.ops", "_launch"),
     ("repro_torch.kernels.flash_attention.ops", "flash_attention_bwd"),
     ("repro_torch.kernels.rwkv6_wkv.ops", "_launch"),
-    ("repro_torch.kernels.rwkv6_wkv.ops", "rwkv6_wkv_bwd"))
+    ("repro_torch.kernels.rwkv6_wkv.ops", "rwkv6_wkv_bwd"),
+    ("repro_torch.kernels.moe_route.ops", "moe_route"),
+    ("repro_torch.kernels.moe_route.ops", "moe_combine"))
 
 
 @contextlib.contextmanager
@@ -4314,6 +4592,12 @@ def main() -> int:
            "rwkv6_wkv_chunk": ("rwkv6-7b serve", {"case": "prefill"}),
            "selective_scan": ("jamba-1.5-large-398b serve",
                               {"case": "decode"}),
+           "moe_route": ("llama4-scout-17b-a16e serve",
+                         {"case": "decode",
+                          "model": "llama4-scout-17b-a16e"}),
+           "moe_combine": ("llama4-scout-17b-a16e serve",
+                           {"case": "decode",
+                            "model": "llama4-scout-17b-a16e"}),
            "crossbar_matmul_t": ("llama3.2-1b train",
                                  {"model": "llama3.2-1b", "bits": 8,
                                   "case": "microbatch",
@@ -4338,7 +4622,9 @@ def main() -> int:
                "rwkv6_wkv": "src/repro_torch/csrc/rwkv6_wkv.cu",
                "rwkv6_wkv_chunk": "src/repro_torch/csrc/rwkv6_wkv.cu",
                "rwkv6_wkv_bwd": "src/repro_torch/csrc/rwkv6_wkv.cu",
-               "selective_scan": "src/repro_torch/csrc/selective_scan.cu"}
+               "selective_scan": "src/repro_torch/csrc/selective_scan.cu",
+               "moe_route": "src/repro_torch/csrc/moe_route.cu",
+               "moe_combine": "src/repro_torch/csrc/moe_route.cu"}
     # the backward kernels replace what the JAX package computes by
     # autodiff around the same Pallas kernels' functions
     replaces = {
@@ -4356,7 +4642,9 @@ def main() -> int:
         "rwkv6_wkv_chunk": "src/repro/kernels/rwkv6_wkv/kernel.py:59",
         "rwkv6_wkv_bwd": "src/repro/kernels/rwkv6_wkv/kernel.py:59",
         # no Pallas kernel: the JAX function it replaces
-        "selective_scan": "src/repro/models/ssm.py:89"}
+        "selective_scan": "src/repro/models/ssm.py:89",
+        "moe_route": "src/repro/models/moe.py:158",
+        "moe_combine": "src/repro/models/moe.py:226"}
     # what the JAX package computes in place of each backward kernel
     autodiff_of = {
         "crossbar_matmul_t":
@@ -4375,6 +4663,17 @@ def main() -> int:
         "selective_scan":
             "src/repro/models/ssm.py:89 (_selective_scan: lax.scan over "
             "chunks, associative_scan inside, no Pallas call)"}
+    # what the JAX package computes in place of the MoE layer's routing
+    # and combine kernels, outside any Pallas call
+    moe_of = {
+        "moe_route":
+            "src/repro/models/moe.py:158 (apply_moe's dropless branch: "
+            "softmax, top_k, the aux losses, the one-hot cumsum rank, the "
+            "scatter into the C = T-row buffer)",
+        "moe_combine":
+            "src/repro/models/moe.py:226 (take_along_axis of each "
+            "assignment's row, times its gate, summed; the shared expert "
+            "added)"}
     summary = []
     for name, (path, sel) in rep.items():
         c = next(c for c in cases if c["name"] == name
@@ -4387,6 +4686,7 @@ def main() -> int:
             **({"jax_einsum_of": einsum_of[name]}
                if name in einsum_of else {}),
             **({"jax_scan_of": scan_of[name]} if name in scan_of else {}),
+            **({"jax_ops_of": moe_of[name]} if name in moe_of else {}),
             "launches": paths[path][name], "path": path,
             "launches_by_path": {p: counts.get(name, 0)
                                  for p, counts in paths.items()},
@@ -4407,7 +4707,9 @@ def main() -> int:
                                    "tol_rel", "ms", "device_ms",
                                    "host_us", "plain_ms",
                                    "library_ms", "library_device_ms",
-                                   "bound_ms", "bound_pieces_ms", "bound_by")
+                                   "bound_ms", "bound_pieces_ms", "bound_by",
+                                   "plain_device_ms", "plain_device_kernels",
+                                   "check")
                  if k in o}
                 for o in cases if o["name"] == name]
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})

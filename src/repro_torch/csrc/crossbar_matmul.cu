@@ -91,13 +91,25 @@
 //   (token, slot) assignments lie compactly in one buffer, grouped by
 //   slot, each slot's rows padded to the kernel's row tile; y[r] =
 //   x[r] @ dequant(codes[s], scales[s]) for the live rows r of slot s, 0
-//   in every other row. Design: the decode and prefill kernels above, with
-//   the slot taken from the row tile (group_of: the slots' bases and
-//   counts are read from device memory, so the grid depends only on the
-//   buffer's size and a CUDA graph replays the call for any routing); a
-//   tile of padding only is zeroed without reading a code, so a decode
-//   tick reads the codes of the experts its rows hit and no others. The
-//   same per-crossbar scaling of each 128-deep K tile's partial sum.
+//   in every other row. The slots' bases and counts are read from device
+//   memory, so no grid depends on the routing and a CUDA graph replays the
+//   call for any routing; a tile of padding only is zeroed without reading
+//   a code, so a call reads the codes of the experts its rows hit and no
+//   others. The same per-crossbar scaling of each 128-deep K tile's
+//   partial sum. Two kernels:
+//   - decode (grouped_live_decode_kernel): bound by the codes of the hit
+//     experts (8 decode rows on 8 of llama4-scout's (5120, 8192) experts:
+//     336 MB, 0.1 ms). The decode kernel's body, but over a work list
+//     rather than the buffer's grid: a fixed grid of whole blocks per SM
+//     derives from counts the live row groups (L) and their units (row
+//     group, N tile, K split), sizing the K split from L, not from the
+//     buffer's R / 8 row groups. Over the buffer's grid, 8 rows on one
+//     expert left one row group of 8 live: 64 blocks walked all of K alone
+//     on a 132-SM card while 448 wrote zeros. And a ring step at int4
+//     covers 32 k (four 16-byte code loads a thread, as at int8), so its
+//     time follows its bytes.
+//   - prefill (grouped_prefill_kernel): the prefill kernel's grid over the
+//     buffer's 64-row tiles, the slot taken from the tile (group_of).
 //
 // transposed (crossbar_matmul_t: the backward of x, dx = g . dequant(W)^T)
 //   Replaces what the JAX package gets from autodiff of its dequantize-
@@ -243,9 +255,17 @@ __device__ __forceinline__ void zero_tile(float* __restrict__ out, int m0,
 constexpr int kDecWarps = 4;
 constexpr int kDecSteps = kCrossbar / 16;  // k16 steps per crossbar tile
 constexpr int kDecStages = 2;              // steps in flight per warp
-constexpr int kDecSlot = 16 * 128 + 32 * 16;  // one step: code rows + x
-constexpr int kDecSmem = kDecWarps * kDecStages * kDecSlot;   // 20 KB
-static_assert(kDecSmem >= kDecWarps * 8 * (128 + 4) * 4,
+// Bytes of one ring step: 16 rows of 128 code bytes, then the x of each of
+// its SUB k16 steps (8 rows x 16 k f32, 16 bytes a lane).
+template <int SUB>
+__host__ __device__ constexpr int dec_slot() {
+  return 16 * 128 + SUB * 32 * 16;
+}
+template <int SUB>
+__host__ __device__ constexpr int dec_smem() {   // 20 KB at SUB = 1
+  return kDecWarps * kDecStages * dec_slot<SUB>();
+}
+static_assert(dec_smem<1>() >= kDecWarps * 8 * (128 + 4) * 4,
               "the ring doubles as the reduction buffer");
 constexpr int kDecBlocksPerSm = 2;         // of the 4 that fit (registers)
 constexpr int kMaxSplit = 32;              // K splits per N tile, at most
@@ -303,7 +323,9 @@ __device__ __forceinline__ uint4 lds128(uint32_t saddr) {
   return v;
 }
 
-// Grid (S, ceil(M / 8), Np / 128), kDecWarps warps a block.
+// One unit of the decode kernel: rows m0 .. m0 + 7 (x rows from Mx on
+// read as 0), N tile nt, K split `rank` of S; `tile` indexes the unit's
+// ticket and its partials (tile * S + rank). kDecWarps warps a block.
 // Lane (g, t) = (lane / 4, lane % 4). In k16 step s of K tile kt it uses
 // code rows k = kt*128 + 16 s + 4 t + i (i < 4), columns n0 + 16 g .. +15,
 // and x row m0 + g at those 4 k. The mma's k index 2t + e stands for row
@@ -312,74 +334,73 @@ __device__ __forceinline__ uint4 lds128(uint32_t saddr) {
 // fragment value d[j][v] is m = m0 + 2 t + (v & 1), n = n0 + 16 g + 2 j +
 // (v >> 1). Each thread copies (cp.async) exactly the bytes it reads back,
 // so the ring needs no barrier: a step's group is waited on by its thread.
-//
-// The body is shared with the grouped entry point (GROUPED: the rows of x
-// belong to slots, each with its own codes; see group_of).
-template <int BITS, bool GROUPED>
+// A ring step holds SUB k16 steps: the plain decode kernel takes 1; the
+// grouped one takes 2 at int4, so that a step loads 4 code rows of 16
+// bytes a thread at either width (32 k of packed int4 rows, the x of
+// each k16 step in its own 512 bytes of the slot) and an int4 warp keeps
+// as many code bytes in flight as an int8 one. Called by the whole block;
+// the ring must be free (every warp past its previous unit).
+template <int BITS, int SUB>
 __device__ __forceinline__ void decode_body(
     const float* __restrict__ x, const uint8_t* __restrict__ codes,
     const float* __restrict__ scales, float* __restrict__ out,
     float* __restrict__ partials, int* __restrict__ tickets, int M, int K,
-    int N, int Kp, int Np, int x_vec, const int* __restrict__ bases,
-    const int* __restrict__ counts, int slots, size_t code_stride,
-    int scale_stride) {
-  constexpr int kLoads = BITS == 8 ? 4 : 2;   // 16-byte code rows per step
+    int N, int Kp, int Np, int x_vec, int m0, int Mx, int nt, int rank,
+    int S, int tile) {
+  static_assert(SUB == 1 || (BITS == 4 && SUB == 2), "k16 sub-steps");
+  constexpr int kSub = SUB;                     // k16 sub-steps a ring step
+  constexpr int kLoads = BITS == 8 ? 4 : 2 * SUB;   // 16-byte code rows
+  constexpr int kSpt = kDecSteps / kSub;        // ring steps a K tile
+  constexpr int kSlot = dec_slot<SUB>();
   __shared__ bool last;
   extern __shared__ __align__(16) uint8_t dsmem[];
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int S = gridDim.x, rank = blockIdx.x;
-  const int m0 = blockIdx.y * 8;
-  const int nt = blockIdx.z, n0 = nt * kCrossbar;
-  int Mx = M;   // rows of x that hold data: the rest read as 0
-  if constexpr (GROUPED) {
-    int slot;
-    const int live = group_of(bases, counts, slots, m0, &slot);
-    if (m0 >= live) {   // padding only: zeros, and no code is read
-      if (rank == 0) zero_tile(out, m0, 8, n0, kCrossbar, M, N);
-      return;
-    }
-    Mx = live;
-    codes += slot * code_stride;
-    scales += static_cast<size_t>(slot) * scale_stride;
-  }
+  const int n0 = nt * kCrossbar;
   const int n_nt = Np / kCrossbar, n_kt = Kp / kCrossbar;
   const int stride = S * kDecWarps;           // K tiles between a warp's own
   const int first = rank * kDecWarps + warp;  // this warp's first K tile
   const int n_tiles = first < n_kt ? (n_kt - first + stride - 1) / stride : 0;
-  const int n_steps = n_tiles * kDecSteps;
+  const int n_steps = n_tiles * kSpt;
   const int xm = m0 + g;
   const float* xrow = x + static_cast<size_t>(xm < Mx ? xm : 0) * K;
   const uint8_t* ccol = codes + n0 + 16 * g;
   const uint32_t ring = static_cast<uint32_t>(__cvta_generic_to_shared(dsmem)) +
-                        warp * kDecStages * kDecSlot;
+                        warp * kDecStages * kSlot;
 
-  // first k of this thread's 4 in step `s` of its own sequence
+  // first k of this thread's 4 in sub-step 0 of step `s` of its sequence
   auto k_of = [&](int s) {
-    return (first + (s / kDecSteps) * stride) * kCrossbar +
-           (s % kDecSteps) * 16 + 4 * t;
+    return (first + (s / kSpt) * stride) * kCrossbar + (s % kSpt) * 16 * kSub +
+           4 * t;
   };
-  // smem row of this thread's code chunk i within a slot (global row order)
-  auto srow = [&](int i) { return BITS == 8 ? 4 * t + i : 2 * t + i; };
+  // smem row of this thread's code load i (< 4): int8 rows 4t + i; int4
+  // sub-step i / 2's packed rows, 8 (i / 2) + 2t + i % 2
+  auto srow = [&](int i) {
+    return BITS == 8 ? 4 * t + i : 8 * (i >> 1) + 2 * t + (i & 1);
+  };
   auto issue = [&](int s) {
-    const uint32_t slot = ring + (s % kDecStages) * kDecSlot;
+    const uint32_t slot = ring + (s % kDecStages) * kSlot;
     const int k = k_of(s);
 #pragma unroll
     for (int i = 0; i < kLoads; ++i) {
-      const int row = BITS == 8 ? k + i : k / 2 + i;
+      const int row = BITS == 8 ? k + i : k / 2 + 8 * (i >> 1) + (i & 1);
       cp_async16(slot + srow(i) * 128 + 16 * g,
                  ccol + static_cast<size_t>(row) * Np, 16);
     }
-    const uint32_t xs = slot + 16 * 128 + 16 * lane;
-    if (x_vec) {
-      const bool live = xm < Mx && k < K;   // K % 4 == 0: all 4 or none
-      cp_async16(xs, live ? xrow + k : x, live ? 16 : 0);
-    } else {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool live = xm < Mx && k + e < K;
-        cp_async4(xs + 4 * e, live ? xrow + k + e : x, live ? 4 : 0);
+    for (int sub = 0; sub < kSub; ++sub) {
+      const uint32_t xs = slot + 16 * 128 + sub * 512 + 16 * lane;
+      const int kk = k + 16 * sub;
+      if (x_vec) {
+        const bool live = xm < Mx && kk < K;   // K % 4 == 0: all 4 or none
+        cp_async16(xs, live ? xrow + kk : x, live ? 16 : 0);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool live = xm < Mx && kk + e < K;
+          cp_async4(xs + 4 * e, live ? xrow + kk + e : x, live ? 4 : 0);
+        }
       }
     }
   };
@@ -398,31 +419,42 @@ __device__ __forceinline__ void decode_body(
   float scale = 0.f;
   for (int s = 0; s < n_steps; ++s) {
     cp_async_wait<kDecStages - 1>();          // step s has landed
-    const uint32_t slot = ring + (s % kDecStages) * kDecSlot;
-    uint4 raw[kLoads];
+    const uint32_t slot = ring + (s % kDecStages) * kSlot;
+    if (s % kSpt == 0)
+      scale = __ldg(scales + (first + (s / kSpt) * stride) * n_nt + nt);
 #pragma unroll
-    for (int i = 0; i < kLoads; ++i)
-      raw[i] = lds128(slot + srow(i) * 128 + 16 * g);
-    const uint4 xw = lds128(slot + 16 * 128 + 16 * lane);
-    if (s % kDecSteps == 0)
-      scale = __ldg(scales + (first + (s / kDecSteps) * stride) * n_nt + nt);
-    uint32_t rw[4][4];
-    bias_rows<BITS>(raw, rw);
-    uint32_t b0[kPieces], b1[kPieces];   // B fragment of each piece of x
-    split_x(__uint_as_float(xw.x), __uint_as_float(xw.y), b0);
-    split_x(__uint_as_float(xw.z), __uint_as_float(xw.w), b1);
+    for (int sub = 0; sub < kSub; ++sub) {
+      uint32_t rw[4][4];
+      if constexpr (BITS == 8) {
+        uint4 raw[4];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int c0 = 2 * j, c1 = 2 * j + 1;
-      const uint32_t a[4] = {
-          pack_bf16(code_at<BITS>(rw, 0, c0), code_at<BITS>(rw, 1, c0)),
-          pack_bf16(code_at<BITS>(rw, 0, c1), code_at<BITS>(rw, 1, c1)),
-          pack_bf16(code_at<BITS>(rw, 2, c0), code_at<BITS>(rw, 3, c0)),
-          pack_bf16(code_at<BITS>(rw, 2, c1), code_at<BITS>(rw, 3, c1))};
+        for (int i = 0; i < 4; ++i)
+          raw[i] = lds128(slot + srow(i) * 128 + 16 * g);
+        bias_rows<8>(raw, rw);
+      } else {
+        uint4 raw[2];
 #pragma unroll
-      for (int i = 0; i < kPieces; ++i) mma_bf16(part[j], a, b0[i], b1[i]);
+        for (int i = 0; i < 2; ++i)
+          raw[i] = lds128(slot + srow(2 * sub + i) * 128 + 16 * g);
+        bias_rows<4>(raw, rw);
+      }
+      const uint4 xw = lds128(slot + 16 * 128 + sub * 512 + 16 * lane);
+      uint32_t b0[kPieces], b1[kPieces];   // B fragment of each piece of x
+      split_x(__uint_as_float(xw.x), __uint_as_float(xw.y), b0);
+      split_x(__uint_as_float(xw.z), __uint_as_float(xw.w), b1);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c0 = 2 * j, c1 = 2 * j + 1;
+        const uint32_t a[4] = {
+            pack_bf16(code_at<BITS>(rw, 0, c0), code_at<BITS>(rw, 1, c0)),
+            pack_bf16(code_at<BITS>(rw, 0, c1), code_at<BITS>(rw, 1, c1)),
+            pack_bf16(code_at<BITS>(rw, 2, c0), code_at<BITS>(rw, 3, c0)),
+            pack_bf16(code_at<BITS>(rw, 2, c1), code_at<BITS>(rw, 3, c1))};
+#pragma unroll
+        for (int i = 0; i < kPieces; ++i) mma_bf16(part[j], a, b0[i], b1[i]);
+      }
     }
-    if (s % kDecSteps == kDecSteps - 1) {   // post-MVM dequantization
+    if (s % kSpt == kSpt - 1) {   // post-MVM dequantization
 #pragma unroll
       for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -438,12 +470,9 @@ __device__ __forceinline__ void decode_body(
   cp_async_wait<0>();
   __syncthreads();   // the ring becomes the reduction buffer
 
-  // fixed-order reduction: the warps of this block, then the S blocks of
-  // this N tile. Each block stores its partial tile; a ticket elects the
-  // block that finishes last, which sums the S tiles in rank order (the
-  // ticket only picks who sums, never the order) and rearms the ticket.
-  // Rows of the shared tiles are padded to kRedRow floats, which spreads
-  // the fragment stores over the banks.
+  // the decode kernel's fixed-order reduction: the warps of this block,
+  // then the S units of this (row group, N tile) in rank order, summed by
+  // the one that draws the last ticket
   constexpr int kRedRow = kCrossbar + 4;
   constexpr int kQuads = kPartial / 4 / (kDecWarps * 32);   // float4s a thread
   float* red = reinterpret_cast<float*>(dsmem);   // [kDecWarps][8][kRedRow]
@@ -455,7 +484,6 @@ __device__ __forceinline__ void decode_body(
           red + (warp * 8 + 2 * t + e) * kRedRow + 16 * g + 2 * j) =
           make_float2(acc[j][e], acc[j][e + 2]);
   __syncthreads();
-  const int tile = blockIdx.y * n_nt + nt;          // (row group, N tile)
   float4 sum[kQuads];
 #pragma unroll
   for (int i = 0; i < kQuads; ++i) {
@@ -497,8 +525,6 @@ __device__ __forceinline__ void decode_body(
   if (threadIdx.x == 0) last = draw_ticket(tickets + tile) == S - 1;
   __syncthreads();
   if (!last) return;
-  // sum the S partials in rank order, a batch of ranks' loads in flight at
-  // a time, from L2 (__ldcg: this SM's L1 is not coherent with them)
   constexpr int kBatch = 8;
 #pragma unroll
   for (int i = 0; i < kQuads; ++i) sum[i] = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -525,6 +551,7 @@ __device__ __forceinline__ void decode_body(
   if (threadIdx.x == 0) tickets[tile] = 0;   // ready for the next call
 }
 
+
 template <int BITS>
 __global__ void __launch_bounds__(kDecWarps * 32, 4)
 crossbar_decode_kernel(const float* __restrict__ x,
@@ -533,23 +560,10 @@ crossbar_decode_kernel(const float* __restrict__ x,
                        float* __restrict__ out, float* __restrict__ partials,
                        int* __restrict__ tickets, int M, int K, int N, int Kp,
                        int Np, int x_vec) {
-  decode_body<BITS, false>(x, codes, scales, out, partials, tickets, M, K, N,
-                           Kp, Np, x_vec, nullptr, nullptr, 0, 0, 0);
-}
-
-template <int BITS>
-__global__ void __launch_bounds__(kDecWarps * 32, 4)
-grouped_decode_kernel(const float* __restrict__ x,
-                      const uint8_t* __restrict__ codes,
-                      const float* __restrict__ scales,
-                      float* __restrict__ out, float* __restrict__ partials,
-                      int* __restrict__ tickets, int M, int K, int N, int Kp,
-                      int Np, int x_vec, const int* __restrict__ bases,
-                      const int* __restrict__ counts, int slots,
-                      size_t code_stride, int scale_stride) {
-  decode_body<BITS, true>(x, codes, scales, out, partials, tickets, M, K, N,
-                          Kp, Np, x_vec, bases, counts, slots, code_stride,
-                          scale_stride);
+  const int nt = blockIdx.z;
+  decode_body<BITS, 1>(x, codes, scales, out, partials, tickets, M, K, N, Kp,
+                       Np, x_vec, blockIdx.y * 8, M, nt, blockIdx.x,
+                       gridDim.x, blockIdx.y * (Np / kCrossbar) + nt);
 }
 
 // SMs of the card (of the first device asked: one card model)
@@ -592,10 +606,143 @@ cudaError_t launch_decode(const float* x, const uint8_t* codes,
                           int* tickets, int M, int K, int N, int Kp, int Np,
                           int x_vec, cudaStream_t stream) {
   const dim3 grid(decode_splits(M, Kp, Np), (M + 7) / 8, Np / kCrossbar);
-  crossbar_decode_kernel<BITS><<<grid, kDecWarps * 32, kDecSmem, stream>>>(
+  crossbar_decode_kernel<BITS><<<grid, kDecWarps * 32, dec_smem<1>(), stream>>>(
       x, codes, scales, out, partials, tickets, M, K, N, Kp, Np, x_vec);
   return cudaGetLastError();
 }
+
+// ---------------------------------------------------------------------------
+// grouped decode: a work list over the live row groups
+// ---------------------------------------------------------------------------
+
+// Blocks of the grouped decode grid for each SM: all that fit (registers,
+// as the decode kernel's launch bounds allow), so that every unit of a
+// list of up to 4 * SMs units runs at once.
+constexpr int kGdBlocksPerSm = 4;
+
+// k16 steps in a ring step of the grouped decode kernel (see decode_body)
+template <int BITS>
+constexpr int kGdSub = BITS == 8 ? 1 : 2;
+
+// K splits of each (live row group, N tile) of the grouped decode kernel:
+// as decode_splits, from the L live row groups rather than the buffer's,
+// and the grid's blocks: the units (L x N tiles x S) fill it, no more.
+__host__ __device__ inline int gd_splits(int live_groups, int Np, int Kp,
+                                         int grid) {
+  const int tiles = live_groups * (Np / kCrossbar);
+  int S = tiles > 0 ? grid / tiles : 1;
+  const int most = (Kp / kCrossbar + kDecWarps - 1) / kDecWarps;
+  S = S > most ? most : S;
+  S = S > kMaxSplit ? kMaxSplit : S;
+  return S < 1 ? 1 : S;
+}
+
+// Grid: kGdBlocksPerSm blocks for each SM (set by the card alone, so a
+// CUDA graph replays the call for any routing), kDecWarps warps a block.
+// Each block derives the work list from counts: the live row groups are
+// each slot's ceil(counts[s] / 8) groups of 8 rows from bases[s], in slot
+// order (L in all: no padding group is among them); a unit is (live row
+// group lg, N tile nt, K split rank), numbered u = (nt * L + lg) * S +
+// rank (S = gd_splits(L, ...): the splits of one tile are adjacent, then
+// the row groups of one N tile, so a slot's second pass over its codes
+// follows its first). With no more units than blocks, unit j runs on
+// block ceil(j * grid / units): spread over the grid's blocks, and so
+// over the SMs (units on blocks 0 .. units - 1 ran 1.3x slower at 320
+// units of 528, 8 rows on 8 of llama4-scout's (8192, 5120) experts: they
+// shared fewer SMs). With more, block b runs unit b first, then takes the
+// next unit left from a counter in the workspace (tickets[grid]) until
+// none is, so a block that finishes early takes more (a fixed share, b +
+// grid, b + 2 grid, ..., left blocks idle while others ran a second unit:
+// 8 tokens top-2 over llama4-scout's experts are 832 units on 528
+// blocks), and the last block out (counted in tickets[grid + 1]) sets
+// both counters back to 0 for the next call; with no more units than
+// blocks no counter is touched (the atomics of 528 blocks on one address
+// cost ~3 us). Which block runs a unit does not change its bits: a split
+// tile is summed in rank order. Rows from bases[slots] on hold no slot's
+// rows: the grid writes their zeros, and reads no code for them. A row
+// group's rows past its slot's count read x as 0 and so get exact zeros.
+template <int BITS>
+__global__ void __launch_bounds__(kDecWarps * 32, kGdBlocksPerSm)
+grouped_live_decode_kernel(const float* __restrict__ x,
+                           const uint8_t* __restrict__ codes,
+                           const float* __restrict__ scales,
+                           float* __restrict__ out,
+                           float* __restrict__ partials,
+                           int* __restrict__ tickets, int M, int K, int N,
+                           int Kp, int Np, int x_vec,
+                           const int* __restrict__ bases,
+                           const int* __restrict__ counts, int slots,
+                           size_t code_stride, int scale_stride) {
+  __shared__ int s_list[2];   // L, S
+  __shared__ int s_unit[4];   // first row, end of the slot's live rows,
+                              // slot, unit
+  int* next = tickets + gridDim.x;       // the next unit to take
+  int* out_of_work = next + 1;           // blocks past their last unit
+  if (threadIdx.x == 0) {
+    int L = 0;
+    for (int s = 0; s < slots; ++s) L += (__ldg(counts + s) + 7) / 8;
+    s_list[0] = L;
+    s_list[1] = gd_splits(L, Np, Kp, gridDim.x);
+  }
+  __syncthreads();
+  const int L = s_list[0], S = s_list[1];
+  const int n_nt = Np / kCrossbar;
+  // the rows past the last slot's
+  const size_t z0 = static_cast<size_t>(__ldg(bases + slots)) * N;
+  const size_t z1 = static_cast<size_t>(M) * N;
+  for (size_t i = z0 + static_cast<size_t>(blockIdx.x) * blockDim.x +
+                  threadIdx.x;
+       i < z1; i += static_cast<size_t>(gridDim.x) * blockDim.x)
+    out[i] = 0.f;
+  const int units = L * n_nt * S;
+  const bool more = units > static_cast<int>(gridDim.x);
+  for (int first = 1;; first = 0) {
+    if (threadIdx.x == 0) {
+      int u = units;   // none left
+      if (first && more) {
+        u = blockIdx.x;
+      } else if (first && units > 0) {   // spread over the grid
+        const long long j =
+            static_cast<long long>(blockIdx.x) * units / gridDim.x;
+        if ((j * gridDim.x + units - 1) / units == blockIdx.x)
+          u = static_cast<int>(j);
+      } else if (more) {
+        u = static_cast<int>(gridDim.x) + atomicAdd(next, 1);
+      }
+      s_unit[3] = u;
+      if (u < units) {   // the slot of the unit's live row group
+        const int lg = (u / S) % L;
+        int s = 0, r = lg;
+        for (;; ++s) {
+          const int n = (__ldg(counts + s) + 7) / 8;
+          if (r < n) break;
+          r -= n;
+        }
+        s_unit[0] = __ldg(bases + s) + 8 * r;
+        s_unit[1] = __ldg(bases + s) + __ldg(counts + s);
+        s_unit[2] = s;
+      }
+    }
+    __syncthreads();
+    const int u = s_unit[3];
+    if (u >= units) break;
+    const int m0 = s_unit[0], live = s_unit[1], slot = s_unit[2];
+    const int tile = u / S, rank = u - tile * S, nt = tile / L;
+    __syncthreads();   // read before the next unit's are written
+    decode_body<BITS, kGdSub<BITS>>(
+        x, codes + slot * code_stride,
+        scales + static_cast<size_t>(slot) * scale_stride, out, partials,
+        tickets, M, K, N, Kp, Np, x_vec, m0, live, nt, rank, S, tile);
+  }
+  if (more && threadIdx.x == 0 &&
+      atomicAdd(out_of_work, 1) == gridDim.x - 1) {
+    *next = 0;   // every block has taken its last unit: ready for the
+    *out_of_work = 0;   // next call
+  }
+}
+
+// blocks of the grouped decode grid
+int gd_grid() { return kGdBlocksPerSm * sm_count(); }
 
 // ---------------------------------------------------------------------------
 // prefill: wgmma on bf16 codes and bf16 pieces of x
@@ -678,8 +825,8 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
 // written transposed (K-major) as 8-byte runs of 4 k; x row tid / 4, 16 k
 // from 16 (tid % 4), written as 16-byte runs of each piece.
 //
-// The body is shared with the grouped entry point (GROUPED, as in the
-// decode kernel).
+// The body is shared with the grouped entry point (GROUPED: the rows of x
+// belong to slots, each with its own codes; see group_of).
 template <int BITS, bool GROUPED>
 __device__ __forceinline__ void prefill_body(
     const float* __restrict__ x, const uint8_t* __restrict__ codes,
@@ -936,8 +1083,10 @@ cudaError_t launch_prefill(const float* x, const uint8_t* codes,
   return cudaGetLastError();
 }
 
-// The grouped entry point's launches: the plain kernels' grids over the
-// buffer's R rows, each block reading the codes of its row tile's slot.
+// The grouped entry point's launches: the decode kernel's fixed grid over
+// the work list of the live row groups (grouped_live_decode_kernel), the
+// prefill kernel's grid over the buffer's R rows, each block reading the
+// codes of its row tile's slot.
 struct Groups {
   const int* bases;
   const int* counts;
@@ -952,10 +1101,10 @@ cudaError_t launch_grouped_decode(const float* x, const uint8_t* codes,
                                   float* partials, int* tickets, int R, int K,
                                   int N, int Kp, int Np, int x_vec,
                                   const Groups& gr, cudaStream_t stream) {
-  const dim3 grid(decode_splits(R, Kp, Np), R / 8, Np / kCrossbar);
-  grouped_decode_kernel<BITS><<<grid, kDecWarps * 32, kDecSmem, stream>>>(
-      x, codes, scales, out, partials, tickets, R, K, N, Kp, Np, x_vec,
-      gr.bases, gr.counts, gr.slots, gr.code_stride, gr.scale_stride);
+  grouped_live_decode_kernel<BITS>
+      <<<gd_grid(), kDecWarps * 32, dec_smem<kGdSub<BITS>>(), stream>>>(
+          x, codes, scales, out, partials, tickets, R, K, N, Kp, Np, x_vec,
+          gr.bases, gr.counts, gr.slots, gr.code_stride, gr.scale_stride);
   return cudaGetLastError();
 }
 
@@ -1273,17 +1422,40 @@ extern "C" int crossbar_matmul(const void* x, const void* codes,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Workspace that grouped_crossbar_matmul needs for these arguments, as
+// crossbar_matmul_workspace: kernel 1 (decode) one ticket for each block
+// of its grid and its two work counters, and at most one partial tile for
+// each block (its units fill the grid, so whatever the counts, tiles * S
+// <= grid when K is split; none when K is never split); kernel 2
+// (prefill) the prefill kernel's over R rows.
+extern "C" size_t grouped_crossbar_matmul_workspace(int R, int Kp, int Np,
+                                                    int bits, int kernel,
+                                                    int* tickets) {
+  *tickets = 0;
+  if (R <= 0 || Kp < kCrossbar || Np < kCrossbar) return 0;
+  if (kernel != 1) {
+    const size_t partials = prefill_partials(R, Kp, Np);
+    if (partials > 0) *tickets = prefill_tiles(R, Np);
+    return partials;
+  }
+  *tickets = gd_grid() + 2;
+  if (gd_splits(1, kCrossbar, Kp, gd_grid()) == 1) return 0;
+  return static_cast<size_t>(gd_grid()) * kPartial;
+}
+
 // y[r] = x[r] (R, K) f32 @ dequant(codes[s], scales[s]) for every row r of
 // slot s's live rows (see group_of: bases (slots + 1) and counts (slots),
 // int32 on the device, bases multiples of the row tile), zeros in every
 // other row of out (R, N): the expert products of a mixture-of-experts
 // layer. codes (slots, Kp or Kp / 2, Np) and scales (slots, Kp / 128,
 // Np / 128) are the slots' weights stacked, each as crossbar_matmul takes
-// one. kernel 1 runs the decode kernel over 8-row tiles, 2 the prefill
-// kernel over 64-row tiles; R must be a multiple of the tile. The grid
-// is fixed by R: a block whose tile holds padding only writes its zeros
-// and reads no code, so a CUDA graph replays the call for any counts. The
-// workspace is crossbar_matmul_workspace(R, Kp, Np, bits, kernel)'s.
+// one. kernel 1 runs the grouped decode kernel over 8-row tiles (a grid
+// of whole blocks per SM, each deriving the work list of live row groups
+// from counts on the device), 2 the prefill kernel over 64-row tiles (a
+// grid fixed by R: a block whose tile holds padding only writes its zeros
+// and reads no code); R must be a multiple of the tile. Neither grid
+// depends on the counts, so a CUDA graph replays the call for any
+// routing. The workspace is grouped_crossbar_matmul_workspace's.
 // Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for
 // arguments the kernels do not take). Allocates nothing, does not
 // synchronise; runs on `stream`.
@@ -1303,10 +1475,9 @@ extern "C" int grouped_crossbar_matmul(const void* x, const void* codes,
       reinterpret_cast<uintptr_t>(codes) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const bool decode = kernel == 1;
-  const size_t need = decode ? decode_partials(R, Kp, Np)
-                             : prefill_partials(R, Kp, Np);
-  const int need_tickets =
-      need == 0 ? 0 : (decode ? decode_tiles(R, Np) : prefill_tiles(R, Np));
+  int need_tickets = 0;
+  const size_t need =
+      grouped_crossbar_matmul_workspace(R, Kp, Np, bits, kernel, &need_tickets);
   if (n_partials < need || n_tickets < need_tickets)
     return static_cast<int>(cudaErrorInvalidValue);
   const Groups gr{static_cast<const int*>(bases),

@@ -28,7 +28,8 @@ LAUNCHES: Dict[str, int] = {"crossbar_matmul": 0, "crossbar_matmul_t": 0,
                             "paged_flash_attention": 0,
                             "ring_flash_attention": 0, "rwkv6_wkv": 0,
                             "rwkv6_wkv_chunk": 0, "rwkv6_wkv_bwd": 0,
-                            "selective_scan": 0}
+                            "selective_scan": 0, "moe_route": 0,
+                            "moe_combine": 0}
 
 
 def reset_launches() -> None:

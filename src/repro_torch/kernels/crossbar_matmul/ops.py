@@ -23,7 +23,10 @@ padding to ``bases[s + 1]``; ``bases`` are multiples of the kernel's row
 tile, ``GROUPED_TILE``). Every live row gets its slot's product and every
 other row 0. On a CUDA tensor it launches the same source's grouped
 kernels, which read ``bases`` and ``counts`` from device memory (a CUDA
-graph captures the call whatever the routing); on a CPU tensor
+graph captures the call whatever the routing): at decode a fixed grid of
+whole blocks per SM over a work list of the live row groups that it
+derives from ``counts`` (``grouped_decode_work_list`` mirrors it); on a
+CPU tensor
 ``grouped_crossbar_matmul_plain``. It has no backward yet (ROADMAP Queue 1
 item 26).
 """
@@ -80,12 +83,16 @@ def _lib():
                                      ctypes.c_int]
             + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
         lib.grouped_crossbar_matmul.restype = ctypes.c_int
+        lib.grouped_crossbar_matmul_workspace.argtypes = (
+            [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)])
+        lib.grouped_crossbar_matmul_workspace.restype = ctypes.c_size_t
         _LIB = lib
     return _LIB
 
 
 # (M, Kp, Np, bits, kernel) -> (f32 partials, int tickets) the call needs;
-# kernel "t" for ``crossbar_matmul_t``
+# kernel "t" for ``crossbar_matmul_t``, ("grouped", 1 or 2) for
+# ``grouped_crossbar_matmul``'s decode or prefill kernel
 _NEEDS: Dict[tuple, Tuple[int, int]] = {}
 # the split workspace of the forward kernels and of the transposed one
 # (their calls run in order on one stream: ``kernels.workspace``)
@@ -100,6 +107,9 @@ def _need(M: int, kp: int, np_: int, bits: int, kernel) -> Tuple[int, int]:
         if kernel == "t":
             partials = _lib().crossbar_matmul_t_workspace(
                 M, kp, np_, ctypes.byref(tickets))
+        elif isinstance(kernel, tuple):
+            partials = _lib().grouped_crossbar_matmul_workspace(
+                M, kp, np_, bits, kernel[1], ctypes.byref(tickets))
         else:
             partials = _lib().crossbar_matmul_workspace(
                 M, kp, np_, bits, kernel, ctypes.byref(tickets))
@@ -330,6 +340,66 @@ def grouped_rows(rows: int, slots: int, tile: int) -> int:
     return -(-n // tile) * tile
 
 
+# the grouped decode kernel's grid and work list (csrc/crossbar_matmul.cu
+# grouped_live_decode_kernel): blocks per SM, warps a block, K splits of a
+# tile at most
+GROUPED_DECODE_BLOCKS_PER_SM = 4
+DECODE_WARPS = 4
+MAX_SPLIT = 32
+
+
+def grouped_decode_grid(sms: int = 132) -> int:
+    """Blocks of a grouped decode launch: whole blocks per SM, set by the
+    card alone (a CUDA graph replays the call for any counts); its
+    workspace holds a ticket for each and two work counters."""
+    return GROUPED_DECODE_BLOCKS_PER_SM * sms
+
+
+def grouped_decode_splits(live_groups: int, Np: int, Kp: int,
+                          grid: int) -> int:
+    """K splits of each (live row group, N tile): as many as the grid
+    holds for the L live row groups' tiles, at most one K tile a warp and
+    ``MAX_SPLIT``, at least 1 (``gd_splits``)."""
+    tiles = live_groups * (Np // CROSSBAR)
+    S = grid // tiles if tiles else 1
+    most = -(-(Kp // CROSSBAR) // DECODE_WARPS)
+    return max(1, min(S, most, MAX_SPLIT))
+
+
+def grouped_decode_work_list(counts, bases, Kp: int, Np: int, grid: int):
+    """The work list that each block of the grouped decode kernel derives
+    from ``counts`` on the device (a pure mirror of its rule, for the
+    tests; nothing on the card path calls it). Live row groups: slot s's
+    ceil(counts[s] / 8) groups of 8 rows from ``bases[s]``, in slot order
+    (L in all); units u = (nt * L + lg) * S + rank over N tiles nt, live
+    row groups lg and K splits rank. With no more units than blocks, unit
+    u runs on block ceil(u * grid / units); with more, block b runs unit
+    b, then each free block the next one left. Returns one dict per unit,
+    in order: block (None: the first free one), slot, m0 (first row),
+    live (end of the slot's live rows), nt, rank, S, tile (its ticket)
+    and k_tiles (the K tiles its warps read: warp w of split rank takes
+    tiles rank * 4 + w, then every S * 4)."""
+    groups = []
+    for s, c in enumerate(int(c) for c in counts):
+        for g in range(-(-c // 8)):
+            groups.append((s, int(bases[s]) + 8 * g, int(bases[s]) + c))
+    L, n_nt, n_kt = len(groups), Np // CROSSBAR, Kp // CROSSBAR
+    S = grouped_decode_splits(L, Np, Kp, grid)
+    units, n_units = [], L * n_nt * S
+    for u in range(n_units):
+        tile, rank = divmod(u, S)
+        nt, lg = divmod(tile, L)
+        s, m0, live = groups[lg]
+        block = (-(-u * grid // n_units) if n_units <= grid
+                 else u if u < grid else None)
+        units.append(dict(block=block, slot=s, m0=m0, live=live, nt=nt,
+                          rank=rank, S=S, tile=tile, k_tiles=sorted(
+                              kt for w in range(DECODE_WARPS)
+                              for kt in range(rank * DECODE_WARPS + w, n_kt,
+                                              S * DECODE_WARPS))))
+    return units
+
+
 def grouped_crossbar_matmul_plain(x: torch.Tensor, qt: QuantizedTensor,
                                   bases: torch.Tensor,
                                   counts: torch.Tensor) -> torch.Tensor:
@@ -388,7 +458,8 @@ def reserve_grouped_workspace(device: torch.device, weights, rows) -> None:
         for n in rows:
             kernel = grouped_kernel(n, qt)
             R = grouped_rows(n, slots, GROUPED_TILE[kernel])
-            p, t = _need(R, kp, qt.codes.shape[-1], qt.bits, KERNELS[kernel])
+            p, t = _need(R, kp, qt.codes.shape[-1], qt.bits,
+                         ("grouped", KERNELS[kernel]))
             most = (max(most[0], p), max(most[1], t))
     WORKSPACES.reserve(device.index, most)
 
@@ -429,7 +500,8 @@ def grouped_crossbar_matmul(x: torch.Tensor, qt: QuantizedTensor,
     np_, kind = qt.codes.shape[-1], KERNELS[kernel]
     dev = x.device.index
     stream = torch._C._cuda_getCurrentRawStream(dev)
-    ws = WORKSPACES.pointers(_need(R, kp, np_, qt.bits, kind), dev)
+    ws = WORKSPACES.pointers(_need(R, kp, np_, qt.bits, ("grouped", kind)),
+                             dev)
     rc = kernels.call_on(_lib().grouped_crossbar_matmul, dev, x.data_ptr(),
                          qt.codes.data_ptr(), qt.scales.data_ptr(),
                          out.data_ptr(), *ws, bases.data_ptr(),

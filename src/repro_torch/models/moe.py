@@ -32,7 +32,12 @@ nothing reads a count on the host. The expert products run on
 on a quantized stack), which writes 0 in every row it does not own; the
 combine gathers each kept assignment's row back and selects (never
 multiplies) away the rest. Both modes share the buffer: capacity mode only
-keeps fewer assignments.
+keeps fewer assignments. Under dropless dispatch the routing, the layout
+and the combine are ``kernels.moe_route``'s ``moe_route`` and
+``moe_combine`` (one CUDA launch each on the card; their plain versions,
+the same torch ops as capacity mode's, on the CPU), so that a serving
+tick's MoE layer is the router's product, one ``moe_route``, the grouped
+products and the activation, and one ``moe_combine``.
 
 The FLOP tally counts what the JAX package's einsums count (its one-hot
 dispatch and combine in capacity mode, its ``C``-row expert products), so
@@ -50,6 +55,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import hetero, quant
 from repro_torch.core.noise import NoiseConfig
 from repro_torch.kernels.crossbar_matmul import ops as cb_ops
+from repro_torch.kernels.moe_route import ops as moe_ops
 from repro_torch.models import layers
 
 # When a list, every ``apply_moe`` appends its routing to it: a dict of
@@ -111,21 +117,7 @@ def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
     return torch.nn.functional.one_hot(idx.long(), n).to(torch.int32)
 
 
-def expert_layout(sidx: torch.Tensor, kept: torch.Tensor, slots: int,
-                  tile: int):
-    """The compact buffer of the kept assignments: (rows (A,) int64, each
-    assignment's buffer row (0 where not kept), bases (slots + 1,) int32,
-    counts (slots,) int32). ``sidx``/``kept``: (A,) slot ids and whether
-    each assignment is placed, in the order that ranks them."""
-    oh = _one_hot(sidx, slots) * kept.to(torch.int32)[:, None]   # (A, slots)
-    counts = oh.sum(0, dtype=torch.int32)
-    rank = ((torch.cumsum(oh, 0) - oh) * oh).sum(-1)
-    padded = (counts + (tile - 1)) // tile * tile
-    bases = torch.cat([torch.zeros(1, dtype=torch.int32, device=sidx.device),
-                       torch.cumsum(padded, 0).to(torch.int32)])
-    rows = torch.where(kept, bases.long()[sidx.long()] + rank,
-                       torch.zeros_like(rank)).long()
-    return rows, bases, counts
+expert_layout = moe_ops.expert_layout
 
 
 def apply_moe(cfg: ModelConfig, p: Dict, x: torch.Tensor, *,
@@ -140,7 +132,13 @@ def apply_moe(cfg: ModelConfig, p: Dict, x: torch.Tensor, *,
     "router_z" and "dropped_tokens" ((token, expert) assignments dropped by
     capacity; 0 under dropless). ``group_size``: tokens are routed (and
     capacity bucketed) in groups of that many positions when it divides T.
-    ``token_mask`` (B, T): real tokens; pads claim no rank or capacity."""
+    ``token_mask`` (B, T): real tokens; pads claim no rank or capacity.
+
+    Under dropless dispatch the routing and the buffer come from
+    ``moe_route`` and the combine from ``moe_combine``
+    (``kernels/moe_route``: one launch each on CUDA tensors, the torch ops
+    of their plain versions on CPU tensors); capacity dispatch runs the
+    torch ops here."""
     if dispatch not in ("capacity", "dropless"):
         raise ValueError(f"unknown MoE dispatch mode {dispatch!r} "
                          "(expected 'capacity' or 'dropless')")
@@ -157,38 +155,43 @@ def apply_moe(cfg: ModelConfig, p: Dict, x: torch.Tensor, *,
     K = k * tpe
     dev = x.device
 
+    # the compact buffer's row tile: the grouped kernel's (dense stacks:
+    # none)
+    A = B * T * K
+    w1 = p["w1"]
+    kernel, tile = None, 1
+    if quant.is_quantized(w1):
+        kernel = cb_ops.grouped_kernel(A, w1)
+        tile = cb_ops.GROUPED_TILE[kernel]
+    R = cb_ops.grouped_rows(A, slots, tile)
+
     # ---- routing (f32, frozen router) ----
     logits = hetero.static_matmul(x.to(torch.float32), p["router"])
-    probs = torch.softmax(logits, dim=-1)                     # (B, T, E)
-    gate, eidx = torch.topk(probs, k, dim=-1)                 # (B, T, k)
-    if ROUTES is not None:
-        top = torch.topk(probs, min(k + 1, E), dim=-1).values
-        margin = (top[..., k - 1] - top[..., k] if E > k
-                  else torch.full_like(top[..., 0], float("inf")))
-        ROUTES.append({"experts": eidx.reshape(B0, T0, k),
-                       "margin": margin.reshape(B0, T0)})
-    if cfg.moe.router_norm_topk:
-        gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
-
-    # aux load-balance loss (Switch eq. 4), reported even when frozen
-    me = _one_hot(eidx[..., 0], E).to(torch.float32).mean(dim=(0, 1))
-    ce = probs.mean(dim=(0, 1))
-    aux = {"lb_loss": E * torch.sum(me * ce),
-           "router_z": torch.mean(torch.logsumexp(logits, -1) ** 2)}
-
-    # ---- expand experts to slots; rank within (group, slot) ----
-    sidx = (eidx[..., None] * tpe
-            + torch.arange(tpe, device=dev)).reshape(B, T, K)
-    sgate = gate.repeat_interleave(tpe, dim=-1)               # (B, T, K)
-    if token_mask is not None:              # pads claim no rank/capacity
-        sgate = sgate * token_mask.to(sgate.dtype)[:, :, None]
-    routed = sgate > 0
     if dispatch == "dropless":
         C = T
-        kept = routed
-        aux["dropped_tokens"] = torch.zeros((), dtype=torch.float32,
-                                            device=dev)
+        route = moe_ops.moe_route(
+            logits.reshape(B * T, E),
+            None if token_mask is None else token_mask.reshape(B * T),
+            x.reshape(B * T, d), top_k=k, tpe=tpe,
+            norm_topk=cfg.moe.router_norm_topk, tile=tile, R=R)
+        if ROUTES is not None:
+            ROUTES.append({"experts": route.experts.reshape(B0, T0, k),
+                           "margin": route.margin.reshape(B0, T0)})
+        aux = {"lb_loss": route.aux[0], "router_z": route.aux[1],
+               "dropped_tokens": route.aux[2]}
+        rows, bases, counts = route.rows, route.bases, route.counts
+        weights, xin = route.weights.reshape(B * T, K), route.xbuf
     else:
+        eidx, _, margin, aux3, sidx, sgate = moe_ops.topk_route(
+            logits.reshape(B * T, E),
+            None if token_mask is None else token_mask.reshape(B * T),
+            top_k=k, tpe=tpe, norm_topk=cfg.moe.router_norm_topk)
+        if ROUTES is not None:
+            ROUTES.append({"experts": eidx.reshape(B0, T0, k),
+                           "margin": margin.reshape(B0, T0)})
+        aux = {"lb_loss": aux3[0], "router_z": aux3[1]}
+        sidx, sgate = sidx.reshape(B, T, K), sgate.reshape(B, T, K)
+        routed = sgate > 0
         C = _capacity(cfg, T, K, slots, capacity_factor)
         oh = _one_hot(sidx, slots) * routed.to(torch.int32)[..., None]
         pos = torch.cumsum(oh.reshape(B, T * K, slots), dim=1)
@@ -201,21 +204,17 @@ def apply_moe(cfg: ModelConfig, p: Dict, x: torch.Tensor, *,
         # ("btsc,btd->sbcd", "btsc,sbcd->btd"): the port gathers instead
         hetero._record(hetero.DYNAMIC, 2 * 2.0 * B * T * slots * C * d)
 
-    # ---- the compact buffer, grouped by slot ----
-    A = B * T * K
-    w1 = p["w1"]
-    kernel, tile = None, 1                  # dense stacks: no row tile
-    if quant.is_quantized(w1):
-        kernel = cb_ops.grouped_kernel(A, w1)
-        tile = cb_ops.GROUPED_TILE[kernel]
-    R = cb_ops.grouped_rows(A, slots, tile)
-    keep = kept.reshape(A)
-    rows, bases, counts = expert_layout(sidx.reshape(A), keep, slots, tile)
-    # a row that is not kept writes the spare row R, which nothing reads
-    xbuf = x.new_zeros((R + 1, d))
-    xbuf[torch.where(keep, rows, R)] = (
-        x[:, :, None, :].expand(B, T, K, d).reshape(A, d))
-    xin = xbuf[:R]
+        # ---- the compact buffer, grouped by slot ----
+        keep = kept.reshape(A)
+        rows, bases, counts = expert_layout(sidx.reshape(A), keep, slots,
+                                            tile)
+        # a row that is not kept writes the spare row R, which nothing reads
+        xbuf = x.new_zeros((R + 1, d))
+        xbuf[torch.where(keep, rows, R)] = (
+            x[:, :, None, :].expand(B, T, K, d).reshape(A, d))
+        xin = xbuf[:R]
+        weights = torch.where(kept, sgate, torch.zeros_like(sgate)).reshape(
+            B * T, K)
 
     # ---- expert products and the combine ----
     gk = dict(kernel=kernel, jax_rows=B * C, noise=noise, rng=rng)
@@ -229,16 +228,14 @@ def apply_moe(cfg: ModelConfig, p: Dict, x: torch.Tensor, *,
         h = layers.activation(cfg, h)
     out = hetero.static_grouped_matmul(h.contiguous(), p["w2"], bases,
                                        counts, **gk)
-    sel = torch.where(keep[:, None], out[rows], torch.zeros_like(out[:1]))
-    w = torch.where(kept, sgate, torch.zeros_like(sgate)).to(x.dtype)
-    y = torch.sum(sel.reshape(B, T, K, d) * w[..., None], dim=2)
-
+    shared = None
     if cfg.moe.shared_expert:
-        y = y + layers.apply_mlp(cfg, p["shared"], x, noise=noise, rng=rng)
-    y = y.to(x.dtype)
-    if (B, T) != (B0, T0):
-        y = y.reshape(B0, T0, d)
-    return y, aux
+        shared = layers.apply_mlp(cfg, p["shared"], x, noise=noise,
+                                  rng=rng).reshape(B * T, d)
+    combine = (moe_ops.moe_combine if dispatch == "dropless"
+               else moe_ops.moe_combine_plain)
+    y = combine(out, rows.reshape(B * T, K), weights, shared)
+    return y.to(x.dtype).reshape(B0, T0, d), aux
 
 
 # ---------------------------------------------------------------------------

@@ -393,7 +393,9 @@ def reserve_workspaces(cfg: ModelConfig, params: Dict, exec_cfg: ExecConfig,
     decode-mode ``forward`` over ``rows`` rows with a chunk of each width
     in ``chunks``: the crossbar matmul of every quantized weight at M =
     rows * C (and at M = rows, the head's under ``last_idx``), the grouped
-    kernel of every quantized expert stack over its routed rows, the flash
+    kernel of every quantized expert stack over its routed rows (at decode
+    the partials and tickets of its work list, fixed by its grid), the
+    flash
     kernel of the attention layers over each key length in ``kv_lens`` (a
     paged step's block-table widths times the page size, or a dense
     cache's length; a dense cache's ring is no longer), and, with

@@ -1851,6 +1851,242 @@ def test_grouped_kernel_has_no_backward_and_refuses_bad_layouts():
                                        "decode")
 
 
+# rows per slot of the grouped decode kernel's work list at 16 slots: 8
+# rows on 8 slots, 8 rows on one slot, 8 tokens top-2 (16 rows on
+# distinct pairs of slots), 64 rows on 3 slots (several row groups a slot)
+DECODE_DISTS = {"decode_spread": [1, 0, 1, 1, 0, 1, 0, 1, 1, 0, 0, 1, 0, 0,
+                                  1, 0],
+                "decode_one": [0] * 8 + [8] + [0] * 7,
+                "decode_top2": [2, 1, 0, 1, 1, 2, 1, 0, 1, 2, 1, 1, 1, 0, 1,
+                                1],
+                "decode_deep": [0, 30, 0, 0, 20, 0, 0, 0, 0, 0, 14, 0, 0, 0,
+                                0, 0]}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dist", sorted(DECODE_DISTS))
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("kn", [(2048, 1024), (640, 1000)])
+def test_grouped_decode_work_list_matches_plain(kn, bits, dist):
+    """The grouped decode kernel (a fixed grid over the work list of live
+    row groups) at each routing of a decode tick, against the plain
+    version: live rows within 1e-4, every other row exactly 0, the K split
+    sized from the live row groups (several splits on one slot, one on
+    eight), and two calls giving the same bits."""
+    dev = _cuda_or_skip()
+    counts = DECODE_DISTS[dist]
+    x, qt, bases, c = _grouped_inputs(dev, *kn, bits, counts, "decode",
+                                      len(dist) + bits)
+    # a buffer as the MoE layer sizes it: padding rows past the last slot
+    R = cb_ops.grouped_rows(sum(counts), len(counts), 8)
+    x = torch.randn(R, kn[0], device=dev)
+    y = cb_ops.grouped_crossbar_matmul(x, qt, bases, c, "decode")
+    y2 = cb_ops.grouped_crossbar_matmul(x, qt, bases, c, "decode")
+    yr = cb_ops.grouped_crossbar_matmul_plain(x, qt, bases, c)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, yr, rtol=1e-4,
+                               atol=1e-4 * max(float(yr.abs().max()), 1e-30))
+    assert bool((y[~_live_rows(bases, c, R).to(dev)] == 0).all())
+    assert torch.equal(y, y2)
+    units = cb_ops.grouped_decode_work_list(
+        counts, bases.tolist(), qt.codes.shape[-2] * (2 if bits == 4 else 1),
+        qt.codes.shape[-1], cb_ops.grouped_decode_grid(
+            torch.cuda.get_device_properties(dev).multi_processor_count))
+    assert dist != "decode_one" or units[0]["S"] > 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [8, 4])
+def test_grouped_decode_graph_replays_new_counts_as_eager(bits):
+    """Captured once, replayed after counts and bases change in place
+    (one slot, eight, a deep slot, none: the number of live row groups and
+    so the K split change): each replay gives the eager call's bits."""
+    dev = _cuda_or_skip()
+    K, N = 2048, 1024
+    x, qt, bases, counts = _grouped_inputs(dev, K, N, bits,
+                                           DECODE_DISTS["decode_spread"],
+                                           "decode", 5)
+    R = cb_ops.grouped_rows(64, 16, 8)
+    x = torch.randn(R, K, device=dev)
+    cb_ops.grouped_crossbar_matmul(x, qt, bases, counts, "decode")
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y = cb_ops.grouped_crossbar_matmul(x, qt, bases, counts, "decode")
+    for dist in ("decode_one", "decode_deep", "decode_top2", "empty"):
+        new = DECODE_DISTS.get(dist, [0] * 16)
+        c = torch.tensor(new, dtype=torch.int32, device=dev)
+        b = torch.cat([torch.zeros(1, dtype=torch.int32, device=dev),
+                       torch.cumsum((c + 7) // 8 * 8, 0).to(torch.int32)])
+        counts.copy_(c)
+        bases.copy_(b)
+        x.copy_(torch.randn_like(x))
+        graph.replay()
+        eager = cb_ops.grouped_crossbar_matmul(x, qt, bases, counts,
+                                               "decode")
+        torch.cuda.synchronize()
+        assert torch.equal(y, eager), dist
+        yr = cb_ops.grouped_crossbar_matmul_plain(x, qt, b, c)
+        torch.testing.assert_close(
+            y, yr, rtol=1e-4, atol=1e-4 * max(float(yr.abs().max()), 1e-30))
+
+
+# (label, E, top_k, tpe, norm, tokens, d, masked): llama4-scout's,
+# mixtral's and jamba's routers at a decode tick (8 tokens) and a mixed
+# tick (1024), reduced widths, two slots an expert, a ragged mask
+ROUTE_CASES = [("llama4_decode", 16, 1, 1, False, 8, 5120, False),
+               ("llama4_mixed", 16, 1, 1, False, 1024, 5120, True),
+               ("mixtral_decode", 8, 2, 1, True, 8, 6144, False),
+               ("jamba_mixed", 16, 2, 1, True, 1024, 8192, True),
+               ("tpe2_ragged", 4, 2, 2, True, 37, 70, True)]
+
+
+def _route_inputs(dev, E, n, d, masked, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    logits = torch.randn(n, E, generator=g, device=dev) * 2.0
+    x = torch.randn(n, d, generator=g, device=dev)
+    mask = None
+    if masked:
+        mask = torch.rand(n, generator=g, device=dev) > 0.2
+    return logits, mask, x
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ROUTE_CASES, ids=[c[0] for c in ROUTE_CASES])
+def test_moe_route_and_combine_match_plain(case):
+    """moe_route against its plain version on the card (ids where the
+    margin is >= 1e-5, rows, bases, counts and buffer rows bit-equal, the
+    rest within 1e-6), then moe_combine over a random expert output with a
+    shared expert's rows and without, within 1e-6; two calls of each give
+    the same bits; one launch each."""
+    from repro_torch.kernels.moe_route import ops as moe_ops
+    dev = _cuda_or_skip()
+    _, E, k, tpe, norm, n, d, masked = case
+    logits, mask, x = _route_inputs(dev, E, n, d, masked, n + E)
+    kw = dict(top_k=k, tpe=tpe, norm_topk=norm, tile=8,
+              R=cb_ops.grouped_rows(n * k * tpe, E * tpe, 8))
+    before = dict(kernels.LAUNCHES)
+    got = moe_ops.moe_route(logits, mask, x, **kw)
+    again = moe_ops.moe_route(logits, mask, x, **kw)
+    want = moe_ops.moe_route_plain(logits, mask, x, **kw)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["moe_route"] == before["moe_route"] + 2
+    check = moe_ops.compare_routes(got, want)
+    assert check["ok"] and check["layout_equal"], check
+    kept = want.weights > 0
+    for a, b in zip(got, again):
+        if a is got.xbuf:
+            assert torch.equal(a[want.rows[kept]], b[want.rows[kept]])
+        else:
+            assert torch.equal(a, b)
+    out = torch.randn(kw["R"], d, device=dev)
+    for shared in (None, torch.randn(n, d, device=dev)):
+        rows, w = want.rows.reshape(n, -1), want.weights.reshape(n, -1)
+        y = moe_ops.moe_combine(out, rows, w, shared)
+        y2 = moe_ops.moe_combine(out, rows, w, shared)
+        yr = moe_ops.moe_combine_plain(out, rows, w, shared)
+        torch.cuda.synchronize()
+        assert torch.equal(y, y2)
+        assert float((y - yr).abs().max()) <= 1e-6 * float(yr.abs().max())
+    assert kernels.LAUNCHES["moe_combine"] == before["moe_combine"] + 4
+
+
+def _moe_layer(dev, arch="llama4-scout-17b-a16e", bits=8, seed=0):
+    """One MoE layer of a reduced config on the card, its expert stacks
+    quantized (the router stays f32)."""
+    from repro_torch.models import moe
+    cfg = reduce_config(get_config(arch))
+    g = torch.Generator(device=dev).manual_seed(seed)
+    p = moe.init_moe(cfg, g, device=dev, dtype=torch.float32)
+    for name in ("w1", "w2", "w3"):
+        if name in p:
+            p[name] = quant.quantize(p[name], bits)
+    return cfg, p
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["llama4-scout-17b-a16e", "mixtral-8x22b",
+                                  "jamba-1.5-large-398b"])
+def test_apply_moe_graph_replays_new_routing_as_eager(arch):
+    """A whole dropless MoE layer on the kernels (moe_route, the grouped
+    products, moe_combine; no host read), captured in a CUDA graph and
+    replayed on new tokens: each replay equals the eager layer's bits and
+    the plain layer (CPU tensors' path, on the card's weights) within
+    1e-4; the capture ran one launch of each kernel."""
+    from repro_torch.models import moe
+    dev = _cuda_or_skip()
+    cfg, p = _moe_layer(dev, arch)
+    B, T = 8, 1
+    x = torch.randn(B, T, cfg.d_model, device=dev)
+    mask = torch.ones(B, T, dtype=torch.bool, device=dev)
+    kw = dict(dispatch="dropless", token_mask=mask)
+    moe.apply_moe(cfg, p, x, **kw)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y, aux = moe.apply_moe(cfg, p, x, **kw)
+    launched = {k: n for k, n in kernels.LAUNCHES.items() if n}
+    n_stacks = 3 if cfg.mlp.startswith("gated") else 2
+    assert launched["moe_route"] == launched["moe_combine"] == 1
+    assert launched["grouped_crossbar_matmul"] == n_stacks
+    p_cpu = _to_cpu(p)
+    for seed in range(3):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        x.copy_(torch.randn(x.shape, generator=gen, device=dev))
+        mask.copy_(torch.rand(B, T, generator=gen, device=dev) > 0.25)
+        graph.replay()
+        ye, auxe = moe.apply_moe(cfg, p, x, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(y, ye) and torch.equal(aux["lb_loss"],
+                                                  auxe["lb_loss"])
+        yp, _ = moe.apply_moe(cfg, p_cpu, x.cpu(), dispatch="dropless",
+                              token_mask=mask.cpu())
+        _close_rel_max([y.cpu()], [yp])
+
+
+@pytest.mark.gpu
+def test_moe_kernels_refuse_what_they_do_not_take():
+    """Wrong dtype or device, non-contiguous inputs, a gradient: each
+    raises; capacity dispatch takes neither kernel."""
+    from repro_torch.kernels.moe_route import ops as moe_ops
+    from repro_torch.models import moe
+    dev = _cuda_or_skip()
+    logits, mask, x = _route_inputs(dev, 16, 8, 256, True, 0)
+    kw = dict(top_k=2, tpe=1, norm_topk=True, tile=8, R=128)
+    with pytest.raises(TypeError):
+        moe_ops.moe_route(logits.double(), mask, x, **kw)
+    with pytest.raises(TypeError):
+        moe_ops.moe_route(logits, mask.to(torch.uint8), x, **kw)
+    with pytest.raises(ValueError):
+        moe_ops.moe_route(logits, mask, x.cpu(), **kw)
+    with pytest.raises(ValueError):
+        moe_ops.moe_route(logits.t().contiguous().t(), mask, x, **kw)
+    with pytest.raises(ValueError):
+        moe_ops.moe_route(logits, mask, x, **{**kw, "tpe": 16})
+    with pytest.raises(NotImplementedError, match="item 26"):
+        moe_ops.moe_route(logits, mask, x.requires_grad_(True), **kw)
+    r = moe_ops.moe_route(logits, mask, x.detach(), **kw)
+    out = torch.randn(128, 256, device=dev)
+    rows, w = r.rows.reshape(8, 2), r.weights.reshape(8, 2)
+    with pytest.raises(TypeError):
+        moe_ops.moe_combine(out, rows.int(), w, None)
+    with pytest.raises(ValueError):
+        moe_ops.moe_combine(out[:, ::2], rows, w[:, :2], None)
+    with pytest.raises(ValueError):
+        moe_ops.moe_combine(out, rows, w, torch.randn(8, 256))
+    with pytest.raises(NotImplementedError, match="item 26"):
+        moe_ops.moe_combine(out.requires_grad_(True), rows, w, None)
+    cfg, p = _moe_layer(dev)
+    kernels.reset_launches()
+    with torch.no_grad():
+        moe.apply_moe(cfg, p, torch.randn(2, 8, cfg.d_model, device=dev),
+                      dispatch="capacity")
+    assert kernels.LAUNCHES["moe_route"] == kernels.LAUNCHES[
+        "moe_combine"] == 0
+    assert kernels.LAUNCHES["grouped_crossbar_matmul"] > 0
+
+
 # ---------------------------------------------------------------------------
 # the selective scan (jamba's Mamba layers)
 # ---------------------------------------------------------------------------
