@@ -84,11 +84,15 @@ Imports nothing of JAX or of the JAX package. Phases, each printing JSON:
                head dims 128 and 256 the flash cases run ``wg_body`` (wgmma;
                decode through the work list over the live keys). Then
                jamba-1.5-large-398b's (since slice 17): ``selective_scan``
-               at d_in 16384 and d_state 16 (a decode tick on 8 slots, a
-               128-token chunk on 8 slots, the same ragged with one row
-               idle, a 512-token prompt), within 1e-5 of max |y| and of
-               max |h_final|, the same bits twice, bound by bytes, no
-               library time; the crossbar at its Mamba projections
+               at d_in 16384 and d_state 16 (a decode tick on 8 slots,
+               the n-gram verify tick of 5 steps, a 128-token chunk on 8
+               slots, the same ragged with one row idle, a 512-token and
+               a 4096-token prompt; the register kernel below
+               ``CHUNK_MIN_T``, the tiled kernel from it, since slice
+               19), within 1e-5 of max |y| and of max |h_final|, the same
+               bits twice, one launch a call, bound by the largest of
+               bytes, f32 operations and exponentials (16 a clock per
+               SM at the card's maximum SM clock), no library time; the crossbar at its Mamba projections
                (8192 x 32768, 16384 x 8192) at M = 8 and 1024; the grouped
                crossbar decoding 8 tokens top-2 over its 16 expert stacks
                of (8192, 24576) and (24576, 8192). Then the MoE decode's
@@ -194,13 +198,23 @@ Imports nothing of JAX or of the JAX package. Phases, each printing JSON:
                                same geometry, its logits and routing held
                                to the streamed reference, with a
                                recurrent rollback of the Mamba state.
+                               After its serve (since slice 19), two
+                               waves of 8 prompts of 256 tokens on the
+                               engine, the second's two mixed ticks
+                               traced as replays (``mixed_window``:
+                               the 7 scans' device ms of a mixed tick).
                The engine runs its mixed step as CUDA graphs, one per
                (chunk, table) signature: the first tick of a signature
                eagerly, then captured; every later tick by replay (each
                replay adds its graph's launches to the counts). The serve
                line reports the graphs captured, the replays, the capture
                time and the graphs' pool bytes, and the phase fails unless
-               every tick was a capture or a replay.
+               every tick was a capture or a replay. A traced window of
+               replays must hold every port launch the replays counted;
+               a trace can drop a kernel record inside a replay, so a
+               short window is traced again on the next ticks (the next
+               wave for ``mixed_window``), ``TRACE_ATTEMPTS`` windows in
+               all, each window's counts kept in its ``attempts``.
                llama3.2-1b is then served again, by the dense oracle engine
                (``serve_dense`` line: the same weights, adapters and
                requests, ``max_batch`` 8, a 1024-position arena): each
@@ -614,6 +628,9 @@ COLD_BYTES = 100e6             # codes touched between two uses of a weight
 MARGIN_KERNEL = "spin_kernel"
 MARGIN_CYCLES = 2000
 TRACE_MARGIN_S = 0.05
+# traced windows a serve may take in all when a window's trace lost a port
+# kernel's record (``traced_ticks``)
+TRACE_ATTEMPTS = 3
 # the runtime and driver calls that launch one kernel, as a trace names them
 LAUNCH_API = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
               "cuLaunchKernelEx")
@@ -1145,6 +1162,9 @@ def flash_bwd_cases(dev, g):
 # (decode, short chunks) and the chunked tensor-core kernel
 WKV_KERNELS = ("wkv_kernel<", "wkv_chunk_kernel")
 WKV_LAUNCH_KEYS = ("rwkv6_wkv", "rwkv6_wkv_chunk")
+# the selective scan's: the register kernel (decode, the verify tick) and
+# the tiled kernel (chunks and prompts), one of them a call
+SCAN_KERNELS = ("selective_scan_kernel<", "selective_scan_tile_kernel<")
 # each launch count of ``kernels.LAUNCHES`` (both flash entry points run
 # one kernel template) beside the kernels it counts in a profiler trace
 LAUNCHED_AS = ((("crossbar_matmul",), CB_KERNELS),
@@ -1153,10 +1173,9 @@ LAUNCHED_AS = ((("crossbar_matmul",), CB_KERNELS),
                (("ring_flash_attention",), RING_KERNELS),
                (("rwkv6_wkv",), ("wkv_kernel<",)),
                (("rwkv6_wkv_chunk",), ("wkv_chunk_kernel",)),
-               (("selective_scan",), ("selective_scan_kernel<",)),
+               (("selective_scan",), SCAN_KERNELS),
                (("moe_route",), ROUTE_KERNELS),
                (("moe_combine",), COMBINE_KERNELS))
-SCAN_KERNELS = ("selective_scan_kernel<",)
 
 
 def _wkv_inputs(dev, g, B, T, H, N, decay="model", clens=None):
@@ -1536,7 +1555,9 @@ def _scan_inputs(dev, g, B, T, D, N, clens=None):
     """jamba's scan inputs as its Mamba block makes them: dt =
     softplus(dt_proj(.) + dt_bias) (masked to 0 past each row's length),
     x the conv's SiLU output, B and C views of x_proj's output (its
-    strides), A = -exp(A_log) = -(1..N), a carried state h0."""
+    strides), a carried state h0; A = -(1..N) times a random scale per
+    channel, as the GPU tests draw it (a trained A is no longer jamba's
+    initial -(1..N) in every channel)."""
     r = D // 32                                    # dt_rank: d_model / 16
     dt = torch.nn.functional.softplus(
         torch.randn(B, T, D, generator=g, device=dev) - 4.0)
@@ -1549,27 +1570,66 @@ def _scan_inputs(dev, g, B, T, D, N, clens=None):
     dbc = torch.randn(B, T, r + 2 * N, generator=g, device=dev)
     Bc, Cc = dbc[..., r:r + N], dbc[..., r + N:]
     A = -torch.arange(1, N + 1, device=dev, dtype=torch.float32).expand(
-        D, N).contiguous()
+        D, N).contiguous() * torch.rand(D, 1, generator=g, device=dev)
     h0 = torch.randn(B, D, N, generator=g, device=dev)
     return dt, Bc, Cc, xi, A, h0
 
 
 def _scan_cost(B, T, D, N):
     """Bytes (dt and x read, y written, B and C read, A read, the state
-    read and written once) and f32 operations (per step, channel and
-    state: dt A, the decay times h, dt x B, their sum, h C and its sum;
-    per step and channel dt x; the exponentials not counted)."""
+    read and written once), f32 operations (per step, channel and state:
+    dt A, the decay times h, dt x B, their sum, h C and its sum; per step
+    and channel dt x) and exponentials (one per step, channel and
+    state)."""
     nbytes = 4.0 * (3 * B * T * D + 2 * B * T * N + D * N + 2 * B * D * N)
     flops = 6.0 * B * T * D * N + B * T * D
-    return nbytes, flops
+    return nbytes, flops, float(B * T * D * N)
+
+
+# exponentials a clock on one SM: the special-function unit's rate on
+# sm_90 (16 a clock per SM)
+EXP_PER_CLOCK_SM = 16
+_SFU = {}
+
+
+def exp_ms(n_exp: float) -> float:
+    """Milliseconds for ``n_exp`` exponentials at EXP_PER_CLOCK_SM on
+    every SM of card 0 at its maximum SM clock (``clocks.max.sm``, read
+    once by nvidia-smi)."""
+    if not _SFU:
+        out = subprocess.run(
+            ["nvidia-smi", "-i", "0", "--query-gpu=clocks.max.sm",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, check=True, timeout=60)
+        _SFU["mhz"] = float(out.stdout.strip().splitlines()[0])
+        _SFU["sms"] = torch.cuda.get_device_properties(0).multi_processor_count
+    rate = EXP_PER_CLOCK_SM * _SFU["sms"] * _SFU["mhz"] * 1e6
+    return 1e3 * n_exp / rate
+
+
+def scan_bound(B, T, D, N):
+    """(parts, bound ms, bound_by) of the scan at (B, T, D, N): ``parts``
+    the bytes' ms, the f32 operations' and, for information, the
+    exponentials' on the special-function unit alone (``exp_ms``). The
+    bound is the larger of bytes and f32: the FMA pipe can compute
+    exponentials too (a polynomial), so the special-function unit's time
+    is no floor of the function."""
+    nbytes, flops, n_exp = _scan_cost(B, T, D, N)
+    parts = {"bytes": 1e3 * nbytes / HBM_BYTES_PER_S,
+             "f32": 1e3 * flops / F32_FLOPS_PER_S, "exp": exp_ms(n_exp)}
+    by_bytes = parts["bytes"] >= parts["f32"]
+    return (parts, parts["bytes"] if by_bytes else parts["f32"],
+            "bytes" if by_bytes else "operations")
 
 
 def scan_case(dev, g, label, B, T, clens=None, model="jamba-1.5-large-398b",
               D=16384, N=16):
     """``selective_scan`` at jamba's width (d_in 16384, d_state 16) against
     its plain version: within ``SCAN_TOL`` of max |y| and of max
-    |h_final|, the same bits on two calls. No single PyTorch call
-    computes the scan: no library time."""
+    |h_final|, the same bits on two calls, one launch a call; an idle row
+    keeps its state bit for bit. No single PyTorch call computes the scan:
+    no library time. The bound is ``scan_bound``'s: the larger of the
+    bytes and the f32 operations, the exponentials' time beside it."""
     from repro_torch import kernels
     from repro_torch.kernels.selective_scan import ops as scan_ops
 
@@ -1584,10 +1644,13 @@ def scan_case(dev, g, label, B, T, clens=None, model="jamba-1.5-large-398b",
     err_h = float((h - h_plain).abs().max())
     max_y, max_h = float(y_plain.abs().max()), float(h_plain.abs().max())
     same = bool(torch.equal(y, y2) and torch.equal(h, h2))
-    nbytes, flops = _scan_cost(B, T, D, N)
+    parts, bound, bound_by = scan_bound(B, T, D, N)
     call = lambda: scan_ops.selective_scan(*args)  # noqa: E731
+    by_kernel = device_ms_per_kernel([call] * 10, SCAN_KERNELS)
     case = {
         "name": "selective_scan", "model": model, "case": label,
+        "kernel": ("tiled" if any("tile_kernel" in k for k in by_kernel)
+                   else "recurrent"),
         "shape": {"B": B, "T": T, "D": D, "N": N,
                   **({"chunk_lens": list(clens)} if clens else {})},
         "max_abs_err": max(err_y, err_h),
@@ -1595,15 +1658,16 @@ def scan_case(dev, g, label, B, T, clens=None, model="jamba-1.5-large-398b",
         "tol": SCAN_TOL * max(max_y, max_h), "tol_rel": SCAN_TOL,
         "same_bits": same,
         "ms": timed(call, 20),
-        "device_ms": device_ms_by_name([call] * 10, SCAN_KERNELS),
+        "device_ms": sum(by_kernel.values()),
         "host_us": host_us(call),
         "plain_ms": timed(lambda: scan_ops.selective_scan_plain(*args), 3,
                           warmup=1),
         "library_ms": None,
         "library": "none: no single PyTorch call computes this scan",
-        "bound_ms": bound_ms(nbytes, flops),
-        "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
-                     > flops / F32_FLOPS_PER_S else "operations"),
+        "bound_ms": bound,
+        "bound_by": bound_by,
+        "bound_parts_ms": parts,
+        "exp_rate": {"per_clock_sm": EXP_PER_CLOCK_SM, **_SFU},
     }
     case["ok"] = (err_y <= SCAN_TOL * max_y and err_h <= SCAN_TOL * max_h
                   and same and launched == 2)
@@ -1614,18 +1678,25 @@ def scan_case(dev, g, label, B, T, clens=None, model="jamba-1.5-large-398b",
     return case
 
 
+# jamba's scan cases (label, B, T, chunk_lens): a decode tick on 8 slots,
+# the n-gram verify tick (k = 4 drafts and the last token), a 128-token
+# prefill chunk on 8 slots (also ragged as the engine masks it, one row
+# idle), a 512-token prompt and a long prompt as the dense engine
+# prefills it whole
+SCAN_CASES = (("decode", 8, 1, None), ("verify", 8, 5, None),
+              ("prefill", 8, 128, None),
+              ("ragged", 8, 128, (128, 100, 64, 1, 0, 128, 37, 5)),
+              ("prompt", 1, 512, None), ("long_prompt", 1, 4096, None))
+
+
 def jamba_cases(dev, g):
     """jamba-1.5-large-398b's kernels (slice 17): ``selective_scan`` at
-    the main path's three shapes (a decode tick on 8 slots, a 128-token
-    prefill chunk on 8 slots, also ragged as the engine masks it, and a
-    512-token prompt); the crossbar at the Mamba projections (in_proj
-    8192 x 32768, out_proj 16384 x 8192) at M = 8 and 1024; the grouped
-    crossbar decoding 8 tokens top-2 over the 16 expert stacks."""
-    yield scan_case(dev, g, "decode", 8, 1)
-    yield scan_case(dev, g, "prefill", 8, 128)
-    yield scan_case(dev, g, "ragged", 8, 128,
-                    clens=(128, 100, 64, 1, 0, 128, 37, 5))
-    yield scan_case(dev, g, "prompt", 1, 512)
+    the main path's shapes (``SCAN_CASES``); the crossbar at the Mamba
+    projections (in_proj 8192 x 32768, out_proj 16384 x 8192) at M = 8
+    and 1024; the grouped crossbar decoding 8 tokens top-2 over the 16
+    expert stacks."""
+    for label, B, T, clens in SCAN_CASES:
+        yield scan_case(dev, g, label, B, T, clens)
     yield from crossbar_cases(dev, g, "jamba-1.5-large-398b", JAMBA_MAMBA_KN,
                               (8,))
     yield from grouped_cases(dev, g, "jamba-1.5-large-398b", 16, JAMBA_KN,
@@ -2081,9 +2152,10 @@ def dense_serve(dev, cfg, params, adapters, reqs, plain_params, ref_ec,
     tick_s, trace = [], None
     t_serve = time.perf_counter()
     while eng.queue or any(r is not None for r in eng.slot_req):
-        if len(tick_s) == DENSE_TRACE_AT and trace is None:
+        if len(tick_s) == DENSE_TRACE_AT and retrace(trace):
             # a window of replayed decode ticks, every slot busy, traced
-            trace = traced_ticks(eng, DENSE_TRACED, eng.step)
+            trace = traced_ticks(eng, DENSE_TRACED, eng.step, trace,
+                                 TRACE_ATTEMPTS)
             continue
         t = time.perf_counter()
         eng.step()
@@ -2095,7 +2167,7 @@ def dense_serve(dev, cfg, params, adapters, reqs, plain_params, ref_ec,
     st = eng.stats()
     # every tick decoded (the loop runs while a slot is busy); each request
     # was prefilled once
-    ticks = len(tick_s) + (DENSE_TRACED if trace else 0)
+    ticks = len(tick_s) + (trace["ticks_run"] if trace else 0)
     runs = ticks + len(fresh)
     want = {"crossbar_matmul": n_quant * runs,
             "flash_attention": cfg.n_layers * runs}
@@ -2137,7 +2209,7 @@ def dense_serve(dev, cfg, params, adapters, reqs, plain_params, ref_ec,
     if cs.compiled_steps != 1 or cs.replays != ticks - 1:
         problems.append(f"{ticks} ticks, {cs.compiled_steps} graphs, "
                         f"{cs.replays} replays")
-    if trace is None or not trace["replayed"]:
+    if retrace(trace) or not trace["replayed"]:
         problems.append(f"no traced window of replayed ticks: {trace}")
     bad = [u for u, c in checks.items() if not c["finite"]
            or c["engine_vs_plain"] is None
@@ -2165,8 +2237,9 @@ def serve_loop(eng, reqs, trace_at=None):
                            adapter_id=r.adapter_id))
     tick_s, kind, decoded, trace = [], [], [], None
     while eng.queue or eng.sched.active():
-        if len(tick_s) == trace_at and trace is None:
-            trace = traced_ticks(eng, SPEC_TRACED, eng.step)
+        if len(tick_s) == trace_at and retrace(trace):
+            trace = traced_ticks(eng, SPEC_TRACED, eng.step, trace,
+                                 TRACE_ATTEMPTS)
             continue
         pf, dc = eng.prefill_tokens, eng.decode_tokens
         t = time.perf_counter()
@@ -2175,6 +2248,9 @@ def serve_loop(eng, reqs, trace_at=None):
         tick_s.append(time.perf_counter() - t)
         kind.append("prefill" if eng.prefill_tokens > pf else "decode")
         decoded.append(eng.decode_tokens - dc)
+    if trace is not None and not trace["complete"]:
+        raise AssertionError(f"the serve ended before a traced window "
+                             f"held every port kernel: {trace}")
     return eng.finished, tick_s, kind, decoded, trace
 
 
@@ -2244,7 +2320,7 @@ def spec_serve(dev, cfg, params, adapters, reqs, plain_params, ref_ec,
     launches = {k_: n for k_, n in kernels.LAUNCHES.items() if n}
     st = eng.stats()
     cs, sp = st.compile, st.spec
-    ticks = len(tick_s) + (SPEC_TRACED if trace else 0)
+    ticks = len(tick_s) + (trace["ticks_run"] if trace else 0)
     L = cfg.n_layers
     mixer = "wkv" if cfg.block_pattern == ("rwkv",) else "paged_flash_attention"
     want = {mixer: L * ticks}
@@ -2499,12 +2575,13 @@ def serve_phase(dev, cfg, *, n_requests=8, max_new=32, prompt_range=(64, 512),
     trace, n_traced = None, 0
     t_serve = time.perf_counter()
     while eng.queue or eng.sched.active():
-        if (trace_decode is not None and trace is None
+        if (trace_decode is not None and retrace(trace)
                 and tick_kind[-trace_decode[0]:] == ["decode"]
                 * trace_decode[0]):
             # a window of graph decode ticks, traced
-            n_traced = trace_decode[1]
-            trace = traced_ticks(eng, n_traced, eng.step)
+            trace = traced_ticks(eng, trace_decode[1], eng.step, trace,
+                                 TRACE_ATTEMPTS)
+            n_traced = trace["ticks_run"]
             continue
         pf, dc = eng.prefill_tokens, eng.decode_tokens
         chunk = kernels.LAUNCHES["rwkv6_wkv_chunk"]
@@ -2564,7 +2641,8 @@ def serve_phase(dev, cfg, *, n_requests=8, max_new=32, prompt_range=(64, 512),
         raise AssertionError(f"{n_ticks} ticks, {cs.compiled_steps} "
                              f"graphs of {len(cs.step_signatures)} "
                              f"signatures, {cs.replays} replays")
-    if trace_decode is not None and (trace is None or not trace["replayed"]):
+    if trace_decode is not None and (retrace(trace)
+                                     or not trace["replayed"]):
         raise AssertionError(f"no traced window of replayed decode ticks: "
                              f"{trace}")
     if st.prefix_cache.enabled != full_attention_only(cfg):
@@ -2982,10 +3060,45 @@ def plain_moe_routing():
         moe_ops.moe_route, moe_ops.moe_combine = saved
 
 
+def mixed_window(eng, cfg, n_requests, seed):
+    """A traced window of replayed mixed ticks on ``eng`` after its serve:
+    two waves of ``n_requests`` prompts of two chunks each (two new tokens
+    each, so the wave's first two ticks are mixed: every slot prefills a
+    chunk). The first wave, by ``eng.step``, captures or replays the
+    signatures that such a wave meets; the second wave's two mixed ticks
+    are traced (``traced_ticks``) and must both replay and prefill a chunk
+    in every slot. A trace that lost a port kernel's record is taken again
+    on another such wave, up to ``TRACE_ATTEMPTS`` waves. Returns the
+    traced window."""
+    from repro_torch.serve.api import Request
+
+    rng = np.random.default_rng(seed + 1)
+    plen, trace = 2 * eng.prefill_chunk, None
+    for wave in range(1 + TRACE_ATTEMPTS):
+        if wave and not retrace(trace):
+            break
+        for i in range(n_requests):
+            eng.submit(Request(
+                uid=20_000 + 100 * wave + i, prompt=rng.integers(
+                    0, cfg.vocab_size, plen).astype(np.int32),
+                max_new_tokens=2, adapter_id=i % 2))
+        if wave:
+            trace = traced_ticks(eng, 2, eng.step, trace, TRACE_ATTEMPTS)
+        while eng.queue or eng.sched.active():
+            eng.step()
+    torch.cuda.synchronize()
+    if (not trace["replayed"] or trace["prefill_tokens_per_tick"]
+            != n_requests * eng.prefill_chunk):
+        raise AssertionError(f"the traced mixed ticks did not replay a "
+                             f"chunk in every slot: {trace}")
+    return trace
+
+
 def moe_serve_phase(dev, cfg, *, layers=24, n_requests=8, max_new=32,
                     prompt_range=(64, 512), shared_prefix=256, max_len=1024,
                     max_slots=8, page_size=16, prefill_chunk=128, seed=0,
-                    trace_decode=(8, 8), spec=None, lora_targets=None):
+                    trace_decode=(8, 8), trace_mixed=False, spec=None,
+                    lora_targets=None):
     """An MoE model at full width, depth cut to ``layers``, served as
     ``serve_phase`` serves (two rank-32 adapters with B != 0 on every
     LoRA target of the config, 8 greedy requests of 64-512 tokens, two
@@ -2996,9 +3109,11 @@ def moe_serve_phase(dev, cfg, *, layers=24, n_requests=8, max_new=32,
     Mamba projections and the shared expert), one grouped launch per
     expert stack, one paged flash launch per attention layer, one
     ``selective_scan`` launch per Mamba layer; every tick a capture or a
-    replay; a traced window of graph decode ticks. Then the engine is
-    freed, two requests are teacher-forced through ``forward`` with the
-    kernels (over a dense cache) and through ``streamed_reference``; both
+    replay; a traced window of graph decode ticks; with ``trace_mixed``,
+    after the serve, a traced window of replayed mixed ticks
+    (``mixed_window``). Then the engine is freed, two requests are
+    teacher-forced through ``forward`` with the kernels (over a dense
+    cache) and through ``streamed_reference``; both
     paths' routing is held to the reference's (``routing_check``) and
     their logits to ``LOGIT_TOL`` before the first flip. With ``spec``
     (drafter, k, new tokens), ``moe_spec_pass`` then speculates on the same
@@ -3061,10 +3176,11 @@ def moe_serve_phase(dev, cfg, *, layers=24, n_requests=8, max_new=32,
     t_serve = time.perf_counter()
     try:
         while eng.queue or eng.sched.active():
-            if (trace is None and tick_kind[-trace_decode[0]:]
+            if (retrace(trace) and tick_kind[-trace_decode[0]:]
                     == ["decode"] * trace_decode[0]):
-                n_traced = trace_decode[1]
-                trace = traced_ticks(eng, n_traced, eng.step)
+                trace = traced_ticks(eng, trace_decode[1], eng.step, trace,
+                                     TRACE_ATTEMPTS)
+                n_traced = trace["ticks_run"]
                 continue
             pf, dc = eng.prefill_tokens, eng.decode_tokens
             t = time.perf_counter()
@@ -3106,13 +3222,15 @@ def moe_serve_phase(dev, cfg, *, layers=24, n_requests=8, max_new=32,
         raise AssertionError(f"{n_ticks} ticks, {cs.compiled_steps} "
                              f"graphs of {len(cs.step_signatures)} "
                              f"signatures, {cs.replays} replays")
-    if trace is None or not trace["replayed"]:
+    if retrace(trace) or not trace["replayed"]:
         raise AssertionError(f"no traced window of replayed decode ticks: "
                              f"{trace}")
     if (st.prefix_cache.enabled != full_attention_only(cfg)
             or st.moe.dropped_tokens):
         raise AssertionError(f"prefix cache {st.prefix_cache.enabled}, "
                              f"{st.moe.dropped_tokens} dropped tokens")
+    mixed_trace = (mixed_window(eng, cfg, max_slots, seed) if trace_mixed
+                   else None)
     checked = [1, 0]
     sampled = {uid: torch.stack(eng.sampled_logits[uid]) for uid in checked}
     kv_bytes = kvcache.cache_bytes(eng.cache)
@@ -3202,6 +3320,7 @@ def moe_serve_phase(dev, cfg, *, layers=24, n_requests=8, max_new=32,
         "setup_s": setup_s, "serve_s": serve_s, "reference_s": ref_s,
         "ticks": n_ticks, "traced_ticks": n_traced,
         "traced_decode_ticks": trace,
+        **({"traced_mixed_ticks": mixed_trace} if trace_mixed else {}),
         "prefill_ticks": len(tick_s) - n_dc_ticks,
         "decode_ticks": n_dc_ticks,
         "ms_per_tick": 1e3 * serve_s / max(len(tick_s), 1),
@@ -3285,7 +3404,7 @@ def moe_spec_pass(dev, cfg, params, adapters, reqs, served, *, drafter, k,
         route_log.close()
     st = eng.stats()
     cs, sp = st.compile, st.spec
-    ticks = len(tick_s) + (SPEC_TRACED if trace else 0)
+    ticks = len(tick_s) + (trace["ticks_run"] if trace else 0)
     n_attn, n_mamba = layer_counts(cfg)
     n_quant, n_grouped = quantized_kinds(params["layers"])
     per_tick = {"crossbar_matmul": n_quant,
@@ -3519,7 +3638,7 @@ def port_kernel_counts(kern, counts):
     return traced, counted
 
 
-def traced_ticks(eng, n, tick):
+def traced_ticks(eng, n, tick, earlier=None, attempts=1):
     """``n`` engine ticks, each by ``tick()``, in a ``cuda_trace``: wall,
     device time and the port kernels' device time per tick, device busy
     share (device time over the traced wall), launches and prefill tokens
@@ -3530,7 +3649,15 @@ def traced_ticks(eng, n, tick):
     capture counted, and the trace must hold exactly as many of each port
     kernel: that shows the replays ran them. Otherwise the wrappers counted
     their own launches, and the trace may hold fewer by no more than the
-    launches whose kernel record it lost (``lost_launches``), never more."""
+    launches whose kernel record it lost (``lost_launches``), never more.
+
+    A trace can also lose a kernel record inside a replay, with no launch
+    call to name it by. A window that comes out short is marked
+    ``"complete": False`` and returned while this is not the
+    ``attempts``-th window; the caller then traces the next ``n`` ticks,
+    passing this one as ``earlier``. The short windows' counts stay in
+    ``attempts``, their ticks in ``ticks_run``. A trace that holds more
+    than was counted, or the last window that is short, fails."""
     from repro_torch import kernels
 
     torch.cuda.synchronize()
@@ -3554,13 +3681,17 @@ def traced_ticks(eng, n, tick):
     replayed = eng.replays - replays == n
     lost = lost_launches(prof)
     short = sum(counted.values()) - sum(traced.values())
-    if (any(traced[k] > counted[k] for k in traced)
-            or short > (0 if replayed else lost)):
+    over = any(traced[k] > counted[k] for k in traced)
+    complete = not over and short <= (0 if replayed else lost)
+    tries = (earlier["attempts"] if earlier else []) + [
+        {"traced": traced, "counted": counted, "replayed": replayed,
+         "lost_launches": lost}]
+    if over or (not complete and len(tries) >= attempts):
         how = "every tick replayed" if replayed else "eager ticks"
         raise AssertionError(
             f"the trace holds {traced} port kernels, kernels.LAUNCHES "
             f"counted {counted} ({how}; {lost} kernel launches lost their "
-            f"record)")
+            f"record; window {len(tries)} of {attempts}: {tries})")
     top = sorted(by_name.items(), key=lambda kv: kv[1], reverse=True)[:10]
     # the port's own kernels (csrc/*.cu), whatever their share of the tick
     own = {k: us / 1e3 / n for k, us in by_name.items()
@@ -3575,6 +3706,8 @@ def traced_ticks(eng, n, tick):
            "launches_per_tick": {k: v / n for k, v in counts.items()},
            "traced_launches_per_tick": {k: v / n for k, v in traced.items()},
            "replayed": replayed, "trace_lost_launches": lost,
+           "complete": complete, "attempts": tries,
+           "ticks_run": n * len(tries),
            "top_device_ms_per_tick": {k: us / 1e3 / n for k, us in top},
            "port_kernels_device_ms_per_tick": own}
     for label, names in (("crossbar", CB_KERNELS),
@@ -3588,6 +3721,12 @@ def traced_ticks(eng, n, tick):
         out[f"{label}_share_of_device"] = (ms * n / device_ms if kern
                                            else None)
     return out
+
+
+def retrace(trace) -> bool:
+    """Whether a serve still owes its traced window: none taken yet, or the
+    last one's trace lost a port kernel's record (``traced_ticks``)."""
+    return trace is None or not trace["complete"]
 
 
 def untraced_ms(n, tick):
@@ -4440,12 +4579,14 @@ SERVED = ("llama3.2-1b", "gemma2-9b", "rwkv6-7b", "paper-gpt2-medium",
 # window of graph decode ticks; jamba-1.5-large-398b at one scan period, 8
 # of its 72 layers (1 attention, 7 Mamba, 4 MoE FFs: 48.8 GB of M8F8 codes;
 # two periods would not fit), its adapters also on the Mamba projections,
-# then n-gram speculation on the same engine geometry
+# a traced window of replayed mixed ticks after its serve, then n-gram
+# speculation on the same engine geometry
 SERVE_KW = {"gemma2-9b": dict(max_len=5120, long_prompts=(2, (4300, 4800)),
                               trace_decode=(8, 8)),
             "llama4-scout-17b-a16e": dict(layers=24, trace_decode=(8, 8)),
             "jamba-1.5-large-398b": dict(
-                layers=8, trace_decode=(8, 8), spec=("ngram", 4, 32),
+                layers=8, trace_decode=(8, 8), trace_mixed=True,
+                spec=("ngram", 4, 32),
                 lora_targets=("wq", "wv", "mamba_in", "mamba_out"))}
 # the forwards at full width after the serves (``forward_phase``):
 # mixtral-8x22b at 2 of its 56 layers (top-2 over 8 experts, a prompt past
@@ -4708,6 +4849,7 @@ def main() -> int:
                                    "host_us", "plain_ms",
                                    "library_ms", "library_device_ms",
                                    "bound_ms", "bound_pieces_ms", "bound_by",
+                                   "bound_parts_ms",
                                    "plain_device_ms", "plain_device_kernels",
                                    "check")
                  if k in o}

@@ -9,11 +9,14 @@ JAX: a ``lax.scan`` over chunks with an ``associative_scan`` inside, no
 Pallas call) returns, whatever its chunk. dt and xi are (B, T, D) f32, Bc
 and Cc (B, T, N) f32, A (D, N) and h0 (B, D, N) f32. On CUDA tensors it
 launches ``csrc/selective_scan.cu`` (counted as ``selective_scan`` in
-``kernels.LAUNCHES``): dt, xi, A and h0 contiguous, Bc and Cc read through
-their batch and time strides (the model's are views of one projection) with
-a unit stride along N, N in ``STATES``. On CPU tensors it runs
-``selective_scan_plain``. A step with dt = 0 leaves the state unchanged:
-that is how the model masks a ragged chunk's padded tail.
+``kernels.LAUNCHES``, one a call): dt, xi, A and h0 contiguous, Bc and Cc
+read through their batch and time strides (the model's are views of one
+projection) with a unit stride along N, N in ``STATES``. Below
+``CHUNK_MIN_T`` steps (decode) it runs the register kernel, from it on
+(the verify tick, chunks, prompts) the tiled one (step tiles staged in
+shared memory by asynchronous copies); ``kernel="recurrent"`` or
+``"tiled"`` forces one. On CPU tensors it runs ``selective_scan_plain``. A step with dt = 0 leaves the
+state unchanged: that is how the model masks a ragged chunk's padded tail.
 
 Training: the kernel has no backward. Inputs that need a gradient raise
 ``NotImplementedError`` on CUDA tensors (ROADMAP Queue 1 item 28, the scan
@@ -31,6 +34,12 @@ from repro_torch.kernels import build
 # the d_state values the kernel is built for: jamba's 16 and the reduced
 # configs' 4
 STATES = (4, 16)
+# T from which the tiled kernel runs; below it the register kernel, whose
+# one-step-ahead loads cover a few steps: at jamba's width on 8 slots the
+# tiled kernel is the faster from T = 5 (benchmarks/torch_scan_tiles.py,
+# PERF.md)
+CHUNK_MIN_T = 5
+KERNELS = ("auto", "recurrent", "tiled")
 _LIB = None
 
 
@@ -56,7 +65,8 @@ def _lib():
     if _LIB is None:
         lib = build.load("selective_scan")
         vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.selective_scan.argtypes = [vp] * 8 + [ci] * 4 + [cl] * 4 + [vp]
+        lib.selective_scan.argtypes = ([vp] * 8 + [ci] * 4 + [cl] * 4
+                                       + [ci, vp])
         lib.selective_scan.restype = ci
         _LIB = lib
     return _LIB
@@ -85,9 +95,14 @@ def _check(dt, Bc, Cc, xi, A, h0) -> None:
                              f"in {name}")
 
 
-def selective_scan(dt, Bc, Cc, xi, A, h0):
+def selective_scan(dt, Bc, Cc, xi, A, h0, *, kernel: str = "auto"):
     """dt, xi (B, T, D) f32; Bc, Cc (B, T, N); A (D, N); h0 (B, D, N).
-    Returns y (B, T, D), h_final (B, D, N)."""
+    Returns y (B, T, D), h_final (B, D, N). ``kernel`` picks the CUDA
+    kernel: ``"auto"`` the tiled one from T = ``CHUNK_MIN_T`` on, the
+    register one below it; ``"recurrent"`` or ``"tiled"`` force one, to
+    measure the crossover."""
+    if kernel not in KERNELS:
+        raise ValueError(f"kernel {kernel!r}, expected one of {KERNELS}")
     B, T, D = dt.shape
     N = A.shape[-1]
     for name, t, want in (("xi", xi, (B, T, D)), ("Bc", Bc, (B, T, N)),
@@ -109,12 +124,13 @@ def selective_scan(dt, Bc, Cc, xi, A, h0):
     h_final = dt.new_empty((B, D, N))
     if B == 0:
         return y, h_final
+    tiled = T >= CHUNK_MIN_T if kernel == "auto" else kernel == "tiled"
     dev = dt.get_device()
     rc = kernels.call_on(
         _lib().selective_scan, dev, dt.data_ptr(), Bc.data_ptr(),
         Cc.data_ptr(), xi.data_ptr(), A.data_ptr(), h0.data_ptr(),
         y.data_ptr(), h_final.data_ptr(), B, T, D, N, Bc.stride(0),
-        Bc.stride(1), Cc.stride(0), Cc.stride(1),
+        Bc.stride(1), Cc.stride(0), Cc.stride(1), int(tiled),
         torch._C._cuda_getCurrentRawStream(dev))
     if rc != 0:
         raise RuntimeError(f"selective_scan launch failed: CUDA error {rc} "

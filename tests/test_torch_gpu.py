@@ -2092,9 +2092,14 @@ def test_moe_kernels_refuse_what_they_do_not_take():
 # ---------------------------------------------------------------------------
 
 # (B, T, chunk_lens): decode on 8 slots, a prefill chunk of 128 on 8 slots
-# (ragged as the engine masks it, one row idle), a 512-token prompt
+# (ragged as the engine masks it, one row idle), a 512-token prompt; the
+# n-gram verify tick (T = 5), a T that is no multiple of any tile, a
+# 4096-token prompt as the dense engine prefills it whole, and a ragged
+# chunk of that T with an idle row
 SCAN_CASES = [(8, 1, None), (8, 128, None),
-              (8, 128, (128, 100, 64, 1, 0, 128, 37, 5)), (1, 512, None)]
+              (8, 128, (128, 100, 64, 1, 0, 128, 37, 5)), (1, 512, None),
+              (8, 5, None), (2, 300, None), (1, 4096, None),
+              (4, 300, (300, 217, 0, 1))]
 
 
 def _scan_inputs(dev, B, T, D, N, seed, clens=None, strided=True):
@@ -2130,9 +2135,9 @@ def _scan_close(y, h, y_plain, h_plain):
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,T,clens", SCAN_CASES)
 def test_selective_scan_kernel_matches_plain_at_jamba_width(B, T, clens):
-    """D = 16384 channels of 16 states (jamba's d_in and d_state): one
-    launch, the plain version's result, the same bits twice; a row of
-    length 0 keeps its state."""
+    """D = 16384 channels of 16 states (jamba's d_in and d_state), a
+    nonzero carried state: one launch, the plain version's result, the
+    same bits twice; a row of length 0 keeps its state."""
     dev = _cuda_or_skip()
     args = _scan_inputs(dev, B, T, 16384, 16, seed=B + T, clens=clens)
     before = kernels.LAUNCHES["selective_scan"]
@@ -2150,15 +2155,50 @@ def test_selective_scan_kernel_matches_plain_at_jamba_width(B, T, clens):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("N", [4, 16])
-@pytest.mark.parametrize("D,strided", [(100, True), (4096, False)])
-def test_selective_scan_kernel_at_every_state_width(N, D, strided):
+@pytest.mark.parametrize("D,strided", [(100, True), (4096, False),
+                                       (70, True)])
+@pytest.mark.parametrize("B", [2, 300])
+def test_selective_scan_kernel_at_every_state_width(N, D, strided, B):
     """Each instantiated d_state (the reduced configs' 4, jamba's 16), a D
-    that is not a multiple of the block's 32 channels, contiguous and
-    strided B/C, a T past one tile of 64 steps."""
+    that is not a multiple of a block's channels (70: nor of 4, so the
+    tiled kernel copies dt and x 4 bytes at a time), contiguous and
+    strided B/C, a T past one tile of steps; 2 rows (the tiled kernel's
+    few-block lanes) and 300 (a block an SM or more)."""
     dev = _cuda_or_skip()
-    args = _scan_inputs(dev, 2, 70, D, N, seed=N + D, strided=strided)
+    args = _scan_inputs(dev, B, 70, D, N, seed=N + D + B, strided=strided)
     y, h = scan_ops.selective_scan(*args)
     _scan_close(y, h, *scan_ops.selective_scan_plain(*args))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", [scan_ops.CHUNK_MIN_T - 1, scan_ops.CHUNK_MIN_T,
+                               37])
+def test_selective_scan_both_kernels_agree_around_the_crossover(T):
+    """The register and the tiled kernel, each forced, and the one "auto"
+    picks, at T on both sides of ``CHUNK_MIN_T``: each within 1e-5 of the
+    plain version; a carried state 4 bytes past a 16-byte boundary, and
+    B/C rows 4 bytes past one with a row stride of N + 1 (the tiled
+    kernel's 4-byte paths), give the same bits as aligned ones."""
+    dev = _cuda_or_skip()
+    args = _scan_inputs(dev, 8, T, 4096, 16, seed=T)
+    dt, Bc, Cc, xi, A, h0 = args
+    want = scan_ops.selective_scan_plain(*args)
+    buf = torch.empty(h0.numel() + 1, device=dev)
+    buf[1:].copy_(h0.flatten())
+    h0_odd = buf[1:].view(h0.shape)
+    rows = torch.empty(2, 8, T, 17, device=dev)
+    rows[0, ..., 1:].copy_(Bc)
+    rows[1, ..., 1:].copy_(Cc)
+    for kernel in scan_ops.KERNELS:
+        before = kernels.LAUNCHES["selective_scan"]
+        y, h = scan_ops.selective_scan(*args, kernel=kernel)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["selective_scan"] == before + 1
+        _scan_close(y, h, *want)
+        for odd in ((dt, Bc, Cc, xi, A, h0_odd),
+                    (dt, rows[0, ..., 1:], rows[1, ..., 1:], xi, A, h0)):
+            y2, h2 = scan_ops.selective_scan(*odd, kernel=kernel)
+            assert torch.equal(y, y2) and torch.equal(h, h2)
 
 
 @pytest.mark.gpu
@@ -2178,6 +2218,8 @@ def test_selective_scan_raises_under_grad_and_refuses_bad_inputs():
             1, 2), Bc, Cc, xi, A, h0)
     with pytest.raises(TypeError):
         scan_ops.selective_scan(dt.double(), Bc, Cc, xi, A, h0)
+    with pytest.raises(ValueError, match="kernel"):
+        scan_ops.selective_scan(dt, Bc, Cc, xi, A, h0, kernel="chunk")
 
 
 @pytest.mark.gpu

@@ -135,6 +135,23 @@ def test_selective_scan_zero_dt_is_an_identity_step():
     assert y0.shape == (2, 0, 8) and torch.equal(h_0, h0)
 
 
+@pytest.mark.parametrize("kernel", scan_ops.KERNELS)
+def test_selective_scan_kernel_choice_on_cpu_is_the_plain_version(kernel):
+    """On CPU tensors every choice of ``kernel`` runs the plain
+    version, at T on both sides of ``CHUNK_MIN_T``; an unknown name
+    raises."""
+    for T in (scan_ops.CHUNK_MIN_T - 1, scan_ops.CHUNK_MIN_T):
+        args = [torch.from_numpy(a) for a in _scan_inputs(2, T, 8, 4,
+                                                          seed=T)]
+        before = dict(kernels.LAUNCHES)
+        y, h = scan_ops.selective_scan(*args, kernel=kernel)
+        assert kernels.LAUNCHES == before
+        yp, hp = scan_ops.selective_scan_plain(*args)
+        assert torch.equal(y, yp) and torch.equal(h, hp)
+        with pytest.raises(ValueError, match="kernel"):
+            scan_ops.selective_scan(*args, kernel="split")
+
+
 def test_selective_scan_refuses_bad_shapes_and_differentiates_on_cpu():
     args = [torch.from_numpy(a) for a in _scan_inputs(1, 6, 8, 4, seed=6)]
     with pytest.raises(ValueError, match="Bc"):
