@@ -511,10 +511,10 @@ def device_ms_by_name(fns, names) -> float:
 
 
 @contextlib.contextmanager
-def cuda_trace(cpu: bool = False):
+def cuda_trace(cpu: bool = False, shapes: bool = False):
     """``torch.profiler`` with CUDA activity (and CPU activity, where
-    ``cpu``: the aten ops and ``record_function`` ranges), around the
-    body. On the
+    ``cpu``: the aten ops and ``record_function`` ranges, with their input
+    shapes where ``shapes``), around the body. On the
     H100 a trace can lose the kernel records of the launches in its first
     milliseconds and of its last ones, though the kernels ran; an eager
     tick's first few launches after an idle pause can lose theirs too
@@ -531,7 +531,7 @@ def cuda_trace(cpu: bool = False):
 
     torch.cuda.synchronize()
     acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
-    with profile(activities=acts) as prof:
+    with profile(activities=acts, record_shapes=shapes) as prof:
         margin()
         yield prof
         torch.cuda.synchronize()
@@ -1006,12 +1006,14 @@ FIG13_M = 16 * 64
 # (model, (K, N) pairs, rows, case, code widths) of the transposed
 # crossbar kernel's cases: int8 at the rows of one train microbatch
 # (``TRAIN_M``) and llama's pairs also at the whole batch's rows (an extra:
-# the train step never runs it); then int4 at the microbatch rows, and int8
-# and int4 at the Fig. 13 fine-tunes' (K, N) pairs and rows
+# the train step never runs it), gemma2-9b's five at the microbatch rows;
+# then int4 at the microbatch rows, and int8 and int4 at the Fig. 13
+# fine-tunes' (K, N) pairs and rows
 CB_T_CASES = (("llama3.2-1b", LLAMA_KN, TRAIN_M, "microbatch", (8,)),
               ("paper-gpt2-medium", PAPER_KN, TRAIN_M, "microbatch", (8,)),
               ("llama3.2-1b", LLAMA_KN, TRAIN_BATCH * TRAIN_SEQ,
-               "whole batch", (8,)))
+               "whole batch", (8,)),
+              ("gemma2-9b", GEMMA_KN, TRAIN_M, "microbatch", (8,)))
 CB_T_CASES_SLICE10 = (
     ("llama3.2-1b", LLAMA_KN, TRAIN_M, "microbatch", (4,)),
     ("paper-gpt2-medium", PAPER_KN, TRAIN_M, "microbatch", (4,)),
@@ -1082,29 +1084,47 @@ def _sdpa_bwd_yardstick(q, k, v, dout, mask):
     return lambda: torch.autograd.grad(o, (ql, kl, vl), do, retain_graph=True)
 
 
+# the flash backward's cases: (model, case, B, T = S, Hq, Hkv, D, window,
+# softcap). Head dim 64: one train microbatch's attention (B =
+# ``TRAIN_MB``, T = S = 512, causal) at llama3.2-1b's 32/8 heads and the
+# paper models' 16/16, llama's heads also at the whole batch's B (an
+# extra: the train step never runs it), a window with a softcap on a small
+# shape. Head dim 256: gemma2-9b's microbatch (16/8, its softcap of 50:
+# its train step's call), the same without the softcap (SDPA's yardstick),
+# and its published window of 4096 at the forward case's 4608 tokens (B =
+# 1; an extra). Head dim 128: the microbatch at mistral-nemo-12b's 32/8
+# and internlm2-20b's 48/8 heads (no train step runs them yet).
+FA_BWD_CASES = (
+    ("llama3.2-1b", "causal", TRAIN_MB, TRAIN_SEQ, 32, 8, 64, None, None),
+    ("paper-gpt2-medium", "causal", TRAIN_MB, TRAIN_SEQ, 16, 16, 64, None,
+     None),
+    ("llama3.2-1b", "causal, whole batch", TRAIN_BATCH, TRAIN_SEQ, 32, 8,
+     64, None, None),
+    ("window+softcap", "window+softcap", 2, 256, 8, 2, 64, 64, 30.0),
+    ("gemma2-9b", "causal+softcap", TRAIN_MB, TRAIN_SEQ, 16, 8, 256, None,
+     50.0),
+    ("gemma2-9b", "causal, no softcap", TRAIN_MB, TRAIN_SEQ, 16, 8, 256,
+     None, None),
+    ("gemma2-9b", "window 4096+softcap", 1, 4608, 16, 8, 256, 4096, 50.0),
+    ("mistral-nemo-12b", "causal", TRAIN_MB, TRAIN_SEQ, 32, 8, 128, None,
+     None),
+    ("internlm2-20b", "causal", TRAIN_MB, TRAIN_SEQ, 48, 8, 128, None,
+     None))
+
+
 def flash_bwd_cases(dev, g):
     """The flash backward (dq, dk, dv from the forward kernel's out and
-    lse) at one train microbatch's attention: B = ``TRAIN_MB``, T = S =
-    512, causal, at llama3.2-1b's 32/8 heads and the paper models' 16/16;
-    llama's heads also at the whole batch's B (an extra: the train step
-    never runs it); and a window with a softcap on a small shape (SDPA has
-    no softcap: no yardstick).
+    lse) at each of ``FA_BWD_CASES``, twice (the same bits); SDPA's
+    backward beside each case without a softcap (SDPA has none).
     Bound: bytes of q, k, v, out, dout, lse read and dq, dk, dv written;
     the five products of the FA-2 backward (10 D flops per visible (query
     head, key) pair) in f32. The kernels' own work recomputes S and dP in
     both passes, 14 D per pair, each product in three TF32 pieces at 495
-    TFLOP/s (``bound_pieces_ms``)."""
+    TFLOP/s (``bound_pieces_ms``). Cases the redesign of the D <= 64
+    kernels predates carry no ``before_device_ms`` (``"before": "new"``)."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
 
-    D = 64
-    for model, case, B, T, Hq, Hkv, window, softcap in (
-            ("llama3.2-1b", "causal", TRAIN_MB, TRAIN_SEQ, 32, 8, None,
-             None),
-            ("paper-gpt2-medium", "causal", TRAIN_MB, TRAIN_SEQ, 16, 16,
-             None, None),
-            ("llama3.2-1b", "causal, whole batch", TRAIN_BATCH, TRAIN_SEQ,
-             32, 8, None, None),
-            ("window+softcap", "window+softcap", 2, 256, 8, 2, 64, 30.0)):
+    for model, case, B, T, Hq, Hkv, D, window, softcap in FA_BWD_CASES:
         q = torch.randn(B, T, Hq, D, generator=g, device=dev)
         dout = torch.randn(B, T, Hq, D, generator=g, device=dev)
         k = torch.randn(B, T, Hkv, D, generator=g, device=dev)
@@ -1127,16 +1147,20 @@ def flash_bwd_cases(dev, g):
                         + 2 * pos.numel())
         flops, own = 10.0 * D * pairs, 14.0 * D * pairs
         call = lambda: fa_ops.flash_attention_bwd(*args, **kw)  # noqa: E731
+        again = call()
+        torch.cuda.synchronize()
+        before = BEFORE_FA_BWD_MS.get((case, model))
         case = {
             "name": "flash_attention_bwd", "model": model, "case": case,
             "shape": {"B": B, "T": T, "S": T, "Hq": Hq, "Hkv": Hkv, "D": D,
                       "window": window, "softcap": softcap},
             "max_abs_err": abs_err, "max_err_over_rel": over,
-            "tol": FA_BWD_TOL, "ok": over <= FA_BWD_TOL,
+            "same_bits": all(torch.equal(a, b) for a, b in zip(got, again)),
+            "tol": FA_BWD_TOL,
             "ms": timed(call, 20),
             "device_ms": device_ms_by_name([call] * 10, FA_BWD_KERNELS),
-            "before_device_ms": BEFORE_FA_BWD_MS[(case, model)],
-            "before_from": BEFORE_FROM,
+            **({"before_device_ms": before, "before_from": BEFORE_FROM}
+               if before is not None else {"before": "new"}),
             "host_us": host_us(call),
             "plain_ms": timed(
                 lambda: fa_ops.flash_attention_bwd_plain(*args, **kw), 5),
@@ -1147,6 +1171,7 @@ def flash_bwd_cases(dev, g):
             "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
                          > flops / F32_FLOPS_PER_S else "operations"),
         }
+        case["ok"] = over <= FA_BWD_TOL and case["same_bits"]
         if softcap is None:
             lib = _sdpa_bwd_yardstick(q, k, v, dout, mask)
             kern = device_ms_per_kernel([lib] * 10)
@@ -4025,12 +4050,38 @@ def lost_by_range(prof) -> dict:
     return out
 
 
-def traced_step(run, groups=ATTN_GROUPS, attempts: int = 3, keep=()):
+def vocab_device_ms(prof, vocab: int) -> float:
+    """Device ms of the kernels launched inside an aten op one of whose
+    operands has a dimension of ``vocab`` (the f32 unembed, its backward,
+    the final softcap and the loss over the vocabulary), in a ``cuda_trace``
+    with CPU activity and shapes."""
+    from torch.autograd import DeviceType
+
+    events = prof.events()
+    ms = {e.id: e.time_range.elapsed_us() / 1e3 for e in device_events(prof)}
+    ops = [e for e in events if e.device_type == DeviceType.CPU
+           and e.name not in LAUNCH_API
+           and any(vocab in s for s in (e.input_shapes or [])
+                   if isinstance(s, (list, tuple)))]
+    total = 0.0
+    for c in events:
+        if (c.device_type == DeviceType.CPU and c.name in LAUNCH_API
+                and c.id in ms and any(
+                    o.thread == c.thread
+                    and o.time_range.start <= c.time_range.start
+                    <= o.time_range.end for o in ops)):
+            total += ms[c.id]
+    return total
+
+
+def traced_step(run, vocab: int, groups=ATTN_GROUPS, attempts: int = 3,
+                keep=()):
     """One train step ``run()`` in a ``cuda_trace`` with CPU activity and
     the port's launch ranges (``named_launchers``): its wall, device time
     and busy share (device time over the traced wall, which the CPU
     activity lengthens), the port kernels' device ms by name and by group,
-    and the top kernels. A trace can lose kernel records: once every
+    and the top kernels, and the device time over the vocabulary of
+    ``vocab`` tokens (``vocab_device_ms``). A trace can lose kernel records: once every
     backward kernel of a llama step (with the forward's kept; the cause is
     not known), and a few launches in most traced steps. Each trace's
     lost launches are counted and named by the CPU range around each
@@ -4043,7 +4094,7 @@ def traced_step(run, groups=ATTN_GROUPS, attempts: int = 3, keep=()):
     fails. ``attempts`` lists every trace's."""
     tries = []
     for _ in range(attempts):
-        with named_launchers(), cuda_trace(cpu=True) as prof:
+        with named_launchers(), cuda_trace(cpu=True, shapes=True) as prof:
             t = time.perf_counter()
             run()
             torch.cuda.synchronize()
@@ -4066,6 +4117,9 @@ def traced_step(run, groups=ATTN_GROUPS, attempts: int = 3, keep=()):
             ms = sum(v for k, v in own.items() if any(m in k for m in names))
             out[f"{label}_device_ms"] = ms
             out[f"{label}_share_of_device"] = ms / device if device else None
+        ms = vocab_device_ms(prof, vocab)
+        out.update(vocab=vocab, vocab_device_ms=ms,
+                   vocab_share_of_device=ms / device if device else None)
         lost = lost_by_range(prof)
         out.update(lost_launches=sum(lost.values()), lost_by_range=lost)
         tries.append({"complete": all(out[f"{label}_device_ms"] > 0
@@ -4338,7 +4392,7 @@ def train_phase(dev, cfg, *, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
         tr.run()
 
     # rwkv6-7b's trace keeps every wkv backward launch's record
-    trace = traced_step(one_more_step,
+    trace = traced_step(one_more_step, cfg.vocab_size,
                         RWKV_GROUPS if is_rwkv(cfg) else ATTN_GROUPS,
                         keep=("rwkv6_wkv_bwd",) if is_rwkv(cfg) else ())
     shutil.rmtree(ckpt_dir, ignore_errors=True)
@@ -4619,8 +4673,11 @@ SPEC = {"llama3.2-1b": (("ngram", 4, 32), ("selfdraft", 4, 16)),
 # the models whose serve engine saves its prefix index for a new engine
 PERSISTED = ("llama3.2-1b",)
 # the models fine-tuned, in order: base bits, Trainer steps (a multiple of
-# CKPT_EVERY) and noise-aware steps; GPT-2 again on an int4 base
+# CKPT_EVERY) and noise-aware steps; GPT-2 again on an int4 base. gemma2-9b
+# comes second: every trace adds to what later traces lose
+# (``late_kernel_phase``), and its traced step is the largest
 TRAINED = (("llama3.2-1b", (8, 8), 20, 0),
+           ("gemma2-9b", (8, 8), 10, 0),
            ("paper-gpt2-medium", (8, 8), 20, 2),
            ("paper-gpt2-medium", (4, 4), 10, 0),
            ("rwkv6-7b", (8, 8), 10, 0))

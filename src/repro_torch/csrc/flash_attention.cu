@@ -189,6 +189,23 @@
 //     64-row streamed tiles (two blocks an SM) and four blocks per SM in
 //     the plan (more, smaller splits) both timed slower
 //     (benchmarks/torch_flash_bwd_tiles.py).
+//   - Head dims 128 and 256 (dkdv_wide, dq_wide; the same kernel names):
+//     the D <= 64 cut does not fit. A warp holding dK and dV for 16 keys
+//     over all D columns needs D floats of accumulators a thread (256 at D
+//     = 256), and 64 stationary keys with a two-stage ring of 32-row tiles
+//     need 266 KB of shared memory at D = 256. So a block of 8 warps owns
+//     64 keys (rows), streams 16-row (16-key) tiles (212 KB at D = 256, 114
+//     KB at 128; one block an SM), and splits each tile's work in two
+//     phases. Phase 1: warp w computes S^T (w < 4) or dP^T (w >= 4) for
+//     keys 16 (w % 4) .. + 15 over all D, and stores it to shared memory;
+//     then every thread turns its share of the 64 x 16 tile into p and ds
+//     in place. Phase 2: warp w accumulates dV += P^T dO and dK += dS^T q
+//     (dQ += dS K) for the same 16 keys (rows) and half of the D columns,
+//     D / 2 floats a thread at D = 256, its A operand read from the shared
+//     p and ds (rows of a k8 step paired as in the registers above). The
+//     products, the splits in split order, the skipped tiles and the zeros
+//     of rows and keys that see nothing are those of the D <= 64 kernels.
+//     Not yet: wgmma, TMA and warp specialisation.
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
@@ -2236,13 +2253,10 @@ int launch(Params p, int B, int D, const Plan& pl, size_t n_partials,
 #undef REPRO_FLASH_CASE
 }
 
-// head dims of the forward kernels, and of the backward kernels
+// head dims of the forward and the backward kernels
 bool shapes_ok(int B, int T, int Hq, int Hkv, int S, int D) {
   return B > 0 && T > 0 && Hq > 0 && Hkv > 0 && S >= 0 && Hq % Hkv == 0 &&
          (D == 8 || D == 16 || D == 32 || D == 64 || D == 128 || D == 256);
-}
-bool bwd_shapes_ok(int B, int T, int Hq, int Hkv, int S, int D) {
-  return shapes_ok(B, T, Hq, Hkv, S, D) && D <= 64;
 }
 
 Params base_params(const void* q, const void* k, const void* v,
@@ -2371,9 +2385,48 @@ constexpr int kBT = 64;    // keys (dk/dv) or rows (dq) of a block
 constexpr int kBS = 32;
 constexpr int kBMinBlocks = 3;
 constexpr int kBWaves = 2;
+// Streamed rows (dk/dv) or keys (dq) that one block sums into its
+// registers, at most: the tensor cores' f32 accumulation truncates, so its
+// error grows with the products summed into one register (gemma2-9b's
+// window of 4096 at T = 4608, ~8300 rows a block, left dK and dV 20x
+// further from an f64 reference than the plain version, at 0.85 of the
+// tolerance); a longer list is split and summed in f32 in split order.
+constexpr int kBMaxRows = 1024;
 constexpr int kBWarps = 4;         // 16 keys (dk/dv) or 16 rows (dq) a warp
 constexpr int kBThreads = kBWarps * 32;
 constexpr int kDeltaThreads = 256;
+// Head dims 128 and 256: keys (dk/dv) or rows (dq) of a block, rows (dk/dv)
+// or keys (dq) of a streamed tile, and the column groups of dK, dV and dQ
+// (phase 2); the warps are 4 key (row) groups of 16 times the column
+// groups, and phase 1 gives each column group one of S and dP.
+// tests/test_torch_flash_bwd_split.py reads these lines.
+constexpr int kBTWide = 64;
+constexpr int kBSWide = 16;
+constexpr int kBColsWide = 2;
+constexpr int kBWarpsWide = kBTWide / 16 * kBColsWide;
+static_assert(kBColsWide == 2, "phase 1 gives each column group S or dP");
+static_assert(kBSWide % 8 == 0 && kBTWide % 16 == 0, "mma tiles");
+
+// the cut of a backward kernel at head dim D
+__host__ __device__ constexpr int bwd_bt(int D) {
+  return D >= 128 ? kBTWide : kBT;
+}
+__host__ __device__ constexpr int bwd_bs(int D) {
+  return D >= 128 ? kBSWide : kBS;
+}
+__host__ __device__ constexpr int bwd_threads(int D) {
+  return D >= 128 ? kBWarpsWide * 32 : kBThreads;
+}
+__host__ __device__ constexpr int bwd_min_blocks(int D) {
+  return D >= 128 ? 1 : kBMinBlocks;
+}
+// the D >= 128 kernels' shared p^T and ds^T (or s and ds) tiles, rows
+// padded to kBSWide + 8 floats: the paired float2 loads of phase 2 and the
+// stores of phase 1 are free of bank conflicts
+constexpr int kLdpWide = kBSWide + 8;
+__host__ __device__ constexpr int bwd_scratch_floats(int D) {
+  return D >= 128 ? 2 * kBTWide * kLdpWide : 0;
+}
 
 struct BwdParams {
   const float* q;
@@ -2496,7 +2549,7 @@ __device__ __forceinline__ bool my_range(int count, int per, int rank,
 // A split tile: every block stores its fragments `acc` at its rank; the one
 // that draws the last ticket sums all splits in rank order into `acc` and
 // returns true (the others return false). As the crossbar kernels' split.
-template <int NF>
+template <int NF, int NT = kBThreads>
 __device__ __forceinline__ bool sum_splits(float (&acc)[NF], float* parts,
                                            int* ticket, int splits, int rank,
                                            bool* s_last) {
@@ -2506,7 +2559,7 @@ __device__ __forceinline__ bool sum_splits(float (&acc)[NF], float* parts,
   const int tid = threadIdx.x;
 #pragma unroll
   for (int i = 0; i < NQ; ++i)
-    frags[(rank * kBThreads + tid) * NQ + i] =
+    frags[(rank * NT + tid) * NQ + i] =
         make_float4(acc[4 * i], acc[4 * i + 1], acc[4 * i + 2],
                     acc[4 * i + 3]);
   __syncthreads();
@@ -2519,7 +2572,7 @@ __device__ __forceinline__ bool sum_splits(float (&acc)[NF], float* parts,
     float4 v[NQ];
 #pragma unroll
     for (int i = 0; i < NQ; ++i)   // L2 (__ldcg: L1 is not coherent)
-      v[i] = __ldcg(frags + (q * kBThreads + tid) * NQ + i);
+      v[i] = __ldcg(frags + (q * NT + tid) * NQ + i);
 #pragma unroll
     for (int i = 0; i < NQ; ++i) {
       acc[4 * i] += v[i].x;
@@ -2554,56 +2607,42 @@ __device__ __forceinline__ void p_and_ds(const BwdParams& p, int qp, int kp,
 // lse, D_i and positions; dq streams K and V rows with their positions.
 template <int D>
 __host__ __device__ constexpr int dkdv_stage_floats() {
-  return 2 * kBS * (D + 4) + 3 * kBS;
+  return 2 * bwd_bs(D) * (D + 4) + 3 * bwd_bs(D);
 }
 template <int D>
 __host__ __device__ constexpr int dq_stage_floats() {
-  return 2 * kBS * (D + 4) + kBS;
+  return 2 * bwd_bs(D) * (D + 4) + bwd_bs(D);
 }
 
-// Grid (splits, B * Hkv, key tiles), kBThreads threads: key tile
-// blockIdx.z, so that causal key tile 0 (the one every row sees) starts
-// first. Warp w owns keys 16 w .. 16 w + 15 of the tile. Per query tile
-// (kBS group rows): S^T = (K D^-1/2) Q^T and dP^T = V dO^T with keys as
-// the mma rows (8-row n-steps, d the reduction), then p and ds in the
-// accumulators, whose layout is the A operand of dV += P^T dO and
-// dK += dS^T q (the rows of a k8 step permuted: logical k t is row 2t,
-// k t + 4 row 2t + 1); dK takes its D^-1/2 at the end.
-template <int D>
-__global__ void __launch_bounds__(kBThreads, kBMinBlocks)
-flash_bwd_dkdv_kernel(const BwdParams p) {
-  constexpr int LD = D + 4, KS = D / 8, NR = kBS / 8;
-  constexpr int kStageF = dkdv_stage_floats<D>();
-  extern __shared__ __align__(16) float smem[];
-  float* ks = smem;                   // K [64][LD]
-  float* vs = ks + kBT * LD;          // V [64][LD]
-  float* ring = vs + kBT * LD;        // 2 stages: q, dout, lse, D_i, q_pos
-  int* live = reinterpret_cast<int*>(ring + 2 * kStageF);   // [n_str]
-  __shared__ int kpos_s[kBT], s_kmin, s_kmax, s_count;
-  __shared__ bool s_last;
+// kv head (b, h)'s key s: its K/V offset (-1 past S)
+__device__ __forceinline__ long long key_off(const BwdParams& p, int b,
+                                             int h, int s, int D) {
+  return s < p.S ? ((static_cast<long long>(b) * p.S + s) * p.Hkv + h) * D
+                 : -1;
+}
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int rank = blockIdx.x, bh = blockIdx.y, kt = blockIdx.z;
-  const int b = bh / p.Hkv, h = bh - b * p.Hkv;
-  const int s0 = kt * kBT;
-
-  // this tile's K and V (zeros past S) land while the row tiles are listed
-  auto key_off = [&](int r) -> long long {
-    const int s = s0 + r;
-    return s < p.S ? ((static_cast<long long>(b) * p.S + s) * p.Hkv + h) * D
-                   : -1;
-  };
-  tile_async<D, kBT>(ks, p.k, key_off, tid, kBThreads);
-  tile_async<D, kBT>(vs, p.v, key_off, tid, kBThreads);
+// The dk/dv kernels' start: K and V of keys s0 .. s0 + BT - 1 of kv head
+// (b, h) (zeros past S) by cp.async into ks / vs (committed, not waited
+// for), their positions into kpos_s, then the streamed query tiles (BS
+// group rows each) holding a row that may see one of these keys, listed in
+// `live` in tile order; returns their count.
+template <int D, int BT, int BS, int NT>
+__device__ __forceinline__ int key_tile_and_rows(const BwdParams& p, int b,
+                                                 int h, int s0, float* ks,
+                                                 float* vs, int* kpos_s,
+                                                 int* live) {
+  __shared__ int s_kmin, s_kmax, s_count;
+  const int tid = threadIdx.x;
+  auto off = [&](int r) { return key_off(p, b, h, s0 + r, D); };
+  tile_async<D, BT>(ks, p.k, off, tid, NT);
+  tile_async<D, BT>(vs, p.v, off, tid, NT);
   cp_async_commit();
-
   if (tid == 0) {
     s_kmin = INT_MAX;
     s_kmax = INT_MIN;
   }
   __syncthreads();
-  if (tid < kBT) {
+  if (tid < BT) {
     const int s = s0 + tid;
     const int kp = s < p.S ? p.kv_pos[static_cast<size_t>(b) * p.S + s] : -1;
     kpos_s[tid] = kp;
@@ -2614,12 +2653,9 @@ flash_bwd_dkdv_kernel(const BwdParams p) {
   }
   __syncthreads();
   const int kmin = s_kmin, kmax = s_kmax;
-  const int kw = 16 * warp;   // this warp's keys: kw .. kw + 15
-  const int kp[2] = {kpos_s[kw + g], kpos_s[kw + g + 8]};
-  // the query tiles holding a row that may see a key of this tile
-  for (int i = tid; i < p.n_str; i += kBThreads) {
-    const int t0 = i * kBS / p.G;
-    const int t1 = (min((i + 1) * kBS, p.rows) - 1) / p.G;
+  for (int i = tid; i < p.n_str; i += NT) {
+    const int t0 = i * BS / p.G;
+    const int t1 = (min((i + 1) * BS, p.rows) - 1) / p.G;
     bool any = false;
     for (int tq = t0; tq <= t1; ++tq) {
       const int pos = p.q_pos[static_cast<size_t>(b) * p.T + tq];
@@ -2628,7 +2664,113 @@ flash_bwd_dkdv_kernel(const BwdParams p) {
     }
     live[i] = any;
   }
-  const int count = compact(live, p.n_str, &s_count);
+  return compact(live, p.n_str, &s_count);
+}
+
+// cp.async of group rows R0 .. R0 + BS - 1 of kv head (b, h) into one
+// stage of the dk/dv kernels' ring: q and dout [BS][D + 4] (zeros past the
+// group's rows), then lse, D_i and q_pos [BS] each
+template <int D, int BS, int NT>
+__device__ __forceinline__ void issue_rows(const BwdParams& p, int b, int h,
+                                           int R0, float* stage) {
+  const int tid = threadIdx.x;
+  float* qs = stage;
+  float* dos = qs + BS * (D + 4);
+  float* lse_s = dos + BS * (D + 4);
+  float* del_s = lse_s + BS;
+  int* qpos_s = reinterpret_cast<int*>(del_s + BS);
+  auto off = [&](int r) { return row_qoff(p, b, h, R0 + r, D); };
+  tile_async<D, BS>(qs, p.q, off, tid, NT);
+  tile_async<D, BS>(dos, p.dout, off, tid, NT);
+  for (int r = tid; r < BS; r += NT) {
+    const RowRef ref = row_ref(p, b, h, R0 + r, D);
+    if (R0 + r < p.rows) {
+      cp_async4(lse_s + r, p.lse + ref.loff);
+      cp_async4(del_s + r, p.delta + ref.loff);
+    } else {
+      lse_s[r] = 0.f;
+      del_s[r] = 0.f;
+    }
+    qpos_s[r] = ref.pos;
+  }
+}
+
+// The key tiles (BS keys each) holding a key that some row with a
+// position in [qmin, qmax] may see, listed in `live` in tile order (the
+// dq kernels); returns their count.
+template <int BS, int NT>
+__device__ __forceinline__ int live_key_tiles(const BwdParams& p, int b,
+                                              int qmin, int qmax,
+                                              int* live) {
+  __shared__ int s_count;
+  for (int i = threadIdx.x; i < p.n_str; i += NT) {
+    const int n = min(BS, p.S - i * BS);
+    const int* kp = p.kv_pos + static_cast<size_t>(b) * p.S + i * BS;
+    bool any = false;
+#pragma unroll 8
+    for (int j = 0; j < n; ++j) {
+      const int pos = kp[j];
+      any |= pos >= 0 && pos <= qmax &&
+             (p.window <= 0 || static_cast<long long>(pos) >
+                                   static_cast<long long>(qmin) - p.window);
+    }
+    live[i] = any;
+  }
+  return compact(live, p.n_str, &s_count);
+}
+
+// cp.async of keys s0 .. s0 + BS - 1 of kv head (b, h) into one stage of
+// the dq kernels' ring: K and V [BS][D + 4] (zeros past S), then kv_pos
+// [BS] (-1 past S)
+template <int D, int BS, int NT>
+__device__ __forceinline__ void issue_keys(const BwdParams& p, int b, int h,
+                                           int s0, float* stage) {
+  const int tid = threadIdx.x;
+  float* kst = stage;
+  float* vst = kst + BS * (D + 4);
+  int* kpos_s = reinterpret_cast<int*>(vst + BS * (D + 4));
+  auto off = [&](int r) { return key_off(p, b, h, s0 + r, D); };
+  tile_async<D, BS>(kst, p.k, off, tid, NT);
+  tile_async<D, BS>(vst, p.v, off, tid, NT);
+  for (int r = tid; r < BS; r += NT) {
+    if (s0 + r < p.S)
+      cp_async4(kpos_s + r, p.kv_pos + static_cast<size_t>(b) * p.S + s0 + r);
+    else
+      kpos_s[r] = -1;
+  }
+}
+
+// Head dims up to 64, dk/dv: grid (splits, B * Hkv, key tiles), kBThreads
+// threads: key tile blockIdx.z, so that causal key tile 0 (the one every
+// row sees) starts first. Warp w owns keys 16 w .. 16 w + 15 of the tile. Per query tile
+// (kBS group rows): S^T = (K D^-1/2) Q^T and dP^T = V dO^T with keys as
+// the mma rows (8-row n-steps, d the reduction), then p and ds in the
+// accumulators, whose layout is the A operand of dV += P^T dO and
+// dK += dS^T q (the rows of a k8 step permuted: logical k t is row 2t,
+// k t + 4 row 2t + 1); dK takes its D^-1/2 at the end.
+template <int D>
+__device__ __forceinline__ void dkdv_narrow(const BwdParams& p) {
+  constexpr int LD = D + 4, KS = D / 8, NR = kBS / 8;
+  constexpr int kStageF = dkdv_stage_floats<D>();
+  extern __shared__ __align__(16) float smem[];
+  float* ks = smem;                   // K [64][LD]
+  float* vs = ks + kBT * LD;          // V [64][LD]
+  float* ring = vs + kBT * LD;        // 2 stages: q, dout, lse, D_i, q_pos
+  int* live = reinterpret_cast<int*>(ring + 2 * kStageF);   // [n_str]
+  __shared__ int kpos_s[kBT];
+  __shared__ bool s_last;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int rank = blockIdx.x, bh = blockIdx.y, kt = blockIdx.z;
+  const int b = bh / p.Hkv, h = bh - b * p.Hkv;
+  const int s0 = kt * kBT;
+
+  // this tile's K and V land while the row tiles are listed
+  const int count = key_tile_and_rows<D, kBT, kBS, kBThreads>(
+      p, b, h, s0, ks, vs, kpos_s, live);
+  const int kw = 16 * warp;   // this warp's keys: kw .. kw + 15
+  const int kp[2] = {kpos_s[kw + g], kpos_s[kw + g + 8]};
   int splits, i0, i1;
   if (!my_range(count, p.per, rank, splits, i0, i1)) {
     cp_async_wait<0>();
@@ -2636,26 +2778,7 @@ flash_bwd_dkdv_kernel(const BwdParams p) {
   }
 
   auto issue = [&](int tile, int st) {
-    float* qs = ring + st * kStageF;
-    float* dos = qs + kBS * LD;
-    float* lse_s = dos + kBS * LD;
-    float* del_s = lse_s + kBS;
-    int* qpos_s = reinterpret_cast<int*>(del_s + kBS);
-    const int R0 = tile * kBS;
-    auto row_off = [&](int r) { return row_qoff(p, b, h, R0 + r, D); };
-    tile_async<D, kBS>(qs, p.q, row_off, tid, kBThreads);
-    tile_async<D, kBS>(dos, p.dout, row_off, tid, kBThreads);
-    for (int r = tid; r < kBS; r += kBThreads) {
-      const RowRef ref = row_ref(p, b, h, R0 + r, D);
-      if (R0 + r < p.rows) {
-        cp_async4(lse_s + r, p.lse + ref.loff);
-        cp_async4(del_s + r, p.delta + ref.loff);
-      } else {
-        lse_s[r] = 0.f;
-        del_s[r] = 0.f;
-      }
-      qpos_s[r] = ref.pos;
-    }
+    issue_rows<D, kBS, kBThreads>(p, b, h, tile * kBS, ring + st * kStageF);
   };
 
   if (i0 < i1) issue(live[i0], 0);
@@ -2773,15 +2896,14 @@ flash_bwd_dkdv_kernel(const BwdParams p) {
   }
 }
 
-// Grid (splits, B * Hkv, row tiles), kBThreads threads: row tile
-// n_stat - 1 - blockIdx.z, so that the causal row tiles that see the most
-// keys start first. Warp w owns group rows 16 w .. 16 w + 15 of the tile.
+// Head dims up to 64, dq: grid (splits, B * Hkv, row tiles), kBThreads
+// threads: row tile n_stat - 1 - blockIdx.z, so that the causal row tiles
+// that see the most keys start first. Warp w owns group rows 16 w .. 16 w + 15 of the tile.
 // Per key tile (kBS keys): S = (q D^-1/2) K^T and dP = dO V^T (rows as the
 // mma rows), then ds in the accumulators, the A operand of dQ += dS K
 // (keys of a k8 step permuted as in dk/dv).
 template <int D>
-__global__ void __launch_bounds__(kBThreads, kBMinBlocks)
-flash_bwd_dq_kernel(const BwdParams p) {
+__device__ __forceinline__ void dq_narrow(const BwdParams& p) {
   constexpr int LD = D + 4, KS = D / 8, NK = kBS / 8;
   constexpr int kStageF = dq_stage_floats<D>();
   extern __shared__ __align__(16) float smem[];
@@ -2789,7 +2911,7 @@ flash_bwd_dq_kernel(const BwdParams p) {
   float* dos = qs + kBT * LD;         // dout [64][LD]
   float* ring = dos + kBT * LD;       // 2 stages: K, V, kv_pos
   int* live = reinterpret_cast<int*>(ring + 2 * kStageF);   // [n_str]
-  __shared__ int s_qmin, s_qmax, s_count;
+  __shared__ int s_qmin, s_qmax;
   __shared__ bool s_last;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -2828,22 +2950,9 @@ flash_bwd_dq_kernel(const BwdParams p) {
     }
   }
   __syncthreads();
-  const int qmin = s_qmin, qmax = s_qmax;
   // the key tiles holding a key that some row of this tile may see
-  for (int i = tid; i < p.n_str; i += kBThreads) {
-    const int n = min(kBS, p.S - i * kBS);
-    const int* kp = p.kv_pos + static_cast<size_t>(b) * p.S + i * kBS;
-    bool any = false;
-#pragma unroll 8
-    for (int j = 0; j < n; ++j) {
-      const int pos = kp[j];
-      any |= pos >= 0 && pos <= qmax &&
-             (p.window <= 0 || static_cast<long long>(pos) >
-                                   static_cast<long long>(qmin) - p.window);
-    }
-    live[i] = any;
-  }
-  const int count = compact(live, p.n_str, &s_count);
+  const int count = live_key_tiles<kBS, kBThreads>(p, b, s_qmin, s_qmax,
+                                                   live);
   int splits, i0, i1;
   if (!my_range(count, p.per, rank, splits, i0, i1)) {
     cp_async_wait<0>();
@@ -2851,25 +2960,7 @@ flash_bwd_dq_kernel(const BwdParams p) {
   }
 
   auto issue = [&](int tile, int st) {
-    float* kst = ring + st * kStageF;
-    float* vst = kst + kBS * LD;
-    int* kpos_s = reinterpret_cast<int*>(vst + kBS * LD);
-    const int s0 = tile * kBS;
-    auto key_off = [&](int r) -> long long {
-      const int s = s0 + r;
-      return s < p.S
-                 ? ((static_cast<long long>(b) * p.S + s) * p.Hkv + h) * D
-                 : -1;
-    };
-    tile_async<D, kBS>(kst, p.k, key_off, tid, kBThreads);
-    tile_async<D, kBS>(vst, p.v, key_off, tid, kBThreads);
-    for (int r = tid; r < kBS; r += kBThreads) {
-      if (s0 + r < p.S)
-        cp_async4(kpos_s + r,
-                  p.kv_pos + static_cast<size_t>(b) * p.S + s0 + r);
-      else
-        kpos_s[r] = -1;
-    }
+    issue_keys<D, kBS, kBThreads>(p, b, h, tile * kBS, ring + st * kStageF);
   };
 
   if (i0 < i1) issue(live[i0], 0);
@@ -2967,6 +3058,376 @@ flash_bwd_dq_kernel(const BwdParams p) {
   }
 }
 
+// Head dims 128 and 256, dk/dv: grid (splits, B * Hkv, key tiles) as
+// dkdv_narrow, kBWarpsWide warps. A block owns kBTWide keys (K and V stay
+// in shared memory) and streams kBSWide group rows a tile. Warp w: keys
+// kw = 16 (w % 4) .. kw + 15; in phase 1 it computes S^T = (K D^-1/2) Q^T
+// (w < 4) or dP^T = V dO^T (w >= 4) for its keys over all D and stores it
+// to sp (sds); then every thread turns its share of the tile into p (in
+// sp) and ds (in sds); in phase 2 the warp accumulates dV += P^T dO and
+// dK += dS^T q for its keys and the columns c0 .. c0 + D / 2 - 1, c0 =
+// (w / 4) D / 2. dK takes its D^-1/2 at the end.
+template <int D>
+__device__ __forceinline__ void dkdv_wide(const BwdParams& p) {
+  constexpr int BT = kBTWide, BS = kBSWide, NT = kBWarpsWide * 32;
+  constexpr int LD = D + 4, LDP = kLdpWide, KS = D / 8, NR = BS / 8;
+  constexpr int JC = D / kBColsWide / 8;   // 8-column n-steps of a warp
+  constexpr int kStageF = dkdv_stage_floats<D>();
+  extern __shared__ __align__(16) float smem[];
+  float* ks = smem;                   // K [BT][LD]
+  float* vs = ks + BT * LD;           // V [BT][LD]
+  float* ring = vs + BT * LD;         // 2 stages: q, dout, lse, D_i, q_pos
+  float* sp = ring + 2 * kStageF;     // S^T, then P^T [BT][LDP]
+  float* sds = sp + BT * LDP;         // dP^T, then dS^T [BT][LDP]
+  int* live = reinterpret_cast<int*>(sds + BT * LDP);   // [n_str]
+  __shared__ int kpos_s[BT];
+  __shared__ bool s_last;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int rank = blockIdx.x, bh = blockIdx.y, kt = blockIdx.z;
+  const int b = bh / p.Hkv, h = bh - b * p.Hkv;
+  const int s0 = kt * BT;
+
+  const int count = key_tile_and_rows<D, BT, BS, NT>(p, b, h, s0, ks, vs,
+                                                     kpos_s, live);
+  int splits, i0, i1;
+  if (!my_range(count, p.per, rank, splits, i0, i1)) {
+    cp_async_wait<0>();
+    return;
+  }
+
+  auto issue = [&](int tile, int st) {
+    issue_rows<D, BS, NT>(p, b, h, tile * BS, ring + st * kStageF);
+  };
+
+  if (i0 < i1) issue(live[i0], 0);
+  cp_async_commit();
+
+  const int kw = 16 * (warp & 3), half = warp >> 2;
+  const int c0 = half * (D / kBColsWide);
+  const float* amat = half ? vs : ks;   // phase 1: K (S^T) or V (dP^T)
+  const float ascale = half ? 1.f : p.scale;
+  float* sout = half ? sds : sp;
+  float dkv[2][JC][4];   // [0]: dK, [1]: dV; (key g (+8), d c0 + 8j + 2t (+1))
+#pragma unroll
+  for (int a = 0; a < 2; ++a)
+#pragma unroll
+    for (int j = 0; j < JC; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dkv[a][j][e] = 0.f;
+
+  for (int i = i0; i < i1; ++i) {
+    const int st = (i - i0) & 1;
+    if (i + 1 < i1) issue(live[i + 1], st ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();   // K, V and query tile i have landed for every thread
+    const float* qs = ring + st * kStageF;
+    const float* dos = qs + BS * LD;
+    const float* lse_s = dos + BS * LD;
+    const float* del_s = lse_s + BS;
+    const int* qpos_s = reinterpret_cast<const int*>(del_s + BS);
+    const float* bmat = half ? dos : qs;
+
+    // phase 1: this warp's 16 keys x BS rows of S^T or dP^T
+    float c[NR][4];   // (key g (+8), row 8n + 2t (+1))
+#pragma unroll
+    for (int n = 0; n < NR; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) c[n][e] = 0.f;
+#pragma unroll 4
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t ab[4], asm_[4];
+      const float* aa = amat + (kw + g) * LD + 8 * kk + t;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {   // (g, t), (g + 8, t), (g, t + 4), ...
+        const int o = (e & 1) * 8 * LD + (e >> 1) * 4;
+        split_tf32(aa[o] * ascale, ab[e], asm_[e]);
+      }
+#pragma unroll
+      for (int n = 0; n < NR; ++n) {
+        const float* br = bmat + (8 * n + g) * LD + 8 * kk + t;
+        uint32_t bb0, bs0, bb1, bs1;
+        split_tf32(br[0], bb0, bs0);
+        split_tf32(br[4], bb1, bs1);
+        mma3(c[n], ab, asm_, bb0, bb1, bs0, bs1);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < NR; ++n) {
+      *reinterpret_cast<float2*>(sout + (kw + g) * LDP + 8 * n + 2 * t) =
+          make_float2(c[n][0], c[n][1]);
+      *reinterpret_cast<float2*>(sout + (kw + g + 8) * LDP + 8 * n + 2 * t) =
+          make_float2(c[n][2], c[n][3]);
+    }
+    __syncthreads();
+    // p and ds in place, the tile shared out over the threads
+    for (int x = tid; x < BT * BS; x += NT) {
+      const int key = x / BS, r = x - key * BS;
+      float s = sp[key * LDP + r], dp = sds[key * LDP + r];
+      p_and_ds(p, qpos_s[r], kpos_s[key], lse_s[r], del_s[r], s, dp);
+      sp[key * LDP + r] = s;
+      sds[key * LDP + r] = dp;
+    }
+    __syncthreads();
+    // phase 2: dV += P^T dO and dK += dS^T q, 8 query rows a k step (the
+    // rows of a step paired: logical k t is row 2t, k t + 4 row 2t + 1)
+#pragma unroll
+    for (int kk = 0; kk < NR; ++kk) {
+      uint32_t pb[4], ps[4], db[4], dsm[4];
+      const int o = (kw + g) * LDP + 8 * kk + 2 * t;
+      const float2 p0 = *reinterpret_cast<const float2*>(sp + o);
+      const float2 p1 = *reinterpret_cast<const float2*>(sp + o + 8 * LDP);
+      const float2 d0 = *reinterpret_cast<const float2*>(sds + o);
+      const float2 d1 = *reinterpret_cast<const float2*>(sds + o + 8 * LDP);
+      split_tf32(p0.x, pb[0], ps[0]);
+      split_tf32(p1.x, pb[1], ps[1]);
+      split_tf32(p0.y, pb[2], ps[2]);
+      split_tf32(p1.y, pb[3], ps[3]);
+      split_tf32(d0.x, db[0], dsm[0]);
+      split_tf32(d1.x, db[1], dsm[1]);
+      split_tf32(d0.y, db[2], dsm[2]);
+      split_tf32(d1.y, db[3], dsm[3]);
+      const float* o0 = dos + (8 * kk + 2 * t) * LD + c0 + g;
+      const float* q0 = qs + (8 * kk + 2 * t) * LD + c0 + g;
+#pragma unroll
+      for (int j = 0; j < JC; ++j) {
+        uint32_t bb0, bs0, bb1, bs1;
+        split_tf32(o0[8 * j], bb0, bs0);
+        split_tf32(o0[LD + 8 * j], bb1, bs1);
+        mma3(dkv[1][j], pb, ps, bb0, bb1, bs0, bs1);
+        split_tf32(q0[8 * j], bb0, bs0);
+        split_tf32(q0[LD + 8 * j], bb1, bs1);
+        mma3(dkv[0][j], db, dsm, bb0, bb1, bs0, bs1);
+      }
+    }
+    __syncthreads();   // every warp is done with this stage and sp / sds
+  }
+  cp_async_wait<0>();
+
+  if (splits > 1) {
+    const size_t tile = static_cast<size_t>(bh) * p.n_stat + kt;
+    float flat[8 * JC];
+#pragma unroll
+    for (int i = 0; i < 8 * JC; ++i)
+      flat[i] = dkv[i / (4 * JC)][(i / 4) % JC][i % 4];
+    if (!sum_splits<8 * JC, NT>(
+            flat, p.partials + tile * gridDim.x * NT * (8 * JC),
+            p.tickets + tile, splits, rank, &s_last))
+      return;
+#pragma unroll
+    for (int i = 0; i < 8 * JC; ++i)
+      dkv[i / (4 * JC)][(i / 4) % JC][i % 4] = flat[i];
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int s = s0 + kw + g + 8 * r;
+    if (s >= p.S) continue;
+    const size_t off =
+        ((static_cast<size_t>(b) * p.S + s) * p.Hkv + h) * D + c0;
+#pragma unroll
+    for (int j = 0; j < JC; ++j) {
+      *reinterpret_cast<float2*>(p.dk + off + 8 * j + 2 * t) = make_float2(
+          dkv[0][j][2 * r] * p.scale, dkv[0][j][2 * r + 1] * p.scale);
+      *reinterpret_cast<float2*>(p.dv + off + 8 * j + 2 * t) =
+          make_float2(dkv[1][j][2 * r], dkv[1][j][2 * r + 1]);
+    }
+  }
+}
+
+// Head dims 128 and 256, dq: grid (splits, B * Hkv, row tiles) as
+// dq_narrow, kBWarpsWide warps. A block owns kBTWide group rows (q and dO
+// stay in shared memory) and streams kBSWide keys a tile. Warp w: rows rw
+// = 16 (w % 4) .. rw + 15; phase 1: S = (q D^-1/2) K^T (w < 4) or dP = dO
+// V^T (w >= 4) for its rows, stored to sp (sds); then ds in sds; phase 2:
+// dQ += dS K for its rows and the columns c0 .. c0 + D / 2 - 1.
+template <int D>
+__device__ __forceinline__ void dq_wide(const BwdParams& p) {
+  constexpr int BT = kBTWide, BS = kBSWide, NT = kBWarpsWide * 32;
+  constexpr int LD = D + 4, LDP = kLdpWide, KS = D / 8, NK = BS / 8;
+  constexpr int JC = D / kBColsWide / 8;
+  constexpr int kStageF = dq_stage_floats<D>();
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;                   // q [BT][LD]
+  float* dos = qs + BT * LD;          // dout [BT][LD]
+  float* ring = dos + BT * LD;        // 2 stages: K, V, kv_pos
+  float* sp = ring + 2 * kStageF;     // S [BT][LDP]
+  float* sds = sp + BT * LDP;         // dP, then dS [BT][LDP]
+  int* live = reinterpret_cast<int*>(sds + BT * LDP);   // [n_str]
+  __shared__ int qpos_s[BT], s_qmin, s_qmax;
+  __shared__ float lse_s[BT], del_s[BT];
+  __shared__ bool s_last;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int rank = blockIdx.x, bh = blockIdx.y;
+  const int rt = p.n_stat - 1 - static_cast<int>(blockIdx.z);
+  const int b = bh / p.Hkv, h = bh - b * p.Hkv;
+  const int R0 = rt * BT;
+
+  auto row_off = [&](int r) { return row_qoff(p, b, h, R0 + r, D); };
+  tile_async<D, BT>(qs, p.q, row_off, tid, NT);
+  tile_async<D, BT>(dos, p.dout, row_off, tid, NT);
+  cp_async_commit();
+
+  if (tid == 0) {
+    s_qmin = INT_MAX;
+    s_qmax = INT_MIN;
+  }
+  __syncthreads();
+  if (tid < BT) {
+    const RowRef ref = row_ref(p, b, h, R0 + tid, D);
+    const bool ok = R0 + tid < p.rows;
+    qpos_s[tid] = ref.pos;
+    lse_s[tid] = ok ? p.lse[ref.loff] : 0.f;
+    del_s[tid] = ok ? p.delta[ref.loff] : 0.f;
+    if (ref.pos >= 0) {
+      atomicMin(&s_qmin, ref.pos);
+      atomicMax(&s_qmax, ref.pos);
+    }
+  }
+  __syncthreads();
+  const int count = live_key_tiles<BS, NT>(p, b, s_qmin, s_qmax, live);
+  int splits, i0, i1;
+  if (!my_range(count, p.per, rank, splits, i0, i1)) {
+    cp_async_wait<0>();
+    return;
+  }
+
+  auto issue = [&](int tile, int st) {
+    issue_keys<D, BS, NT>(p, b, h, tile * BS, ring + st * kStageF);
+  };
+
+  if (i0 < i1) issue(live[i0], 0);
+  cp_async_commit();
+
+  const int rw = 16 * (warp & 3), half = warp >> 2;
+  const int c0 = half * (D / kBColsWide);
+  const float* amat = half ? dos : qs;   // phase 1: q (S) or dO (dP)
+  const float ascale = half ? 1.f : p.scale;
+  float* sout = half ? sds : sp;
+  float dq[JC][4];   // (row g (+8), d c0 + 8j + 2t (+1))
+#pragma unroll
+  for (int j = 0; j < JC; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[j][e] = 0.f;
+
+  for (int i = i0; i < i1; ++i) {
+    const int st = (i - i0) & 1;
+    if (i + 1 < i1) issue(live[i + 1], st ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();   // q, dout and key tile i have landed
+    const float* kst = ring + st * kStageF;
+    const float* vst = kst + BS * LD;
+    const int* kpos_s = reinterpret_cast<const int*>(vst + BS * LD);
+    const float* bmat = half ? vst : kst;
+
+    float c[NK][4];   // (row g (+8), key 8n + 2t (+1))
+#pragma unroll
+    for (int n = 0; n < NK; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) c[n][e] = 0.f;
+#pragma unroll 4
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t ab[4], asm_[4];
+      const float* aa = amat + (rw + g) * LD + 8 * kk + t;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int o = (e & 1) * 8 * LD + (e >> 1) * 4;
+        split_tf32(aa[o] * ascale, ab[e], asm_[e]);
+      }
+#pragma unroll
+      for (int n = 0; n < NK; ++n) {
+        const float* br = bmat + (8 * n + g) * LD + 8 * kk + t;
+        uint32_t bb0, bs0, bb1, bs1;
+        split_tf32(br[0], bb0, bs0);
+        split_tf32(br[4], bb1, bs1);
+        mma3(c[n], ab, asm_, bb0, bb1, bs0, bs1);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < NK; ++n) {
+      *reinterpret_cast<float2*>(sout + (rw + g) * LDP + 8 * n + 2 * t) =
+          make_float2(c[n][0], c[n][1]);
+      *reinterpret_cast<float2*>(sout + (rw + g + 8) * LDP + 8 * n + 2 * t) =
+          make_float2(c[n][2], c[n][3]);
+    }
+    __syncthreads();
+    for (int x = tid; x < BT * BS; x += NT) {
+      const int r = x / BS, key = x - r * BS;
+      float s = sp[r * LDP + key], dp = sds[r * LDP + key];
+      p_and_ds(p, qpos_s[r], kpos_s[key], lse_s[r], del_s[r], s, dp);
+      sds[r * LDP + key] = dp;
+    }
+    __syncthreads();
+    // phase 2: dQ += dS K, 8 keys a k step (paired as in dkdv_wide)
+#pragma unroll
+    for (int kk = 0; kk < NK; ++kk) {
+      uint32_t db[4], dsm[4];
+      const int o = (rw + g) * LDP + 8 * kk + 2 * t;
+      const float2 d0 = *reinterpret_cast<const float2*>(sds + o);
+      const float2 d1 = *reinterpret_cast<const float2*>(sds + o + 8 * LDP);
+      split_tf32(d0.x, db[0], dsm[0]);
+      split_tf32(d1.x, db[1], dsm[1]);
+      split_tf32(d0.y, db[2], dsm[2]);
+      split_tf32(d1.y, db[3], dsm[3]);
+      const float* k0 = kst + (8 * kk + 2 * t) * LD + c0 + g;
+#pragma unroll
+      for (int j = 0; j < JC; ++j) {
+        uint32_t bb0, bs0, bb1, bs1;
+        split_tf32(k0[8 * j], bb0, bs0);
+        split_tf32(k0[LD + 8 * j], bb1, bs1);
+        mma3(dq[j], db, dsm, bb0, bb1, bs0, bs1);
+      }
+    }
+    __syncthreads();   // every warp is done with this stage and sp / sds
+  }
+  cp_async_wait<0>();
+
+  if (splits > 1) {
+    const size_t tile = static_cast<size_t>(bh) * p.n_stat + rt;
+    float flat[4 * JC];
+#pragma unroll
+    for (int i = 0; i < 4 * JC; ++i) flat[i] = dq[i / 4][i % 4];
+    if (!sum_splits<4 * JC, NT>(
+            flat, p.partials + tile * gridDim.x * NT * (4 * JC),
+            p.tickets + tile, splits, rank, &s_last))
+      return;
+#pragma unroll
+    for (int i = 0; i < 4 * JC; ++i) dq[i / 4][i % 4] = flat[i];
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const long long off = row_qoff(p, b, h, R0 + rw + g + 8 * r, D);
+    if (off < 0) continue;
+#pragma unroll
+    for (int j = 0; j < JC; ++j)
+      *reinterpret_cast<float2*>(p.dq + off + c0 + 8 * j + 2 * t) =
+          make_float2(dq[j][2 * r] * p.scale, dq[j][2 * r + 1] * p.scale);
+  }
+}
+
+// The backward kernels: the D <= 64 bodies, or the D >= 128 ones
+template <int D>
+__global__ void __launch_bounds__(bwd_threads(D), bwd_min_blocks(D))
+flash_bwd_dkdv_kernel(const BwdParams p) {
+  if constexpr (D >= 128)
+    dkdv_wide<D>(p);
+  else
+    dkdv_narrow<D>(p);
+}
+
+template <int D>
+__global__ void __launch_bounds__(bwd_threads(D), bwd_min_blocks(D))
+flash_bwd_dq_kernel(const BwdParams p) {
+  if constexpr (D >= 128)
+    dq_wide<D>(p);
+  else
+    dq_narrow<D>(p);
+}
+
 // How one pass of a backward call is cut: its stationary and streamed
 // tiles, the streamed tiles a block takes at most, and the most splits of
 // a stationary tile.
@@ -2974,17 +3435,18 @@ struct BwdPass {
   int n_stat, n_str, per, splits;
 };
 
-// A block takes at most `per` streamed tiles, so that the blocks of a
-// causal call (about half of the tile pairs live) come to about
-// kBWaves for every SM: the longest lists (key tile 0, the last
-// row tiles) are cut to the size of the rest, and the blocks fill the card
-// in about equal waves.
-BwdPass bwd_pass(long long bh, int n_stat, int n_str) {
+// A block takes at most `per` streamed tiles (of `bs` rows or keys), so
+// that the blocks of a causal call (about half of the tile pairs live)
+// come to about kBWaves for every SM: the longest lists (key tile 0, the
+// last row tiles) are cut to the size of the rest, and the blocks fill the
+// card in about equal waves; and no block sums more than kBMaxRows.
+BwdPass bwd_pass(long long bh, int n_stat, int n_str, int bs) {
   BwdPass ps{n_stat, n_str, 1, 1};
   long long pairs = bh * n_stat * n_str / 2;
   pairs = pairs > 0 ? pairs : 1;
   const long long want = static_cast<long long>(kBWaves) * sm_count();
-  const long long per = (pairs + want - 1) / want;
+  long long per = (pairs + want - 1) / want;
+  per = per < kBMaxRows / bs ? per : kBMaxRows / bs;
   ps.per = static_cast<int>(per < n_str ? per : n_str);
   ps.splits = (n_str + ps.per - 1) / ps.per;
   return ps;
@@ -2998,17 +3460,19 @@ struct BwdPlan {
 BwdPlan bwd_plan(int B, int T, int Hq, int Hkv, int S, int D) {
   const long long bh = static_cast<long long>(B) * Hkv;
   const long long rows = static_cast<long long>(T) * (Hq / Hkv);
+  const int BT = bwd_bt(D), BS = bwd_bs(D);
   BwdPlan pl;
-  pl.kv = bwd_pass(bh, static_cast<int>((S + kBT - 1) / kBT),
-                   static_cast<int>((rows + kBS - 1) / kBS));
-  pl.q = bwd_pass(bh, static_cast<int>((rows + kBT - 1) / kBT),
-                  static_cast<int>((S + kBS - 1) / kBS));
-  // dk/dv fragments: D floats a thread; dq: D / 2
+  pl.kv = bwd_pass(bh, static_cast<int>((S + BT - 1) / BT),
+                   static_cast<int>((rows + BS - 1) / BS), BS);
+  pl.q = bwd_pass(bh, static_cast<int>((rows + BT - 1) / BT),
+                  static_cast<int>((S + BS - 1) / BS), BS);
+  // a split block's fragments: its tile's dK and dV (2 BT D floats) for
+  // dk/dv, its dQ (BT D) for dq
   const size_t kv = pl.kv.splits > 1 ? static_cast<size_t>(bh) * pl.kv.n_stat *
-                                           pl.kv.splits * kBThreads * D
+                                           pl.kv.splits * 2 * BT * D
                                      : 0;
   const size_t q = pl.q.splits > 1 ? static_cast<size_t>(bh) * pl.q.n_stat *
-                                         pl.q.splits * kBThreads * (D / 2)
+                                         pl.q.splits * BT * D
                                    : 0;
   pl.partials = kv > q ? kv : q;
   const size_t tk = pl.kv.splits > 1 ? static_cast<size_t>(bh) * pl.kv.n_stat
@@ -3025,10 +3489,10 @@ int launch_bwd(BwdParams p, int B, const BwdPlan& pl, cudaStream_t stream) {
   int dev = 0;
   if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64)
     return static_cast<int>(cudaErrorInvalidDevice);
+  constexpr size_t fixed = 2 * bwd_bt(D) * (D + 4) + bwd_scratch_floats(D);
   const size_t smem_kv =
-      (2 * kBT * (D + 4) + 2 * dkdv_stage_floats<D>() + pl.kv.n_str) * 4;
-  const size_t smem_q =
-      (2 * kBT * (D + 4) + 2 * dq_stage_floats<D>() + pl.q.n_str) * 4;
+      (fixed + 2 * dkdv_stage_floats<D>() + pl.kv.n_str) * 4;
+  const size_t smem_q = (fixed + 2 * dq_stage_floats<D>() + pl.q.n_str) * 4;
   if (smem_kv > kSmemMax || smem_q > kSmemMax)
     return static_cast<int>(cudaErrorInvalidValue);
   if (!raised[dev]) {   // allow the most; each launch asks for what it needs
@@ -3047,7 +3511,7 @@ int launch_bwd(BwdParams p, int B, const BwdPlan& pl, cudaStream_t stream) {
   p.n_str = pl.kv.n_str;
   p.per = pl.kv.per;
   flash_bwd_dkdv_kernel<D>
-      <<<dim3(pl.kv.splits, bhkv, pl.kv.n_stat), kBThreads, smem_kv,
+      <<<dim3(pl.kv.splits, bhkv, pl.kv.n_stat), bwd_threads(D), smem_kv,
          stream>>>(p);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -3055,7 +3519,8 @@ int launch_bwd(BwdParams p, int B, const BwdPlan& pl, cudaStream_t stream) {
   p.n_str = pl.q.n_str;
   p.per = pl.q.per;
   flash_bwd_dq_kernel<D>
-      <<<dim3(pl.q.splits, bhkv, pl.q.n_stat), kBThreads, smem_q, stream>>>(p);
+      <<<dim3(pl.q.splits, bhkv, pl.q.n_stat), bwd_threads(D), smem_q,
+         stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -3069,7 +3534,7 @@ extern "C" size_t flash_attention_bwd_workspace(int B, int T, int Hq,
                                                 int Hkv, int S, int D,
                                                 size_t* tickets) {
   *tickets = 0;
-  if (!bwd_shapes_ok(B, T, Hq, Hkv, S, D) || S <= 0) return 0;
+  if (!shapes_ok(B, T, Hq, Hkv, S, D) || S <= 0) return 0;
   const BwdPlan pl = bwd_plan(B, T, Hq, Hkv, S, D);
   *tickets = pl.tickets;
   return pl.partials;
@@ -3093,7 +3558,7 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    void* tickets, size_t n_tickets, int B,
                                    int T, int Hq, int S, int Hkv, int D,
                                    int window, float softcap, void* stream) {
-  if (!bwd_shapes_ok(B, T, Hq, Hkv, S, D) || S <= 0 ||
+  if (!shapes_ok(B, T, Hq, Hkv, S, D) || S <= 0 ||
       static_cast<long long>(B) * Hkv > 65535 ||
       static_cast<long long>(B) * T * Hq > INT_MAX / 64)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -3143,6 +3608,10 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
       return launch_bwd<32>(p, B, pl, st);
     case 64:
       return launch_bwd<64>(p, B, pl, st);
+    case 128:
+      return launch_bwd<128>(p, B, pl, st);
+    case 256:
+      return launch_bwd<256>(p, B, pl, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

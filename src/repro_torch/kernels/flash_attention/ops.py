@@ -9,14 +9,14 @@ the same function with K/V read from one layer's page pool
 K/V read from a sliding-window layer's per-slot ring (B, Hkv, W, D) and
 the chunk's own K/V, in one launch. All give 0 for a row that sees no
 key, as the Pallas kernel does (``ref_attention`` gives the mean of V
-there instead). Head dims ``HEAD_DIMS`` forward, ``BWD_HEAD_DIMS``
-backward. On CUDA tensors the wrappers launch
-``csrc/flash_attention.cu`` (tensor cores in 3xTF32, one block per kv
-head's GQA group and row tile, causal tiles skipped, short query tiles
-split over the context through a workspace, ``kernels.workspace``; at
-head dims 128 and 256 row tiles on wgmma and decode in f32 over a work
-list of the live keys that the kernel derives from ``lens``, mirrored by
-``decode_work_list``); on CPU tensors they run the plain versions.
+there instead). Head dims ``HEAD_DIMS``, forward and backward. On CUDA
+tensors the wrappers launch ``csrc/flash_attention.cu`` (tensor cores in
+3xTF32, one block per kv head's GQA group and row tile, causal tiles
+skipped, short query tiles split over the context through a workspace,
+``kernels.workspace``; at head dims 128 and 256 row tiles on wgmma and
+decode in f32 over a work list of the live keys that the kernel derives
+from ``lens``, mirrored by ``decode_work_list``); on CPU tensors they run
+the plain versions.
 
 Training: q, k or v that need a gradient go through ``FlashAttentionFn``
 on either device. Its forward also gives the per-row log-sum-exp ``lse``
@@ -38,8 +38,7 @@ from repro_torch import kernels
 from repro_torch.kernels import build, workspace
 
 NEG_INF = -1e30
-HEAD_DIMS = (8, 16, 32, 64, 128, 256)   # head dims of the forward kernels
-BWD_HEAD_DIMS = (8, 16, 32, 64)         # and of the backward kernels
+HEAD_DIMS = (8, 16, 32, 64, 128, 256)   # head dims of every kernel here
 _LIB = None
 
 
@@ -429,11 +428,6 @@ def flash_attention_bwd(q, k, v, q_pos, kv_pos, out, lse, dout, *,
                                          dout, window=window, softcap=softcap)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd: no kernel for {q.device}")
-    if q.shape[-1] not in BWD_HEAD_DIMS:
-        raise NotImplementedError(
-            f"flash_attention_bwd takes head_dim in {BWD_HEAD_DIMS}, got "
-            f"{q.shape[-1]}: the backward kernels at head_dim 128 and 256 "
-            f"wait for ROADMAP Queue 1 item 25")
     B, T, Hq, S, Hkv, D = _check_contiguous_args(q, k, v, q_pos, kv_pos)
     for name, t in (("out", out), ("dout", dout)):
         _need(t, name, torch.float32, q.device, 4)

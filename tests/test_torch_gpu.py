@@ -331,7 +331,9 @@ def test_ring_kernel_matches_plain(case, softcap):
 
 
 @pytest.mark.gpu
-def test_flash_refuses_other_head_dims_and_the_backward_above_64():
+def test_flash_refuses_other_head_dims_and_runs_the_backward_at_128():
+    """Head dim 96 has no kernel; at 128 the autograd Function's backward
+    runs the kernels and matches the plain version."""
     dev = _cuda_or_skip()
     q = torch.randn(1, 4, 2, 96, device=dev)
     pos = torch.arange(4, dtype=torch.int32, device=dev)[None].contiguous()
@@ -339,10 +341,19 @@ def test_flash_refuses_other_head_dims_and_the_backward_above_64():
         fa_ops.flash_attention(q, q[:, :, :1].contiguous(),
                                q[:, :, :1].contiguous(), pos, pos)
     q = torch.randn(1, 4, 2, 128, device=dev, requires_grad=True)
-    k = torch.randn(1, 4, 1, 128, device=dev)
+    k = torch.randn(1, 4, 1, 128, device=dev, requires_grad=True)
+    dout = torch.randn(1, 4, 2, 128, device=dev)
+    before = kernels.LAUNCHES["flash_attention_bwd"]
     out = fa_ops.flash_attention(q, k, k, pos, pos)
-    with pytest.raises(NotImplementedError, match="item 25"):
-        out.sum().backward()
+    (out * dout).sum().backward()
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_attention_bwd"] == before + 1
+    o, lse = fa_ops.flash_attention_plain(q.detach(), k.detach(), k.detach(),
+                                          pos, pos, with_lse=True)
+    dq, dk, dv = fa_ops.flash_attention_bwd_plain(
+        q.detach(), k.detach(), k.detach(), pos, pos, o, lse, dout)
+    torch.testing.assert_close(q.grad, dq, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(k.grad, dk + dv, rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.gpu
@@ -1228,15 +1239,22 @@ def _bwd_check(q, k, v, qpos, kpos, dout, window=None, softcap=None):
     return got, (out, lse)
 
 
+# (D, Hq, Hkv) of the backward's small cases: 4/4 and 8/2 at every head
+# dim the narrow (8, 64) and wide (128, 256) kernels take, and gemma2-9b's
+# 16/8 at 256
+FA_BWD_HEADS = [(D, Hq, Hkv) for D in (8, 64, 128, 256)
+                for Hq, Hkv in ((4, 4), (8, 2))] + [(256, 16, 8)]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("window,softcap", FA_FLAGS + [(4, 30.0)])
-@pytest.mark.parametrize("D", [8, 64])
-@pytest.mark.parametrize("Hq,Hkv", [(4, 4), (8, 2)])
+@pytest.mark.parametrize("D,Hq,Hkv", FA_BWD_HEADS)
 @pytest.mark.parametrize("T", [96, 300])
 def test_flash_bwd_kernel_matches_plain(T, Hq, Hkv, D, window, softcap):
     """dq, dk, dv against the plain blocked recompute, from the kernel's own
     forward (out, lse): 1e-4 relative and absolute, as the JAX package
-    holds its custom VJP to ref_attention's gradients."""
+    holds its custom VJP to ref_attention's gradients; the forward's out
+    and lse against the plain forward's."""
     dev = _cuda_or_skip()
     q, k, v, pos, dout = _bwd_inputs(dev, 2, T, Hq, Hkv, D, T + Hq + D)
     _, (out, lse) = _bwd_check(q, k, v, pos, pos, dout, window, softcap)
@@ -1247,24 +1265,32 @@ def test_flash_bwd_kernel_matches_plain(T, Hq, Hkv, D, window, softcap):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("Hq,Hkv", [(32, 8), (16, 16)])
-def test_flash_bwd_kernel_matches_plain_at_the_microbatch(Hq, Hkv):
+@pytest.mark.parametrize("Hq,Hkv,D,softcap", [
+    pytest.param(32, 8, 64, None, id="32-8"),
+    pytest.param(16, 16, 64, None, id="16-16"),
+    pytest.param(16, 8, 256, 50.0, id="gemma2-16-8-256"),
+    pytest.param(32, 8, 128, None, id="mistral-nemo-32-8-128")])
+def test_flash_bwd_kernel_matches_plain_at_the_microbatch(Hq, Hkv, D,
+                                                          softcap):
     """One train microbatch's attention: B = 2, T = S = 512 causal, at
-    llama3.2-1b's 32/8 and the paper models' 16/16 heads (long key and
-    row lists split over blocks)."""
+    llama3.2-1b's 32/8 and the paper models' 16/16 heads, gemma2-9b's 16/8
+    at head dim 256 with its softcap of 50, mistral-nemo-12b's 32/8 at 128
+    (long key and row lists split over blocks)."""
     dev = _cuda_or_skip()
-    q, k, v, pos, dout = _bwd_inputs(dev, 2, 512, Hq, Hkv, 64, Hq + Hkv)
-    _bwd_check(q, k, v, pos, pos, dout)
+    q, k, v, pos, dout = _bwd_inputs(dev, 2, 512, Hq, Hkv, D, Hq + Hkv)
+    _bwd_check(q, k, v, pos, pos, dout, softcap=softcap)
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("Hq,Hkv", [(32, 8), (8, 2)])
-def test_flash_bwd_kernel_gives_the_same_bits_twice(Hq, Hkv):
+@pytest.mark.parametrize("Hq,Hkv,D", [
+    pytest.param(32, 8, 64, id="32-8"), pytest.param(8, 2, 64, id="8-2"),
+    pytest.param(16, 8, 256, id="16-8-256")])
+def test_flash_bwd_kernel_gives_the_same_bits_twice(Hq, Hkv, D):
     """Two backward calls on the same inputs, with dk/dv and dq summed
     over split blocks: identical bits (no atomics on any output)."""
     dev = _cuda_or_skip()
-    T = 512 if Hq == 32 else 300
-    q, k, v, pos, dout = _bwd_inputs(dev, 2, T, Hq, Hkv, 64, 11)
+    T = 300 if Hq == 8 else 512
+    q, k, v, pos, dout = _bwd_inputs(dev, 2, T, Hq, Hkv, D, 11)
     got, (out, lse) = _bwd_check(q, k, v, pos, pos, dout)
     again = fa_ops.flash_attention_bwd(q, k, v, pos, pos, out, lse, dout)
     torch.cuda.synchronize()
@@ -1272,7 +1298,7 @@ def test_flash_bwd_kernel_gives_the_same_bits_twice(Hq, Hkv):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("D", [16, 64])
+@pytest.mark.parametrize("D", [16, 64, 128, 256])
 def test_flash_bwd_rows_that_see_no_key(D):
     """Rows at position -1 see no key and keys at -1 are seen by no row:
     their dq, and their dk and dv, are 0; the rest match the plain

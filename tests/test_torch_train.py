@@ -105,15 +105,24 @@ def _qkv(B, T, Hq, Hkv, D, seed):
     return q, k, v, pos, dout
 
 
-@pytest.mark.parametrize("window", [None, 4])
-@pytest.mark.parametrize("softcap", [None, 30.0])
-def test_flash_backward_plain_matches_jax_grad(window, softcap):
+# (head dim, softcap, window): head dim 16 with and without a softcap; 128
+# and 256 with gemma2-9b's softcap of 50 (its GQA group of 2, heads cut
+# from 16/8 to 4/2)
+FLASH_BWD_CASES = (
+    [pytest.param(16, c, w, id=f"{c}-{w}") for c in (None, 30.0)
+     for w in (None, 4)]
+    + [pytest.param(D, 50.0, w, id=f"D{D}-50.0-{w}") for D in (128, 256)
+       for w in (None, 4)])
+
+
+@pytest.mark.parametrize("D,softcap,window", FLASH_BWD_CASES)
+def test_flash_backward_plain_matches_jax_grad(D, softcap, window):
     """dq/dk/dv of ``flash_attention_bwd_plain`` (and of the wrapper, whose
     autograd Function runs it on CPU tensors) against ``jax.grad`` through
     JAX's
     ``blocked_attention`` (its custom VJP), GQA group 2; the forward's lse
     against the one JAX saves."""
-    B, T, Hq, Hkv, D = 2, 48, 4, 2, 16
+    B, T, Hq, Hkv = 2, 48, 4, 2
     q, k, v, pos, dout = _qkv(B, T, Hq, Hkv, D, 7 + (window or 0))
     jpos = jnp.asarray(pos)
 
@@ -180,7 +189,8 @@ def _batch(vocab, B=4, T=16, step=0, seed=3):
 
 
 @pytest.mark.parametrize("quantized", [False, True], ids=["dense", "m8f8"])
-@pytest.mark.parametrize("arch", ["llama3.2-1b", "paper-gpt2-medium"])
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "paper-gpt2-medium",
+                                  "gemma2-9b"])
 def test_loss_and_lora_grads_match_jax(arch, quantized):
     s = _setup(arch, quantized)
     jb, tb = _batch(s["cfg"].vocab_size)
@@ -193,7 +203,10 @@ def test_loss_and_lora_grads_match_jax(arch, quantized):
     assert abs(float(tl) - float(jl)) <= 1e-5 * abs(float(jl))
     assert float(tm["tokens"]) == float(jm["tokens"])
     jleaves, tleaves = jax.tree.leaves(jg), list(adamw.leaves(tg))
-    assert len(jleaves) == len(tleaves) == 2 * len(s["cfg"].lora.targets)
+    # A and B of each target in each layer of the scan period (gemma2's
+    # period holds a sliding and a full layer)
+    assert len(jleaves) == len(tleaves) == (
+        2 * len(s["cfg"].lora.targets) * len(s["lora"]["layers"]))
     for a, b in zip(tleaves, jleaves):
         assert np.linalg.norm(np.asarray(b)) > 0
         assert _rel(a.numpy(), b) <= 1e-4
