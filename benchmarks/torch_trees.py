@@ -2,7 +2,7 @@
 the same cases, before and after a change.
 
     PYTHONPATH=src python benchmarks/torch_trees.py OTHER_TREE \\
-        --cases {flash,moe,scan} [...] [--serve]
+        --cases {flash,flash_bwd,moe,scan} [...] [--serve]
 
 OTHER_TREE is a checkout (or ``git archive``) of another commit, e.g. the
 parent, unpacked under ``build/``. Each tree's kernel sources for the chosen
@@ -14,6 +14,10 @@ this tree's ``chip_smoke.py`` cases against their plain versions:
   * ``flash``: the flash forward (the kernel phase's cases: llama3.2-1b's at
     head dim 64, gemma2-9b's at 256, head dim 128 at 32/8, the MoE models'
     and the head-dim-128 forwards' heads), with SDPA's device ms;
+  * ``flash_bwd``: the flash backward at ``chip_smoke.FA_BWD_CASES`` (head
+    dims 64, 128 and 256: the train microbatches, gemma2-9b's window of
+    4096, with its f64 check where the tree's plain version runs in f64),
+    with SDPA's backward's device ms where there is no softcap;
   * ``moe``: ``grouped_crossbar_matmul`` on llama4-scout's 16 (5120, 8192)
     and (8192, 5120) expert stacks, int8 and int4, at 8 decode rows on 8
     experts, on one, and 8 tokens top-2; mixtral's 8 (6144, 16384) and
@@ -47,6 +51,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 # the kernel sources each case set builds (those a tree has)
 SOURCES = {"flash": ("flash_attention",),
+           "flash_bwd": ("flash_attention",),
            "moe": ("crossbar_matmul", "moe_route"),
            "scan": ("selective_scan",)}
 # the grouped decode kernel's name before the work list (PR 28)
@@ -56,7 +61,8 @@ KEYS = ("name", "model", "case", "kernel", "bits", "shape", "max_abs_err",
         "device_ms", "host_us", "library_device_ms", "plain_device_ms",
         "plain_device_kernels", "device_kernels", "other_device_ms",
         "grouped_and_crossbar_device_ms", "launches", "bound_ms", "bound_by",
-        "bound_pieces_ms", "bound_parts_ms", "ok")
+        "bound_pieces_ms", "bound_parts_ms", "max_err_over_rel",
+        "f64_kernel_err", "f64_plain_err", "plain_ms", "ok")
 WINDOW_KEYS = ("ticks", "replayed", "device_ms_per_tick",
                "traced_wall_ms_per_tick", "device_busy_share",
                "prefill_tokens_per_tick", "scan_device_ms_per_tick",
@@ -83,6 +89,8 @@ def case_gens(cs, dev, g, name):
                 cs.gemma_attention_cases(dev, g),
                 cs.moe_attention_cases(dev, g),
                 cs.head_dim_128_cases(dev, g)]
+    if name == "flash_bwd":
+        return [cs.flash_bwd_cases(dev, g)]
     if name == "moe":
         cs.GROUPED_KERNELS = OLD_GROUPED + cs.GROUPED_KERNELS
         dists = ("decode_spread", "decode_one", "decode_top2")

@@ -155,10 +155,12 @@
 //   dout, dk = ds^T (q D^-1/2) and dq = ds k D^-1/2; dk and dv sum over the
 //   GQA group that shares a kv head. Bound at the training shapes (T = S =
 //   512, causal) by arithmetic: both passes recompute S and dP, 14 D flops
-//   per visible (query head, key) pair, three TF32 products each, against
-//   O((T + S) D) bytes. Design: three kernels, no atomics on any output
-//   (the same inputs give the same bits):
+//   per visible (query head, key) pair, three products of pieces each
+//   (TF32 up to head dim 64, fp16 from 128), against O((T + S) D) bytes.
+//   Design: three kernels (five from head dim 128: below), no atomics on any
+//   output (the same inputs give the same bits):
 //   - flash_bwd_delta_kernel: D_i, one warp per row.
+//   - Up to head dim 64:
 //   - flash_bwd_dkdv_kernel<D>: a block of 4 warps owns 64 keys of a kv
 //     head (K and V stay in shared memory) and streams the group's query
 //     rows (R = t G + g, as the forward) 32 at a time through a
@@ -189,23 +191,64 @@
 //     64-row streamed tiles (two blocks an SM) and four blocks per SM in
 //     the plan (more, smaller splits) both timed slower
 //     (benchmarks/torch_flash_bwd_tiles.py).
-//   - Head dims 128 and 256 (dkdv_wide, dq_wide; the same kernel names):
-//     the D <= 64 cut does not fit. A warp holding dK and dV for 16 keys
-//     over all D columns needs D floats of accumulators a thread (256 at D
-//     = 256), and 64 stationary keys with a two-stage ring of 32-row tiles
-//     need 266 KB of shared memory at D = 256. So a block of 8 warps owns
-//     64 keys (rows), streams 16-row (16-key) tiles (212 KB at D = 256, 114
-//     KB at 128; one block an SM), and splits each tile's work in two
-//     phases. Phase 1: warp w computes S^T (w < 4) or dP^T (w >= 4) for
-//     keys 16 (w % 4) .. + 15 over all D, and stores it to shared memory;
-//     then every thread turns its share of the 64 x 16 tile into p and ds
-//     in place. Phase 2: warp w accumulates dV += P^T dO and dK += dS^T q
-//     (dQ += dS K) for the same 16 keys (rows) and half of the D columns,
-//     D / 2 floats a thread at D = 256, its A operand read from the shared
-//     p and ds (rows of a k8 step paired as in the registers above). The
-//     products, the splits in split order, the skipped tiles and the zeros
-//     of rows and keys that see nothing are those of the D <= 64 kernels.
-//     Not yet: wgmma, TMA and warp specialisation.
+//   - Head dims 128 and 256 (wide_body; the same kernel names), on wgmma:
+//     - Pieces. TF32 wgmma takes only K-major shared operands, so dV += P^T
+//       dO, dK += dS^T q and dQ += dS K would need transposed copies of q,
+//       dO and K beside the planes that S and dP read; at D = 256 the
+//       stationary K and V alone (64 keys, two TF32 pieces) take 256 KB.
+//       16-bit wgmma takes MN-major B operands, so one plane serves both
+//       reductions. Two bf16 pieces (8 + 8 bits) keep ~2^-17 of an
+//       operand, too little for gemma2's window-4096 case against an f64
+//       reference (chip_smoke.py's FA_BWD_F64); three do not fit. So
+//       every operand is two fp16 pieces (11 + 11 bits, ~2^-22) of the f32
+//       value scaled by a power of two (bwd_scales: q D^-1/2, dout, k, v
+//       from their largest |x|, found by flash_bwd_absmax_kernel; p by
+//       2^14; ds by its bound 2 D max|dout| max|v|), each product three
+//       fp16 products (small.big + big.small + big.big) in f32, the scales
+//       taken off exactly. flash_bwd_pieces_kernel writes the pieces of
+//       q D^-1/2, dout, k and v once a call into the workspace, as planes
+//       of 8-row, 64-column 1 KB atoms under the 128-byte swizzle: every
+//       tile of rows is one contiguous run.
+//     - Kernels: a producer warpgroup (setmaxnreg down to 40 registers; one
+//       warp copies) lands a block's stationary planes (K and V for dk/dv,
+//       q D^-1/2 and dout for dq: 4 planes) and then each live streamed
+//       tile (q D^-1/2 and dout with their lse, D_i and positions; or K
+//       and V with their positions) by cp.async.bulk on mbarriers, into a
+//       ring of two stages. Two consumer warpgroups (232 registers each)
+//       compute X1 = S^T (S) and X2 = dP^T (dP) for their 64 stationary
+//       rows (SS wgmma, D the reduction), p and ds in those accumulators,
+//       then dV += P^T dO and dK += dS^T q (dQ += dS K) with P and dS as
+//       the A operand in registers (the accumulator's layout is the
+//       fragment's) and the streamed plane MN-major as B. The columns of
+//       dK, dV (dQ) split between the warpgroups (both hold the block's 64
+//       stationary rows: their S and dP sums over the two halves of D meet
+//       in shared memory and are added in warpgroup order, so both get the
+//       same bits) for dk/dv at 128 and 256 and dq at 256; dq at 128 gives
+//       each warpgroup 64 of 128 rows and all columns, and the two take
+//       turns at the S and dP products. Streamed tiles: 32 rows (keys) at
+//       D = 128, 16 at 256.
+//     - Shared memory (1 KB alignment included): dk/dv and dq at 256: 128
+//       KB of stationary planes, two 32 KB stages, a 16 KB exchange: 209
+//       KB; dk/dv at 128: 64 + 64 + 32 = 161 KB; dq at 128: 128 + 64 = 193
+//       KB; plus 4 bytes a streamed tile for the live list. One block an
+//       SM. Registers a consumer thread: dK and dV 64 + 64 at 256 (32 + 32
+//       at 128, dQ 64 at both), S and dP 8 + 8 (16 + 16 at 128), the
+//       pieces of p and ds 16 (32): ptxas spills 56 bytes of dk/dv at 256,
+//       none of the rest.
+//     - Bound, measured on the H100 (benchmarks/torch_flash_bwd_wide.py's
+//       per-phase clock64 counts; chip_smoke.py's traced train step): at
+//       gemma2's microbatch the S and dP products take ~3200 cycles a
+//       16-row tile, each of their 48 wgmma (N = 16) reading a 2 KB A
+//       tile; p and ds ~800 (~1400 with the softcap), the dV and dK
+//       products ~1000, the exchange ~450. The pre-passes (maxima, pieces,
+//       D_i) take 16% of the call. Long lists split over blocks cost more
+//       than the imbalance they save (the same script's waves200): a block
+//       takes up to kBMaxRowsWide (512) streamed rows, the plan aims at
+//       kBWavesWidePct / 100 blocks an SM.
+//     - Not yet: a deeper ring or intra-warpgroup pipelining at D = 256
+//       (shared memory is full), a persistent schedule, and the maxima and
+//       pieces passes folded into the kernels that need them.
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
@@ -2385,6 +2428,9 @@ constexpr int kBT = 64;    // keys (dk/dv) or rows (dq) of a block
 constexpr int kBS = 32;
 constexpr int kBMinBlocks = 3;
 constexpr int kBWaves = 2;
+// The same for the wide kernels (head dims 128 and 256: one block an SM),
+// in hundredths.
+constexpr int kBWavesWidePct = 100;
 // Streamed rows (dk/dv) or keys (dq) that one block sums into its
 // registers, at most: the tensor cores' f32 accumulation truncates, so its
 // error grows with the products summed into one register (gemma2-9b's
@@ -2392,40 +2438,72 @@ constexpr int kBWaves = 2;
 // further from an f64 reference than the plain version, at 0.85 of the
 // tolerance); a longer list is split and summed in f32 in split order.
 constexpr int kBMaxRows = 1024;
+// The same for the wide kernels (head dims 128 and 256, wgmma).
+constexpr int kBMaxRowsWide = 512;
 constexpr int kBWarps = 4;         // 16 keys (dk/dv) or 16 rows (dq) a warp
 constexpr int kBThreads = kBWarps * 32;
 constexpr int kDeltaThreads = 256;
-// Head dims 128 and 256: keys (dk/dv) or rows (dq) of a block, rows (dk/dv)
-// or keys (dq) of a streamed tile, and the column groups of dK, dV and dQ
-// (phase 2); the warps are 4 key (row) groups of 16 times the column
-// groups, and phase 1 gives each column group one of S and dP.
+// Head dims 128 and 256 (wide_body, on wgmma): consumer warpgroups, the
+// streamed rows (dk/dv) or keys (dq) of a tile at D = 128 and at D = 256,
+// the stages of the ring of streamed tiles, and the head dims from which the
+// dk/dv and the dq kernel split the columns: there both warpgroups hold the
+// block's 64 stationary keys (rows) and each half of the columns; below it
+// each owns 64 of the block's 128, every column (the dk/dv kernel's 128
+// accumulators at D = 128 spilled so, the dq kernel's 64 did not; split,
+// the dq kernel was slower: benchmarks/torch_flash_bwd_wide.py).
 // tests/test_torch_flash_bwd_split.py reads these lines.
-constexpr int kBTWide = 64;
-constexpr int kBSWide = 16;
-constexpr int kBColsWide = 2;
-constexpr int kBWarpsWide = kBTWide / 16 * kBColsWide;
-static_assert(kBColsWide == 2, "phase 1 gives each column group S or dP");
-static_assert(kBSWide % 8 == 0 && kBTWide % 16 == 0, "mma tiles");
+constexpr int kBWideGroups = 2;
+constexpr int kBWideTile128 = 32;
+constexpr int kBWideTile256 = 16;
+constexpr int kBWideStages = 2;
+constexpr int kBSplitDkdv = 128;
+constexpr int kBSplitDq = 256;
+static_assert(kBWideGroups == kWgGroups, "the forward's warpgroup split");
+// Rows of a pieces plane are padded to a multiple of this: every stationary
+// and streamed tile lies whole in it (zeros past the rows and keys).
+constexpr int kBPad = 128;
 
-// the cut of a backward kernel at head dim D
-__host__ __device__ constexpr int bwd_bt(int D) {
-  return D >= 128 ? kBTWide : kBT;
+__host__ __device__ constexpr bool bwd_split_columns(int D, bool kv) {
+  return D >= (kv ? kBSplitDkdv : kBSplitDq);
+}
+// the cut of a backward kernel (dk/dv: kv) at head dim D: stationary keys
+// (dk/dv) or rows (dq) of a block, streamed rows (keys) of a tile, threads,
+// blocks an SM
+__host__ __device__ constexpr int bwd_bt(int D, bool kv) {
+  return D >= 128 ? (bwd_split_columns(D, kv) ? 64 : 64 * kBWideGroups) : kBT;
 }
 __host__ __device__ constexpr int bwd_bs(int D) {
-  return D >= 128 ? kBSWide : kBS;
+  return D >= 256 ? kBWideTile256 : D >= 128 ? kBWideTile128 : kBS;
 }
+// From 128: the consumer warpgroups and a producer warpgroup (setmaxnreg
+// moves registers a warpgroup at a time: the producer gives back all but
+// kBProducerRegs, the consumers take kBConsumerRegs).
 __host__ __device__ constexpr int bwd_threads(int D) {
-  return D >= 128 ? kBWarpsWide * 32 : kBThreads;
+  return D >= 128 ? 128 * kBWideGroups + 128 : kBThreads;
 }
+constexpr int kBProducerRegs = 40, kBConsumerRegs = 232;
+static_assert(128 * kBProducerRegs + 128 * kBWideGroups * kBConsumerRegs <=
+                  65536,
+              "the register moves fit the register file");
 __host__ __device__ constexpr int bwd_min_blocks(int D) {
   return D >= 128 ? 1 : kBMinBlocks;
 }
-// the D >= 128 kernels' shared p^T and ds^T (or s and ds) tiles, rows
-// padded to kBSWide + 8 floats: the paired float2 loads of phase 2 and the
-// stores of phase 1 are free of bank conflicts
-constexpr int kLdpWide = kBSWide + 8;
-__host__ __device__ constexpr int bwd_scratch_floats(int D) {
-  return D >= 128 ? 2 * kBTWide * kLdpWide : 0;
+// Bytes of one fp16 pieces plane of n rows: [n / 8][D / 64][8 rows][128 B],
+// each 1 KB atom under wgmma's 128-byte swizzle, so that a tile of rows is
+// one contiguous run that lands by one bulk copy, laid out for wgmma.
+__host__ __device__ constexpr size_t piece_bytes(size_t n, int D) {
+  return n * static_cast<size_t>(D) * 2;
+}
+// the wide kernels' dynamic shared memory: 1 KB to align the atoms, the
+// four stationary planes (two tensors' big and small pieces), the ring's
+// stages of four streamed planes, with the columns split the halves'
+// exchange of S and dP ([warpgroup][X1, X2][BS / 8 float4s][thread]), and
+// the live list
+__host__ __device__ constexpr size_t bwd_wide_smem(int D, bool kv, int n_str) {
+  return 1024 + 4 * piece_bytes(bwd_bt(D, kv), D) +
+         static_cast<size_t>(kBWideStages) * 4 * piece_bytes(bwd_bs(D), D) +
+         (bwd_split_columns(D, kv) ? 128 * kBWideGroups * bwd_bs(D) * 4 : 0) +
+         static_cast<size_t>(n_str) * 4;
 }
 
 struct BwdParams {
@@ -2448,6 +2526,9 @@ struct BwdParams {
   int rows;             // T * G rows of a kv head's group
   int n_stat, n_str;    // stationary and streamed tiles (this launch)
   int per;              // streamed tiles per block, at most (this launch)
+  uint8_t* pieces[4][2];   // D >= 128: fp16 planes [BwdTensor][big, small]
+  int rows_pad, keys_pad;  // D >= 128: rows (keys) of a kv head's planes
+  unsigned* maxima;        // D >= 128: max |q|, |dout|, |k|, |v| (f32 bits)
 };
 
 // Grid (ceil(B T Hq / 8)), 256 threads: one warp per (b, t, hq) row.
@@ -2546,10 +2627,21 @@ __device__ __forceinline__ bool my_range(int count, int per, int rank,
   return true;
 }
 
+// a block's barrier, or with NAMED the consumer warpgroups' (NT threads)
+template <int NT, bool NAMED>
+__device__ __forceinline__ void block_sync() {
+  if constexpr (NAMED)
+    consumers_sync<NT>();
+  else
+    __syncthreads();
+}
+
 // A split tile: every block stores its fragments `acc` at its rank; the one
 // that draws the last ticket sums all splits in rank order into `acc` and
 // returns true (the others return false). As the crossbar kernels' split.
-template <int NF, int NT = kBThreads>
+// NAMED: the NT threads meet on the consumers' barrier (the wide kernels'
+// producer warpgroup has left).
+template <int NF, int NT = kBThreads, bool NAMED = false>
 __device__ __forceinline__ bool sum_splits(float (&acc)[NF], float* parts,
                                            int* ticket, int splits, int rank,
                                            bool* s_last) {
@@ -2562,9 +2654,9 @@ __device__ __forceinline__ bool sum_splits(float (&acc)[NF], float* parts,
     frags[(rank * NT + tid) * NQ + i] =
         make_float4(acc[4 * i], acc[4 * i + 1], acc[4 * i + 2],
                     acc[4 * i + 3]);
-  __syncthreads();
+  block_sync<NT, NAMED>();
   if (tid == 0) *s_last = draw_ticket(ticket) == splits - 1;
-  __syncthreads();
+  block_sync<NT, NAMED>();
   if (!*s_last) return false;
 #pragma unroll
   for (int i = 0; i < NF; ++i) acc[i] = 0.f;
@@ -2603,6 +2695,26 @@ __device__ __forceinline__ void p_and_ds(const BwdParams& p, int qp, int kp,
   dp = pe * (dp - di) * dcap;
 }
 
+// p_and_ds for the wide kernels: lse2 = lse log2(e), so that p = 2^(cap(s)
+// log2(e) - lse2) on ex2 (to 2^-22); the softcap's tanh takes s times
+// inv_cap = 1 / softcap
+__device__ __forceinline__ void p_and_ds_base2(const BwdParams& p, int qp,
+                                               int kp, float lse2, float di,
+                                               float inv_cap, float& s,
+                                               float& dp) {
+  bool ok = kp >= 0 && kp <= qp;
+  if (p.window > 0) ok = ok && qp - kp < p.window;
+  float x = s, dcap = 1.f;
+  if (p.softcap > 0.f) {
+    const float th = tanhf(x * inv_cap);
+    x = p.softcap * th;
+    dcap = 1.f - th * th;
+  }
+  const float pe = ok ? exp2f(fmaf(x, kLog2e, -lse2)) : 0.f;
+  s = pe;
+  dp = pe * (dp - di) * dcap;
+}
+
 // Floats of one streamed stage: dk/dv streams q and dout rows with their
 // lse, D_i and positions; dq streams K and V rows with their positions.
 template <int D>
@@ -2621,6 +2733,28 @@ __device__ __forceinline__ long long key_off(const BwdParams& p, int b,
                  : -1;
 }
 
+// The streamed query tiles (BS group rows each) holding a row that may see
+// a key with a position in [kmin, kmax], listed in `live` in tile order (the
+// dk/dv kernels); returns their count.
+template <int BS, int NT>
+__device__ __forceinline__ int live_row_tiles(const BwdParams& p, int b,
+                                              int kmin, int kmax,
+                                              int* live) {
+  __shared__ int s_count;
+  for (int i = threadIdx.x; i < p.n_str; i += NT) {
+    const int t0 = i * BS / p.G;
+    const int t1 = (min((i + 1) * BS, p.rows) - 1) / p.G;
+    bool any = false;
+    for (int tq = t0; tq <= t1; ++tq) {
+      const int pos = p.q_pos[static_cast<size_t>(b) * p.T + tq];
+      any |= pos >= 0 && pos >= kmin &&
+             (p.window <= 0 || static_cast<long long>(pos) - p.window < kmax);
+    }
+    live[i] = any;
+  }
+  return compact(live, p.n_str, &s_count);
+}
+
 // The dk/dv kernels' start: K and V of keys s0 .. s0 + BT - 1 of kv head
 // (b, h) (zeros past S) by cp.async into ks / vs (committed, not waited
 // for), their positions into kpos_s, then the streamed query tiles (BS
@@ -2631,7 +2765,7 @@ __device__ __forceinline__ int key_tile_and_rows(const BwdParams& p, int b,
                                                  int h, int s0, float* ks,
                                                  float* vs, int* kpos_s,
                                                  int* live) {
-  __shared__ int s_kmin, s_kmax, s_count;
+  __shared__ int s_kmin, s_kmax;
   const int tid = threadIdx.x;
   auto off = [&](int r) { return key_off(p, b, h, s0 + r, D); };
   tile_async<D, BT>(ks, p.k, off, tid, NT);
@@ -2652,19 +2786,7 @@ __device__ __forceinline__ int key_tile_and_rows(const BwdParams& p, int b,
     }
   }
   __syncthreads();
-  const int kmin = s_kmin, kmax = s_kmax;
-  for (int i = tid; i < p.n_str; i += NT) {
-    const int t0 = i * BS / p.G;
-    const int t1 = (min((i + 1) * BS, p.rows) - 1) / p.G;
-    bool any = false;
-    for (int tq = t0; tq <= t1; ++tq) {
-      const int pos = p.q_pos[static_cast<size_t>(b) * p.T + tq];
-      any |= pos >= 0 && pos >= kmin &&
-             (p.window <= 0 || static_cast<long long>(pos) - p.window < kmax);
-    }
-    live[i] = any;
-  }
-  return compact(live, p.n_str, &s_count);
+  return live_row_tiles<BS, NT>(p, b, s_kmin, s_kmax, live);
 }
 
 // cp.async of group rows R0 .. R0 + BS - 1 of kv head (b, h) into one
@@ -3058,354 +3180,659 @@ __device__ __forceinline__ void dq_narrow(const BwdParams& p) {
   }
 }
 
-// Head dims 128 and 256, dk/dv: grid (splits, B * Hkv, key tiles) as
-// dkdv_narrow, kBWarpsWide warps. A block owns kBTWide keys (K and V stay
-// in shared memory) and streams kBSWide group rows a tile. Warp w: keys
-// kw = 16 (w % 4) .. kw + 15; in phase 1 it computes S^T = (K D^-1/2) Q^T
-// (w < 4) or dP^T = V dO^T (w >= 4) for its keys over all D and stores it
-// to sp (sds); then every thread turns its share of the tile into p (in
-// sp) and ds (in sds); in phase 2 the warp accumulates dV += P^T dO and
-// dK += dS^T q for its keys and the columns c0 .. c0 + D / 2 - 1, c0 =
-// (w / 4) D / 2. dK takes its D^-1/2 at the end.
+// ---------------------------------------------------------------------------
+// head dims 128 and 256: wgmma on fp16 pieces
+// ---------------------------------------------------------------------------
+
+// The four tensors of the pieces planes: q D^-1/2 and dout (group rows),
+// k and v (keys).
+enum BwdTensor { kQc = 0, kDout = 1, kKey = 2, kVal = 3 };
+
+// byte offset of row r, 8-column chunk c8 in a pieces plane (piece_bytes)
 template <int D>
-__device__ __forceinline__ void dkdv_wide(const BwdParams& p) {
-  constexpr int BT = kBTWide, BS = kBSWide, NT = kBWarpsWide * 32;
-  constexpr int LD = D + 4, LDP = kLdpWide, KS = D / 8, NR = BS / 8;
-  constexpr int JC = D / kBColsWide / 8;   // 8-column n-steps of a warp
-  constexpr int kStageF = dkdv_stage_floats<D>();
-  extern __shared__ __align__(16) float smem[];
-  float* ks = smem;                   // K [BT][LD]
-  float* vs = ks + BT * LD;           // V [BT][LD]
-  float* ring = vs + BT * LD;         // 2 stages: q, dout, lse, D_i, q_pos
-  float* sp = ring + 2 * kStageF;     // S^T, then P^T [BT][LDP]
-  float* sds = sp + BT * LDP;         // dP^T, then dS^T [BT][LDP]
-  int* live = reinterpret_cast<int*>(sds + BT * LDP);   // [n_str]
-  __shared__ int kpos_s[BT];
-  __shared__ bool s_last;
+__device__ __forceinline__ size_t piece_off(size_t r, int c8) {
+  return ((r >> 3) * (D / 64) + (c8 >> 3)) * 1024 +
+         swz<128>(static_cast<uint32_t>((r & 7) * 128 + (c8 & 7) * 16));
+}
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int rank = blockIdx.x, bh = blockIdx.y, kt = blockIdx.z;
-  const int b = bh / p.Hkv, h = bh - b * p.Hkv;
-  const int s0 = kt * BT;
+// two floats as fp16 pieces, packed (x0 in the low half): big rounded to
+// nearest, small the rounded rest; x = big + small + O(2^-22 |x|) while the
+// small piece is a normal fp16 (|x| above ~2^-3; below, the error stays
+// under 2^-25 absolute)
+__device__ __forceinline__ void split_f16x2(float x0, float x1, uint32_t& big,
+                                            uint32_t& small) {
+  const __half2 b = __floats2half2_rn(x0, x1);
+  const __half2 s =
+      __floats2half2_rn(x0 - __low2float(b), x1 - __high2float(b));
+  big = *reinterpret_cast<const uint32_t*>(&b);
+  small = *reinterpret_cast<const uint32_t*>(&s);
+}
 
-  const int count = key_tile_and_rows<D, BT, BS, NT>(p, b, h, s0, ks, vs,
-                                                     kpos_s, live);
-  int splits, i0, i1;
-  if (!my_range(count, p.per, rank, splits, i0, i1)) {
-    cp_async_wait<0>();
-    return;
+// The power of two 2^e that brings x > 0 into [2^(top - 1), 2^top) (1 for 0,
+// inf or nan): fp16 holds up to 65504, so a tensor scaled by it from its
+// largest |x| (top = 14) has no piece out of range.
+__device__ __forceinline__ float pow2_under(float x, int top) {
+  const uint32_t bits = __float_as_uint(x);
+  const int e = static_cast<int>((bits >> 23) & 0xff) - 127;   // floor(log2)
+  if (!(x > 0.f) || e == 128) return 1.f;
+  const int s = min(max(top - 1 - e, -120), 120);
+  return __uint_as_float(static_cast<uint32_t>(s + 127) << 23);
+}
+
+// The scales of one call's fp16 pieces, from the maxima of its tensors: q
+// D^-1/2, dout, k and v each brought under 2^14; p (<= 1) by 2^14; ds by
+// the bound |ds| <= |dp| + |D_i| <= 2 D max|dout| max|v| (out, of which D_i
+// sums dout . out, is a convex sum of v's rows), under 2^14.
+struct BwdScales {
+  float q, dout, k, v, p, ds;
+};
+__device__ __forceinline__ BwdScales bwd_scales(const BwdParams& p, int D) {
+  const float mq = __uint_as_float(p.maxima[0]) * p.scale;
+  const float mdo = __uint_as_float(p.maxima[1]);
+  const float mk = __uint_as_float(p.maxima[2]);
+  const float mv = __uint_as_float(p.maxima[3]);
+  return {pow2_under(mq, 14), pow2_under(mdo, 14), pow2_under(mk, 14),
+          pow2_under(mv, 14), 16384.f,
+          pow2_under(static_cast<float>(D) * mdo * mv, 13)};
+}
+
+__device__ __forceinline__ float max4_abs(float4 x) {
+  return fmaxf(fmaxf(fabsf(x.x), fabsf(x.y)), fmaxf(fabsf(x.z), fabsf(x.w)));
+}
+
+// Grid (a few blocks an SM), 256 threads: the largest |x| of q, dout, k and
+// v into maxima[0..3] as f32 bits (non-negative floats order as their
+// bits: the result does not depend on the order), which the caller zeroed.
+__global__ void __launch_bounds__(256)
+flash_bwd_absmax_kernel(const BwdParams p, long long n_q4, long long n_k4) {
+  __shared__ float s_m[8][4];
+  float m[4] = {0.f, 0.f, 0.f, 0.f};
+  const long long stride = static_cast<long long>(gridDim.x) * 256;
+  const long long first =
+      static_cast<long long>(blockIdx.x) * 256 + threadIdx.x;
+  for (long long i = first; i < n_q4; i += stride) {
+    m[0] = fmaxf(m[0], max4_abs(reinterpret_cast<const float4*>(p.q)[i]));
+    m[1] = fmaxf(m[1], max4_abs(reinterpret_cast<const float4*>(p.dout)[i]));
   }
-
-  auto issue = [&](int tile, int st) {
-    issue_rows<D, BS, NT>(p, b, h, tile * BS, ring + st * kStageF);
-  };
-
-  if (i0 < i1) issue(live[i0], 0);
-  cp_async_commit();
-
-  const int kw = 16 * (warp & 3), half = warp >> 2;
-  const int c0 = half * (D / kBColsWide);
-  const float* amat = half ? vs : ks;   // phase 1: K (S^T) or V (dP^T)
-  const float ascale = half ? 1.f : p.scale;
-  float* sout = half ? sds : sp;
-  float dkv[2][JC][4];   // [0]: dK, [1]: dV; (key g (+8), d c0 + 8j + 2t (+1))
-#pragma unroll
-  for (int a = 0; a < 2; ++a)
-#pragma unroll
-    for (int j = 0; j < JC; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dkv[a][j][e] = 0.f;
-
-  for (int i = i0; i < i1; ++i) {
-    const int st = (i - i0) & 1;
-    if (i + 1 < i1) issue(live[i + 1], st ^ 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();   // K, V and query tile i have landed for every thread
-    const float* qs = ring + st * kStageF;
-    const float* dos = qs + BS * LD;
-    const float* lse_s = dos + BS * LD;
-    const float* del_s = lse_s + BS;
-    const int* qpos_s = reinterpret_cast<const int*>(del_s + BS);
-    const float* bmat = half ? dos : qs;
-
-    // phase 1: this warp's 16 keys x BS rows of S^T or dP^T
-    float c[NR][4];   // (key g (+8), row 8n + 2t (+1))
-#pragma unroll
-    for (int n = 0; n < NR; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) c[n][e] = 0.f;
-#pragma unroll 4
-    for (int kk = 0; kk < KS; ++kk) {
-      uint32_t ab[4], asm_[4];
-      const float* aa = amat + (kw + g) * LD + 8 * kk + t;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {   // (g, t), (g + 8, t), (g, t + 4), ...
-        const int o = (e & 1) * 8 * LD + (e >> 1) * 4;
-        split_tf32(aa[o] * ascale, ab[e], asm_[e]);
-      }
-#pragma unroll
-      for (int n = 0; n < NR; ++n) {
-        const float* br = bmat + (8 * n + g) * LD + 8 * kk + t;
-        uint32_t bb0, bs0, bb1, bs1;
-        split_tf32(br[0], bb0, bs0);
-        split_tf32(br[4], bb1, bs1);
-        mma3(c[n], ab, asm_, bb0, bb1, bs0, bs1);
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < NR; ++n) {
-      *reinterpret_cast<float2*>(sout + (kw + g) * LDP + 8 * n + 2 * t) =
-          make_float2(c[n][0], c[n][1]);
-      *reinterpret_cast<float2*>(sout + (kw + g + 8) * LDP + 8 * n + 2 * t) =
-          make_float2(c[n][2], c[n][3]);
-    }
-    __syncthreads();
-    // p and ds in place, the tile shared out over the threads
-    for (int x = tid; x < BT * BS; x += NT) {
-      const int key = x / BS, r = x - key * BS;
-      float s = sp[key * LDP + r], dp = sds[key * LDP + r];
-      p_and_ds(p, qpos_s[r], kpos_s[key], lse_s[r], del_s[r], s, dp);
-      sp[key * LDP + r] = s;
-      sds[key * LDP + r] = dp;
-    }
-    __syncthreads();
-    // phase 2: dV += P^T dO and dK += dS^T q, 8 query rows a k step (the
-    // rows of a step paired: logical k t is row 2t, k t + 4 row 2t + 1)
-#pragma unroll
-    for (int kk = 0; kk < NR; ++kk) {
-      uint32_t pb[4], ps[4], db[4], dsm[4];
-      const int o = (kw + g) * LDP + 8 * kk + 2 * t;
-      const float2 p0 = *reinterpret_cast<const float2*>(sp + o);
-      const float2 p1 = *reinterpret_cast<const float2*>(sp + o + 8 * LDP);
-      const float2 d0 = *reinterpret_cast<const float2*>(sds + o);
-      const float2 d1 = *reinterpret_cast<const float2*>(sds + o + 8 * LDP);
-      split_tf32(p0.x, pb[0], ps[0]);
-      split_tf32(p1.x, pb[1], ps[1]);
-      split_tf32(p0.y, pb[2], ps[2]);
-      split_tf32(p1.y, pb[3], ps[3]);
-      split_tf32(d0.x, db[0], dsm[0]);
-      split_tf32(d1.x, db[1], dsm[1]);
-      split_tf32(d0.y, db[2], dsm[2]);
-      split_tf32(d1.y, db[3], dsm[3]);
-      const float* o0 = dos + (8 * kk + 2 * t) * LD + c0 + g;
-      const float* q0 = qs + (8 * kk + 2 * t) * LD + c0 + g;
-#pragma unroll
-      for (int j = 0; j < JC; ++j) {
-        uint32_t bb0, bs0, bb1, bs1;
-        split_tf32(o0[8 * j], bb0, bs0);
-        split_tf32(o0[LD + 8 * j], bb1, bs1);
-        mma3(dkv[1][j], pb, ps, bb0, bb1, bs0, bs1);
-        split_tf32(q0[8 * j], bb0, bs0);
-        split_tf32(q0[LD + 8 * j], bb1, bs1);
-        mma3(dkv[0][j], db, dsm, bb0, bb1, bs0, bs1);
-      }
-    }
-    __syncthreads();   // every warp is done with this stage and sp / sds
+  for (long long i = first; i < n_k4; i += stride) {
+    m[2] = fmaxf(m[2], max4_abs(reinterpret_cast<const float4*>(p.k)[i]));
+    m[3] = fmaxf(m[3], max4_abs(reinterpret_cast<const float4*>(p.v)[i]));
   }
-  cp_async_wait<0>();
-
-  if (splits > 1) {
-    const size_t tile = static_cast<size_t>(bh) * p.n_stat + kt;
-    float flat[8 * JC];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
-    for (int i = 0; i < 8 * JC; ++i)
-      flat[i] = dkv[i / (4 * JC)][(i / 4) % JC][i % 4];
-    if (!sum_splits<8 * JC, NT>(
-            flat, p.partials + tile * gridDim.x * NT * (8 * JC),
-            p.tickets + tile, splits, rank, &s_last))
-      return;
+  for (int j = 0; j < 4; ++j) {
 #pragma unroll
-    for (int i = 0; i < 8 * JC; ++i)
-      dkv[i / (4 * JC)][(i / 4) % JC][i % 4] = flat[i];
+    for (int off = 16; off > 0; off >>= 1)
+      m[j] = fmaxf(m[j], __shfl_xor_sync(0xffffffffu, m[j], off));
+    if (lane == 0) s_m[warp][j] = m[j];
   }
+  __syncthreads();
+  if (threadIdx.x < 4) {
+    float x = 0.f;
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int s = s0 + kw + g + 8 * r;
-    if (s >= p.S) continue;
-    const size_t off =
-        ((static_cast<size_t>(b) * p.S + s) * p.Hkv + h) * D + c0;
-#pragma unroll
-    for (int j = 0; j < JC; ++j) {
-      *reinterpret_cast<float2*>(p.dk + off + 8 * j + 2 * t) = make_float2(
-          dkv[0][j][2 * r] * p.scale, dkv[0][j][2 * r + 1] * p.scale);
-      *reinterpret_cast<float2*>(p.dv + off + 8 * j + 2 * t) =
-          make_float2(dkv[1][j][2 * r], dkv[1][j][2 * r + 1]);
-    }
+    for (int w = 0; w < 8; ++w) x = fmaxf(x, s_m[w][threadIdx.x]);
+    atomicMax(p.maxima + threadIdx.x, __float_as_uint(x));
   }
 }
 
-// Head dims 128 and 256, dq: grid (splits, B * Hkv, row tiles) as
-// dq_narrow, kBWarpsWide warps. A block owns kBTWide group rows (q and dO
-// stay in shared memory) and streams kBSWide keys a tile. Warp w: rows rw
-// = 16 (w % 4) .. rw + 15; phase 1: S = (q D^-1/2) K^T (w < 4) or dP = dO
-// V^T (w >= 4) for its rows, stored to sp (sds); then ds in sds; phase 2:
-// dQ += dS K for its rows and the columns c0 .. c0 + D / 2 - 1.
+// Grid (ceil(n / 256)), 256 threads, one a row's 8 columns: the fp16
+// pieces of q D^-1/2 and dout (rows of each kv head's group, padded to
+// rows_pad), then of k and v (keys, padded to keys_pad), each scaled by its
+// power of two (bwd_scales), zeros past the rows and keys.
 template <int D>
-__device__ __forceinline__ void dq_wide(const BwdParams& p) {
-  constexpr int BT = kBTWide, BS = kBSWide, NT = kBWarpsWide * 32;
-  constexpr int LD = D + 4, LDP = kLdpWide, KS = D / 8, NK = BS / 8;
-  constexpr int JC = D / kBColsWide / 8;
-  constexpr int kStageF = dq_stage_floats<D>();
-  extern __shared__ __align__(16) float smem[];
-  float* qs = smem;                   // q [BT][LD]
-  float* dos = qs + BT * LD;          // dout [BT][LD]
-  float* ring = dos + BT * LD;        // 2 stages: K, V, kv_pos
-  float* sp = ring + 2 * kStageF;     // S [BT][LDP]
-  float* sds = sp + BT * LDP;         // dP, then dS [BT][LDP]
-  int* live = reinterpret_cast<int*>(sds + BT * LDP);   // [n_str]
-  __shared__ int qpos_s[BT], s_qmin, s_qmax;
-  __shared__ float lse_s[BT], del_s[BT];
+__global__ void __launch_bounds__(256)
+flash_bwd_pieces_kernel(const BwdParams p, int B) {
+  constexpr int C8 = D / 8;
+  const long long i = static_cast<long long>(blockIdx.x) * 256 + threadIdx.x;
+  const long long n_q = static_cast<long long>(B) * p.Hkv * p.rows_pad;
+  const long long n_k = static_cast<long long>(B) * p.Hkv * p.keys_pad;
+  if (i >= (n_q + n_k) * C8) return;
+  const long long row = i / C8;
+  const int c8 = static_cast<int>(i - row * C8);
+  const bool keys = row >= n_q;
+  const long long rr = keys ? row - n_q : row;
+  const int pad = keys ? p.keys_pad : p.rows_pad;
+  const long long bh = rr / pad;
+  const int r = static_cast<int>(rr - bh * pad);
+  const int b = static_cast<int>(bh / p.Hkv), h = static_cast<int>(bh % p.Hkv);
+  long long off = -1;   // the row's first float in q/dout or k/v
+  if (!keys && r < p.rows) {
+    const int tq = r / p.G;
+    off = ((static_cast<long long>(b) * p.T + tq) * p.Hq + h * p.G +
+           (r - tq * p.G)) * D;
+  } else if (keys && r < p.S) {
+    off = ((static_cast<long long>(b) * p.S + r) * p.Hkv + h) * D;
+  }
+  const float* src[2] = {keys ? p.k : p.q, keys ? p.v : p.dout};
+  const BwdScales sc = bwd_scales(p, D);
+  const float scale[2] = {keys ? sc.k : sc.q, keys ? sc.v : sc.dout};
+  const size_t dst = bh * piece_bytes(pad, D) + piece_off<D>(r, c8);
+#pragma unroll
+  for (int t = 0; t < 2; ++t) {
+    float4 x[2] = {make_float4(0.f, 0.f, 0.f, 0.f),
+                   make_float4(0.f, 0.f, 0.f, 0.f)};
+    if (off >= 0) {
+      const float4* s4 = reinterpret_cast<const float4*>(src[t] + off + 8 * c8);
+      x[0] = s4[0];
+      x[1] = s4[1];
+    }
+    if (!keys && t == 0) {   // q D^-1/2, then its power of two
+      x[0] = make_float4(x[0].x * p.scale, x[0].y * p.scale, x[0].z * p.scale,
+                         x[0].w * p.scale);
+      x[1] = make_float4(x[1].x * p.scale, x[1].y * p.scale, x[1].z * p.scale,
+                         x[1].w * p.scale);
+    }
+    const float s2 = scale[t];
+    uint4 big, small;
+    split_f16x2(x[0].x * s2, x[0].y * s2, big.x, small.x);
+    split_f16x2(x[0].z * s2, x[0].w * s2, big.y, small.y);
+    split_f16x2(x[1].x * s2, x[1].y * s2, big.z, small.z);
+    split_f16x2(x[1].z * s2, x[1].w * s2, big.w, small.w);
+    const int tensor = (keys ? kKey : kQc) + t;
+    *reinterpret_cast<uint4*>(p.pieces[tensor][0] + dst) = big;
+    *reinterpret_cast<uint4*>(p.pieces[tensor][1] + dst) = small;
+  }
+}
+
+// wgmma shared-memory descriptor under the 128-byte swizzle with its
+// strides: K-major, the 8-row groups `sbo` bytes apart (lbo unused: 16);
+// MN-major, the 64-element atoms along M or N `lbo` apart and the 8-row
+// groups along K `sbo` apart
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t saddr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((saddr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) |
+         (static_cast<uint64_t>(1) << 62);
+}
+
+// d (64 x N f32 fragment) [+]= A (64 x 16, shared, K-major) B (16 x N,
+// shared, K-major), fp16; acc = 0 ignores d's input
+__device__ __forceinline__ void wgmma_f16_m64n16_ss(float (&d)[8], uint64_t da,
+                                                    uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.f16.f16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(acc));
+}
+__device__ __forceinline__ void wgmma_f16_m64n32_ss(float (&d)[16], uint64_t da,
+                                                    uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.f16.f16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(da), "l"(db), "r"(acc));
+}
+template <int N>
+__device__ __forceinline__ void wgmma_f16_ss(float (&d)[N / 2], uint64_t da,
+                                             uint64_t db, int acc) {
+  if constexpr (N == 16)
+    wgmma_f16_m64n16_ss(d, da, db, acc);
+  else
+    wgmma_f16_m64n32_ss(d, da, db, acc);
+}
+// d (64 x 128 f32 fragment) += A (64 x 16, registers) B (16 x 128, shared,
+// MN-major), fp16. A's fragment of warp w's rows 16w ..: a[0] (row g, k 2t
+// and 2t + 1), a[1] (g + 8, 2t ..), a[2] (g, 2t + 8 ..), a[3] (g + 8, 2t + 8
+// ..): the f32 accumulator's layout of a 64 x 16 product, packed in pairs.
+__device__ __forceinline__ void wgmma_f16_m64n128_rs(float (&d)[64],
+                                                      const uint32_t (&a)[4],
+                                                      uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+      "%57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, 1, 1, "
+      "1, 1;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
+__device__ __forceinline__ void wgmma_f16_m64n64_rs(float (&d)[32],
+                                                     const uint32_t (&a)[4],
+                                                     uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, {%32, %33, %34, %35}, %36, 1, 1, 1, 1;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
+// d (64 x N f32 fragment) += A (registers) B (shared, MN-major), N = 64, 128
+template <int NA>
+__device__ __forceinline__ void wgmma_f16_rs(float (&d)[NA],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  if constexpr (NA == 64)
+    wgmma_f16_m64n128_rs(d, a, db);
+  else
+    wgmma_f16_m64n64_rs(d, a, db);
+}
+// one consumer warpgroup's own barrier (ids 2, 3; the block's is 0, both
+// consumer warpgroups' 1)
+__device__ __forceinline__ void warpgroup_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(2 + wg) : "memory");
+}
+// The consumer warpgroups' turns (ids 4, 5): warpgroup wg waits for its
+// turn, or gives warpgroup wg its turn (both warpgroups' 256 threads meet).
+__device__ __forceinline__ void turn_wait(int wg) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(4 + wg) : "memory");
+}
+__device__ __forceinline__ void turn_give(int wg) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(4 + wg) : "memory");
+}
+
+// Head dims 128 and 256: the dk/dv kernel (KV) and the dq kernel (!KV) on
+// one body. Grid (splits, B * Hkv, stationary tiles) as the D <= 64 kernels
+// (dk/dv: key tile blockIdx.z; dq: row tile n_stat - 1 - blockIdx.z), two
+// consumer warpgroups, then a producer warpgroup (one of its warps copies).
+// A block holds BT stationary rows (keys for dk/dv: the A operands K and V;
+// group rows for dq: q D^-1/2 and dout) and streams tiles of BS rows (q
+// D^-1/2 and dout, with their lse, D_i and positions) or keys (K and V,
+// with their positions), all as fp16 pieces planes (scaled by powers of
+// two, bwd_scales) that land by bulk copies. Per tile a warpgroup computes
+// X1 = A1 B1^T (S^T or S) and X2 = A2 B2^T (dP^T or dP) for its 64
+// stationary rows (K-major operands, D the reduction; at D = 256 over its
+// half of D, the halves' sums exchanged and added in warpgroup order),
+// p and ds in the accumulators, then from them as A operands in registers
+// dV += P^T dO and dK += dS^T q (dQ += dS K) for its 128 columns (B
+// MN-major: the same planes). Every product in three fp16 products:
+// small.big + big.small + big.big; the scales come off in f32 (exactly).
+template <int D, bool KV>
+__device__ __forceinline__ void wide_body(const BwdParams& p) {
+  constexpr bool CS = bwd_split_columns(D, KV);
+  constexpr int BT = bwd_bt(D, KV), BS = bwd_bs(D), NS = kBWideStages;
+  constexpr int NC = 128 * kBWideGroups, NT = bwd_threads(D);
+  constexpr int KSTEPS = (CS ? D / 2 : D) / 16;   // k16 steps of X1 / X2
+  constexpr int NX = BS / 2;                      // X1 / X2 floats a thread
+  constexpr bool PP = !CS && !KV;                 // turns at the X products
+  constexpr int NCOL = CS ? D / 2 : D;            // output columns a warpgroup
+  constexpr int NA = NCOL / 2;                    // their floats a thread
+  constexpr int NF = KV ? 2 * NA : NA;            // dK, dV (dQ) floats a thread
+  constexpr uint32_t STAT = piece_bytes(BT, D), TILE = piece_bytes(BS, D);
+  constexpr uint32_t GROUP = (D / 64) * 1024;     // bytes of an 8-row group
+  static_assert(D == 128 || D == 256, "wide_body serves D = 128 and 256");
+  static_assert(NX % 4 == 0 && BS % 16 == 0, "exchange and k16 steps");
+
+  extern __shared__ uint8_t bwd_smem_raw[];
+  uint8_t* sm = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(bwd_smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* stat = sm;                   // [A1 big, A1 small, A2 big, A2 small]
+  uint8_t* ring = stat + 4 * STAT;      // [NS][B1 big, B1 small, B2 ..]
+  float4* xch = reinterpret_cast<float4*>(ring + NS * 4 * TILE);
+  int* live = reinterpret_cast<int*>(xch + (CS ? NC * BS / 4 : 0));
+  __shared__ uint64_t full[NS], empty[NS], stat_full;
+  __shared__ float lse_s[NS][BS], del_s[NS][BS];   // dk/dv: streamed rows'
+  __shared__ int spos_s[NS][BS];   // positions of the streamed rows (keys)
+  __shared__ int s_min, s_max;
   __shared__ bool s_last;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int rank = blockIdx.x, bh = blockIdx.y;
-  const int rt = p.n_stat - 1 - static_cast<int>(blockIdx.z);
   const int b = bh / p.Hkv, h = bh - b * p.Hkv;
-  const int R0 = rt * BT;
-
-  auto row_off = [&](int r) { return row_qoff(p, b, h, R0 + r, D); };
-  tile_async<D, BT>(qs, p.q, row_off, tid, NT);
-  tile_async<D, BT>(dos, p.dout, row_off, tid, NT);
-  cp_async_commit();
+  const int st_tile = KV ? static_cast<int>(blockIdx.z)
+                          : p.n_stat - 1 - static_cast<int>(blockIdx.z);
+  const int r0 = st_tile * BT;   // the block's first key (row)
 
   if (tid == 0) {
-    s_qmin = INT_MAX;
-    s_qmax = INT_MIN;
+    s_min = INT_MAX;
+    s_max = INT_MIN;
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kBWideGroups);
+    }
+    mbar_init(&stat_full, 1);
   }
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   __syncthreads();
+  // the stationary planes land while the live tiles are listed (the
+  // producer's first lane waits for them before a block with nothing to do
+  // ends: no copy may write into the shared memory of a block that left)
+  const int sa = KV ? kKey : kQc, sb = KV ? kQc : kKey;
+  const size_t pad_a = KV ? p.keys_pad : p.rows_pad;
+  const size_t pad_b = KV ? p.rows_pad : p.keys_pad;
+  if (tid == NC) {
+    mbar_expect_tx(&stat_full, 4 * STAT);
+    const size_t src = (bh * pad_a + r0) * D * 2;
+#pragma unroll
+    for (int x = 0; x < 4; ++x)
+      bulk_load(stat + x * STAT, p.pieces[sa + x / 2][x % 2] + src, STAT,
+                &stat_full);
+  }
+  // the positions of the block's keys (rows), then the streamed tiles that
+  // hold a row (key) that may see one of them (attend to one of them)
   if (tid < BT) {
-    const RowRef ref = row_ref(p, b, h, R0 + tid, D);
-    const bool ok = R0 + tid < p.rows;
-    qpos_s[tid] = ref.pos;
-    lse_s[tid] = ok ? p.lse[ref.loff] : 0.f;
-    del_s[tid] = ok ? p.delta[ref.loff] : 0.f;
-    if (ref.pos >= 0) {
-      atomicMin(&s_qmin, ref.pos);
-      atomicMax(&s_qmax, ref.pos);
+    const size_t key = static_cast<size_t>(b) * p.S + r0 + tid;
+    const int pos = KV ? (r0 + tid < p.S ? p.kv_pos[key] : -1)
+                       : row_ref(p, b, h, r0 + tid, D).pos;
+    if (pos >= 0) {
+      atomicMin(&s_min, pos);
+      atomicMax(&s_max, pos);
     }
   }
   __syncthreads();
-  const int count = live_key_tiles<BS, NT>(p, b, s_qmin, s_qmax, live);
+  const int count = KV ? live_row_tiles<BS, NT>(p, b, s_min, s_max, live)
+                       : live_key_tiles<BS, NT>(p, b, s_min, s_max, live);
   int splits, i0, i1;
   if (!my_range(count, p.per, rank, splits, i0, i1)) {
-    cp_async_wait<0>();
+    if (tid == NC) mbar_wait(&stat_full, 0);
     return;
   }
+  const int n = i1 - i0;
 
-  auto issue = [&](int tile, int st) {
-    issue_keys<D, BS, NT>(p, b, h, tile * BS, ring + st * kStageF);
-  };
-
-  if (i0 < i1) issue(live[i0], 0);
-  cp_async_commit();
-
-  const int rw = 16 * (warp & 3), half = warp >> 2;
-  const int c0 = half * (D / kBColsWide);
-  const float* amat = half ? dos : qs;   // phase 1: q (S) or dO (dP)
-  const float ascale = half ? 1.f : p.scale;
-  float* sout = half ? sds : sp;
-  float dq[JC][4];   // (row g (+8), d c0 + 8j + 2t (+1))
-#pragma unroll
-  for (int j = 0; j < JC; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq[j][e] = 0.f;
-
-  for (int i = i0; i < i1; ++i) {
-    const int st = (i - i0) & 1;
-    if (i + 1 < i1) issue(live[i + 1], st ^ 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();   // q, dout and key tile i have landed
-    const float* kst = ring + st * kStageF;
-    const float* vst = kst + BS * LD;
-    const int* kpos_s = reinterpret_cast<const int*>(vst + BS * LD);
-    const float* bmat = half ? vst : kst;
-
-    float c[NK][4];   // (row g (+8), key 8n + 2t (+1))
-#pragma unroll
-    for (int n = 0; n < NK; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) c[n][e] = 0.f;
-#pragma unroll 4
-    for (int kk = 0; kk < KS; ++kk) {
-      uint32_t ab[4], asm_[4];
-      const float* aa = amat + (rw + g) * LD + 8 * kk + t;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int o = (e & 1) * 8 * LD + (e >> 1) * 4;
-        split_tf32(aa[o] * ascale, ab[e], asm_[e]);
-      }
-#pragma unroll
-      for (int n = 0; n < NK; ++n) {
-        const float* br = bmat + (8 * n + g) * LD + 8 * kk + t;
-        uint32_t bb0, bs0, bb1, bs1;
-        split_tf32(br[0], bb0, bs0);
-        split_tf32(br[4], bb1, bs1);
-        mma3(c[n], ab, asm_, bb0, bb1, bs0, bs1);
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < NK; ++n) {
-      *reinterpret_cast<float2*>(sout + (rw + g) * LDP + 8 * n + 2 * t) =
-          make_float2(c[n][0], c[n][1]);
-      *reinterpret_cast<float2*>(sout + (rw + g + 8) * LDP + 8 * n + 2 * t) =
-          make_float2(c[n][2], c[n][3]);
-    }
-    __syncthreads();
-    for (int x = tid; x < BT * BS; x += NT) {
-      const int r = x / BS, key = x - r * BS;
-      float s = sp[r * LDP + key], dp = sds[r * LDP + key];
-      p_and_ds(p, qpos_s[r], kpos_s[key], lse_s[r], del_s[r], s, dp);
-      sds[r * LDP + key] = dp;
-    }
-    __syncthreads();
-    // phase 2: dQ += dS K, 8 keys a k step (paired as in dkdv_wide)
-#pragma unroll
-    for (int kk = 0; kk < NK; ++kk) {
-      uint32_t db[4], dsm[4];
-      const int o = (rw + g) * LDP + 8 * kk + 2 * t;
-      const float2 d0 = *reinterpret_cast<const float2*>(sds + o);
-      const float2 d1 = *reinterpret_cast<const float2*>(sds + o + 8 * LDP);
-      split_tf32(d0.x, db[0], dsm[0]);
-      split_tf32(d1.x, db[1], dsm[1]);
-      split_tf32(d0.y, db[2], dsm[2]);
-      split_tf32(d1.y, db[3], dsm[3]);
-      const float* k0 = kst + (8 * kk + 2 * t) * LD + c0 + g;
-#pragma unroll
-      for (int j = 0; j < JC; ++j) {
-        uint32_t bb0, bs0, bb1, bs1;
-        split_tf32(k0[8 * j], bb0, bs0);
-        split_tf32(k0[LD + 8 * j], bb1, bs1);
-        mma3(dq[j], db, dsm, bb0, bb1, bs0, bs1);
-      }
-    }
-    __syncthreads();   // every warp is done with this stage and sp / sds
-  }
-  cp_async_wait<0>();
-
-  if (splits > 1) {
-    const size_t tile = static_cast<size_t>(bh) * p.n_stat + rt;
-    float flat[4 * JC];
-#pragma unroll
-    for (int i = 0; i < 4 * JC; ++i) flat[i] = dq[i / 4][i % 4];
-    if (!sum_splits<4 * JC, NT>(
-            flat, p.partials + tile * gridDim.x * NT * (4 * JC),
-            p.tickets + tile, splits, rank, &s_last))
+  // The roles never meet again: the producer warpgroup returns when its
+  // copies are issued (one of its warps issues them), the consumers end the
+  // block (setmaxnreg needs the paths apart).
+  if (warp >= NC / 32) {
+    setmaxnreg_dec<kBProducerRegs>();
+    if (warp > NC / 32) return;
+    if (n == 0) {
+      if (lane == 0) mbar_wait(&stat_full, 0);
       return;
+    }
+    // ---- producer: the live tiles [i0, i1), each into the next stage: its
+    // rows' (keys') lse, D_i and positions, then its planes by bulk
+    // copies ----
+    for (int it = 0; it < n; ++it) {
+      const int st = it % NS;
+      // the tile's positions (lse, D_i) load while the stage drains
+      const int s0 = live[i0 + it] * BS;
+      int pos = -1;
+      float lse = 0.f, del = 0.f;
+      if (lane < BS) {
+        if (KV) {
+          const int R = s0 + lane;
+          const RowRef ref = row_ref(p, b, h, R, D);
+          pos = ref.pos;
+          if (R < p.rows) {   // lse in base 2
+            lse = p.lse[ref.loff] * kLog2e;
+            del = p.delta[ref.loff];
+          }
+        } else if (s0 + lane < p.S) {
+          pos = p.kv_pos[static_cast<size_t>(b) * p.S + s0 + lane];
+        }
+      }
+      mbar_wait(&empty[st], ((it / NS) & 1) ^ 1);
+      if (lane < BS) {
+        spos_s[st][lane] = pos;
+        lse_s[st][lane] = lse;
+        del_s[st][lane] = del;
+      }
+      __syncwarp();   // the stage's values are stored before lane 0 arrives
+      if (lane == 0) {
+        mbar_expect_tx(&full[st], 4 * TILE);
+        const size_t src = (bh * pad_b + s0) * D * 2;
 #pragma unroll
-    for (int i = 0; i < 4 * JC; ++i) dq[i / 4][i % 4] = flat[i];
+        for (int x = 0; x < 4; ++x)
+          bulk_load(ring + (st * 4 + x) * TILE,
+                    p.pieces[sb + x / 2][x % 2] + src, TILE, &full[st]);
+      }
+    }
+    return;
   }
+  setmaxnreg_inc<kBConsumerRegs>();
+
+  const int wg = warp / 4, wl = warp % 4, tw = tid % 128;
+  const int m0 = CS ? 0 : 64 * wg;            // the warpgroup's 64 rows
+  const int col0 = CS ? NCOL * wg : 0;        // its NCOL output columns
+  const int kd0 = CS ? (D / 2) * wg : 0;      // its columns of the S, dP sums
+  // this thread's stationary rows (keys): m0 + 16 wl + g (+ 8)
+  int spos[2];
+  float lse_r[2] = {0.f, 0.f}, del_r[2] = {0.f, 0.f};
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const long long off = row_qoff(p, b, h, R0 + rw + g + 8 * r, D);
-    if (off < 0) continue;
+    const int R = r0 + m0 + 16 * wl + g + 8 * r;
+    if (KV) {
+      spos[r] = R < p.S ? p.kv_pos[static_cast<size_t>(b) * p.S + R] : -1;
+    } else {
+      const RowRef ref = row_ref(p, b, h, R, D);
+      spos[r] = ref.pos;
+      if (R < p.rows) {   // lse in base 2
+        lse_r[r] = p.lse[ref.loff] * kLog2e;
+        del_r[r] = p.delta[ref.loff];
+      }
+    }
+  }
+  // acc[4n + e]: stationary row g + 8 (e >> 1), column col0 + 8n + 2t + (e &
+  // 1); dk/dv: dK and dV; dq: dQ
+  constexpr int NV = KV ? NA : 1;
+  float acc[NA], acc_v[NV];
 #pragma unroll
-    for (int j = 0; j < JC; ++j)
-      *reinterpret_cast<float2*>(p.dq + off + c0 + 8 * j + 2 * t) =
-          make_float2(dq[j][2 * r] * p.scale, dq[j][2 * r + 1] * p.scale);
+  for (int i = 0; i < NA; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < NV; ++i) acc_v[i] = 0.f;
+
+  const BwdScales sc = bwd_scales(p, D);
+  const float unscale1 = 1.f / (sc.q * sc.k), unscale2 = 1.f / (sc.dout * sc.v);
+  const float inv_cap = p.softcap > 0.f ? 1.f / p.softcap : 0.f;
+  if (n > 0) {
+    mbar_wait(&stat_full, 0);
+    // PP (dq with the rows split): the warpgroups take turns at the X
+    // products (warpgroup 0 first), so that one's p and ds run under the
+    // other's products; the column split meets at the exchange anyway
+    if (PP && wg == 1) turn_give(0);
+    const uint32_t a_base = smem_u32(stat) + m0 * D * 2;
+    const uint32_t ring_a = smem_u32(ring);
+    for (int it = 0; it < n; ++it) {
+      const int st = it % NS;
+      mbar_wait(&full[st], (it / NS) & 1);
+      // the bases through an opaque move: the descriptors below are made
+      // next to their wgmma, not hoisted out of the loop into registers
+      uint32_t b_base = ring_a + st * 4 * TILE, a_tile = a_base;
+      asm volatile("" : "+r"(b_base), "+r"(a_tile));
+
+      // X1 = A1 B1^T, X2 = A2 B2^T over this warpgroup's columns kd0 ..
+      float x1[NX], x2[NX];
+#pragma unroll
+      for (int i = 0; i < NX; ++i) x1[i] = x2[i] = 0.f;
+      keep(x1);
+      keep(x2);
+      if (PP) turn_wait(wg);
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < KSTEPS; ++k) {
+        const int c = kd0 + 16 * k;
+        const uint32_t o = (c / 64) * 1024 + ((c % 64) / 16) * 32;
+        const uint64_t a1b = sw128_desc(a_tile + o, 16, GROUP);
+        const uint64_t a1s = sw128_desc(a_tile + STAT + o, 16, GROUP);
+        const uint64_t a2b = sw128_desc(a_tile + 2 * STAT + o, 16, GROUP);
+        const uint64_t a2s = sw128_desc(a_tile + 3 * STAT + o, 16, GROUP);
+        const uint64_t b1b = sw128_desc(b_base + o, 16, GROUP);
+        const uint64_t b1s = sw128_desc(b_base + TILE + o, 16, GROUP);
+        const uint64_t b2b = sw128_desc(b_base + 2 * TILE + o, 16, GROUP);
+        const uint64_t b2s = sw128_desc(b_base + 3 * TILE + o, 16, GROUP);
+        // X1 and X2 in turns: no wgmma waits on the one before it
+        wgmma_f16_ss<BS>(x1, a1s, b1b, k > 0);
+        wgmma_f16_ss<BS>(x2, a2s, b2b, k > 0);
+        wgmma_f16_ss<BS>(x1, a1b, b1s, 1);
+        wgmma_f16_ss<BS>(x2, a2b, b2s, 1);
+        wgmma_f16_ss<BS>(x1, a1b, b1b, 1);
+        wgmma_f16_ss<BS>(x2, a2b, b2b, 1);
+      }
+      wgmma_commit();
+      // the other warpgroup's turn (warpgroup 1's last is not taken)
+      if (PP && (wg == 0 || it + 1 < n)) turn_give(1 - wg);
+      wgmma_wait_all();
+      keep(x1);
+      keep(x2);
+      if constexpr (CS) {
+        // the column halves' sums, added in warpgroup order (both get the
+        // same bits): [warpgroup][X1 float4s, X2 float4s][thread]
+        constexpr int NQ = NX / 4;
+#pragma unroll
+        for (int i = 0; i < NQ; ++i) {
+          xch[((wg * 2) * NQ + i) * 128 + tw] = make_float4(
+              x1[4 * i], x1[4 * i + 1], x1[4 * i + 2], x1[4 * i + 3]);
+          xch[((wg * 2 + 1) * NQ + i) * 128 + tw] = make_float4(
+              x2[4 * i], x2[4 * i + 1], x2[4 * i + 2], x2[4 * i + 3]);
+        }
+        consumers_sync<NC>();
+#pragma unroll
+        for (int i = 0; i < NQ; ++i) {
+          const float4 u1 = xch[i * 128 + tw];
+          const float4 w1 = xch[(2 * NQ + i) * 128 + tw];
+          const float4 u2 = xch[(NQ + i) * 128 + tw];
+          const float4 w2 = xch[(3 * NQ + i) * 128 + tw];
+          x1[4 * i] = u1.x + w1.x;
+          x1[4 * i + 1] = u1.y + w1.y;
+          x1[4 * i + 2] = u1.z + w1.z;
+          x1[4 * i + 3] = u1.w + w1.w;
+          x2[4 * i] = u2.x + w2.x;
+          x2[4 * i + 1] = u2.y + w2.y;
+          x2[4 * i + 2] = u2.z + w2.z;
+          x2[4 * i + 3] = u2.w + w2.w;
+        }
+        consumers_sync<NC>();   // both read before the next tile writes
+      }
+#pragma unroll
+      for (int i = 0; i < NX; ++i) {   // the scales off (powers of two)
+        x1[i] *= unscale1;
+        x2[i] *= unscale2;
+      }
+
+      // p and ds in place of X1 and X2: x[4n + e] is stationary row g + 8
+      // (e >> 1), streamed column 8n + 2t + (e & 1) (with the columns split
+      // both warpgroups compute all of it)
+#pragma unroll
+      for (int nn = 0; nn < NX / 4; ++nn)
+#pragma unroll
+        for (int cc = 0; cc < 2; ++cc) {
+          const int c = 8 * nn + 2 * t + cc;
+          const int cpos = spos_s[st][c];
+          const float clse = KV ? lse_s[st][c] : 0.f;
+          const float cdel = KV ? del_s[st][c] : 0.f;
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int e = 2 * r + cc;
+            if (KV)
+              p_and_ds_base2(p, cpos, spos[r], clse, cdel, inv_cap,
+                             x1[4 * nn + e], x2[4 * nn + e]);
+            else
+              p_and_ds_base2(p, spos[r], cpos, lse_r[r], del_r[r], inv_cap,
+                             x1[4 * nn + e], x2[4 * nn + e]);
+          }
+        }
+
+      // dk/dv: dV += P^T dO (B2), dK += dS^T q D^-1/2 (B1); dq: dQ += dS K
+      // (B1); 16 streamed rows (keys) a k16 step, B MN-major
+      constexpr int NJ = BS / 16, NP = KV ? NJ : 1;
+      uint32_t pb[NP][4], ps[NP][4], db[NJ][4], ds[NJ][4];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int i = 8 * j + 2 * q;
+          if constexpr (KV)
+            split_f16x2(x1[i] * sc.p, x1[i + 1] * sc.p, pb[j][q], ps[j][q]);
+          split_f16x2(x2[i] * sc.ds, x2[i + 1] * sc.ds, db[j][q], ds[j][q]);
+        }
+      keep(acc);
+      keep(acc_v);
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const uint32_t o = b_base + (2 * j) * GROUP + (col0 / 64) * 1024;
+        const uint64_t b1b = sw128_desc(o, 1024, GROUP);
+        const uint64_t b1s = sw128_desc(o + TILE, 1024, GROUP);
+        const uint64_t b2b = sw128_desc(o + 2 * TILE, 1024, GROUP);
+        const uint64_t b2s = sw128_desc(o + 3 * TILE, 1024, GROUP);
+        // dk/dv: dK and dV in turns
+        wgmma_f16_rs<NA>(acc, ds[j], b1b);
+        if constexpr (KV) wgmma_f16_rs<NA>(acc_v, ps[j % NP], b2b);
+        wgmma_f16_rs<NA>(acc, db[j], b1s);
+        if constexpr (KV) wgmma_f16_rs<NA>(acc_v, pb[j % NP], b2s);
+        wgmma_f16_rs<NA>(acc, db[j], b1b);
+        if constexpr (KV) wgmma_f16_rs<NA>(acc_v, pb[j % NP], b2b);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      keep(acc);
+      keep(acc_v);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        keep(db[j]);
+        keep(ds[j]);
+      }
+#pragma unroll
+      for (int j = 0; j < NP; ++j) {
+        keep(pb[j]);
+        keep(ps[j]);
+      }
+      warpgroup_sync(wg);   // every warp is done with the stage
+      if (tw == 0) mbar_arrive(&empty[st]);
+    }
+  }
+
+  if (splits > 1) {
+    const size_t tile = static_cast<size_t>(bh) * p.n_stat + st_tile;
+    float flat[NF];
+#pragma unroll
+    for (int i = 0; i < NF; ++i) flat[i] = i < NA ? acc[i] : acc_v[i % NV];
+    if (!sum_splits<NF, NC, true>(
+            flat, p.partials + tile * gridDim.x * NC * NF, p.tickets + tile,
+            splits, rank, &s_last))
+      return;
+#pragma unroll
+    for (int i = 0; i < NF; ++i) (i < NA ? acc[i] : acc_v[i % NV]) = flat[i];
+  }
+  // the scales off: dK / (s_ds s_q), dV / (s_p s_dout), dQ D^-1/2 / (s_ds
+  // s_k)
+  const float out1 = KV ? 1.f / (sc.ds * sc.q) : p.scale / (sc.ds * sc.k);
+  const float out2 = 1.f / (sc.p * sc.dout);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int R = r0 + m0 + 16 * wl + g + 8 * r;
+    if constexpr (KV) {
+      if (R >= p.S) continue;
+      const size_t off =
+          ((static_cast<size_t>(b) * p.S + R) * p.Hkv + h) * D + col0 + 2 * t;
+#pragma unroll
+      for (int nn = 0; nn < NCOL / 8; ++nn) {
+        *reinterpret_cast<float2*>(p.dk + off + 8 * nn) = make_float2(
+            acc[4 * nn + 2 * r] * out1, acc[4 * nn + 2 * r + 1] * out1);
+        *reinterpret_cast<float2*>(p.dv + off + 8 * nn) =
+            make_float2(acc_v[(4 * nn + 2 * r) % NV] * out2,
+                        acc_v[(4 * nn + 2 * r + 1) % NV] * out2);
+      }
+    } else {
+      const long long off = row_qoff(p, b, h, R, D);
+      if (off < 0) continue;
+#pragma unroll
+      for (int nn = 0; nn < NCOL / 8; ++nn)
+        *reinterpret_cast<float2*>(p.dq + off + col0 + 8 * nn + 2 * t) =
+            make_float2(acc[4 * nn + 2 * r] * out1,
+                        acc[4 * nn + 2 * r + 1] * out1);
+    }
   }
 }
 
@@ -3414,7 +3841,7 @@ template <int D>
 __global__ void __launch_bounds__(bwd_threads(D), bwd_min_blocks(D))
 flash_bwd_dkdv_kernel(const BwdParams p) {
   if constexpr (D >= 128)
-    dkdv_wide<D>(p);
+    wide_body<D, true>(p);
   else
     dkdv_narrow<D>(p);
 }
@@ -3423,7 +3850,7 @@ template <int D>
 __global__ void __launch_bounds__(bwd_threads(D), bwd_min_blocks(D))
 flash_bwd_dq_kernel(const BwdParams p) {
   if constexpr (D >= 128)
-    dq_wide<D>(p);
+    wide_body<D, false>(p);
   else
     dq_narrow<D>(p);
 }
@@ -3437,16 +3864,19 @@ struct BwdPass {
 
 // A block takes at most `per` streamed tiles (of `bs` rows or keys), so
 // that the blocks of a causal call (about half of the tile pairs live)
-// come to about kBWaves for every SM: the longest lists (key tile 0, the
-// last row tiles) are cut to the size of the rest, and the blocks fill the
-// card in about equal waves; and no block sums more than kBMaxRows.
-BwdPass bwd_pass(long long bh, int n_stat, int n_str, int bs) {
+// come to about waves_pct / 100 for every SM (kBWaves, or kBWavesWidePct /
+// 100 from head dim 128): the longest lists (key tile 0, the last row
+// tiles) are cut to the size of the rest, and the blocks fill the card in
+// about equal waves; and no block sums more than max_rows (kBMaxRows, or
+// kBMaxRowsWide from head dim 128).
+BwdPass bwd_pass(long long bh, int n_stat, int n_str, int bs,
+                 int max_rows, int waves_pct) {
   BwdPass ps{n_stat, n_str, 1, 1};
   long long pairs = bh * n_stat * n_str / 2;
   pairs = pairs > 0 ? pairs : 1;
-  const long long want = static_cast<long long>(kBWaves) * sm_count();
-  long long per = (pairs + want - 1) / want;
-  per = per < kBMaxRows / bs ? per : kBMaxRows / bs;
+  const long long want = static_cast<long long>(waves_pct) * sm_count();
+  long long per = (100 * pairs + want - 1) / want;
+  per = per < max_rows / bs ? per : max_rows / bs;
   ps.per = static_cast<int>(per < n_str ? per : n_str);
   ps.splits = (n_str + ps.per - 1) / ps.per;
   return ps;
@@ -3454,25 +3884,36 @@ BwdPass bwd_pass(long long bh, int n_stat, int n_str, int bs) {
 
 struct BwdPlan {
   BwdPass kv, q;               // the dk/dv pass and the dq pass
-  size_t partials, tickets;    // the workspace both need (one after another)
+  size_t partials, tickets;    // the split workspace both need (in turn)
+  // D >= 128: the pieces planes' rows (keys) a kv head, and their floats,
+  // which follow the partials (1 KB aligned) and the tensors' maxima (1 KB)
+  // in the workspace
+  int rows_pad, keys_pad;
+  size_t pieces;
+  size_t maxima_at() const { return (partials + 255) / 256 * 256; }
+  size_t floats() const {
+    return pieces > 0 ? maxima_at() + 256 + pieces : partials;
+  }
 };
 
 BwdPlan bwd_plan(int B, int T, int Hq, int Hkv, int S, int D) {
   const long long bh = static_cast<long long>(B) * Hkv;
   const long long rows = static_cast<long long>(T) * (Hq / Hkv);
-  const int BT = bwd_bt(D), BS = bwd_bs(D);
+  const int BTK = bwd_bt(D, true), BTQ = bwd_bt(D, false), BS = bwd_bs(D);
   BwdPlan pl;
-  pl.kv = bwd_pass(bh, static_cast<int>((S + BT - 1) / BT),
-                   static_cast<int>((rows + BS - 1) / BS), BS);
-  pl.q = bwd_pass(bh, static_cast<int>((rows + BT - 1) / BT),
-                  static_cast<int>((S + BS - 1) / BS), BS);
+  const int most = D >= 128 ? kBMaxRowsWide : kBMaxRows;
+  const int waves = D >= 128 ? kBWavesWidePct : 100 * kBWaves;
+  pl.kv = bwd_pass(bh, static_cast<int>((S + BTK - 1) / BTK),
+                   static_cast<int>((rows + BS - 1) / BS), BS, most, waves);
+  pl.q = bwd_pass(bh, static_cast<int>((rows + BTQ - 1) / BTQ),
+                  static_cast<int>((S + BS - 1) / BS), BS, most, waves);
   // a split block's fragments: its tile's dK and dV (2 BT D floats) for
   // dk/dv, its dQ (BT D) for dq
   const size_t kv = pl.kv.splits > 1 ? static_cast<size_t>(bh) * pl.kv.n_stat *
-                                           pl.kv.splits * 2 * BT * D
+                                           pl.kv.splits * 2 * BTK * D
                                      : 0;
   const size_t q = pl.q.splits > 1 ? static_cast<size_t>(bh) * pl.q.n_stat *
-                                         pl.q.splits * BT * D
+                                         pl.q.splits * BTQ * D
                                    : 0;
   pl.partials = kv > q ? kv : q;
   const size_t tk = pl.kv.splits > 1 ? static_cast<size_t>(bh) * pl.kv.n_stat
@@ -3480,6 +3921,14 @@ BwdPlan bwd_plan(int B, int T, int Hq, int Hkv, int S, int D) {
   const size_t tq = pl.q.splits > 1 ? static_cast<size_t>(bh) * pl.q.n_stat
                                     : 0;
   pl.tickets = tk > tq ? tk : tq;
+  pl.rows_pad = pl.keys_pad = 0;
+  pl.pieces = 0;
+  if (D >= 128) {   // two fp16 pieces of q D^-1/2, dout, k and v
+    pl.rows_pad = static_cast<int>((rows + kBPad - 1) / kBPad * kBPad);
+    pl.keys_pad = (S + kBPad - 1) / kBPad * kBPad;
+    pl.pieces = 2 * static_cast<size_t>(bh) * D *
+                (static_cast<size_t>(pl.rows_pad) + pl.keys_pad);
+  }
   return pl;
 }
 
@@ -3489,10 +3938,13 @@ int launch_bwd(BwdParams p, int B, const BwdPlan& pl, cudaStream_t stream) {
   int dev = 0;
   if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64)
     return static_cast<int>(cudaErrorInvalidDevice);
-  constexpr size_t fixed = 2 * bwd_bt(D) * (D + 4) + bwd_scratch_floats(D);
+  constexpr size_t fixed = 2 * bwd_bt(D, true) * (D + 4);
   const size_t smem_kv =
-      (fixed + 2 * dkdv_stage_floats<D>() + pl.kv.n_str) * 4;
-  const size_t smem_q = (fixed + 2 * dq_stage_floats<D>() + pl.q.n_str) * 4;
+      D >= 128 ? bwd_wide_smem(D, true, pl.kv.n_str)
+               : (fixed + 2 * dkdv_stage_floats<D>() + pl.kv.n_str) * 4;
+  const size_t smem_q =
+      D >= 128 ? bwd_wide_smem(D, false, pl.q.n_str)
+               : (fixed + 2 * dq_stage_floats<D>() + pl.q.n_str) * 4;
   if (smem_kv > kSmemMax || smem_q > kSmemMax)
     return static_cast<int>(cudaErrorInvalidValue);
   if (!raised[dev]) {   // allow the most; each launch asks for what it needs
@@ -3507,6 +3959,21 @@ int launch_bwd(BwdParams p, int B, const BwdPlan& pl, cudaStream_t stream) {
     raised[dev] = true;
   }
   const unsigned bhkv = static_cast<unsigned>(B * p.Hkv);
+  if constexpr (D >= 128) {   // the tensors' maxima, then their pieces
+    cudaError_t e = cudaMemsetAsync(p.maxima, 0, 4 * sizeof(unsigned), stream);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const long long n_q4 = static_cast<long long>(B) * p.T * p.Hq * D / 4;
+    const long long n_k4 = static_cast<long long>(bhkv) * p.S * D / 4;
+    flash_bwd_absmax_kernel<<<4 * sm_count(), 256, 0, stream>>>(p, n_q4, n_k4);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const long long items = static_cast<long long>(bhkv) *
+                            (pl.rows_pad + pl.keys_pad) * (D / 8);
+    flash_bwd_pieces_kernel<D>
+        <<<static_cast<unsigned>((items + 255) / 256), 256, 0, stream>>>(p, B);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
   p.n_stat = pl.kv.n_stat;
   p.n_str = pl.kv.n_str;
   p.per = pl.kv.per;
@@ -3537,7 +4004,7 @@ extern "C" size_t flash_attention_bwd_workspace(int B, int T, int Hq,
   if (!shapes_ok(B, T, Hq, Hkv, S, D) || S <= 0) return 0;
   const BwdPlan pl = bwd_plan(B, T, Hq, Hkv, S, D);
   *tickets = pl.tickets;
-  return pl.partials;
+  return pl.floats();
 }
 
 // The backward of flash_attention (contiguous layout): dq (B, T, Hq, D),
@@ -3564,8 +4031,9 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
     return static_cast<int>(cudaErrorInvalidValue);
   const BwdPlan pl = bwd_plan(B, T, Hq, Hkv, S, D);
   if (pl.kv.n_stat > 65535 || pl.q.n_stat > 65535 ||
-      n_partials < pl.partials || n_tickets < pl.tickets ||
-      (pl.tickets > 0 && (partials == nullptr || tickets == nullptr)))
+      n_partials < pl.floats() || n_tickets < pl.tickets ||
+      (pl.tickets > 0 && tickets == nullptr) ||
+      (pl.floats() > 0 && partials == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   BwdParams p{};
   p.q = static_cast<const float*>(q);
@@ -3591,6 +4059,18 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
   p.softcap = softcap;
   p.scale = 1.f / sqrtf(static_cast<float>(D));
   p.rows = T * p.G;
+  p.rows_pad = pl.rows_pad;
+  p.keys_pad = pl.keys_pad;
+  if (pl.pieces > 0) {   // [q D^-1/2, dout, k, v][big, small]
+    p.maxima = reinterpret_cast<unsigned*>(p.partials + pl.maxima_at());
+    uint8_t* at = reinterpret_cast<uint8_t*>(p.partials + pl.maxima_at() + 256);
+    const size_t bh = static_cast<size_t>(B) * Hkv;
+    for (int x = 0; x < 4; ++x)
+      for (int pc = 0; pc < 2; ++pc) {
+        p.pieces[x][pc] = at;
+        at += bh * piece_bytes(x < 2 ? pl.rows_pad : pl.keys_pad, D);
+      }
+  }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int n_rows = B * T * Hq;
   flash_bwd_delta_kernel<<<(n_rows + kDeltaThreads / 32 - 1) /

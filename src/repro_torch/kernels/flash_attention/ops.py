@@ -83,8 +83,9 @@ def flash_attention_bwd_plain(q, k, v, q_pos, kv_pos, out, lse, dout, *,
     JAX package's custom VJP runs (``_flash_bwd_scoped``): per block of
     keys, p = exp(cap(s) - lse) under the mask, dv = p^T dout,
     ds = p (dout v^T - D_i) (times 1 - tanh^2 with a softcap), dq += ds k,
-    dk = ds^T q D^-1/2; f32. ``lse`` (B, Hq, T) as the forward gives it."""
-    f32 = torch.float32
+    dk = ds^T q D^-1/2; f32 (f64 for f64 inputs: a reference for the f32
+    arithmetic). ``lse`` (B, Hq, T) as the forward gives it."""
+    f32 = torch.promote_types(q.dtype, torch.float32)
     B, T, Hq, D = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
@@ -418,11 +419,13 @@ def _launch(q, k, v, q_pos, kv_pos, window, softcap, *, with_lse: bool):
 def flash_attention_bwd(q, k, v, q_pos, kv_pos, out, lse, dout, *,
                         window=None, softcap=None):
     """(dq, dk, dv) of ``flash_attention`` from its inputs, its ``out`` and
-    ``lse`` (B, Hq, T) and ``dout`` (B, T, Hq, D): the three backward
-    kernels of ``csrc/flash_attention.cu`` on CUDA tensors (3xTF32 tensor
-    cores; long causal tiles split over blocks through the shared
-    workspace; one count of ``flash_attention_bwd`` per call),
-    ``flash_attention_bwd_plain`` on CPU tensors."""
+    ``lse`` (B, Hq, T) and ``dout`` (B, T, Hq, D): the backward kernels of
+    ``csrc/flash_attention.cu`` on CUDA tensors (3xTF32 mma.sync up to
+    head dim 64; from 128 wgmma on fp16 pieces, which two more kernels
+    write into the shared workspace first; long causal tiles split over
+    blocks through the same workspace; one count of
+    ``flash_attention_bwd`` per call), ``flash_attention_bwd_plain`` on
+    CPU tensors."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, q_pos, kv_pos, out, lse,
                                          dout, window=window, softcap=softcap)

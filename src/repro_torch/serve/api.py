@@ -14,8 +14,9 @@ benchmark's baseline). On a CUDA device the paged engine runs its mixed
 step (and, with ``spec``, its verify step) as one CUDA graph per (chunk,
 table) signature and the dense engine its decode step as one CUDA graph,
 each captured at its first tick and replayed after that
-(``CompileStats``); on the CPU the steps run eagerly. Tensor parallelism
-and MoE wait for later slices (ROADMAP Queue 1 items 12 and 16).
+(``CompileStats``); on the CPU the steps run eagerly. Both engines serve
+the MoE models too (dropless routing); tensor parallelism waits for a later
+slice (ROADMAP Queue 1 item 16).
 """
 from __future__ import annotations
 

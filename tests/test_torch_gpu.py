@@ -1265,20 +1265,26 @@ def test_flash_bwd_kernel_matches_plain(T, Hq, Hkv, D, window, softcap):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("Hq,Hkv,D,softcap", [
-    pytest.param(32, 8, 64, None, id="32-8"),
-    pytest.param(16, 16, 64, None, id="16-16"),
-    pytest.param(16, 8, 256, 50.0, id="gemma2-16-8-256"),
-    pytest.param(32, 8, 128, None, id="mistral-nemo-32-8-128")])
+@pytest.mark.parametrize("Hq,Hkv,D,softcap,B,T,window", [
+    pytest.param(32, 8, 64, None, 2, 512, None, id="32-8"),
+    pytest.param(16, 16, 64, None, 2, 512, None, id="16-16"),
+    pytest.param(16, 8, 256, 50.0, 2, 512, None, id="gemma2-16-8-256"),
+    pytest.param(32, 8, 128, None, 2, 512, None, id="mistral-nemo-32-8-128"),
+    pytest.param(16, 8, 256, 50.0, 1, 1200, 512,
+                 id="gemma2-16-8-256-window-1200")])
 def test_flash_bwd_kernel_matches_plain_at_the_microbatch(Hq, Hkv, D,
-                                                          softcap):
+                                                          softcap, B, T,
+                                                          window):
     """One train microbatch's attention: B = 2, T = S = 512 causal, at
     llama3.2-1b's 32/8 and the paper models' 16/16 heads, gemma2-9b's 16/8
     at head dim 256 with its softcap of 50, mistral-nemo-12b's 32/8 at 128
-    (long key and row lists split over blocks)."""
+    (long key and row lists split over blocks); and gemma2-9b's heads with
+    its softcap and a window of 512 at T = 1200, past ``kBMaxRows`` (1024
+    rows) and the wide kernels' ``kBMaxRowsWide``: every key's rows split
+    over blocks, summed in split order."""
     dev = _cuda_or_skip()
-    q, k, v, pos, dout = _bwd_inputs(dev, 2, 512, Hq, Hkv, D, Hq + Hkv)
-    _bwd_check(q, k, v, pos, pos, dout, softcap=softcap)
+    q, k, v, pos, dout = _bwd_inputs(dev, B, T, Hq, Hkv, D, Hq + Hkv)
+    _bwd_check(q, k, v, pos, pos, dout, window=window, softcap=softcap)
 
 
 @pytest.mark.gpu
