@@ -26,7 +26,10 @@ this tree's ``chip_smoke.py`` cases against their plain versions:
     kernels of either tree's names); a whole dropless llama4-scout MoE
     layer at a decode tick (device ms, device kernels a call, and the ms of
     the kernels that are neither grouped nor crossbar); on a tree that has
-    them, ``moe_route`` and ``moe_combine`` at the three MoE models' ticks;
+    them, ``moe_route`` and ``moe_combine`` at the three MoE models' ticks,
+    then ``moe_route`` at ``chip_smoke.ROUTE_EDGES`` (token counts across
+    its items, mixtral-8x22b's 4400-token prompt, routings that strain the
+    layout) and replayed from a CUDA graph at a second routing;
   * ``scan``: ``selective_scan`` at jamba's width (``SCAN_CASES``: decode
     on 8 slots, the verify tick, a 128-token chunk on 8 slots and the same
     chunk ragged, a 512-token and a 4096-token prompt), each with its bound
@@ -39,8 +42,9 @@ decode ticks and one of replayed mixed ticks; each prints the two windows'
 device ms a tick and the scans' share.
 
 Each output line is one JSON object with its tree; the card's name and power
-limit come first. The exit code is 1 when a build fails or a case fails its
-check. Comparing the trees only within one call keeps them on one card.
+limit come first. Every turn runs even when one fails (a check the other
+tree does not meet); the exit code is 1 when a build fails or a turn
+failed. Comparing the trees only within one call keeps them on one card.
 """
 import argparse
 import json
@@ -60,6 +64,7 @@ KEYS = ("name", "model", "case", "kernel", "bits", "shape", "max_abs_err",
         "max_rel_err", "tol", "same_bits", "idle_row_kept", "ms",
         "device_ms", "host_us", "library_device_ms", "plain_device_ms",
         "plain_device_kernels", "device_kernels", "other_device_ms",
+        "launch_floor_device_ms", "cold_device_ms",
         "grouped_and_crossbar_device_ms", "launches", "bound_ms", "bound_by",
         "bound_pieces_ms", "bound_parts_ms", "max_err_over_rel",
         "f64_kernel_err", "f64_plain_err", "plain_ms", "ok")
@@ -165,14 +170,15 @@ def main() -> int:
              (ROOT, "this", "cases"), (other, "other", "cases")]
     if args.serve:
         turns += [(other, "other", "serve"), (ROOT, "this", "serve")]
+    failed = 0
     for tree, label, kind in turns:
         rc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
                              "--turn", str(tree), label, kind,
                              *args.cases]).returncode
         if rc != 0:
             print(f"turn {label} ({kind}) failed: rc {rc}", file=sys.stderr)
-            return rc
-    return 0
+            failed = 1
+    return failed
 
 
 if __name__ == "__main__":

@@ -108,7 +108,12 @@ Imports nothing of JAX or of the JAX package. Phases, each printing JSON:
                buffer rows bit-equal, gates, weights and aux within 1e-6;
                the combine within 1e-6 of max |y|), the same bits twice,
                with the plain version's device ms and kernels a call
-               beside, bound by bytes, no library call; then a whole
+               beside, bound by bytes, no library call (since slice 22
+               also ``moe_route`` at token counts across its items,
+               mixtral's 4400-token prompt, one expert, exact ties, all
+               tokens masked and two slots an expert, and replayed from a
+               CUDA graph at a second routing; the decode lines carry a
+               one-element launch's device ms); then a whole
                dropless MoE layer at full width (llama4-scout at both
                ticks, mixtral at decode) against ``streamed_moe`` within
                1e-4 of max |y| on the real tokens, its device ms and
@@ -1810,6 +1815,96 @@ def device_kernels(fn, reps: int = 3):
             len(ev) / reps)
 
 
+def _route_bytes(n, E, k, tpe, d, n_read, n_kept):
+    """Bytes ``moe_route`` must move: logits, mask and the kept tokens' x
+    rows read once; experts, gate, margin, aux, rows, weights, bases,
+    counts and a buffer row of each kept assignment written once."""
+    A, slots = n * k * tpe, E * tpe
+    return (n * E * 4 + n + n_read * d * 4 + n_kept * d * 4 + n * k * 12
+            + n * 4 + 12 + A * 12 + (2 * slots + 1) * 4)
+
+
+def route_case(route, plain, same_as=None):
+    """A ``moe_route`` case's check and times: ``route()`` twice and
+    ``plain()`` once, held by ``moe_ops.compare_routes``; the two calls'
+    bits (and ``same_as``'s, a route the first call must equal); the
+    device ms of the route kernels, the plain version's and its kernels."""
+    from repro_torch.kernels.moe_route import ops as moe_ops
+
+    got = moe_ops.Route(*(t.clone() for t in route()))   # a replay reuses
+    again = route()
+    want = plain()
+    torch.cuda.synchronize()
+    check = moe_ops.compare_routes(got, want)
+    kept = want.weights > 0
+    rk = want.rows[kept]
+    same = all(torch.equal(a, b) for a, b in zip(got[:-1], again[:-1]))
+    same = same and torch.equal(got.xbuf[rk], again.xbuf[rk])
+    if same_as is not None:
+        same = same and all(torch.equal(a, b) for a, b in
+                            zip(got[:-1], same_as[:-1])) and torch.equal(
+            got.xbuf[rk], same_as.xbuf[rk])
+    err = max(float((got.gate - want.gate).abs().max()),
+              float((got.aux - want.aux).abs().max()))
+    scale = max(float(want.gate.abs().max()), float(want.aux.abs().max()))
+    plain_dev, plain_kernels = device_kernels(plain)
+    return want, {"check": check, "same_bits": same, "max_abs_err": err,
+                  "tol": moe_ops.ROUTE_TOL * scale, "ms": timed(route, 20),
+                  "device_ms": device_ms_by_name([route] * 10,
+                                                 ROUTE_KERNELS),
+                  "host_us": host_us(route, 50),
+                  "plain_ms": timed(plain, 5, warmup=1),
+                  "plain_device_ms": plain_dev,
+                  "plain_device_kernels": plain_kernels,
+                  "ok": check["ok"] and check["layout_equal"] is True
+                  and same}
+
+
+def _route_counts(want, n, k, tpe):
+    """(kept assignments, tokens with one: the x rows the kernel reads)."""
+    kept = want.weights > 0
+    return int(kept.sum()), int(kept.reshape(n, k * tpe).any(1).sum())
+
+
+# routings that strain moe_route's layout (slice 22): (label, router
+# model, tokens, logits, tpe). Token counts at and across the kernel's
+# routing items (32 tokens: the decode path's limit too) and the old
+# kernel's chunks (256); mixtral-8x22b's forward prompt (B = 1, T = 4400);
+# every token on one expert; logits rounded to halves, every eighth token's
+# all equal (exact ties, to the lower expert); every token masked; two
+# slots an expert. Masks drop 10% of the tokens but at "tokens_1".
+ROUTE_EDGES = (("tokens_1", "mixtral-8x22b", 1, "model", 1),
+               ("tokens_32", "mixtral-8x22b", 32, "model", 1),
+               ("tokens_33", "mixtral-8x22b", 33, "model", 1),
+               ("tokens_255", "mixtral-8x22b", 255, "model", 1),
+               ("tokens_256", "mixtral-8x22b", 256, "model", 1),
+               ("tokens_257", "mixtral-8x22b", 257, "model", 1),
+               ("prompt_4400", "mixtral-8x22b", 4400, "model", 1),
+               ("one_expert", "jamba-1.5-large-398b", 1024, "one_expert", 1),
+               ("tied", "jamba-1.5-large-398b", 1024, "tied", 1),
+               ("all_masked", "llama4-scout-17b-a16e", 1024, "masked", 1),
+               ("tpe2", "mixtral-8x22b", 257, "model", 2),
+               ("tpe2_decode", "jamba-1.5-large-398b", 8, "model", 2))
+
+
+def _edge_inputs(dev, g, router, n, d, kind):
+    """(logits, mask, x) of an edge case: logits x @ router, bent by
+    ``kind``."""
+    x = torch.randn(n, d, generator=g, device=dev)
+    logits = x @ router
+    if kind == "one_expert":
+        logits[:, router.shape[1] // 2] += 30.0
+    elif kind == "tied":
+        logits = torch.round(logits * 2) / 2
+        logits[::8] = 0.0
+    mask = torch.rand(n, generator=g, device=dev) > 0.1
+    if kind == "masked":
+        mask[:] = False
+    elif n == 1:
+        mask[:] = True
+    return logits, mask, x
+
+
 def moe_route_cases(dev, g):
     """``moe_route`` and ``moe_combine`` (slice 18) at the MoE models'
     decode and mixed ticks, each against its plain version on the same
@@ -1818,14 +1913,37 @@ def moe_route_cases(dev, g):
     weights and aux within 1e-6 relative; the combine within 1e-6 of max
     |y|), with the plain version's device time and device kernels a call
     beside the kernel's. Router logits x @ W for a random f32 router of
-    the model's width (``layers.dense_init``'s scale). Bound: the bytes
-    each reads and writes once (no operation counts: a few per byte); no
-    single PyTorch call computes either function."""
+    the model's width (``layers.dense_init``'s scale); beside the decode
+    cases, the device ms of a one-element torch elementwise launch measured
+    the same way (the floor a launch costs), and the route's device ms
+    when each call follows a 2048 x 2048 f32 product and a pass over 256 MB
+    (``cold_device_ms``: code and data out of the caches, as between the
+    expert products of a decode tick). Then (slice 22)
+    ``moe_route`` alone at ``ROUTE_EDGES`` and, captured in a CUDA graph at
+    one routing and replayed at another, at jamba's decode and mixed
+    ticks: the replay against the plain version and, bit for bit, an eager
+    call on the second routing. Bound: the bytes each reads and writes
+    once (no operation counts: a few per byte); no single PyTorch call
+    computes either function."""
     from repro_torch.kernels.crossbar_matmul import ops as cb_ops
     from repro_torch.kernels.moe_route import ops as moe_ops
 
+    one = torch.zeros(1, device=dev)
+    floor = {"launch_floor_device_ms": device_ms_by_name(
+        [lambda: one.add_(1.0)] * 10, None)}
+    big = torch.empty(64 * 2 ** 20, device=dev)
+    square = torch.randn(2048, 2048, generator=g, device=dev)
+
+    def cold(fn):
+        def run():
+            torch.mm(square, square)
+            big.add_(1.0)
+            fn()
+        return device_ms_by_name([run] * 10, ROUTE_KERNELS)
+    routers = {}
     for model, E, k, norm, d, has_shared in MOE_ROUTERS:
-        router = torch.randn(d, E, generator=g, device=dev) * d ** -0.5
+        router = routers[model] = (
+            torch.randn(d, E, generator=g, device=dev) * d ** -0.5)
         for label, B, T in MOE_TICKS:
             n, A = B * T, B * T * k
             x = torch.randn(n, d, generator=g, device=dev)
@@ -1838,45 +1956,22 @@ def moe_route_cases(dev, g):
                                        else "prefill"]
             kw = dict(top_k=k, tpe=1, norm_topk=norm, tile=tile,
                       R=cb_ops.grouped_rows(A, E, tile))
-            route = lambda: moe_ops.moe_route(  # noqa: E731
-                logits, mask, x, **kw)
-            plain = lambda: moe_ops.moe_route_plain(  # noqa: E731
-                logits, mask, x, **kw)
-            got, again, want = route(), route(), plain()
-            torch.cuda.synchronize()
-            check = moe_ops.compare_routes(got, want)
-            kept = want.weights > 0
-            same = all(torch.equal(a, b) for a, b in zip(got[:-1], again[:-1]))
-            same = same and torch.equal(got.xbuf[want.rows[kept]],
-                                        again.xbuf[want.rows[kept]])
-            n_kept = int(kept.sum())
-            # tokens with a kept assignment: the x rows the kernel reads
-            n_read = int(kept.reshape(n, k).any(1).sum())
-            err = max(float((got.gate - want.gate).abs().max()),
-                      float((got.aux - want.aux).abs().max()))
-            scale = max(float(want.gate.abs().max()),
-                        float(want.aux.abs().max()))
-            nbytes = (n * E * 4 + n + n_read * d * 4 + n_kept * d * 4
-                      + n * k * 12 + n * 4 + 12 + A * 12 + (2 * E + 1) * 4)
-            plain_dev, plain_kernels = device_kernels(plain)
+            want, case = route_case(
+                lambda: moe_ops.moe_route(logits, mask, x, **kw),
+                lambda: moe_ops.moe_route_plain(logits, mask, x, **kw))
+            n_kept, n_read = _route_counts(want, n, k, 1)
             shape = {"tokens": n, "E": E, "top_k": k, "d": d,
                      "R": kw["R"], "kept": n_kept}
             common = {"model": model, "case": label, "shape": shape,
                       "library": "none (no single PyTorch call)",
-                      "library_ms": None, "bound_by": "bytes"}
-            yield {"name": "moe_route", **common,
-                   "check": check, "same_bits": same,
-                   "max_abs_err": err, "tol": moe_ops.ROUTE_TOL * scale,
-                   "ms": timed(route, 20),
-                   "device_ms": device_ms_by_name([route] * 10,
-                                                  ROUTE_KERNELS),
-                   "host_us": host_us(route, 50),
-                   "plain_ms": timed(plain, 5, warmup=1),
-                   "plain_device_ms": plain_dev,
-                   "plain_device_kernels": plain_kernels,
-                   "bound_ms": bound_ms(nbytes, 0.0),
-                   "ok": check["ok"] and check["layout_equal"] is not False
-                   and same}
+                      "library_ms": None, "bound_by": "bytes",
+                      **(floor if label == "decode" else {})}
+            if label == "decode":
+                case["cold_device_ms"] = cold(
+                    lambda: moe_ops.moe_route(logits, mask, x, **kw))
+            yield {"name": "moe_route", **common, **case,
+                   "bound_ms": bound_ms(_route_bytes(n, E, k, 1, d, n_read,
+                                                     n_kept), 0.0)}
             out = torch.randn(kw["R"], d, generator=g, device=dev)
             shared = (torch.randn(n, d, generator=g, device=dev)
                       if has_shared else None)
@@ -1906,7 +2001,78 @@ def moe_route_cases(dev, g):
                    "bound_ms": bound_ms(nbytes, 0.0),
                    "ok": err <= moe_ops.ROUTE_TOL * float(yp.abs().max())
                    and bool(torch.equal(y, y2))}
-            del x, out, shared, got, again, want
+            del x, out, shared, want
+    spec = {m: (E, k, norm, d) for m, E, k, norm, d, _ in MOE_ROUTERS}
+    for label, model, n, kind, tpe in ROUTE_EDGES:
+        E, k, norm, d = spec[model]
+        logits, mask, x = _edge_inputs(dev, g, routers[model], n, d, kind)
+        tile = cb_ops.GROUPED_TILE["decode" if n <= 8 else "prefill"]
+        kw = dict(top_k=k, tpe=tpe, norm_topk=norm, tile=tile,
+                  R=cb_ops.grouped_rows(n * k * tpe, E * tpe, tile))
+        want, case = route_case(
+            lambda: moe_ops.moe_route(logits, mask, x, **kw),
+            lambda: moe_ops.moe_route_plain(logits, mask, x, **kw))
+        n_kept, n_read = _route_counts(want, n, k, tpe)
+        yield {"name": "moe_route", "model": model, "case": label,
+               "shape": {"tokens": n, "E": E, "top_k": k, "tpe": tpe,
+                         "d": d, "R": kw["R"], "kept": n_kept,
+                         "logits": kind},
+               **case, "library": "none (no single PyTorch call)",
+               "library_ms": None, "bound_by": "bytes",
+               "bound_ms": bound_ms(_route_bytes(n, E, k, tpe, d, n_read,
+                                                 n_kept), 0.0)}
+        del logits, mask, x, want
+    del big, square
+    yield from route_graph_cases(dev, g, routers)
+
+
+def route_graph_cases(dev, g, routers, model="jamba-1.5-large-398b"):
+    """``moe_route`` captured in a CUDA graph at one routing of jamba's
+    decode and mixed ticks (the grid path's workspace reserved by the
+    eager call before), then replayed on a second routing copied into the
+    captured inputs: the replay held against the plain version and, bit
+    for bit, against an eager call on the second routing."""
+    from repro_torch.kernels.crossbar_matmul import ops as cb_ops
+    from repro_torch.kernels.moe_route import ops as moe_ops
+
+    E, k, norm, d = next((E, k, norm, d) for m, E, k, norm, d, _
+                         in MOE_ROUTERS if m == model)
+    for label, B, T in MOE_TICKS:
+        n = B * T
+        tile = cb_ops.GROUPED_TILE["decode" if label == "decode"
+                                   else "prefill"]
+        kw = dict(top_k=k, tpe=1, norm_topk=norm, tile=tile,
+                  R=cb_ops.grouped_rows(n * k, E, tile))
+        x = torch.randn(n, d, generator=g, device=dev)
+        logits = x @ routers[model]
+        mask = _tick_mask(dev, label, B, T).reshape(n)
+        moe_ops.moe_route(logits, mask, x, **kw)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = moe_ops.moe_route(logits, mask, x, **kw)
+        x.copy_(torch.randn(n, d, generator=g, device=dev))
+        logits.copy_(x @ routers[model])
+        mask.copy_(torch.rand(n, generator=g, device=dev) > 0.25)
+        eager = moe_ops.moe_route(logits, mask, x, **kw)
+
+        def replay():
+            graph.replay()
+            return captured
+
+        want, case = route_case(
+            replay, lambda: moe_ops.moe_route_plain(logits, mask, x, **kw),
+            same_as=eager)
+        n_kept, n_read = _route_counts(want, n, k, 1)
+        yield {"name": "moe_route", "model": model,
+               "case": f"graph_replay_{label}",
+               "shape": {"tokens": n, "E": E, "top_k": k, "d": d,
+                         "R": kw["R"], "kept": n_kept},
+               **case, "library": "none (no single PyTorch call)",
+               "library_ms": None, "bound_by": "bytes",
+               "bound_ms": bound_ms(_route_bytes(n, E, k, 1, d, n_read,
+                                                 n_kept), 0.0)}
+        del graph, captured, eager, want, x, logits, mask
 
 
 # the whole MoE layers timed and checked: (model, ticks)

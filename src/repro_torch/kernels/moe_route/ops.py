@@ -21,21 +21,32 @@ they run ``moe_route_plain`` and ``moe_combine_plain``, the torch ops that
 capacity dispatch (training, the capacity baseline) keeps its torch ops in
 ``apply_moe`` (ROADMAP Queue 1 item 26). Neither kernel has a backward: a
 CUDA input that needs a gradient raises.
+
+Above ``ROUTE_ALL_MAX`` tokens the route kernel deals the tokens out in
+items of ``ROUTE_CHUNK`` and scans the items' slot counts on the card
+through a workspace (``kernels.workspace``; ``reserve_workspace`` sizes it
+before a CUDA graph captures a call). ``route_partition`` is that layout in
+torch ops, for the tests.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch import kernels
-from repro_torch.kernels import build
+from repro_torch.kernels import build, workspace
 
 MAX_SLOTS = 128     # csrc/moe_route.cu kMaxSlots: experts x tpe
 MAX_TOP_K = 8       # kMaxTopK
 MAX_ASSIGN = 16     # kMaxAssign: top_k x tpe
+ROUTE_CHUNK = 32    # kChunk: tokens of a routing item
+ROUTE_ALL_MAX = 32  # kRouteAllMax: up to this every block routes them all
 _LIB = None
+# the route kernel's item counts, offsets and tickets, one per device
+WORKSPACES = workspace.Workspaces("moe_route")
+_NEEDS: Dict[Tuple[int, int, int, int], Tuple[int, int]] = {}
 
 
 class Route(NamedTuple):
@@ -70,10 +81,54 @@ def expert_layout(sidx: torch.Tensor, kept: torch.Tensor, slots: int,
     return rows, bases, counts
 
 
+def route_partition(sidx: torch.Tensor, kept: torch.Tensor, slots: int,
+                    tile: int, chunk: int = ROUTE_CHUNK) -> dict:
+    """The route kernel's layout of n tokens' assignments, step by step in
+    torch ops (the tests hold it against the JAX package's cumsum rank).
+    ``sidx``/``kept`` (n, K): each assignment's slot and whether it is
+    placed. Item c takes tokens c * chunk .. (c + 1) * chunk - 1; each
+    kept assignment sets its token's bit in its slot's mask of the item
+    (a token takes a slot at most once); the item's count in a slot is
+    the mask's popcount and an assignment's rank in the item the popcount
+    of the bits before its own; an exclusive scan of the counts over the
+    items gives each item's offset in each slot, their sum the slots'
+    counts, and a scan of the counts padded to ``tile`` the bases. Returns
+    "items" (each item's first and last token + 1), "item_counts" and
+    "offsets" (items, slots), "counts" (slots,), "bases" (slots + 1,) and
+    "rows" (n * K,): base + offset + rank where kept, else 0."""
+    n, K = sidx.shape
+    items = [(c, min(c + chunk, n)) for c in range(0, n, chunk)]
+    masks = torch.zeros((len(items), slots), dtype=torch.int64)
+    for c, (t0, t1) in enumerate(items):
+        for t in range(t0, t1):
+            for q in range(K):
+                if kept[t, q]:
+                    masks[c, int(sidx[t, q])] |= 1 << (t - t0)
+    popc = torch.tensor([[bin(int(m)).count("1") for m in row]
+                         for row in masks], dtype=torch.int64)
+    offsets = torch.cumsum(popc, 0) - popc
+    counts = popc.sum(0)
+    bases = torch.cat([torch.zeros(1, dtype=torch.int64), torch.cumsum(
+        (counts + tile - 1) // tile * tile, 0)])
+    rows = torch.zeros((n, K), dtype=torch.int64)
+    for c, (t0, t1) in enumerate(items):
+        for t in range(t0, t1):
+            for q in range(K):
+                if kept[t, q]:
+                    s = int(sidx[t, q])
+                    rank = bin(int(masks[c, s]) & ((1 << (t - t0)) - 1)).count(
+                        "1")
+                    rows[t, q] = bases[s] + offsets[c, s] + rank
+    return {"items": items, "item_counts": popc, "offsets": offsets,
+            "counts": counts.to(torch.int32), "bases": bases.to(torch.int32),
+            "rows": rows.reshape(n * K)}
+
+
 def topk_route(logits: torch.Tensor, token_mask: Optional[torch.Tensor], *,
                top_k: int, tpe: int, norm_topk: bool):
     """The routing of n tokens in f32 torch ops (``moe_route_plain``'s, and
-    capacity dispatch's in ``models.moe``): softmax, top-k, the margin,
+    capacity dispatch's in ``models.moe``): softmax, top-k (ties to the
+    lower expert), the margin,
     renormalisation, the Switch load-balance loss and the router z-loss
     over all n tokens (pads too, as the JAX package's). Returns (experts
     (n, k), gate (n, k), margin (n,), aux (3,): lb_loss, router_z, 0, slot
@@ -81,8 +136,11 @@ def topk_route(logits: torch.Tensor, token_mask: Optional[torch.Tensor], *,
     n, E = logits.shape
     k = top_k
     probs = torch.softmax(logits, dim=-1)                     # (n, E)
-    gate, eidx = torch.topk(probs, k, dim=-1)                 # (n, k)
-    top = torch.topk(probs, min(k + 1, E), dim=-1).values
+    # ties to the lower expert, as jax.lax.top_k's (torch.topk's order
+    # among equal values is unspecified)
+    top, order = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top = top[:, :min(k + 1, E)]
+    gate, eidx = top[:, :k].contiguous(), order[:, :k].contiguous()
     margin = (top[:, k - 1] - top[:, k] if E > k
               else torch.full_like(top[:, 0], float("inf")))
     if norm_topk:
@@ -196,14 +254,42 @@ def _lib():
     if _LIB is None:
         lib = build.load("moe_route")
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.moe_route.argtypes = [vp] * 12 + [ci] * 7 + [vp]
+        lib.moe_route.argtypes = ([vp] * 13 + [ctypes.c_size_t, vp]
+                                  + [ci] * 8 + [vp])
         lib.moe_route.restype = ci
+        lib.moe_route_workspace.argtypes = [ci] * 4 + [ctypes.POINTER(ci)]
+        lib.moe_route_workspace.restype = ctypes.c_size_t
         lib.moe_combine.argtypes = [vp] * 5 + [ci] * 3 + [vp]
         lib.moe_combine.restype = ci
-        lib.moe_route_grid.argtypes = [ci]
+        lib.moe_route_grid.argtypes = [ci, ci]
         lib.moe_route_grid.restype = ci
         _LIB = lib
     return _LIB
+
+
+def _need(n: int, E: int, top_k: int, tpe: int) -> Tuple[int, int]:
+    """(f32 partials, int32 tickets) of the route kernel's workspace for n
+    tokens (none up to ``ROUTE_ALL_MAX``)."""
+    key = (n, E, top_k, tpe)
+    need = _NEEDS.get(key)
+    if need is None:
+        tickets = ctypes.c_int(0)
+        partials = _lib().moe_route_workspace(n, E, top_k, tpe,
+                                              ctypes.byref(tickets))
+        need = _NEEDS[key] = (int(partials), tickets.value)
+    return need
+
+
+def reserve_workspace(device: torch.device, tokens, E: int, top_k: int,
+                      tpe: int) -> None:
+    """Size ``device``'s route workspace for a call over each number of
+    tokens in ``tokens`` (E experts, top_k, tpe slots an expert), before a
+    CUDA graph captures calls (``kernels.workspace``)."""
+    most = (0, 0)
+    for n in tokens:
+        p, t = _need(n, E, top_k, tpe)
+        most = (max(most[0], p), max(most[1], t))
+    WORKSPACES.reserve(device.index, most)
 
 
 def _check_cuda(name: str, dev: torch.device, **tensors) -> None:
@@ -270,11 +356,12 @@ def moe_route(logits: torch.Tensor, token_mask: Optional[torch.Tensor],
               torch.empty((slots + 1,), **i32), torch.empty((slots,), **i32),
               torch.empty((R, d), **f32))
     idx = dev.index
+    ws = WORKSPACES.pointers(_need(n, E, top_k, tpe), idx)
     rc = kernels.call_on(
         _lib().moe_route, idx, logits.data_ptr(),
         None if token_mask is None else token_mask.data_ptr(), x.data_ptr(),
-        *(t.data_ptr() for t in r), n, E, top_k, tpe, int(bool(norm_topk)),
-        tile, d, torch._C._cuda_getCurrentRawStream(idx))
+        *(t.data_ptr() for t in r), *ws, n, E, top_k, tpe,
+        int(bool(norm_topk)), tile, d, torch._C._cuda_getCurrentRawStream(idx))
     if rc != 0:
         raise RuntimeError(f"moe_route launch failed: CUDA error {rc} (n={n}"
                            f", E={E}, top_k={top_k}, tpe={tpe}, d={d})")

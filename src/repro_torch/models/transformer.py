@@ -22,6 +22,7 @@ from repro_torch.core.lora import layer_slice, scan_period, tree_map
 from repro_torch.core.noise import NoiseConfig
 from repro_torch.kernels.crossbar_matmul import ops as cb_ops
 from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.moe_route import ops as moe_ops
 from repro_torch.models import attention, layers, moe, rwkv, ssm
 from repro_torch.models.kvcache import (cache_len, position_cache_spec,
                                         zeros_from_spec)
@@ -386,6 +387,21 @@ def _quantized(tree):
             yield from _quantized(v)
 
 
+def _moe_slots(tree):
+    """The slots of every MoE layer's expert stack in a parameter tree (a
+    dict holding "router" and "w1"; w1 quantized or not, stacked or not:
+    its third dim from the end)."""
+    if isinstance(tree, dict):
+        if "router" in tree and "w1" in tree:
+            w = tree["w1"]
+            yield (w.codes if quant.is_quantized(w) else w).shape[-3]
+        for v in tree.values():
+            yield from _moe_slots(v)
+    elif isinstance(tree, (tuple, list)):
+        for v in tree:
+            yield from _moe_slots(v)
+
+
 def reserve_workspaces(cfg: ModelConfig, params: Dict, exec_cfg: ExecConfig,
                        device: torch.device, *, rows: int, chunks,
                        kv_lens, ring_len: Optional[int] = None) -> None:
@@ -395,7 +411,8 @@ def reserve_workspaces(cfg: ModelConfig, params: Dict, exec_cfg: ExecConfig,
     rows * C (and at M = rows, the head's under ``last_idx``), the grouped
     kernel of every quantized expert stack over its routed rows (at decode
     the partials and tickets of its work list, fixed by its grid), the
-    flash
+    MoE route kernel over rows * C tokens (its items' counts and tickets),
+    the flash
     kernel of the attention layers over each key length in ``kv_lens`` (a
     paged step's block-table widths times the page size, or a dense
     cache's length; a dense cache's ring is no longer), and, with
@@ -416,6 +433,11 @@ def reserve_workspaces(cfg: ModelConfig, params: Dict, exec_cfg: ExecConfig,
                                    // cfg.moe.n_experts)
         cb_ops.reserve_grouped_workspace(
             device, experts, sorted({rows * C * k_slots for C in chunks}))
+    moe_slots = set(_moe_slots(params))
+    if moe_slots:
+        moe_ops.reserve_workspace(device, sorted({rows * C for C in chunks}),
+                                  cfg.moe.n_experts, cfg.moe.top_k,
+                                  max(moe_slots) // cfg.moe.n_experts)
     attn = any(cfg.block_kind(pos) == "attn" for pos in range(scan_period(cfg)))
     if attn and exec_cfg.attn_impl == "auto":
         heads = (cfg.n_heads, cfg.n_kv_heads)

@@ -1963,23 +1963,47 @@ def test_grouped_decode_graph_replays_new_counts_as_eager(bits):
             y, yr, rtol=1e-4, atol=1e-4 * max(float(yr.abs().max()), 1e-30))
 
 
-# (label, E, top_k, tpe, norm, tokens, d, masked): llama4-scout's,
+# (label, E, top_k, tpe, norm, tokens, d, masked, logits): llama4-scout's,
 # mixtral's and jamba's routers at a decode tick (8 tokens) and a mixed
-# tick (1024), reduced widths, two slots an expert, a ragged mask
-ROUTE_CASES = [("llama4_decode", 16, 1, 1, False, 8, 5120, False),
-               ("llama4_mixed", 16, 1, 1, False, 1024, 5120, True),
-               ("mixtral_decode", 8, 2, 1, True, 8, 6144, False),
-               ("jamba_mixed", 16, 2, 1, True, 1024, 8192, True),
-               ("tpe2_ragged", 4, 2, 2, True, 37, 70, True)]
+# tick (1024), reduced widths, two slots an expert, a ragged mask; then
+# token counts at and across the route kernel's items (32 tokens, also its
+# decode path's limit) and 256, mixtral-8x22b's forward prompt (4400
+# tokens), every token on one expert, exactly tied logits (rounded to
+# halves, every eighth token's all equal), every token masked, two slots
+# an expert over 1024 tokens
+ROUTE_CASES = [("llama4_decode", 16, 1, 1, False, 8, 5120, False, "random"),
+               ("llama4_mixed", 16, 1, 1, False, 1024, 5120, True, "random"),
+               ("mixtral_decode", 8, 2, 1, True, 8, 6144, False, "random"),
+               ("jamba_mixed", 16, 2, 1, True, 1024, 8192, True, "random"),
+               ("tpe2_ragged", 4, 2, 2, True, 37, 70, True, "random"),
+               ("tokens_1", 8, 2, 1, True, 1, 6144, False, "random"),
+               ("tokens_32", 8, 2, 1, True, 32, 6144, True, "random"),
+               ("tokens_33", 8, 2, 1, True, 33, 6144, True, "random"),
+               ("tokens_255", 8, 2, 1, True, 255, 6144, True, "random"),
+               ("tokens_256", 8, 2, 1, True, 256, 6144, True, "random"),
+               ("tokens_257", 8, 2, 1, True, 257, 6144, True, "random"),
+               ("mixtral_prompt", 8, 2, 1, True, 4400, 6144, True, "random"),
+               ("one_expert", 16, 2, 1, True, 1024, 8192, True,
+                "one_expert"),
+               ("tied", 16, 2, 1, True, 1024, 256, True, "tied"),
+               ("all_masked", 16, 1, 1, False, 1024, 512, True, "masked"),
+               ("tpe2_mixed", 8, 2, 2, True, 1024, 512, True, "random")]
 
 
-def _route_inputs(dev, E, n, d, masked, seed):
+def _route_inputs(dev, E, n, d, masked, seed, logits_kind="random"):
     g = torch.Generator(device=dev).manual_seed(seed)
     logits = torch.randn(n, E, generator=g, device=dev) * 2.0
     x = torch.randn(n, d, generator=g, device=dev)
     mask = None
     if masked:
         mask = torch.rand(n, generator=g, device=dev) > 0.2
+    if logits_kind == "one_expert":
+        logits[:, E // 2] += 30.0
+    elif logits_kind == "tied":
+        logits = torch.round(logits * 2) / 2
+        logits[::8] = 0.0
+    elif logits_kind == "masked":
+        mask = torch.zeros(n, dtype=torch.bool, device=dev)
     return logits, mask, x
 
 
@@ -1993,8 +2017,8 @@ def test_moe_route_and_combine_match_plain(case):
     the same bits; one launch each."""
     from repro_torch.kernels.moe_route import ops as moe_ops
     dev = _cuda_or_skip()
-    _, E, k, tpe, norm, n, d, masked = case
-    logits, mask, x = _route_inputs(dev, E, n, d, masked, n + E)
+    _, E, k, tpe, norm, n, d, masked, kind = case
+    logits, mask, x = _route_inputs(dev, E, n, d, masked, n + E, kind)
     kw = dict(top_k=k, tpe=tpe, norm_topk=norm, tile=8,
               R=cb_ops.grouped_rows(n * k * tpe, E * tpe, 8))
     before = dict(kernels.LAUNCHES)
@@ -2021,6 +2045,41 @@ def test_moe_route_and_combine_match_plain(case):
         assert torch.equal(y, y2)
         assert float((y - yr).abs().max()) <= 1e-6 * float(yr.abs().max())
     assert kernels.LAUNCHES["moe_combine"] == before["moe_combine"] + 4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [8, 1024])
+def test_moe_route_graph_replays_new_routing(n):
+    """moe_route captured in a CUDA graph at one routing (jamba's router
+    shape; 1024 tokens take the route kernel's workspace, reserved by the
+    eager call before the capture) and replayed at three others: each
+    replay equals an eager call's bits and the plain version's layout."""
+    from repro_torch.kernels.moe_route import ops as moe_ops
+    dev = _cuda_or_skip()
+    E, k, d = 16, 2, 1024
+    logits, mask, x = _route_inputs(dev, E, n, d, True, 7)
+    kw = dict(top_k=k, tpe=1, norm_topk=True, tile=8,
+              R=cb_ops.grouped_rows(n * k, E, 8))
+    moe_ops.moe_route(logits, mask, x, **kw)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = moe_ops.moe_route(logits, mask, x, **kw)
+    for seed in range(3):
+        lg, mk, xx = _route_inputs(dev, E, n, d, True, 100 + seed)
+        logits.copy_(lg)
+        mask.copy_(mk)
+        x.copy_(xx)
+        graph.replay()
+        eager = moe_ops.moe_route(logits, mask, x, **kw)
+        want = moe_ops.moe_route_plain(logits, mask, x, **kw)
+        torch.cuda.synchronize()
+        check = moe_ops.compare_routes(captured, want)
+        assert check["ok"] and check["layout_equal"], check
+        kept = want.rows[want.weights > 0]
+        for a, b in zip(captured[:-1], eager[:-1]):
+            assert torch.equal(a, b)
+        assert torch.equal(captured.xbuf[kept], eager.xbuf[kept])
 
 
 def _moe_layer(dev, arch="llama4-scout-17b-a16e", bits=8, seed=0):

@@ -17,6 +17,10 @@ expert, with pads in ``token_mask``:
   * ``moe_combine_plain`` over the port's buffer against the package's
     dropless combine (``take_along_axis`` of its C = T-row buffer) on the
     same expert outputs, with the shared expert's rows added;
+  * the route kernel's layout (``moe_ops.route_partition``: items of a
+    few tokens, counts scanned over the items) against the package's
+    cumsum rank, and the plain routing's ties (to the lower expert)
+    against ``jax.lax.top_k``'s;
   * the work list at llama4-scout's, mixtral's and jamba's widths for
     8 decode rows on 8 slots, on one slot, and 8 tokens top-2: every live
     (row group, N tile, K tile) exactly once, no padding group, the grid
@@ -192,6 +196,67 @@ def test_combine_plain_matches_jax_combine(arch, tpe, shared):
         torch.as_tensor(sh).reshape(B * T, d) if shared else None)
     np.testing.assert_allclose(y.numpy().reshape(B, T, d), yj, rtol=TOL,
                                atol=TOL)
+
+
+@pytest.mark.parametrize("chunk", [2, 5, 8])
+@pytest.mark.parametrize("tpe", [1, 2])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_route_partition_matches_jax_cumsum_rank(arch, tpe, chunk):
+    """The route kernel's layout (``moe_ops.route_partition``: tokens dealt
+    out in items of ``chunk``, slot counts and ranks by bit masks, the
+    counts scanned over the items, the padded bases) over the package's
+    routing: rows, bases and counts equal the package's cumsum rank (a
+    slot's rows hold batch row b's ranks after the rows before b's)."""
+    jcfg, _, _ = _layer(arch, tpe)
+    x, mask = _inputs(jcfg)
+    B, T, _ = x.shape
+    k, E = jcfg.moe.top_k, jcfg.moe.n_experts
+    K, slots = k * tpe, E * tpe
+    _, eidx, _, _ = _jax_routing(arch, tpe)
+    pos, sidx = _jax_pos(eidx, mask, E, tpe)
+    kept = np.broadcast_to(mask[:, :, None], (B, T, K))
+    part = moe_ops.route_partition(
+        torch.as_tensor(sidx.reshape(B * T, K)),
+        torch.as_tensor(kept.reshape(B * T, K).copy()),
+        slots, 8, chunk)
+    assert part["items"] == [(t, min(t + chunk, B * T))
+                             for t in range(0, B * T, chunk)]
+    assert len(part["items"]) > 2            # the tokens split over items
+    counts = np.bincount(sidx[kept], minlength=slots)
+    bases = np.concatenate([[0], np.cumsum(-(-counts // 8) * 8)])
+    rows = np.zeros((B, T, K), np.int64)
+    before = np.zeros(slots, np.int64)
+    for b in range(B):
+        s = sidx[b][kept[b]]
+        rows[b][kept[b]] = bases[s] + before[s] + pos[b][kept[b]]
+        before += np.bincount(s, minlength=slots)
+    np.testing.assert_array_equal(part["rows"].numpy().reshape(B, T, K),
+                                  rows)
+    np.testing.assert_array_equal(part["counts"].numpy(), counts)
+    np.testing.assert_array_equal(part["bases"].numpy(), bases)
+    ic = part["item_counts"].numpy()
+    np.testing.assert_array_equal(ic.sum(0), counts)
+    np.testing.assert_array_equal(part["offsets"].numpy(),
+                                  np.cumsum(ic, 0) - ic)
+
+
+def test_route_plain_breaks_ties_to_the_lower_expert_as_jax():
+    """Exactly tied router probabilities (rows all equal, rows rounded to
+    halves): the plain routing's ids and gates are jax.lax.top_k's."""
+    rng = np.random.default_rng(3)
+    logits = np.round(rng.standard_normal((24, 16)) * 2) / 2
+    logits[::4] = 0.0
+    logits = logits.astype(np.float32)
+    probs = jax.nn.softmax(jnp.asarray(logits), axis=-1)
+    gate, eidx = jax.lax.top_k(probs, 2)
+    lt = torch.as_tensor(logits)
+    r = moe_ops.moe_route_plain(lt, None, torch.zeros(24, 4), top_k=2,
+                                tpe=1, norm_topk=False, tile=8,
+                                R=cb_ops.grouped_rows(48, 16, 8))
+    np.testing.assert_array_equal(r.experts.numpy(), np.asarray(eidx))
+    np.testing.assert_allclose(r.gate.numpy(), np.asarray(gate), rtol=TOL,
+                               atol=TOL)
+    assert (r.experts[::4] == torch.tensor([0, 1])).all()
 
 
 def test_compare_routes_finds_each_difference():
