@@ -66,8 +66,8 @@ KEYS = ("name", "model", "case", "kernel", "bits", "shape", "max_abs_err",
         "plain_device_kernels", "device_kernels", "other_device_ms",
         "launch_floor_device_ms", "cold_device_ms",
         "grouped_and_crossbar_device_ms", "launches", "bound_ms", "bound_by",
-        "bound_pieces_ms", "bound_parts_ms", "max_err_over_rel",
-        "f64_kernel_err", "f64_plain_err", "plain_ms", "ok")
+        "bound_pieces_ms", "bound_f32_ms", "bound_parts_ms",
+        "max_err_over_rel", "f64_kernel_err", "f64_plain_err", "plain_ms", "ok")
 WINDOW_KEYS = ("ticks", "replayed", "device_ms_per_tick",
                "traced_wall_ms_per_tick", "device_busy_share",
                "prefill_tokens_per_tick", "scan_device_ms_per_tick",

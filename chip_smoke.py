@@ -13,12 +13,14 @@ Imports nothing of JAX or of the JAX package. Phases, each printing JSON:
                of kernel, plain version and a one-call PyTorch yardstick
                (``library_ms``, never used by the port), and the bound:
                the larger of bytes moved / 3.35 TB/s and flops / 67 TFLOP/s
-               (f32 outside the tensor cores; H100 SXM data sheet).
-               Every case also gives the bound of the kernel's own
-               arithmetic (``bound_pieces_ms``: three bf16 products on
-               the tensor cores at 989 TFLOP/s for crossbar, three TF32
-               products at 495 TFLOP/s for flash and the chunked wkv
-               kernel, beside the latter's f32 SIMT work), the kernel's device
+               (f32 outside the tensor cores; H100 SXM data sheet); for
+               the crossbar kernels, which compute on the tensor cores,
+               their own arithmetic instead (``crossbar_bounds``: three
+               bf16 products at 989 TFLOP/s; the f32 figure beside as
+               ``bound_f32_ms``). Flash and the chunked wkv kernel also
+               give the bound of their own arithmetic
+               (``bound_pieces_ms``: three TF32 products at 495 TFLOP/s,
+               beside the latter's f32 SIMT work), the kernel's device
                time from a profiler trace (``device_ms``; crossbar: cold,
                over copies of the weight that exceed the L2, for M <= 128,
                warm beside it), the yardstick's device time
@@ -117,7 +119,15 @@ Imports nothing of JAX or of the JAX package. Phases, each printing JSON:
                dropless MoE layer at full width (llama4-scout at both
                ticks, mixtral at decode) against ``streamed_moe`` within
                1e-4 of max |y| on the real tokens, its device ms and
-               kernels a call.
+               kernels a call. Last (since slice 23) the expert products'
+               dx, ``grouped_crossbar_matmul_t``, at a train microbatch
+               (1024 tokens in the prefill layout): llama4-scout top-1 on
+               16 slots, uniform and skewed with one slot empty, both
+               stacks, int8 and int4; mixtral top-2 on 8 slots, uniform,
+               int8; within 1e-4 of max |dx| of the plain version, every
+               row past a count exactly 0, the same bits twice, with
+               ``torch.bmm`` of g over the JAX package's capacity buffer
+               as the library call.
   4. serve   — for each model the port serves, full width and full depth
                (random weights from a seed), on an M8F8 crossbar base with
                two rank-32 adapters, served by the port's paged engine: 8
@@ -336,7 +346,19 @@ Imports nothing of JAX or of the JAX package. Phases, each printing JSON:
                again on an M4F4 base (its ``train`` line says ``"base":
                "M4F4"``), int4 codes through ``crossbar_matmul`` and
                ``crossbar_matmul_t``: the same checks, with 10 ``Trainer``
-               steps and the restore of step 10.
+               steps and the restore of step 10. Last (since slice 23)
+               llama4-scout-17b-a16e at full width and 24 of its 48
+               layers (``TRAIN_LAYERS``), in a child process
+               (``moe_train_child``), its M8F8 base drawn one leaf at a
+               time: capacity dispatch, every step's launches of the
+               grouped product and its dx (three each a MoE layer and
+               microbatch) held exactly beside the others', the checks on
+               a 2-layer model of its width (the plain path's f32 expert
+               stacks take 8.8 GB a layer), each checked step's routing
+               on the two paths compared (``route_flips``: a flip at a
+               top-k margin of 1e-4 or more fails; the plain path's calls
+               that flipped below it are routed to the kernel path's
+               experts) and their dropped assignments reported.
   6. kernels — after the train phase (so that the serve and train
                phases follow the same kernel cases as before these were
                added), in a process of their own (``late_kernel_phase``:
@@ -371,8 +393,9 @@ Imports nothing of JAX or of the JAX package. Phases, each printing JSON:
                on an M4F4 base with their launches held exactly.
   8. summary — the whole script's seconds, one ``{"kernels": [...]}``
                line (the backward kernels' launches from llama's train
-               run, the wkv backward's from rwkv6-7b's, every path's count
-               beside each kernel's), the nvidia-smi line, and last
+               run, the wkv backward's from rwkv6-7b's, the grouped dx's
+               from llama4-scout's, every path's count beside each
+               kernel's), the nvidia-smi line, and last
                ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises (exit code 1) and the last line is never printed.
@@ -585,6 +608,19 @@ def bound_ms(nbytes: float, flops: float) -> float:
     return 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S)
 
 
+def crossbar_bounds(nbytes: float, flops: float) -> dict:
+    """The bound of a crossbar kernel (forward, dx, grouped or not): the
+    larger of its bytes over HBM and its own arithmetic, x or g as three
+    bf16 pieces, each against the codes on the tensor cores at 989
+    TFLOP/s; ``bound_by`` the larger of the two. The f32 bound (67
+    TFLOP/s, outside the tensor cores, where these kernels do not compute)
+    beside it as ``bound_f32_ms``."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 3 * flops / BF16_FLOPS_PER_S
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_f32_ms": bound_ms(nbytes, flops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
 # ---------------------------------------------------------------------------
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -610,6 +646,8 @@ CB_KERNELS = ("crossbar_decode_kernel<", "crossbar_prefill_kernel<")
 # the grouped entry point's: at decode the work list over the live row
 # groups, at prefill the prefill kernel's body over slots' rows
 GROUPED_KERNELS = ("grouped_live_decode_kernel<", "grouped_prefill_kernel<")
+# the grouped dx (the expert products' backward)
+GROUPED_T_KERNELS = ("grouped_t_kernel<",)
 # the MoE layer's routing and layout, and its combine (csrc/moe_route.cu)
 ROUTE_KERNELS = ("moe_route_kernel",)
 COMBINE_KERNELS = ("moe_combine_kernel",)
@@ -693,13 +731,7 @@ def crossbar_case(dev, g, model, bits, K, N, M, qt, w_deq, kernel="auto"):
         "plain_ms": timed(lambda: cb_ops.crossbar_matmul_plain(x, qt), 5),
         "library_ms": timed(lambda: torch.matmul(x, w_deq), 20),
         "library_device_ms": device_ms(lambda: torch.matmul(x, w_deq)),
-        "bound_ms": bound_ms(nbytes, 2.0 * M * K * N),
-        # the same bound for the kernels' own arithmetic: three bf16
-        # pieces of x, each against the codes on the tensor cores
-        "bound_pieces_ms": 1e3 * max(nbytes / HBM_BYTES_PER_S,
-                                     3 * 2.0 * M * K * N / BF16_FLOPS_PER_S),
-        "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
-                     > 2.0 * M * K * N / F32_FLOPS_PER_S else "operations"),
+        **crossbar_bounds(nbytes, 2.0 * M * K * N),
     }
     if M <= DECODE_M:
         # each call on another copy of the weight: codes come from HBM
@@ -1043,9 +1075,9 @@ CB_T_CASES_SLICE10 = (
 def crossbar_t_cases(dev, g, table=CB_T_CASES):
     """The transposed crossbar kernel (the backward's dx = g . dequant(W)^T
     from the same codes) at each entry of ``table``. Yardstick:
-    ``torch.matmul(g, W_deq.T)`` on a pre-dequantized weight. Pieces bound:
-    the kernel's three bf16 products (g's pieces against the codes) at 989
-    TFLOP/s."""
+    ``torch.matmul(g, W_deq.T)`` on a pre-dequantized weight. Bound
+    (``crossbar_bounds``): the kernel's three bf16 products (g's pieces
+    against the codes) at 989 TFLOP/s."""
     for model, shapes, M, case, bits_list in table:
         for bits in bits_list:
             for K, N in shapes:
@@ -1082,11 +1114,7 @@ def crossbar_t_case(dev, g, model, case, bits, K, N, M):
         "plain_ms": timed(lambda: cb_ops.crossbar_matmul_t_plain(gy, qt), 5),
         "library_ms": timed(lib, 20),
         "library_device_ms": device_ms(lib),
-        "bound_ms": bound_ms(nbytes, flops),
-        "bound_pieces_ms": 1e3 * max(nbytes / HBM_BYTES_PER_S,
-                                     3 * flops / BF16_FLOPS_PER_S),
-        "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
-                     > flops / F32_FLOPS_PER_S else "operations"),
+        **crossbar_bounds(nbytes, flops),
     }
 
 
@@ -1459,11 +1487,11 @@ def slice11_cases(dev, g):
                 "recurrent")))
 
 
-def _grouped_counts(dist, slots, dev):
+def _grouped_counts(dist, slots, dev, rows=1024):
     """Rows per slot of a grouped case: 8 decode rows on 8 distinct slots
     or on one slot, or 8 decode tokens each routed top-2 to two distinct
-    slots (16 rows); 1024 prefill rows spread uniformly, or skewed (slot s
-    takes a share ~ 1 / (s + 1)) with the last slot empty."""
+    slots (16 rows); ``rows`` prefill rows spread uniformly, or skewed
+    (slot s takes a share ~ 1 / (s + 1)) with the last slot empty."""
     if dist == "decode_top2":
         c = torch.zeros(slots, dtype=torch.int64)
         gen = torch.Generator().manual_seed(slots + 2)
@@ -1477,12 +1505,12 @@ def _grouped_counts(dist, slots, dev):
         c = torch.zeros(slots, dtype=torch.int64)
         c[slots // 2] = 8
     elif dist == "prefill_uniform":
-        c = torch.full((slots,), 1024 // slots, dtype=torch.int64)
+        c = torch.full((slots,), rows // slots, dtype=torch.int64)
     else:
         share = 1.0 / torch.arange(1, slots + 1, dtype=torch.float64)
         share[-1] = 0.0
-        c = torch.floor(1024 * share / share.sum()).to(torch.int64)
-        c[0] += 1024 - int(c.sum())
+        c = torch.floor(rows * share / share.sum()).to(torch.int64)
+        c[0] += rows - int(c.sum())
     return c.to(torch.int32).to(dev)
 
 
@@ -1490,7 +1518,8 @@ def grouped_case(dev, g, model, bits, K, N, qt, w_deq, dist):
     """One ``grouped_crossbar_matmul`` case at ``dist``'s routing, on the
     kernel (and row tile) the MoE layer picks for that many rows. Bound:
     the codes and scales of the slots that hold rows, their x rows and the
-    whole output, or the products of the live rows. Library: ``torch.bmm``
+    whole output, or the live rows' products as three bf16 pieces
+    (``crossbar_bounds``). Library: ``torch.bmm``
     over the JAX package's dropless buffer (C = T rows per slot: the
     decode rows are 8 sequences of 1 token, the 1024 prefill rows 8 of
     128) with the dequantized stack."""
@@ -1539,11 +1568,7 @@ def grouped_case(dev, g, model, bits, K, N, qt, w_deq, dist):
                    f"({slots}, {8 * T}, {K}), dequantized weights",
         "library_ms": timed(library, 5, warmup=1),
         "library_device_ms": device_ms_by_name([library] * 3, None),
-        "bound_ms": bound_ms(nbytes, flops),
-        "bound_pieces_ms": 1e3 * max(nbytes / HBM_BYTES_PER_S,
-                                     3 * flops / BF16_FLOPS_PER_S),
-        "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
-                     > flops / F32_FLOPS_PER_S else "operations"),
+        **crossbar_bounds(nbytes, flops),
     }
     case["ok"] = err <= tol and dead_zero
     del xin
@@ -1571,6 +1596,102 @@ def grouped_cases(dev, g, model, slots, shapes, bits_list=(8, 4),
             del qt, w_deq
             gc.collect()
             torch.cuda.empty_cache()
+
+
+# the grouped dx at a train microbatch (``TRAIN_MB`` sequences of
+# ``TRAIN_SEQ`` tokens): model, slots, top-k, its expert stacks (w1/w3's
+# (K, N), then w2's), code widths, routings
+GROUPED_T_CASES = (
+    ("llama4-scout-17b-a16e", 16, 1, LLAMA4_KN, (8, 4),
+     ("prefill_uniform", "prefill_skewed")),
+    ("mixtral-8x22b", 8, 2, MIXTRAL_KN, (8,), ("prefill_uniform",)))
+
+
+def grouped_t_case(dev, g, model, top_k, bits, K, N, qt, w_deq, dist,
+                   stack):
+    """One ``grouped_crossbar_matmul_t`` case: a train microbatch's
+    ``TRAIN_M`` tokens routed top-``top_k`` at ``dist``, in the prefill
+    layout that ``models.moe`` takes under grad; dx = g . W_s^T over each
+    slot's live rows against the plain version, the same bits on a second
+    call. Bound: the codes and scales of the slots hit, g's live rows and
+    the whole dx (R rows), or the live rows' products as three bf16
+    pieces (``crossbar_bounds``). Library:
+    ``torch.bmm`` of g over the JAX package's capacity buffer (slots, B *
+    C, N), C = ceil(T k 1.25 / slots) rows a sequence, with the
+    dequantized stack transposed."""
+    from repro_torch.kernels.crossbar_matmul import ops as cb_ops
+
+    slots = qt.codes.shape[0]
+    rows = TRAIN_M * top_k
+    counts = _grouped_counts(dist, slots, dev, rows)
+    tile = cb_ops.GROUPED_TILE["prefill"]
+    bases = torch.cat([torch.zeros(1, dtype=torch.int32, device=dev),
+                       torch.cumsum((counts + tile - 1) // tile * tile, 0)
+                       .to(torch.int32)])
+    R = cb_ops.grouped_rows(rows, slots, tile)
+    gy = torch.randn(R, N, generator=g, device=dev)
+    call = lambda: cb_ops.grouped_crossbar_matmul_t(  # noqa: E731
+        gy, qt, bases, counts)
+    dx, dx2 = call(), call()
+    dx_plain = cb_ops.grouped_crossbar_matmul_t_plain(gy, qt, bases, counts)
+    torch.cuda.synchronize()
+    live = torch.zeros(R, dtype=torch.bool, device=dev)
+    for b, c in zip(bases.tolist(), counts.tolist()):
+        live[b:b + c] = True
+    hit = int((counts > 0).sum())
+    per_slot = qt.codes[0].numel() + qt.scales[0].numel() * 4
+    nbytes = hit * per_slot + rows * N * 4 + R * K * 4
+    flops = 2.0 * rows * K * N
+    # both configs' capacity factor, 1.25 = 5 / 4, as an exact ceil
+    C = -(-TRAIN_SEQ * top_k * 5 // (4 * slots))
+    gin = torch.randn(slots, TRAIN_MB * C, N, generator=g, device=dev)
+    w_t = w_deq.transpose(1, 2)
+    library = lambda: torch.bmm(gin, w_t)  # noqa: E731
+    case = {
+        "name": "grouped_crossbar_matmul_t", "case": dist, "model": model,
+        "bits": bits, "stack": stack,
+        "shape": {"rows": rows, "R": R, "slots": slots, "K": K, "N": N,
+                  "counts": counts.tolist(), "slots_hit": hit},
+        "max_abs_err": float((dx - dx_plain).abs().max()),
+        "tol": CB_TOL * float(dx_plain.abs().max()),
+        "same_bits": bool(torch.equal(dx, dx2)),
+        "rows_past_counts_zero": bool((dx[~live] == 0).all()),
+        "ms": timed(call, 20),
+        "device_ms": device_ms_by_name([call] * 10, GROUPED_T_KERNELS),
+        "host_us": host_us(call, 50),
+        "plain_ms": timed(lambda: cb_ops.grouped_crossbar_matmul_t_plain(
+            gy, qt, bases, counts), 3, warmup=1),
+        "library": f"torch.bmm of g over the JAX capacity buffer ({slots}, "
+                   f"{TRAIN_MB * C}, {N}), dequantized stack transposed",
+        "library_ms": timed(library, 10, warmup=1),
+        "library_device_ms": device_ms_by_name([library] * 5, None),
+        **crossbar_bounds(nbytes, flops),
+    }
+    case["ok"] = (case["max_abs_err"] <= case["tol"] and case["same_bits"]
+                  and case["rows_past_counts_zero"])
+    del gin
+    return case
+
+
+def grouped_t_cases(dev, g, table=GROUPED_T_CASES):
+    """``grouped_crossbar_matmul_t`` on each model's expert stacks of
+    ``table``, at each code width and routing."""
+    from repro_torch.core import quant
+
+    for model, slots, top_k, shapes, bits_list, dists in table:
+        for bits in bits_list:
+            for (K, N), stack in zip(shapes, ("w1/w3", "w2")):
+                w = (torch.randn(slots, K, N, generator=g, device=dev)
+                     * K ** -0.5)
+                qt = quant.quantize_slices(w, bits)
+                del w
+                w_deq = quant.dequantize(qt)
+                for dist in dists:
+                    yield grouped_t_case(dev, g, model, top_k, bits, K, N, qt,
+                                         w_deq, dist, stack)
+                del qt, w_deq
+                gc.collect()
+                torch.cuda.empty_cache()
 
 
 def moe_attention_cases(dev, g):
@@ -2197,7 +2318,9 @@ def path_cases(dev, g):
             # jamba's selective scan, Mamba projections and experts
             jamba_cases(dev, g),
             # the MoE layer's routing and combine kernels, whole layers
-            *slice18_cases(dev, g))
+            *slice18_cases(dev, g),
+            # the expert products' dx (MoE training)
+            grouped_t_cases(dev, g))
 
 
 def slice10_cases(dev, g):
@@ -2277,20 +2400,40 @@ def moe_serve_child(arch):
     them, then a ``serve_child`` line (its wall seconds, and the device
     memory the main process still holds while it runs); returns its serve
     line; raises if it fails."""
+    return _child("serve", SERVE_FLAG, SERVE_RESULT, arch)
+
+
+TRAIN_FLAG = "--train"
+# the prefix of the line by which a ``moe_train_child`` hands back its
+# train line
+TRAIN_RESULT = "train result: "
+
+
+def moe_train_child(arch):
+    """``train_phase`` for the MoE model ``arch`` of ``TRAINED`` (at its
+    ``TRAIN_LAYERS`` depth) in a process of its own (this script with
+    ``TRAIN_FLAG``), as ``moe_serve_child`` serves: its traced step comes
+    after every earlier train phase's traces in the main process, which
+    would lose records. Prints the child's lines and a ``train_child``
+    line; returns its train line; raises if it fails."""
+    return _child("train", TRAIN_FLAG, TRAIN_RESULT, arch)
+
+
+def _child(what, flag, prefix, arch, timeout=900):
     t = time.perf_counter()
     proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
-                           SERVE_FLAG, arch], capture_output=True, text=True,
-                          timeout=900)
+                           flag, arch], capture_output=True, text=True,
+                          timeout=timeout)
     result = None
     for line in proc.stdout.splitlines():
-        if line.startswith(SERVE_RESULT):
-            result = json.loads(line[len(SERVE_RESULT):])
+        if line.startswith(prefix):
+            result = json.loads(line[len(prefix):])
         else:
             print(line, flush=True)
     if proc.returncode != 0 or result is None:
-        raise AssertionError(f"the {arch} serve failed (rc "
+        raise AssertionError(f"the {arch} {what} failed (rc "
                              f"{proc.returncode}): {proc.stderr[-4000:]}")
-    emit({"phase": "serve_child", "model": arch,
+    emit({"phase": f"{what}_child", "model": arch,
           "seconds": time.perf_counter() - t,
           "main_process_reserved_gb": torch.cuda.memory_reserved() / 1e9})
     return result
@@ -4192,29 +4335,37 @@ def profile_phase(eng, cfg, dev, *, n_requests=8, prompt_len=256,
 
 # every port kernel a train step launches, as a trace names them
 TRAIN_KERNELS = (CB_KERNELS + CB_T_KERNELS + FA_KERNELS + FA_BWD_KERNELS
-                 + WKV_KERNELS + WKV_BWD_KERNELS)
+                 + WKV_KERNELS + WKV_BWD_KERNELS + GROUPED_KERNELS
+                 + GROUPED_T_KERNELS)
 # the kernel groups of a train step's trace, and those each model's step
-# must show (rwkv launches no flash, the attention models no wkv)
+# must show (rwkv launches no flash, the attention models no wkv, the
+# dense models no grouped product)
 TRAIN_GROUPS = (("crossbar", CB_KERNELS), ("crossbar_t", CB_T_KERNELS),
                 ("flash", FA_KERNELS), ("flash_bwd", FA_BWD_KERNELS),
-                ("wkv", WKV_KERNELS), ("wkv_bwd", WKV_BWD_KERNELS))
+                ("wkv", WKV_KERNELS), ("wkv_bwd", WKV_BWD_KERNELS),
+                ("grouped", GROUPED_KERNELS), ("grouped_t", GROUPED_T_KERNELS))
 ATTN_GROUPS = ("crossbar", "crossbar_t", "flash", "flash_bwd")
 RWKV_GROUPS = ("crossbar", "crossbar_t", "wkv", "wkv_bwd")
+MOE_GROUPS = ATTN_GROUPS + ("grouped", "grouped_t")
 
 
 def is_rwkv(cfg) -> bool:
     return cfg.block_pattern == ("rwkv",)
 
 
-def train_launches(cfg, n_quant, microbatches, seq=TRAIN_SEQ, remat=False):
+def train_launches(cfg, n_quant, microbatches, seq=TRAIN_SEQ, remat=False,
+                   n_grouped=0):
     """kernel -> launches per train step: each quantized matrix's forward
     once per microbatch, and its dx wherever the matmul's input needs a
     gradient: every one but those of layer 0 that read the frozen
     embedding only (the attention models' q/k/v projections; rwkv's r, k,
     v and g, whose token-shift mix is of the embedding too); one flash (or
     wkv: the chunked kernel from ``CHUNK_MIN_T`` on at N = 64) forward and
-    one backward per layer and microbatch. With ``remat`` every forward
-    kernel launches twice: the backward reruns each layer."""
+    one backward per layer and microbatch; each of the ``n_grouped``
+    expert stacks' grouped product and its dx once per microbatch (every
+    MoE layer's input needs a gradient: it follows an attention with
+    adapters). With ``remat`` every forward kernel launches twice: the
+    backward reruns each layer."""
     from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
 
     L, f = cfg.n_layers, 2 if remat else 1
@@ -4226,10 +4377,14 @@ def train_launches(cfg, n_quant, microbatches, seq=TRAIN_SEQ, remat=False):
                 "rwkv6_wkv_chunk" if chunked else "rwkv6_wkv":
                     L * microbatches * f,
                 "rwkv6_wkv_bwd": L * microbatches}
-    return {"crossbar_matmul": n_quant * microbatches * f,
-            "crossbar_matmul_t": (n_quant - 3) * microbatches,
-            "flash_attention": L * microbatches * f,
-            "flash_attention_bwd": L * microbatches}
+    out = {"crossbar_matmul": n_quant * microbatches * f,
+           "crossbar_matmul_t": (n_quant - 3) * microbatches,
+           "flash_attention": L * microbatches * f,
+           "flash_attention_bwd": L * microbatches}
+    if n_grouped:
+        out.update(grouped_crossbar_matmul=n_grouped * microbatches * f,
+                   grouped_crossbar_matmul_t=n_grouped * microbatches)
+    return out
 
 
 # the port's launch entry points (module, attribute), each wrapped in a
@@ -4239,6 +4394,7 @@ PORT_LAUNCHERS = (
     ("repro_torch.kernels.crossbar_matmul.ops", "_launch"),
     ("repro_torch.kernels.crossbar_matmul.ops", "grouped_crossbar_matmul"),
     ("repro_torch.kernels.crossbar_matmul.ops", "crossbar_matmul_t"),
+    ("repro_torch.kernels.crossbar_matmul.ops", "grouped_crossbar_matmul_t"),
     ("repro_torch.kernels.flash_attention.ops", "_launch"),
     ("repro_torch.kernels.flash_attention.ops", "flash_attention_bwd"),
     ("repro_torch.kernels.rwkv6_wkv.ops", "_launch"),
@@ -4400,7 +4556,9 @@ def noise_launches(per_step):
     """A step's launches under weight noise: the noisy weights are dense
     products (as in JAX), so no crossbar kernel runs."""
     return {k: n for k, n in per_step.items()
-            if k not in ("crossbar_matmul", "crossbar_matmul_t")}
+            if k not in ("crossbar_matmul", "crossbar_matmul_t",
+                         "grouped_crossbar_matmul",
+                         "grouped_crossbar_matmul_t")}
 
 
 def remat_check(cfg, params, lora, batch, microbatches, seq, dev, *,
@@ -4416,7 +4574,7 @@ def remat_check(cfg, params, lora, batch, microbatches, seq, dev, *,
     from repro_torch.optim import adamw
     from repro_torch.train import steps as st
 
-    n_quant = quantized_matrices(params["layers"])
+    n_quant, n_grouped = quantized_kinds(params["layers"])
     runs = {}
     for remat in (False, True):
         ec = tfm.ExecConfig(remat=remat, noise=NoiseConfig(
@@ -4432,7 +4590,8 @@ def remat_check(cfg, params, lora, batch, microbatches, seq, dev, *,
         loss, _, grads = st.accumulate_grads(st.make_loss_fn(cfg, ec), lora,
                                              params, batch, microbatches, rng)
         torch.cuda.synchronize()
-        want = train_launches(cfg, n_quant, microbatches, seq, remat)
+        want = train_launches(cfg, n_quant, microbatches, seq, remat,
+                              n_grouped)
         runs[remat] = {
             "ms": 1e3 * (time.perf_counter() - t),
             "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
@@ -4460,16 +4619,15 @@ def remat_check(cfg, params, lora, batch, microbatches, seq, dev, *,
 def make_train_state(cfg, dev, g, bits):
     """Random weights from ``g`` on an MnFm base and one rank-32 adapter
     on wq/wv whose B is drawn non-zero (at B = 0 the gradient of A is 0
-    and hides a wrong dx)."""
+    and hides a wrong dx). The base is drawn and quantized one leaf at a
+    time (``init_quantized_params``: the f32 base is never whole on the
+    card, which an MoE model's would not fit)."""
     from repro_torch.configs.base import QuantConfig
     from repro_torch.core import lora as lora_lib
-    from repro_torch.core import quant
     from repro_torch.models import transformer as tfm
 
-    base = tfm.init_params(cfg, g, device=dev)
-    params = quant.quantize_params(base, QuantConfig(mha_bits=bits[0],
-                                                     ff_bits=bits[1]))
-    del base
+    params = tfm.init_quantized_params(
+        cfg, g, QuantConfig(mha_bits=bits[0], ff_bits=bits[1]), device=dev)
     gc.collect()
     lora = lora_lib.init_lora_params(cfg, g, device=dev)
     for entry in lora["layers"]:
@@ -4478,9 +4636,99 @@ def make_train_state(cfg, dev, g, bits):
     return params, lora
 
 
+def route_to(logits, token_mask, eidx, tpe, norm_topk, margin):
+    """``topk_route``'s outputs with the experts ``eidx`` (n, k) given: the
+    gates of those experts from these logits' own softmax (renormalised
+    where the config does), the load-balance loss of that choice, its
+    slots; ``margin`` as given."""
+    n, E = logits.shape
+    k = eidx.shape[1]
+    probs = torch.softmax(logits, dim=-1)
+    gate = probs.gather(1, eidx)
+    if norm_topk:
+        gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+    me = torch.nn.functional.one_hot(eidx[:, 0], E).to(torch.float32).mean(0)
+    aux = torch.stack([E * torch.sum(me * probs.mean(0)),
+                       torch.mean(torch.logsumexp(logits, -1) ** 2),
+                       torch.zeros((), dtype=torch.float32,
+                                   device=logits.device)])
+    sidx = (eidx[..., None] * tpe
+            + torch.arange(tpe, device=logits.device)).reshape(n, k * tpe)
+    sgate = gate.repeat_interleave(tpe, dim=-1)
+    if token_mask is not None:
+        sgate = sgate * token_mask.reshape(n).to(sgate.dtype)[:, None]
+    return eidx, gate, margin, aux, sidx, sgate
+
+
+@contextlib.contextmanager
+def train_routes(forced=None):
+    """Capacity dispatch's routing in train steps, recorded for the body:
+    each ``topk_route`` call's experts and top-k margin (on the host) and
+    each ``apply_moe``'s dropped assignments. With ``forced`` (another
+    path's experts, one entry per call in order), a call whose own choice
+    differs is routed to the forced experts (``route_to``: the gates still
+    from this path's own softmax) and counted in "forced". Yields the
+    record."""
+    from repro_torch.kernels.moe_route import ops as moe_ops
+    from repro_torch.models import moe
+
+    rec = {"experts": [], "margin": [], "dropped": [], "forced": 0}
+    topk, apply = moe_ops.topk_route, moe.apply_moe
+
+    def route(logits, token_mask, *, top_k, tpe, norm_topk):
+        out = topk(logits, token_mask, top_k=top_k, tpe=tpe,
+                   norm_topk=norm_topk)
+        own = out[0].cpu()
+        rec["experts"].append(own)
+        rec["margin"].append(out[2].detach().cpu())
+        i = len(rec["experts"]) - 1
+        want = forced[i] if forced and i < len(forced) else own
+        if not torch.equal(want, own):
+            rec["forced"] += 1
+            return route_to(logits, token_mask, want.to(logits.device), tpe,
+                            norm_topk, out[2])
+        return out
+
+    def apply_moe(*a, **kw):
+        y, aux = apply(*a, **kw)
+        rec["dropped"].append(aux["dropped_tokens"].detach())
+        return y, aux
+
+    moe_ops.topk_route, moe.apply_moe = route, apply_moe
+    try:
+        yield rec
+    finally:
+        moe_ops.topk_route, moe.apply_moe = topk, apply
+
+
+def route_flips(kernel, plain):
+    """The routing of a kernel path's step against the plain path's own
+    (``train_routes`` records): every (call, token) whose top-k expert set
+    differs, with the plain path's margin there; the dropped assignments
+    of each path; the plain path's calls routed to the kernel path's
+    experts."""
+    flips = []
+    for i, (a, b, m) in enumerate(zip(kernel["experts"], plain["experts"],
+                                      plain["margin"])):
+        a, b = a.sort(-1).values, b.sort(-1).values
+        for t in torch.nonzero((a != b).any(-1)).flatten().tolist():
+            flips.append({"call": i, "token": t, "experts": a[t].tolist(),
+                          "plain": b[t].tolist(), "margin": float(m[t])})
+    return {"calls": [len(kernel["experts"]), len(plain["experts"])],
+            "flips": flips,
+            "flip_over_margin": [f for f in flips
+                                 if f["margin"] >= FLIP_MARGIN],
+            "min_margin": min((float(m.min()) for m in plain["margin"]),
+                              default=None),
+            "plain_calls_forced": plain["forced"],
+            "dropped_kernels": sum(float(d) for d in kernel["dropped"]),
+            "dropped_plain": sum(float(d) for d in plain["dropped"])}
+
+
 def train_phase(dev, cfg, *, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
                 microbatches=TRAIN_MICROBATCHES, steps=20, checked=5,
-                noise_steps=0, bits=(8, 8), seed=0, check_layers=None):
+                noise_steps=0, bits=(8, 8), seed=0, check_layers=None,
+                layers=None):
     """LoRA fine-tuning of ``cfg`` at full width and depth on an MnFm base
     (``bits``, M8F8 by default; M4F4 puts int4 codes through
     ``crossbar_matmul`` and ``crossbar_matmul_t``; random weights from
@@ -4506,7 +4754,13 @@ def train_phase(dev, cfg, *, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
     noise-aware ``Trainer`` steps (sigma_rel 0.02): dense products of the
     noisy weights, so no crossbar launch. Last, at full depth,
     ``remat_check``, with weight noise where the model takes noise-aware
-    steps."""
+    steps. ``layers`` cuts the depth of ``cfg``. In an MoE model
+    (capacity dispatch, the training default) each checked step's
+    routing on the plain path is held to the kernel
+    path's (``route_flips``): a flip at a margin of ``FLIP_MARGIN`` or
+    more fails, and the plain path's calls that flipped below it are
+    routed to the kernel path's experts (``train_routes``), so that both
+    paths compute the same function."""
     from repro_torch import kernels
     from repro_torch.core import quant
     from repro_torch.core.noise import NoiseConfig
@@ -4516,6 +4770,10 @@ def train_phase(dev, cfg, *, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
     from repro_torch.train import steps as st
     from repro_torch.train.trainer import Trainer, TrainerConfig
 
+    full_layers = cfg.n_layers
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    moe_model = cfg.moe is not None
     g = torch.Generator(device=dev).manual_seed(seed)
     t0 = time.perf_counter()
     ccfg = (cfg if check_layers is None
@@ -4530,22 +4788,27 @@ def train_phase(dev, cfg, *, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
         lr=1e-3, schedule=adamw.warmup_cosine(max(steps // 10, 1), steps)))
     ec_k = tfm.ExecConfig()
     ec_p = tfm.ExecConfig(attn_impl="ref", rwkv_impl="ref")
-    check_step = train_launches(ccfg, quantized_matrices(params["layers"]),
-                                microbatches, seq)
+    n_quant, n_grouped = quantized_kinds(params["layers"])
+    check_step = train_launches(ccfg, n_quant, microbatches, seq,
+                                n_grouped=n_grouped)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
 
     # the first step's loss and gradients, kernels against plain versions
     plain_params = quant.dequantize_params(params)
     kernels.reset_launches()
-    lk, _, gk = st.accumulate_grads(st.make_loss_fn(ccfg, ec_k), lora,
-                                    params, batches[0], microbatches)
+    with train_routes() as rk:
+        lk, _, gk = st.accumulate_grads(st.make_loss_fn(ccfg, ec_k), lora,
+                                        params, batches[0], microbatches)
     torch.cuda.synchronize()
     grad_launches = dict(kernels.LAUNCHES)
     kernels.reset_launches()
-    lp, _, gp = st.accumulate_grads(st.make_loss_fn(ccfg, ec_p), lora,
-                                    plain_params, batches[0], microbatches)
+    with train_routes(rk["experts"]) as rp:
+        lp, _, gp = st.accumulate_grads(st.make_loss_fn(ccfg, ec_p), lora,
+                                        plain_params, batches[0],
+                                        microbatches)
     torch.cuda.synchronize()
+    routes = [route_flips(rk, rp)]
     plain_launches = {k: n for k, n in kernels.LAUNCHES.items() if n}
     grad_err = [float((a - b).norm() / b.norm())
                 for a, b in zip(adamw.leaves(gk), adamw.leaves(gp))]
@@ -4563,12 +4826,15 @@ def train_phase(dev, cfg, *, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
     losses_k, losses_p, step_launches = [], [], []
     for i in range(checked):
         kernels.reset_launches()
-        *sk, mk = step_k(params, *sk, batches[i])
+        with train_routes() as rk:
+            *sk, mk = step_k(params, *sk, batches[i])
         losses_k.append(float(mk["loss"]))
         step_launches.append({k: n for k, n in kernels.LAUNCHES.items() if n})
         kernels.reset_launches()
-        *sp, mp = step_p(plain_params, *sp, batches[i])
+        with train_routes(rk["experts"]) as rp:
+            *sp, mp = step_p(plain_params, *sp, batches[i])
         losses_p.append(float(mp["loss"]))
+        routes.append(route_flips(rk, rp))
         if any(kernels.LAUNCHES.values()):
             plain_launches = {k: n for k, n in kernels.LAUNCHES.items() if n}
     del plain_params, sk, sp
@@ -4583,8 +4849,9 @@ def train_phase(dev, cfg, *, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
         params, lora = make_train_state(cfg, dev, g, bits)
         torch.cuda.synchronize()
         setup_s += time.perf_counter() - t
-    n_quant = quantized_matrices(params["layers"])
-    per_step = train_launches(cfg, n_quant, microbatches, seq)
+    n_quant, n_grouped = quantized_kinds(params["layers"])
+    per_step = train_launches(cfg, n_quant, microbatches, seq,
+                              n_grouped=n_grouped)
     step_k = st.make_train_step(cfg, ec_k, hp)
 
     # the path: ``steps`` steps through the Trainer, checkpointing
@@ -4595,11 +4862,13 @@ def train_phase(dev, cfg, *, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
                        hparams=hp, seed=seed, log_every=steps)
     tr = Trainer(cfg, tc, ds, params=params, device=dev)
     torch.cuda.synchronize()
+    resident_gb = torch.cuda.memory_allocated(dev) / 1e9
     torch.cuda.reset_peak_memory_stats(dev)
     kernels.reset_launches()
     log = tr.run()
     run_launches = dict(kernels.LAUNCHES)
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    peak_reserved_gb = torch.cuda.max_memory_reserved(dev) / 1e9
     step_ms = [1e3 * r["sec"] for r in log]
     curve = [r["loss"] for r in log]
     # the same step function without the Trainer around it, on batches
@@ -4646,7 +4915,8 @@ def train_phase(dev, cfg, *, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
 
     # rwkv6-7b's trace keeps every wkv backward launch's record
     trace = traced_step(one_more_step, cfg.vocab_size,
-                        RWKV_GROUPS if is_rwkv(cfg) else ATTN_GROUPS,
+                        RWKV_GROUPS if is_rwkv(cfg) else
+                        MOE_GROUPS if moe_model else ATTN_GROUPS,
                         keep=("rwkv6_wkv_bwd",) if is_rwkv(cfg) else ())
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     del tr
@@ -4680,9 +4950,11 @@ def train_phase(dev, cfg, *, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
     trace["busy_share_of_median_step"] = trace["device_ms"] / med
     result = {
         "phase": "train", "model": cfg.name, "layers": cfg.n_layers,
+        "full_layers": full_layers,
         "d_model": cfg.d_model, "vocab": cfg.vocab_size,
         "base": f"M{bits[0]}F{bits[1]}", "code_bits": widths,
-        "quantized_matrices": n_quant, "lora_rank": cfg.lora.rank,
+        "quantized_matrices": n_quant, "grouped_stacks": n_grouped,
+        "lora_rank": cfg.lora.rank,
         "lora_targets": list(cfg.lora.targets), "batch": batch, "seq": seq,
         "microbatches": microbatches, "lr": 1e-3, "setup_s": setup_s,
         "check_layers": ccfg.n_layers, "check_launches_per_step": check_step,
@@ -4696,12 +4968,27 @@ def train_phase(dev, cfg, *, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
         "median_step_ms": med, "tokens_per_s": batch * seq / (med / 1e3),
         "bare_step_ms": bare_ms,
         "bare_median_step_ms": statistics.median(bare_ms[1:]),
-        "peak_mem_gb": peak_gb, "loss_curve": curve,
+        "resident_gb": resident_gb, "peak_mem_gb": peak_gb,
+        "peak_reserved_gb": peak_reserved_gb,
+        "card_gb": torch.cuda.get_device_properties(dev).total_memory / 1e9,
+        "loss_curve": curve,
         "run_launches": run_launches, "restart": restart,
         "traced_step": trace, "noise": noise, "remat": remat,
     }
+    if moe_model:
+        # the first step's, then each checked step's; the plain path's
+        # calls whose routing flipped (below FLIP_MARGIN) were routed to
+        # the kernel path's experts
+        result["moe_routes"] = routes
+        result["plain_routed_to_kernel_experts"] = sum(
+            r["plain_calls_forced"] for r in routes)
     emit(result)
     problems = []
+    for r in routes:
+        if r["calls"][0] != r["calls"][1] or r["flip_over_margin"]:
+            problems.append(f"the routing differs: {r['calls']} calls, "
+                            f"flips at margin >= {FLIP_MARGIN}: "
+                            f"{r['flip_over_margin']}")
     if widths != sorted(set(bits)):
         problems.append(f"code widths {widths}, expected {bits}")
     if first["loss_rel_err"] > loss_tol or max(loss_err) > loss_tol:
@@ -4928,18 +5215,38 @@ PERSISTED = ("llama3.2-1b",)
 # the models fine-tuned, in order: base bits, Trainer steps (a multiple of
 # CKPT_EVERY) and noise-aware steps; GPT-2 again on an int4 base. gemma2-9b
 # comes second: every trace adds to what later traces lose
-# (``late_kernel_phase``), and its traced step is the largest
+# (``late_kernel_phase``), and its traced step is the largest. The MoE
+# model trains in a child process (``moe_train_child``)
 TRAINED = (("llama3.2-1b", (8, 8), 20, 0),
            ("gemma2-9b", (8, 8), 10, 0),
            ("paper-gpt2-medium", (8, 8), 20, 2),
            ("paper-gpt2-medium", (4, 4), 10, 0),
-           ("rwkv6-7b", (8, 8), 10, 0))
+           ("rwkv6-7b", (8, 8), 10, 0),
+           ("llama4-scout-17b-a16e", (8, 8), 10, 0))
 # the depth at which a model's kernel step is held against the plain one,
 # where not its full depth: rwkv6-7b's gradients are too ill-conditioned
 # deeper (``RWKV_TRAIN_GRAD_TOL_REL``), and its plain path would not fit
 # the card at 32 layers (the plain wkv recurrence under autograd keeps
-# every step's state, ~3 GB a layer at 2 x 512 tokens)
-CHECK_LAYERS = {"rwkv6-7b": 2}
+# every step's state, ~3 GB a layer at 2 x 512 tokens); llama4-scout's
+# plain path dequantizes its layers to f32, 8.8 GB each
+CHECK_LAYERS = {"rwkv6-7b": 2, "llama4-scout-17b-a16e": 2}
+# the depth a model trains at, where not its full depth: llama4-scout's
+# codes take 2.2 GB a layer beside 8.3 GB of f32 embed and unembed, and
+# a microbatch's activations ~0.7 GB a layer
+TRAIN_LAYERS = {"llama4-scout-17b-a16e": 24}
+
+
+def train_model(dev, entry):
+    """``train_phase`` of one ``TRAINED`` entry (arch, bits, steps,
+    noise steps) at the depths ``CHECK_LAYERS`` and ``TRAIN_LAYERS`` give
+    its arch."""
+    from repro_torch.configs import get_config
+
+    arch, bits, steps, noise_steps = entry
+    return train_phase(dev, get_config(arch), bits=bits, steps=steps,
+                       noise_steps=noise_steps,
+                       check_layers=CHECK_LAYERS.get(arch),
+                       layers=TRAIN_LAYERS.get(arch))
 
 
 def main() -> int:
@@ -4975,6 +5282,13 @@ def main() -> int:
                                     **SERVE_KW.get(arch, {}))
         print(SERVE_RESULT + json.dumps(result), flush=True)
         return 0
+    if sys.argv[1:2] == [TRAIN_FLAG] and len(sys.argv) == 3:
+        # one MoE train phase, in the process ``moe_train_child`` starts
+        torch.zeros(1, device=dev)   # the allocator, before its peak reset
+        result = train_model(dev, next(t for t in TRAINED
+                                       if t[0] == sys.argv[2]))
+        print(TRAIN_RESULT + json.dumps(result), flush=True)
+        return 0
     smi = smi_line()
     emit({"phase": "device", "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "nvidia_smi": smi,
@@ -5008,11 +5322,12 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
     trains = {}
-    for arch, bits, steps, noise_steps in TRAINED:
+    for entry in TRAINED:
+        arch, bits = entry[:2]
         key = arch if bits == (8, 8) else f"{arch} M{bits[0]}F{bits[1]}"
-        trains[key] = train_phase(dev, get_config(arch), bits=bits,
-                                  steps=steps, noise_steps=noise_steps,
-                                  check_layers=CHECK_LAYERS.get(arch))
+        trains[key] = (moe_train_child(arch)
+                       if get_config(arch).moe is not None
+                       else train_model(dev, entry))
         gc.collect()
         torch.cuda.empty_cache()
     cases += late_kernel_phase()
@@ -5064,12 +5379,18 @@ def main() -> int:
            "flash_attention_bwd": ("llama3.2-1b train",
                                    {"case": "causal",
                                     "model": "llama3.2-1b"}),
+           "grouped_crossbar_matmul_t": ("llama4-scout-17b-a16e train",
+                                         {"case": "prefill_uniform",
+                                          "model": "llama4-scout-17b-a16e",
+                                          "bits": 8, "stack": "w1/w3"}),
            "rwkv6_wkv_bwd": ("rwkv6-7b train", {"case": "microbatch",
                                                 "kernel": "chunk"})}
     sources = {"crossbar_matmul": "src/repro_torch/csrc/crossbar_matmul.cu",
                "grouped_crossbar_matmul":
                    "src/repro_torch/csrc/crossbar_matmul.cu",
                "crossbar_matmul_t": "src/repro_torch/csrc/crossbar_matmul.cu",
+               "grouped_crossbar_matmul_t":
+                   "src/repro_torch/csrc/crossbar_matmul.cu",
                "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
                "flash_attention_bwd":
                    "src/repro_torch/csrc/flash_attention.cu",
@@ -5090,6 +5411,8 @@ def main() -> int:
         "grouped_crossbar_matmul":
             "src/repro/kernels/crossbar_matmul/kernel.py:102",
         "crossbar_matmul_t": "src/repro/kernels/crossbar_matmul/kernel.py:102",
+        "grouped_crossbar_matmul_t":
+            "src/repro/kernels/crossbar_matmul/kernel.py:102",
         "flash_attention": "src/repro/kernels/flash_attention/kernel.py:81",
         "flash_attention_bwd": "src/repro/kernels/flash_attention/kernel.py:81",
         "paged_flash_attention":
@@ -5107,6 +5430,9 @@ def main() -> int:
     autodiff_of = {
         "crossbar_matmul_t":
             "src/repro/core/hetero.py:81 (static_matmul: dequantize, dot)",
+        "grouped_crossbar_matmul_t":
+            "src/repro/models/moe.py:213 (static_einsum over the dequantized "
+            "expert stack, C rows per slot under capacity dispatch)",
         "flash_attention_bwd":
             "src/repro/models/attention.py:244 (blocked_attention's VJP)",
         "rwkv6_wkv_bwd": "src/repro/models/rwkv.py:83 (wkv_scan)"}
@@ -5154,18 +5480,20 @@ def main() -> int:
             "bound_by": c["bound_by"], "library_ms": c["library_ms"],
             **{k: c[k] for k in ("library", "library_device_ms",
                                  "library_kernels", "bound_pieces_ms",
+                                 "bound_f32_ms",
                                  "host_us") if k in c},
             "at": c["shape"]})
         if name != "crossbar_matmul":   # every case of the kernel beside it
             summary[-1]["cases"] = [
                 {k: o[k] for k in ("case", "model", "kernel", "bits",
-                                   "shape", "max_abs_err", "tol",
+                                   "stack", "shape", "max_abs_err", "tol",
                                    "max_rel_err",
                                    "same_bits",
                                    "tol_rel", "ms", "device_ms",
                                    "host_us", "plain_ms",
                                    "library_ms", "library_device_ms",
-                                   "bound_ms", "bound_pieces_ms", "bound_by",
+                                   "bound_ms", "bound_pieces_ms",
+                                   "bound_f32_ms", "bound_by",
                                    "bound_parts_ms",
                                    "plain_device_ms", "plain_device_kernels",
                                    "check")

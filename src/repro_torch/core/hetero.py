@@ -109,9 +109,12 @@ def static_grouped_matmul(x: torch.Tensor, w, bases: torch.Tensor,
     ``kernel`` ("decode" or "prefill", which fixed the buffer's row tile);
     a plain one (or a noisy one: noise-aware fine-tuning perturbs the
     dequantized stack with noise drawn from ``rng``) to a dense product per
-    slot. The tally counts what the JAX package's einsum counts:
-    2 * slots * ``jax_rows`` * K * N, its buffer holding ``jax_rows`` rows
-    per slot (B * C), whatever rows the port computes."""
+    slot. Under grad the kernel's autograd Function (dx by
+    ``grouped_crossbar_matmul_t``) and the dense products' torch ops carry
+    x's gradient; the weights get none. The tally counts what the JAX
+    package's einsum counts: 2 * slots * ``jax_rows`` * K * N, its buffer
+    holding ``jax_rows`` rows per slot (B * C), whatever rows the port
+    computes."""
     slots, K, N = w.shape[-3:]
     _record(STATIC, 2.0 * slots * jax_rows * K * N)
     if noise is not None and noise.enabled:

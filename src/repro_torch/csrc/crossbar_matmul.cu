@@ -140,6 +140,20 @@
 //     per device serves both. Two calls give identical bits.
 //   - g beyond M or N reads as 0 (the codes' padding is then multiplied by
 //     0); dx beyond K is not written.
+//
+// grouped transposed (grouped_crossbar_matmul_t: the backward of the
+//   expert products, dx[r] = g[r] . dequant(W_s)^T for the live rows r of
+//   slot s, 0 in every other row). Replaces what the JAX package gets from
+//   autodiff of static_einsum("sbcd,sdf->sbcf") over the dequantized stack
+//   (src/repro/models/moe.py apply_moe). Bound, at a train microbatch
+//   (1024 routed rows of llama4-scout over 16 (5120, 8192) experts), by
+//   arithmetic, as the transposed kernel. Design: the transposed kernel's
+//   body over the buffer's 64-row tiles, the slot taken from the row tile
+//   (group_of), as the grouped prefill kernel takes it; so the bases must
+//   be multiples of 64 (the prefill kernel's row tile: models/moe.py keeps
+//   that tile for an x that needs a gradient); a tile that crosses into
+//   another slot is written as NaN, never as a finite wrong dx. A tile of
+//   padding only writes its zeros and reads no code.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -237,14 +251,14 @@ __device__ __forceinline__ int group_of(const int* __restrict__ bases,
   return s < slots ? __ldg(bases + s) + __ldg(counts + s) : m0;
 }
 
-// Zeros of out rows m0 .. m0 + rows - 1, columns n0 .. n0 + cols - 1 (those
-// below M and N), written by the whole block.
+// Zeros (or `value`) in out rows m0 .. m0 + rows - 1, columns n0 .. n0 +
+// cols - 1 (those below M and N), written by the whole block.
 __device__ __forceinline__ void zero_tile(float* __restrict__ out, int m0,
                                           int rows, int n0, int cols, int M,
-                                          int N) {
+                                          int N, float value = 0.f) {
   for (int i = threadIdx.x; i < rows * cols; i += blockDim.x) {
     const int m = m0 + i / cols, n = n0 + i % cols;
-    if (m < M && n < N) out[static_cast<size_t>(m) * N + n] = 0.f;
+    if (m < M && n < N) out[static_cast<size_t>(m) * N + n] = value;
   }
 }
 
@@ -1144,13 +1158,19 @@ cudaError_t launch_grouped_prefill(const float* x, const uint8_t* codes,
 // in the prefill kernel) and of code rows r + 64 i (r = tid / 4; int8,
 // i < 4) or packed rows r + 64 i (int4, i < 2: B rows 2 (r + 64 i) and
 // 2 (r + 64 i) + 1).
-template <int BITS>
-__global__ void __launch_bounds__(kPfThreads, 1)
-crossbar_t_kernel(const float* __restrict__ g,
-                  const uint8_t* __restrict__ codes,
-                  const float* __restrict__ scales, float* __restrict__ out,
-                  float* __restrict__ partials, int* __restrict__ tickets,
-                  int M, int K, int N, int Kp, int Np, int g_vec, int per) {
+//
+// The body is shared with the grouped entry point (GROUPED: the rows of g
+// and dx belong to slots, each with its own codes; see group_of). A tile
+// of padding only writes its zeros and reads no code; in a live tile the
+// rows past the slot's count read g as 0, so their dx is 0 too.
+template <int BITS, bool GROUPED>
+__device__ __forceinline__ void t_body(
+    const float* __restrict__ g, const uint8_t* __restrict__ codes,
+    const float* __restrict__ scales, float* __restrict__ out,
+    float* __restrict__ partials, int* __restrict__ tickets, int M, int K,
+    int N, int Kp, int Np, int g_vec, int per, const int* __restrict__ bases,
+    const int* __restrict__ counts, int slots, size_t code_stride,
+    int scale_stride) {
   constexpr int kLoads = BITS == 8 ? 4 : 2;
   __shared__ bool last;
   extern __shared__ uint8_t smem_raw[];
@@ -1165,6 +1185,28 @@ crossbar_t_kernel(const float* __restrict__ g,
   const int n_nt = Np / kCrossbar, n_kt = Kp / kCrossbar;
   // this split's N tiles, as 64-deep stages (two per tile)
   const int S = gridDim.z, rank = blockIdx.z;
+  int Mg = M;   // rows of g that hold data: the rest read as 0
+  if constexpr (GROUPED) {
+    int slot;
+    const int live = group_of(bases, counts, slots, m0, &slot);
+    // a tile that is not inside one slot's rows (a base that is not a
+    // multiple of 64) would give another slot's rows this slot's codes:
+    // it is written as NaN, never as a finite wrong dx
+    if (slot < slots &&
+        (__ldg(bases + slot) > m0 ||
+         (slot + 1 < slots && __ldg(bases + slot + 1) < m0 + kPfBM))) {
+      if (rank == 0)
+        zero_tile(out, m0, kPfBM, k0, kPfBN, M, K, __int_as_float(0x7fc00000));
+      return;
+    }
+    if (m0 >= live) {   // padding only: zeros, and no code is read
+      if (rank == 0) zero_tile(out, m0, kPfBM, k0, kPfBN, M, K);
+      return;
+    }
+    Mg = live;
+    codes += slot * code_stride;
+    scales += static_cast<size_t>(slot) * scale_stride;
+  }
   const int c0 = 2 * rank * per;
   const int c1 = 2 * (n_nt < (rank + 1) * per ? n_nt : (rank + 1) * per);
   const int kt = k0 / kCrossbar + wg;      // this warpgroup's crossbar row
@@ -1173,7 +1215,7 @@ crossbar_t_kernel(const float* __restrict__ g,
   const int r = tid >> 2, cn = 16 * (tid & 3);
   const int prow0 = (BITS == 8 ? k0 : k0 / 2) + r;   // first (packed) row
   const int prows = BITS == 8 ? Kp : Kp / 2;
-  const bool g_live = m0 + r < M;
+  const bool g_live = m0 + r < Mg;
   const float* grow = g + static_cast<size_t>(g_live ? m0 + r : 0) * N;
 
   uint4 craw[kLoads];
@@ -1316,6 +1358,32 @@ crossbar_t_kernel(const float* __restrict__ g,
   }
 }
 
+template <int BITS>
+__global__ void __launch_bounds__(kPfThreads, 1)
+crossbar_t_kernel(const float* __restrict__ g,
+                  const uint8_t* __restrict__ codes,
+                  const float* __restrict__ scales, float* __restrict__ out,
+                  float* __restrict__ partials, int* __restrict__ tickets,
+                  int M, int K, int N, int Kp, int Np, int g_vec, int per) {
+  t_body<BITS, false>(g, codes, scales, out, partials, tickets, M, K, N, Kp,
+                      Np, g_vec, per, nullptr, nullptr, 0, 0, 0);
+}
+
+template <int BITS>
+__global__ void __launch_bounds__(kPfThreads, 1)
+grouped_t_kernel(const float* __restrict__ g,
+                 const uint8_t* __restrict__ codes,
+                 const float* __restrict__ scales, float* __restrict__ out,
+                 float* __restrict__ partials, int* __restrict__ tickets,
+                 int M, int K, int N, int Kp, int Np, int g_vec, int per,
+                 const int* __restrict__ bases,
+                 const int* __restrict__ counts, int slots,
+                 size_t code_stride, int scale_stride) {
+  t_body<BITS, true>(g, codes, scales, out, partials, tickets, M, K, N, Kp,
+                     Np, g_vec, per, bases, counts, slots, code_stride,
+                     scale_stride);
+}
+
 // The transposed kernel's plan is the prefill kernel's with the roles of
 // K (its output width here) and N (its reduction) swapped: the prefill_*
 // helpers take (M, reduction, output width).
@@ -1337,6 +1405,31 @@ cudaError_t launch_t(const float* g, const uint8_t* codes,
   crossbar_t_kernel<BITS><<<grid, kPfThreads, kPfSmem, stream>>>(
       g, codes, scales, out, partials, tickets, M, K, N, Kp, Np, g_vec,
       prefill_per(M, Np, Kp));
+  return cudaGetLastError();
+}
+
+// The grouped dx: the transposed kernel's grid over the buffer's R rows
+// (R / 64 row tiles), each block reading the codes of its row tile's slot.
+template <int BITS>
+cudaError_t launch_grouped_t(const float* g, const uint8_t* codes,
+                             const float* scales, float* out, float* partials,
+                             int* tickets, int R, int K, int N, int Kp,
+                             int Np, int g_vec, const Groups& gr,
+                             cudaStream_t stream) {
+  static bool configured = false;  // one attribute call per instantiation
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        grouped_t_kernel<BITS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kPfSmem);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  const dim3 grid((Kp + kPfBN - 1) / kPfBN, R / kPfBM,
+                  prefill_splits(R, Np, Kp));
+  grouped_t_kernel<BITS><<<grid, kPfThreads, kPfSmem, stream>>>(
+      g, codes, scales, out, partials, tickets, R, K, N, Kp, Np, g_vec,
+      prefill_per(R, Np, Kp), gr.bases, gr.counts, gr.slots, gr.code_stride,
+      gr.scale_stride);
   return cudaGetLastError();
 }
 
@@ -1553,5 +1646,54 @@ extern "C" int crossbar_matmul_t(const void* g, const void* codes,
       bits == 8 ? launch_t<8>(gf, c, sc, o, pa, ti, M, K, N, Kp, Np, g_vec, st)
                 : launch_t<4>(gf, c, sc, o, pa, ti, M, K, N, Kp, Np, g_vec,
                               st);
+  return static_cast<int>(err);
+}
+
+// dx[r] = g[r] (R, N) f32 . dequant(codes[s], scales[s])^T for every row r
+// of slot s's live rows, zeros in every other row of dx (R, K): the
+// backward of grouped_crossbar_matmul with respect to x (its output rows
+// outside the live rows are constant 0, so they carry no gradient). The
+// codes, scales, bases and counts are grouped_crossbar_matmul's, with the
+// prefill kernel's layout: bases multiples of 64 and R a multiple of 64
+// (a tile of 64 rows lies in one slot; the caller keeps the bases so, and
+// a tile that does not lie in one slot is written as NaN). A grid fixed
+// by R; a block whose tile holds padding only writes its zeros and reads
+// no code. The workspace is crossbar_matmul_t_workspace's for R rows.
+// Returns cudaGetLastError()
+// after the launch (cudaErrorInvalidValue for arguments the kernel does
+// not take). Allocates nothing, does not synchronise; runs on `stream`.
+extern "C" int grouped_crossbar_matmul_t(const void* g, const void* codes,
+                                         const void* scales, void* out,
+                                         void* partials, size_t n_partials,
+                                         void* tickets, int n_tickets,
+                                         const void* bases,
+                                         const void* counts, int slots,
+                                         int R, int K, int N, int Kp, int Np,
+                                         int bits, void* stream) {
+  if ((bits != 8 && bits != 4) || R <= 0 || R % kPfBM != 0 || slots <= 0 ||
+      K <= 0 || N <= 0 || Kp % kCrossbar != 0 || Np % kCrossbar != 0 ||
+      K > Kp || N > Np || R / kPfBM > 65535 ||
+      reinterpret_cast<uintptr_t>(codes) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t need = prefill_partials(R, Np, Kp);  // N, K swapped
+  if (n_partials < need || (need > 0 && n_tickets < prefill_tiles(R, Kp)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Groups gr{static_cast<const int*>(bases),
+                  static_cast<const int*>(counts), slots,
+                  static_cast<size_t>(Kp) * Np * bits / 8,
+                  (Kp / kCrossbar) * (Np / kCrossbar)};
+  const float* gf = static_cast<const float*>(g);
+  const uint8_t* c = static_cast<const uint8_t*>(codes);
+  const float* sc = static_cast<const float*>(scales);
+  float* o = static_cast<float*>(out);
+  float* pa = static_cast<float*>(partials);
+  int* ti = static_cast<int*>(tickets);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int g_vec = reinterpret_cast<uintptr_t>(g) % 16 == 0 && N % 4 == 0;
+  const cudaError_t err =
+      bits == 8 ? launch_grouped_t<8>(gf, c, sc, o, pa, ti, R, K, N, Kp, Np,
+                                      g_vec, gr, st)
+                : launch_grouped_t<4>(gf, c, sc, o, pa, ti, R, K, N, Kp, Np,
+                                      g_vec, gr, st);
   return static_cast<int>(err);
 }

@@ -9,8 +9,8 @@ graph runs its kernels without their wrappers, so the serving engine takes
 back what the wrappers counted while it captured a graph (nothing ran) and
 adds that count at each replay; ``chip_smoke.py`` holds the counts of
 traced ticks against the kernels in the profiler's trace. A backward
-entry point (``crossbar_matmul_t``, ``flash_attention_bwd``,
-``rwkv6_wkv_bwd``) counts once
+entry point (``crossbar_matmul_t``, ``grouped_crossbar_matmul_t``,
+``flash_attention_bwd``, ``rwkv6_wkv_bwd``) counts once
 per call, whatever kernels it launches.
 
 Importing the package also runs torch's CPU transcendental kernels once
@@ -24,6 +24,7 @@ import torch
 
 LAUNCHES: Dict[str, int] = {"crossbar_matmul": 0, "crossbar_matmul_t": 0,
                             "grouped_crossbar_matmul": 0,
+                            "grouped_crossbar_matmul_t": 0,
                             "flash_attention": 0, "flash_attention_bwd": 0,
                             "paged_flash_attention": 0,
                             "ring_flash_attention": 0, "rwkv6_wkv": 0,

@@ -27,8 +27,14 @@ graph captures the call whatever the routing): at decode a fixed grid of
 whole blocks per SM over a work list of the live row groups that it
 derives from ``counts`` (``grouped_decode_work_list`` mirrors it); on a
 CPU tensor
-``grouped_crossbar_matmul_plain``. It has no backward yet (ROADMAP Queue 1
-item 26).
+``grouped_crossbar_matmul_plain``. An x that needs a gradient goes through
+``GroupedCrossbarMatmulFn`` on either device, as in ``crossbar_matmul``:
+its backward is ``grouped_crossbar_matmul_t`` (dx = g . dequant(W_s)^T
+over each slot's live rows, 0 in every other row), the transposed kernel's
+body over the buffer's 64-row tiles on CUDA tensors,
+``grouped_crossbar_matmul_t_plain`` on CPU tensors. It takes the prefill
+kernel's layout only (bases multiples of 64): under grad the decode
+kernel's 8-row layout raises.
 """
 from __future__ import annotations
 
@@ -86,15 +92,21 @@ def _lib():
         lib.grouped_crossbar_matmul_workspace.argtypes = (
             [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)])
         lib.grouped_crossbar_matmul_workspace.restype = ctypes.c_size_t
+        lib.grouped_crossbar_matmul_t.argtypes = (
+            [ctypes.c_void_p] * 5 + [ctypes.c_size_t, ctypes.c_void_p,
+                                     ctypes.c_int]
+            + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+        lib.grouped_crossbar_matmul_t.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 
 
 # (M, Kp, Np, bits, kernel) -> (f32 partials, int tickets) the call needs;
-# kernel "t" for ``crossbar_matmul_t``, ("grouped", 1 or 2) for
-# ``grouped_crossbar_matmul``'s decode or prefill kernel
+# kernel "t" for ``crossbar_matmul_t`` and ``grouped_crossbar_matmul_t``
+# (R rows), ("grouped", 1 or 2) for ``grouped_crossbar_matmul``'s decode or
+# prefill kernel
 _NEEDS: Dict[tuple, Tuple[int, int]] = {}
-# the split workspace of the forward kernels and of the transposed one
+# the split workspace of the forward kernels and of the transposed ones
 # (their calls run in order on one stream: ``kernels.workspace``)
 WORKSPACES = workspace.Workspaces("crossbar_matmul")
 
@@ -415,16 +427,40 @@ def grouped_crossbar_matmul_plain(x: torch.Tensor, qt: QuantizedTensor,
     return out.to(x.dtype)
 
 
-def _check_grouped(x, qt, bases, counts, kernel) -> None:
+def grouped_crossbar_matmul_t_plain(g: torch.Tensor, qt: QuantizedTensor,
+                                    bases: torch.Tensor,
+                                    counts: torch.Tensor) -> torch.Tensor:
+    """g (R, N) -> dx (R, K) f32: per slot, dequantize then ``g .
+    W^T`` over its live rows; every other row 0 (the gradient of
+    ``grouped_crossbar_matmul`` with respect to x). Reads ``bases`` and
+    ``counts`` on the host."""
+    out = torch.zeros((g.shape[0], qt.orig_shape[-2]), device=g.device,
+                      dtype=torch.float32)
+    gf = g.to(torch.float32)
+    for s, (b, c) in enumerate(zip(bases.tolist(), counts.tolist())):
+        if c:
+            w = dequantize(qt.layer(s), torch.float32)
+            out[b:b + c] = torch.matmul(gf[b:b + c], w.T)
+    return out
+
+
+def _check_grouped(x, qt, bases, counts, kernel, *,
+                   transposed: bool = False) -> None:
+    """The shapes of a grouped call: x (R, K), or with ``transposed`` g
+    (R, N), over a (slots, K, N) weight; R a multiple of the row tile."""
+    name = ("grouped_crossbar_matmul_t" if transposed
+            else "grouped_crossbar_matmul")
     if qt.ndim != 3:
-        raise ValueError(f"grouped_crossbar_matmul takes a (slots, K, N) "
-                         f"weight, got orig_shape {qt.orig_shape}")
+        raise ValueError(f"{name} takes a (slots, K, N) weight, got "
+                         f"orig_shape {qt.orig_shape}")
     slots, K, N = qt.orig_shape
     if qt.codes.shape[0] != slots:
         raise ValueError(f"codes {tuple(qt.codes.shape)} of {slots} slots")
-    if x.ndim != 2 or x.shape[1] != K:
-        raise ValueError(f"x {tuple(x.shape)} @ weight ({slots}, {K}, {N}): "
-                         f"x must be (R, {K})")
+    width = N if transposed else K
+    if x.ndim != 2 or x.shape[1] != width:
+        raise ValueError(f"{'g' if transposed else 'x'} {tuple(x.shape)} "
+                         f"with weight ({slots}, {K}, {N}): it must be (R, "
+                         f"{width})")
     if tuple(bases.shape) != (slots + 1,) or tuple(counts.shape) != (slots,):
         raise ValueError(f"bases {tuple(bases.shape)} / counts "
                          f"{tuple(counts.shape)} for {slots} slots")
@@ -464,6 +500,16 @@ def reserve_grouped_workspace(device: torch.device, weights, rows) -> None:
     WORKSPACES.reserve(device.index, most)
 
 
+def _check_layout(name: str, bases: torch.Tensor, counts: torch.Tensor,
+                  device: torch.device) -> None:
+    for what, t in (("bases", bases), ("counts", counts)):
+        if t.dtype != torch.int32 or t.device != device:
+            raise TypeError(f"{what} must be int32 on {device}, got "
+                            f"{t.dtype} on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} needs contiguous {what}")
+
+
 def grouped_crossbar_matmul(x: torch.Tensor, qt: QuantizedTensor,
                             bases: torch.Tensor, counts: torch.Tensor,
                             kernel: str) -> torch.Tensor:
@@ -471,26 +517,32 @@ def grouped_crossbar_matmul(x: torch.Tensor, qt: QuantizedTensor,
     of slot s times dequant(qt[s]), 0 in every other row. ``bases`` (slots
     + 1,) and ``counts`` (slots,) int32 on x's device; ``kernel``
     ("decode" or "prefill") fixes the row tile that ``bases`` respect.
-    No backward: a CUDA ``x`` that needs a gradient raises."""
+    An ``x`` that needs a gradient goes through ``GroupedCrossbarMatmulFn``
+    on either device; its dx takes the prefill kernel's layout only, so
+    under grad ``kernel`` must be "prefill"."""
     _check_grouped(x, qt, bases, counts, kernel)
     on_cpu = x.device.type == "cpu" and qt.device.type == "cpu"
-    if on_cpu:
-        return grouped_crossbar_matmul_plain(x, qt, bases, counts)
-    if x.device.type != "cuda":
+    if not on_cpu and x.device.type != "cuda":
         raise ValueError(f"grouped_crossbar_matmul: x on {x.device}, weight "
                          f"on {qt.device}")
     if torch.is_grad_enabled() and x.requires_grad:
-        raise NotImplementedError(
-            "grouped_crossbar_matmul has no backward yet (ROADMAP Queue 1 "
-            "item 26: MoE training)")
+        if kernel != "prefill":
+            raise ValueError(
+                f"grouped_crossbar_matmul: an x that needs a gradient takes "
+                f"the prefill kernel's layout (bases multiples of "
+                f"{GROUPED_TILE['prefill']} rows), got kernel {kernel!r}")
+        return GroupedCrossbarMatmulFn.apply(x, qt, bases, counts, kernel)
+    if on_cpu:
+        return grouped_crossbar_matmul_plain(x, qt, bases, counts)
+    return _grouped_launch(x, qt, bases, counts, kernel)
+
+
+def _grouped_launch(x: torch.Tensor, qt: QuantizedTensor,
+                    bases: torch.Tensor, counts: torch.Tensor,
+                    kernel: str) -> torch.Tensor:
+    """The grouped forward kernel on CUDA tensors (no autograd)."""
     _check_x(x)
-    for name, t in (("bases", bases), ("counts", counts)):
-        if t.dtype != torch.int32 or t.device != x.device:
-            raise TypeError(f"{name} must be int32 on {x.device}, got "
-                            f"{t.dtype} on {t.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"grouped_crossbar_matmul needs contiguous "
-                             f"{name}")
+    _check_layout("grouped_crossbar_matmul", bases, counts, x.device)
     kp = _grouped_weight_kp(qt, x.device)
     slots, K, N = qt.orig_shape
     R = x.shape[0]
@@ -513,3 +565,75 @@ def grouped_crossbar_matmul(x: torch.Tensor, qt: QuantizedTensor,
                            f"bits={qt.bits}, kernel={kernel})")
     kernels.LAUNCHES["grouped_crossbar_matmul"] += 1
     return out
+
+
+def grouped_crossbar_matmul_t(g: torch.Tensor, qt: QuantizedTensor,
+                              bases: torch.Tensor,
+                              counts: torch.Tensor) -> torch.Tensor:
+    """g (R, N) grouped by slot -> dx (R, K) f32: each live row of slot s
+    times dequant(qt[s])^T, 0 in every other row; the backward of
+    ``grouped_crossbar_matmul`` with respect to x. ``bases`` and
+    ``counts`` as the forward took them, in the prefill kernel's layout
+    (bases multiples of 64, R a multiple of 64). ``csrc/crossbar_matmul.cu``'s
+    ``grouped_t_kernel`` on CUDA tensors (the slot read from each 64-row
+    tile, N split through the shared workspace where the output tiles leave
+    SMs idle; a tile that crosses into another slot, which bases off the
+    64-row tile make, comes out NaN, never a finite wrong dx),
+    ``grouped_crossbar_matmul_t_plain`` on CPU tensors (right for any
+    layout)."""
+    _check_grouped(g, qt, bases, counts, "prefill", transposed=True)
+    if g.device.type == "cpu" and qt.device.type == "cpu":
+        return grouped_crossbar_matmul_t_plain(g, qt, bases, counts)
+    if g.device.type != "cuda":
+        raise ValueError(f"grouped_crossbar_matmul_t: g on {g.device}, "
+                         f"weight on {qt.device}")
+    if g.dtype != torch.float32:
+        raise TypeError(f"grouped_crossbar_matmul_t takes an f32 g, got "
+                        f"{g.dtype}")
+    if not g.is_contiguous():
+        raise ValueError("grouped_crossbar_matmul_t needs a contiguous g")
+    _check_layout("grouped_crossbar_matmul_t", bases, counts, g.device)
+    kp = _grouped_weight_kp(qt, g.device)
+    slots, K, N = qt.orig_shape
+    R = g.shape[0]
+    out = torch.empty((R, K), device=g.device, dtype=torch.float32)
+    if R == 0:
+        return out
+    np_, dev = qt.codes.shape[-1], g.device.index
+    stream = torch._C._cuda_getCurrentRawStream(dev)
+    ws = WORKSPACES.pointers(_need(R, kp, np_, qt.bits, "t"), dev)
+    rc = kernels.call_on(_lib().grouped_crossbar_matmul_t, dev, g.data_ptr(),
+                         qt.codes.data_ptr(), qt.scales.data_ptr(),
+                         out.data_ptr(), *ws, bases.data_ptr(),
+                         counts.data_ptr(), slots, R, K, N, kp, np_, qt.bits,
+                         stream)
+    if rc != 0:
+        raise RuntimeError(f"grouped_crossbar_matmul_t launch failed: CUDA "
+                           f"error {rc} (R={R}, slots={slots}, K={K}, N={N}, "
+                           f"bits={qt.bits})")
+    kernels.LAUNCHES["grouped_crossbar_matmul_t"] += 1
+    return out
+
+
+class GroupedCrossbarMatmulFn(torch.autograd.Function):
+    """``grouped_crossbar_matmul`` with a backward: forward by the grouped
+    kernel, dx by ``grouped_crossbar_matmul_t`` (their plain versions on
+    CPU tensors). The weight is frozen and the layout is routing: the
+    codes, scales, ``bases`` and ``counts`` get no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, qt, bases, counts, kernel):
+        ctx.qt = qt
+        ctx.save_for_backward(bases, counts)
+        if x.device.type == "cpu":
+            return grouped_crossbar_matmul_plain(x, qt, bases, counts)
+        return _grouped_launch(x, qt, bases, counts, kernel)
+
+    @staticmethod
+    def backward(ctx, g):
+        dx = None
+        if ctx.needs_input_grad[0]:
+            bases, counts = ctx.saved_tensors
+            dx = grouped_crossbar_matmul_t(g.contiguous(), ctx.qt, bases,
+                                           counts)
+        return dx, None, None, None, None

@@ -14,7 +14,11 @@ out of every rank and every capacity bucket. Two dispatch modes:
 
   * ``"capacity"`` (training default): each group's tokens ranked past the
     capacity ``C = _capacity(...)`` in a slot are dropped (the residual
-    passes through), counted in ``aux["dropped_tokens"]``;
+    passes through), counted in ``aux["dropped_tokens"]``. Its routing,
+    layout and combine are torch ops with autograd (the router's softmax
+    carries the gates' gradient to x), and the expert products' dx is
+    ``grouped_crossbar_matmul_t`` (a kernel on the card), so it trains on
+    either device;
   * ``"dropless"`` (forced by the serving engines): no token drops.
 
 The buffer is the port's own and not the JAX package's (C rows per slot:
@@ -156,12 +160,14 @@ def apply_moe(cfg: ModelConfig, p: Dict, x: torch.Tensor, *,
     dev = x.device
 
     # the compact buffer's row tile: the grouped kernel's (dense stacks:
-    # none)
+    # none); an x that needs a gradient takes the prefill kernel's, the
+    # only layout whose dx the port computes
     A = B * T * K
     w1 = p["w1"]
     kernel, tile = None, 1
     if quant.is_quantized(w1):
-        kernel = cb_ops.grouped_kernel(A, w1)
+        kernel = ("prefill" if torch.is_grad_enabled() and x.requires_grad
+                  else cb_ops.grouped_kernel(A, w1))
         tile = cb_ops.GROUPED_TILE[kernel]
     R = cb_ops.grouped_rows(A, slots, tile)
 

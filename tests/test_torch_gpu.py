@@ -1866,12 +1866,15 @@ def test_grouped_kernel_replays_in_a_graph_for_new_counts(kernel):
 
 
 @pytest.mark.gpu
-def test_grouped_kernel_has_no_backward_and_refuses_bad_layouts():
+def test_grouped_kernel_backward_is_the_function_and_refuses_bad_layouts():
+    """Under grad the grouped product is ``GroupedCrossbarMatmulFn`` (the
+    prefill layout: its dx kernel reads 64-row tiles); the decode layout
+    under grad, a buffer off its tile and int64 bases are refused."""
     dev = _cuda_or_skip()
     x, qt, bases, counts = _grouped_inputs(dev, 256, 128, 8, [3, 4], "decode",
                                            0)
     x.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="item 26"):
+    with pytest.raises(ValueError, match="prefill"):
         cb_ops.grouped_crossbar_matmul(x, qt, bases, counts, "decode")
     with torch.no_grad():
         cb_ops.grouped_crossbar_matmul(x, qt, bases, counts, "decode")
@@ -1881,6 +1884,112 @@ def test_grouped_kernel_has_no_backward_and_refuses_bad_layouts():
     with pytest.raises(TypeError):
         cb_ops.grouped_crossbar_matmul(x.detach(), qt, bases.long(), counts,
                                        "decode")
+    xp, qt, bp, cp = _grouped_inputs(dev, 256, 128, 8, [3, 4], "prefill", 0)
+    y = cb_ops.grouped_crossbar_matmul(xp.requires_grad_(True), qt, bp, cp,
+                                       "prefill")
+    assert type(y.grad_fn).__name__ == "GroupedCrossbarMatmulFnBackward"
+    g = torch.randn_like(y)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        cb_ops.grouped_crossbar_matmul_t(g[:8], qt, bp, cp)
+    with pytest.raises(TypeError):
+        cb_ops.grouped_crossbar_matmul_t(g, qt, bp.long(), cp)
+    with pytest.raises(ValueError, match="must be"):
+        cb_ops.grouped_crossbar_matmul_t(xp.detach(), qt, bp, cp)
+
+
+
+@pytest.mark.gpu
+def test_grouped_dx_kernel_writes_nan_over_a_tile_that_crosses_slots():
+    """Bases off the dx kernel's 64-row tile (here the decode kernel's
+    8-row layout, R a multiple of 64) put two slots in one tile: that tile
+    comes out NaN, never a finite wrong dx, and a tile of padding past
+    them 0; the plain version is right for any layout."""
+    dev = _cuda_or_skip()
+    _, qt, _, _ = _grouped_inputs(dev, 256, 128, 8, [3, 4], "decode", 0)
+    bases = torch.tensor([0, 8, 16], dtype=torch.int32, device=dev)
+    counts = torch.tensor([3, 4], dtype=torch.int32, device=dev)
+    g = torch.randn(128, 128, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(0))
+    dx = cb_ops.grouped_crossbar_matmul_t(g, qt, bases, counts)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(dx[:64]).all())
+    assert bool((dx[64:] == 0).all())
+    want = cb_ops.grouped_crossbar_matmul_t_plain(g, qt, bases, counts)
+    assert bool(torch.isfinite(want).all())
+    assert bool((want[3:8] == 0).all()) and bool((want[8:11] != 0).any())
+
+def _grouped_dx_case(dev, K, N, bits, counts, seed):
+    """g (R, N) over the prefill layout of ``counts`` (padding rows hold
+    data too), the (slots, K, N) stack, bases and counts; dx by the kernel
+    twice (one launch each) and by the plain version."""
+    x, qt, bases, c = _grouped_inputs(dev, K, N, bits, counts, "prefill",
+                                      seed)
+    g = torch.randn(x.shape[0], N, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(seed))
+    before = kernels.LAUNCHES["grouped_crossbar_matmul_t"]
+    dx = [cb_ops.grouped_crossbar_matmul_t(g, qt, bases, c) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["grouped_crossbar_matmul_t"] == before + 2
+    return dx, cb_ops.grouped_crossbar_matmul_t_plain(g, qt, bases, c), (
+        ~_live_rows(bases, c, x.shape[0]).to(dev))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dist", sorted(GROUPED_COUNTS))
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("kn", [(256, 384), (640, 1000)])
+def test_grouped_dx_kernel_matches_plain(kn, bits, dist):
+    """The grouped dx kernel: every live row within crossbar's tolerance
+    of the plain version, every other row exactly 0, the same bits on a
+    second call."""
+    dev = _cuda_or_skip()
+    (dx, dx2), want, dead = _grouped_dx_case(dev, *kn, bits,
+                                             GROUPED_COUNTS[dist],
+                                             sum(kn) + bits)
+    torch.testing.assert_close(
+        dx, want, rtol=1e-4, atol=1e-4 * max(float(want.abs().max()), 1e-30))
+    assert bool((dx[dead] == 0).all())
+    assert torch.equal(dx, dx2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("kn", [(5120, 8192), (8192, 5120)])
+def test_grouped_dx_kernel_at_llama4_scout_width(kn, bits):
+    """llama4-scout's expert stacks (16 slots; w1/w3 (5120, 8192), w2
+    (8192, 5120)): a train microbatch's 1024 rows, one expert empty."""
+    dev = _cuda_or_skip()
+    counts = [64, 100, 0, 30, 64, 64, 90, 38, 64, 64, 64, 64, 94, 64, 64, 96]
+    (dx, dx2), want, dead = _grouped_dx_case(dev, *kn, bits, counts, 11)
+    assert float((dx - want).abs().max()) <= 1e-4 * float(want.abs().max())
+    assert bool((dx[dead] == 0).all())
+    assert torch.equal(dx, dx2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [8, 4])
+def test_grouped_function_under_autograd_matches_plain(bits):
+    """``GroupedCrossbarMatmulFn`` (forward and dx kernels) under autograd
+    against ``grouped_crossbar_matmul_plain`` under autograd (torch ops):
+    the output and x's gradient, one launch of each kernel."""
+    dev = _cuda_or_skip()
+    x, qt, bases, c = _grouped_inputs(dev, 640, 1000, bits,
+                                      GROUPED_COUNTS["spread"], "prefill", 5)
+    gy = torch.randn(x.shape[0], 1000, device=dev)
+    kernels.reset_launches()
+    xk = x.clone().requires_grad_(True)
+    yk = cb_ops.grouped_crossbar_matmul(xk, qt, bases, c, "prefill")
+    (yk * gy).sum().backward()
+    torch.cuda.synchronize()
+    assert {n: k for n, k in kernels.LAUNCHES.items() if k} == {
+        "grouped_crossbar_matmul": 1, "grouped_crossbar_matmul_t": 1}
+    xp = x.clone().requires_grad_(True)
+    yp = cb_ops.grouped_crossbar_matmul_plain(xp, qt, bases, c)
+    (yp * gy).sum().backward()
+    for got, want in ((yk, yp), (xk.grad, xp.grad)):
+        torch.testing.assert_close(
+            got, want, rtol=1e-4,
+            atol=1e-4 * max(float(want.abs().max()), 1e-30))
 
 
 # rows per slot of the grouped decode kernel's work list at 16 slots: 8

@@ -82,3 +82,21 @@ def test_the_result_line_is_not_json_for_log_readers():
     with pytest.raises(json.JSONDecodeError):
         json.loads(line)
     assert not line.startswith("{")
+
+
+def test_the_train_child_runs_this_script_with_the_train_flag(child, capsys):
+    """``moe_train_child`` runs the same way with ``TRAIN_FLAG``: its train
+    line comes back from its own ``TRAIN_RESULT`` line, then one
+    ``train_child`` line."""
+    arch = "llama4-scout-17b-a16e"
+    train = {"phase": "train", "model": arch, "run_launches": {
+        "grouped_crossbar_matmul_t": 960}}
+    child["out"] = [json.dumps(SERVE), chip_smoke.TRAIN_RESULT
+                    + json.dumps(train)]
+    assert chip_smoke.moe_train_child(arch) == train
+    [(cmd, _)] = child["calls"]
+    assert cmd[2:] == [chip_smoke.TRAIN_FLAG, arch]
+    printed = capsys.readouterr().out.splitlines()
+    assert printed[0] == json.dumps(SERVE)
+    assert json.loads(printed[1])["phase"] == "train_child"
+    assert len(printed) == 2

@@ -190,7 +190,8 @@ def _batch(vocab, B=4, T=16, step=0, seed=3):
 
 @pytest.mark.parametrize("quantized", [False, True], ids=["dense", "m8f8"])
 @pytest.mark.parametrize("arch", ["llama3.2-1b", "paper-gpt2-medium",
-                                  "gemma2-9b"])
+                                  "gemma2-9b", "llama4-scout-17b-a16e",
+                                  "mixtral-8x22b"])
 def test_loss_and_lora_grads_match_jax(arch, quantized):
     s = _setup(arch, quantized)
     jb, tb = _batch(s["cfg"].vocab_size)
